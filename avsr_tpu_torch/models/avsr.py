@@ -1,0 +1,186 @@
+"""AVSR model composition for serving, the port of ``avsr_tpu/models/avsr.py``:
+Whisper + CLIP + simple connectors + Llama(+LoRA), with ``weighted_sum`` or
+``concat_seq`` fusion and the packed [prompt][features] prefix that
+generation prefills.
+
+The training forward (packed causal-LM loss) and the other encoders and
+connectors are still to be ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from avsr_tpu_torch.core.config import ModelConfig
+from avsr_tpu_torch.models import llama as llama_mod
+from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
+from avsr_tpu_torch.models.connectors import get_connector
+from avsr_tpu_torch.models.layers import Params
+from avsr_tpu_torch.models.whisper_encoder import (
+    init_whisper_encoder,
+    whisper_encoder_apply,
+)
+
+
+class Batch(NamedTuple):
+    """One batch on the device. Unused modality fields may be None."""
+
+    mel: torch.Tensor | None = None            # [B, n_mels, Tmel]
+    mel_lens: torch.Tensor | None = None       # [B] (mel frames)
+    frames: torch.Tensor | None = None         # [B, Tv, 3, S, S]
+    frame_lens: torch.Tensor | None = None     # [B]
+    prompt_tokens: torch.Tensor | None = None  # [Tp] or [B, Tp] (incl. BOS)
+    labels: torch.Tensor | None = None         # [B, Tl]
+    label_lens: torch.Tensor | None = None     # [B]
+
+
+class EncodeOut(NamedTuple):
+    features: torch.Tensor                     # [B, Tf, d_llm]
+    lengths: torch.Tensor                      # [B]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.audio_encoder != "whisper" or cfg.video_encoder != "clip":
+        raise NotImplementedError(
+            "only the whisper and clip encoders are ported to avsr_tpu_torch")
+    if cfg.use_4bit or cfg.use_8bit:
+        raise NotImplementedError("quantized LLM weights are not yet ported")
+
+
+# ---------------------------------------------------------------------------
+# Static-shape segment packing
+# ---------------------------------------------------------------------------
+
+def pack_segments(segments: list[tuple[torch.Tensor, torch.Tensor]]
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Concatenate right-padded segments, squeezing out mid-sequence padding.
+
+    segments: list of (emb [B, T_s, d], lens [B]). Returns
+      packed    [B, sum(T_s), d] — valid items contiguous from position 0
+      total     [B]              — per-sample packed length
+      seg_start [B, n_segments]  — packed start offset of each segment
+    A pure gather with static shapes."""
+    dev = segments[0][0].device
+    caps = [int(e.shape[1]) for e, _ in segments]
+    Ttot = sum(caps)
+    src = torch.cat([e for e, _ in segments], dim=1)                 # [B,Ttot,d]
+    lens = torch.stack([l.to(device=dev, dtype=torch.int64)
+                        for _, l in segments], dim=1)                # [B,S]
+    seg_start = torch.cumsum(lens, dim=1) - lens
+    total = lens.sum(dim=1)
+    src_start = torch.tensor([sum(caps[:i]) for i in range(len(caps))],
+                             dtype=torch.int64, device=dev)
+    j = torch.arange(Ttot, device=dev)[None, :]                      # [1,Ttot]
+    seg_end = seg_start + lens
+    seg_id = (j[:, :, None] >= seg_end[:, None, :]).sum(dim=-1)      # [B,Ttot]
+    seg_id = seg_id.clamp(0, len(caps) - 1)
+    src_idx = src_start[seg_id] + j - torch.gather(seg_start, 1, seg_id)
+    src_idx = src_idx.clamp(0, Ttot - 1)
+    packed = torch.gather(src, 1, src_idx[..., None].expand(-1, -1, src.shape[-1]))
+    return packed, total.to(torch.int32), seg_start.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype = torch.float32) -> Params:
+    """Random init from ``seed`` on ``device``, every leaf in ``dtype``.
+
+    The JAX decode path keeps trainable leaves (connectors, LoRA) in f32
+    and casts frozen ones to the compute dtype; since every apply function
+    casts a weight to the activation dtype before its matmul, storing all
+    leaves in the compute dtype gives the same numbers at half the bytes."""
+    _check_ported(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    conn = get_connector(cfg.connector_type)
+    d_llm = cfg.llm.d_model
+    params: Params = {}
+    if cfg.modality in ("audio", "both"):
+        params["whisper"] = init_whisper_encoder(gen, cfg.whisper, dtype)
+        params["audio_connector"] = conn.init(gen, cfg.audio_dim, d_llm, cfg, dtype)
+    if cfg.modality in ("video", "both"):
+        params["clip"] = init_clip_vit(gen, cfg.clip, dtype)
+        params["video_connector"] = conn.init(gen, cfg.video_dim, d_llm, cfg, dtype)
+    llm = llama_mod.init_llama(gen, cfg.llm, dtype)
+    if cfg.lora.use_lora:
+        llm = llama_mod.add_lora(gen, llm, cfg.llm, cfg.lora, dtype)
+    params["llm"] = llm
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Encode (audio / video / fusion) -> LLM-space features
+# ---------------------------------------------------------------------------
+
+def _upsample_to(x: torch.Tensor, x_lens: torch.Tensor, target_T: int,
+                 target_lens: torch.Tensor) -> torch.Tensor:
+    """Nearest-index resample of [B, T, d] onto the target time grid."""
+    ratio = (x_lens.clamp(min=1).float() / target_lens.clamp(min=1).float())
+    pos = torch.arange(target_T, device=x.device)[None, :] * ratio[:, None]
+    idx = pos.to(torch.int64).clamp(0, x.shape[1] - 1)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:
+    """Honor ModelConfig.max_seq_len as a hard cap on the fused features."""
+    if enc.features.shape[1] <= max_seq_len:
+        return enc
+    return EncodeOut(enc.features[:, :max_seq_len],
+                     enc.lengths.clamp(max=max_seq_len))
+
+
+def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
+           compute_dtype: torch.dtype = torch.float32,
+           use_kernel: str = "auto") -> EncodeOut:
+    """Run the modality encoders + connectors and fuse them."""
+    _check_ported(cfg)
+    conn = get_connector(cfg.connector_type)
+    a_out = a_lens = v_out = v_lens = None
+    if cfg.modality in ("audio", "both"):
+        feats, alens = whisper_encoder_apply(
+            params["whisper"], batch.mel, cfg.whisper, mel_lengths=batch.mel_lens,
+            compute_dtype=compute_dtype, use_kernel=use_kernel)
+        a_out, a_lens = conn.apply(params["audio_connector"], feats, alens)
+    if cfg.modality in ("video", "both"):
+        vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
+                                compute_dtype=compute_dtype, use_kernel=use_kernel)
+        vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
+                 else torch.full((vfeats.shape[0],), vfeats.shape[1],
+                                 dtype=torch.int32, device=vfeats.device))
+        v_out, v_lens = conn.apply(params["video_connector"], vfeats, vlens)
+
+    if cfg.modality == "audio":
+        return _cap_seq(EncodeOut(a_out, a_lens), cfg.max_seq_len)
+    if cfg.modality == "video":
+        return _cap_seq(EncodeOut(v_out, v_lens), cfg.max_seq_len)
+    if cfg.fusion_mode == "concat_seq":
+        packed, total, _ = pack_segments([(a_out, a_lens), (v_out, v_lens)])
+        return _cap_seq(EncodeOut(packed, total), cfg.max_seq_len)
+    if cfg.fusion_mode != "weighted_sum":
+        raise NotImplementedError(f"fusion_mode {cfg.fusion_mode!r} is not yet ported")
+    # weighted_sum: video onto the audio time grid, then
+    # fusion_scale * audio + (1 - fusion_scale) * video.
+    v_up = _upsample_to(v_out, v_lens, a_out.shape[1], a_lens)
+    fused = cfg.fusion_scale * a_out + (1.0 - cfg.fusion_scale) * v_up
+    return _cap_seq(EncodeOut(fused, a_lens), cfg.max_seq_len)
+
+
+def build_prefix(params: Params, cfg: ModelConfig, batch: Batch, enc: EncodeOut,
+                 *, compute_dtype: torch.dtype = torch.float32
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[prompt embeds][features] packed -> (embeds [B, Tp+Tf, d], lens [B])."""
+    B = enc.features.shape[0]
+    prompt = batch.prompt_tokens.to(enc.features.device)
+    if prompt.ndim == 1:
+        prompt = prompt[None].expand(B, -1)
+    p_emb = llama_mod.embed_tokens(params["llm"], prompt.long(), compute_dtype)
+    p_lens = torch.full((B,), prompt.shape[1], dtype=torch.int32,
+                        device=p_emb.device)
+    packed, total, _ = pack_segments(
+        [(p_emb, p_lens), (enc.features.to(compute_dtype), enc.lengths)])
+    return packed, total

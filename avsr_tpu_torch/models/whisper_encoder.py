@@ -1,0 +1,85 @@
+"""Whisper audio encoder, the port of ``avsr_tpu/models/whisper_encoder.py``.
+
+    log-mel [B, n_mels, T] --conv1(gelu)--> [B, d, T] --conv2(s2, gelu)-->
+    [B, d, T/2] --(+ sinusoidal PE)--> N x pre-LN transformer blocks --> LN
+
+k_proj has no bias, gelu is exact-erf. Attention masks padding with the
+per-utterance feature lengths; at Tq = Tk >= 256 it runs the flash kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from avsr_tpu_torch.core.config import WhisperConfig
+from avsr_tpu_torch.models.layers import (
+    Params,
+    encoder_block_apply,
+    encoder_block_init,
+    gelu,
+    layer_norm,
+    norm_init,
+    sinusoid_position_embedding,
+)
+
+
+def init_whisper_encoder(gen: torch.Generator, cfg: WhisperConfig,
+                         dtype: torch.dtype = torch.float32) -> Params:
+    d = cfg.d_model
+    dev = gen.device
+
+    def conv(c_in: int) -> Params:
+        w = torch.empty((d, c_in, 3), dtype=dtype, device=dev).normal_(
+            0.0, (c_in * 3) ** -0.5, generator=gen)
+        return {"w": w, "b": torch.zeros((d,), dtype=dtype, device=dev)}
+
+    return {
+        "conv1": conv(cfg.n_mels),
+        "conv2": conv(d),
+        "pos": sinusoid_position_embedding(cfg.max_source_positions, d,
+                                           dev).to(dtype),
+        "blocks": [encoder_block_init(gen, d, d * cfg.ffn_mult, k_bias=False,
+                                      dtype=dtype)
+                   for _ in range(cfg.n_layers)],
+        "ln_post": norm_init(gen, d, dtype=dtype),
+    }
+
+
+def _conv1d(p: Params, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
+    """[B, C_in, T] -> [B, C_out, T'] with kernel [C_out, C_in, K], pad=1."""
+    y = F.conv1d(x, p["w"].to(x.dtype), stride=stride, padding=1)
+    return y + p["b"].to(x.dtype)[None, :, None]
+
+
+def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+                          *, mel_lengths: torch.Tensor | None = None,
+                          compute_dtype: torch.dtype = torch.float32,
+                          use_kernel: str = "auto"
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """mel [B, n_mels, T] -> (features [B, ceil(T/2), d], feat_lengths [B])."""
+    B = mel.shape[0]
+    x = mel.to(compute_dtype)
+    x = gelu(_conv1d(params["conv1"], x))
+    x = gelu(_conv1d(params["conv2"], x, stride=2))     # [B, d, T//2]
+    x = x.transpose(1, 2)                               # [B, Tf, d]
+    Tf = x.shape[1]
+    x = x + params["pos"][:Tf].to(compute_dtype)[None]
+
+    if mel_lengths is None:
+        feat_lengths = torch.full((B,), Tf, dtype=torch.int32, device=x.device)
+    else:
+        feat_lengths = ((mel_lengths.to(torch.int32) + 1) // 2).clamp(0, Tf)
+
+    # Align the width to 16 once (10 s of audio gives Tf=500 -> 512), as the
+    # JAX package does for its kernel's tile; rows past feat_lengths are
+    # masked in attention and sliced off after the stack.
+    pad_t = -Tf % 16
+    if pad_t:
+        x = F.pad(x, (0, 0, 0, pad_t))
+    for bp in params["blocks"]:
+        x = encoder_block_apply(bp, x, n_heads=cfg.n_heads, lengths=feat_lengths,
+                                act=gelu, use_kernel=use_kernel)
+    if pad_t:
+        x = x[:, :Tf]
+    return layer_norm(params["ln_post"], x), feat_lengths
