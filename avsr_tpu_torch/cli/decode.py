@@ -22,9 +22,9 @@ from pathlib import Path
 
 import torch
 
+from avsr_tpu_torch.cli.common import base_parser, build_dataset
 from avsr_tpu_torch.core.config import AVSRConfig, load_config
-from avsr_tpu_torch.data.dataset import SyntheticAVSRDataset
-from avsr_tpu_torch.data.loader import iter_batches
+from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
 from avsr_tpu_torch.infer.generate import generate_tokens
 from avsr_tpu_torch.infer.wer import WERAccumulator
@@ -34,22 +34,13 @@ log = logging.getLogger("avsr_tpu_torch.cli.decode")
 
 
 def _parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Decode a split and compute WER")
-    p.add_argument("--config", default=None, help="YAML config path")
+    p = base_parser("Decode a split and compute WER")
     p.add_argument("--split", default="test")
-    p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights and of sampling")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("overrides", nargs="*",
-                   help="dotted config overrides, e.g. decode.max_new_tokens=16")
     return p
 
 
 def _check_supported(cfg: AVSRConfig) -> None:
     d = cfg.decode
-    if not cfg.data.synthetic:
-        raise NotImplementedError(
-            "the manifest dataset is not yet ported; set data.synthetic=true")
     if d.num_beams > 1 or d.engine_slots or d.speculative or d.lm_head_bits:
         raise NotImplementedError(
             "beam search, the serving engine, speculative decoding and "
@@ -67,9 +58,7 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.device)
     dtype = getattr(torch, cfg.runtime.compute_dtype)
     tok = ByteTokenizer()
-    ds = SyntheticAVSRDataset(cfg.data, tok, split=args.split,
-                              modality=cfg.model.modality,
-                              image_size=cfg.model.image_size)
+    ds = build_dataset(cfg, tok, args.split)
     params = init_avsr_model(cfg.model, seed=args.seed, device=device,
                              dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -91,9 +80,9 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
     t0 = time.perf_counter()
     seen: set[str] = set()
     with open(results_path, "w") as rf:
-        for hb, batch in iter_batches(ds, cfg.data, tok, cfg.model.prompt,
-                                      d.batch_size, device=device,
-                                      compute_dtype=dtype):
+        for hb, batch in DataLoader(ds, cfg.data, tok, model_cfg=cfg.model,
+                                    batch_size=d.batch_size, shuffle=False,
+                                    device=device, compute_dtype=dtype):
             out = generate_tokens(params, cfg.model, batch,
                                   max_new_tokens=d.max_new_tokens,
                                   temperature=d.temperature, top_p=d.top_p,

@@ -24,19 +24,18 @@ def from_numpy_tree(tree: Any, device: str | torch.device = "cuda",
     function has to cast a weight per call (the JAX ``embed_tokens`` casts
     the whole 128256 x 2048 table on every call, which XLA folds away but
     eager PyTorch would copy every token). Integer leaves keep their type.
-    bfloat16 arrays (``ml_dtypes``) are accepted."""
+    bfloat16 arrays (``ml_dtypes``) are accepted. Every leaf is a copy: the
+    trainer updates parameters in place, which must not write through to
+    the caller's arrays."""
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_numpy_tree(v, device, dtype) for v in tree]
-    arr = np.asarray(tree)
-    if not arr.flags.writeable:   # e.g. a view of a JAX array's buffer
-        arr = arr.copy()
+    arr = np.array(tree, order="C")
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

@@ -1,11 +1,15 @@
-"""Typed configuration for the PyTorch port of the serving path.
+"""Typed configuration of the PyTorch port.
 
-A copy of the sections of ``avsr_tpu.core.config`` that the greedy serving
-path reads (``data``, ``model`` with its Whisper/CLIP/LLM/LoRA subsections,
-``runtime``, ``decode``), with the same field names and defaults, so that a
-YAML file written for the JAX package loads here unchanged. Sections the
-port does not model yet (``training``, ``mesh``) are skipped by the loader;
-their knobs shape training and multi-chip layouts, not one-card serving.
+A copy of the sections of ``avsr_tpu.core.config`` that the port reads
+(``data``, ``model`` with its Whisper/CLIP/LLM/LoRA subsections,
+``training``, ``mesh``, ``runtime``, ``decode``), with the same field names
+and defaults, so that a YAML file written for the JAX package loads here
+unchanged. Knobs whose feature is not ported raise ``NotImplementedError``
+at validation rather than being ignored: mesh axes above 1, optimizers
+other than AdamW, SpecAugment, video augmentation, layer-norm unfreezing
+and the batch-size probe. ``mesh.donate`` is accepted and means nothing
+here: it is an XLA buffer-donation hint, and eager PyTorch updates the
+train state in place anyway.
 
 PyYAML is imported only inside :func:`load_config`: the flagship config is
 also built in Python by :func:`flagship`, which mirrors
@@ -23,9 +27,7 @@ from typing import Any
 MODALITIES = ("audio", "video", "both")
 CONNECTOR_TYPES = ("simple", "deep", "conv", "attention", "adaptive",
                    "cross_modal", "qformer", "perceiver", "adapter", "moe")
-
-# Top-level YAML sections of the JAX schema that the serving port ignores.
-SKIPPED_SECTIONS = ("training", "mesh")
+OPTIMIZERS = ("adamw", "adafactor", "lion")
 
 
 @dataclass(frozen=True)
@@ -161,6 +163,49 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainingConfig:
+    num_epochs: int = 10
+    max_steps: int = -1                   # >0 overrides epochs
+    auto_batch_size: bool = False
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.01
+    optimizer: str = "adamw"
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    grad_accum_steps: int = 1
+    max_grad_norm: float = 0.5
+    warmup_steps: int = 100
+    schedule: str = "cosine"              # cosine | linear | constant
+    log_interval: int = 10
+    save_every_steps: int = 1000
+    save_every_secs: float = 7200.0
+    keep_checkpoints: int = 3
+    checkpoint_dir: str = "outputs/avsr"
+    resume_from: str = ""
+    seed: int = 42
+    max_unstable_batches: int = 5
+    loss_stability_window: int = 5
+    eval_wer_every_epochs: int = 0
+    eval_wer_max_utts: int = 32
+    best_metric: str = "loss"
+    early_stop_patience: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    dp: int = -1                 # -1: infer (one card here)
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+    ep: int = 1
+    pp: int = 1
+    dcn_dp: int = 1
+    axis_names: tuple[str, ...] = ("dcn", "dp", "fsdp", "ep", "sp", "tp", "pp")
+    remat: bool = True           # torch.utils.checkpoint on LLM blocks
+    donate: bool = True          # XLA buffer donation; no meaning here
+
+
+@dataclass(frozen=True)
 class RuntimeConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -197,11 +242,21 @@ class DecodeConfig:
 class AVSRConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
 
     def validate(self) -> "AVSRConfig":
         m = self.model
+        t = self.training
+        if t.optimizer not in OPTIMIZERS:
+            raise ValueError(
+                "training.optimizer must be adamw | adafactor | lion, "
+                f"got {t.optimizer!r}")
+        if t.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1")
+        _check_ported(self)
         if m.modality not in MODALITIES:
             raise ValueError(
                 f"modality must be one of {MODALITIES}, got {m.modality!r}")
@@ -225,6 +280,27 @@ class AVSRConfig:
         if self.decode.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError("decode.kv_cache_dtype must be bfloat16|int8")
         return self
+
+
+def _check_ported(cfg: AVSRConfig) -> None:
+    """Raises for knobs whose feature the port does not have yet."""
+    mesh = cfg.mesh
+    axes = {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp, "sp": mesh.sp,
+            "ep": mesh.ep, "pp": mesh.pp, "dcn_dp": mesh.dcn_dp}
+    wide = [f"mesh.{k}={v}" for k, v in axes.items() if v > 1]
+    if wide:
+        raise NotImplementedError(
+            f"{', '.join(wide)}: the port runs on one card; multi-GPU "
+            "layouts are not yet ported")
+    off = {"training.optimizer": cfg.training.optimizer != "adamw",
+           "training.auto_batch_size": cfg.training.auto_batch_size,
+           "data.specaugment": cfg.data.specaugment,
+           "data.video_augment": cfg.data.video_augment,
+           "model.unfreeze_layer_norms": cfg.model.unfreeze_layer_norms}
+    asked = [k for k, v in off.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: not yet ported to avsr_tpu_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +337,6 @@ def _build(cls: type, data: dict[str, Any] | None, path: str = "") -> Any:
     known = {f.name: f for f in fields(cls)}
     hints = typing.get_type_hints(cls)
     for key, value in (data or {}).items():
-        if cls is AVSRConfig and key in SKIPPED_SECTIONS:
-            continue
         if key not in known:
             raise KeyError(f"Unknown config key {path + key!r} for {cls.__name__}")
         f = known[key]
@@ -326,9 +400,10 @@ def load_config(yaml_path: str | Path | None = None,
 
 
 def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
-    """The flagship serving config, a Python mirror of
-    ``avsr_tpu/configs/base.yaml`` (Whisper-medium + CLIP-B/32 +
-    Llama-3.2-1B with LoRA r=16, modality ``both``, bf16 compute)."""
+    """The flagship config, a Python mirror of ``avsr_tpu/configs/base.yaml``
+    (Whisper-medium + CLIP-B/32 + Llama-3.2-1B with LoRA r=16, modality
+    ``both``, bf16 compute; AdamW with a cosine schedule, 4-step gradient
+    accumulation and remat)."""
     tree = {
         "data": {
             "path": "", "batch_size": 8, "max_audio_length": 480000,
@@ -350,6 +425,11 @@ def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
                     "rope_theta": 500000.0},
             "lora": {"use_lora": True, "r": 16, "alpha": 32, "dropout": 0.05},
         },
+        "training": {"num_epochs": 10, "learning_rate": 2.0e-5,
+                     "grad_accum_steps": 4, "max_grad_norm": 0.5,
+                     "warmup_steps": 100, "schedule": "cosine",
+                     "checkpoint_dir": "outputs/avsr"},
+        "mesh": {"dp": -1, "fsdp": 1, "tp": 1, "remat": True},
         "runtime": {"compute_dtype": "bfloat16"},
         "decode": {"max_new_tokens": 100, "temperature": 0.0, "num_beams": 1,
                    "batch_size": 8},

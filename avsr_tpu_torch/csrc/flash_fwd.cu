@@ -37,97 +37,33 @@
 // a row lives in its lane pair's registers (D/2 floats per lane). float32
 // inputs take the same path with scalar FMAs instead of wmma.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BLOCK_Q / WARPS;  // 16: one wmma row tile
-static_assert(BLOCK_Q == BLOCK_K, "tiles share one shared-memory shape");
+using flash::from_float;
+using flash::HALF;
+using flash::ROWS_PER_WARP;
+using flash::THREADS;
+using flash::WARPS;
+constexpr int BLOCK_Q = flash::BLOCK;
+constexpr int BLOCK_K = flash::BLOCK;
 
-// Dynamic shared-memory layout (byte offsets), shared by host and device.
+// Dynamic shared-memory layout (byte offsets), shared by host and device:
+// Q, K, V tiles, the warps' f32 scratch, the warps' P tiles.
 template <typename T, int D>
-struct Smem {
-  static constexpr bool kWmma = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int LDT = D + 8;                     // Q/K/V row pitch
-  static constexpr int LDP = BLOCK_K + 8;               // P row pitch
-  static constexpr int LDS = (D > BLOCK_K ? D : BLOCK_K) + 4;  // f32 scratch
-  static constexpr size_t kTile = size_t(BLOCK_Q) * LDT * sizeof(T);
+struct Smem : flash::Geometry<T, D> {
+  using G = flash::Geometry<T, D>;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kTile;
-  static constexpr size_t kV = 2 * kTile;
-  static constexpr size_t kS = 3 * kTile;
-  static constexpr size_t kSBytes =
-      kWmma ? size_t(WARPS) * ROWS_PER_WARP * LDS * sizeof(float) : 0;
-  static constexpr size_t kP = kS + kSBytes;
-  static constexpr size_t kTotal =
-      kP + size_t(WARPS) * ROWS_PER_WARP * LDP * sizeof(T);
+  static constexpr size_t kK = G::kTile;
+  static constexpr size_t kV = 2 * G::kTile;
+  static constexpr size_t kS = 3 * G::kTile;
+  static constexpr size_t kP = kS + G::kScratch;
+  static constexpr size_t kTotal = kP + G::kWarpP;
 };
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// Copies rows [row0, row0 + 64) of one head ([T, D], contiguous) into a
-// shared tile; rows at or past `nrows` are zero-filled, so masked keys hold
-// zeros (0 * garbage could be NaN) and padded query rows stay finite.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          int row0, int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;
-  constexpr int LDT = Smem<T, D>::LDT;
-  for (int i = threadIdx.x; i < BLOCK_Q * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VEC;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(t) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-  }
-}
-
-// S = Q_w K^T for the warp's 16 rows, on the tensor cores, into f32 scratch.
-template <int D>
-__device__ __forceinline__ void scores_wmma(const __nv_bfloat16* sQ,
-                                            const __nv_bfloat16* sK,
-                                            float* scratch, int warp) {
-  using namespace nvcuda;
-  constexpr int LDT = Smem<__nv_bfloat16, D>::LDT;
-  constexpr int LDS = Smem<__nv_bfloat16, D>::LDS;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int n = 0; n < BLOCK_K / 16; ++n) {
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(a, sQ + warp * ROWS_PER_WARP * LDT + kk * 16, LDT);
-      // K^T as a column-major matrix_b: element (d, j) sits at sK[j*LDT + d].
-      wmma::load_matrix_sync(b, sK + n * 16 * LDT + kk * 16, LDT);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(scratch + n * 16, c, LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-}
 
 // P V for the warp's 16 rows on the tensor cores, into f32 scratch [16, D].
 template <int D>
@@ -163,7 +99,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
                  int causal, float scale) {
   using L = Smem<T, D>;
-  constexpr int HALF = BLOCK_K / 2;  // scores per lane
   constexpr int DH = D / 2;          // output columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::kQ);
@@ -185,6 +120,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = warp * ROWS_PER_WARP + r;
   const int qi = q0 + row;      // query position
   T* pw = sP + warp * ROWS_PER_WARP * L::LDP;
+  float* scratch = reinterpret_cast<float*>(smem + L::kS) +
+                   warp * ROWS_PER_WARP * L::LDS;
 
   const size_t q_head = (size_t(b) * H + h) * Tq;     // row offsets
   const size_t kv_head = (size_t(b) * Hkv + hk) * Tk;
@@ -201,33 +138,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_i = -INFINITY;
   float l_i = 0.0f;
 
-  if (n_blocks > 0) load_tile<T, D>(sQ, q + q_head * D, q0, q_len);
+  if (n_blocks > 0) flash::load_tile<T, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int kv0 = blk * BLOCK_K;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sK, k + kv_head * D, kv0, kv_len);
-    load_tile<T, D>(sV, v + kv_head * D, kv0, kv_len);
+    flash::load_tile<T, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
+    flash::load_tile<T, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
     __syncthreads();
 
     float s[HALF];
-    if constexpr (L::kWmma) {
-      float* scratch = reinterpret_cast<float*>(smem + L::kS) +
-                       warp * ROWS_PER_WARP * L::LDS;
-      scores_wmma<D>(sQ, sK, scratch, warp);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) s[i] = scratch[r * L::LDS + half * HALF + i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) s[i] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float qd = sQ[row * L::LDT + d];
-#pragma unroll
-        for (int i = 0; i < HALF; ++i) {
-          s[i] = fmaf(qd, sK[(half * HALF + i) * L::LDT + d], s[i]);
-        }
-      }
-    }
+    flash::warp_abt<T, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, scratch, r,
+                          half, s);
 
     // Online softmax in f32; the lane pair shares the row's max and sum.
     float mx = -INFINITY;
@@ -259,8 +181,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // P complete (and the score scratch read) before PV
 
     if constexpr (L::kWmma) {
-      float* scratch = reinterpret_cast<float*>(smem + L::kS) +
-                       warp * ROWS_PER_WARP * L::LDS;
       pv_wmma<D>(pw, sV, scratch);
 #pragma unroll
       for (int j = 0; j < DH; ++j) acc[j] += scratch[r * L::LDS + half * DH + j];

@@ -6,22 +6,27 @@
     pad_id and carries explicit lengths, and tiles the prompt ids.
   * ``featurize`` moves a host batch to the device and computes the
     log-mel and the normalized frames there.
-  * ``iter_batches`` walks a dataset in order, wrap-padding the final short
-    batch (its repeated rows get label length 0).
+  * ``DataLoader`` walks a dataset in a per-epoch shuffled order (numpy's
+    ``default_rng(seed + epoch)``, so the order is the JAX loader's) or in
+    order, wrap-padding the final short batch (its repeated rows get label
+    length 0), with one prefetching worker thread that collates and
+    featurizes ahead of the consumer.
 
-The threaded prefetching loader, shuffling, multi-host sharding and the
-compact int16/YUV420 link format are still to be ported.
+Multi-host sharding, mid-epoch resume (``set_position``) and the compact
+int16/YUV420 link format are still to be ported.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
-from avsr_tpu_torch.core.config import DataConfig
+from avsr_tpu_torch.core.config import DataConfig, ModelConfig
 from avsr_tpu_torch.data.dataset import Sample
 from avsr_tpu_torch.models.avsr import Batch
 from avsr_tpu_torch.ops.image import normalize_frames
@@ -111,19 +116,87 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
                  label_lens=dev(hb.label_lens))
 
 
-def iter_batches(ds, cfg: DataConfig, tokenizer, prompt: str, batch_size: int,
-                 *, device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype = torch.float32
-                 ) -> Iterator[tuple[HostBatch, Batch]]:
-    """(HostBatch, device Batch) over ``ds`` in order. The final short batch
-    is filled by wrapping to the dataset head; those rows get label length
-    0 and repeat utterance ids that a consumer skips."""
-    prompt_ids = tokenizer.encode(prompt, add_bos=True)
-    n = len(ds)
-    for start in range(0, n, batch_size):
-        idx = list(range(start, min(start + batch_size, n)))
-        n_real = len(idx)
-        idx += [i % n for i in range(batch_size - n_real)]
-        hb = collate([ds[i] for i in idx], cfg, prompt_ids, tokenizer.pad_id)
-        hb.label_lens[n_real:] = 0
-        yield hb, featurize(hb, device, compute_dtype)
+# Batches the worker thread prepares ahead of the consumer.
+PREFETCH = 2
+
+
+class DataLoader:
+    """Bucketed, prefetching loader yielding (HostBatch, device Batch)."""
+
+    def __init__(self, dataset, cfg: DataConfig, tokenizer, *,
+                 model_cfg: ModelConfig, batch_size: int | None = None,
+                 shuffle: bool = True, seed: int = 0,
+                 device: str | torch.device = "cuda",
+                 compute_dtype: torch.dtype = torch.float32) -> None:
+        self.ds = dataset
+        self.cfg = cfg
+        self.batch_size = batch_size or cfg.batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.device = device
+        self.compute_dtype = compute_dtype
+        self.pad_id = tokenizer.pad_id
+        self.prompt_ids = tokenizer.encode(model_cfg.prompt, add_bos=True)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return -(-len(self.ds) // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return idx
+
+    def _host_batches(self) -> Iterator[HostBatch]:
+        order = self._order()
+        bs = self.batch_size
+        for start in range(0, len(order), bs):
+            chunk = order[start:start + bs]
+            n_real = len(chunk)
+            if n_real < bs:
+                # wrap to the epoch head for a static batch size; the
+                # repeated rows get label length 0, so the loss weighs them
+                # zero (decode skips their repeated utterance ids)
+                chunk = np.concatenate([chunk, order[: bs - n_real]])
+            hb = collate([self.ds[int(i)] for i in chunk], self.cfg,
+                         self.prompt_ids, self.pad_id)
+            hb.label_lens[n_real:] = 0
+            yield hb
+
+    def __iter__(self) -> Iterator[tuple[HostBatch, Batch]]:
+        """One worker thread collates and featurizes (host -> device copy
+        and the on-device log-mel) up to ``PREFETCH`` batches ahead."""
+        self._epoch += 1
+        q: queue.Queue[Any] = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def worker() -> None:
+            try:
+                for hb in self._host_batches():
+                    if stop.is_set():
+                        return
+                    q.put((hb, featurize(hb, self.device, self.compute_dtype)))
+            except Exception as e:  # noqa: BLE001 — re-raised in the consumer
+                q.put(e)
+            finally:
+                q.put(None)
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while th.is_alive():      # drain so that the worker can exit
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            th.join()

@@ -1,18 +1,21 @@
-"""AVSR model composition for serving, the port of ``avsr_tpu/models/avsr.py``:
+"""AVSR model composition, the port of ``avsr_tpu/models/avsr.py``:
 Whisper + CLIP + simple connectors + Llama(+LoRA), with ``weighted_sum`` or
-``concat_seq`` fusion and the packed [prompt][features] prefix that
-generation prefills.
+``concat_seq`` fusion, the packed [prompt][features] prefix that
+generation prefills, and the training ``forward`` (packed causal-LM loss
+on the label positions).
 
-The training forward (packed causal-LM loss) and the other encoders and
-connectors are still to be ported.
+The other encoders and connectors, and MoE, are still to be ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from avsr_tpu_torch.convert import param_count
 from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.models import llama as llama_mod
 from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
@@ -47,6 +50,8 @@ def _check_ported(cfg: ModelConfig) -> None:
             "only the whisper and clip encoders are ported to avsr_tpu_torch")
     if cfg.use_4bit or cfg.use_8bit:
         raise NotImplementedError("quantized LLM weights are not yet ported")
+    if cfg.llm.moe_experts or cfg.connector_type == "moe":
+        raise NotImplementedError("MoE layers are not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +142,26 @@ def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
            use_kernel: str = "auto") -> EncodeOut:
-    """Run the modality encoders + connectors and fuse them."""
+    """Run the modality encoders + connectors and fuse them. Frozen
+    encoders run under ``torch.no_grad()`` (the JAX ``stop_gradient``):
+    no backward graph is built for them."""
     _check_ported(cfg)
     conn = get_connector(cfg.connector_type)
+    frozen = (torch.no_grad() if cfg.freeze_encoders
+              else contextlib.nullcontext())
     a_out = a_lens = v_out = v_lens = None
     if cfg.modality in ("audio", "both"):
-        feats, alens = whisper_encoder_apply(
-            params["whisper"], batch.mel, cfg.whisper, mel_lengths=batch.mel_lens,
-            compute_dtype=compute_dtype, use_kernel=use_kernel)
+        with frozen:
+            feats, alens = whisper_encoder_apply(
+                params["whisper"], batch.mel, cfg.whisper,
+                mel_lengths=batch.mel_lens, compute_dtype=compute_dtype,
+                use_kernel=use_kernel)
         a_out, a_lens = conn.apply(params["audio_connector"], feats, alens)
     if cfg.modality in ("video", "both"):
-        vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
-                                compute_dtype=compute_dtype, use_kernel=use_kernel)
+        with frozen:
+            vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
+                                    compute_dtype=compute_dtype,
+                                    use_kernel=use_kernel)
         vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
@@ -184,3 +197,83 @@ def build_prefix(params: Params, cfg: ModelConfig, batch: Batch, enc: EncodeOut,
     packed, total, _ = pack_segments(
         [(p_emb, p_lens), (enc.features.to(compute_dtype), enc.lengths)])
     return packed, total
+
+
+# ---------------------------------------------------------------------------
+# Forward: packed causal-LM loss
+# ---------------------------------------------------------------------------
+
+def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
+            compute_dtype: torch.dtype = torch.float32,
+            use_kernel: str = "auto", remat: bool = False,
+            dropout_seed: int | None = None
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Training/eval forward: (mean CE loss over label tokens, metrics).
+
+    Packs [prompt][features][labels] per row (padding squeezed out), pads
+    the packed width to a multiple of 16 as the JAX package does (so that
+    positions match it), runs the LLM to its final hidden states, and
+    projects to the vocabulary only the rows that predict a label: label
+    token i sits at packed position label_start + i and is predicted from
+    the hidden state at label_start + i - 1. Metrics: ``loss``,
+    ``accuracy``, ``label_tokens`` and ``feat_len_mean``."""
+    enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
+                 use_kernel=use_kernel)
+    B = enc.features.shape[0]
+    dev = enc.features.device
+    prompt = batch.prompt_tokens.to(dev)
+    if prompt.ndim == 1:
+        prompt = prompt[None].expand(B, -1)
+    p_emb = llama_mod.embed_tokens(params["llm"], prompt.long(), compute_dtype)
+    p_lens = torch.full((B,), prompt.shape[1], dtype=torch.int32, device=dev)
+    labels = batch.labels.to(dev).long()
+    lab_emb = llama_mod.embed_tokens(params["llm"], labels, compute_dtype)
+    lab_lens = batch.label_lens.to(dev).to(torch.int32)
+    packed, total, seg_start = pack_segments([
+        (p_emb, p_lens),
+        (enc.features.to(compute_dtype), enc.lengths),
+        (lab_emb, lab_lens),
+    ])
+    packed = F.pad(packed, (0, 0, 0, -packed.shape[1] % 16))
+    Ttot = packed.shape[1]
+    hidden, _ = llama_mod.llama_apply(
+        params["llm"], cfg.llm, inputs_embeds=packed, lengths=total,
+        lora=cfg.lora if cfg.lora.use_lora else None,
+        compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
+        dropout_seed=dropout_seed, output="hidden")
+
+    Tl = labels.shape[1]
+    i = torch.arange(Tl, device=dev)[None, :]
+    pred_pos = (seg_start[:, 2:3].long() + i - 1).clamp(0, Ttot - 1)  # [B, Tl]
+    h_pred = torch.gather(hidden, 1, pred_pos[..., None].expand(-1, -1, hidden.shape[-1]))
+    logits = llama_mod.compute_logits(params["llm"], cfg.llm, h_pred)  # [B,Tl,V]
+
+    mask = (i < lab_lens[:, None]).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    pred_lp = torch.gather(logp, -1, labels[..., None])[..., 0]
+    n_tokens = mask.sum().clamp(min=1.0)
+    loss = -(pred_lp * mask).sum() / n_tokens
+    correct = (logits.argmax(dim=-1) == labels).float()
+    metrics = {"loss": loss,
+               "accuracy": (correct * mask).sum() / n_tokens,
+               "label_tokens": n_tokens,
+               "feat_len_mean": enc.lengths.float().mean()}
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Introspection
+# ---------------------------------------------------------------------------
+
+def summarize(params: Params, cfg: ModelConfig) -> dict[str, Any]:
+    # train depends on models, not the reverse
+    from avsr_tpu_torch.train.state import count_trainable
+
+    trainable, total = count_trainable(params, cfg)
+    return {
+        "total_params": total,
+        "per_component": {k: param_count(v) for k, v in params.items()},
+        "trainable_params": trainable,
+        "modality": cfg.modality,
+        "connector": cfg.connector_type,
+    }

@@ -13,6 +13,13 @@ for torch matmuls; the JAX package's position-minor ``[.., Dh, M]`` was
 chosen for TPU lanes). ``llama_decode_step`` writes the new column IN
 PLACE into the cache it is given and returns that same cache.
 
+Training: ``proj`` applies LoRA dropout to the adapter branch's input, and
+``llama_apply`` can recompute each block in backward (``remat``, the
+counterpart of ``jax.checkpoint``) with ``torch.utils.checkpoint``. Dropout
+masks are drawn from a generator seeded per (call, layer) inside the
+block, so the recomputation draws the same masks (``checkpoint`` replays
+only the default generators' state).
+
 Still to be ported: MoE FFN layers, the pipeline path, the fused decode
 layout, the int8 cache, and the prefill-continue / split-cache steps.
 """
@@ -24,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
@@ -64,16 +72,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # Projections with optional LoRA
 # ---------------------------------------------------------------------------
 
-def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0) -> torch.Tensor:
-    """x @ W (no bias) + lora_scale * (x @ a) @ b when the node has LoRA,
-    in x.dtype."""
+def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
+         lora_dropout: float = 0.0,
+         generator: torch.Generator | None = None) -> torch.Tensor:
+    """x @ W (no bias) + lora_scale * (x' @ a) @ b when the node has LoRA,
+    in x.dtype. x' is x, or with ``generator`` and ``lora_dropout`` > 0 its
+    dropout: each element kept with probability 1 - p and scaled by
+    1 / (1 - p); the base product always sees x."""
     dt = x.dtype
     y = torch.matmul(x, p["w"].to(dt))
     if lora_scale and "lora" in p:
         a, b = p["lora"]["a"], p["lora"]["b"]
         if a.ndim != 2:
             raise NotImplementedError("per-row LoRA adapter banks are not yet ported")
-        y = y + lora_scale * torch.matmul(torch.matmul(x, a.to(dt)), b.to(dt))
+        xl = x
+        if generator is not None and lora_dropout > 0.0:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - lora_dropout
+            xl = torch.where(keep, x / (1.0 - lora_dropout), 0.0)
+        y = y + lora_scale * torch.matmul(torch.matmul(xl, a.to(dt)), b.to(dt))
     return y
 
 
@@ -142,10 +159,10 @@ def lora_scale(lora: LoRAConfig | None) -> float:
     return lora.alpha / lora.r if lora is not None and lora.use_lora else 0.0
 
 
-def _proj_qkv(layer: Params, h: torch.Tensor, ls: float):
-    return (proj(layer["q"], h, lora_scale=ls),
-            proj(layer["k"], h, lora_scale=ls),
-            proj(layer["v"], h, lora_scale=ls))
+def _proj_qkv(layer: Params, h: torch.Tensor, ls: float, ldrop: float = 0.0,
+              gen: torch.Generator | None = None):
+    return tuple(proj(layer[n], h, lora_scale=ls, lora_dropout=ldrop,
+                      generator=gen) for n in ("q", "k", "v"))
 
 
 def _proj_mlp(layer: Params, h: torch.Tensor, ls: float) -> torch.Tensor:
@@ -184,12 +201,26 @@ def init_cache(cfg: LLMConfig, batch: int, max_len: int,
 # Full sequence (prefill)
 # ---------------------------------------------------------------------------
 
+def _layer_generator(seed: int, layer: int,
+                     device: torch.device) -> torch.Generator:
+    """The dropout generator of one layer of one call (the counterpart of
+    ``jax.random.fold_in(dropout_rng, layer)``)."""
+    state = np.random.SeedSequence([seed, layer]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
 def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
-           lengths: torch.Tensor | None, ls: float, use_kernel: str):
+           lengths: torch.Tensor | None, ls: float, use_kernel: str,
+           ldrop: float = 0.0, dropout_seed: int | None = None,
+           index: int = 0):
     B, T, d = x.shape
     hd = d // cfg.n_heads
+    # created inside the block so that a remat recomputation redraws the
+    # same masks; drawn in the order q, k, v, o
+    gen = (_layer_generator(dropout_seed, index, x.device)
+           if dropout_seed is not None and ldrop > 0.0 else None)
     h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-    q, k, v = _proj_qkv(layer, h, ls)
+    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen)
     q = q.reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -198,7 +229,8 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     attn = attention(q, k, v, causal=True, q_lens=lengths, kv_lens=lengths,
                      use_kernel=use_kernel)
     attn = attn.transpose(1, 2).reshape(B, T, d)
-    x = x + proj(layer["o"], attn, lora_scale=ls)
+    x = x + proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
+                 generator=gen)
     return _ffn(layer, x, cfg, ls), (k, v)
 
 
@@ -206,26 +238,39 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 lengths: torch.Tensor | None = None,
                 lora: LoRAConfig | None = None,
                 compute_dtype: torch.dtype = torch.float32,
-                use_kernel: str = "auto", return_cache: bool = False,
+                use_kernel: str = "auto", remat: bool = False,
+                dropout_seed: int | None = None, return_cache: bool = False,
                 cache_len: int | None = None,
                 output: str = "logits") -> tuple[torch.Tensor, KVCache | None]:
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
     final normed hidden [B,T,d] with ``output="hidden"``, cache or None).
 
     ``return_cache`` writes each layer's post-RoPE K/V into a cache of
-    ``cache_len`` positions (default T) in ``compute_dtype``."""
+    ``cache_len`` positions (default T) in ``compute_dtype``. ``remat``
+    keeps only each block's input for backward and recomputes the rest
+    (while grad mode is on). ``dropout_seed`` turns on LoRA dropout
+    (``lora.dropout``), the counterpart of ``dropout_rng``."""
     B, T, d = inputs_embeds.shape
     if T > cfg.max_seq_len:
         raise ValueError(
             f"sequence length {T} exceeds llm.max_seq_len={cfg.max_seq_len}")
+    if remat and return_cache:
+        raise ValueError("remat recomputes the blocks for backward; it "
+                         "cannot also return the KV cache")
     x = inputs_embeds.to(compute_dtype)
     cos, sin = rope_cos_sin(torch.arange(T, device=x.device), d // cfg.n_heads,
                             cfg.rope_theta)
     ls = lora_scale(lora)
+    ldrop = lora.dropout if (lora is not None and dropout_seed is not None) else 0.0
     cache = (init_cache(cfg, B, cache_len or T, compute_dtype, x.device)
              if return_cache else None)
     for i, layer in enumerate(params["layers"]):
-        x, (k, v) = _block(layer, x, cos, sin, cfg, lengths, ls, use_kernel)
+        args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
+                dropout_seed, i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda *a: _block(*a)[0], *args, use_reentrant=False)
+            continue
+        x, (k, v) = _block(*args)
         if cache is not None:
             cache.k[i, :, :, :T] = k
             cache.v[i, :, :, :T] = v

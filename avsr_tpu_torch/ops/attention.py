@@ -1,4 +1,4 @@
-"""Attention ops: plain PyTorch references + the Hopper flash-attention kernel.
+"""Attention ops: plain PyTorch references + the Hopper flash-attention kernels.
 
 The counterpart of ``avsr_tpu/ops/attention.py``:
 
@@ -7,14 +7,21 @@ The counterpart of ``avsr_tpu/ops/attention.py``:
     the kernel does not take (CLIP at T=50, ``kv_valid`` masks).
   * ``flash_attention`` — the wrapper of the CUDA kernel
     ``csrc/flash_fwd.cu`` (the port of the Pallas ``_flash_fwd_kernel``):
-    returns O and the per-row logsumexp. For a CUDA tensor it launches the
-    kernel or raises; only a CPU tensor takes the plain version,
-    ``flash_attention_reference``.
+    returns O and the per-row logsumexp. It records no gradient: on a CUDA
+    tensor that requires one it raises (use ``attention``).
+  * ``flash_bwd_dq`` / ``flash_bwd_dkv`` — the wrappers of the CUDA kernels
+    of ``csrc/flash_bwd.cu`` (the ports of ``_flash_bwd_dq_kernel`` and
+    ``_flash_bwd_dkv_kernel``); ``flash_attention_bwd_reference`` is their
+    plain version.
+  * ``FlashAttention`` — the autograd Function around the three kernels,
+    the counterpart of the JAX ``_flash_core`` custom VJP.
   * ``attention`` — the dispatch, with the JAX package's predicate.
 
-All shapes are [batch, heads, seq, head_dim]; GQA needs H % Hkv == 0.
-Rows at or past ``q_len`` and rows with no valid key give O = 0 (and
-lse = +inf) in every function here.
+Every kernel wrapper takes its plain version for a CPU tensor, and for a
+CUDA tensor launches its kernel (on the current stream) or raises. All
+shapes are [batch, heads, seq, head_dim]; GQA needs H % Hkv == 0. Rows at
+or past ``q_len`` and rows with no valid key give O = 0 (and lse = +inf)
+in every function here, and a zero dQ.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of the CUDA kernel (incremented once per launch, nowhere else).
-launches = 0
+# Launches of each CUDA kernel (incremented once per launch, nowhere else).
+launches = 0          # flash_fwd
+dq_launches = 0       # flash_bwd dQ
+dkv_launches = 0      # flash_bwd dK/dV
 
 # Kernel dispatch thresholds of the JAX package (attention.py:565-571). They
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
@@ -39,6 +48,10 @@ def _lens(lens: torch.Tensor | None, n: int, batch: int,
     if lens is None:
         return torch.full((batch,), n, dtype=torch.int32, device=device)
     return lens.to(device=device, dtype=torch.int32)
+
+
+def _scale(sm_scale: float | None, D: int) -> float:
+    return sm_scale if sm_scale is not None else D ** -0.5
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +73,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=1)
         v = v.repeat_interleave(H // Hkv, dim=1)
-    scale = sm_scale if sm_scale is not None else D ** -0.5
+    scale = _scale(sm_scale, D)
     s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     dev = q.device
     mask = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device=dev)
@@ -83,12 +96,27 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+def _flash_mask(B: int, Tq: int, Tk: int, q_lens, kv_lens, causal: bool,
+                device: torch.device) -> torch.Tensor:
+    """[B, 1, Tq, Tk] bool: the kernels' mask (q_len, kv_len, top-left
+    causal)."""
+    ql = _lens(q_lens, Tq, B, device).clamp(0, Tq)
+    kl = _lens(kv_lens, Tk, B, device).clamp(0, Tk)
+    qi = torch.arange(Tq, device=device)
+    kj = torch.arange(Tk, device=device)
+    mask = (kj[None, :] < kl[:, None])[:, None, None, :]           # [B,1,1,Tk]
+    mask = mask & (qi[None, :] < ql[:, None])[:, None, :, None]    # [B,1,Tq,Tk]
+    if causal:
+        mask = mask & (kj[None, :] <= qi[:, None])[None, None]
+    return mask
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_lens: torch.Tensor | None = None, kv_lens: torch.Tensor | None = None,
     causal: bool = False, sm_scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the kernel: (O [B,H,Tq,D] in q's dtype,
+    """The plain version of the forward kernel: (O [B,H,Tq,D] in q's dtype,
     lse [B,H,Tq] f32), with the kernel's masking and rounding.
 
     Scores are f32 (products of bf16 inputs are exact in f32), the causal
@@ -100,19 +128,11 @@ def flash_attention_reference(
     if causal and Tq != Tk:
         raise ValueError(f"causal flash attention needs Tq == Tk, got {Tq}, {Tk}")
     g = H // Hkv
-    scale = sm_scale if sm_scale is not None else D ** -0.5
-    dev = q.device
-    ql = _lens(q_lens, Tq, B, dev).clamp(0, Tq)
-    kl = _lens(kv_lens, Tk, B, dev).clamp(0, Tk)
+    scale = _scale(sm_scale, D)
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale     # [B,H,Tq,Tk]
-    qi = torch.arange(Tq, device=dev)
-    kj = torch.arange(Tk, device=dev)
-    mask = (kj[None, :] < kl[:, None])[:, None, None, :]           # [B,1,1,Tk]
-    mask = mask & (qi[None, :] < ql[:, None])[:, None, :, None]    # [B,1,Tq,Tk]
-    if causal:
-        mask = mask & (kj[None, :] <= qi[:, None])[None, None]
+    mask = _flash_mask(B, Tq, Tk, q_lens, kv_lens, causal, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     valid = torch.isfinite(m)                                      # [B,H,Tq,1]
@@ -124,22 +144,139 @@ def flash_attention_reference(
     return o.to(q.dtype), lse
 
 
+def _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal, sm_scale):
+    """(P, dS) [B,H,Tq,Tk] f32 as both backward kernels recompute them."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if causal and Tq != Tk:
+        raise ValueError(f"causal flash attention needs Tq == Tk, got {Tq}, {Tk}")
+    g = H // Hkv
+    scale = _scale(sm_scale, D)
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    mask = _flash_mask(B, Tq, Tk, q_lens, kv_lens, causal, q.device)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    # rows past q_len carry nothing back (their dO is never read)
+    dof = torch.where(mask.any(dim=-1, keepdim=True), do.float(), 0.0)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)            # [B,H,Tq,1]
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    return p, p * (dp - delta), dof
+
+
+def flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
+                           causal=False, sm_scale=None) -> torch.Tensor:
+    """The plain version of the dQ kernel: scale * (dS in K's dtype) K."""
+    g = q.shape[1] // k.shape[1]
+    _, ds, _ = _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal, sm_scale)
+    kf = k.float().repeat_interleave(g, dim=1)
+    dq = torch.matmul(ds.to(k.dtype).float(), kf)
+    return (dq * _scale(sm_scale, q.shape[-1])).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
+                            causal=False, sm_scale=None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dK/dV kernel: dK = (scale * dS in q's
+    dtype)^T Q and dV = (P in dO's dtype)^T dO, summed over each kv head's
+    query heads."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    p, ds, dof = _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal,
+                            sm_scale)
+    ds = (ds * _scale(sm_scale, D)).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())             # [B,H,Tk,D]
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dk = dk.reshape(B, Hkv, H // Hkv, Tk, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, H // Hkv, Tk, D).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, q_lens: torch.Tensor | None = None,
+    kv_lens: torch.Tensor | None = None, causal: bool = False,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of both backward kernels: (dq, dk, dv) from the
+    forward's inputs, its saved O and lse, and dO, with the kernels'
+    masking and rounding (P recomputed from lse; delta = rowsum(dO * O) in
+    f32 from the saved O). Rows at or past q_len get dq = 0."""
+    dq = flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens, causal,
+                                sm_scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+                                     causal, sm_scale)
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_N_PTRS = {"avsr_flash_fwd": 7, "avsr_flash_bwd_dq": 9, "avsr_flash_bwd_dkv": 10}
 
 
-def _kernel_fn():
+def _kernel_fn(source: str, symbol: str):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, built on first
+    use; each takes its pointers, then B, H, Hkv, Tq, Tk, D, is_f32,
+    causal, the scale and the stream."""
     from avsr_tpu_torch.ops import _build
 
-    fn = _build.load("flash_fwd").avsr_flash_fwd
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[symbol] + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_qkv(name: str, q, k, v, causal: bool) -> tuple[int, ...]:
+    """Validates the operands every kernel takes; returns (B, H, Hkv, Tq,
+    Tk, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA, not {q.device}")
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes bfloat16 or float32 operands "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in (64, 128) or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
+        raise ValueError(f"{name} shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}: need "
+                         "D in (64, 128) and k, v of one shape")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    if causal and Tq != Tk:
+        raise ValueError(f"causal flash attention needs Tq == Tk, got {Tq}, {Tk}")
+    return B, H, Hkv, Tq, Tk, D
+
+
+def _check_ptrs(name: str, dev: torch.device, **tensors) -> None:
+    for key, t in tensors.items():
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be a contiguous, 16-byte "
+                             f"aligned tensor on {dev}")
+
+
+def _launch(source: str, symbol: str, ptrs: list[torch.Tensor], dims,
+            dtype: torch.dtype, causal: bool, scale: float,
+            dev: torch.device) -> None:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _kernel_fn(source, symbol)(
+            *[t.data_ptr() for t in ptrs], *dims, _DTYPES[dtype], int(causal),
+            float(scale), stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+
+
+def _cuda_lens(q_lens, kv_lens, B: int, Tq: int, Tk: int, dev):
+    ql = _lens(q_lens, Tq, B, dev).contiguous()
+    kl = _lens(kv_lens, Tk, B, dev).contiguous()
+    if ql.shape != (B,) or kl.shape != (B,):
+        raise ValueError("q_lens and kv_lens must have shape [B]")
+    return ql, kl
 
 
 def flash_attention(
@@ -153,47 +290,108 @@ def flash_attention(
     D in {64, 128}; causal needs Tq == Tk. Ragged tails (q_lens, kv_lens)
     are masked inside the kernel; nothing is padded. A CPU tensor takes
     :func:`flash_attention_reference`; a CUDA tensor launches the kernel
-    (on the current stream) or raises."""
+    (on the current stream) or raises. The kernel's output has no
+    gradient, so a CUDA input that requires one raises while grad mode is
+    on: :func:`attention` (through :class:`FlashAttention`) is the
+    differentiable path."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, q_lens, kv_lens, causal,
                                          sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA, not {q.device}")
-    B, H, Tq, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes bfloat16 or float32 operands "
-                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (64, 128) or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}: need "
-                         "D in (64, 128) and k, v of one shape")
-    if Hkv == 0 or H % Hkv:
-        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
-    if causal and Tq != Tk:
-        raise ValueError(f"causal flash attention needs Tq == Tk, got {Tq}, {Tk}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
-    ql = _lens(q_lens, Tq, B, q.device).contiguous()
-    kl = _lens(kv_lens, Tk, B, q.device).contiguous()
-    if ql.shape != (B,) or kl.shape != (B,):
-        raise ValueError("q_lens and kv_lens must have shape [B]")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention records no gradient; call attention() or "
+            "FlashAttention.apply for a differentiable kernel path")
+    B, H, Hkv, Tq, Tk, D = _check_qkv("flash_attention", q, k, v, causal)
+    _check_ptrs("flash_attention", q.device, q=q, k=k, v=v)
+    ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    scale = sm_scale if sm_scale is not None else D ** -0.5
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           ql.data_ptr(), kl.data_ptr(), out.data_ptr(),
-                           lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
-                           _DTYPES[q.dtype], int(causal), float(scale), stream)
-    if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _launch("flash_fwd", "avsr_flash_fwd", [q, k, v, ql, kl, out, lse],
+            (B, H, Hkv, Tq, Tk, D), q.dtype, causal, _scale(sm_scale, D),
+            q.device)
     global launches
     launches += 1
     return out, lse
+
+
+def _check_bwd(name: str, q, k, v, o, lse, do, causal):
+    dims = _check_qkv(name, q, k, v, causal)
+    B, H, _, Tq, _, _ = dims
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"{name}: o and do must match q's shape and dtype")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be float32 of shape {(B, H, Tq)}")
+    _check_ptrs(name, q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
+    return dims
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
+                 causal: bool = False, sm_scale: float | None = None
+                 ) -> torch.Tensor:
+    """dQ [B,H,Tq,D] in q's dtype from the forward's q, k, v, its O and lse,
+    and dO (all contiguous, one dtype). A CPU tensor takes
+    :func:`flash_bwd_dq_reference`; a CUDA tensor launches the kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+                                      causal, sm_scale)
+    dims = _check_bwd("flash_bwd_dq", q, k, v, o, lse, do, causal)
+    B, _, _, Tq, Tk, D = dims
+    ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", "avsr_flash_bwd_dq", [q, k, v, o, lse, do, ql, kl, dq],
+            dims, q.dtype, causal, _scale(sm_scale, D), q.device)
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
+                  causal: bool = False, sm_scale: float | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [B,Hkv,Tk,D] in k's and v's dtype, from the same inputs as
+    :func:`flash_bwd_dq`. A CPU tensor takes
+    :func:`flash_bwd_dkv_reference`; a CUDA tensor launches the kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+                                       causal, sm_scale)
+    dims = _check_bwd("flash_bwd_dkv", q, k, v, o, lse, do, causal)
+    B, _, _, Tq, Tk, D = dims
+    ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_bwd", "avsr_flash_bwd_dkv",
+            [q, k, v, o, lse, do, ql, kl, dk, dv], dims, q.dtype, causal,
+            _scale(sm_scale, D), q.device)
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = flash attention of (q, k, v) with the kernels' backward, the
+    counterpart of the JAX ``_flash_core`` custom VJP: the forward launches
+    ``flash_fwd`` and saves q, k, v, O and lse; the backward launches the
+    dQ and dK/dV kernels. On CPU tensors the same Function runs the plain
+    versions. ``FlashAttention.apply(q, k, v, q_lens, kv_lens, causal,
+    sm_scale)``; q, k, v contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_lens, kv_lens, causal, sm_scale):
+        o, lse = flash_attention(q, k, v, q_lens, kv_lens, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (q_lens, kv_lens, causal, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # dO arrives as the gradient of a transpose-reshape in the model:
+        # not contiguous, and the kernels read it by rows
+        do = do.contiguous()
+        dq = flash_bwd_dq(q, k, v, o, lse, do, *ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +404,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kv_valid: torch.Tensor | None = None,
               sm_scale: float | None = None,
               use_kernel: str = "auto") -> torch.Tensor:
-    """The flash kernel where the JAX package would take its Pallas kernel
-    (head_dim % 64 == 0, Tq and Tk >= 256, no ``kv_valid`` mask), else
+    """The flash kernels where the JAX package would take its Pallas kernel
+    (head_dim % 64 == 0, Tq and Tk >= 256, no ``kv_valid`` mask), through
+    :class:`FlashAttention` so that gradients flow; else
     :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
     tensors), "always", or "never" — the counterpart of ``use_pallas``."""
     if use_kernel not in ("auto", "always", "never"):
@@ -215,8 +414,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     want = use_kernel == "always" or (use_kernel == "auto" and q.is_cuda)
     if (want and kv_valid is None and q.shape[-1] % 64 == 0
             and q.shape[2] >= MIN_KERNEL_SEQ and k.shape[2] >= MIN_KERNEL_SEQ):
-        out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                 q_lens, kv_lens, causal, sm_scale)
-        return out
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), q_lens, kv_lens, causal,
+                                    sm_scale)
     return mha_reference(q, k, v, causal=causal, q_lens=q_lens,
                          kv_lens=kv_lens, kv_valid=kv_valid, sm_scale=sm_scale)

@@ -1,0 +1,1 @@
+"""Sub-package of the PyTorch port (see the package docstring)."""

@@ -16,6 +16,18 @@
    with the kernels off.
 4. CLI phase: the decode CLI over 8 synthetic utterances writes its
    results and WER files.
+5. Backward kernel phase: the dQ and dK/dV kernels at the train step's
+   attention shape (bf16, causal GQA) against their plain version, f32 and
+   edge cases, the autograd Function against autograd through the plain
+   attention, and times of each kernel, its plain version, its bound and
+   the SDPA backward.
+6. Train phase: the flagship train step at full width (random weights from
+   --seed, frozen leaves bf16, trainable f32) on 8 x 10 s utterances with
+   48-token transcripts: f32 and bf16 gradient parity of the kernel path
+   against the plain path, three optimizer steps at base.yaml settings
+   (4 x 8 micro-batches, remat, dropout) with exact launch counts per
+   step, and a short overfit run whose loss must fall.
+7. Train CLI phase: two steps of the train CLI write loss_log.csv.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -26,6 +38,7 @@ host without a CUDA device or a directory without the package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +50,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bytes/s
+# base.yaml's values where they differ from the config defaults: the
+# flagship config through CLI overrides (the card's host has no PyYAML)
+FLAGSHIP_OVERRIDES = ("data.audio_buckets=1000,2000,3000",
+                      "model.max_seq_len=1536", "training.grad_accum_steps=4")
 
 
 class CheckFailed(RuntimeError):
@@ -78,23 +95,87 @@ def gpu_line() -> str:
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def flash_bound(q, k, q_lens, kv_lens, causal: bool) -> tuple[float, float]:
-    """(ms for the operations, ms for the bytes) at the card's peaks: the
-    FLOPs of this data's valid (row, key) pairs over the bf16 rate, and
-    q + k + v + O + lse bytes (each read or written once) over the memory
-    rate. The least time the card could take is the larger of the two."""
+def attn_bounds(q, k, q_lens, kv_lens, causal: bool
+                ) -> dict[str, tuple[float, float]]:
+    """(ms for the operations, ms for the bytes) of the forward, dQ and
+    dK/dV kernels on this data, at the card's peaks. Operations: 4, 6 and
+    8 * D FLOPs per valid (row, key) pair over the bf16 rate. Bytes: each
+    input read once and each output written once, over the memory rate.
+    The kernels read only the rows below q_len (q, dO, O, lse) and kv_len
+    (k, v) and write every row of their outputs (O, lse, dq, dk, dv), so
+    inputs count their valid rows and outputs their full size. The least
+    time the card could take is the larger of the two."""
     B, H, Tq, D = q.shape
-    flops = 0.0
+    Hkv, Tk = k.shape[1], k.shape[2]
+    es = q.element_size()
+    pairs = rows_q = rows_k = 0
     for ql, kl in zip(q_lens.tolist(), kv_lens.tolist()):
-        pairs = ql * (ql + 1) / 2 if causal else ql * kl
-        flops += 4.0 * H * D * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + B * H * Tq * 4
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ql, kl = min(max(ql, 0), Tq), min(max(kl, 0), Tk)
+        rows_q, rows_k = rows_q + ql, rows_k + kl
+        if not causal:
+            pairs += ql * kl
+        elif ql <= kl:
+            pairs += ql * (ql + 1) / 2
+        else:
+            pairs += kl * (kl + 1) / 2 + (ql - kl) * kl
+    q_in = rows_q * H * D * es            # one of q, dO, O (valid rows)
+    kv_in = 2 * rows_k * Hkv * D * es     # k and v (valid rows)
+    lse_in = rows_q * H * 4
+    nbytes = {"fwd": q_in + kv_in + q.numel() * es + B * H * Tq * 4,
+              "dq": 3 * q_in + kv_in + lse_in + q.numel() * es,
+              "dkv": 3 * q_in + kv_in + lse_in + 2 * k.numel() * es}
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}
+    return {n: (flops[n] * H * D * pairs / PEAK_BF16_FLOPS * 1e3,
+                nbytes[n] / PEAK_BYTES * 1e3) for n in flops}
+
+
+def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
+    """Times of one PyTorch call that computes the kernel's function at
+    uniform lengths ``lens`` (the forward; with ``do``, the backward of q,
+    k and v together). Two calls are timed and the faster one is the
+    yardstick: SDPA with the same boolean mask over the padded width (K/V
+    repeated for GQA), which rules out the flash backend, and SDPA on the valid
+    rows alone with ``is_causal`` and ``enable_gqa`` on the flash backend.
+    Set-up (repeat, slices, the backward's forward) is not timed. The port
+    never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, H, T, _ = q.shape
+    n = int(lens[0])
+    check(bool((lens == n).all()), "the SDPA yardstick needs uniform lengths")
+    idx = torch.arange(T, device=q.device)
+    valid = idx[None, :] < lens[:, None]
+    mask = valid[:, None, :, None] & valid[:, None, None, :]
+    if causal:
+        mask = mask & (idx[None, :] <= idx[:, None])
+    G = H // k.shape[1]
+    calls = {
+        "masked": ((q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)),
+                   dict(attn_mask=mask), contextlib.nullcontext),
+        "flash": (tuple(t[:, :, :n].contiguous() for t in (q, k, v)),
+                  dict(is_causal=causal, enable_gqa=True),
+                  lambda: sdpa_kernel(SDPBackend.FLASH_ATTENTION)),
+    }
+    res = {}
+    for name, (args, kw, backend) in calls.items():
+        with backend():
+            if do is None:
+                res[name] = time_ms(lambda: F.scaled_dot_product_attention(*args, **kw), 20)
+                continue
+            leaves = [t.detach().requires_grad_() for t in args]
+            out = F.scaled_dot_product_attention(*leaves, **kw)
+        g = do if name == "masked" else do[:, :, :n].contiguous()
+        res[name] = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                        retain_graph=True), 10)
+    best = min(res, key=res.get)
+    return dict(ms=res[best], call=best, masked_ms=res["masked"],
+                flash_ms=res["flash"])
 
 
 def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
     import torch
-    import torch.nn.functional as F
 
     from avsr_tpu_torch.ops import attention as A
 
@@ -140,27 +221,18 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
         ms = time_ms(lambda: A.flash_attention(q, k, v, lens, lens, causal), 20)
         plain_ms = time_ms(
             lambda: A.flash_attention_reference(q, k, v, lens, lens, causal), 5)
-        # library yardstick: SDPA with the same boolean mask (K/V repeated
-        # for GQA outside the timed region)
-        kr = k.repeat_interleave(H // Hkv, dim=1)
-        vr = v.repeat_interleave(H // Hkv, dim=1)
-        idx = torch.arange(T, device=dev)
-        mask = (idx[None, :] < lens[:, None])[:, None, None, :]
-        mask = mask & (idx[None, :] < lens[:, None])[:, None, :, None]
-        if causal:
-            mask = mask & (idx[None, :] <= idx[:, None])
-        library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask), 20)
-        ops_ms, bytes_ms = flash_bound(q, k, lens, lens, causal)
+        lib = sdpa_ms(q, k, v, lens, causal)
+        ops_ms, bytes_ms = attn_bounds(q, k, lens, lens, causal)["fwd"]
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         row = dict(shape=name, q=list(q.shape), kv=list(k.shape), causal=causal,
                    lens=main_lens[name], launches_per_call=per_call,
                    max_abs_err=err, max_lse_err=lse_max, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   ops_ms=ops_ms, bytes_ms=bytes_ms)
+                   library_ms=lib["ms"], library=lib, bound_ms=bound_ms,
+                   bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms)
         print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
-              f"{library_ms:.4f}, bound {bound_ms:.4f} by {bound_by})")
+              f"{lib['ms']:.4f} [{lib['call']}; masked {lib['masked_ms']:.4f}, "
+              f"flash {lib['flash_ms']:.4f}], bound {bound_ms:.4f} by {bound_by})")
         rows.append(row)
 
     # Edge cases off the main path: f32 with D=128, GQA, an empty row.
@@ -228,10 +300,12 @@ def main_path_phase(seed: int) -> dict:
 
     expected = mc.whisper.n_layers + mc.llm.n_layers
     torch.cuda.reset_peak_memory_stats()
-    A.launches = 0
+    A.launches = A.dq_launches = A.dkv_launches = 0
     st: dict = {}
     out = generate_tokens(params, mc, batch, stats=st, **kw)
     launches = A.launches
+    check(A.dq_launches == A.dkv_launches == 0,
+          "the serving path launched a backward kernel")
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: flash_fwd launches in one generate_tokens call: "
           f"{launches} (expected {mc.whisper.n_layers} Whisper + "
@@ -303,6 +377,317 @@ def main_path_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Backward kernel phase
+# ---------------------------------------------------------------------------
+
+def rel_err(a, ref) -> float:
+    """max|a - ref| / max|ref| (f32)."""
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp(min=1e-30)).item()
+
+
+def bwd_kernel_phase(seed: int, main_len: int) -> dict:
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rng = np.random.default_rng(seed + 1)
+    # the LLM attention of one train micro-batch: 8 rows packed to 672
+    B, H, Hkv, T, D = 8, 32, 8, 672, 64
+    q, do = (torch.randn((B, H, T, D), generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, T, D), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    ragged = rng.integers(T // 2, T + 1, B)
+    ragged[0] = T
+    lens_sets = {"ragged": torch.tensor(ragged, dtype=torch.int32, device=dev),
+                 "main": torch.full((B,), main_len, dtype=torch.int32, device=dev)}
+    errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    abs_errs = dict(errs)
+    for tag, lens in lens_sets.items():
+        o, lse = A.flash_attention(q, k, v, lens, lens, True)
+        dq = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, True)
+        dk, dv = A.flash_bwd_dkv(q, k, v, o, lse, do, lens, lens, True)
+        refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, lens, lens, True)
+        torch.cuda.synchronize()
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            check(bool(torch.isfinite(got.float()).all()), f"bwd {tag}: {name} not finite")
+            e = rel_err(got, ref)
+            check(e <= 2e-2, f"bwd {tag}: {name} max|d| {e:.3e} x max|ref| > 2e-2")
+            errs[name] = max(errs[name], e)
+            abs_errs[name] = max(abs_errs[name],
+                                 (got.float() - ref.float()).abs().max().item())
+        print(f"bwd kernels [{tag} lens {lens.tolist()}]: max|d|/max|ref| "
+              + ", ".join(f"{n} {rel_err(g, r):.3e}"
+                          for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)))
+
+    # Edge cases off the main path: f32, D=128, GQA, an empty row, Tq != Tk.
+    qe, doe = (torch.randn((2, 4, 300, 128), generator=gen, device=dev)
+               for _ in range(2))
+    ke, ve = (torch.randn((2, 2, 300, 128), generator=gen, device=dev)
+              for _ in range(2))
+    for causal, ql, kl, tk in ((True, [300, 0], [300, 0], 300),
+                               (False, [300, 131], [300, 0], 300),
+                               (False, [257, 100], [290, 17], 290)):
+        kk, vv = ke[:, :, :tk].contiguous(), ve[:, :, :tk].contiguous()
+        qq, dd = qe[:, :, :ql[0]].contiguous(), doe[:, :, :ql[0]].contiguous()
+        ql_t, kl_t = torch.tensor(ql, device=dev), torch.tensor(kl, device=dev)
+        o, lse = A.flash_attention(qq, kk, vv, ql_t, kl_t, causal)
+        got = (A.flash_bwd_dq(qq, kk, vv, o, lse, dd, ql_t, kl_t, causal),
+               *A.flash_bwd_dkv(qq, kk, vv, o, lse, dd, ql_t, kl_t, causal))
+        refs = A.flash_attention_bwd_reference(qq, kk, vv, o, lse, dd, ql_t,
+                                               kl_t, causal)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+            e = rel_err(g, r)
+            check(e <= 1e-4, f"f32 D=128 bwd edge case (causal={causal}, "
+                             f"lens {ql}/{kl}): {name} off by {e:.3e} x max|ref|")
+        check(bool((got[0][1, :, ql[1]:] == 0).all()), "dq rows past q_len must be 0")
+    print("bwd kernels f32/D=128/GQA/empty-row/cross edge cases: ok")
+
+    # The autograd Function against autograd through the plain attention.
+    qf, kf, vf = (torch.randn((2, h, 320, 64), generator=gen, device=dev)
+                  for h in (4, 2, 2))
+    gf = torch.randn((2, 4, 320, 64), generator=gen, device=dev)
+    lf = torch.tensor([320, 250], device=dev)
+    grads = []
+    for fn in (lambda q_, k_, v_: A.FlashAttention.apply(q_, k_, v_, lf, lf, True, None),
+               lambda q_, k_, v_: A.mha_reference(q_, k_, v_, causal=True,
+                                                  q_lens=lf, kv_lens=lf)):
+        leaves = [t.clone().requires_grad_() for t in (qf, kf, vf)]
+        fn(*leaves).backward(gf)
+        grads.append([t.grad for t in leaves])
+    fn_err = max(rel_err(a, b) for a, b in zip(*grads))
+    check(fn_err <= 1e-4, f"FlashAttention grads off autograd by {fn_err:.3e}")
+    print(f"FlashAttention vs autograd through mha_reference (f32): {fn_err:.3e}")
+
+    # Times at the main-path lengths (bf16).
+    lens = lens_sets["main"]
+    o, lse = A.flash_attention(q, k, v, lens, lens, True)
+    args = (q, k, v, o, lse, do, lens, lens, True)
+    times = {
+        "fwd": time_ms(lambda: A.flash_attention(q, k, v, lens, lens, True), 20),
+        "dq": time_ms(lambda: A.flash_bwd_dq(*args), 20),
+        "dkv": time_ms(lambda: A.flash_bwd_dkv(*args), 20),
+    }
+    plain = {
+        "fwd": time_ms(lambda: A.flash_attention_reference(q, k, v, lens, lens, True), 3),
+        "dq": time_ms(lambda: A.flash_bwd_dq_reference(*args), 3),
+        "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args), 3),
+    }
+    # library yardstick: the SDPA backward of q, k, v together
+    library_bwd = sdpa_ms(q, k, v, lens, True, do)
+    library_fwd = sdpa_ms(q, k, v, lens, True)
+    bounds = attn_bounds(q, k, lens, lens, True)
+    res = {"shape": dict(q=list(q.shape), kv=list(k.shape), causal=True,
+                         lens=main_len, dtype="bfloat16"),
+           "max_rel_err": errs, "max_abs_err": abs_errs, "edge_fn_err": fn_err,
+           "library_bwd_pair": library_bwd, "library_fwd": library_fwd}
+    for name in ("fwd", "dq", "dkv"):
+        ops_ms, bytes_ms = bounds[name]
+        res[name] = dict(ms=times[name], plain_ms=plain[name],
+                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                         bytes_ms=bytes_ms,
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"kernel {name} at the train shape: {times[name]:.4f} ms (plain "
+              f"{plain[name]:.4f}, bound {res[name]['bound_ms']:.4f} by "
+              f"{res[name]['bound_by']})")
+    for what, lib in (("forward", library_fwd), ("backward of q, k, v", library_bwd)):
+        print(f"SDPA {what} at the train shape: {lib['ms']:.4f} ms "
+              f"[{lib['call']}; masked {lib['masked_ms']:.4f}, flash "
+              f"{lib['flash_ms']:.4f}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Train phase
+# ---------------------------------------------------------------------------
+
+def train_host_batch(cfg, tok, rng, B: int = 8, n_samples: int = 160_000,
+                     n_frames: int = 25, n_label: int = 48):
+    """8 utterances of 10 s audio, 25 frames and a transcript of n_label
+    tokens (n_label - 1 bytes + EOS), collated on the host."""
+    from avsr_tpu_torch.data.dataset import Sample
+    from avsr_tpu_torch.data.loader import collate
+
+    t = np.arange(n_samples, dtype=np.float32) / 16000.0
+    text = ("the quick brown fox jumps over a lazy dog while seven wizards "
+            "brew hazy potions")[: n_label - 1]
+    samples = []
+    for i in range(B):
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
+                 + 0.05 * rng.standard_normal(n_samples)).astype(np.float32)
+        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
+        samples.append(Sample(f"train/{i}", audio, frames, text,
+                              tok.encode(text, add_eos=True)))
+    return collate(samples, cfg.data, tok.encode(cfg.model.prompt, add_bos=True),
+                   tok.pad_id)
+
+
+def _perturb_lora_b(params, gen) -> None:
+    """LoRA b is 0 at init, which leaves the gradients of a exactly 0; give
+    it values so that the parity checks cover a."""
+    import torch
+
+    for layer in params["llm"]["layers"]:
+        for node in layer.values():
+            if "lora" in node:
+                b = node["lora"]["b"]
+                b.copy_(0.05 * torch.randn(b.shape, generator=gen,
+                                           device=b.device, dtype=b.dtype))
+
+
+def _grads(params, mc, batch, dtype, use_kernel: str):
+    import torch
+
+    from avsr_tpu_torch.models.avsr import forward
+    from avsr_tpu_torch.train.state import partition_trainable, tree_leaves
+
+    leaves = tree_leaves(partition_trainable(params, mc)[0])
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = forward(params, mc, batch, compute_dtype=dtype,
+                      use_kernel=use_kernel, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.item(), [g.float() for g in grads]
+
+
+def _dist(a: list, b: list) -> float:
+    """||a - b|| / ||b|| over all leaves together."""
+    import torch
+
+    num = torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
+    den = torch.sqrt(sum((y ** 2).sum() for y in b))
+    return (num / den).item()
+
+
+def train_phase(seed: int) -> dict:
+    import torch
+
+    from avsr_tpu_torch.convert import param_count
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.train.state import (cast_frozen, create_train_state,
+                                            partition_trainable, tree_leaves)
+    from avsr_tpu_torch.train.step import make_train_step, microbatch
+
+    cfg = flagship()
+    mc, accum = cfg.model, cfg.training.grad_accum_steps
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed + 2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    t0 = time.perf_counter()
+    p32 = init_avsr_model(mc, seed=seed, device="cuda", dtype=torch.float32)
+    _perturb_lora_b(p32, gen)
+    torch.cuda.synchronize()
+    print(f"train: random init of {param_count(p32) / 1e9:.3f} B params (f32) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    hb = train_host_batch(cfg, tok, rng)
+    b32 = featurize(hb, "cuda", torch.float32)
+    check(tuple(hb.labels.shape) == (8, 128) and hb.label_lens.tolist() == [48] * 8,
+          "train batch labels")
+
+    # Gradient parity in f32: the kernel path against the plain path.
+    loss_k, g_k = _grads(p32, mc, b32, torch.float32, "auto")
+    loss_p, g_p = _grads(p32, mc, b32, torch.float32, "never")
+    per_leaf = [_dist([a], [b]) for a, b in zip(g_k, g_p)]
+    check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+          f"f32 loss: kernel {loss_k} vs plain {loss_p}")
+    check(max(per_leaf) <= 1e-3, f"f32 grads: worst leaf off by {max(per_leaf):.3e}")
+    print(f"train f32 parity: loss {loss_k:.6f} vs {loss_p:.6f}; worst leaf "
+          f"||dg||/||g|| {max(per_leaf):.3e} over {len(per_leaf)} trainable leaves")
+
+    # Gradient parity in bf16: the kernel path no further from the f32
+    # gradients than twice the plain path is.
+    params = cast_frozen(p32, mc, torch.bfloat16)
+    del p32, b32
+    torch.cuda.empty_cache()
+    b16 = featurize(hb, "cuda", torch.bfloat16)
+    loss_kb, g_kb = _grads(params, mc, b16, torch.bfloat16, "auto")
+    loss_pb, g_pb = _grads(params, mc, b16, torch.bfloat16, "never")
+    d_k, d_p = _dist(g_kb, g_p), _dist(g_pb, g_p)
+    check(d_k <= 2.0 * d_p, f"bf16 grads: kernel path {d_k:.4e} from f32 > 2x "
+                            f"the plain path's {d_p:.4e}")
+    print(f"train bf16 parity: loss kernel {loss_kb:.6f}, plain {loss_pb:.6f}; "
+          f"||g - g_f32||/||g_f32|| kernel {d_k:.4e}, plain {d_p:.4e}")
+    parity = dict(f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
+                  f32_worst_leaf=max(per_leaf), bf16_loss_kernel=loss_kb,
+                  bf16_loss_plain=loss_pb, bf16_kernel_vs_f32=d_k,
+                  bf16_plain_vs_f32=d_p)
+    del g_k, g_p, g_kb, g_pb
+
+    # Three optimizer steps at base.yaml settings: 4 micro-batches of 8,
+    # remat, LoRA dropout, AdamW + cosine + clip.
+    micro = [b16] + [featurize(train_host_batch(cfg, tok, rng), "cuda",
+                               torch.bfloat16) for _ in range(accum - 1)]
+    stacked = type(b16)(*[None if x[0] is None else torch.stack(x)
+                          for x in zip(*micro)])
+    state = create_train_state(params, cfg, total_steps=1000)
+    step = make_train_step(cfg)
+    train_p, frozen_p = partition_trainable(params, mc)
+    frozen0 = [t.clone() for t in tree_leaves(frozen_p)]
+    per_step = {"fwd": accum * (mc.whisper.n_layers + 2 * mc.llm.n_layers),
+                "dq": accum * mc.llm.n_layers, "dkv": accum * mc.llm.n_layers}
+    A.launches = A.dq_launches = A.dkv_launches = 0
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        before = (A.launches, A.dq_launches, A.dkv_launches)
+        train0 = [t.detach().clone() for t in tree_leaves(train_p)]
+        stats: dict = {}
+        t0 = time.perf_counter()
+        m = step(state, stacked, seed + i, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = (A.launches - before[0], A.dq_launches - before[1],
+               A.dkv_launches - before[2])
+        check(got == (per_step["fwd"], per_step["dq"], per_step["dkv"]),
+              f"step {i + 1} launches (fwd, dq, dkv) {got}, expected "
+              f"{tuple(per_step.values())}")
+        check(np.isfinite(m["loss"]) and m["skipped"] == 0.0,
+              f"step {i + 1}: loss {m['loss']}, skipped {m['skipped']}")
+        changed = any(not torch.equal(a, b) for a, b in zip(train0, tree_leaves(train_p)))
+        # the warmup schedule starts at learning rate 0
+        check(changed == (i > 0), f"step {i + 1}: trainable leaves changed={changed}")
+        steps.append(dict(ms=dt * 1e3, loss=m["loss"], grad_norm=m["grad_norm"],
+                          **{k: v * 1e3 for k, v in stats.items()}))
+        print(f"train step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.4f}, "
+              f"gnorm {m['grad_norm']:.3f}, launches {got}")
+    launches = {"fwd": A.launches, "dq": A.dq_launches, "dkv": A.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(torch.equal(a, b) for a, b in zip(frozen0, tree_leaves(frozen_p))),
+          "a frozen leaf changed")
+    del frozen0
+    n_utt = accum * 8
+    last = steps[-1]
+    res = dict(batch=f"{accum} x 8", audio_s=10, video_frames=25, label_tokens=48,
+               packed_width=672, valid_len=581, steps=steps,
+               ms_per_step=last["ms"], utts_per_s=n_utt / last["ms"] * 1e3,
+               label_tokens_per_s=n_utt * 48 / last["ms"] * 1e3,
+               peak_mem_gb=peak / 1e9, launches=launches,
+               launches_per_step=per_step, parity=parity)
+
+    # A short overfit run on one batch: the loss must fall.
+    ocfg = flagship(["training.learning_rate=1e-3", "training.warmup_steps=1",
+                     "training.grad_accum_steps=1"])
+    ostate = create_train_state(params, ocfg, total_steps=100)
+    ostep = make_train_step(ocfg)
+    losses = [ostep(ostate, microbatch(b16, 1), 100 + i)["loss"] for i in range(5)]
+    check(losses[-1] < losses[0], f"overfit losses do not fall: {losses}")
+    print(f"train overfit on one batch: losses {[round(x, 4) for x in losses]}")
+    res["overfit_losses"] = losses
+    print("train: " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # CLI phase
 # ---------------------------------------------------------------------------
 
@@ -317,7 +702,7 @@ def cli_phase(seed: int) -> None:
     # synthetic_size 40 gives an 8-utterance test split
     run = ["data.synthetic=true", "data.synthetic_size=40",
            "decode.max_new_tokens=16", f"decode.output_dir={out_dir}"]
-    flag = ["data.audio_buckets=1000,2000,3000", "model.max_seq_len=1536"]
+    flag = list(FLAGSHIP_OVERRIDES)
     check(load_config(None, flag + run) == flagship(run),
           "CLI overrides do not give the flagship config")
     t0 = time.perf_counter()
@@ -332,6 +717,30 @@ def cli_phase(seed: int) -> None:
     check("WER: " in wers[0].read_text(), "WER summary missing")
     print(f"cli phase: 8 utterances decoded in {time.perf_counter() - t0:.2f} s; "
           f"wrote {results[0].relative_to(ROOT)} and {wers[0].relative_to(ROOT)}")
+
+
+def train_cli_phase(seed: int) -> None:
+    import torch
+
+    from avsr_tpu_torch.cli import train
+    from avsr_tpu_torch.core.config import flagship, load_config
+
+    out_dir = ROOT / "outputs" / "chip_smoke" / time.strftime("train_%Y%m%d_%H%M%S")
+    run = ["data.synthetic=true", "training.max_steps=2",
+           "training.save_every_steps=0", f"training.checkpoint_dir={out_dir}"]
+    flag = list(FLAGSHIP_OVERRIDES)
+    check(load_config(None, flag + run) == flagship(run),
+          "CLI overrides do not give the flagship config")
+    t0 = time.perf_counter()
+    rc = train.main(["--seed", str(seed), "--device", "cuda", *flag, *run])
+    torch.cuda.synchronize()
+    check(rc == 0, f"train CLI returned {rc}")
+    rows = (out_dir / "loss_log.csv").read_text().splitlines()
+    splits = [r.split(",")[2] for r in rows[1:]]
+    check(splits.count("train") == 2, f"loss_log.csv rows: {splits}")
+    print(f"train cli phase: 2 steps (4 x 8 synthetic utterances each) and "
+          f"validation in {time.perf_counter() - t0:.2f} s; wrote "
+          f"{(out_dir / 'loss_log.csv').relative_to(ROOT)}: {rows[1:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -376,22 +785,51 @@ def main(argv: list[str] | None = None) -> int:
     res = main_path_phase(args.seed)
     torch.cuda.empty_cache()
     cli_phase(args.seed)
+    torch.cuda.empty_cache()
+    # train lengths: 33 prompt tokens + 500 features + 48 label tokens = 581
+    # valid of 661 packed, padded to 672
+    bwd = bwd_kernel_phase(args.seed, 581)
+    torch.cuda.empty_cache()
+    train = train_phase(args.seed)
+    torch.cuda.empty_cache()
+    train_cli_phase(args.seed)
 
     def total(key: str) -> float:
         return sum(r[key] * r["launches_per_call"] for r in rows)
 
+    tl = train["launches"]
     kernels = [dict(
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
-        launches=res["flash_launches"],
+        launches=res["flash_launches"] + tl["fwd"],
+        launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_lse_err=max(r["max_lse_err"] for r in rows),
         ms=total("ms"), kernel_ms=total("ms"), plain_ms=total("plain_ms"),
         bound_ms=total("bound_ms"),
         bound_by="operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
         library_ms=total("library_ms"),
+        library_is="the faster of SDPA with the boolean mask and SDPA (flash "
+                   "backend) on the valid rows, per shape",
         times_are="sums over the launches of one generate_tokens call",
-        shapes=rows)]
+        shapes=rows, train_shape={**bwd["fwd"], "library_ms": bwd["library_fwd"]["ms"],
+                                  "library": bwd["library_fwd"]})]
+    for name, key, line, errs in (
+            ("flash_bwd_dq", "dq", 181, ("dq",)),
+            ("flash_bwd_dkv", "dkv", 241, ("dk", "dv"))):
+        kernels.append(dict(
+            name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"avsr_tpu/ops/attention.py:{line}",
+            launches=tl[key], launches_by_path={"train_3_steps": tl[key]},
+            max_abs_err=max(bwd["max_abs_err"][e] for e in errs),
+            max_rel_err=max(bwd["max_rel_err"][e] for e in errs),
+            ms=bwd[key]["ms"], plain_ms=bwd[key]["plain_ms"],
+            bound_ms=bwd[key]["bound_ms"], bound_by=bwd[key]["bound_by"],
+            library_ms=bwd["library_bwd_pair"]["ms"],
+            library_is=f"SDPA backward of q, k and v together (dq + dk/dv), "
+                       f"the faster call: {bwd['library_bwd_pair']['call']}",
+            library=bwd["library_bwd_pair"],
+            times_are="per launch at the train shape", shape=bwd["shape"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
