@@ -8,9 +8,11 @@ Layering (bottom-up):
     core/    typed config (a copy of the JAX schema), the trainer's metric logs
     csrc/    CUDA C++ kernels, built with nvcc at first use (ops/_build.py)
     ops/     flash-attention forward and backward (kernels + plain versions,
-             the autograd Function), log-mel, frames
+             the autograd Function), int8/int4 weight-only quantization and
+             its decode-shape matmul kernels, log-mel, frames
     models/  Whisper encoder, CLIP ViT, simple connector, Llama + LoRA
-             (dropout, remat), AVSR (encode, prefix, training forward)
+             (dropout, remat, quantized base, fused decode layout, int8 KV
+             cache), AVSR (encode, prefix, training forward)
     data/    byte tokenizer, synthetic dataset, collate + featurize, DataLoader
     infer/   prefill + KV-cache greedy/sampled generation, WER
     train/   masks, AdamW + schedules, train/eval steps, the Trainer

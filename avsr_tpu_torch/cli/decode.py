@@ -8,7 +8,10 @@ WER and CER, the same artifacts as the JAX package.
     python -m avsr_tpu_torch.cli.decode --config cfg.yaml --seed 0 \\
         data.synthetic=true decode.max_new_tokens=16
 
-Weights are a random init from ``--seed``; checkpoint loading, the manifest
+The serving preset adds ``model.use_4bit=true decode.lm_head_bits=8
+decode.kv_cache_dtype=int8`` (int4 projections, int8 head, int8 KV cache).
+Weights are a random init from ``--seed`` in the decode layout
+(``cli/common.py::load_decode_params``); checkpoint loading, the manifest
 dataset, beam search, the continuous-batching engine and speculative
 decoding are still to be ported.
 """
@@ -22,13 +25,12 @@ from pathlib import Path
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser, build_dataset
+from avsr_tpu_torch.cli.common import base_parser, build_dataset, load_decode_params
 from avsr_tpu_torch.core.config import AVSRConfig, load_config
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
 from avsr_tpu_torch.infer.generate import generate_tokens
 from avsr_tpu_torch.infer.wer import WERAccumulator
-from avsr_tpu_torch.models.avsr import init_avsr_model
 
 log = logging.getLogger("avsr_tpu_torch.cli.decode")
 
@@ -41,12 +43,10 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_supported(cfg: AVSRConfig) -> None:
     d = cfg.decode
-    if d.num_beams > 1 or d.engine_slots or d.speculative or d.lm_head_bits:
+    if d.num_beams > 1 or d.engine_slots or d.speculative:
         raise NotImplementedError(
-            "beam search, the serving engine, speculative decoding and "
-            "lm_head_bits are not yet ported")
-    if d.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError("the int8 KV cache is not yet ported")
+            "beam search, the serving engine and speculative decoding are "
+            "not yet ported")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -56,11 +56,9 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config, args.overrides)
     _check_supported(cfg)
     device = torch.device(args.device)
-    dtype = getattr(torch, cfg.runtime.compute_dtype)
     tok = ByteTokenizer()
     ds = build_dataset(cfg, tok, args.split)
-    params = init_avsr_model(cfg.model, seed=args.seed, device=device,
-                             dtype=dtype)
+    params = load_decode_params(cfg, seed=args.seed, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return run_protocol(cfg, params, tok, ds, device=device, generator=gen)
 
@@ -88,7 +86,8 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
                                   temperature=d.temperature, top_p=d.top_p,
                                   eos_id=tok.eos_id, generator=generator,
                                   compute_dtype=dtype,
-                                  use_kernel=cfg.runtime.use_pallas)
+                                  use_kernel=cfg.runtime.use_pallas,
+                                  kv_cache_dtype=d.kv_cache_dtype)
             tokens = out.tokens.cpu().numpy()
             lens = out.lengths.cpu().numpy()
             for i, (utt, ref) in enumerate(zip(hb.utt_ids, hb.texts)):

@@ -17,13 +17,12 @@ import logging
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser, build_dataset
+from avsr_tpu_torch.cli.common import base_parser, build_dataset, init_params
 from avsr_tpu_torch.core.config import load_config
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
-from avsr_tpu_torch.models.avsr import init_avsr_model, summarize
+from avsr_tpu_torch.models.avsr import summarize
 from avsr_tpu_torch.train.loop import Trainer, check_supported
-from avsr_tpu_torch.train.state import cast_frozen
 
 log = logging.getLogger("avsr_tpu_torch.cli.train")
 
@@ -44,9 +43,7 @@ def main(argv: list[str] | None = None) -> int:
                           seed=cfg.training.seed, device=device,
                           compute_dtype=dtype)
 
-    params = init_avsr_model(cfg.model, seed=args.seed, device=device,
-                             dtype=torch.float32)
-    params = cast_frozen(params, cfg.model, dtype)
+    params = init_params(cfg, seed=args.seed, device=device)
     log.info("model summary: %s", summarize(params, cfg.model))
     trainer = Trainer(cfg, params, loader("train", True), loader("valid", False))
     result = trainer.train()

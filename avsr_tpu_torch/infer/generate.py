@@ -8,6 +8,12 @@ temperature/top-p sampling).
     greedy or temperature + top-p, that stops once every row has emitted
     EOS.
 
+Quantized serving: ``prepare_params_for_decode`` gives the decode layout
+(fused q|k|v and gate|up, optionally an int8/int4 lm head), and
+``kv_cache_dtype="int8"`` quantizes the cache after the prefill. With
+quantized weights every product of the decode step and the head goes
+through the Hopper kernels of ``ops/qmatmul.py``.
+
 The loop is eager PyTorch and reads ``done.all()`` on the host once per
 token; capturing the step in a CUDA graph is later work. Beam search,
 speculative decoding and the streaming continuation are still to be
@@ -25,6 +31,7 @@ from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.models import llama as L
 from avsr_tpu_torch.models.avsr import Batch, build_prefix, encode
 from avsr_tpu_torch.models.layers import Params
+from avsr_tpu_torch.ops.quant import quantize_llm
 
 NEG_INF = -1e30
 
@@ -32,6 +39,19 @@ NEG_INF = -1e30
 class GenOut(NamedTuple):
     tokens: torch.Tensor     # [B, max_new] generated ids (eos after EOS)
     lengths: torch.Tensor    # [B] valid generated tokens (incl. EOS)
+
+
+def prepare_params_for_decode(params: Params, model_cfg: ModelConfig,
+                              lm_head_bits: int = 0) -> Params:
+    """The one-time inference layout: q|k|v and gate|up of the LLM fused
+    (``llama.fuse_decode_layout``), so a decode step makes 4 projection
+    products per layer instead of 7, and with ``lm_head_bits``
+    (decode.lm_head_bits) the hidden -> vocab projection quantized
+    (``quantize_llm``; its scale stays f32)."""
+    llm = params["llm"]
+    if lm_head_bits:
+        llm = quantize_llm(llm, 0, lm_head_bits=lm_head_bits)
+    return {**params, "llm": L.fuse_decode_layout(llm)}
 
 
 def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -66,15 +86,18 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
                     top_p: float = 0.9, eos_id: int = 2,
                     generator: torch.Generator | None = None,
                     compute_dtype: torch.dtype = torch.float32,
-                    use_kernel: str = "auto",
+                    use_kernel: str = "auto", kv_cache_dtype: str = "bfloat16",
                     stats: dict | None = None) -> GenOut:
     """Greedy (temperature=0) or nucleus-sampled generation.
 
     ``generator`` (on the batch's device) drives sampling; without it the
-    call is greedy. ``stats``, when given, receives the phase times in
-    seconds (``encode_s``, ``prefill_s``, ``decode_s``, each ending in a
-    device synchronize), ``decode_steps`` and the last-position prefill
-    logits (``prefill_logits`` [B, V] f32)."""
+    call is greedy. ``use_kernel`` picks the kernels of the attention and
+    of the quantized products. ``kv_cache_dtype="int8"`` quantizes the KV
+    cache after the prefill (``llama.quantize_cache``); the decoded rows
+    reuse the prefill's scales. ``stats``, when given, receives the phase
+    times in seconds (``encode_s``, ``prefill_s``, ``decode_s``, each
+    ending in a device synchronize), ``decode_steps`` and the last-position
+    prefill logits (``prefill_logits`` [B, V] f32)."""
     dt = compute_dtype
     cfg = model_cfg.llm
     lora = model_cfg.lora if model_cfg.lora.use_lora else None
@@ -95,9 +118,13 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
         params["llm"], cfg, inputs_embeds=prefix, lengths=prefix_lens, lora=lora,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True, cache_len=M,
         output="hidden")
+    if kv_cache_dtype == "int8":
+        cache = L.quantize_cache(cache)
+    elif kv_cache_dtype != "bfloat16":
+        raise ValueError(f"kv_cache_dtype must be bfloat16|int8, got {kv_cache_dtype!r}")
     # project only the last valid position to vocab (avoids [B, Tpre, V])
     h_last = hidden[torch.arange(B, device=dev), prefix_lens.long() - 1][:, None]
-    logits = L.compute_logits(params["llm"], cfg, h_last)[:, 0]
+    logits = L.compute_logits(params["llm"], cfg, h_last, use_kernel)[:, 0]
     if stats is not None:
         _sync(dev)
         t1 = time.perf_counter()
@@ -120,7 +147,7 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
         emb = L.embed_tokens(params["llm"], nxt[:, None], dt)
         logits, cache = L.llama_decode_step(params["llm"], cfg, x=emb, cache=cache,
                                             cur_lens=cur, lora=lora,
-                                            compute_dtype=dt)
+                                            compute_dtype=dt, use_kernel=use_kernel)
         cur = cur + 1
         steps += 1
     if stats is not None:

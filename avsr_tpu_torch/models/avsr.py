@@ -48,8 +48,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.audio_encoder != "whisper" or cfg.video_encoder != "clip":
         raise NotImplementedError(
             "only the whisper and clip encoders are ported to avsr_tpu_torch")
-    if cfg.use_4bit or cfg.use_8bit:
-        raise NotImplementedError("quantized LLM weights are not yet ported")
     if cfg.llm.moe_experts or cfg.connector_type == "moe":
         raise NotImplementedError("MoE layers are not yet ported")
 

@@ -13,6 +13,14 @@ for torch matmuls; the JAX package's position-minor ``[.., Dh, M]`` was
 chosen for TPU lanes). ``llama_decode_step`` writes the new column IN
 PLACE into the cache it is given and returns that same cache.
 
+Quantized serving: a projection node may hold an int8/int4 base
+(``ops/quant.py``), which ``proj`` multiplies through ``qdot`` (the Hopper
+kernels at decode shapes) with LoRA on top in full precision;
+``fuse_decode_layout`` fuses q|k|v and gate|up for decode; an int8 cache
+(``quantize_cache``) carries per-(layer, row, kv head) scales fixed at the
+prefill. ``use_kernel`` ("auto" | "always" | "never") picks the kernels
+for attention and for the quantized products alike.
+
 Training: ``proj`` applies LoRA dropout to the adapter branch's input, and
 ``llama_apply`` can recompute each block in backward (``remat``, the
 counterpart of ``jax.checkpoint``) with ``torch.utils.checkpoint``. Dropout
@@ -20,8 +28,8 @@ masks are drawn from a generator seeded per (call, layer) inside the
 block, so the recomputation draws the same masks (``checkpoint`` replays
 only the default generators' state).
 
-Still to be ported: MoE FFN layers, the pipeline path, the fused decode
-layout, the int8 cache, and the prefill-continue / split-cache steps.
+Still to be ported: MoE FFN layers, the pipeline path, per-row LoRA
+adapter banks, and the prefill-continue / split-cache steps.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
 from avsr_tpu_torch.ops.attention import attention
+from avsr_tpu_torch.ops.quant import is_quantized, qdot
 
 # Vocab rows per chunk when bf16 logits are accumulated in f32 (bounds the
 # f32 copy of the head that is live at once to ~134 MB at d=2048).
@@ -73,14 +82,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
-         lora_dropout: float = 0.0,
-         generator: torch.Generator | None = None) -> torch.Tensor:
+         lora_dropout: float = 0.0, generator: torch.Generator | None = None,
+         use_kernel: str = "auto") -> torch.Tensor:
     """x @ W (no bias) + lora_scale * (x' @ a) @ b when the node has LoRA,
-    in x.dtype. x' is x, or with ``generator`` and ``lora_dropout`` > 0 its
-    dropout: each element kept with probability 1 - p and scaled by
-    1 / (1 - p); the base product always sees x."""
+    in x.dtype. W is a full-precision "w" or a quantized base ("qw"/"qw4h"
+    + "scale"), which goes through ``qdot`` with ``use_kernel``. x' is x,
+    or with ``generator`` and ``lora_dropout`` > 0 its dropout: each
+    element kept with probability 1 - p and scaled by 1 / (1 - p); the
+    base product always sees x."""
     dt = x.dtype
-    y = torch.matmul(x, p["w"].to(dt))
+    if "w" in p:
+        y = torch.matmul(x, p["w"].to(dt))
+    else:
+        y = qdot(x, p, use_kernel=use_kernel)
     if lora_scale and "lora" in p:
         a, b = p["lora"]["a"], p["lora"]["b"]
         if a.ndim != 2:
@@ -159,22 +173,91 @@ def lora_scale(lora: LoRAConfig | None) -> float:
     return lora.alpha / lora.r if lora is not None and lora.use_lora else 0.0
 
 
+def _fuse_group(nodes: list[Params]) -> Params | None:
+    """Concatenate parallel projections (same input) along the out dim.
+
+    Bases concatenate directly (a float "w", or a quantized "qw"/"qw4h"
+    with its per-column "scale"; all are laid out [in, out]). LoRA adapters
+    combine as a = [a_1 | a_2 | ...] and a block-structured b that routes
+    each adapter's rank rows to its own output columns, so that
+    x @ a @ b == concat_i(x @ a_i @ b_i) exactly. None when the nodes mix
+    kinds."""
+    kinds = {next((k for k in ("w", "qw", "qw4h") if k in n), None) for n in nodes}
+    if len(kinds) != 1 or None in kinds:
+        return None
+    kind = kinds.pop()
+    fused: Params = {kind: torch.cat([n[kind] for n in nodes], dim=1)}
+    if kind == "w":
+        outs = [n["w"].shape[1] for n in nodes]
+    else:
+        fused["scale"] = torch.cat([n["scale"] for n in nodes])
+        outs = [n["scale"].shape[0] for n in nodes]
+    loras = [(i, n["lora"]) for i, n in enumerate(nodes) if "lora" in n]
+    if loras:
+        a = torch.cat([lo["a"] for _, lo in loras], dim=1)
+        b = a.new_zeros((a.shape[1], sum(outs)), dtype=loras[0][1]["b"].dtype)
+        offs = np.concatenate([[0], np.cumsum(outs)])
+        row = 0
+        for i, lo in loras:
+            r = lo["a"].shape[1]
+            b[row: row + r, offs[i]: offs[i + 1]] = lo["b"]
+            row += r
+        fused["lora"] = {"a": a, "b": b}
+    return fused
+
+
+def fuse_decode_layout(params: Params) -> Params:
+    """The decode layout: q|k|v and gate|up fused per layer, so that a
+    decode step makes 4 projection products per layer instead of 7 (one
+    kernel launch each when quantized). Exact: the fused product
+    concatenates the outputs. Training never sees this layout."""
+    layers = []
+    for layer in params["layers"]:
+        fl = dict(layer)
+        for name, parts in (("qkv", ("q", "k", "v")), ("gateup", ("gate", "up"))):
+            if name in fl or not all(p in fl for p in parts):
+                continue
+            fused = _fuse_group([layer[p] for p in parts])
+            if fused is not None:
+                fl[name] = fused
+                for p in parts:
+                    del fl[p]
+        layers.append(fl)
+    return {**params, "layers": layers}
+
+
 def _proj_qkv(layer: Params, h: torch.Tensor, ls: float, ldrop: float = 0.0,
-              gen: torch.Generator | None = None):
-    return tuple(proj(layer[n], h, lora_scale=ls, lora_dropout=ldrop,
-                      generator=gen) for n in ("q", "k", "v"))
+              gen: torch.Generator | None = None, use_kernel: str = "auto"):
+    """(q, k, v) raw projections, fused or per-tensor layout."""
+    kw = dict(lora_scale=ls, lora_dropout=ldrop, generator=gen,
+              use_kernel=use_kernel)
+    if "qkv" in layer:
+        y = proj(layer["qkv"], h, **kw)
+        d = h.shape[-1]
+        kvd = (y.shape[-1] - d) // 2
+        return y[..., :d], y[..., d: d + kvd], y[..., d + kvd:]
+    return tuple(proj(layer[n], h, **kw) for n in ("q", "k", "v"))
 
 
-def _proj_mlp(layer: Params, h: torch.Tensor, ls: float) -> torch.Tensor:
-    """silu(gate) * up."""
-    return (F.silu(proj(layer["gate"], h, lora_scale=ls))
-            * proj(layer["up"], h, lora_scale=ls))
+def _proj_mlp(layer: Params, h: torch.Tensor, ls: float,
+              use_kernel: str = "auto") -> torch.Tensor:
+    """silu(gate) * up, fused or per-tensor layout."""
+    if "gateup" in layer:
+        y = proj(layer["gateup"], h, lora_scale=ls, use_kernel=use_kernel)
+        f = y.shape[-1] // 2
+        gate, up = y[..., :f], y[..., f:]
+    else:
+        gate = proj(layer["gate"], h, lora_scale=ls, use_kernel=use_kernel)
+        up = proj(layer["up"], h, lora_scale=ls, use_kernel=use_kernel)
+    return F.silu(gate) * up
 
 
-def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float) -> torch.Tensor:
+def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float,
+         use_kernel: str = "auto") -> torch.Tensor:
     """Post-attention SwiGLU residual: x + down(silu(gate) * up)(ln(x))."""
     h = rms_norm(layer["ln_mlp"], x, eps=cfg.rms_eps)
-    return x + proj(layer["down"], _proj_mlp(layer, h, ls), lora_scale=ls)
+    return x + proj(layer["down"], _proj_mlp(layer, h, ls, use_kernel),
+                    lora_scale=ls, use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +265,37 @@ def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
-    """Decode cache [L, B, Hkv, M, Dh], updated in place by decode steps."""
+    """Decode cache [L, B, Hkv, M, Dh], updated in place by decode steps.
+
+    Serving mode (decode.kv_cache_dtype="int8", :func:`quantize_cache`):
+    k/v are int8 with per-(layer, row, kv head) bf16 scales [L, B, Hkv, 1,
+    1], fixed at the prefill (amax / 112 leaves headroom) and reused for
+    the decoded rows."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+_KV_QMAX = 112.0   # int8 range with headroom for decoded rows
+
+
+def quantize_cache(cache: KVCache) -> KVCache:
+    """bf16/f32 cache -> int8 + per-(l, b, h) scales (see KVCache): each
+    value divided by the f32 scale, rounded half to even, clipped to
+    +-127; the scale is stored in bf16."""
+    def q(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        s = t.abs().amax(dim=(3, 4), keepdim=True).float() / _KV_QMAX + 1e-8
+        q8 = torch.clamp(torch.round(t.float() / s), -127, 127).to(torch.int8)
+        return q8, s.to(torch.bfloat16)
+
+    (k8, sk), (v8, sv) = q(cache.k), q(cache.v)
+    return KVCache(k8, v8, sk, sv)
 
 
 def init_cache(cfg: LLMConfig, batch: int, max_len: int,
@@ -220,7 +330,7 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     gen = (_layer_generator(dropout_seed, index, x.device)
            if dropout_seed is not None and ldrop > 0.0 else None)
     h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen)
+    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel)
     q = q.reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -230,8 +340,8 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
                      use_kernel=use_kernel)
     attn = attn.transpose(1, 2).reshape(B, T, d)
     x = x + proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
-                 generator=gen)
-    return _ffn(layer, x, cfg, ls), (k, v)
+                 generator=gen, use_kernel=use_kernel)
+    return _ffn(layer, x, cfg, ls, use_kernel), (k, v)
 
 
 def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
@@ -288,13 +398,20 @@ def _head_rows(params: Params, cfg: LLMConfig) -> torch.Tensor:
     return head["w"].T
 
 
-def compute_logits(params: Params, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
+def compute_logits(params: Params, cfg: LLMConfig, x: torch.Tensor,
+                   use_kernel: str = "auto") -> torch.Tensor:
     """Final hidden -> f32 vocab logits, f32 accumulation.
 
-    The JAX package multiplies at the wider of the two dtypes with an f32
+    A quantized head (``quantize_llm`` with lm_head_bits) goes through
+    ``qdot`` with ``use_kernel`` and loses its vocab padding. Otherwise the
+    JAX package multiplies at the wider of the two dtypes with an f32
     result; products of bf16 values are exact in f32, so both cases equal
     ``x.float() @ w.float()``. A non-f32 head is upcast one vocab chunk at
     a time, so no f32 copy of the whole head is ever live."""
+    head = params.get("lm_head")
+    if is_quantized(head):
+        logits = qdot(x, head, out_dtype=torch.float32, use_kernel=use_kernel)
+        return logits[..., : cfg.vocab_size]
     w = _head_rows(params, cfg)
     xf = x.float()
     if w.dtype == torch.float32:
@@ -318,15 +435,22 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          kv_lens: torch.Tensor) -> torch.Tensor:
+                          kv_lens: torch.Tensor,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token GQA attention: q [B,H,1,D] vs cache k/v [B,Hkv,M,D].
 
     Query heads are grouped over their kv head (no repeat of K/V). Scores
     and outputs accumulate in f32 from exact products of the cache dtype,
     as the JAX einsums with preferred_element_type=f32 do; q is scaled in
-    f32 and then cast to the cache dtype, as there."""
+    f32 and then cast to the cache dtype, as there. An int8 cache is
+    dequantized to bf16 with its scales [B,Hkv,1,1] first, so q is then
+    rounded to bf16 even in an f32 step, as in the JAX package."""
     B, H, _, D = q.shape
     Hkv, M = k.shape[1], k.shape[2]
+    if k.dtype == torch.int8:
+        k = k.to(torch.bfloat16) * k_scale
+        v = v.to(torch.bfloat16) * v_scale
     qg = (q.float() * (D ** -0.5)).to(k.dtype).reshape(B, Hkv, H // Hkv, D)
     s = torch.matmul(qg.float(), k.float().transpose(-1, -2))      # [B,Hkv,g,M]
     mask = (torch.arange(M, device=q.device)[None, :] < kv_lens[:, None])
@@ -339,11 +463,14 @@ def _gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
                       cache: KVCache, cur_lens: torch.Tensor,
                       lora: LoRAConfig | None = None,
-                      compute_dtype: torch.dtype = torch.float32
+                      compute_dtype: torch.dtype = torch.float32,
+                      use_kernel: str = "auto"
                       ) -> tuple[torch.Tensor, KVCache]:
     """One causal step for x [B, 1, d] at positions ``cur_lens`` [B]:
-    writes its K/V into column cur_lens[b] of ``cache`` (in place), attends
-    to cache[:cur_len + 1], and returns (logits [B, V] f32, cache)."""
+    writes its K/V into column cur_lens[b] of ``cache`` (in place; an int8
+    cache gets them quantized with its prefill scales), attends to
+    cache[:cur_len + 1], and returns (logits [B, V] f32, cache).
+    ``use_kernel`` goes to the quantized products."""
     B = x.shape[0]
     d = cfg.d_model
     hd = d // cfg.n_heads
@@ -354,16 +481,23 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     b_idx = torch.arange(B, device=x.device)
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-        q, k, v = _proj_qkv(layer, h, ls)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
         q = apply_rope(q.reshape(B, 1, cfg.n_heads, hd).transpose(1, 2), cos, sin)
         k = apply_rope(k.reshape(B, 1, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
         v = v.reshape(B, 1, cfg.n_kv_heads, hd).transpose(1, 2)
+        k_new, v_new = k[:, :, 0], v[:, :, 0]                      # [B, Hkv, Dh]
+        sk = sv = None
+        if cache.quantized:
+            sk, sv = cache.k_scale[i], cache.v_scale[i]            # [B, Hkv, 1, 1]
+            k_new = torch.clamp(torch.round(k_new.float() / sk[..., 0].float()), -127, 127)
+            v_new = torch.clamp(torch.round(v_new.float() / sv[..., 0].float()), -127, 127)
         k_i, v_i = cache.k[i], cache.v[i]                          # views
-        k_i[b_idx, :, pos] = k[:, :, 0].to(k_i.dtype)
-        v_i[b_idx, :, pos] = v[:, :, 0].to(v_i.dtype)
-        attn = _gqa_decode_attention(q, k_i, v_i, kv_lens=pos + 1)
+        k_i[b_idx, :, pos] = k_new.to(k_i.dtype)
+        v_i[b_idx, :, pos] = v_new.to(v_i.dtype)
+        attn = _gqa_decode_attention(q, k_i, v_i, kv_lens=pos + 1,
+                                     k_scale=sk, v_scale=sv)
         x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, 1, d),
-                     lora_scale=ls)
-        x = _ffn(layer, x, cfg, ls)
+                     lora_scale=ls, use_kernel=use_kernel)
+        x = _ffn(layer, x, cfg, ls, use_kernel)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
-    return compute_logits(params, cfg, x)[:, 0], cache
+    return compute_logits(params, cfg, x, use_kernel)[:, 0], cache

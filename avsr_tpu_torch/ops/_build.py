@@ -21,7 +21,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

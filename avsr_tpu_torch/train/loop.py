@@ -10,7 +10,8 @@ compiled shape with zero-weight copies, which gives the same update).
 Still to be ported, and refused by the constructor when the config asks
 for them: checkpoints (the port writes none, so ``training.save_every_steps``
 must be 0), resume, in-training WER eval and WER-based best-metric
-selection, early stopping, and profiling. ``training.save_every_secs``, the
+selection, early stopping, profiling, and training on a quantized base
+(``model.use_4bit`` / ``use_8bit``, QLoRA; the port serves such a base). ``training.save_every_secs``, the
 JAX Trainer's timed checkpoint, has no effect here; its default (two hours)
 is on in every config, so the constructor logs a warning instead of
 refusing it. Preemption handling is not ported either.
@@ -46,7 +47,9 @@ def check_supported(cfg: AVSRConfig) -> None:
              "training.eval_wer_every_epochs": t.eval_wer_every_epochs > 0,
              "training.best_metric=wer": t.best_metric != "loss",
              "training.early_stop_patience": t.early_stop_patience > 0,
-             "runtime.profile_dir": bool(cfg.runtime.profile_dir)}
+             "runtime.profile_dir": bool(cfg.runtime.profile_dir),
+             "model.use_4bit / model.use_8bit (QLoRA training)":
+             cfg.model.use_4bit or cfg.model.use_8bit}
     wanted = [k for k, v in asked.items() if v]
     if wanted:
         raise NotImplementedError(

@@ -28,6 +28,19 @@
    (4 x 8 micro-batches, remat, dropout) with exact launch counts per
    step, and a short overfit run whose loss must fall.
 7. Train CLI phase: two steps of the train CLI write loss_log.csv.
+8. qmatmul kernel phase: the int8 and int4 weight-only matmul kernels at
+   every decode shape of the flagship (M = 8: the int4 projections qkv, o,
+   gateup, down, the int8 lm head, and the int8 projections of use_8bit)
+   against their plain version, edge cases (M of 1, 5 and 64, f32 x, N off
+   the tile, a K that does not match), and the device time of the kernel,
+   its plain version, its bound, one bf16 matmul on the dequantized weight
+   and the dequantize-then-matmul pair, each from a replayed CUDA graph.
+9. Serving-preset phase: the flagship with use_4bit, lm_head_bits=8 and
+   an int8 KV cache, built as the decode CLI builds it, on the same 8
+   utterances: exact launch counts of one generate_tokens call, decode-step
+   logits of the kernel path against the dequantize path (f32 and bf16),
+   the serving numbers next to phase 3's, and the decode CLI with the
+   preset overrides.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -54,6 +68,9 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bytes/s
 # flagship config through CLI overrides (the card's host has no PyYAML)
 FLAGSHIP_OVERRIDES = ("data.audio_buckets=1000,2000,3000",
                       "model.max_seq_len=1536", "training.grad_accum_steps=4")
+# the serving preset of docs/serving.md
+PRESET_OVERRIDES = ("model.use_4bit=true", "decode.lm_head_bits=8",
+                    "decode.kv_cache_dtype=int8")
 
 
 class CheckFailed(RuntimeError):
@@ -81,6 +98,49 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def capture_stream():
+    """The one side stream of every timed capture: cuBLAS keeps a workspace
+    (32 MiB on Hopper) for each stream it has run on until the process
+    ends, so a new stream per capture would hold memory that later phases'
+    peak-memory readings count."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fns, reps: int = 20) -> float:
+    """Device time per call of ``fns`` (called in turn, max(reps,
+    len(fns)) calls in all) captured in one CUDA graph and replayed three
+    times: the host's launch pace is not in the time, which matters for
+    kernels of a few microseconds."""
+    import torch
+
+    reps = max(reps, len(fns))
+    side = capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:                     # warm-up outside the capture
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 def gpu_line() -> str:
@@ -258,17 +318,45 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
 # Main-path phase
 # ---------------------------------------------------------------------------
 
+def serving_host_batch(cfg, seed: int, B: int = 8, n_samples: int = 160_000,
+                       n_frames: int = 25):
+    """B utterances of 10 s audio and 25 frames from ``seed``, collated on
+    the host (the serving phases' input)."""
+    from avsr_tpu_torch.data.dataset import Sample
+    from avsr_tpu_torch.data.loader import collate
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_samples, dtype=np.float32) / 16000.0
+    samples = []
+    for i in range(B):
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
+                 + 0.05 * rng.standard_normal(n_samples)).astype(np.float32)
+        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
+        samples.append(Sample(f"smoke/{i}", audio, frames, "", [tok.eos_id]))
+    return collate(samples, cfg.data, tok.encode(cfg.model.prompt, add_bos=True),
+                   tok.pad_id)
+
+
+def reset_counts() -> None:
+    from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import qmatmul as Q
+
+    A.launches = A.dq_launches = A.dkv_launches = 0
+    Q.int8_launches = Q.int4_launches = 0
+
+
 def main_path_phase(seed: int) -> dict:
     import torch
 
     from avsr_tpu_torch.convert import cast_tree, param_count
     from avsr_tpu_torch.core.config import flagship
-    from avsr_tpu_torch.data.dataset import Sample
-    from avsr_tpu_torch.data.loader import collate, featurize
-    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.data.loader import featurize
     from avsr_tpu_torch.infer.generate import generate_tokens
     from avsr_tpu_torch.models.avsr import init_avsr_model
     from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import qmatmul as Q
 
     cfg = flagship()
     mc = cfg.model
@@ -280,16 +368,7 @@ def main_path_phase(seed: int) -> dict:
     print(f"main path: random init of {n_params / 1e9:.3f} B params (bf16) "
           f"in {time.perf_counter() - t0:.2f} s")
 
-    tok = ByteTokenizer()
-    rng = np.random.default_rng(seed)
-    t = np.arange(n_samples, dtype=np.float32) / 16000.0
-    samples = []
-    for i in range(B):
-        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
-                 + 0.05 * rng.standard_normal(n_samples)).astype(np.float32)
-        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
-        samples.append(Sample(f"smoke/{i}", audio, frames, "", [tok.eos_id]))
-    hb = collate(samples, cfg.data, tok.encode(mc.prompt, add_bos=True), tok.pad_id)
+    hb = serving_host_batch(cfg, seed, B, n_samples, n_frames)
     batch = featurize(hb, "cuda", torch.bfloat16)
     tp = hb.prompt.shape[1]
     check(batch.mel.shape == (B, 80, 1000), f"mel shape {tuple(batch.mel.shape)}")
@@ -300,12 +379,14 @@ def main_path_phase(seed: int) -> dict:
 
     expected = mc.whisper.n_layers + mc.llm.n_layers
     torch.cuda.reset_peak_memory_stats()
-    A.launches = A.dq_launches = A.dkv_launches = 0
+    reset_counts()
     st: dict = {}
     out = generate_tokens(params, mc, batch, stats=st, **kw)
     launches = A.launches
     check(A.dq_launches == A.dkv_launches == 0,
           "the serving path launched a backward kernel")
+    check(Q.int8_launches == Q.int4_launches == 0,
+          "the bf16 serving path launched a qmatmul kernel")
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: flash_fwd launches in one generate_tokens call: "
           f"{launches} (expected {mc.whisper.n_layers} Whisper + "
@@ -373,6 +454,286 @@ def main_path_phase(seed: int) -> dict:
                         prefill_ms=st_never["prefill_s"] * 1e3,
                         ms_per_token=st_never["decode_s"] * 1e3 / steps))
     print("main path: " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# qmatmul kernel phase
+# ---------------------------------------------------------------------------
+
+# name, bits, K, N, launches per generate_tokens call of the serving preset
+# (per decode step: 16 layers x qkv, o, gateup, down in int4, the int8 head;
+# plus the head once at the prefill's last position). The int8 projections
+# run on the use_8bit path, which the preset does not take.
+def qmm_shapes(n_layers: int, steps: int) -> list[tuple]:
+    return [("qkv", 4, 2048, 3072, n_layers * steps),
+            ("o", 4, 2048, 2048, n_layers * steps),
+            ("gateup", 4, 2048, 16384, n_layers * steps),
+            ("down", 4, 8192, 2048, n_layers * steps),
+            ("lm_head", 8, 2048, 129024, steps + 1),
+            ("qkv", 8, 2048, 3072, 0), ("o", 8, 2048, 2048, 0),
+            ("gateup", 8, 2048, 16384, 0), ("down", 8, 8192, 2048, 0)]
+
+
+def qmm_bound(M: int, K: int, N: int, bits: int) -> tuple[float, float]:
+    """(ms for the operations, ms for the bytes) of one launch: 2 M K N
+    FLOPs at the bf16 rate; the packed weight, the f32 scale, the bf16 x and
+    the f32 output, each once, at the memory rate."""
+    nbytes = K * N * bits // 8 + 4 * N + 2 * M * K + 4 * M * N
+    return 2 * M * K * N / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
+    import torch
+
+    from avsr_tpu_torch.ops import qmatmul as Q
+    from avsr_tpu_torch.ops import quant
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    l2_bytes = 128e6     # timed weights cycle through this much memory: the
+    #                      50 MB L2 cannot hold them, as in a decode step
+    rows = []
+    for name, bits, K, N, per_call in qmm_shapes(n_layers, steps):
+        M = 8
+        qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=gen, device=dev), bits)
+        x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
+        y = Q.qmatmul(x, qp)
+        ref = Q.qmatmul_reference(x, qp)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"qmatmul {name} int{bits}: not finite")
+        err = (y - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        check(rel <= 1e-4, f"qmatmul {name} int{bits}: max|d| {err:.3e} = {rel:.3e} "
+                           f"x max|ref| > 1e-4")
+        wkey = "qw4h" if bits == 4 else "qw"
+        wbytes = qp[wkey].numel()
+        nodes = [qp] + [{wkey: qp[wkey].clone(), "scale": qp["scale"].clone()}
+                        for _ in range(int(np.ceil(l2_bytes / wbytes)) - 1)]
+        ms = graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
+        w16 = quant.dequantize(qp, torch.bfloat16)
+        w16s = [w16] + [w16.clone() for _ in range(int(np.ceil(l2_bytes / (2 * wbytes))) - 1)]
+        library_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in w16s])
+        pair_ms = graph_ms([lambda n=n: torch.matmul(x, quant.dequantize(n, torch.bfloat16))
+                            for n in nodes])
+        plain_ms = graph_ms([lambda n=n: Q.qmatmul_reference(x, n) for n in nodes])
+        del nodes, w16, w16s
+        ops_ms, bytes_ms = qmm_bound(M, K, N, bits)
+        row = dict(shape=name, bits=bits, M=M, K=K, N=N, launches_per_call=per_call,
+                   max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, dequant_matmul_ms=pair_ms,
+                   bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   splits=Q.splits(M, K // 2 if bits == 4 else K, N,
+                                   torch.cuda.get_device_properties(0).multi_processor_count,
+                                   bits)[0])
+        rows.append(row)
+        print(f"qmatmul {name} int{bits} [{M}x{K}] x [{K}x{N}]: {ms * 1e3:.2f} us "
+              f"(bound {row['bound_ms'] * 1e3:.2f} by {row['bound_by']}, plain "
+              f"{plain_ms * 1e3:.1f}, bf16 matmul {library_ms * 1e3:.2f}, dequant + "
+              f"matmul {pair_ms * 1e3:.1f}; {row['splits']} K splits); max|d| "
+              f"{err:.3e} = {rel:.2e} x max|ref|")
+
+    # Edge cases off the main path: ragged M, f32 x, N and K off the tile
+    # (N = 2050 is not even a multiple of 4: the byte-load path), bf16
+    # output, and a K that does not match the weight.
+    edge = 0.0
+    for bits in (8, 4):
+        for M, K, N, xdt, odt in ((1, 2048, 3072, torch.bfloat16, torch.float32),
+                                  (5, 2048, 3072, torch.bfloat16, torch.float32),
+                                  (64, 2048, 3072, torch.bfloat16, torch.float32),
+                                  (8, 2048, 3072, torch.float32, torch.float32),
+                                  (8, 1000, 2050, torch.bfloat16, torch.float32),
+                                  (7, 1000, 1000, torch.float32, torch.bfloat16)):
+            qp = quant.quantize_tensor(torch.randn((K, N), generator=gen, device=dev), bits)
+            qp["scale"] = qp["scale"].to(torch.bfloat16)       # as cast_frozen leaves it
+            x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+            y = Q.qmatmul(x, qp, out_dtype=odt)
+            ref = Q.qmatmul_reference(x, qp)
+            torch.cuda.synchronize()
+            rel = ((y.float() - ref).abs().max() / ref.abs().max()).item()
+            tol = 1e-4 if odt == torch.float32 else 2 ** -8    # one bf16 rounding
+            check(y.shape == (M, N) and y.dtype == odt and rel <= tol,
+                  f"qmatmul edge int{bits} M={M} K={K} N={N} x {xdt} out {odt}: "
+                  f"{rel:.3e} x max|ref|")
+            if odt == torch.float32:
+                edge = max(edge, rel)
+        try:
+            Q.qmatmul(torch.zeros((8, 2048 + 2), device=dev, dtype=torch.bfloat16), qp)
+        except ValueError:
+            pass
+        else:
+            raise CheckFailed(f"int{bits}: an x whose K does not match did not raise")
+    print(f"qmatmul edge cases (M 1/5/64, f32 x, N 2050/1000, K 1000, bf16 out, "
+          f"K mismatch): ok, worst f32 max|d| {edge:.3e} x max|ref|")
+    return dict(rows=rows, edge_max_rel_err=edge)
+
+
+# ---------------------------------------------------------------------------
+# Serving-preset phase
+# ---------------------------------------------------------------------------
+
+def decode_step_logits(params, mc, hb, dtype, use_kernels, nxt=None):
+    """One prefill (kernels on) into an int8 cache, then one decode step
+    per ``use_kernels`` entry on copies of that cache: {use_kernel: logits
+    [B, V] f32}, and the step's input token (the greedy one of the
+    prefill unless ``nxt`` is given)."""
+    import torch
+
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.models import llama as L
+    from avsr_tpu_torch.models.avsr import build_prefix, encode
+
+    lora = mc.lora if mc.lora.use_lora else None
+    with torch.inference_mode():
+        batch = featurize(hb, "cuda", dtype)
+        enc = encode(params, mc, batch, compute_dtype=dtype)
+        prefix, lens = build_prefix(params, mc, batch, enc, compute_dtype=dtype)
+        B, T = prefix.shape[:2]
+        hidden, cache = L.llama_apply(
+            params["llm"], mc.llm, inputs_embeds=prefix, lengths=lens, lora=lora,
+            compute_dtype=dtype, return_cache=True, cache_len=-(-(T + 2) // 128) * 128,
+            output="hidden")
+        cache = L.quantize_cache(cache)
+        if nxt is None:
+            h_last = hidden[torch.arange(B, device=prefix.device), lens.long() - 1][:, None]
+            nxt = L.compute_logits(params["llm"], mc.llm, h_last, "never")[:, 0].argmax(-1)
+        emb = L.embed_tokens(params["llm"], nxt[:, None], dtype)
+        out = {}
+        for uk in use_kernels:
+            c = L.KVCache(*(t.clone() for t in cache))
+            out[uk] = L.llama_decode_step(params["llm"], mc.llm, x=emb, cache=c,
+                                          cur_lens=lens.long(), lora=lora,
+                                          compute_dtype=dtype, use_kernel=uk)[0]
+    return out, nxt
+
+
+def preset_phase(seed: int, bf16: dict, qmm: dict) -> dict:
+    import torch
+
+    from avsr_tpu_torch.cli.common import load_decode_params
+    from avsr_tpu_torch.convert import cast_tree
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.infer.generate import generate_tokens
+    from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import qmatmul as Q
+    from avsr_tpu_torch.ops.quant import quant_bytes
+
+    cfg = flagship(list(PRESET_OVERRIDES))
+    mc = cfg.model
+    new = cfg.decode.max_new_tokens
+    t0 = time.perf_counter()
+    params = load_decode_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    llm_gb = quant_bytes(params["llm"]) / 1e9
+    print(f"preset: f32 init, int4 quantization, bf16 cast and decode layout in "
+          f"{time.perf_counter() - t0:.2f} s; LLM tree {llm_gb:.3f} GB")
+    hb = serving_host_batch(cfg, seed)
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    kw = dict(max_new_tokens=new, eos_id=-1, compute_dtype=torch.bfloat16,
+              kv_cache_dtype=cfg.decode.kv_cache_dtype)
+    generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 4})   # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    st: dict = {}
+    out = generate_tokens(params, mc, batch, stats=st, **kw)
+    counts = dict(flash_fwd=A.launches, flash_bwd_dq=A.dq_launches,
+                  flash_bwd_dkv=A.dkv_launches, qmatmul_int8=Q.int8_launches,
+                  qmatmul_int4=Q.int4_launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = st["decode_steps"]
+    want = dict(flash_fwd=mc.whisper.n_layers + mc.llm.n_layers, flash_bwd_dq=0,
+                flash_bwd_dkv=0, qmatmul_int8=steps + 1,
+                qmatmul_int4=4 * mc.llm.n_layers * steps)
+    print(f"preset: launches in one generate_tokens call {counts} (expected {want})")
+    check(counts == want, f"preset launches {counts}, expected {want}")
+    B = batch.mel.shape[0]
+    check(out.tokens.shape == (B, new) and bool((out.lengths == new).all()),
+          "preset tokens")
+    check(bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
+          "preset token ids out of range")
+    check(bool(torch.isfinite(st["prefill_logits"]).all()), "preset logits not finite")
+
+    # Decode-step logits, kernel path against the dequantize path. In f32
+    # the kernels still round x to bf16 (65 products per step) and the
+    # dequantize path does not: mean |d| within 1e-2 * std, and max |d| no
+    # larger than running the whole step in bf16 moves the logits. In bf16
+    # the kernel path is no further from the f32 dequantize logits than 2x
+    # the bf16 dequantize path is.
+    p32 = cast_tree(params, torch.float32)
+    l32, nxt = decode_step_logits(p32, mc, hb, torch.float32, ("auto", "never"))
+    del p32
+    torch.cuda.empty_cache()
+    l16, _ = decode_step_logits(params, mc, hb, torch.bfloat16, ("auto", "never"), nxt)
+    ref = l32["never"]
+    std = ref.std().item()
+    d32 = (l32["auto"] - ref).abs()
+    dk, dn = (l16["auto"] - ref).abs(), (l16["never"] - ref).abs()
+    step_cmp = dict(std_f32=std, f32_kernel_vs_dequant_max=d32.max().item(),
+                    f32_kernel_vs_dequant_mean=d32.mean().item(),
+                    f32_mean_ratio_to_std=d32.mean().item() / std,
+                    bf16_kernel_vs_f32_mean=dk.mean().item(),
+                    bf16_dequant_vs_f32_mean=dn.mean().item(),
+                    bf16_kernel_vs_f32_max=dk.max().item(),
+                    bf16_dequant_vs_f32_max=dn.max().item(),
+                    top1_f32_kernel_vs_dequant=(l32["auto"].argmax(-1) == ref.argmax(-1))
+                    .float().mean().item())
+    print("preset decode-step logits " + json.dumps(step_cmp))
+    c = step_cmp
+    check(c["f32_kernel_vs_dequant_mean"] <= 1e-2 * std,
+          f"f32 decode step: kernel vs dequant mean|d| "
+          f"{c['f32_kernel_vs_dequant_mean']:.4e} > 1e-2 * std {std:.4e}")
+    check(c["f32_kernel_vs_dequant_max"] <= c["bf16_dequant_vs_f32_max"],
+          f"f32 decode step: kernel vs dequant max|d| "
+          f"{c['f32_kernel_vs_dequant_max']:.4e} > the bf16 step's own "
+          f"{c['bf16_dequant_vs_f32_max']:.4e}")
+    check(c["bf16_kernel_vs_f32_mean"] <= 2.0 * c["bf16_dequant_vs_f32_mean"],
+          f"bf16 decode step: kernel path mean|d| to f32 "
+          f"{c['bf16_kernel_vs_f32_mean']:.4e} > 2x the dequantize path's "
+          f"{c['bf16_dequant_vs_f32_mean']:.4e}")
+    del l32, l16
+
+    # The same random weights unquantized (one f32 init from the seed):
+    # how far the preset's greedy choices move.
+    pb = load_decode_params(flagship(), seed=seed, device="cuda")
+    stb: dict = {}
+    outb = generate_tokens(pb, mc, batch, stats=stb,
+                           **{**kw, "kv_cache_dtype": "bfloat16"})
+    del pb
+    torch.cuda.empty_cache()
+    lq, lb = st["prefill_logits"], stb["prefill_logits"]
+    top1 = (lq.argmax(-1) == lb.argmax(-1)).float()
+    corr = torch.corrcoef(torch.stack([lq.flatten(), lb.flatten()]))[0, 1].item()
+    tok_agree = (out.tokens == outb.tokens).float().mean().item()
+
+    shapes = {(r["shape"], r["bits"]): r for r in qmm["rows"]}
+    per_step = {key: mc.llm.n_layers * sum(shapes[(n, 4)][key]
+                                           for n in ("qkv", "o", "gateup", "down"))
+                + shapes[("lm_head", 8)][key]
+                for key in ("ms", "bound_ms", "library_ms", "plain_ms")}
+    ms_tok = st["decode_s"] * 1e3 / steps
+    res = dict(
+        config="flagship + " + " ".join(PRESET_OVERRIDES), batch=B, max_new_tokens=new,
+        encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+        decode_ms=st["decode_s"] * 1e3, decode_steps=steps, ms_per_token=ms_tok,
+        decode_tokens_per_s=B * steps / st["decode_s"],
+        new_tokens_per_s=B * new / (st["encode_s"] + st["prefill_s"] + st["decode_s"]),
+        peak_mem_gb=peak / 1e9, llm_tree_gb=llm_gb, launches=counts,
+        decode_step_logits=step_cmp,
+        prefill_top1_vs_bf16_weights=top1.mean().item(),
+        prefill_logits_corr_vs_bf16_weights=corr,
+        token_agreement_vs_bf16_weights=tok_agree,
+        bf16_weights_same_init=dict(encode_ms=stb["encode_s"] * 1e3,
+                                    prefill_ms=stb["prefill_s"] * 1e3,
+                                    ms_per_token=stb["decode_s"] * 1e3 / stb["decode_steps"]),
+        bf16_phase=dict(encode_ms=bf16["encode_ms"], prefill_ms=bf16["prefill_ms"],
+                        ms_per_token=bf16["ms_per_token"],
+                        new_tokens_per_s=bf16["new_tokens_per_s"],
+                        peak_mem_gb=bf16["peak_mem_gb"]),
+        qmatmul_per_step=dict(**per_step, share_of_step=per_step["ms"] / ms_tok))
+    print("preset: " + json.dumps(res))
     return res
 
 
@@ -574,6 +935,7 @@ def train_phase(seed: int) -> dict:
     from avsr_tpu_torch.data.tokenizer import ByteTokenizer
     from avsr_tpu_torch.models.avsr import init_avsr_model
     from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import qmatmul as Q
     from avsr_tpu_torch.train.state import (cast_frozen, create_train_state,
                                             partition_trainable, tree_leaves)
     from avsr_tpu_torch.train.step import make_train_step, microbatch
@@ -635,7 +997,7 @@ def train_phase(seed: int) -> dict:
     frozen0 = [t.clone() for t in tree_leaves(frozen_p)]
     per_step = {"fwd": accum * (mc.whisper.n_layers + 2 * mc.llm.n_layers),
                 "dq": accum * mc.llm.n_layers, "dkv": accum * mc.llm.n_layers}
-    A.launches = A.dq_launches = A.dkv_launches = 0
+    reset_counts()
     steps = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(3):
@@ -661,6 +1023,8 @@ def train_phase(seed: int) -> dict:
         print(f"train step {i + 1}: {dt * 1e3:.1f} ms, loss {m['loss']:.4f}, "
               f"gnorm {m['grad_norm']:.3f}, launches {got}")
     launches = {"fwd": A.launches, "dq": A.dq_launches, "dkv": A.dkv_launches}
+    check(Q.int8_launches == Q.int4_launches == 0,
+          "the train step launched a qmatmul kernel")
     peak = torch.cuda.max_memory_allocated()
     check(all(torch.equal(a, b) for a, b in zip(frozen0, tree_leaves(frozen_p))),
           "a frozen leaf changed")
@@ -691,17 +1055,17 @@ def train_phase(seed: int) -> dict:
 # CLI phase
 # ---------------------------------------------------------------------------
 
-def cli_phase(seed: int) -> None:
+def cli_phase(seed: int, extra: tuple[str, ...] = (), tag: str = "cli") -> None:
     import torch
 
     from avsr_tpu_torch.cli import decode
     from avsr_tpu_torch.core.config import flagship, load_config
 
-    out_dir = ROOT / "outputs" / "chip_smoke" / time.strftime("cli_%Y%m%d_%H%M%S")
+    out_dir = ROOT / "outputs" / "chip_smoke" / time.strftime(f"{tag}_%Y%m%d_%H%M%S")
     # the flagship config through CLI overrides (no YAML parser needed);
     # synthetic_size 40 gives an 8-utterance test split
     run = ["data.synthetic=true", "data.synthetic_size=40",
-           "decode.max_new_tokens=16", f"decode.output_dir={out_dir}"]
+           "decode.max_new_tokens=16", f"decode.output_dir={out_dir}", *extra]
     flag = list(FLAGSHIP_OVERRIDES)
     check(load_config(None, flag + run) == flagship(run),
           "CLI overrides do not give the flagship config")
@@ -715,7 +1079,7 @@ def cli_phase(seed: int) -> None:
     n_utt = results[0].read_text().count("UTT: ")
     check(n_utt == 8, f"results file holds {n_utt} utterances, not 8")
     check("WER: " in wers[0].read_text(), "WER summary missing")
-    print(f"cli phase: 8 utterances decoded in {time.perf_counter() - t0:.2f} s; "
+    print(f"{tag} phase: 8 utterances decoded in {time.perf_counter() - t0:.2f} s; "
           f"wrote {results[0].relative_to(ROOT)} and {wers[0].relative_to(ROOT)}")
 
 
@@ -793,6 +1157,15 @@ def main(argv: list[str] | None = None) -> int:
     train = train_phase(args.seed)
     torch.cuda.empty_cache()
     train_cli_phase(args.seed)
+    torch.cuda.empty_cache()
+    # Quantized serving last, so that the phases above run as they did
+    # before it existed. The flagship LLM has 16 layers; 100 tokens take 99
+    # decode steps.
+    qmm = qmm_kernel_phase(args.seed, n_layers=16, steps=res["decode_steps"])
+    torch.cuda.empty_cache()
+    preset = preset_phase(args.seed, res, qmm)
+    torch.cuda.empty_cache()
+    cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
 
     def total(key: str) -> float:
         return sum(r[key] * r["launches_per_call"] for r in rows)
@@ -830,6 +1203,30 @@ def main(argv: list[str] | None = None) -> int:
                        f"the faster call: {bwd['library_bwd_pair']['call']}",
             library=bwd["library_bwd_pair"],
             times_are="per launch at the train shape", shape=bwd["shape"]))
+    for name, bits, line in (("qmatmul_int8", 8, 120), ("qmatmul_int4", 4, 140)):
+        qrows = [r for r in qmm["rows"] if r["bits"] == bits]
+
+        def qtotal(key: str) -> float:
+            return sum(r[key] * r["launches_per_call"] for r in qrows)
+
+        kernels.append(dict(
+            name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
+            replaces=f"avsr_tpu/ops/qmatmul.py:{line}",
+            launches=preset["launches"][name],
+            launches_by_path={"serve_preset": preset["launches"][name]},
+            max_abs_err=max(r["max_abs_err"] for r in qrows),
+            max_rel_err=max(r["max_rel_err"] for r in qrows),
+            edge_max_rel_err=qmm["edge_max_rel_err"],
+            ms=qtotal("ms"), plain_ms=qtotal("plain_ms"), bound_ms=qtotal("bound_ms"),
+            bound_by="operations" if qtotal("ops_ms") >= qtotal("bytes_ms") else "bytes",
+            library_ms=qtotal("library_ms"),
+            library_is="torch.matmul of the bf16 x with the weight dequantized to "
+                       "bf16 beforehand (cuBLAS), per shape",
+            dequant_matmul_ms=qtotal("dequant_matmul_ms"),
+            times_are="sums over the launches of one generate_tokens call of the "
+                      "serving preset (device time per launch from a replayed CUDA "
+                      "graph x launches); shapes with 0 launches are the use_8bit path",
+            shapes=qrows))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """PyTorch port's composition and serving path vs the JAX package (f32, CPU).
 
-Tolerances: 2e-4 atol/rtol on encoder features and prefixes, exact integer
+Tolerances: 2e-4 atol/rtol on encoder features and prefixes, 1e-4 on the
+quantized serving preset's prefill and decode-step logits, exact integer
 equality on packing, lengths and generated tokens.
 """
 
@@ -17,11 +18,14 @@ import torch
 from avsr_tpu.core.config import load_config as jload_config
 from avsr_tpu.models import avsr as javsr
 from avsr_tpu.models import llama as jllama
+from avsr_tpu.ops import quant as jquant
 from avsr_tpu_torch.cli import decode as tdecode
 from avsr_tpu_torch.convert import from_numpy_tree
 from avsr_tpu_torch.core import config as tcfg
 from avsr_tpu_torch.infer import generate as tgen
 from avsr_tpu_torch.models import avsr as tavsr
+from avsr_tpu_torch.models import llama as tllama
+from avsr_tpu_torch.ops import quant as tquant
 
 from test_torch_models import ENC_TOL, close, np_tree, randomize_lora_b, to_port_cfg
 
@@ -88,7 +92,7 @@ def test_encode_and_build_prefix(tiny, fusion):
     np.testing.assert_array_equal(plen_t.numpy(), np.asarray(plen_j))
 
 
-def _jax_step_logits(p, cfg, batch, n):
+def _jax_step_logits(p, cfg, batch, n, kv_int8=False):
     """Greedy step logits of the JAX package, step by step (the oracle of
     the margin check)."""
     enc = javsr.encode(p, cfg, batch, use_pallas="never")
@@ -96,6 +100,8 @@ def _jax_step_logits(p, cfg, batch, n):
     logits_all, cache = jllama.llama_apply(
         p["llm"], cfg.llm, inputs_embeds=prefix, lengths=plens, lora=cfg.lora,
         return_cache=True, cache_len=prefix.shape[1] + n, use_pallas="never")
+    if kv_int8:
+        cache = jllama.quantize_cache(cache)
     logits = jnp.take_along_axis(logits_all, (plens - 1)[:, None, None], axis=1)[:, 0]
     cur, out = plens, []
     for _ in range(n):
@@ -124,6 +130,100 @@ def test_greedy_generate_is_token_exact(tiny):
         assert np.all(top2[:, 1] - top2[:, 0] > 1e-3)
     close(stats["prefill_logits"], steps[0], ENC_TOL)
     assert len(set(out_t.tokens.flatten().tolist())) > 1   # not degenerate
+
+
+# ---------------------------------------------------------------------------
+# The quantized serving preset: int4 (or int8) projections, int8 head, int8
+# KV cache, the fused decode layout
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[4, 8], ids=["use_4bit", "use_8bit"])
+def tiny_q(request, tiny):
+    """Each package quantizes the same f32 tree its own way and prepares it
+    for decode with lm_head_bits=8 (the leaves agree exactly:
+    test_torch_quant.py)."""
+    bits = request.param
+    flag = "use_4bit" if bits == 4 else "use_8bit"
+    jc = jload_config(TINY_YAML, {"model.modality": "both", f"model.{flag}": True,
+                                  "decode.lm_head_bits": 8,
+                                  "decode.kv_cache_dtype": "int8"})
+    tc = tcfg.load_config(TINY_YAML, ["model.modality=both", f"model.{flag}=true",
+                                      "decode.lm_head_bits=8",
+                                      "decode.kv_cache_dtype=int8"])
+    p_j = dict(tiny["p_j"], llm=jquant.quantize_llm(tiny["p_j"]["llm"], bits))
+    p_t = dict(tiny["p_t"], llm=tquant.quantize_llm(tiny["p_t"]["llm"], bits))
+    return dict(tiny, jc=jc, tc=tc,
+                p_j=jgen.prepare_params_for_decode(p_j, jc.model, lm_head_bits=8),
+                p_t=tgen.prepare_params_for_decode(p_t, tc.model, lm_head_bits=8))
+
+
+def _prefill_and_step(p, cfg, batch, *, enc_mod, llm_mod, port, use_kernel="auto"):
+    """Prefill logits at each row's last position, the int8-quantized
+    cache, and the logits of one decode step on the greedy token."""
+    kw = {} if port else {"use_pallas": "never"}
+    enc = enc_mod.encode(p, cfg, batch, **kw)
+    prefix, plens = enc_mod.build_prefix(p, cfg, batch, enc)
+    lora = cfg.lora
+    hidden, cache = llm_mod.llama_apply(
+        p["llm"], cfg.llm, inputs_embeds=prefix, lengths=plens, lora=lora,
+        return_cache=True, cache_len=prefix.shape[1] + 4, output="hidden", **kw)
+    cache = llm_mod.quantize_cache(cache)
+    B = prefix.shape[0]
+    if port:
+        h_last = hidden[torch.arange(B), plens.long() - 1][:, None]
+        logits = llm_mod.compute_logits(p["llm"], cfg.llm, h_last, use_kernel)[:, 0]
+        nxt = logits.argmax(-1)
+        step, _ = llm_mod.llama_decode_step(
+            p["llm"], cfg.llm, x=llm_mod.embed_tokens(p["llm"], nxt[:, None]),
+            cache=cache, cur_lens=plens, lora=lora, use_kernel=use_kernel)
+        return logits, step
+    h_last = jnp.take_along_axis(hidden, (plens - 1)[:, None, None], axis=1)
+    logits = llm_mod.compute_logits(p["llm"], cfg.llm, h_last)[:, 0]
+    nxt = jnp.argmax(logits, axis=-1)
+    step, _ = llm_mod.llama_decode_step(
+        p["llm"], cfg.llm, x=llm_mod.embed_tokens(p["llm"], nxt[:, None]),
+        cache=cache, cur_lens=plens, lora=lora)
+    return logits, step
+
+
+def test_quantized_prefill_and_decode_step_logits(tiny_q):
+    r = tiny_q
+    lj, sj = _prefill_and_step(r["p_j"], r["jc"].model, r["b_j"], enc_mod=javsr,
+                               llm_mod=jllama, port=False)
+    lt, st = _prefill_and_step(r["p_t"], r["tc"].model, r["b_t"], enc_mod=tavsr,
+                               llm_mod=tllama, port=True)
+    close(lt, lj)
+    close(st, sj)
+
+
+def test_quantized_greedy_generate_is_token_exact(tiny_q):
+    r = tiny_q
+    n = r["jc"].decode.max_new_tokens
+    out_j = jgen.generate_tokens(r["p_j"], r["jc"].model, r["b_j"], max_new_tokens=n,
+                                 eos_id=EOS, use_pallas="never", kv_cache_dtype="int8")
+    out_t = tgen.generate_tokens(r["p_t"], r["tc"].model, r["b_t"], max_new_tokens=n,
+                                 eos_id=EOS, kv_cache_dtype="int8")
+    np.testing.assert_array_equal(out_t.tokens.numpy(), np.asarray(out_j.tokens))
+    np.testing.assert_array_equal(out_t.lengths.numpy(), np.asarray(out_j.lengths))
+    steps = _jax_step_logits(r["p_j"], r["jc"].model, r["b_j"], n, kv_int8=True)
+    for lg in steps:
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        assert np.all(top2[:, 1] - top2[:, 0] > 1e-3)
+    assert len(set(out_t.tokens.flatten().tolist())) > 1
+
+
+def test_quantized_always_path_near_auto(tiny_q):
+    """"always" sends every product of <= 64 rows through the kernels'
+    plain version, which rounds x to bf16 (relative 2^-9) where the CPU's
+    "auto" dequantizes in f32: logits within 2e-2 * their std."""
+    r = tiny_q
+    lt, st = _prefill_and_step(r["p_t"], r["tc"].model, r["b_t"], enc_mod=tavsr,
+                               llm_mod=tllama, port=True)
+    la, sa = _prefill_and_step(r["p_t"], r["tc"].model, r["b_t"], enc_mod=tavsr,
+                               llm_mod=tllama, port=True, use_kernel="always")
+    for auto, always in ((lt, la), (st, sa)):
+        d = (auto - always).abs().max().item()
+        assert 0 < d <= 2e-2 * auto.std().item(), (d, auto.std().item())
 
 
 def test_sampling_and_eos_lengths(tiny):
@@ -161,6 +261,18 @@ def test_cli_decode_writes_artifacts(tmp_path):
     assert len(results) == 1 and len(wers) == 1
     assert results[0].read_text().count("UTT: ") == 2
     assert "utterances: 2" in wers[0].read_text()
+
+
+def test_cli_decode_serving_preset_writes_artifacts(tmp_path):
+    rc = tdecode.main([
+        "--config", str(TINY_YAML), "--device", "cpu", "--seed", "1",
+        "model.modality=both", "data.synthetic=true", "model.use_4bit=true",
+        "decode.lm_head_bits=8", "decode.kv_cache_dtype=int8",
+        "decode.max_new_tokens=4", f"decode.output_dir={tmp_path}"])
+    assert rc == 0
+    assert len(list(tmp_path.glob("results_*.txt"))) == 1
+    wers = list(tmp_path.glob("wer_*.txt"))
+    assert len(wers) == 1 and "utterances: 2" in wers[0].read_text()
 
 
 def _fields_equal(port_dc, jax_dc, path=""):

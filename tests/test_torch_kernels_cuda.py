@@ -8,13 +8,17 @@ suite's conftest:
 
 Tolerances: bf16 O atol/rtol 2e-2 (P is rounded to bf16 before PV), f32 O
 1e-4, lse 1e-3; backward max|d| <= 2e-2 max|ref| in bf16 (P and dS are
-rounded to bf16 before their products) and 1e-4 max|ref| in f32.
+rounded to bf16 before their products) and 1e-4 max|ref| in f32; the
+weight-only matmuls max|d| <= 1e-4 max|ref| (the kernel and its plain
+version differ only in the order of their f32 sums).
 """
 
 import pytest
 import torch
 
 from avsr_tpu_torch.ops import attention as A
+from avsr_tpu_torch.ops import qmatmul as Q
+from avsr_tpu_torch.ops import quant
 
 
 @pytest.fixture
@@ -132,3 +136,58 @@ def test_bare_flash_attention_refuses_gradients(cuda):
     out = A.attention(q, q.detach(), q.detach(), causal=True)
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def _qnode(bits, K, N, g, device):
+    w = torch.randn((K, N), generator=g, device=device)
+    return quant.quantize_tensor(w, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("K,N", [(2048, 3072), (1000, 2050), (512, 1000)])
+def test_qmatmul_matches_plain_version(cuda, bits, M, K, N):
+    """int8 and int4 against qmatmul_reference: ragged M, N not a multiple
+    of the 128-column tile (2050 also not of 4, the byte-load path), bf16
+    and f32 x, f32 and bf16 output; one count per launch."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qp = _qnode(bits, K, N, g, cuda)
+    for x_dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((M, K), generator=g, device=cuda).to(x_dtype)
+        before = (Q.int8_launches, Q.int4_launches)
+        y = Q.qmatmul(x, qp)
+        ref = Q.qmatmul_reference(x, qp)
+        torch.cuda.synchronize()
+        assert (Q.int8_launches - before[0], Q.int4_launches - before[1]) == \
+            ((1, 0) if bits == 8 else (0, 1))
+        assert y.dtype == torch.float32 and y.shape == (M, N)
+        assert _rel_err(y, ref) <= 1e-4, _rel_err(y, ref)
+        yb = Q.qmatmul(x, qp, out_dtype=torch.bfloat16)
+        # one rounding of nearly equal f32 sums: at most a bf16 step apart
+        torch.testing.assert_close(yb.float(), ref.to(torch.bfloat16).float(),
+                                   atol=1e-4 * ref.abs().max().item(), rtol=1e-2)
+    with pytest.raises(ValueError):
+        Q.qmatmul(torch.zeros((M, K + 2), device=cuda), qp)   # K does not match
+
+
+@pytest.mark.cuda
+def test_qdot_auto_never_reaches_the_plain_version_on_cuda(cuda, monkeypatch):
+    """Under "auto" a CUDA tensor at decode shapes launches the kernel;
+    the plain version is never called, and "never" dequantizes."""
+    def refuse(*a, **kw):
+        raise AssertionError("qmatmul_reference called for a CUDA tensor")
+
+    monkeypatch.setattr(Q, "qmatmul_reference", refuse)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qp = _qnode(4, 256, 384, g, cuda)
+    qp["scale"] = qp["scale"].to(torch.bfloat16)       # as cast_frozen leaves it
+    x = torch.randn((2, 3, 256), generator=g, device=cuda, dtype=torch.bfloat16)
+    before = Q.int4_launches
+    y = quant.qdot(x, qp)
+    assert Q.int4_launches == before + 1 and y.shape == (2, 3, 384)
+    assert y.dtype == torch.bfloat16
+    y_never = quant.qdot(x, qp, use_kernel="never")
+    assert Q.int4_launches == before + 1
+    # the dequantize path rounds every weight (q * scale) to bf16
+    assert _rel_err(y, y_never) <= 1e-2, _rel_err(y, y_never)
