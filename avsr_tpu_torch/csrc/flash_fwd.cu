@@ -12,104 +12,461 @@
 // and rows with no valid key, get O = 0 and lse = +inf (the TPU kernel
 // returns mean(V) for the latter; the port follows mha_reference).
 //
-// Bound on the card. FLOPs are 4*B*H*Tq*Tk*D (halved when causal); bytes are
-// q + k + v + O + lse, each once. On the serving path (B=8, D=64, bf16):
+// Bound on the card. FLOPs are 4*D per valid (row, key) pair; bytes are the
+// valid rows of q, k, v read once plus all of O and lse written once
+// (chip_smoke.py::attn_bounds). At the main path's shapes (B=8, D=64, bf16):
 //   Whisper  [8,16,512,64] non-causal, 500 valid rows: 8.2 GFLOP -> 8.3 us
-//            at 989 TFLOP/s; 33.8 MB -> 10.1 us at 3.35 TB/s.
+//            at 989 TFLOP/s; 33.2 MB -> 9.9 us at 3.35 TB/s.
 //   LLM      q [8,32,533,64], k/v [8,8,533,64] causal: 9.3 GFLOP -> 9.4 us;
 //            44.2 MB -> 13.2 us.
-// Both are bound by bytes, closely followed by operations, so the kernel
-// has to stream each operand once and keep the tensor cores busy.
-// What the design does about it: S and P never leave the chip (they live in
-// registers and shared memory), K/V are read once per query tile instead of
-// once per query row, both products run on the tensor cores (wmma
-// 16x16x16 bf16 with f32 accumulators), and tiles past the causal diagonal,
-// past kv_len and wholly past q_len are skipped. This first version uses
-// neither wgmma nor TMA nor a pipelined K/V ring, so it stays well short of
-// the bound; those are the next steps.
+//   train    q [8,32,672,64] causal, 581 valid rows: 15.3 us by bytes.
+// All are bound by bytes, closely followed by operations, so the kernel has
+// to stream each operand once and keep the tensor cores busy.
 //
-// Layout of one CTA: 64 query rows of one (b, h); 4 warps of 16 rows each.
-// K/V tiles of 64 rows are staged in shared memory. Each warp computes its
-// 16x64 score tile with wmma into f32 scratch; then lane pair (2r, 2r+1)
-// owns row r, each lane 32 of its 64 scores, for the online softmax in f32;
-// P is written to shared memory in the value dtype (as the TPU kernel casts
-// p before its PV product) and PV runs on wmma again; the O accumulator of
-// a row lives in its lane pair's registers (D/2 floats per lane). float32
-// inputs take the same path with scalar FMAs instead of wmma.
+// bfloat16 design (flash_fwd_bf16_kernel). A tile is 128 query rows of one
+// (b, h). The CTAs are persistent, one per SM, and walk a shared tile list
+// (CTA c takes tiles c, c + #SMs, ...) whose order puts the last q tile
+// first, so that the heaviest causal tiles start first, and keeps the query
+// heads of one kv head next to each other, so that they read its K/V from
+// L2 (at most 172 KB per kv head at the main path's shapes). A CTA has three
+// warpgroups:
+//   * a producer warpgroup (40 registers a thread after setmaxnreg), one
+//     thread of which issues the TMA loads: each tile's Q into one buffer
+//     (once the consumers have released the previous tile's), and the K
+//     and V tiles (128 keys for D = 64, 64 for D = 128) into a ring of
+//     three stages. "full" mbarriers count the TMA bytes, "empty" ones the
+//     consumer threads that are done. The ring runs on across tiles, so the
+//     next tile's loads overlap the current tile's last blocks and epilogue.
+//   * two consumer warpgroups (232 registers) of 64 query rows each. Per
+//     K/V tile: S = Q K^T by wgmma m64n128k16 (m64n64k16 for D = 128) with
+//     both operands in shared memory and the f32 accumulators in
+//     registers; the mask (kj < kv_len, kj <= qi when causal; only on the
+//     last tiles, which cross kv_len or the diagonal) before the
+//     exponential, so P is exactly 0 there; online softmax in f32 in the
+//     accumulator layout (a row lives in a quad of lanes, its max is
+//     reduced by two shuffles, its sum once at the end) with the MUFU's
+//     2^x; P rounded to bf16 in registers (as the TPU kernel casts p before
+//     PV) as the register A operand of O += P V (wgmma m64n64k16 per
+//     64-column panel of V, which is MN-major, so the instruction
+//     transposes it). S and P never touch shared memory.
+//   * Epilogue: O / l into a swizzled shared tile and out by one TMA store
+//     (rows past Tq are clipped by the tensor map), lse as plain f32.
+// Tensor maps are 3-D over [B*H, Tq, D] and [B*Hkv, Tk, D] with 128-byte
+// swizzle, so a tile past Tq or Tk arrives as zeros and never as the next
+// head's rows; keys between kv_len and Tk arrive as they are and are masked.
+// Blocks past the causal diagonal and tiles wholly past q_len are never
+// loaded.
+//
+// float32 inputs take the first design's scalar path (flash_fwd_f32_kernel):
+// 64-row tiles, 4 warps, lane pair (2r, 2r+1) owning score row r, FMAs on
+// the CUDA cores. avsr_flash_fwd dispatches on the dtype.
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::from_float;
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 128;          // query rows of a CTA
+constexpr int STAGES = 3;        // K/V ring depth
+constexpr int CONSUMERS = 2;     // consumer warpgroups, 64 query rows each
+constexpr int THREADS_BF16 = (CONSUMERS + 1) * 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Dynamic shared-memory layout (byte offsets from a 1024-byte boundary).
+template <int D>
+struct Layout {
+  // keys of a K/V tile: 128 for D = 64; 64 for D = 128, whose O
+  // accumulator is twice as large, so that scores, P and O stay in registers
+  static constexpr int BN = D == 64 ? 128 : 64;
+  static constexpr int P = D / hopper::PANEL_COLS;      // 64-column panels
+  static constexpr int kQPanel = BM * hopper::ROW_BYTES;
+  static constexpr int kKVPanel = BN * hopper::ROW_BYTES;
+  static constexpr int kOPanel = 64 * hopper::ROW_BYTES;  // one warpgroup's rows
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + P * kQPanel;
+  static constexpr int kV = kK + STAGES * P * kKVPanel;
+  static constexpr int kO = kV + STAGES * P * kKVPanel;
+  static constexpr int kBar = kO + CONSUMERS * P * kOPanel;
+  static constexpr int kBytes = kBar + (2 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
+};
+
+// One tile of work: 128 query rows of one (b, h), and the K/V tiles it
+// reads.
+struct Tile {
+  int b, h, q0, q_len, kv_len, n_blocks;
+};
+
+// Tile t of the list the persistent CTAs share: the q tile in the slowest
+// position, last first (the heaviest causal tiles start first), then the
+// batch row, then the head, so that the query heads of one kv head are
+// neighbours and read the same K/V from L2.
+template <int BN>
+__device__ __forceinline__ Tile tile_at(int t, int B, int H, int Tq, int Tk,
+                                        int causal,
+                                        const int* __restrict__ q_lens,
+                                        const int* __restrict__ kv_lens) {
+  const int n_qt = (Tq + BM - 1) / BM;
+  Tile w;
+  w.q0 = (n_qt - 1 - t / (B * H)) * BM;
+  w.b = (t % (B * H)) / H;
+  w.h = t % H;
+  w.q_len = max(0, min(q_lens[w.b], Tq));
+  w.kv_len = max(0, min(kv_lens[w.b], Tk));
+  // Keys the tile needs: below kv_len and, when causal, not past its last
+  // valid row. A tile wholly at or past q_len loads nothing.
+  int kv_end = w.kv_len;
+  if (causal) kv_end = min(kv_end, min(w.q0 + BM, w.q_len));
+  w.n_blocks = w.q0 < w.q_len ? (kv_end + BN - 1) / BN : 0;
+  return w;
+}
+
+// Issues S = Q K^T of one K/V tile for a warpgroup's 64 query rows (one
+// wgmma per k16 step; the caller fences, commits and waits).
+template <int D, int BN>
+__device__ __forceinline__ void issue_s(float (&sc)[BN / 2], const uint8_t* sq,
+                                        const uint8_t* sk) {
+  constexpr int kQPanel = BM * hopper::ROW_BYTES;
+  constexpr int kKVPanel = BN * hopper::ROW_BYTES;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const int p = k / 4;
+    const int kb = (k % 4) * 32;   // bytes of a k16 step within a row
+    hopper::wgmma_ss<BN>(sc, hopper::desc_sw128(sq + p * kQPanel + kb),
+                         hopper::desc_sw128(sk + p * kKVPanel + kb), k > 0);
+  }
+}
+
+// The online-softmax state of a thread's two rows: running max (in units of
+// log2, already scaled), partial sums (the thread's columns only), and the
+// factors that rescale O for the latest block.
+struct Softmax {
+  float m0, m1, l0, l1, al0, al1;
+};
+
+// Masks one block of scores (keys kv0.. of rows qa, qb) with the kernel's
+// rule when MASK, updates the running max and sums, and leaves
+// P = exp(S - max) in `sc` (f32).
+template <int BN, bool MASK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], Softmax& sm,
+                                               int kv0, int kv_len, int qa,
+                                               int qb, int causal,
+                                               float scale_log2) {
+  const int cq = (threadIdx.x & 3) * 2;
+  if constexpr (MASK) {
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = kv0 + 8 * i + cq + (e & 1);
+        const int qi = e < 2 ? qa : qb;
+        if (!(kj < kv_len && (!causal || kj <= qi))) sc[4 * i + e] = -INFINITY;
+      }
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(sm.m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(sm.m1, mx1 * scale_log2);
+  // A row with no valid key so far keeps m = -inf; exponentiate against 0
+  // so that exp(-inf - m) is 0 rather than NaN.
+  const float mu0 = mn0 == -INFINITY ? 0.0f : mn0;
+  const float mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+  sm.al0 = hopper::ex2(sm.m0 - mu0);
+  sm.al1 = hopper::ex2(sm.m1 - mu1);
+  float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    sc[4 * i] = hopper::ex2(fmaf(sc[4 * i], scale_log2, -mu0));
+    sc[4 * i + 1] = hopper::ex2(fmaf(sc[4 * i + 1], scale_log2, -mu0));
+    sc[4 * i + 2] = hopper::ex2(fmaf(sc[4 * i + 2], scale_log2, -mu1));
+    sc[4 * i + 3] = hopper::ex2(fmaf(sc[4 * i + 3], scale_log2, -mu1));
+    rs0 += sc[4 * i] + sc[4 * i + 1];
+    rs1 += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  sm.l0 = sm.l0 * sm.al0 + rs0;
+  sm.l1 = sm.l1 * sm.al1 + rs1;
+  sm.m0 = mn0;
+  sm.m1 = mn1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o,
+                      const int* __restrict__ q_lens,
+                      const int* __restrict__ kv_lens, float* __restrict__ lse,
+                      int B, int H, int Hkv, int Tq, int Tk, int causal,
+                      float scale_log2) {
+  using namespace hopper;
+  using L = Layout<D>;
+  constexpr int P = L::P;
+  constexpr int BN = L::BN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* kv_full = q_full + 2;
+  uint64_t* kv_empty = kv_full + STAGES;
+  const int n_tiles = (Tq + BM - 1) / BM * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS * 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMERS * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The CTAs are persistent: CTA c takes tiles c, c + gridDim.x, ... The
+  // ring's stage and phase run on across tiles (kv_it counts the K/V tiles
+  // loaded, q_it the Q tiles), so the producer loads the next tile's Q and
+  // K/V while the consumers finish the current one.
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int kv_it = 0, q_it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const Tile w = tile_at<BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
+        if (w.n_blocks == 0) continue;
+        const int bhk = w.b * Hkv + w.h / (H / Hkv);
+        mbar_wait(q_empty, (q_it++ & 1) ^ 1);   // every consumer is done with Q
+        mbar_arrive_expect_tx(q_full, P * L::kQPanel);
+        for (int p = 0; p < P; ++p) {
+          tma_load_3d(smem + L::kQ + p * L::kQPanel, &tm_q, q_full, p * PANEL_COLS,
+                      w.q0, w.b * H + w.h);
+        }
+        for (int j = 0; j < w.n_blocks; ++j, ++kv_it) {
+          const int s = kv_it % STAGES;
+          mbar_wait(&kv_empty[s], ((kv_it / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&kv_full[s], 2 * P * L::kKVPanel);
+          for (int p = 0; p < P; ++p) {
+            const int off = (s * P + p) * L::kKVPanel;
+            tma_load_3d(smem + L::kK + off, &tm_k, &kv_full[s], p * PANEL_COLS,
+                        j * BN, bhk);
+            tma_load_3d(smem + L::kV + off, &tm_v, &kv_full[s], p * PANEL_COLS,
+                        j * BN, bhk);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+    const int cq = (lane & 3) * 2;                // first column of each pair
+    const uint8_t* sq = smem + L::kQ + wg * 64 * ROW_BYTES;
+    uint8_t* so = smem + L::kO + wg * P * L::kOPanel;
+    int kv_it = 0, q_it = 0;
+
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const Tile w = tile_at<BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
+      const int wq0 = w.q0 + wg * 64;
+      const int qa = wq0 + r;
+      const int qb = qa + 8;
+
+      float o[P][32];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+      }
+      // running max (in units of log2, already scaled) and partial sums
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+      if (w.n_blocks > 0) mbar_wait(q_full, q_it++ & 1);
+      for (int j = 0; j < w.n_blocks; ++j, ++kv_it) {
+        const int s = kv_it % STAGES;
+        mbar_wait(&kv_full[s], (kv_it / STAGES) & 1);
+        float sc[BN / 2];
+        wgmma_fence();
+        issue_s<D, BN>(sc, sq, smem + L::kK + s * P * L::kKVPanel);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (j == w.n_blocks - 1) mbar_arrive(q_empty);   // Q is read for good
+
+        // Only the last blocks, which cross kv_len or the diagonal, mask.
+        Softmax sm{m0, m1, l0, l1, 1.0f, 1.0f};
+        if ((j + 1) * BN > w.kv_len || (causal && (j + 1) * BN - 1 > wq0)) {
+          online_softmax<BN, true>(sc, sm, j * BN, w.kv_len, qa, qb, causal,
+                                   scale_log2);
+        } else {
+          online_softmax<BN, false>(sc, sm, j * BN, w.kv_len, qa, qb, causal,
+                                    scale_log2);
+        }
+        m0 = sm.m0; m1 = sm.m1; l0 = sm.l0; l1 = sm.l1;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[p][4 * i] *= sm.al0;
+            o[p][4 * i + 1] *= sm.al0;
+            o[p][4 * i + 2] *= sm.al1;
+            o[p][4 * i + 3] *= sm.al1;
+          }
+        }
+
+        // O += P V with P in registers as bf16; the rescaled O and P are
+        // complete before the products that read them.
+        uint32_t pa[BN / 16][4];
+        acc_to_a<BN>(sc, pa);
+        fence_regs(pa);
+#pragma unroll
+        for (int p = 0; p < P; ++p) fence_regs(o[p]);
+        wgmma_fence();
+        const uint8_t* sv = smem + L::kV + s * P * L::kKVPanel;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            wgmma_rs<64>(o[p], pa[kk],
+                         desc_sw128(sv + p * L::kKVPanel + kk * 16 * ROW_BYTES), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < P; ++p) fence_regs(o[p]);
+        fence_regs(pa);
+        mbar_arrive(&kv_empty[s]);
+      }
+
+      // ---- epilogue ----
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const bool ok0 = qa < w.q_len && l0 > 0.0f;
+      const bool ok1 = qb < w.q_len && l1 > 0.0f;
+      const float inv0 = ok0 ? 1.0f / l0 : 0.0f;
+      const float inv1 = ok1 ? 1.0f / l1 : 0.0f;
+      const size_t row0 = size_t(w.b * H + w.h) * Tq;
+      if ((lane & 3) == 0) {
+        if (qa < Tq) lse[row0 + qa] = ok0 ? m0 * LN2 + logf(l0) : INFINITY;
+        if (qb < Tq) lse[row0 + qb] = ok1 ? m1 * LN2 + logf(l1) : INFINITY;
+      }
+      named_sync(1 + wg, 128);   // the previous tile's store has read `so`
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          *reinterpret_cast<uint32_t*>(so + p * L::kOPanel +
+                                       swizzled_offset(r, 8 * i + cq)) =
+              pack_bf16(o[p][4 * i] * inv0, o[p][4 * i + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(so + p * L::kOPanel +
+                                       swizzled_offset(r + 8, 8 * i + cq)) =
+              pack_bf16(o[p][4 * i + 2] * inv1, o[p][4 * i + 3] * inv1);
+        }
+      }
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+      if (tid == 0 && wq0 < Tq) {
+        for (int p = 0; p < P; ++p) {
+          tma_store_3d(&tm_o, so + p * L::kOPanel, p * PANEL_COLS, wq0,
+                       w.b * H + w.h);
+        }
+        tma_store_drain();
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* q_lens, const void* kv_lens, void* o,
+                        void* lse, int B, int H, int Hkv, int Tq, int Tk,
+                        int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, BM) ||
+      !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, Layout<D>::BN) ||
+      !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, D, Layout<D>::BN) ||
+      !hopper::make_tmap_bf16(&to, o, B * H, Tq, D, 64)) {
+    return cudaErrorNotSupported;
+  }
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  const int bytes = Layout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (long long)((Tq + BM - 1) / BM) * B * H;
+  if (n_tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+  const int grid = int(n_tiles < sms ? n_tiles : sms);   // one CTA per SM
+  kernel<<<grid, THREADS_BF16, bytes, stream>>>(
+      tq, tk, tv, to, static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), static_cast<float*>(lse), B, H, Hkv,
+      Tq, Tk, causal, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: the scalar path
+// ---------------------------------------------------------------------------
+
 using flash::HALF;
 using flash::ROWS_PER_WARP;
 using flash::THREADS;
-using flash::WARPS;
-constexpr int BLOCK_Q = flash::BLOCK;
-constexpr int BLOCK_K = flash::BLOCK;
+constexpr int BLOCK = flash::BLOCK;
 
-// Dynamic shared-memory layout (byte offsets), shared by host and device:
-// Q, K, V tiles, the warps' f32 scratch, the warps' P tiles.
-template <typename T, int D>
-struct Smem : flash::Geometry<T, D> {
-  using G = flash::Geometry<T, D>;
+// Q, K, V tiles and the warps' P tiles (byte offsets).
+template <int D>
+struct SmemF32 : flash::Geometry<float, D> {
+  using G = flash::Geometry<float, D>;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = G::kTile;
   static constexpr size_t kV = 2 * G::kTile;
-  static constexpr size_t kS = 3 * G::kTile;
-  static constexpr size_t kP = kS + G::kScratch;
+  static constexpr size_t kP = 3 * G::kTile;
   static constexpr size_t kTotal = kP + G::kWarpP;
 };
 
-// P V for the warp's 16 rows on the tensor cores, into f32 scratch [16, D].
 template <int D>
-__device__ __forceinline__ void pv_wmma(const __nv_bfloat16* pw,
-                                        const __nv_bfloat16* sV,
-                                        float* scratch) {
-  using namespace nvcuda;
-  constexpr int LDT = Smem<__nv_bfloat16, D>::LDT;
-  constexpr int LDP = Smem<__nv_bfloat16, D>::LDP;
-  constexpr int LDS = Smem<__nv_bfloat16, D>::LDS;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
-      wmma::load_matrix_sync(a, pw + kk * 16, LDP);
-      wmma::load_matrix_sync(b, sV + kk * 16 * LDT + n * 16, LDT);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(scratch + n * 16, c, LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ q_lens,
-                 const int* __restrict__ kv_lens, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
-                 int causal, float scale) {
-  using L = Smem<T, D>;
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ q_lens,
+                     const int* __restrict__ kv_lens, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
+                     int causal, float scale) {
+  using L = SmemF32<D>;
   constexpr int DH = D / 2;          // output columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  T* sP = reinterpret_cast<T*>(smem + L::kP);
+  float* sQ = reinterpret_cast<float*>(smem + L::kQ);
+  float* sK = reinterpret_cast<float*>(smem + L::kK);
+  float* sV = reinterpret_cast<float*>(smem + L::kV);
+  float* sP = reinterpret_cast<float*>(smem + L::kP);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * BLOCK_Q;
+  const int q0 = blockIdx.x * BLOCK;
   const int q_len = max(0, min(q_lens[b], Tq));
   const int kv_len = max(0, min(kv_lens[b], Tk));
 
@@ -119,18 +476,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = lane & 1;    // which half of the row this lane owns
   const int row = warp * ROWS_PER_WARP + r;
   const int qi = q0 + row;      // query position
-  T* pw = sP + warp * ROWS_PER_WARP * L::LDP;
-  float* scratch = reinterpret_cast<float*>(smem + L::kS) +
-                   warp * ROWS_PER_WARP * L::LDS;
+  float* pw = sP + warp * ROWS_PER_WARP * L::LDP;
 
   const size_t q_head = (size_t(b) * H + h) * Tq;     // row offsets
   const size_t kv_head = (size_t(b) * Hkv + hk) * Tk;
 
-  // Keys this tile needs: below kv_len and, when causal, not past its last
-  // valid row. A tile wholly at or past q_len runs no block at all.
   int kv_end = kv_len;
-  if (causal) kv_end = min(kv_end, min(q0 + BLOCK_Q, q_len));
-  const int n_blocks = q0 < q_len ? (kv_end + BLOCK_K - 1) / BLOCK_K : 0;
+  if (causal) kv_end = min(kv_end, min(q0 + BLOCK, q_len));
+  const int n_blocks = q0 < q_len ? (kv_end + BLOCK - 1) / BLOCK : 0;
 
   float acc[DH];
 #pragma unroll
@@ -138,20 +491,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_i = -INFINITY;
   float l_i = 0.0f;
 
-  if (n_blocks > 0) flash::load_tile<T, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
+  if (n_blocks > 0) flash::load_tile<float, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
 
   for (int blk = 0; blk < n_blocks; ++blk) {
-    const int kv0 = blk * BLOCK_K;
+    const int kv0 = blk * BLOCK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    flash::load_tile<T, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
-    flash::load_tile<T, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
     __syncthreads();
 
     float s[HALF];
-    flash::warp_abt<T, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, scratch, r,
-                          half, s);
+    flash::warp_abt<float, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, nullptr,
+                              r, half, s);
 
-    // Online softmax in f32; the lane pair shares the row's max and sum.
+    // Online softmax; the lane pair shares the row's max and sum.
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < HALF; ++i) {
@@ -171,55 +524,49 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < HALF; ++i) {
       const float p = __expf(s[i] - m_use);
       rs += p;
-      pw[r * L::LDP + half * HALF + i] = from_float<T>(p);
+      pw[r * L::LDP + half * HALF + i] = p;
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     l_i = l_i * alpha + rs;
     m_i = m_new;
 #pragma unroll
     for (int j = 0; j < DH; ++j) acc[j] *= alpha;
-    __syncwarp();  // P complete (and the score scratch read) before PV
+    __syncwarp();  // P complete before PV
 
-    if constexpr (L::kWmma) {
-      pv_wmma<D>(pw, sV, scratch);
+    for (int c = 0; c < BLOCK; ++c) {
+      const float p = pw[r * L::LDP + c];
+      const float* vr = sV + c * L::LDT + half * DH;
 #pragma unroll
-      for (int j = 0; j < DH; ++j) acc[j] += scratch[r * L::LDS + half * DH + j];
-    } else {
-      for (int c = 0; c < BLOCK_K; ++c) {
-        const float p = pw[r * L::LDP + c];
-        const T* vr = sV + c * L::LDT + half * DH;
-#pragma unroll
-        for (int j = 0; j < DH; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
-      }
+      for (int j = 0; j < DH; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
     }
-    __syncwarp();  // scratch and P are rewritten by the next block
+    __syncwarp();  // P is rewritten by the next block
   }
 
   if (qi < Tq) {
     const bool valid = qi < q_len && l_i > 0.0f;
     const float inv = valid ? 1.0f / l_i : 0.0f;
-    T* orow = o + (q_head + qi) * D + half * DH;
+    float* orow = o + (q_head + qi) * D + half * DH;
 #pragma unroll
-    for (int j = 0; j < DH; ++j) orow[j] = from_float<T>(acc[j] * inv);
+    for (int j = 0; j < DH; ++j) orow[j] = acc[j] * inv;
     if (half == 0) lse[q_head + qi] = valid ? m_i + logf(l_i) : INFINITY;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_lens, const void* kv_lens, void* o, void* lse,
-                   int B, int H, int Hkv, int Tq, int Tk, int causal,
-                   float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  const int bytes = int(Smem<T, D>::kTotal);
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* q_lens, const void* kv_lens, void* o,
+                       void* lse, int B, int H, int Hkv, int Tq, int Tk,
+                       int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_kernel<D>;
+  const int bytes = int(SmemF32<D>::kTotal);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BLOCK_Q - 1) / BLOCK_Q, H, B);
+  const dim3 grid((Tq + BLOCK - 1) / BLOCK, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_lens),
-      static_cast<const int*>(kv_lens), static_cast<T*>(o),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), static_cast<float*>(o),
       static_cast<float*>(lse), H, Hkv, Tq, Tk, causal, scale);
   return cudaGetLastError();
 }
@@ -227,8 +574,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Returns 0 on success, else the cudaError_t of the failed call (the launch
-// is checked with cudaGetLastError right after it is enqueued).
-// is_f32: 0 for bfloat16 operands, 1 for float32. D must be 64 or 128.
+// is checked with cudaGetLastError right after it is enqueued;
+// cudaErrorNotSupported if a tensor map could not be encoded).
+// is_f32: 0 for bfloat16 operands (the wgmma kernel), 1 for float32 (the
+// scalar kernel). D must be 64 or 128.
 extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_lens, const void* kv_lens, void* o,
                               void* lse, int B, int H, int Hkv, int Tq, int Tk,
@@ -239,21 +588,16 @@ extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AVSR_FWD(FN, DD)                                                    \
+  return int(FN<DD>(q, k, v, q_lens, kv_lens, o, lse, B, H, Hkv, Tq, Tk, \
+                    causal, scale, s))
   if (is_f32) {
-    if (D == 64)
-      return int(launch<float, 64>(q, k, v, q_lens, kv_lens, o, lse, B, H, Hkv,
-                                   Tq, Tk, causal, scale, s));
-    if (D == 128)
-      return int(launch<float, 128>(q, k, v, q_lens, kv_lens, o, lse, B, H,
-                                    Hkv, Tq, Tk, causal, scale, s));
+    if (D == 64) AVSR_FWD(launch_f32, 64);
+    if (D == 128) AVSR_FWD(launch_f32, 128);
   } else {
-    if (D == 64)
-      return int(launch<__nv_bfloat16, 64>(q, k, v, q_lens, kv_lens, o, lse, B,
-                                           H, Hkv, Tq, Tk, causal, scale, s));
-    if (D == 128)
-      return int(launch<__nv_bfloat16, 128>(q, k, v, q_lens, kv_lens, o, lse,
-                                            B, H, Hkv, Tq, Tk, causal, scale,
-                                            s));
+    if (D == 64) AVSR_FWD(launch_bf16, 64);
+    if (D == 128) AVSR_FWD(launch_bf16, 128);
   }
+#undef AVSR_FWD
   return int(cudaErrorInvalidValue);
 }

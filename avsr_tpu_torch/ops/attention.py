@@ -12,7 +12,8 @@ The counterpart of ``avsr_tpu/ops/attention.py``:
   * ``flash_bwd_dq`` / ``flash_bwd_dkv`` — the wrappers of the CUDA kernels
     of ``csrc/flash_bwd.cu`` (the ports of ``_flash_bwd_dq_kernel`` and
     ``_flash_bwd_dkv_kernel``); ``flash_attention_bwd_reference`` is their
-    plain version.
+    plain version. dQ also returns delta = rowsum(dO * O), which dK/dV
+    reads in place of O.
   * ``FlashAttention`` — the autograd Function around the three kernels,
     the counterpart of the JAX ``_flash_core`` custom VJP.
   * ``attention`` — the dispatch, with the JAX package's predicate.
@@ -144,46 +145,54 @@ def flash_attention_reference(
     return o.to(q.dtype), lse
 
 
-def _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal, sm_scale):
-    """(P, dS) [B,H,Tq,Tk] f32 as both backward kernels recompute them."""
-    B, H, Tq, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
+def _bwd_mask(q, k, q_lens, kv_lens, causal):
+    B, _, Tq, _ = q.shape
+    Tk = k.shape[2]
     if causal and Tq != Tk:
         raise ValueError(f"causal flash attention needs Tq == Tk, got {Tq}, {Tk}")
-    g = H // Hkv
-    scale = _scale(sm_scale, D)
+    return _flash_mask(B, Tq, Tk, q_lens, kv_lens, causal, q.device)
+
+
+def _bwd_terms(q, k, v, lse, delta, do, mask, sm_scale):
+    """(P, dS, dO with rows without keys zeroed) [B,H,Tq,Tk] f32 as both
+    backward kernels recompute them."""
+    g = q.shape[1] // k.shape[1]
+    scale = _scale(sm_scale, q.shape[-1])
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    mask = _flash_mask(B, Tq, Tk, q_lens, kv_lens, causal, q.device)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     # rows past q_len carry nothing back (their dO is never read)
     dof = torch.where(mask.any(dim=-1, keepdim=True), do.float(), 0.0)
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)            # [B,H,Tq,1]
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    return p, p * (dp - delta), dof
+    return p, p * (dp - delta[..., None]), dof
 
 
 def flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
-                           causal=False, sm_scale=None) -> torch.Tensor:
-    """The plain version of the dQ kernel: scale * (dS in K's dtype) K."""
-    g = q.shape[1] // k.shape[1]
-    _, ds, _ = _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal, sm_scale)
-    kf = k.float().repeat_interleave(g, dim=1)
+                           causal=False, sm_scale=None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dQ kernel: (scale * (dS in K's dtype) K,
+    delta), with delta = rowsum(dO * O) [B,H,Tq] f32 from the saved O, 0
+    on rows past q_len and rows without keys."""
+    mask = _bwd_mask(q, k, q_lens, kv_lens, causal)
+    dof = torch.where(mask.any(dim=-1, keepdim=True), do.float(), 0.0)
+    delta = (dof * o.float()).sum(dim=-1)
+    _, ds, _ = _bwd_terms(q, k, v, lse, delta, do, mask, sm_scale)
+    kf = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     dq = torch.matmul(ds.to(k.dtype).float(), kf)
-    return (dq * _scale(sm_scale, q.shape[-1])).to(q.dtype)
+    return (dq * _scale(sm_scale, q.shape[-1])).to(q.dtype), delta
 
 
-def flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
-                            causal=False, sm_scale=None
+def flash_bwd_dkv_reference(q, k, v, lse, delta, do, q_lens=None,
+                            kv_lens=None, causal=False, sm_scale=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the dK/dV kernel: dK = (scale * dS in q's
     dtype)^T Q and dV = (P in dO's dtype)^T dO, summed over each kv head's
-    query heads."""
+    query heads, with delta from :func:`flash_bwd_dq_reference`."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    p, ds, dof = _bwd_terms(q, k, v, o, lse, do, q_lens, kv_lens, causal,
-                            sm_scale)
+    mask = _bwd_mask(q, k, q_lens, kv_lens, causal)
+    p, ds, dof = _bwd_terms(q, k, v, lse, delta, do, mask, sm_scale)
     ds = (ds * _scale(sm_scale, D)).to(q.dtype).float()
     dk = torch.matmul(ds.transpose(-1, -2), q.float())             # [B,H,Tk,D]
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
@@ -202,9 +211,9 @@ def flash_attention_bwd_reference(
     forward's inputs, its saved O and lse, and dO, with the kernels'
     masking and rounding (P recomputed from lse; delta = rowsum(dO * O) in
     f32 from the saved O). Rows at or past q_len get dq = 0."""
-    dq = flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens, causal,
-                                sm_scale)
-    dk, dv = flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+    dq, delta = flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+                                       causal, sm_scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, lse, delta, do, q_lens, kv_lens,
                                      causal, sm_scale)
     return dq, dk, dv
 
@@ -214,7 +223,7 @@ def flash_attention_bwd_reference(
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_N_PTRS = {"avsr_flash_fwd": 7, "avsr_flash_bwd_dq": 9, "avsr_flash_bwd_dkv": 10}
+_N_PTRS = {"avsr_flash_fwd": 7, "avsr_flash_bwd_dq": 10, "avsr_flash_bwd_dkv": 10}
 
 
 def _kernel_fn(source: str, symbol: str):
@@ -314,54 +323,64 @@ def flash_attention(
     return out, lse
 
 
-def _check_bwd(name: str, q, k, v, o, lse, do, causal):
+def _check_bwd(name: str, q, k, v, do, causal, **rows):
+    """Validates the backward's operands; ``rows`` are the [B, H, Tq] f32
+    ones (lse, delta). Returns (B, H, Hkv, Tq, Tk, D)."""
     dims = _check_qkv(name, q, k, v, causal)
     B, H, _, Tq, _, _ = dims
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
-            or do.dtype != q.dtype:
-        raise ValueError(f"{name}: o and do must match q's shape and dtype")
-    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
-        raise ValueError(f"{name}: lse must be float32 of shape {(B, H, Tq)}")
-    _check_ptrs(name, q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do must match q's shape and dtype")
+    for key, t in rows.items():
+        if t.shape != (B, H, Tq) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32 of shape {(B, H, Tq)}")
+    _check_ptrs(name, q.device, q=q, k=k, v=v, do=do, **rows)
     return dims
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
                  causal: bool = False, sm_scale: float | None = None
-                 ) -> torch.Tensor:
-    """dQ [B,H,Tq,D] in q's dtype from the forward's q, k, v, its O and lse,
-    and dO (all contiguous, one dtype). A CPU tensor takes
-    :func:`flash_bwd_dq_reference`; a CUDA tensor launches the kernel."""
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dQ [B,H,Tq,D] in q's dtype, delta [B,H,Tq] f32) from the forward's
+    q, k, v, its O and lse, and dO (all contiguous, one dtype); delta =
+    rowsum(dO * O), 0 past q_len, is what :func:`flash_bwd_dkv` reads. A
+    CPU tensor takes :func:`flash_bwd_dq_reference`; a CUDA tensor launches
+    the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens,
                                       causal, sm_scale)
-    dims = _check_bwd("flash_bwd_dq", q, k, v, o, lse, do, causal)
-    B, _, _, Tq, Tk, D = dims
+    dims = _check_bwd("flash_bwd_dq", q, k, v, do, causal, lse=lse)
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError("flash_bwd_dq: o must match q's shape and dtype")
+    _check_ptrs("flash_bwd_dq", q.device, o=o)
+    B, H, _, Tq, Tk, D = dims
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", "avsr_flash_bwd_dq", [q, k, v, o, lse, do, ql, kl, dq],
-            dims, q.dtype, causal, _scale(sm_scale, D), q.device)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd", "avsr_flash_bwd_dq",
+            [q, k, v, o, lse, do, ql, kl, dq, delta], dims, q.dtype, causal,
+            _scale(sm_scale, D), q.device)
     global dq_launches
     dq_launches += 1
-    return dq
+    return dq, delta
 
 
-def flash_bwd_dkv(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
+def flash_bwd_dkv(q, k, v, lse, delta, do, q_lens=None, kv_lens=None,
                   causal: bool = False, sm_scale: float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B,Hkv,Tk,D] in k's and v's dtype, from the same inputs as
-    :func:`flash_bwd_dq`. A CPU tensor takes
+    """(dK, dV) [B,Hkv,Tk,D] in k's and v's dtype, from the forward's q, k,
+    v and lse, the delta of :func:`flash_bwd_dq` and dO. A CPU tensor takes
     :func:`flash_bwd_dkv_reference`; a CUDA tensor launches the kernel."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, o, lse, do, q_lens, kv_lens,
-                                       causal, sm_scale)
-    dims = _check_bwd("flash_bwd_dkv", q, k, v, o, lse, do, causal)
+        return flash_bwd_dkv_reference(q, k, v, lse, delta, do, q_lens,
+                                       kv_lens, causal, sm_scale)
+    dims = _check_bwd("flash_bwd_dkv", q, k, v, do, causal, lse=lse,
+                      delta=delta)
     B, _, _, Tq, Tk, D = dims
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_bwd", "avsr_flash_bwd_dkv",
-            [q, k, v, o, lse, do, ql, kl, dk, dv], dims, q.dtype, causal,
+            [q, k, v, lse, delta, do, ql, kl, dk, dv], dims, q.dtype, causal,
             _scale(sm_scale, D), q.device)
     global dkv_launches
     dkv_launches += 1
@@ -389,8 +408,8 @@ class FlashAttention(torch.autograd.Function):
         # dO arrives as the gradient of a transpose-reshape in the model:
         # not contiguous, and the kernels read it by rows
         do = do.contiguous()
-        dq = flash_bwd_dq(q, k, v, o, lse, do, *ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, *ctx.args)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, *ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

@@ -5,8 +5,9 @@
 1. Builds every CUDA kernel of the port from the sources in this checkout.
 2. Kernel phase: calls each kernel's wrapper at the shapes the serving path
    gives it (bf16) and holds it against its plain PyTorch version, then
-   times the kernel, the plain version and one PyTorch library call that
-   computes the same function (a yardstick only; the port never calls it).
+   times the kernel and one PyTorch library call that computes the same
+   function (a yardstick only; the port never calls it) from replayed CUDA
+   graphs, and the plain version eagerly.
 3. Main-path phase: the flagship config (Whisper-medium + CLIP-B/32 +
    Llama-3.2-1B with LoRA r=16, modality both) at full width with random
    bf16 weights from --seed; 8 utterances of 10 s audio and 25 video
@@ -17,10 +18,12 @@
 4. CLI phase: the decode CLI over 8 synthetic utterances writes its
    results and WER files.
 5. Backward kernel phase: the dQ and dK/dV kernels at the train step's
-   attention shape (bf16, causal GQA) against their plain version, f32 and
-   edge cases, the autograd Function against autograd through the plain
-   attention, and times of each kernel, its plain version, its bound and
-   the SDPA backward.
+   attention shape (bf16, causal GQA) against their plain version (dQ
+   hands its delta = rowsum(dO * O) to dK/dV), f32 and edge cases, the
+   autograd Function against autograd through the plain attention, and
+   times of each kernel, its plain version, its bound and the SDPA
+   backward; the flash kernels and SDPA are timed from replayed CUDA
+   graphs.
 6. Train phase: the flagship train step at full width (random weights from
    --seed, frozen leaves bf16, trainable f32) on 8 x 10 s utterances with
    48-token transcripts: f32 and bf16 gradient parity of the kernel path
@@ -54,6 +57,7 @@ import argparse
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +147,22 @@ def graph_ms(fns, reps: int = 20) -> float:
     return ms
 
 
+def kernel_label(ptxas_line: str) -> str:
+    """'flash_fwd_bf16_kernel<64>' from ptxas's 'Compiling entry function'
+    line (the mangled name of a kernel in an anonymous namespace: the
+    source's hash, the name's length, the name, its template arguments)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", ptxas_line)
+    if m is None:
+        return "?"
+    rest = ptxas_line[m.end():]
+    name, args = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    if not args.startswith("I"):
+        return name
+    args = args[1:].split("Ev")[0]
+    kinds = (["bf16"] if "bfloat16" in args else []) + (["f32"] if args.startswith("f") else [])
+    return f"{name}<{', '.join(kinds + re.findall(r'L[ib](\d+)E', args))}>"
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -161,10 +181,11 @@ def attn_bounds(q, k, q_lens, kv_lens, causal: bool
     dK/dV kernels on this data, at the card's peaks. Operations: 4, 6 and
     8 * D FLOPs per valid (row, key) pair over the bf16 rate. Bytes: each
     input read once and each output written once, over the memory rate.
-    The kernels read only the rows below q_len (q, dO, O, lse) and kv_len
-    (k, v) and write every row of their outputs (O, lse, dq, dk, dv), so
-    inputs count their valid rows and outputs their full size. The least
-    time the card could take is the larger of the two."""
+    The kernels read only the rows below q_len (q, dO, O, lse, delta) and
+    kv_len (k, v) and write every row of their outputs (O, lse, dq, delta,
+    dk, dv), so inputs count their valid rows and outputs their full size.
+    dQ writes delta = rowsum(dO * O); dK/dV reads it instead of O. The
+    least time the card could take is the larger of the two."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     es = q.element_size()
@@ -180,10 +201,13 @@ def attn_bounds(q, k, q_lens, kv_lens, causal: bool
             pairs += kl * (kl + 1) / 2 + (ql - kl) * kl
     q_in = rows_q * H * D * es            # one of q, dO, O (valid rows)
     kv_in = 2 * rows_k * Hkv * D * es     # k and v (valid rows)
-    lse_in = rows_q * H * 4
-    nbytes = {"fwd": q_in + kv_in + q.numel() * es + B * H * Tq * 4,
-              "dq": 3 * q_in + kv_in + lse_in + q.numel() * es,
-              "dkv": 3 * q_in + kv_in + lse_in + 2 * k.numel() * es}
+    row_in = rows_q * H * 4               # one of lse, delta (valid rows)
+    row_out = B * H * Tq * 4              # all of lse or delta
+    nbytes = {"fwd": q_in + kv_in + q.numel() * es + row_out,
+              # q, dO, O, k, v, lse in; dq and delta out
+              "dq": 3 * q_in + kv_in + row_in + q.numel() * es + row_out,
+              # q, dO, k, v, lse, delta in; dk and dv out
+              "dkv": 2 * q_in + kv_in + 2 * row_in + 2 * k.numel() * es}
     flops = {"fwd": 4, "dq": 6, "dkv": 8}
     return {n: (flops[n] * H * D * pairs / PEAK_BF16_FLOPS * 1e3,
                 nbytes[n] / PEAK_BYTES * 1e3) for n in flops}
@@ -196,8 +220,9 @@ def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
     yardstick: SDPA with the same boolean mask over the padded width (K/V
     repeated for GQA), which rules out the flash backend, and SDPA on the valid
     rows alone with ``is_causal`` and ``enable_gqa`` on the flash backend.
-    Set-up (repeat, slices, the backward's forward) is not timed. The port
-    never calls SDPA."""
+    Set-up (repeat, slices, the backward's forward) is not timed; each call
+    is timed from a replayed CUDA graph (``graph_ms``), as the kernels are.
+    The port never calls SDPA."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -222,13 +247,20 @@ def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
     for name, (args, kw, backend) in calls.items():
         with backend():
             if do is None:
-                res[name] = time_ms(lambda: F.scaled_dot_product_attention(*args, **kw), 20)
+                res[name] = graph_ms([lambda: F.scaled_dot_product_attention(*args, **kw)])
                 continue
-            leaves = [t.detach().requires_grad_() for t in args]
-            out = F.scaled_dot_product_attention(*leaves, **kw)
-        g = do if name == "masked" else do[:, :, :n].contiguous()
-        res[name] = time_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                                        retain_graph=True), 10)
+            # the forward on the capture stream, so that its backward (which
+            # autograd runs on the forward's stream) is captured too
+            side = capture_stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                leaves = [t.detach().requires_grad_() for t in args]
+                out = F.scaled_dot_product_attention(*leaves, **kw)
+            torch.cuda.current_stream().wait_stream(side)
+            g = do if name == "masked" else do[:, :, :n].contiguous()
+            res[name] = graph_ms([lambda: torch.autograd.grad(out, leaves, g,
+                                                              retain_graph=True)],
+                                 reps=10)
     best = min(res, key=res.get)
     return dict(ms=res[best], call=best, masked_ms=res["masked"],
                 flash_ms=res["flash"])
@@ -278,7 +310,7 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
                   f"{e.max().item():.3e}, max|dlse| {lse_err:.3e}")
 
         lens = lens_sets["main"]
-        ms = time_ms(lambda: A.flash_attention(q, k, v, lens, lens, causal), 20)
+        ms = graph_ms([lambda: A.flash_attention(q, k, v, lens, lens, causal)])
         plain_ms = time_ms(
             lambda: A.flash_attention_reference(q, k, v, lens, lens, causal), 5)
         lib = sdpa_ms(q, k, v, lens, causal)
@@ -769,10 +801,14 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
     abs_errs = dict(errs)
     for tag, lens in lens_sets.items():
         o, lse = A.flash_attention(q, k, v, lens, lens, True)
-        dq = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, True)
-        dk, dv = A.flash_bwd_dkv(q, k, v, o, lse, do, lens, lens, True)
+        dq, delta = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, True)
+        dk, dv = A.flash_bwd_dkv(q, k, v, lse, delta, do, lens, lens, True)
         refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, lens, lens, True)
+        delta_r = A.flash_bwd_dq_reference(q, k, v, o, lse, do, lens, lens, True)[1]
         torch.cuda.synchronize()
+        d_err = (delta - delta_r).abs().max().item()
+        check(d_err <= 1e-4 * max(1.0, delta_r.abs().max().item()),
+              f"bwd {tag}: delta off by {d_err:.3e}")
         for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
             check(bool(torch.isfinite(got.float()).all()), f"bwd {tag}: {name} not finite")
             e = rel_err(got, ref)
@@ -796,8 +832,8 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
         qq, dd = qe[:, :, :ql[0]].contiguous(), doe[:, :, :ql[0]].contiguous()
         ql_t, kl_t = torch.tensor(ql, device=dev), torch.tensor(kl, device=dev)
         o, lse = A.flash_attention(qq, kk, vv, ql_t, kl_t, causal)
-        got = (A.flash_bwd_dq(qq, kk, vv, o, lse, dd, ql_t, kl_t, causal),
-               *A.flash_bwd_dkv(qq, kk, vv, o, lse, dd, ql_t, kl_t, causal))
+        dq_e, delta_e = A.flash_bwd_dq(qq, kk, vv, o, lse, dd, ql_t, kl_t, causal)
+        got = (dq_e, *A.flash_bwd_dkv(qq, kk, vv, lse, delta_e, dd, ql_t, kl_t, causal))
         refs = A.flash_attention_bwd_reference(qq, kk, vv, o, lse, dd, ql_t,
                                                kl_t, causal)
         torch.cuda.synchronize()
@@ -824,19 +860,29 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
     check(fn_err <= 1e-4, f"FlashAttention grads off autograd by {fn_err:.3e}")
     print(f"FlashAttention vs autograd through mha_reference (f32): {fn_err:.3e}")
 
-    # Times at the main-path lengths (bf16).
+    # Times at the main-path lengths (bf16), kernels from replayed CUDA
+    # graphs, plain versions eager (they take milliseconds).
     lens = lens_sets["main"]
     o, lse = A.flash_attention(q, k, v, lens, lens, True)
-    args = (q, k, v, o, lse, do, lens, lens, True)
+    _, delta = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, True)
+    args_dq = (q, k, v, o, lse, do, lens, lens, True)
+    args_dkv = (q, k, v, lse, delta, do, lens, lens, True)
     times = {
-        "fwd": time_ms(lambda: A.flash_attention(q, k, v, lens, lens, True), 20),
-        "dq": time_ms(lambda: A.flash_bwd_dq(*args), 20),
-        "dkv": time_ms(lambda: A.flash_bwd_dkv(*args), 20),
+        "fwd": graph_ms([lambda: A.flash_attention(q, k, v, lens, lens, True)]),
+        "dq": graph_ms([lambda: A.flash_bwd_dq(*args_dq)]),
+        "dkv": graph_ms([lambda: A.flash_bwd_dkv(*args_dkv)]),
     }
+    # the causal imbalance of dK/dV: the same shape without the mask does
+    # twice the pairs, so a balanced causal run would take half its time
+    o_nc, lse_nc = A.flash_attention(q, k, v, lens, lens, False)
+    _, delta_nc = A.flash_bwd_dq(q, k, v, o_nc, lse_nc, do, lens, lens, False)
+    dkv_noncausal_ms = graph_ms([lambda: A.flash_bwd_dkv(
+        q, k, v, lse_nc, delta_nc, do, lens, lens, False)])
+    del o_nc, lse_nc, delta_nc
     plain = {
         "fwd": time_ms(lambda: A.flash_attention_reference(q, k, v, lens, lens, True), 3),
-        "dq": time_ms(lambda: A.flash_bwd_dq_reference(*args), 3),
-        "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args), 3),
+        "dq": time_ms(lambda: A.flash_bwd_dq_reference(*args_dq), 3),
+        "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args_dkv), 3),
     }
     # library yardstick: the SDPA backward of q, k, v together
     library_bwd = sdpa_ms(q, k, v, lens, True, do)
@@ -845,7 +891,8 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
     res = {"shape": dict(q=list(q.shape), kv=list(k.shape), causal=True,
                          lens=main_len, dtype="bfloat16"),
            "max_rel_err": errs, "max_abs_err": abs_errs, "edge_fn_err": fn_err,
-           "library_bwd_pair": library_bwd, "library_fwd": library_fwd}
+           "library_bwd_pair": library_bwd, "library_fwd": library_fwd,
+           "dkv_noncausal_ms": dkv_noncausal_ms}
     for name in ("fwd", "dq", "dkv"):
         ops_ms, bytes_ms = bounds[name]
         res[name] = dict(ms=times[name], plain_ms=plain[name],
@@ -855,6 +902,9 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
         print(f"kernel {name} at the train shape: {times[name]:.4f} ms (plain "
               f"{plain[name]:.4f}, bound {res[name]['bound_ms']:.4f} by "
               f"{res[name]['bound_by']})")
+    print(f"kernel dkv at the train shape without the causal mask: "
+          f"{dkv_noncausal_ms:.4f} ms (half: {dkv_noncausal_ms / 2:.4f}; causal "
+          f"{times['dkv']:.4f})")
     for what, lib in (("forward", library_fwd), ("backward of q, k, v", library_bwd)):
         print(f"SDPA {what} at the train shape: {lib['ms']:.4f} ms "
               f"[{lib['call']}; masked {lib['masked_ms']:.4f}, flash "
@@ -1139,9 +1189,12 @@ def main(argv: list[str] | None = None) -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.KERNEL_SOURCES)})")
     for name, log in _build.build_logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_label(line)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
@@ -1183,13 +1236,17 @@ def main(argv: list[str] | None = None) -> int:
         bound_by="operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
         library_ms=total("library_ms"),
         library_is="the faster of SDPA with the boolean mask and SDPA (flash "
-                   "backend) on the valid rows, per shape",
-        times_are="sums over the launches of one generate_tokens call",
+                   "backend) on the valid rows, per shape, from a replayed CUDA graph",
+        times_are="sums over the launches of one generate_tokens call (device "
+                  "time per launch from a replayed CUDA graph x launches)",
         shapes=rows, train_shape={**bwd["fwd"], "library_ms": bwd["library_fwd"]["ms"],
                                   "library": bwd["library_fwd"]})]
-    for name, key, line, errs in (
-            ("flash_bwd_dq", "dq", 181, ("dq",)),
-            ("flash_bwd_dkv", "dkv", 241, ("dk", "dv"))):
+    for name, key, line, errs, extra in (
+            ("flash_bwd_dq", "dq", 181, ("dq",),
+             dict(also_writes="delta = rowsum(dO * O), [B, H, Tq] f32")),
+            ("flash_bwd_dkv", "dkv", 241, ("dk", "dv"),
+             dict(reads="delta in place of O",
+                  noncausal_ms=bwd["dkv_noncausal_ms"]))):
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
@@ -1200,9 +1257,11 @@ def main(argv: list[str] | None = None) -> int:
             bound_ms=bwd[key]["bound_ms"], bound_by=bwd[key]["bound_by"],
             library_ms=bwd["library_bwd_pair"]["ms"],
             library_is=f"SDPA backward of q, k and v together (dq + dk/dv), "
-                       f"the faster call: {bwd['library_bwd_pair']['call']}",
+                       f"the faster call: {bwd['library_bwd_pair']['call']}, from "
+                       f"a replayed CUDA graph",
             library=bwd["library_bwd_pair"],
-            times_are="per launch at the train shape", shape=bwd["shape"]))
+            times_are="per launch at the train shape, from a replayed CUDA graph",
+            shape=bwd["shape"], **extra))
     for name, bits, line in (("qmatmul_int8", 8, 120), ("qmatmul_int4", 4, 140)):
         qrows = [r for r in qmm["rows"] if r["bits"] == bits]
 

@@ -3,8 +3,10 @@
 The JAX side is ``jax.vjp`` of ``flash_attention(..., interpret=True)``:
 its custom VJP runs the Pallas dQ and dK/dV kernels in interpret mode.
 The port's side is its plain backward (``flash_attention_bwd_reference``,
-fed with the port's own forward O and lse) and the autograd Function
-``FlashAttention`` (which takes the plain versions on CPU tensors).
+fed with the port's own forward O and lse), the kernels' wrappers called
+in turn with the dQ wrapper's delta handed to dK/dV, and the autograd
+Function ``FlashAttention`` (the wrappers take the plain versions on CPU
+tensors).
 Tolerance: 1e-5 atol + 1e-5 rtol on every gradient. dQ is compared on
 valid rows only: the JAX dq kernel leaves rows past q_len unconstrained,
 the port gives them 0 (asserted). The CUDA kernels are held against the
@@ -69,12 +71,19 @@ def _port_grads(case, path):
         o, lse = tattn.flash_attention_reference(q, k, v, ql_t, kl_t, causal)
         return tattn.flash_attention_bwd_reference(q, k, v, o, lse, do, ql_t,
                                                    kl_t, causal)
+    if path == "wrappers":
+        # the kernels' wrappers as FlashAttention calls them: dQ hands its
+        # delta to dK/dV (CPU tensors take the plain versions)
+        o, lse = tattn.flash_attention(q, k, v, ql_t, kl_t, causal)
+        dq, delta = tattn.flash_bwd_dq(q, k, v, o, lse, do, ql_t, kl_t, causal)
+        return (dq, *tattn.flash_bwd_dkv(q, k, v, lse, delta, do, ql_t, kl_t,
+                                         causal))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     tattn.FlashAttention.apply(*leaves, ql_t, kl_t, causal, None).backward(do)
     return [t.grad for t in leaves]
 
 
-@pytest.mark.parametrize("path", ["reference", "function"])
+@pytest.mark.parametrize("path", ["reference", "wrappers", "function"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_backward_matches_jax_vjp(case, path):
     jdq, jdk, jdv = _jax_grads(case)
@@ -145,9 +154,35 @@ def test_cpu_bwd_wrappers_take_plain_versions_and_count_nothing():
     ql, kl = torch.from_numpy(ql), torch.from_numpy(kl)
     o, lse = tattn.flash_attention(q, k, v, ql, kl, causal)
     before = (tattn.launches, tattn.dq_launches, tattn.dkv_launches)
-    dq = tattn.flash_bwd_dq(q, k, v, o, lse, do, ql, kl, causal)
-    dk, dv = tattn.flash_bwd_dkv(q, k, v, o, lse, do, ql, kl, causal)
+    dq, delta = tattn.flash_bwd_dq(q, k, v, o, lse, do, ql, kl, causal)
+    dk, dv = tattn.flash_bwd_dkv(q, k, v, lse, delta, do, ql, kl, causal)
     ref = tattn.flash_attention_bwd_reference(q, k, v, o, lse, do, ql, kl, causal)
     for g, r in zip((dq, dk, dv), ref):
         assert torch.equal(g, r)
     assert (tattn.launches, tattn.dq_launches, tattn.dkv_launches) == before
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_delta_is_rowsum_of_do_times_o(case):
+    """The delta that dQ hands to dK/dV: rowsum(dO * O) in f32 on the rows
+    below q_len, exactly 0 past q_len (and on rows without keys)."""
+    causal, a, ql, kl = _inputs(case, seed=4)
+    q, k, v, do = (torch.from_numpy(a[n]) for n in ("q", "k", "v", "do"))
+    ql_t, kl_t = torch.from_numpy(ql), torch.from_numpy(kl)
+    o, lse = tattn.flash_attention_reference(q, k, v, ql_t, kl_t, causal)
+    _, delta = tattn.flash_bwd_dq_reference(q, k, v, o, lse, do, ql_t, kl_t,
+                                            causal)
+    assert delta.dtype == torch.float32 and delta.shape == q.shape[:3]
+    want = (do.double() * o.double()).sum(dim=-1)
+    for b in range(q.shape[0]):
+        n = int(ql[b])
+        torch.testing.assert_close(delta[b, :, :n].double(), want[b, :, :n],
+                                   atol=1e-5, rtol=1e-5)
+        assert torch.all(delta[b, :, n:] == 0.0)
+    # a batch row without keys has O = 0, so its delta is 0 as well
+    kl0 = kl_t.clone()
+    kl0[1] = 0
+    o0, lse0 = tattn.flash_attention_reference(q, k, v, ql_t, kl0, causal)
+    _, delta0 = tattn.flash_bwd_dq_reference(q, k, v, o0, lse0, do, ql_t, kl0,
+                                             causal)
+    assert torch.all(delta0[1] == 0.0)

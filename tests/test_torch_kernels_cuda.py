@@ -8,7 +8,8 @@ suite's conftest:
 
 Tolerances: bf16 O atol/rtol 2e-2 (P is rounded to bf16 before PV), f32 O
 1e-4, lse 1e-3; backward max|d| <= 2e-2 max|ref| in bf16 (P and dS are
-rounded to bf16 before their products) and 1e-4 max|ref| in f32; the
+rounded to bf16 before their products) and 1e-4 max|ref| in f32, delta
+1e-4 (f32 sums in another order); the
 weight-only matmuls max|d| <= 1e-4 max|ref| (the kernel and its plain
 version differ only in the order of their f32 sums).
 """
@@ -73,6 +74,29 @@ def _rel_err(a, ref):
             / ref.float().abs().max().clamp(min=1e-30)).item()
 
 
+def _check_bwd(q, k, v, do, q_lens, kv_lens, causal, tol):
+    """Both backward kernels (dQ handing its delta to dK/dV) against
+    flash_attention_bwd_reference and the plain delta; one count per
+    launch. Tolerance per tensor: max|d| <= tol * max|ref|."""
+    o, lse = A.flash_attention(q, k, v, q_lens, kv_lens, causal)
+    before = (A.dq_launches, A.dkv_launches)
+    dq, delta = A.flash_bwd_dq(q, k, v, o, lse, do, q_lens, kv_lens, causal)
+    dk, dv = A.flash_bwd_dkv(q, k, v, lse, delta, do, q_lens, kv_lens, causal)
+    assert (A.dq_launches, A.dkv_launches) == (before[0] + 1, before[1] + 1)
+    refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, q_lens,
+                                           kv_lens, causal)
+    _, delta_r = A.flash_bwd_dq_reference(q, k, v, o, lse, do, q_lens, kv_lens,
+                                          causal)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+    # delta: f32 sums of the same products in another order
+    torch.testing.assert_close(delta, delta_r, atol=1e-4, rtol=1e-4)
+    return dq, dk, dv, delta
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 64, 2e-2),
                                          (torch.bfloat16, 128, 2e-2),
@@ -81,26 +105,81 @@ def _rel_err(a, ref):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_matches_plain_version(cuda, dtype, D, tol, causal):
     """dQ and dK/dV kernels against flash_attention_bwd_reference: GQA 8:2,
-    a ragged batch with an empty row, a T that does not tile. Tolerance
-    per tensor: max|d| <= tol * max|ref|."""
+    a ragged batch with an empty row, a T that does not tile."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, do = (torch.randn((3, h, 300, D), generator=g, device=cuda,
                                dtype=dtype) for h in (8, 2, 2, 8))
     lens = torch.tensor([300, 171, 0], device=cuda)
-    o, lse = A.flash_attention(q, k, v, lens, lens, causal)
-    before = (A.dq_launches, A.dkv_launches)
-    dq = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, causal)
-    dk, dv = A.flash_bwd_dkv(q, k, v, o, lse, do, lens, lens, causal)
-    assert (A.dq_launches, A.dkv_launches) == (before[0] + 1, before[1] + 1)
-    refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, lens, lens,
-                                           causal)
-    torch.cuda.synchronize()
-    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-        assert got.dtype == ref.dtype and got.shape == ref.shape
-        assert torch.isfinite(got.float()).all(), name
-        assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+    dq, dk, dv, delta = _check_bwd(q, k, v, do, lens, lens, causal, tol)
     assert (dq[1, :, 171:] == 0).all() and (dq[2] == 0).all()
     assert (dk[2] == 0).all() and (dv[2] == 0).all()
+    assert (delta[1, :, 171:] == 0).all() and (delta[2] == 0).all()
+
+
+# name: B, H, Hkv, Tq, Tk, q_lens, kv_lens, causal (the main path's shapes
+# at a small batch, and the edges the tiles must handle)
+SHAPES = {
+    "whisper_500_of_512": (2, 16, 16, 512, 512, [500, 500], [500, 500], False),
+    "llm_prefill_533_gqa": (2, 32, 8, 533, 533, [533, 533], [533, 533], True),
+    "llm_train_581_of_672": (2, 32, 8, 672, 672, [581, 581], [581, 581], True),
+    "kv_len_0_row": (2, 8, 2, 300, 300, [300, 257], [300, 0], False),
+    "tk_below_tq": (2, 8, 2, 390, 257, [390, 300], [257, 200], False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_flash_kernels_at_main_path_shapes(cuda, name):
+    """bf16 forward, dQ and dK/dV against their plain versions at the main
+    path's shapes (small B) and at the edges: a row with queries but no
+    keys, Tk < Tq."""
+    B, H, Hkv, Tq, Tk, ql, kl, causal = SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn((B, H, Tq, 64), generator=g, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Tk, 64), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    ql, kl = torch.tensor(ql, device=cuda), torch.tensor(kl, device=cuda)
+    _check(q, k, v, ql, kl, causal, 2e-2)
+    dq, dk, dv, _ = _check_bwd(q, k, v, do, ql, kl, causal, 2e-2)
+    for b in range(B):
+        if int(kl[b]) == 0:
+            assert (dq[b] == 0).all() and (dk[b] == 0).all() and (dv[b] == 0).all()
+        assert (dk[b, :, int(kl[b]):] == 0).all() and (dv[b, :, int(kl[b]):] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_replay_in_a_cuda_graph(cuda):
+    """The forward and both backward wrappers captured in one CUDA graph
+    and replayed give the eager results bit for bit (the kernels are
+    deterministic: one owner per output tile, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, do = (torch.randn((2, 8, 300, 64), generator=g, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, 2, 300, 64), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([300, 217], device=cuda, dtype=torch.int32)
+
+    def run():
+        o, lse = A.flash_attention(q, k, v, lens, lens, True)
+        dq, delta = A.flash_bwd_dq(q, k, v, o, lse, do, lens, lens, True)
+        return (o, lse, dq, *A.flash_bwd_dkv(q, k, v, lse, delta, do, lens,
+                                             lens, True))
+
+    eager = run()
+    again = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                    # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for e, a, c in zip(eager, again, captured):
+        assert torch.equal(e, a) and torch.equal(e, c)
 
 
 @pytest.mark.cuda
