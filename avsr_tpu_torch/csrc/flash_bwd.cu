@@ -4,6 +4,8 @@
 // Two kernels, the ports of the Pallas TPU kernels that
 // avsr_tpu/ops/attention.py::_flash_core_bwd launches:
 //   flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel  (attention.py:181)
+//                            (bf16: flash_bwd_dq_bf16_kernel; f32:
+//                            flash_bwd_dq_f32_kernel)
 //   flash_bwd_dkv_kernel  <- _flash_bwd_dkv_kernel (attention.py:241)
 //                            (bf16: flash_bwd_dkv_bf16_kernel)
 // Given the forward's q, k, v, its saved (rounded) output O and its plain
@@ -33,13 +35,36 @@
 // writes all of dK and dV (59.8 MB -> 17.8 us). dQ is bound by bytes, dK/dV
 // by operations (chip_smoke.py::attn_bounds).
 //
-// dQ (bf16 and f32) and the f32 dK/dV are the first design: 4 warps over
-// 64-row tiles, a warp owning 16 rows of the CTA's own tile and lane pair
-// (2r, 2r+1) owning row r, each lane one half (32 columns) of a 64-wide
-// score row; bf16 products on wmma 16x16x16 through an f32 scratch tile,
-// f32 products as scalar FMAs.
-//   dQ:    one CTA per (b, q head, 64-row q tile); it loops over the K/V
-//          tiles of kv head h / (H / Hkv).
+// float32 dQ and dK/dV are the first design (flash_bwd_dq_f32_kernel,
+// flash_bwd_dkv_kernel): 4 warps over 64-row tiles, a warp owning 16 rows
+// of the CTA's own tile and lane pair (2r, 2r+1) owning row r, each lane one
+// half (32 columns) of a 64-wide score row, products as scalar FMAs; dQ
+// takes one CTA per (b, q head, 64-row q tile) and loops over the K/V tiles
+// of kv head h / (H / Hkv).
+//
+// bf16 dQ (flash_bwd_dq_bf16_kernel): one CTA per (b, q head, 128-row q
+// tile), the dK/dV design turned around:
+//   * a producer thread loads the tile's Q, dO and O once by TMA (they stay
+//     resident) and streams the 64-key K and V tiles of kv head
+//     h / (H / Hkv) through a ring of three stages (3-D tensor maps over
+//     [B*Hkv, Tk, D], 128-byte swizzle, zeros past Tk; full/empty
+//     mbarriers);
+//   * two consumer warpgroups own 64 q rows each. Each computes delta once
+//     per row from the resident dO and O tiles (kept in registers, written
+//     as [B, H, Tq] f32, 0 past q_len), then per K/V tile: S = Q K^T and
+//     dP = dO V^T by wgmma with both operands in shared memory,
+//     P = 2^(S scale log2 e - lse log2 e) and dS = P (dP - delta) in
+//     registers, masked only on tiles that cross kv_len or the diagonal,
+//     and dQ += dS K by wgmma with dS rounded to bf16 as the register A
+//     operand and K as the MN-major B operand. P and dS never touch shared
+//     memory; under the causal mask a warpgroup skips the tiles wholly
+//     above its rows;
+//   * epilogue: scale * dQ into the O tile's space (swizzled) and out by a
+//     TMA store that clips rows past Tq; rows past q_len hold 0 (lse there
+//     is +inf, so P = 0).
+// The grid puts the q tile in its slowest dimension, last tile first, so
+// that the heaviest causal tiles start first, and the query heads of one kv
+// head next to each other, so that they read its K/V from L2.
 //
 // bf16 dK/dV (flash_bwd_dkv_bf16_kernel): one CTA per (b, kv head, 128-key
 // tile), warp-specialised:
@@ -69,7 +94,6 @@
 // tile first, so the heaviest CTAs start first.
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -77,7 +101,6 @@
 namespace {
 
 using flash::BLOCK;
-using flash::from_float;
 using flash::Geometry;
 using flash::HALF;
 using flash::ROWS_PER_WARP;
@@ -85,16 +108,15 @@ using flash::THREADS;
 using flash::warp_abt;
 using flash::WARPS;
 
-// dQ kernel shared memory: Q, dO, K, V tiles, scratch, dS.
-template <typename T, int D>
-struct SmemDq : Geometry<T, D> {
-  using G = Geometry<T, D>;
+// f32 dQ kernel shared memory: Q, dO, K, V tiles, dS.
+template <int D>
+struct SmemDqF32 : Geometry<float, D> {
+  using G = Geometry<float, D>;
   static constexpr size_t kQ = 0;
   static constexpr size_t kDO = G::kTile;
   static constexpr size_t kK = 2 * G::kTile;
   static constexpr size_t kV = 3 * G::kTile;
-  static constexpr size_t kS = 4 * G::kTile;
-  static constexpr size_t kDS = kS + G::kScratch;
+  static constexpr size_t kDS = 4 * G::kTile;
   static constexpr size_t kTotal = kDS + G::kWarpP;
 };
 
@@ -114,78 +136,30 @@ struct SmemDkvF32 : Geometry<float, D> {
 };
 
 // A warp's [16, D] f32 accumulator of products A[16, 64] B[64, D], with A a
-// P or dS tile (pitch LDP) and B a 64-row tile (pitch LDT).
-template <typename T, int D, bool kWmma = Geometry<T, D>::kWmma>
-struct WarpAcc;
-
-// Tensor-core version: D/16 accumulator fragments, kept in registers.
-template <typename T, int D>
-struct WarpAcc<T, D, true> {
-  using Gm = Geometry<T, D>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[D / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) nvcuda::wmma::fill_fragment(c[n], 0.0f);
-  }
-  __device__ __forceinline__ void mma(const T* A, const T* B, int, int) {
-    using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) {
-      wmma::load_matrix_sync(a, A + kk * 16, Gm::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::load_matrix_sync(b, B + kk * 16 * Gm::LDT + n * 16, Gm::LDT);
-        wmma::mma_sync(c[n], a, b, c[n]);
-      }
-    }
-  }
-  // Writes scale * (the lane's half row) to `out` when `write`; every lane
-  // of the warp must call it (the fragment store is warp-collective).
-  __device__ __forceinline__ void store(T* out, float scale, float* scratch,
-                                        int r, int half, bool write) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::store_matrix_sync(scratch + n * 16, c[n], Gm::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    if (write) {
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) {
-        out[j] = from_float<T>(scratch[r * Gm::LDS + half * (D / 2) + j] * scale);
-      }
-    }
-    __syncwarp();
-  }
-};
-
-// Scalar version: lane (r, half) holds columns [half*D/2, (half+1)*D/2) of
-// row r.
-template <typename T, int D>
-struct WarpAcc<T, D, false> {
-  using Gm = Geometry<T, D>;
+// P or dS tile (pitch LDP) and B a 64-row tile (pitch LDT), on the CUDA
+// cores: lane (r, half) holds columns [half*D/2, (half+1)*D/2) of row r.
+template <int D>
+struct WarpAcc {
+  using Gm = Geometry<float, D>;
   float v[D / 2];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) v[j] = 0.0f;
   }
-  __device__ __forceinline__ void mma(const T* A, const T* B, int r, int half) {
+  __device__ __forceinline__ void mma(const float* A, const float* B, int r, int half) {
     for (int c = 0; c < BLOCK; ++c) {
       const float a = A[r * Gm::LDP + c];
-      const T* br = B + c * Gm::LDT + half * (D / 2);
+      const float* br = B + c * Gm::LDT + half * (D / 2);
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) v[j] = fmaf(a, br[j], v[j]);
     }
   }
-  __device__ __forceinline__ void store(T* out, float scale, float*, int, int,
-                                        bool write) {
+  // Writes scale * (the lane's half row) to `out` when `write`.
+  __device__ __forceinline__ void store(float* out, float scale, bool write) {
     if (write) {
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) out[j] = from_float<T>(v[j] * scale);
+      for (int j = 0; j < D / 2; ++j) out[j] = v[j] * scale;
     }
   }
 };
@@ -194,21 +168,21 @@ struct WarpAcc<T, D, false> {
 // dQ
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const float* __restrict__ lse, const T* __restrict__ dout,
-                    const int* __restrict__ q_lens,
-                    const int* __restrict__ kv_lens, T* __restrict__ dq,
-                    float* __restrict__ delta_out, int H, int Hkv, int Tq,
-                    int Tk, int causal, float scale) {
-  using L = SmemDq<T, D>;
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ o,
+                        const float* __restrict__ lse, const float* __restrict__ dout,
+                        const int* __restrict__ q_lens,
+                        const int* __restrict__ kv_lens, float* __restrict__ dq,
+                        float* __restrict__ delta_out, int H, int Hkv, int Tq,
+                        int Tk, int causal, float scale) {
+  using L = SmemDqF32<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sDO = reinterpret_cast<T*>(smem + L::kDO);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
+  float* sQ = reinterpret_cast<float*>(smem + L::kQ);
+  float* sDO = reinterpret_cast<float*>(smem + L::kDO);
+  float* sK = reinterpret_cast<float*>(smem + L::kK);
+  float* sV = reinterpret_cast<float*>(smem + L::kV);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -223,9 +197,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = lane & 1;
   const int row = warp * ROWS_PER_WARP + r;
   const int qi = q0 + row;
-  float* scratch = reinterpret_cast<float*>(smem + L::kS) +
-                   warp * ROWS_PER_WARP * L::LDS;
-  T* dsw = reinterpret_cast<T*>(smem + L::kDS) + warp * ROWS_PER_WARP * L::LDP;
+  float* dsw = reinterpret_cast<float*>(smem + L::kDS) + warp * ROWS_PER_WARP * L::LDP;
 
   const size_t q_head = (size_t(b) * H + h) * Tq;
   const size_t kv_head = (size_t(b) * Hkv + hk) * Tk;
@@ -234,25 +206,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) kv_end = min(kv_end, min(q0 + BLOCK, q_len));
   const int n_blocks = q0 < q_len ? (kv_end + BLOCK - 1) / BLOCK : 0;
 
-  WarpAcc<T, D> acc;
+  WarpAcc<D> acc;
   acc.zero();
   if (n_blocks > 0) {
-    flash::load_tile<T, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
-    flash::load_tile<T, D, L::LDT>(sDO, dout + q_head * D, q0, q_len);
+    flash::load_tile<float, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
+    flash::load_tile<float, D, L::LDT>(sDO, dout + q_head * D, q0, q_len);
   }
   __syncthreads();
 
-  // delta = rowsum(dO * O) in f32; the lane pair shares the row. Rows past
-  // q_len, and rows of a batch row without keys (O = 0), get 0.
+  // delta = rowsum(dO * O); the lane pair shares the row. Rows past q_len,
+  // and rows of a batch row without keys (O = 0), get 0.
   const bool row_ok = qi < q_len;
   float delta = 0.0f;
   if (row_ok && n_blocks > 0) {
-    const T* orow = o + (q_head + qi) * D + half * (D / 2);
-    const T* drow = sDO + row * L::LDT + half * (D / 2);
+    const float* orow = o + (q_head + qi) * D + half * (D / 2);
+    const float* drow = sDO + row * L::LDT + half * (D / 2);
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) {
-      delta = fmaf(float(drow[j]), float(orow[j]), delta);
-    }
+    for (int j = 0; j < D / 2; ++j) delta = fmaf(drow[j], orow[j], delta);
   }
   delta += __shfl_xor_sync(0xffffffffu, delta, 1);
   if (half == 0 && qi < Tq) delta_out[q_head + qi] = delta;
@@ -261,27 +231,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int kv0 = blk * BLOCK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    flash::load_tile<T, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
-    flash::load_tile<T, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
     __syncthreads();
 
     float s[HALF], dp[HALF];
-    warp_abt<T, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, scratch, r, half, s);
-    warp_abt<T, D>(sDO + warp * ROWS_PER_WARP * L::LDT, sV, scratch, r, half, dp);
+    warp_abt<float, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, r, half, s);
+    warp_abt<float, D>(sDO + warp * ROWS_PER_WARP * L::LDT, sV, r, half, dp);
 #pragma unroll
     for (int i = 0; i < HALF; ++i) {
       const int kj = kv0 + half * HALF + i;
       const bool ok = row_ok && kj < kv_len && (!causal || kj <= qi);
       const float p = ok ? __expf(s[i] * scale - lse_i) : 0.0f;
-      dsw[r * L::LDP + half * HALF + i] = from_float<T>(p * (dp[i] - delta));
+      dsw[r * L::LDP + half * HALF + i] = p * (dp[i] - delta);
     }
     __syncwarp();  // dS complete before the product
     acc.mma(dsw, sK, r, half);
     __syncwarp();  // dS is rewritten by the next block
   }
 
-  acc.store(dq + (q_head + qi) * D + half * (D / 2), scale, scratch, r, half,
-            qi < Tq);
+  acc.store(dq + (q_head + qi) * D + half * (D / 2), scale, qi < Tq);
 }
 
 // ---------------------------------------------------------------------------
@@ -330,7 +299,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qb_begin = causal ? k0 / BLOCK : 0;
   const int qb_end = k0 < kv_len ? (q_len + BLOCK - 1) / BLOCK : 0;
 
-  WarpAcc<float, D> dk_acc, dv_acc;
+  WarpAcc<D> dk_acc, dv_acc;
   dk_acc.zero();
   dv_acc.zero();
   if (qb_begin < qb_end) {
@@ -354,10 +323,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
       float s[HALF], dp[HALF];
       // transposed scores: rows are this warp's keys, columns the q rows
-      warp_abt<float, D>(sK + warp * ROWS_PER_WARP * L::LDT, sQ, nullptr, r,
-                         half, s);
-      warp_abt<float, D>(sV + warp * ROWS_PER_WARP * L::LDT, sDO, nullptr, r,
-                         half, dp);
+      warp_abt<float, D>(sK + warp * ROWS_PER_WARP * L::LDT, sQ, r, half, s);
+      warp_abt<float, D>(sV + warp * ROWS_PER_WARP * L::LDT, sDO, r, half, dp);
 #pragma unroll
       for (int i = 0; i < HALF; ++i) {
         const int c = half * HALF + i;
@@ -374,10 +341,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  dk_acc.store(dk + (kv_head + kj) * D + half * (D / 2), 1.0f, nullptr, r,
-               half, kj < Tk);
-  dv_acc.store(dv + (kv_head + kj) * D + half * (D / 2), 1.0f, nullptr, r,
-               half, kj < Tk);
+  dk_acc.store(dk + (kv_head + kj) * D + half * (D / 2), 1.0f, kj < Tk);
+  dv_acc.store(dv + (kv_head + kj) * D + half * (D / 2), 1.0f, kj < Tk);
 }
 
 // ---------------------------------------------------------------------------
@@ -631,28 +596,317 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// dQ, bfloat16: wgmma on a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int BQ_DQ = 128;       // q rows of a CTA (two consumer warpgroups)
+constexpr int BK_DQ = 64;        // keys of a K/V ring stage
+
+// Dynamic shared-memory layout (byte offsets from a 1024-byte boundary).
+// The O tile is read once for delta; its space then stages the dQ tile.
+template <int D>
+struct DqLayout {
+  static constexpr int P = D / hopper::PANEL_COLS;      // 64-column panels
+  static constexpr int kQPanel = BQ_DQ * hopper::ROW_BYTES;
+  static constexpr int kKVPanel = BK_DQ * hopper::ROW_BYTES;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + P * kQPanel;
+  static constexpr int kO = kDO + P * kQPanel;
+  static constexpr int kK = kO + P * kQPanel;
+  static constexpr int kV = kK + STAGES * P * kKVPanel;
+  static constexpr int kBar = kV + STAGES * P * kKVPanel;
+  static constexpr int kBytes = kBar + (1 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_o,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_dq,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta_out,
+                         const int* __restrict__ q_lens,
+                         const int* __restrict__ kv_lens, int H, int Hkv,
+                         int Tq, int Tk, int causal, float scale) {
+  using namespace hopper;
+  using L = DqLayout<D>;
+  constexpr int P = L::P;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.x;              // query heads of one kv head adjacent
+  const int b = blockIdx.y;
+  const int n_qt = (Tq + BQ_DQ - 1) / BQ_DQ;
+  const int q0 = (n_qt - 1 - int(blockIdx.z)) * BQ_DQ;   // last (heaviest) first
+  const int hk = h / (H / Hkv);
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+  const bool rows_ok = q0 < q_len;
+  // keys the tile needs: below kv_len and, when causal, not past its last
+  // valid row
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, min(q0 + BQ_DQ, q_len));
+  const int n_blocks = rows_ok ? (kv_end + BK_DQ - 1) / BK_DQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS * 128 && rows_ok) {
+      const int bh = b * H + h;
+      const int bhk = b * Hkv + hk;
+      mbar_arrive_expect_tx(q_full, 3 * P * L::kQPanel);
+      for (int p = 0; p < P; ++p) {
+        const int off = p * L::kQPanel;
+        tma_load_3d(smem + L::kQ + off, &tm_q, q_full, p * PANEL_COLS, q0, bh);
+        tma_load_3d(smem + L::kDO + off, &tm_do, q_full, p * PANEL_COLS, q0, bh);
+        tma_load_3d(smem + L::kO + off, &tm_o, q_full, p * PANEL_COLS, q0, bh);
+      }
+      for (int j = 0; j < n_blocks; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * P * L::kKVPanel);
+        for (int p = 0; p < P; ++p) {
+          const int off = (s * P + p) * L::kKVPanel;
+          tma_load_3d(smem + L::kK + off, &tm_k, &full[s], p * PANEL_COLS,
+                      j * BK_DQ, bhk);
+          tma_load_3d(smem + L::kV + off, &tm_v, &full[s], p * PANEL_COLS,
+                      j * BK_DQ, bhk);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+    const int cq = (lane & 3) * 2;                // first key of each pair
+    const int wq0 = q0 + wg * 64;
+    const int qa = wq0 + r;
+    const int qb = qa + 8;
+    const size_t row0 = size_t(b * H + h) * Tq;
+    const float scale_log2 = scale * LOG2E;
+    // lse in units of log2; +inf past q_len, so that P = 0 there
+    const float la = qa < q_len ? lse[row0 + qa] * LOG2E : INFINITY;
+    const float lb = qb < q_len ? lse[row0 + qb] * LOG2E : INFINITY;
+    // the keys this warpgroup's rows can see (causal: none past its last row)
+    int wg_end = wq0 < q_len ? kv_len : 0;
+    if (causal) wg_end = min(wg_end, min(wq0 + 64, q_len));
+    const int n_wg = (wg_end + BK_DQ - 1) / BK_DQ;
+    const uint8_t* sq = smem + L::kQ + wg * 64 * ROW_BYTES;
+    const uint8_t* sdo = smem + L::kDO + wg * 64 * ROW_BYTES;
+    uint8_t* so = smem + L::kO + wg * 64 * ROW_BYTES;
+
+    // delta = rowsum(dO * O) in f32 from the resident tiles: a quad of
+    // lanes shares rows r and r + 8, each lane every fourth 8-column chunk.
+    // 0 past q_len and without keys.
+    float da = 0.0f, db = 0.0f;
+    if (rows_ok) mbar_wait(q_full, 0);
+    if (rows_ok && kv_len > 0) {
+#pragma unroll
+      for (int ch = lane & 3; ch < D / 8; ch += 4) {
+        const int p = ch / 8;
+        const int col = (ch % 8) * 8;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t off = p * L::kQPanel + swizzled_offset(r + 8 * e, col);
+          const uint4 dv4 = *reinterpret_cast<const uint4*>(sdo + off);
+          const uint4 ov4 = *reinterpret_cast<const uint4*>(so + off);
+          const uint32_t dw[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+          const uint32_t ow[4] = {ov4.x, ov4.y, ov4.z, ov4.w};
+          float acc = e == 0 ? da : db;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 d2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw[i]));
+            const float2 o2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[i]));
+            acc = fmaf(d2.x, o2.x, acc);
+            acc = fmaf(d2.y, o2.y, acc);
+          }
+          if (e == 0) da = acc; else db = acc;
+        }
+      }
+      da += __shfl_xor_sync(0xffffffffu, da, 1);
+      da += __shfl_xor_sync(0xffffffffu, da, 2);
+      db += __shfl_xor_sync(0xffffffffu, db, 1);
+      db += __shfl_xor_sync(0xffffffffu, db, 2);
+    }
+    if ((lane & 3) == 0) {
+      if (qa < Tq) delta_out[row0 + qa] = qa < q_len ? da : 0.0f;
+      if (qb < Tq) delta_out[row0 + qb] = qb < q_len ? db : 0.0f;
+    }
+
+    float dq[P][32];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[p][i] = 0.0f;
+    }
+
+    for (int j = 0; j < n_blocks; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+      if (j < n_wg) {
+        const uint8_t* sk = smem + L::kK + s * P * L::kKVPanel;
+        const uint8_t* sv = smem + L::kV + s * P * L::kKVPanel;
+        // S = Q K^T and dP = dO V^T, both operands K-major in shared memory
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k) {
+          const int p = k / 4;
+          const int kbyte = (k % 4) * 32;   // a k16 step within a 128-byte row
+          wgmma_ss<64>(sc, desc_sw128(sq + p * L::kQPanel + kbyte),
+                       desc_sw128(sk + p * L::kKVPanel + kbyte), k > 0);
+        }
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k) {
+          const int p = k / 4;
+          const int kbyte = (k % 4) * 32;
+          wgmma_ss<64>(dp, desc_sw128(sdo + p * L::kQPanel + kbyte),
+                       desc_sw128(sv + p * L::kKVPanel + kbyte), k > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P = 2^(S scale log2 e - lse log2 e), dS = P (dP - delta), masked
+        // only on tiles that cross kv_len or the diagonal
+        const int kv0 = j * BK_DQ;
+        const bool need_mask = kv0 + BK_DQ > kv_len || (causal && kv0 + BK_DQ - 1 > wq0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool upper = e < 2;
+            float p = ex2(fmaf(sc[4 * i + e], scale_log2, -(upper ? la : lb)));
+            if (need_mask) {
+              const int kj = kv0 + 8 * i + cq + (e & 1);
+              const int qi = upper ? qa : qb;
+              if (!(kj < kv_len && (!causal || kj <= qi))) p = 0.0f;
+            }
+            dp[4 * i + e] = p * (dp[4 * i + e] - (upper ? da : db));
+          }
+        }
+
+        // dQ += dS K: dS rounded to bf16 as the register A operand, K
+        // MN-major (the instruction transposes it, as V in the forward's PV)
+        uint32_t dsa[4][4];
+        acc_to_a<64>(dp, dsa);
+        fence_regs(dsa);
+#pragma unroll
+        for (int p = 0; p < P; ++p) fence_regs(dq[p]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            wgmma_rs<64>(dq[p], dsa[kk],
+                         desc_sw128(sk + p * L::kKVPanel + kk * 16 * ROW_BYTES), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < P; ++p) fence_regs(dq[p]);
+        fence_regs(dsa);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // ---- epilogue: scale * dQ into the O tile's space, out by TMA ----
+    named_sync(1 + wg, 128);   // every thread of the warpgroup has read O
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        *reinterpret_cast<uint32_t*>(so + p * L::kQPanel + swizzled_offset(r, 8 * i + cq)) =
+            pack_bf16(dq[p][4 * i] * scale, dq[p][4 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(so + p * L::kQPanel + swizzled_offset(r + 8, 8 * i + cq)) =
+            pack_bf16(dq[p][4 * i + 2] * scale, dq[p][4 * i + 3] * scale);
+      }
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (tid == 0 && wq0 < Tq) {
+      for (int p = 0; p < P; ++p) {
+        tma_store_3d(&tm_dq, so + p * L::kQPanel, p * PANEL_COLS, wq0, b * H + h);
+      }
+      tma_store_drain();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* lse, const void* dout,
-                      const void* q_lens, const void* kv_lens, void* dq,
-                      void* delta, int B, int H, int Hkv, int Tq, int Tk,
-                      int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const int bytes = int(SmemDq<T, D>::kTotal);
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* o, const void* lse, const void* dout,
+                          const void* q_lens, const void* kv_lens, void* dq,
+                          void* delta, int B, int H, int Hkv, int Tq, int Tk,
+                          int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_f32_kernel<D>;
+  const int bytes = int(SmemDqF32<D>::kTotal);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BLOCK - 1) / BLOCK, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
       static_cast<const int*>(q_lens), static_cast<const int*>(kv_lens),
-      static_cast<T*>(dq), static_cast<float*>(delta), H, Hkv, Tq, Tk, causal,
+      static_cast<float*>(dq), static_cast<float*>(delta), H, Hkv, Tq, Tk, causal,
       scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* o, const void* lse, const void* dout,
+                           const void* q_lens, const void* kv_lens, void* dq,
+                           void* delta, int B, int H, int Hkv, int Tq, int Tk,
+                           int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tdo, to, tk, tv, tdq;
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, BQ_DQ) ||
+      !hopper::make_tmap_bf16(&tdo, dout, B * H, Tq, D, BQ_DQ) ||
+      !hopper::make_tmap_bf16(&to, o, B * H, Tq, D, BQ_DQ) ||
+      !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, BK_DQ) ||
+      !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, D, BK_DQ) ||
+      !hopper::make_tmap_bf16(&tdq, dq, B * H, Tq, D, 64)) {
+    return cudaErrorNotSupported;
+  }
+  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+  const int bytes = DqLayout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Tq + BQ_DQ - 1) / BQ_DQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(H, B, n_qt);
+  kernel<<<grid, THREADS_BF16, bytes, stream>>>(
+      tq, tdo, to, tk, tv, tdq, static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), H, Hkv, Tq, Tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -730,15 +984,15 @@ extern "C" int avsr_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   if (bad_shape(B, H, Hkv, Tq, Tk)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AVSR_DQ(T, DD)                                                   \
-  return int(launch_dq<T, DD>(q, k, v, o, lse, dout, q_lens, kv_lens, dq, \
-                              delta, B, H, Hkv, Tq, Tk, causal, scale, s))
+#define AVSR_DQ(FN, DD)                                                \
+  return int(FN<DD>(q, k, v, o, lse, dout, q_lens, kv_lens, dq, delta, B, \
+                    H, Hkv, Tq, Tk, causal, scale, s))
   if (is_f32) {
-    if (D == 64) AVSR_DQ(float, 64);
-    if (D == 128) AVSR_DQ(float, 128);
+    if (D == 64) AVSR_DQ(launch_dq_f32, 64);
+    if (D == 128) AVSR_DQ(launch_dq_f32, 128);
   } else {
-    if (D == 64) AVSR_DQ(__nv_bfloat16, 64);
-    if (D == 128) AVSR_DQ(__nv_bfloat16, 128);
+    if (D == 64) AVSR_DQ(launch_dq_bf16, 64);
+    if (D == 128) AVSR_DQ(launch_dq_bf16, 128);
   }
 #undef AVSR_DQ
   return int(cudaErrorInvalidValue);

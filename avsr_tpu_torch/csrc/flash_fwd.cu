@@ -501,8 +501,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[HALF];
-    flash::warp_abt<float, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, nullptr,
-                              r, half, s);
+    flash::warp_abt<float, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, r, half, s);
 
     // Online softmax; the lane pair shares the row's max and sum.
     float mx = -INFINITY;

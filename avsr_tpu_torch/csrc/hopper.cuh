@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels of flash_fwd.cu and flash_bwd.cu, in inline PTX:
+// kernels of flash_fwd.cu and flash_bwd.cu and the int4 kernel of
+// qmatmul.cu, in inline PTX:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the parity wait;
 //   * TMA: 3-D tiled loads into shared memory that complete on an mbarrier,
@@ -10,7 +11,8 @@
 //     matrix descriptor of a 128-byte swizzled tile, and m64nNk16 bf16
 //     products with f32 accumulators, both operands in shared memory (SS)
 //     or A in registers (RS);
-//   * setmaxnreg and named barriers for warp-specialised kernels.
+//   * setmaxnreg and named barriers for warp-specialised kernels;
+//   * for qmatmul.cu's int4 kernel: mma.sync m16n8k16 bf16.
 //
 // Tile layout. Every operand tile is a stack of 64-column panels: a panel
 // holds rows of 64 bf16 (128 bytes) as the TMA's 128-byte swizzle leaves
@@ -328,6 +330,24 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync (the int4 matmul of qmatmul.cu)
+// ---------------------------------------------------------------------------
+
+// D[16, 8] += A[16, 16] B[16, 8], bf16 operands, f32 accumulators, one warp.
+// Lane l = 4g + t holds A's rows g (a[0], a[2]) and g + 8 (a[1], a[3]) at k
+// pairs t (a[0], a[1]) and t + 4 (a[2], a[3]); B's column g at k pairs t
+// (b0) and t + 4 (b1); D's rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at
+// columns 2t and 2t + 1. A k pair's first element is the low half.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

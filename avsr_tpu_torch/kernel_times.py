@@ -1,15 +1,21 @@
-"""Device times of the flash-attention kernels at the main path's shapes.
+"""Device times of the port's kernels at the main path's shapes.
 
-    python3 avsr_tpu_torch/flash_times.py [--root DIR] [--seed N]
+    python3 avsr_tpu_torch/kernel_times.py [--root DIR] [--seed N]
 
 Times the kernels of the ``avsr_tpu_torch`` package under ``--root`` (by
 default the checkout this file lies in; another checkout of the repo, such
 as an earlier commit unpacked with ``git archive``, gives its kernels'
-times by the same method): the forward at the Whisper, LLM prefill and
-LLM train shapes, and dQ and dK/dV at the train shape (dK/dV also without
-the causal mask). bf16, B = 8, D = 64, inputs from ``--seed``. Each time is
-``chip_smoke.py::graph_ms`` of this checkout: the device time per launch
-of a CUDA graph of 20 launches replayed three times. Prints the card's
+times by the same method):
+- the flash forward at the Whisper, LLM prefill and LLM train shapes, and
+  dQ and dK/dV at the train shape (dK/dV also without the causal mask);
+  bf16, B = 8, D = 64;
+- the weight-only matmuls at M = 8: int4 at the flagship's four decode
+  projections (qkv, o, gateup, down) and the int8 lm head, with the weights
+  cycled through 128 MB so that they come from memory and not from the
+  50 MB L2, as ``chip_smoke.py::qmm_kernel_phase`` times them.
+Inputs come from ``--seed``. Each time is ``chip_smoke.py::graph_ms`` of
+this checkout: the device time per launch of a CUDA graph of 20 launches
+(or one per weight copy, if more) replayed three times. Prints the card's
 name and power limit, then one JSON line. Needs a CUDA device.
 """
 
@@ -23,6 +29,8 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parent.parent
 
 # name: B, H, Hkv, T, valid rows, causal
@@ -31,6 +39,15 @@ SHAPES = {
     "llm_prefill": (8, 32, 8, 533, 533, True),
     "llm_train": (8, 32, 8, 672, 581, True),
 }
+# name: bits, K, N (M = 8)
+QMM_SHAPES = {
+    "int4_qkv": (4, 2048, 3072),
+    "int4_o": (4, 2048, 2048),
+    "int4_gateup": (4, 2048, 16384),
+    "int4_down": (4, 8192, 2048),
+    "int8_lm_head": (8, 2048, 129024),
+}
+L2_CYCLE_BYTES = 128e6
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -42,7 +59,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("flash_times: no CUDA device", file=sys.stderr)
+        print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     spec = importlib.util.spec_from_file_location("_chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -50,8 +67,11 @@ def main(argv: list[str] | None = None) -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     A = importlib.import_module("avsr_tpu_torch.ops.attention")
-    if not Path(A.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {A.__file__}, not the package under {root}")
+    Q = importlib.import_module("avsr_tpu_torch.ops.qmatmul")
+    quant = importlib.import_module("avsr_tpu_torch.ops.quant")
+    for mod in (A, Q, quant):
+        if not Path(mod.__file__).resolve().is_relative_to(root):
+            raise RuntimeError(f"imported {mod.__file__}, not the package under {root}")
     # dK/dV reads delta (from dQ) where an earlier version read O
     reads_delta = "delta" in inspect.signature(A.flash_bwd_dkv).parameters
 
@@ -80,6 +100,17 @@ def main(argv: list[str] | None = None) -> int:
                 ms["dq_llm_train"] = smoke.graph_ms([lambda: A.flash_bwd_dq(*dq_args)])
             ms[f"dkv_llm_train{tag}"] = smoke.graph_ms(
                 [lambda: A.flash_bwd_dkv(*dkv_args)])
+    for name, (bits, K, N) in QMM_SHAPES.items():
+        qp = quant.quantize_tensor(
+            0.02 * torch.randn((K, N), generator=gen, device="cuda"), bits)
+        x = torch.randn((8, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+        wkey = "qw4h" if bits == 4 else "qw"
+        copies = int(np.ceil(L2_CYCLE_BYTES / qp[wkey].numel()))
+        nodes = [qp] + [{wkey: qp[wkey].clone(), "scale": qp["scale"].clone()}
+                        for _ in range(copies - 1)]
+        ms[f"qmatmul_{name}"] = smoke.graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
+        del nodes, qp
+        torch.cuda.empty_cache()
     print(json.dumps({"root": str(root), "kernels": A.__file__, "ms": ms}))
     return 0
 

@@ -35,16 +35,31 @@ MAX_SMALL_M = 64
 int8_launches = 0
 int4_launches = 0
 
-# The kernel's tiling (csrc/qmatmul.cu: BN, MT): a CTA owns 128 output
-# columns of 8 rows of x. The K rows are split over CTAs until the grid has
-# two CTAs per SM, with at least MIN_SPLIT_ROWS weight rows each, and so
-# that a CTA's x columns (f32, 8 rows, both K halves for int4) fit in
-# MAX_X_BYTES of shared memory; the partial sums are added in a second,
-# deterministic pass.
+# The int8 kernel's tiling (csrc/qmatmul.cu: BN, MT): a CTA owns 128
+# output columns of 8 rows of x. The K rows are split over CTAs until the
+# grid has two CTAs per SM, with at least MIN_SPLIT_ROWS weight rows each,
+# and so that a CTA's x columns (f32, 8 rows) fit in MAX_X_BYTES of shared
+# memory; the partial sums are added in a second, deterministic pass.
 BLOCK_N = 128
 BLOCK_M = 8
 MIN_SPLIT_ROWS = 64
 MAX_X_BYTES = 96 * 1024
+
+# The int4 kernel's tiling (csrc/qmatmul.cu: I4_*): a CTA owns 128 output
+# columns of 8 or 16 rows of x (one or two n8 mma tiles) over a range of
+# packed rows, taken by its 8 warps in k steps of 8 rows; up to MAX_SPLIT
+# CTAs of one output tile split the packed rows, and the last of them adds
+# their sums, so one launch covers K. One CTA per SM measured faster than
+# two at every flagship shape, and 8 splits faster than 16 (PERF.md, PR 5).
+I4_BLOCK_N = 128
+I4_KSTEP = 8
+I4_WARPS = 8
+MAX_SPLIT = 8
+
+# The int4 kernel's tile counters, one zeroed int32 buffer per device: a
+# launch with a K split counts its CTAs there and leaves every counter 0, so
+# launches on one stream (or one at a time) share it.
+_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def eligible(m: int, k: int, qp, *, use_kernel: str = "auto",
@@ -98,15 +113,30 @@ def qmatmul_reference(x: torch.Tensor, qp,
     return y.to(out_dtype)
 
 
-def splits(m: int, rows: int, n: int, sms: int, bits: int) -> tuple[int, int]:
-    """(number of K splits, weight rows per split) of one launch: enough
-    CTAs for two per SM where the rows allow it, and no more rows per CTA
-    than its staged x allows."""
+def splits(m: int, rows: int, n: int, sms: int) -> tuple[int, int]:
+    """(number of K splits, weight rows per split) of one int8 launch:
+    enough CTAs for two per SM where the rows allow it, and no more rows
+    per CTA than its staged x allows."""
     ctas = -(-n // BLOCK_N) * -(-m // BLOCK_M)
-    cap = MAX_X_BYTES // (BLOCK_M * 4 * (2 if bits == 4 else 1))
+    cap = MAX_X_BYTES // (BLOCK_M * 4)
     s = max(1, min(-(-2 * sms // ctas), rows // MIN_SPLIT_ROWS), -(-rows // cap))
     per = max(1, -(-rows // s))
     return -(-rows // per), per
+
+
+def int4_plan(m: int, rows: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(K splits, packed rows per CTA, n8 tiles of x per CTA) of one int4
+    launch over m rows of x, ``rows`` = K/2 packed rows and n columns: one
+    n8 tile up to 8 rows of x, else two; the packed rows split over at most
+    MAX_SPLIT CTAs per output tile, as many as one wave of one CTA per SM
+    holds, each CTA keeping at least one k step per warp, in whole k
+    steps."""
+    nt = 1 if m <= 8 else 2
+    ctas = -(-n // I4_BLOCK_N) * -(-m // (8 * nt))
+    c = max(1, min(MAX_SPLIT, sms // ctas, -(-rows // (I4_WARPS * I4_KSTEP))))
+    per = -(-rows // c)
+    per = -(-per // I4_KSTEP) * I4_KSTEP
+    return -(-rows // per), per, nt
 
 
 # ---------------------------------------------------------------------------
@@ -119,13 +149,16 @@ _KINDS = {torch.bfloat16: 0, torch.float32: 1}
 
 def _kernel_fn(symbol: str):
     """The C entry point ``symbol`` of ``csrc/qmatmul.cu``, built on first
-    use: pointers x, w, scale, out, partial; then M, K, N, splits,
-    split_rows, the dtype codes of x, scale and out, and the stream."""
+    use. int8: pointers x, w, scale, out, partial; then M, K, N, splits,
+    split_rows, the dtype codes of x, scale and out, and the stream. int4:
+    pointers x, w, scale, out, partial, counters; then M, K, N, splits,
+    rows per CTA, n8 tiles, the three dtype codes, and the stream."""
     from avsr_tpu_torch.ops import _build
 
     fn = getattr(_build.load("qmatmul"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        n_ptr, n_int = (6, 9) if symbol == "avsr_qmatmul_int4" else (5, 8)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -163,16 +196,35 @@ def qmatmul(x: torch.Tensor, qp, out_dtype: torch.dtype = torch.float32
             raise ValueError(f"qmatmul: {name} must be a contiguous tensor on {dev}")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, per = splits(M, rows, N, sms, 4 if int4 else 8)
-    partial = (torch.empty((n_split, M, N), dtype=torch.float32, device=dev)
-               if n_split > 1 else None)
-    symbol = "avsr_qmatmul_int4" if int4 else "avsr_qmatmul_int8"
-    with torch.cuda.device(dev):
-        err = _kernel_fn(symbol)(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            M, K, N, n_split, per, _KINDS[x.dtype], _KINDS[scale.dtype],
-            _KINDS[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+    kinds = (_KINDS[x.dtype], _KINDS[scale.dtype], _KINDS[out_dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr())
+    if int4:
+        symbol = "avsr_qmatmul_int4"
+        plan = int4_plan(M, rows, N, sms)
+        n_split, _, nt = plan
+        tiles = -(-N // I4_BLOCK_N) * -(-M // (8 * nt))
+        partial = counters = None
+        if n_split > 1:
+            partial = torch.empty((tiles, n_split, 8 * nt, I4_BLOCK_N),
+                                  dtype=torch.float32, device=dev)
+            counters = _counters.get(dev)
+            if counters is None or counters.numel() < tiles:
+                counters = _counters[dev] = torch.zeros(max(tiles, 4096),
+                                                        dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = _kernel_fn(symbol)(
+                *ptrs, *(t.data_ptr() if t is not None else None for t in (partial, counters)),
+                M, K, N, *plan, *kinds, stream)
+    else:
+        symbol = "avsr_qmatmul_int8"
+        n_split, per = splits(M, rows, N, sms)
+        partial = (torch.empty((n_split, M, N), dtype=torch.float32, device=dev)
+                   if n_split > 1 else None)
+        with torch.cuda.device(dev):
+            err = _kernel_fn(symbol)(
+                *ptrs, partial.data_ptr() if partial is not None else None,
+                M, K, N, n_split, per, *kinds, stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     global int8_launches, int4_launches

@@ -34,16 +34,21 @@
 8. qmatmul kernel phase: the int8 and int4 weight-only matmul kernels at
    every decode shape of the flagship (M = 8: the int4 projections qkv, o,
    gateup, down, the int8 lm head, and the int8 projections of use_8bit)
-   against their plain version, edge cases (M of 1, 5 and 64, f32 x, N off
-   the tile, a K that does not match), and the device time of the kernel,
-   its plain version, its bound, one bf16 matmul on the dequantized weight
-   and the dequantize-then-matmul pair, each from a replayed CUDA graph.
+   against their plain version, edge cases (M of 1, 5, 9, 17 and 64, f32
+   x, N off the tile, K/2 off the int4 kernel's k step, a K that does not
+   match), the same bits from two launches and from a replayed CUDA graph,
+   and the device time of the kernel, its plain version, its bound, one
+   bf16 matmul on the dequantized weight and the dequantize-then-matmul
+   pair, each from a replayed CUDA graph.
 9. Serving-preset phase: the flagship with use_4bit, lm_head_bits=8 and
    an int8 KV cache, built as the decode CLI builds it, on the same 8
    utterances: exact launch counts of one generate_tokens call, decode-step
    logits of the kernel path against the dequantize path (f32 and bf16),
    the serving numbers next to phase 3's, and the decode CLI with the
    preset overrides.
+
+The build's ptxas report is printed per kernel, and any kernel that spills
+fails the run.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -551,28 +556,33 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
         plain_ms = graph_ms([lambda n=n: Q.qmatmul_reference(x, n) for n in nodes])
         del nodes, w16, w16s
         ops_ms, bytes_ms = qmm_bound(M, K, N, bits)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = (dict(zip(("splits", "rows_per_cta", "n8_tiles"), Q.int4_plan(M, K // 2, N, sms)))
+                if bits == 4 else dict(splits=Q.splits(M, K, N, sms)[0]))
         row = dict(shape=name, bits=bits, M=M, K=K, N=N, launches_per_call=per_call,
                    max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, dequant_matmul_ms=pair_ms,
                    bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   splits=Q.splits(M, K // 2 if bits == 4 else K, N,
-                                   torch.cuda.get_device_properties(0).multi_processor_count,
-                                   bits)[0])
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", plan=plan)
         rows.append(row)
         print(f"qmatmul {name} int{bits} [{M}x{K}] x [{K}x{N}]: {ms * 1e3:.2f} us "
               f"(bound {row['bound_ms'] * 1e3:.2f} by {row['bound_by']}, plain "
               f"{plain_ms * 1e3:.1f}, bf16 matmul {library_ms * 1e3:.2f}, dequant + "
-              f"matmul {pair_ms * 1e3:.1f}; {row['splits']} K splits); max|d| "
+              f"matmul {pair_ms * 1e3:.1f}; {plan}); max|d| "
               f"{err:.3e} = {rel:.2e} x max|ref|")
 
-    # Edge cases off the main path: ragged M, f32 x, N and K off the tile
-    # (N = 2050 is not even a multiple of 4: the byte-load path), bf16
-    # output, and a K that does not match the weight.
+    # Edge cases off the main path: ragged M (9 and 17 take two n8 tiles of
+    # x in the int4 kernel, 17 also two CTAs along M), f32 x, N and K off
+    # the tile (N = 2050 is not even a multiple of 4: the byte-load paths;
+    # K = 1000 gives K/2 = 500, not a multiple of the int4 kernel's 8-row k
+    # step), bf16 output, and a K that does not match the weight.
     edge = 0.0
     for bits in (8, 4):
         for M, K, N, xdt, odt in ((1, 2048, 3072, torch.bfloat16, torch.float32),
                                   (5, 2048, 3072, torch.bfloat16, torch.float32),
+                                  (9, 2048, 3072, torch.bfloat16, torch.float32),
+                                  (17, 8192, 2048, torch.bfloat16, torch.float32),
+                                  (17, 1000, 2050, torch.float32, torch.float32),
                                   (64, 2048, 3072, torch.bfloat16, torch.float32),
                                   (8, 2048, 3072, torch.float32, torch.float32),
                                   (8, 1000, 2050, torch.bfloat16, torch.float32),
@@ -596,9 +606,33 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
             pass
         else:
             raise CheckFailed(f"int{bits}: an x whose K does not match did not raise")
-    print(f"qmatmul edge cases (M 1/5/64, f32 x, N 2050/1000, K 1000, bf16 out, "
-          f"K mismatch): ok, worst f32 max|d| {edge:.3e} x max|ref|")
-    return dict(rows=rows, edge_max_rel_err=edge)
+    print(f"qmatmul edge cases (M 1/5/9/17/64, f32 x, N 2050/1000, K 1000, bf16 "
+          f"out, K mismatch): ok, worst f32 max|d| {edge:.3e} x max|ref|")
+
+    # The same bits on every run: two launches, and a CUDA graph of one
+    # replayed twice (the int4 kernel's last CTA of a tile adds its K split
+    # in split order, the int8 kernel does so in a second pass; neither adds
+    # by float atomics).
+    for bits, M, K, N in ((4, 8, 2048, 3072), (4, 8, 8192, 2048), (4, 17, 1000, 2050),
+                          (8, 8, 2048, 3072)):
+        qp = quant.quantize_tensor(torch.randn((K, N), generator=gen, device=dev), bits)
+        x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
+        runs = [Q.qmatmul(x, qp), Q.qmatmul(x, qp)]
+        side = capture_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = Q.qmatmul(x, qp)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            runs.append(captured.clone())
+        del graph
+        check(all(torch.equal(runs[0], r) for r in runs[1:]),
+              f"qmatmul int{bits} M={M} K={K} N={N}: launches on the same inputs differ")
+    print("qmatmul determinism (two launches and two graph replays, int4 at qkv, "
+          "down and M=17 K=1000 N=2050, int8 at qkv): bit-identical")
+    return dict(rows=rows, edge_max_rel_err=edge, deterministic=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1188,6 +1222,7 @@ def main(argv: list[str] | None = None) -> int:
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.KERNEL_SOURCES)})")
+    spills = []
     for name, log in _build.build_logs.items():
         fn = ""
         for line in log.splitlines():
@@ -1195,6 +1230,9 @@ def main(argv: list[str] | None = None) -> int:
                 fn = kernel_label(line)
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name} {fn}: {line.strip()}")
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    spills.append(f"{name} {fn}")
+    check(not spills, f"kernels that spill registers: {spills}")
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features

@@ -224,12 +224,14 @@ def _qnode(bits, K, N, g, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("M", [1, 8, 9, 17, 64])
 @pytest.mark.parametrize("K,N", [(2048, 3072), (1000, 2050), (512, 1000)])
 def test_qmatmul_matches_plain_version(cuda, bits, M, K, N):
-    """int8 and int4 against qmatmul_reference: ragged M, N not a multiple
-    of the 128-column tile (2050 also not of 4, the byte-load path), bf16
-    and f32 x, f32 and bf16 output; one count per launch."""
+    """int8 and int4 against qmatmul_reference: ragged M (9 and 17 take
+    more than one n8 tile of x in the int4 kernel), N not a multiple of the
+    128-column tile (2050 also not of 4 or 16, the byte-load paths), K/2 =
+    500 not a multiple of the int4 kernel's 8-row k step, bf16 and f32 x,
+    f32 and bf16 output; one count per launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
     qp = _qnode(bits, K, N, g, cuda)
     for x_dtype in (torch.bfloat16, torch.float32):
@@ -248,6 +250,32 @@ def test_qmatmul_matches_plain_version(cuda, bits, M, K, N):
                                    atol=1e-4 * ref.abs().max().item(), rtol=1e-2)
     with pytest.raises(ValueError):
         Q.qmatmul(torch.zeros((M, K + 2), device=cuda), qp)   # K does not match
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 3072), (8, 8192, 2048), (17, 1000, 2050)])
+def test_qmatmul_is_deterministic(cuda, bits, M, K, N):
+    """Two launches on the same inputs, and a replayed CUDA graph of one,
+    give the same bits: the K split is added in split order (int8: a
+    second pass; int4: the tile's last CTA), with no float atomics."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qp = _qnode(bits, K, N, g, cuda)
+    x = torch.randn((M, K), generator=g, device=cuda, dtype=torch.bfloat16)
+    first = Q.qmatmul(x, qp)
+    again = Q.qmatmul(x, qp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q.qmatmul(x, qp)                          # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = Q.qmatmul(x, qp)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, captured)
 
 
 @pytest.mark.cuda

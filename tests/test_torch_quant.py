@@ -216,23 +216,60 @@ def test_qdot_dispatch_on_cpu(monkeypatch):
         tq.qdot(x, qp, use_kernel="sometimes")
 
 
+_PLAN_SHAPES = [(8, 1024, 3072), (8, 1024, 2048), (8, 1024, 16384),
+                (8, 4096, 2048), (8, 2048, 129024), (1, 1000, 2050),
+                (64, 2048, 2048), (8, 64, 128), (8, 8192, 129024)]
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_splits_fill_the_card(bits):
-    """The K split gives >= 2 CTAs per SM where the rows allow, whole
-    splits covering every row, a CTA's staged x within MAX_X_BYTES, and no
-    split at the head's width."""
-    x_row = tqm.BLOCK_M * 4 * (2 if bits == 4 else 1)
-    for m, rows, n in [(8, 1024, 3072), (8, 1024, 2048), (8, 1024, 16384),
-                       (8, 4096, 2048), (8, 2048, 129024), (1, 1000, 2050),
-                       (64, 2048, 2048), (8, 64, 128), (8, 8192, 129024)]:
-        s, per = tqm.splits(m, rows, n, sms=132, bits=bits)
+    """The K split gives >= 2 CTAs per SM where the rows allow (int8: whole
+    splits, a CTA's staged x within MAX_X_BYTES, no split at the head's
+    width; int4: one CTA per SM, at most 8 splits in one launch, each with
+    at least one k step per warp)."""
+    if bits == 4:
+        for m, rows, n in _PLAN_SHAPES:
+            c, per, nt = tqm.int4_plan(m, rows, n, sms=132)
+            ctas = -(-n // tqm.I4_BLOCK_N) * -(-m // (8 * nt))
+            # one wave of one CTA per SM
+            assert c * ctas <= 132 or c == 1
+            # and no fewer: one more CTA per tile would not fit the wave,
+            # or the splits are at their cap, or the CTAs are already short
+            # (under two k steps per warp)
+            assert (c + 1) * ctas > 132 or c == tqm.MAX_SPLIT \
+                or per < 2 * tqm.I4_WARPS * tqm.I4_KSTEP
+        # the flagship's int4 projections at M = 8: qkv, o, gateup, down
+        assert [tqm.int4_plan(8, r, n, 132)[0] for r, n in
+                [(1024, 3072), (1024, 2048), (1024, 16384), (4096, 2048)]] == [5, 8, 1, 8]
+        return
+    x_row = tqm.BLOCK_M * 4
+    for m, rows, n in _PLAN_SHAPES:
+        s, per = tqm.splits(m, rows, n, sms=132)
         ctas = -(-n // tqm.BLOCK_N) * -(-m // tqm.BLOCK_M)
         assert (s - 1) * per < rows <= s * per
         assert per * x_row <= tqm.MAX_X_BYTES
         assert per >= min(rows, tqm.MIN_SPLIT_ROWS) or per * 2 * x_row > tqm.MAX_X_BYTES
         assert s * ctas >= 264 or per < 2 * tqm.MIN_SPLIT_ROWS \
             or per * 2 * x_row > tqm.MAX_X_BYTES
-    assert tqm.splits(8, 2048, 129024, sms=132, bits=8) == (1, 2048)
+    assert tqm.splits(8, 2048, 129024, sms=132) == (1, 2048)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 17, 64])
+@pytest.mark.parametrize("rows,n", [(1024, 3072), (1024, 2048), (1024, 16384),
+                                    (4096, 2048), (500, 2050), (500, 1000),
+                                    (1, 128), (12, 16), (20480, 4096)])
+def test_int4_plan_is_legal(m, rows, n):
+    """Every int4 launch plan covers each packed row exactly once in whole
+    k steps (the last CTA may hold a partial one), keeps the splits within
+    8, and takes two n8 tiles of x exactly when M > 8. (A CTA's shared
+    memory holds only its warps' sums, 35 or 70 KB whatever the plan.)"""
+    c, per, nt = tqm.int4_plan(m, rows, n, sms=132)
+    assert 1 <= c <= tqm.MAX_SPLIT
+    assert per % tqm.I4_KSTEP == 0
+    starts = [r * per for r in range(c)]
+    covered = sum(min(rows, s + per) - s for s in starts)
+    assert covered == rows and all(s < rows for s in starts)
+    assert nt == (1 if m <= 8 else 2)
 
 
 # ---------------------------------------------------------------------------
