@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels of flash_fwd.cu and flash_bwd.cu and the int4 kernel of
+// kernels of flash_fwd.cu and flash_bwd.cu and the int8 / int4 kernels of
 // qmatmul.cu, in inline PTX:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the parity wait;
-//   * TMA: 3-D tiled loads into shared memory that complete on an mbarrier,
-//     3-D tiled stores from shared memory, and the host-side encoding of
-//     the tensor maps they read (cuTensorMapEncodeTiled, looked up in the
-//     driver library at run time, so the libraries link only the runtime);
+//   * TMA: 2-D and 3-D tiled loads into shared memory that complete on an
+//     mbarrier, 3-D tiled stores from shared memory, and the host-side
+//     encoding of the tensor maps they read (bf16 tiles, and the int8
+//     weight; cuTensorMapEncodeTiled, looked up in the driver library at run
+//     time, so the libraries link only the runtime);
 //   * wgmma: the fence / commit / wait of a warpgroup, the shared-memory
 //     matrix descriptor of a 128-byte swizzled tile, and m64nNk16 bf16
 //     products with f32 accumulators, both operands in shared memory (SS)
 //     or A in registers (RS);
-//   * setmaxnreg and named barriers for warp-specialised kernels;
-//   * for qmatmul.cu's int4 kernel: mma.sync m16n8k16 bf16.
+//   * setmaxnreg and named barriers for warp-specialised kernels, and an
+//     acquire-release atomic add (a semaphore between CTAs);
+//   * for qmatmul.cu's kernels: mma.sync m16n8k16 bf16.
 //
 // Tile layout. Every operand tile is a stack of 64-column panels: a panel
 // holds rows of 64 bf16 (128 bytes) as the TMA's 128-byte swizzle leaves
@@ -104,6 +106,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 2-D tensor map: the box at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Writes the shared-memory box at `src` to (c0, c1, c2) of the tensor map;
 // the parts outside the tensor are dropped.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -157,6 +169,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // threads.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// *p += v at device scope with acquire-release order; returns the old *p.
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 // ---------------------------------------------------------------------------
@@ -333,7 +355,7 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync (the int4 matmul of qmatmul.cu)
+// mma.sync (the int8 and int4 matmuls of qmatmul.cu)
 // ---------------------------------------------------------------------------
 
 // D[16, 8] += A[16, 16] B[16, 8], bf16 operands, f32 accumulators, one warp.
@@ -388,6 +410,45 @@ inline bool make_tmap_bf16(CUtensorMap* map, const void* base, int heads,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over a row-major [rows, cols] bf16 matrix viewed as
+// [cols / 64][rows][64]: a box of `box_rows` rows by `box_panels` 64-column
+// panels lands in shared memory panel after panel, each row 128 bytes,
+// 128-byte swizzled. Needs cols % 64 == 0 and a 16-byte aligned base. Rows
+// and panels past the matrix load as zeros.
+inline bool make_tmap_bf16_panels(CUtensorMap* map, const void* base, int rows, int cols,
+                                  int box_rows, int box_panels) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(PANEL_COLS), cuuint64_t(rows),
+                              cuuint64_t(cols / PANEL_COLS)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(ROW_BYTES)};
+  const cuuint32_t box[3] = {cuuint32_t(PANEL_COLS), cuuint32_t(box_rows),
+                             cuuint32_t(box_panels)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over a row-major [rows, cols] byte matrix (the int8 weight of
+// qmatmul.cu), read in boxes of `box_rows` rows by 128 columns, 128-byte
+// swizzled. Needs cols % 16 == 0 and a 16-byte aligned base (TMA's rule for
+// the row stride). Rows and columns past the matrix load as zeros.
+inline bool make_tmap_u8(CUtensorMap* map, const void* base, int rows, int cols,
+                         int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols)};
+  const cuuint32_t box[2] = {cuuint32_t(ROW_BYTES), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

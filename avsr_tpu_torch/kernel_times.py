@@ -9,8 +9,9 @@ times by the same method):
 - the flash forward at the Whisper, LLM prefill and LLM train shapes, and
   dQ and dK/dV at the train shape (dK/dV also without the causal mask);
   bf16, B = 8, D = 64;
-- the weight-only matmuls at M = 8: int4 at the flagship's four decode
-  projections (qkv, o, gateup, down) and the int8 lm head, with the weights
+- the weight-only matmuls at M = 8: int4 and int8 at the flagship's four
+  decode projections (qkv, o, gateup, down; int8 is model.use_8bit) and the
+  int8 lm head, with the weights
   cycled through 128 MB so that they come from memory and not from the
   50 MB L2, as ``chip_smoke.py::qmm_kernel_phase`` times them.
 Inputs come from ``--seed``. Each time is ``chip_smoke.py::graph_ms`` of
@@ -45,6 +46,10 @@ QMM_SHAPES = {
     "int4_o": (4, 2048, 2048),
     "int4_gateup": (4, 2048, 16384),
     "int4_down": (4, 8192, 2048),
+    "int8_qkv": (8, 2048, 3072),
+    "int8_o": (8, 2048, 2048),
+    "int8_gateup": (8, 2048, 16384),
+    "int8_down": (8, 8192, 2048),
     "int8_lm_head": (8, 2048, 129024),
 }
 L2_CYCLE_BYTES = 128e6

@@ -42,6 +42,10 @@ dkv_launches = 0      # flash_bwd dK/dV
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
 # the port keeps them as the reference's rule until measured on the card.
 MIN_KERNEL_SEQ = 256
+# The head widths the CUDA kernels take. The JAX rule sends every multiple
+# of 64 to its kernel; the port sends 192 and 256 (no shipped config has
+# them) to mha_reference.
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _lens(lens: torch.Tensor | None, n: int, batch: int,
@@ -424,14 +428,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float | None = None,
               use_kernel: str = "auto") -> torch.Tensor:
     """The flash kernels where the JAX package would take its Pallas kernel
-    (head_dim % 64 == 0, Tq and Tk >= 256, no ``kv_valid`` mask), through
+    (Tq and Tk >= 256, no ``kv_valid`` mask) and the kernels take the head
+    width (64 or 128; JAX takes any multiple of 64), through
     :class:`FlashAttention` so that gradients flow; else
     :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
     tensors), "always", or "never" — the counterpart of ``use_pallas``."""
     if use_kernel not in ("auto", "always", "never"):
         raise ValueError(f"use_kernel must be auto|always|never, got {use_kernel!r}")
     want = use_kernel == "always" or (use_kernel == "auto" and q.is_cuda)
-    if (want and kv_valid is None and q.shape[-1] % 64 == 0
+    if (want and kv_valid is None and q.shape[-1] in KERNEL_HEAD_DIMS
             and q.shape[2] >= MIN_KERNEL_SEQ and k.shape[2] >= MIN_KERNEL_SEQ):
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), q_lens, kv_lens, causal,

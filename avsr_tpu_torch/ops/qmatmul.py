@@ -15,9 +15,10 @@ kernel writes its result in ``out_dtype`` (f32 by default); that is the f32
 result rounded once, as a cast after it would be.
 
 ``qmatmul`` takes :func:`qmatmul_reference` for a CPU tensor and launches
-the kernel for a CUDA tensor (or raises). ``int8_launches`` and
-``int4_launches`` count the launches. ``eligible`` is the dispatch rule of
-``ops/quant.py::qdot``.
+the kernel for a CUDA tensor (or raises), one launch per call whatever the
+shape; ``int8_plan`` and ``int4_plan`` split K where the output tiles alone
+would leave SMs idle. ``int8_launches`` and ``int4_launches`` count the
+launches. ``eligible`` is the dispatch rule of ``ops/quant.py::qdot``.
 """
 
 from __future__ import annotations
@@ -35,31 +36,32 @@ MAX_SMALL_M = 64
 int8_launches = 0
 int4_launches = 0
 
-# The int8 kernel's tiling (csrc/qmatmul.cu: BN, MT): a CTA owns 128
-# output columns of 8 rows of x. The K rows are split over CTAs until the
-# grid has two CTAs per SM, with at least MIN_SPLIT_ROWS weight rows each,
-# and so that a CTA's x columns (f32, 8 rows) fit in MAX_X_BYTES of shared
-# memory; the partial sums are added in a second, deterministic pass.
+# The kernels' tiling (csrc/qmatmul.cu: I8_* and I4_*): a unit of work owns
+# 128 output columns of 8 or 16 rows of x (one or two n8 mma tiles) over a
+# range of weight rows, taken by 8 warps in k steps (int8: 16 rows of the
+# weight; int4: 8 packed rows). Where one wave of units leaves SMs idle, up
+# to MAX_SPLIT units of one output tile split the rows, and the last of them
+# adds their sums, so one launch covers K. One CTA per SM measured faster
+# than two at every flagship int4 shape, and 8 splits faster than 16
+# (PERF.md, PR 5).
 BLOCK_N = 128
-BLOCK_M = 8
-MIN_SPLIT_ROWS = 64
-MAX_X_BYTES = 96 * 1024
-
-# The int4 kernel's tiling (csrc/qmatmul.cu: I4_*): a CTA owns 128 output
-# columns of 8 or 16 rows of x (one or two n8 mma tiles) over a range of
-# packed rows, taken by its 8 warps in k steps of 8 rows; up to MAX_SPLIT
-# CTAs of one output tile split the packed rows, and the last of them adds
-# their sums, so one launch covers K. One CTA per SM measured faster than
-# two at every flagship shape, and 8 splits faster than 16 (PERF.md, PR 5).
-I4_BLOCK_N = 128
+WARPS = 8
+I8_KSTEP = 16
 I4_KSTEP = 8
-I4_WARPS = 8
 MAX_SPLIT = 8
+# An int8 split starts on a 64-column panel of x, the unit of its TMA box.
+I8_SPLIT_ALIGN = 64
 
-# The int4 kernel's tile counters, one zeroed int32 buffer per device: a
-# launch with a K split counts its CTAs there and leaves every counter 0, so
-# launches on one stream (or one at a time) share it.
-_counters: dict[torch.device, torch.Tensor] = {}
+# Per (device, stream): the tile counters of a K split (int32, 0 between
+# launches: a launch counts its CTAs there and sets them back to 0) and the
+# scratch of the splits' sums (f32), which both kernels share. Launches on
+# one stream run one after another; a stream of its own per caller lets two
+# launch at once. A buffer that had to grow stays referenced in _retired,
+# since a captured CUDA graph may still hold its address.
+_workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
+_retired: list[tuple[torch.Tensor, torch.Tensor]] = []
+MIN_COUNTERS = 4096
+MIN_SCRATCH_FLOATS = 1 << 19     # 2 MB: every flagship decode shape's splits
 
 
 def eligible(m: int, k: int, qp, *, use_kernel: str = "auto",
@@ -113,30 +115,58 @@ def qmatmul_reference(x: torch.Tensor, qp,
     return y.to(out_dtype)
 
 
-def splits(m: int, rows: int, n: int, sms: int) -> tuple[int, int]:
-    """(number of K splits, weight rows per split) of one int8 launch:
-    enough CTAs for two per SM where the rows allow it, and no more rows
-    per CTA than its staged x allows."""
-    ctas = -(-n // BLOCK_N) * -(-m // BLOCK_M)
-    cap = MAX_X_BYTES // (BLOCK_M * 4)
-    s = max(1, min(-(-2 * sms // ctas), rows // MIN_SPLIT_ROWS), -(-rows // cap))
-    per = max(1, -(-rows // s))
-    return -(-rows // per), per
+def _split_plan(m: int, rows: int, n: int, sms: int, kstep: int, align: int
+                ) -> tuple[int, int, int]:
+    """(K splits, rows per split, n8 tiles of x per unit) over m rows of x,
+    ``rows`` weight rows in k steps of ``kstep`` and n columns: one n8 tile
+    up to 8 rows of x, else two; the rows split over at most MAX_SPLIT units
+    per output tile, as many as one wave of one CTA per SM holds, each unit
+    keeping at least one k step per warp, in whole multiples of ``align``
+    rows."""
+    nt = 1 if m <= 8 else 2
+    units = -(-n // BLOCK_N) * -(-m // (8 * nt))
+    c = max(1, min(MAX_SPLIT, sms // units, -(-rows // (WARPS * kstep))))
+    per = -(-rows // c)
+    per = -(-per // align) * align
+    return -(-rows // per), per, nt
+
+
+def int8_plan(m: int, rows: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(K splits, weight rows per split, n8 tiles) of one int8 launch over
+    m rows of x and an int8 weight of ``rows`` = K rows and n columns."""
+    return _split_plan(m, rows, n, sms, I8_KSTEP, I8_SPLIT_ALIGN)
 
 
 def int4_plan(m: int, rows: int, n: int, sms: int) -> tuple[int, int, int]:
-    """(K splits, packed rows per CTA, n8 tiles of x per CTA) of one int4
-    launch over m rows of x, ``rows`` = K/2 packed rows and n columns: one
-    n8 tile up to 8 rows of x, else two; the packed rows split over at most
-    MAX_SPLIT CTAs per output tile, as many as one wave of one CTA per SM
-    holds, each CTA keeping at least one k step per warp, in whole k
-    steps."""
-    nt = 1 if m <= 8 else 2
-    ctas = -(-n // I4_BLOCK_N) * -(-m // (8 * nt))
-    c = max(1, min(MAX_SPLIT, sms // ctas, -(-rows // (I4_WARPS * I4_KSTEP))))
-    per = -(-rows // c)
-    per = -(-per // I4_KSTEP) * I4_KSTEP
-    return -(-rows // per), per, nt
+    """(K splits, packed rows per CTA, n8 tiles) of one int4 launch over m
+    rows of x, ``rows`` = K/2 packed rows and n columns."""
+    return _split_plan(m, rows, n, sms, I4_KSTEP, I4_KSTEP)
+
+
+def _workspace(dev: torch.device, n_counters: int, n_floats: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counters, scratch) of the current stream of ``dev``, at least
+    ``n_counters`` and ``n_floats`` long. They are made (zeroed counters) at
+    the stream's first launch with a K split, which must not be under
+    CUDA-graph capture."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream)
+    ws = _workspaces.get(key)
+    if ws is not None and ws[0].numel() >= n_counters and ws[1].numel() >= n_floats:
+        return ws
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "qmatmul: the first launch with a K split on this stream is under "
+            "CUDA-graph capture; launch it once on that stream before capturing "
+            "(as a warm-up), so that its counters exist")
+    if ws is not None:
+        _retired.append(ws)
+    ws = _workspaces[key] = (
+        torch.zeros(max(n_counters, MIN_COUNTERS, ws[0].numel() if ws else 0),
+                    dtype=torch.int32, device=dev),
+        torch.empty(max(n_floats, MIN_SCRATCH_FLOATS, ws[1].numel() if ws else 0),
+                    dtype=torch.float32, device=dev))
+    return ws
 
 
 # ---------------------------------------------------------------------------
@@ -148,17 +178,16 @@ _KINDS = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def _kernel_fn(symbol: str):
-    """The C entry point ``symbol`` of ``csrc/qmatmul.cu``, built on first
-    use. int8: pointers x, w, scale, out, partial; then M, K, N, splits,
-    split_rows, the dtype codes of x, scale and out, and the stream. int4:
-    pointers x, w, scale, out, partial, counters; then M, K, N, splits,
-    rows per CTA, n8 tiles, the three dtype codes, and the stream."""
+    """The C entry point ``symbol`` (``avsr_qmatmul_int8`` or
+    ``avsr_qmatmul_int4``) of ``csrc/qmatmul.cu``, built on first use:
+    pointers x, w, scale, out, scratch, counters; then M, K, N, the plan
+    (splits, rows per split, n8 tiles), the dtype codes of x, scale and out,
+    and the stream."""
     from avsr_tpu_torch.ops import _build
 
     fn = getattr(_build.load("qmatmul"), symbol)
     if fn.argtypes is None:
-        n_ptr, n_int = (6, 9) if symbol == "avsr_qmatmul_int4" else (5, 8)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -197,34 +226,18 @@ def qmatmul(x: torch.Tensor, qp, out_dtype: torch.dtype = torch.float32
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     kinds = (_KINDS[x.dtype], _KINDS[scale.dtype], _KINDS[out_dtype])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr())
-    if int4:
-        symbol = "avsr_qmatmul_int4"
-        plan = int4_plan(M, rows, N, sms)
-        n_split, _, nt = plan
-        tiles = -(-N // I4_BLOCK_N) * -(-M // (8 * nt))
-        partial = counters = None
+    plan = (int4_plan if int4 else int8_plan)(M, rows, N, sms)
+    n_split, _, nt = plan
+    symbol = "avsr_qmatmul_int4" if int4 else "avsr_qmatmul_int8"
+    with torch.cuda.device(dev):
+        scratch = counters = None
         if n_split > 1:
-            partial = torch.empty((tiles, n_split, 8 * nt, I4_BLOCK_N),
-                                  dtype=torch.float32, device=dev)
-            counters = _counters.get(dev)
-            if counters is None or counters.numel() < tiles:
-                counters = _counters[dev] = torch.zeros(max(tiles, 4096),
-                                                        dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = _kernel_fn(symbol)(
-                *ptrs, *(t.data_ptr() if t is not None else None for t in (partial, counters)),
-                M, K, N, *plan, *kinds, stream)
-    else:
-        symbol = "avsr_qmatmul_int8"
-        n_split, per = splits(M, rows, N, sms)
-        partial = (torch.empty((n_split, M, N), dtype=torch.float32, device=dev)
-                   if n_split > 1 else None)
-        with torch.cuda.device(dev):
-            err = _kernel_fn(symbol)(
-                *ptrs, partial.data_ptr() if partial is not None else None,
-                M, K, N, n_split, per, *kinds, stream)
+            tiles = -(-N // BLOCK_N) * -(-M // (8 * nt))
+            counters, scratch = _workspace(dev, tiles, tiles * n_split * 8 * nt * BLOCK_N)
+        err = _kernel_fn(symbol)(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (scratch, counters)),
+            M, K, N, *plan, *kinds, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     global int8_launches, int4_launches

@@ -35,17 +35,20 @@
    every decode shape of the flagship (M = 8: the int4 projections qkv, o,
    gateup, down, the int8 lm head, and the int8 projections of use_8bit)
    against their plain version, edge cases (M of 1, 5, 9, 17 and 64, f32
-   x, N off the tile, K/2 off the int4 kernel's k step, a K that does not
+   x, N off the tile, K off either kernel's k step, a K that does not
    match), the same bits from two launches and from a replayed CUDA graph,
    and the device time of the kernel, its plain version, its bound, one
    bf16 matmul on the dequantized weight and the dequantize-then-matmul
-   pair, each from a replayed CUDA graph.
+   pair, each from a replayed CUDA graph; each shape's launch plan.
 9. Serving-preset phase: the flagship with use_4bit, lm_head_bits=8 and
    an int8 KV cache, built as the decode CLI builds it, on the same 8
    utterances: exact launch counts of one generate_tokens call, decode-step
    logits of the kernel path against the dequantize path (f32 and bf16),
-   the serving numbers next to phase 3's, and the decode CLI with the
-   preset overrides.
+   the serving numbers next to phase 3's and to the same weights
+   unquantized.
+10. int8 serving phase: the same with use_8bit in place of use_4bit (int8
+   projections and head, int8 KV cache): exact launch counts and the same
+   decode-step logit gates. Then the decode CLI with the preset overrides.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -80,6 +83,9 @@ FLAGSHIP_OVERRIDES = ("data.audio_buckets=1000,2000,3000",
 # the serving preset of docs/serving.md
 PRESET_OVERRIDES = ("model.use_4bit=true", "decode.lm_head_bits=8",
                     "decode.kv_cache_dtype=int8")
+# the preset with int8 projections (model.use_8bit)
+INT8_OVERRIDES = ("model.use_8bit=true", "decode.lm_head_bits=8",
+                  "decode.kv_cache_dtype=int8")
 
 
 class CheckFailed(RuntimeError):
@@ -498,18 +504,22 @@ def main_path_phase(seed: int) -> dict:
 # qmatmul kernel phase
 # ---------------------------------------------------------------------------
 
-# name, bits, K, N, launches per generate_tokens call of the serving preset
-# (per decode step: 16 layers x qkv, o, gateup, down in int4, the int8 head;
-# plus the head once at the prefill's last position). The int8 projections
-# run on the use_8bit path, which the preset does not take.
+# name, bits, K, N, launches in one generate_tokens call of each serving
+# path: per decode step 16 layers x qkv, o, gateup, down (int4 in the
+# preset, int8 in the use_8bit call) and the int8 head, which also runs once
+# at the prefill's last position.
 def qmm_shapes(n_layers: int, steps: int) -> list[tuple]:
-    return [("qkv", 4, 2048, 3072, n_layers * steps),
-            ("o", 4, 2048, 2048, n_layers * steps),
-            ("gateup", 4, 2048, 16384, n_layers * steps),
-            ("down", 4, 8192, 2048, n_layers * steps),
-            ("lm_head", 8, 2048, 129024, steps + 1),
-            ("qkv", 8, 2048, 3072, 0), ("o", 8, 2048, 2048, 0),
-            ("gateup", 8, 2048, 16384, 0), ("down", 8, 8192, 2048, 0)]
+    proj = n_layers * steps
+    head = {"serve_preset": steps + 1, "serve_8bit": steps + 1}
+    return [("qkv", 4, 2048, 3072, {"serve_preset": proj}),
+            ("o", 4, 2048, 2048, {"serve_preset": proj}),
+            ("gateup", 4, 2048, 16384, {"serve_preset": proj}),
+            ("down", 4, 8192, 2048, {"serve_preset": proj}),
+            ("lm_head", 8, 2048, 129024, head),
+            ("qkv", 8, 2048, 3072, {"serve_8bit": proj}),
+            ("o", 8, 2048, 2048, {"serve_8bit": proj}),
+            ("gateup", 8, 2048, 16384, {"serve_8bit": proj}),
+            ("down", 8, 8192, 2048, {"serve_8bit": proj})]
 
 
 def qmm_bound(M: int, K: int, N: int, bits: int) -> tuple[float, float]:
@@ -531,7 +541,7 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
     l2_bytes = 128e6     # timed weights cycle through this much memory: the
     #                      50 MB L2 cannot hold them, as in a decode step
     rows = []
-    for name, bits, K, N, per_call in qmm_shapes(n_layers, steps):
+    for name, bits, K, N, by_call in qmm_shapes(n_layers, steps):
         M = 8
         qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=gen, device=dev), bits)
         x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -557,9 +567,10 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
         del nodes, w16, w16s
         ops_ms, bytes_ms = qmm_bound(M, K, N, bits)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        plan = (dict(zip(("splits", "rows_per_cta", "n8_tiles"), Q.int4_plan(M, K // 2, N, sms)))
-                if bits == 4 else dict(splits=Q.splits(M, K, N, sms)[0]))
-        row = dict(shape=name, bits=bits, M=M, K=K, N=N, launches_per_call=per_call,
+        plan = dict(zip(("splits", "rows_per_cta", "n8_tiles"),
+                        Q.int4_plan(M, K // 2, N, sms) if bits == 4 else Q.int8_plan(M, K, N, sms)))
+        row = dict(shape=name, bits=bits, M=M, K=K, N=N,
+                   launches_per_call=max(by_call.values()), launches_by_call=by_call,
                    max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, dequant_matmul_ms=pair_ms,
                    bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
@@ -572,10 +583,11 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
               f"{err:.3e} = {rel:.2e} x max|ref|")
 
     # Edge cases off the main path: ragged M (9 and 17 take two n8 tiles of
-    # x in the int4 kernel, 17 also two CTAs along M), f32 x, N and K off
-    # the tile (N = 2050 is not even a multiple of 4: the byte-load paths;
-    # K = 1000 gives K/2 = 500, not a multiple of the int4 kernel's 8-row k
-    # step), bf16 output, and a K that does not match the weight.
+    # x, 17 also two units along M), f32 x, N and K off the tile (N = 2050
+    # is not even a multiple of 4 and N = 1000 not of 16: the byte-load
+    # paths; K = 1000 is not a multiple of the int8 kernel's 16-row k step
+    # and K/2 = 500 not of the int4 kernel's 8-row one), bf16 output, and a
+    # K that does not match the weight.
     edge = 0.0
     for bits in (8, 4):
         for M, K, N, xdt, odt in ((1, 2048, 3072, torch.bfloat16, torch.float32),
@@ -610,16 +622,18 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
           f"out, K mismatch): ok, worst f32 max|d| {edge:.3e} x max|ref|")
 
     # The same bits on every run: two launches, and a CUDA graph of one
-    # replayed twice (the int4 kernel's last CTA of a tile adds its K split
-    # in split order, the int8 kernel does so in a second pass; neither adds
-    # by float atomics).
+    # replayed twice (the last CTA of a tile adds its K split in split
+    # order; neither kernel adds by float atomics).
     for bits, M, K, N in ((4, 8, 2048, 3072), (4, 8, 8192, 2048), (4, 17, 1000, 2050),
-                          (8, 8, 2048, 3072)):
+                          (8, 8, 2048, 3072), (8, 8, 2048, 2048), (8, 8, 8192, 2048),
+                          (8, 8, 2048, 129024), (8, 17, 1000, 2050)):
         qp = quant.quantize_tensor(torch.randn((K, N), generator=gen, device=dev), bits)
         x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
         runs = [Q.qmatmul(x, qp), Q.qmatmul(x, qp)]
         side = capture_stream()
         side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            Q.qmatmul(x, qp)      # the stream's counters exist before the capture
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             captured = Q.qmatmul(x, qp)
@@ -631,7 +645,8 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
         check(all(torch.equal(runs[0], r) for r in runs[1:]),
               f"qmatmul int{bits} M={M} K={K} N={N}: launches on the same inputs differ")
     print("qmatmul determinism (two launches and two graph replays, int4 at qkv, "
-          "down and M=17 K=1000 N=2050, int8 at qkv): bit-identical")
+          "down and M=17 K=1000 N=2050, int8 at qkv, o, down, the head and M=17 "
+          "K=1000 N=2050): bit-identical")
     return dict(rows=rows, edge_max_rel_err=edge, deterministic=True)
 
 
@@ -674,7 +689,12 @@ def decode_step_logits(params, mc, hb, dtype, use_kernels, nxt=None):
     return out, nxt
 
 
-def preset_phase(seed: int, bf16: dict, qmm: dict) -> dict:
+def preset_phase(seed: int, bf16: dict, qmm: dict, overrides=PRESET_OVERRIDES,
+                 tag: str = "preset", against_bf16_weights: bool = True) -> dict:
+    """One generate_tokens call of the flagship with ``overrides`` (a
+    quantized serving path): exact launch counts, decode-step logit gates,
+    serving numbers; with ``against_bf16_weights``, also the same weights
+    unquantized."""
     import torch
 
     from avsr_tpu_torch.cli.common import load_decode_params
@@ -686,15 +706,16 @@ def preset_phase(seed: int, bf16: dict, qmm: dict) -> dict:
     from avsr_tpu_torch.ops import qmatmul as Q
     from avsr_tpu_torch.ops.quant import quant_bytes
 
-    cfg = flagship(list(PRESET_OVERRIDES))
+    cfg = flagship(list(overrides))
     mc = cfg.model
     new = cfg.decode.max_new_tokens
+    proj_bits = 4 if mc.use_4bit else 8
     t0 = time.perf_counter()
     params = load_decode_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
     llm_gb = quant_bytes(params["llm"]) / 1e9
-    print(f"preset: f32 init, int4 quantization, bf16 cast and decode layout in "
-          f"{time.perf_counter() - t0:.2f} s; LLM tree {llm_gb:.3f} GB")
+    print(f"{tag}: f32 init, int{proj_bits} quantization, bf16 cast and decode layout "
+          f"in {time.perf_counter() - t0:.2f} s; LLM tree {llm_gb:.3f} GB")
     hb = serving_host_batch(cfg, seed)
     batch = featurize(hb, "cuda", torch.bfloat16)
     kw = dict(max_new_tokens=new, eos_id=-1, compute_dtype=torch.bfloat16,
@@ -710,17 +731,19 @@ def preset_phase(seed: int, bf16: dict, qmm: dict) -> dict:
                   qmatmul_int4=Q.int4_launches)
     peak = torch.cuda.max_memory_allocated()
     steps = st["decode_steps"]
+    proj = 4 * mc.llm.n_layers * steps      # qkv, o, gateup, down per layer and step
     want = dict(flash_fwd=mc.whisper.n_layers + mc.llm.n_layers, flash_bwd_dq=0,
-                flash_bwd_dkv=0, qmatmul_int8=steps + 1,
-                qmatmul_int4=4 * mc.llm.n_layers * steps)
-    print(f"preset: launches in one generate_tokens call {counts} (expected {want})")
-    check(counts == want, f"preset launches {counts}, expected {want}")
+                flash_bwd_dkv=0,
+                qmatmul_int8=steps + 1 + (proj if proj_bits == 8 else 0),
+                qmatmul_int4=proj if proj_bits == 4 else 0)
+    print(f"{tag}: launches in one generate_tokens call {counts} (expected {want})")
+    check(counts == want, f"{tag} launches {counts}, expected {want}")
     B = batch.mel.shape[0]
     check(out.tokens.shape == (B, new) and bool((out.lengths == new).all()),
-          "preset tokens")
+          f"{tag} tokens")
     check(bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
-          "preset token ids out of range")
-    check(bool(torch.isfinite(st["prefill_logits"]).all()), "preset logits not finite")
+          f"{tag} token ids out of range")
+    check(bool(torch.isfinite(st["prefill_logits"]).all()), f"{tag} logits not finite")
 
     # Decode-step logits, kernel path against the dequantize path. In f32
     # the kernels still round x to bf16 (65 products per step) and the
@@ -746,60 +769,59 @@ def preset_phase(seed: int, bf16: dict, qmm: dict) -> dict:
                     bf16_dequant_vs_f32_max=dn.max().item(),
                     top1_f32_kernel_vs_dequant=(l32["auto"].argmax(-1) == ref.argmax(-1))
                     .float().mean().item())
-    print("preset decode-step logits " + json.dumps(step_cmp))
+    print(f"{tag} decode-step logits " + json.dumps(step_cmp))
     c = step_cmp
     check(c["f32_kernel_vs_dequant_mean"] <= 1e-2 * std,
-          f"f32 decode step: kernel vs dequant mean|d| "
+          f"{tag} f32 decode step: kernel vs dequant mean|d| "
           f"{c['f32_kernel_vs_dequant_mean']:.4e} > 1e-2 * std {std:.4e}")
     check(c["f32_kernel_vs_dequant_max"] <= c["bf16_dequant_vs_f32_max"],
-          f"f32 decode step: kernel vs dequant max|d| "
+          f"{tag} f32 decode step: kernel vs dequant max|d| "
           f"{c['f32_kernel_vs_dequant_max']:.4e} > the bf16 step's own "
           f"{c['bf16_dequant_vs_f32_max']:.4e}")
     check(c["bf16_kernel_vs_f32_mean"] <= 2.0 * c["bf16_dequant_vs_f32_mean"],
-          f"bf16 decode step: kernel path mean|d| to f32 "
+          f"{tag} bf16 decode step: kernel path mean|d| to f32 "
           f"{c['bf16_kernel_vs_f32_mean']:.4e} > 2x the dequantize path's "
           f"{c['bf16_dequant_vs_f32_mean']:.4e}")
     del l32, l16
 
-    # The same random weights unquantized (one f32 init from the seed):
-    # how far the preset's greedy choices move.
-    pb = load_decode_params(flagship(), seed=seed, device="cuda")
-    stb: dict = {}
-    outb = generate_tokens(pb, mc, batch, stats=stb,
-                           **{**kw, "kv_cache_dtype": "bfloat16"})
-    del pb
-    torch.cuda.empty_cache()
-    lq, lb = st["prefill_logits"], stb["prefill_logits"]
-    top1 = (lq.argmax(-1) == lb.argmax(-1)).float()
-    corr = torch.corrcoef(torch.stack([lq.flatten(), lb.flatten()]))[0, 1].item()
-    tok_agree = (out.tokens == outb.tokens).float().mean().item()
-
     shapes = {(r["shape"], r["bits"]): r for r in qmm["rows"]}
-    per_step = {key: mc.llm.n_layers * sum(shapes[(n, 4)][key]
+    per_step = {key: mc.llm.n_layers * sum(shapes[(n, proj_bits)][key]
                                            for n in ("qkv", "o", "gateup", "down"))
                 + shapes[("lm_head", 8)][key]
                 for key in ("ms", "bound_ms", "library_ms", "plain_ms")}
     ms_tok = st["decode_s"] * 1e3 / steps
     res = dict(
-        config="flagship + " + " ".join(PRESET_OVERRIDES), batch=B, max_new_tokens=new,
+        config="flagship + " + " ".join(overrides), batch=B, max_new_tokens=new,
         encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
         decode_ms=st["decode_s"] * 1e3, decode_steps=steps, ms_per_token=ms_tok,
         decode_tokens_per_s=B * steps / st["decode_s"],
         new_tokens_per_s=B * new / (st["encode_s"] + st["prefill_s"] + st["decode_s"]),
         peak_mem_gb=peak / 1e9, llm_tree_gb=llm_gb, launches=counts,
         decode_step_logits=step_cmp,
-        prefill_top1_vs_bf16_weights=top1.mean().item(),
-        prefill_logits_corr_vs_bf16_weights=corr,
-        token_agreement_vs_bf16_weights=tok_agree,
-        bf16_weights_same_init=dict(encode_ms=stb["encode_s"] * 1e3,
-                                    prefill_ms=stb["prefill_s"] * 1e3,
-                                    ms_per_token=stb["decode_s"] * 1e3 / stb["decode_steps"]),
         bf16_phase=dict(encode_ms=bf16["encode_ms"], prefill_ms=bf16["prefill_ms"],
                         ms_per_token=bf16["ms_per_token"],
                         new_tokens_per_s=bf16["new_tokens_per_s"],
                         peak_mem_gb=bf16["peak_mem_gb"]),
         qmatmul_per_step=dict(**per_step, share_of_step=per_step["ms"] / ms_tok))
-    print("preset: " + json.dumps(res))
+    if against_bf16_weights:
+        # The same random weights unquantized (one f32 init from the seed):
+        # how far the quantized path's greedy choices move.
+        pb = load_decode_params(flagship(), seed=seed, device="cuda")
+        stb: dict = {}
+        outb = generate_tokens(pb, mc, batch, stats=stb,
+                               **{**kw, "kv_cache_dtype": "bfloat16"})
+        del pb
+        torch.cuda.empty_cache()
+        lq, lb = st["prefill_logits"], stb["prefill_logits"]
+        res.update(
+            prefill_top1_vs_bf16_weights=(lq.argmax(-1) == lb.argmax(-1)).float().mean().item(),
+            prefill_logits_corr_vs_bf16_weights=torch.corrcoef(
+                torch.stack([lq.flatten(), lb.flatten()]))[0, 1].item(),
+            token_agreement_vs_bf16_weights=(out.tokens == outb.tokens).float().mean().item(),
+            bf16_weights_same_init=dict(
+                encode_ms=stb["encode_s"] * 1e3, prefill_ms=stb["prefill_s"] * 1e3,
+                ms_per_token=stb["decode_s"] * 1e3 / stb["decode_steps"]))
+    print(f"{tag}: " + json.dumps(res))
     return res
 
 
@@ -1254,7 +1276,10 @@ def main(argv: list[str] | None = None) -> int:
     # decode steps.
     qmm = qmm_kernel_phase(args.seed, n_layers=16, steps=res["decode_steps"])
     torch.cuda.empty_cache()
-    preset = preset_phase(args.seed, res, qmm)
+    serve = {"serve_preset": preset_phase(args.seed, res, qmm)}
+    torch.cuda.empty_cache()
+    serve["serve_8bit"] = preset_phase(args.seed, res, qmm, INT8_OVERRIDES, tag="use_8bit",
+                                       against_bf16_weights=False)
     torch.cuda.empty_cache()
     cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
 
@@ -1304,13 +1329,13 @@ def main(argv: list[str] | None = None) -> int:
         qrows = [r for r in qmm["rows"] if r["bits"] == bits]
 
         def qtotal(key: str) -> float:
-            return sum(r[key] * r["launches_per_call"] for r in qrows)
+            return sum(r[key] * n for r in qrows for n in r["launches_by_call"].values())
 
+        by_path = {path: out["launches"][name] for path, out in serve.items()}
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",
-            launches=preset["launches"][name],
-            launches_by_path={"serve_preset": preset["launches"][name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in qrows),
             max_rel_err=max(r["max_rel_err"] for r in qrows),
             edge_max_rel_err=qmm["edge_max_rel_err"],
@@ -1320,9 +1345,9 @@ def main(argv: list[str] | None = None) -> int:
             library_is="torch.matmul of the bf16 x with the weight dequantized to "
                        "bf16 beforehand (cuBLAS), per shape",
             dequant_matmul_ms=qtotal("dequant_matmul_ms"),
-            times_are="sums over the launches of one generate_tokens call of the "
-                      "serving preset (device time per launch from a replayed CUDA "
-                      "graph x launches); shapes with 0 launches are the use_8bit path",
+            times_are="sums over the launches of one generate_tokens call of each "
+                      "serving path (the preset, and use_8bit: device time per launch "
+                      "from a replayed CUDA graph x launches)",
             shapes=qrows))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -143,3 +143,24 @@ def test_dispatch_predicate(monkeypatch):
     tattn.attention(q, k, v, use_kernel="auto")                       # CPU
     tattn.attention(q, k, v, use_kernel="never")
     assert calls == [q.shape]
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_dispatch_sends_wide_heads_to_mha_reference(monkeypatch, D):
+    """Head widths the kernels do not take (JAX sends them to its kernel)
+    go to mha_reference by the dispatch rule, even under "always"."""
+    calls = []
+    orig = tattn.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return orig(*a, **kw)
+
+    q, k, v = _t(*_qkv(6, 1, 2, 1, 256, 256, D))
+    lens = torch.tensor([200])
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    out = tattn.attention(q, k, v, causal=True, q_lens=lens, kv_lens=lens,
+                          use_kernel="always")
+    ref = tattn.mha_reference(q, k, v, causal=True, q_lens=lens, kv_lens=lens)
+    assert calls == []
+    assert torch.equal(out, ref)

@@ -225,13 +225,14 @@ def _qnode(bits, K, N, g, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M", [1, 8, 9, 17, 64])
-@pytest.mark.parametrize("K,N", [(2048, 3072), (1000, 2050), (512, 1000)])
+@pytest.mark.parametrize("K,N", [(2048, 3072), (1000, 2050), (512, 1000), (1000, 2048)])
 def test_qmatmul_matches_plain_version(cuda, bits, M, K, N):
     """int8 and int4 against qmatmul_reference: ragged M (9 and 17 take
-    more than one n8 tile of x in the int4 kernel), N not a multiple of the
-    128-column tile (2050 also not of 4 or 16, the byte-load paths), K/2 =
-    500 not a multiple of the int4 kernel's 8-row k step, bf16 and f32 x,
-    f32 and bf16 output; one count per launch."""
+    more than one n8 tile of x), N not a multiple of the 128-column tile
+    (2050 also not of 4 or 16: the byte-load paths), K/2 = 500 not a
+    multiple of the int4 kernel's 8-row k step, K = 1000 not a multiple of
+    the int8 kernel's 16-row k step (with N = 2048 through its TMA ring),
+    bf16 and f32 x, f32 and bf16 output; one count per launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
     qp = _qnode(bits, K, N, g, cuda)
     for x_dtype in (torch.bfloat16, torch.float32):
@@ -252,13 +253,81 @@ def test_qmatmul_matches_plain_version(cuda, bits, M, K, N):
         Q.qmatmul(torch.zeros((M, K + 2), device=cuda), qp)   # K does not match
 
 
+# name: K, N of the flagship's decode products at M = 8 (the int8 ones of
+# model.use_8bit and the int8 lm head over the 2048-padded vocab)
+MAIN_SHAPES = {"qkv": (2048, 3072), "o": (2048, 2048), "gateup": (2048, 16384),
+               "down": (8192, 2048), "lm_head": (2048, 129024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MAIN_SHAPES))
+def test_qmatmul_int8_at_main_path_shapes(cuda, name):
+    """The int8 kernel at each decode shape of the flagship (M = 8, bf16 x,
+    f32 scale and output) against its plain version: max|d| <= 1e-4
+    max|ref| (the two differ only in the order of their f32 sums)."""
+    K, N = MAIN_SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=g, device=cuda), 8)
+    x = torch.randn((8, K), generator=g, device=cuda, dtype=torch.bfloat16)
+    y = Q.qmatmul(x, qp)
+    ref = Q.qmatmul_reference(x, qp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert _rel_err(y, ref) <= 1e-4, _rel_err(y, ref)
+
+
+@pytest.mark.cuda
+def test_qmatmul_on_two_streams_at_once(cuda):
+    """int8 and int4 products with a K split launched on two streams at
+    once: each stream has its own tile counters and scratch, so every
+    result matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    shapes = ((8, 2048, 2048), (4, 2048, 2048), (8, 8192, 2048), (4, 8192, 2048))
+    nodes = [_qnode(bits, K, N, g, cuda) for bits, K, N in shapes]
+    xs = [torch.randn((8, K), generator=g, device=cuda, dtype=torch.bfloat16)
+          for _, K, _ in shapes]
+    refs = [Q.qmatmul_reference(x, qp) for x, qp in zip(xs, nodes)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs: list[list[torch.Tensor]] = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(25):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                # each stream runs every product, in another order
+                order = range(len(nodes)) if i == 0 else reversed(range(len(nodes)))
+                outs[i] += [(j, Q.qmatmul(xs[j], nodes[j])) for j in order]
+    torch.cuda.synchronize()
+    for per_stream in outs:
+        for j, y in per_stream:
+            assert _rel_err(y, refs[j]) <= 1e-4, (j, _rel_err(y, refs[j]))
+
+
+@pytest.mark.cuda
+def test_qmatmul_first_split_launch_under_capture_raises(cuda):
+    """A stream's first launch with a K split makes its counters, which a
+    CUDA-graph capture cannot: it raises and asks for a warm-up."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qp = _qnode(8, 2048, 2048, g, cuda)
+    x = torch.randn((8, 2048), generator=g, device=cuda, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    # PyTorch hands out pooled streams again: forget what this one launched
+    Q._workspaces.pop((x.device, side.cuda_stream), None)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="warm-up"):
+        with torch.cuda.graph(graph, stream=side):
+            Q.qmatmul(x, qp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M,K,N", [(8, 2048, 3072), (8, 8192, 2048), (17, 1000, 2050)])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 3072), (8, 8192, 2048), (17, 1000, 2050),
+                                   (8, 2048, 2048), (8, 2048, 129024)])
 def test_qmatmul_is_deterministic(cuda, bits, M, K, N):
     """Two launches on the same inputs, and a replayed CUDA graph of one,
-    give the same bits: the K split is added in split order (int8: a
-    second pass; int4: the tile's last CTA), with no float atomics."""
+    give the same bits: the K split is added in split order by the tile's
+    last CTA, with no float atomics. The capture runs on a stream that has
+    launched the kernel before (its counters exist)."""
     g = torch.Generator(device=cuda).manual_seed(6)
     qp = _qnode(bits, K, N, g, cuda)
     x = torch.randn((M, K), generator=g, device=cuda, dtype=torch.bfloat16)
@@ -270,7 +339,7 @@ def test_qmatmul_is_deterministic(cuda, bits, M, K, N):
         Q.qmatmul(x, qp)                          # warm-up off the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         captured = Q.qmatmul(x, qp)
     graph.replay()
     graph.replay()

@@ -223,35 +223,49 @@ _PLAN_SHAPES = [(8, 1024, 3072), (8, 1024, 2048), (8, 1024, 16384),
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_splits_fill_the_card(bits):
-    """The K split gives >= 2 CTAs per SM where the rows allow (int8: whole
-    splits, a CTA's staged x within MAX_X_BYTES, no split at the head's
-    width; int4: one CTA per SM, at most 8 splits in one launch, each with
-    at least one k step per warp)."""
-    if bits == 4:
-        for m, rows, n in _PLAN_SHAPES:
-            c, per, nt = tqm.int4_plan(m, rows, n, sms=132)
-            ctas = -(-n // tqm.I4_BLOCK_N) * -(-m // (8 * nt))
-            # one wave of one CTA per SM
-            assert c * ctas <= 132 or c == 1
-            # and no fewer: one more CTA per tile would not fit the wave,
-            # or the splits are at their cap, or the CTAs are already short
-            # (under two k steps per warp)
-            assert (c + 1) * ctas > 132 or c == tqm.MAX_SPLIT \
-                or per < 2 * tqm.I4_WARPS * tqm.I4_KSTEP
-        # the flagship's int4 projections at M = 8: qkv, o, gateup, down
-        assert [tqm.int4_plan(8, r, n, 132)[0] for r, n in
-                [(1024, 3072), (1024, 2048), (1024, 16384), (4096, 2048)]] == [5, 8, 1, 8]
-        return
-    x_row = tqm.BLOCK_M * 4
+    """The K split fills one wave of one CTA per SM where the rows allow:
+    at most 8 splits in one launch, each with at least one k step per warp
+    (int8: 16 weight rows a step, splits on 64-row boundaries; int4: 8
+    packed rows), and no split at the lm head's width."""
+    plan, kstep, align = ((tqm.int4_plan, tqm.I4_KSTEP, tqm.I4_KSTEP) if bits == 4
+                          else (tqm.int8_plan, tqm.I8_KSTEP, tqm.I8_SPLIT_ALIGN))
     for m, rows, n in _PLAN_SHAPES:
-        s, per = tqm.splits(m, rows, n, sms=132)
-        ctas = -(-n // tqm.BLOCK_N) * -(-m // tqm.BLOCK_M)
-        assert (s - 1) * per < rows <= s * per
-        assert per * x_row <= tqm.MAX_X_BYTES
-        assert per >= min(rows, tqm.MIN_SPLIT_ROWS) or per * 2 * x_row > tqm.MAX_X_BYTES
-        assert s * ctas >= 264 or per < 2 * tqm.MIN_SPLIT_ROWS \
-            or per * 2 * x_row > tqm.MAX_X_BYTES
-    assert tqm.splits(8, 2048, 129024, sms=132) == (1, 2048)
+        c, per, nt = plan(m, rows, n, sms=132)
+        ctas = -(-n // tqm.BLOCK_N) * -(-m // (8 * nt))
+        # one wave of one CTA per SM
+        assert c * ctas <= 132 or c == 1
+        # and no fewer: one more CTA per tile would not fit the wave, or the
+        # splits are at their cap, or the CTAs are already short (under two
+        # k steps per warp), or the boundaries allow no shorter split
+        assert (c + 1) * ctas > 132 or c == tqm.MAX_SPLIT \
+            or per < 2 * tqm.WARPS * kstep \
+            or -(-(-(-rows // (c + 1))) // align) * align >= per
+    # the flagship's projections at M = 8: qkv, o, gateup, down (int4 over
+    # K/2 packed rows), and the head
+    k_rows = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
+    div = 2 if bits == 4 else 1
+    assert [plan(8, r // div, n, 132)[0] for r, n in k_rows] == [5, 8, 1, 8]
+    assert plan(8, 2048 // div, 129024, 132)[0] == 1
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 17, 64])
+@pytest.mark.parametrize("rows,n", [(1024, 3072), (1024, 2048), (1024, 16384),
+                                    (4096, 2048), (500, 2050), (500, 1000),
+                                    (1, 128), (12, 16), (20480, 4096)])
+def test_int8_plan_is_legal(m, rows, n):
+    """Every int8 launch plan covers each of the K = ``rows`` weight rows
+    exactly once, each split starting on a 64-column panel of x (whole
+    16-row k steps; the last split may end inside one), keeps the splits
+    within 8, takes two n8 tiles of x exactly when M > 8, and never splits
+    the lm head (129,024 columns fill the card)."""
+    c, per, nt = tqm.int8_plan(m, rows, n, sms=132)
+    assert 1 <= c <= tqm.MAX_SPLIT
+    assert per % tqm.I8_SPLIT_ALIGN == 0 and per % tqm.I8_KSTEP == 0
+    starts = [r * per for r in range(c)]
+    covered = sum(min(rows, s + per) - s for s in starts)
+    assert covered == rows and all(s < rows for s in starts)
+    assert nt == (1 if m <= 8 else 2)
+    assert tqm.int8_plan(m, rows, 129024, sms=132)[0] == 1
 
 
 @pytest.mark.parametrize("m", [1, 5, 8, 9, 17, 64])
@@ -270,6 +284,7 @@ def test_int4_plan_is_legal(m, rows, n):
     covered = sum(min(rows, s + per) - s for s in starts)
     assert covered == rows and all(s < rows for s in starts)
     assert nt == (1 if m <= 8 else 2)
+
 
 
 # ---------------------------------------------------------------------------
