@@ -6,14 +6,18 @@ pairs, and writes ``results_{ts}.txt`` + ``wer_{ts}.txt`` with the corpus
 WER and CER, the same artifacts as the JAX package.
 
     python -m avsr_tpu_torch.cli.decode --config cfg.yaml --seed 0 \\
-        data.synthetic=true decode.max_new_tokens=16
+        data.synthetic=true decode.max_new_tokens=16 \\
+        --checkpoint outputs/avsr/ckpt
 
 The serving preset adds ``model.use_4bit=true decode.lm_head_bits=8
 decode.kv_cache_dtype=int8`` (int4 projections, int8 head, int8 KV cache).
-Weights are a random init from ``--seed`` in the decode layout
-(``cli/common.py::load_decode_params``); checkpoint loading, the manifest
-dataset, beam search, the continuous-batching engine and speculative
-decoding are still to be ported.
+``--checkpoint`` names a trainer checkpoint directory of the port (its
+newest step is read) or a params export (``cli/average.py``); without it
+the weights are a random init from ``--seed``. A quantized config
+quantizes a full-precision checkpoint after loading it. Either way the
+weights end in the decode layout (``cli/common.py::load_decode_params``).
+The manifest dataset, beam search, the continuous-batching engine and
+speculative decoding are still to be ported.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ log = logging.getLogger("avsr_tpu_torch.cli.decode")
 def _parser() -> argparse.ArgumentParser:
     p = base_parser("Decode a split and compute WER")
     p.add_argument("--split", default="test")
+    p.add_argument("--checkpoint", default=None,
+                   help="trainer checkpoint dir or params export")
     return p
 
 
@@ -58,7 +64,8 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.device)
     tok = ByteTokenizer()
     ds = build_dataset(cfg, tok, args.split)
-    params = load_decode_params(cfg, seed=args.seed, device=device)
+    params = load_decode_params(cfg, args.checkpoint, seed=args.seed,
+                                device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return run_protocol(cfg, params, tok, ds, device=device, generator=gen)
 

@@ -2,13 +2,14 @@
 ``avsr_tpu/cli/train.py``:
 
     python -m avsr_tpu_torch.cli.train --config cfg.yaml --seed 0 \\
-        data.synthetic=true training.max_steps=10 training.save_every_steps=0
+        data.synthetic=true training.max_steps=10 training.save_every_steps=5
 
 The weights are a random init from ``--seed`` (trainable leaves f32,
-frozen ones in the compute dtype); the loss log goes to
-``training.checkpoint_dir/loss_log.csv``. Checkpoint loading and saving,
-the manifest dataset and the other features the Trainer refuses are still
-to be ported.
+frozen ones in the compute dtype). The loss log, the loss history and the
+checkpoints (``ckpt/``, the port's own format) go to
+``training.checkpoint_dir``; a run whose ``ckpt/`` holds a step, or one
+given ``training.resume_from``, resumes from it mid-epoch. The manifest
+dataset and QLoRA training are still to be ported.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ def main(argv: list[str] | None = None) -> int:
 
     params = init_params(cfg, seed=args.seed, device=device)
     log.info("model summary: %s", summarize(params, cfg.model))
-    trainer = Trainer(cfg, params, loader("train", True), loader("valid", False))
+    trainer = Trainer(cfg, params, loader("train", True), loader("valid", False),
+                      tok=tok)
+    trainer.maybe_resume()
     result = trainer.train()
     log.info("done: %s", result)
     return 0

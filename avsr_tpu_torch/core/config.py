@@ -383,6 +383,19 @@ def _split_override(s: str) -> tuple[str, str]:
     return k.strip(), v.strip()
 
 
+def to_dict(cfg: Any) -> dict[str, Any]:
+    """The config as nested dicts of JSON types (tuples become lists), as
+    the JAX package's ``to_dict`` gives it for a checkpoint's meta."""
+    def clean(x: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return list(x)
+        return x
+
+    return clean(dataclasses.asdict(cfg))
+
+
 def load_config(yaml_path: str | Path | None = None,
                 overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
     """Load a YAML config written for either package. CLI overrides win over

@@ -1,11 +1,15 @@
 """Metrics logging of the Trainer, a copy of the corresponding parts of
-``avsr_tpu/core/logging.py``: the per-step loss CSV and a windowed
-tokens/s + utterances/s meter.
+``avsr_tpu/core/logging.py``: the per-step loss CSV, a windowed
+tokens/s + utterances/s meter, the loss-stability monitor behind the
+emergency checkpoint, and the loss history (JSON, and a PNG where
+matplotlib imports).
 """
 
 from __future__ import annotations
 
 import csv
+import json
+import math
 import time
 from collections import deque
 from pathlib import Path
@@ -62,3 +66,44 @@ class ThroughputMeter:
             "utts_per_sec": sum(e[2] for e in self._events) / total_t,
         }
 
+
+
+class LossStabilityMonitor:
+    """Reports instability after ``max_bad`` consecutive non-finite losses;
+    keeps the last ``window`` losses."""
+
+    def __init__(self, window: int = 5, max_bad: int = 3):
+        self.window: deque[float] = deque(maxlen=window)
+        self.max_bad = max_bad
+        self.consecutive_bad = 0
+
+    def update(self, loss: float) -> bool:
+        """True when an emergency checkpoint should be taken."""
+        finite = math.isfinite(loss)
+        self.window.append(loss if finite else float("nan"))
+        self.consecutive_bad = 0 if finite else self.consecutive_bad + 1
+        return self.consecutive_bad >= self.max_bad
+
+
+def save_loss_plot(losses: dict[str, list[float]], out_dir: str | Path) -> None:
+    """``loss_history.json`` ({"train": [...], "val": [...]}) always, and
+    ``loss_curve.png`` when matplotlib imports."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "loss_history.json", "w") as fh:
+        json.dump(losses, fh)
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    fig, ax = plt.subplots(figsize=(8, 5))
+    for name, series in losses.items():
+        if series:
+            ax.plot(series, label=name)
+    ax.set_xlabel("step")
+    ax.set_ylabel("loss")
+    ax.legend()
+    fig.savefig(out / "loss_curve.png", dpi=100, bbox_inches="tight")
+    plt.close(fig)

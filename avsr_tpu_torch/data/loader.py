@@ -10,10 +10,12 @@
     ``default_rng(seed + epoch)``, so the order is the JAX loader's) or in
     order, wrap-padding the final short batch (its repeated rows get label
     length 0), with one prefetching worker thread that collates and
-    featurizes ahead of the consumer.
+    featurizes ahead of the consumer. Its position (``state``,
+    ``set_position``) lets a resumed run replay an epoch's order and skip
+    the batches already consumed, without loading them.
 
-Multi-host sharding, mid-epoch resume (``set_position``) and the compact
-int16/YUV420 link format are still to be ported.
+Multi-host sharding and the compact int16/YUV420 link format are still to
+be ported.
 """
 
 from __future__ import annotations
@@ -138,6 +140,20 @@ class DataLoader:
         self.pad_id = tokenizer.pad_id
         self.prompt_ids = tokenizer.encode(model_cfg.prompt, add_bos=True)
         self._epoch = 0
+        self._skip = 0        # batches to skip on the next epoch (resume)
+        self._yielded = 0     # batches handed out in the current epoch
+
+    def state(self) -> dict[str, int]:
+        """The position: the epoch, and the batches already handed out in
+        it (batches the worker read ahead do not count)."""
+        return {"epoch": self._epoch, "batches": self._yielded}
+
+    def set_position(self, epoch: int, batches: int) -> None:
+        """Resume at (epoch, batch): the next ``iter()`` replays epoch
+        ``epoch``'s shuffle and skips its first ``batches`` batches without
+        loading their samples."""
+        self._epoch = epoch - 1   # __iter__ increments
+        self._skip = max(batches, 0)
 
     def __len__(self) -> int:
         return -(-len(self.ds) // self.batch_size)
@@ -148,10 +164,10 @@ class DataLoader:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         return idx
 
-    def _host_batches(self) -> Iterator[HostBatch]:
+    def _host_batches(self, skip: int = 0) -> Iterator[HostBatch]:
         order = self._order()
         bs = self.batch_size
-        for start in range(0, len(order), bs):
+        for start in range(skip * bs, len(order), bs):
             chunk = order[start:start + bs]
             n_real = len(chunk)
             if n_real < bs:
@@ -168,12 +184,14 @@ class DataLoader:
         """One worker thread collates and featurizes (host -> device copy
         and the on-device log-mel) up to ``PREFETCH`` batches ahead."""
         self._epoch += 1
+        skip, self._skip = self._skip, 0
+        self._yielded = skip
         q: queue.Queue[Any] = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
         def worker() -> None:
             try:
-                for hb in self._host_batches():
+                for hb in self._host_batches(skip):
                     if stop.is_set():
                         return
                     q.put((hb, featurize(hb, self.device, self.compute_dtype)))
@@ -191,6 +209,7 @@ class DataLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
+                self._yielded += 1
                 yield item
         finally:
             stop.set()

@@ -122,11 +122,20 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
 
 def _upsample_to(x: torch.Tensor, x_lens: torch.Tensor, target_T: int,
                  target_lens: torch.Tensor) -> torch.Tensor:
-    """Nearest-index resample of [B, T, d] onto the target time grid."""
+    """Nearest-index resample of [B, T, d] onto the target time grid.
+
+    A product with a one-hot [B, target_T, T] matrix: each output row has
+    one nonzero term, so the values are the gather's (the JAX
+    ``take_along_axis``), and the backward is a matrix product too. A
+    gather's backward adds the repeated rows (about 20 per video frame on
+    the flagship) with float atomics on the card, in an order that changes
+    from run to run, so a resumed run could not repeat an uninterrupted
+    one."""
     ratio = (x_lens.clamp(min=1).float() / target_lens.clamp(min=1).float())
     pos = torch.arange(target_T, device=x.device)[None, :] * ratio[:, None]
     idx = pos.to(torch.int64).clamp(0, x.shape[1] - 1)
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    onehot = idx[..., None] == torch.arange(x.shape[1], device=x.device)
+    return torch.matmul(onehot.to(x.dtype), x)
 
 
 def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:

@@ -12,6 +12,12 @@ adamw(schedule, b1, b2, weight_decay, mask=decay_mask))``: the clip scales
 by max_norm / ||g|| only when ||g|| > max_norm (``clip_grad_norm_`` would
 add 1e-6 to the norm), and the schedule and Adam's bias correction count
 applied updates, so a skipped step moves neither.
+
+A train state goes to a checkpoint and back through its state dict
+(:meth:`TrainState.state_dict`, :meth:`TrainState.load_state_dict`): the
+step, the parameters, the optimizer's count and AdamW's per-leaf moments.
+Loading checks every key path, shape and dtype before it writes anything,
+and copies into the live tensors, which the optimizer holds.
 """
 
 from __future__ import annotations
@@ -51,6 +57,35 @@ def tree_leaves(tree: Any) -> list[Any]:
     out: list[Any] = []
     tree_map_with_path(lambda _, x: out.append(x) if x is not None else None, tree)
     return out
+
+
+def path_leaves(tree: Any) -> dict[str, Any]:
+    """{"a/b/0/c": leaf} of a tree, None positions dropped."""
+    out: dict[str, Any] = {}
+    tree_map_with_path(
+        lambda p, x: out.__setitem__("/".join(p), x) if x is not None else None,
+        tree)
+    return out
+
+
+def check_like(tree: Any, like: Any, *, what: str, dtype: bool = True) -> None:
+    """Raise ``ValueError`` unless ``tree`` has exactly the key paths of
+    ``like``, with the same shape at each (and the same dtype, when
+    ``dtype``)."""
+    got, want = path_leaves(tree), path_leaves(like)
+    if got.keys() != want.keys():
+        missing = sorted(want.keys() - got.keys())[:5]
+        extra = sorted(got.keys() - want.keys())[:5]
+        raise ValueError(f"{what}: key paths differ (missing {missing}, "
+                         f"unexpected {extra})")
+    for k, w in want.items():
+        g = got[k]
+        if not isinstance(g, torch.Tensor) or g.shape != w.shape:
+            raise ValueError(f"{what}: {k} has shape "
+                             f"{tuple(getattr(g, 'shape', ()))}, expected "
+                             f"{tuple(w.shape)}")
+        if dtype and g.dtype != w.dtype:
+            raise ValueError(f"{what}: {k} is {g.dtype}, expected {w.dtype}")
 
 
 def trainable_mask(params: Params, cfg: ModelConfig) -> Params:
@@ -201,8 +236,9 @@ class ClippedAdamW:
     ``count + 1`` (``torch.optim.AdamW`` keeps the latter per parameter and
     advances it only when it steps)."""
 
-    def __init__(self, leaves: list[torch.Tensor], decay: list[bool],
-                 schedule: Callable[[int], float], cfg: TrainingConfig):
+    def __init__(self, leaves: list[torch.Tensor], names: list[str],
+                 decay: list[bool], schedule: Callable[[int], float],
+                 cfg: TrainingConfig):
         groups = [{"params": [p for p, d in zip(leaves, decay) if d],
                    "weight_decay": cfg.weight_decay},
                   {"params": [p for p, d in zip(leaves, decay) if not d],
@@ -211,6 +247,7 @@ class ClippedAdamW:
                                      lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2),
                                      eps=1e-8)
         self.leaves = leaves
+        self.names = names          # the leaves' key paths, in the state dict
         self.schedule = schedule
         self.max_norm = cfg.max_grad_norm
         self.count = 0
@@ -228,12 +265,67 @@ class ClippedAdamW:
         self.opt.zero_grad(set_to_none=True)
         self.count += 1
 
+    def state_dict(self) -> dict[str, Any]:
+        """{"count", "leaves": {name: {"step", "exp_avg", "exp_avg_sq"}}},
+        the live tensors; a leaf not yet updated gets zero moments at step
+        0, which AdamW treats as a fresh state."""
+        leaves = {}
+        for name, p in zip(self.names, self.leaves):
+            st = self.opt.state.get(p) or {}
+            zeros = torch.zeros_like(p, memory_format=torch.preserve_format)
+            leaves[name] = {"step": st.get("step", torch.tensor(0.0)),
+                            "exp_avg": st.get("exp_avg", zeros),
+                            "exp_avg_sq": st.get("exp_avg_sq", zeros)}
+        return {"count": self.count, "leaves": leaves}
+
+    def check_state_dict(self, sd: dict[str, Any]) -> None:
+        like = {name: {"exp_avg": p, "exp_avg_sq": p}
+                for name, p in zip(self.names, self.leaves)}
+        moments = {name: {k: v[k] for k in ("exp_avg", "exp_avg_sq")}
+                   for name, v in sd["leaves"].items()}
+        check_like(moments, like, what="optimizer state")
+        for name, v in sd["leaves"].items():
+            if not isinstance(v["step"], torch.Tensor) or v["step"].dim():
+                raise ValueError(f"optimizer state: {name}/step is not a scalar tensor")
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        """Loads what :meth:`state_dict` gave (checked first)."""
+        self.check_state_dict(sd)
+        index = {}
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                index[id(p)] = len(index)
+        torch_sd = self.opt.state_dict()
+        torch_sd["state"] = {
+            index[id(p)]: {k: v.detach().clone() for k, v in sd["leaves"][name].items()}
+            for name, p in zip(self.names, self.leaves)}
+        self.opt.load_state_dict(torch_sd)
+        self.count = int(sd["count"])
+
 
 @dataclass
 class TrainState:
     step: int                   # train steps taken, skipped ones included
     params: Params              # updated in place
     optimizer: ClippedAdamW
+
+    def state_dict(self) -> dict[str, Any]:
+        """{"step", "params", "opt_state"}: the live tensors (copy them
+        before the next update changes them)."""
+        return {"step": self.step, "params": self.params,
+                "opt_state": self.optimizer.state_dict()}
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        """Checks every key path, shape and dtype of ``sd`` against this
+        state, then copies the values into the live tensors, in place."""
+        check_like(sd["params"], self.params, what="params")
+        self.optimizer.check_state_dict(sd["opt_state"])
+        live = path_leaves(self.params)
+        with torch.no_grad():
+            for k, v in path_leaves(sd["params"]).items():
+                live[k].copy_(v)
+        self.optimizer.load_state_dict(sd["opt_state"])
+        self.step = int(sd["step"])
 
 
 def create_optimizer(cfg: AVSRConfig, train_params: Params,
@@ -246,10 +338,11 @@ def create_optimizer(cfg: AVSRConfig, train_params: Params,
     if t.schedule not in SCHEDULES:
         raise ValueError(f"training.schedule must be one of {tuple(SCHEDULES)}, "
                          f"got {t.schedule!r}")
-    leaves = tree_leaves(train_params)
+    named = path_leaves(train_params)
     decay = tree_leaves(_zip_map(lambda p, d: None if p is None else d,
                                  train_params, decay_mask(train_params)))
-    return ClippedAdamW(leaves, decay, SCHEDULES[t.schedule](t, total_steps), t)
+    return ClippedAdamW(list(named.values()), list(named), decay,
+                        SCHEDULES[t.schedule](t, total_steps), t)
 
 
 def create_train_state(params: Params, cfg: AVSRConfig,

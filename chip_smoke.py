@@ -49,6 +49,18 @@
 10. int8 serving phase: the same with use_8bit in place of use_4bit (int8
    projections and head, int8 KV cache): exact launch counts and the same
    decode-step logit gates. Then the decode CLI with the preset overrides.
+11. Checkpoint phase, through the CLIs at full width (LoRA dropout off):
+   run A trains 2 steps with a checkpoint each, validation and in-training
+   WER; run B resumes it for a third step; run C takes 3 steps
+   uninterrupted, and B's third step must equal C's (its batches, loss and
+   trainable leaves). The decode CLI reads the checkpoint in bf16 (the
+   connector and LoRA leaves it loaded equal B's) and with the serving
+   preset (quantized after loading), each followed by one generate_tokens
+   call with exact launch counts; the average CLI's export of the last two
+   steps is their f32 mean and decodes; a run sent SIGTERM after step 1
+   saves a preempt checkpoint at step 2 and the next run resumes from it.
+   Prints the checkpoint's size and its save, restore and WER-eval times,
+   and removes every directory it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -65,7 +77,10 @@ import argparse
 import contextlib
 import functools
 import json
+import logging
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1190,6 +1205,8 @@ def cli_phase(seed: int, extra: tuple[str, ...] = (), tag: str = "cli") -> None:
 
 
 def train_cli_phase(seed: int) -> None:
+    import shutil
+
     import torch
 
     from avsr_tpu_torch.cli import train
@@ -1202,8 +1219,11 @@ def train_cli_phase(seed: int) -> None:
     check(load_config(None, flag + run) == flagship(run),
           "CLI overrides do not give the flagship config")
     t0 = time.perf_counter()
-    rc = train.main(["--seed", str(seed), "--device", "cuda", *flag, *run])
-    torch.cuda.synchronize()
+    try:
+        rc = train.main(["--seed", str(seed), "--device", "cuda", *flag, *run])
+        torch.cuda.synchronize()
+    finally:                          # the final checkpoint holds ~3.5 GB
+        shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
     check(rc == 0, f"train CLI returned {rc}")
     rows = (out_dir / "loss_log.csv").read_text().splitlines()
     splits = [r.split(",")[2] for r in rows[1:]]
@@ -1211,6 +1231,304 @@ def train_cli_phase(seed: int) -> None:
     print(f"train cli phase: 2 steps (4 x 8 synthetic utterances each) and "
           f"validation in {time.perf_counter() - t0:.2f} s; wrote "
           f"{(out_dir / 'loss_log.csv').relative_to(ROOT)}: {rows[1:]}")
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint phase
+# ---------------------------------------------------------------------------
+
+class _Records(logging.Handler):
+    """Keeps the log records of the port's loggers (the checkpoint, resume
+    and WER-eval numbers are logged by the code under test)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+    def args(self, prefix: str) -> list[tuple]:
+        return [r.args for r in self.records if str(r.msg).startswith(prefix)]
+
+
+def counts() -> dict[str, int]:
+    from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import qmatmul as Q
+
+    return dict(flash_fwd=A.launches, flash_bwd_dq=A.dq_launches,
+                flash_bwd_dkv=A.dkv_launches, qmatmul_int8=Q.int8_launches,
+                qmatmul_int4=Q.int4_launches)
+
+
+def since(before: dict[str, int]) -> dict[str, int]:
+    return {k: v - before[k] for k, v in counts().items()}
+
+
+def loss_rows(run_dir: Path) -> list[list[str]]:
+    return [r.split(",") for r in (run_dir / "loss_log.csv").read_text().splitlines()[1:]]
+
+
+def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
+    """train -> checkpoint -> resume -> in-training WER -> decode from the
+    checkpoint (bf16 and the serving preset) -> WER, and averaging and
+    preemption, through the port's CLIs at the flagship's full width with
+    LoRA dropout off (a resumed run restarts its dropout seeds, as the JAX
+    Trainer does, so only a run without dropout can equal an uninterrupted
+    one). Every directory it writes (about 3.5 GB per checkpoint step) is
+    removed at the end."""
+    import gc
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import average, common, decode, train
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import DataLoader, featurize
+    from avsr_tpu_torch.infer.generate import generate_tokens
+    from avsr_tpu_torch.train.checkpoint import load_params
+    from avsr_tpu_torch.train.loop import Trainer
+    from avsr_tpu_torch.train.state import path_leaves, trainable_mask
+
+    base = ROOT / "outputs" / "chip_smoke" / time.strftime("ckpt_%Y%m%d_%H%M%S")
+    ab, c, pre, avg = base / "ab", base / "c", base / "pre", base / "avg"
+    flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES,
+            "data.synthetic=true", "model.lora.dropout=0"]
+    wer_run = ["training.keep_checkpoints=2", "training.eval_wer_every_epochs=1",
+               "training.eval_wer_max_utts=8", "training.best_metric=wer"]
+    dec_run = ["data.synthetic_size=40", "decode.max_new_tokens=16"]
+    cfg = flagship(["model.lora.dropout=0"])
+    mc = cfg.model
+    rec = _Records()
+    logging.getLogger("avsr_tpu_torch").addHandler(rec)
+    orig_iter, orig_prepare = DataLoader.__iter__, common.prepare_params_for_decode
+    seen: list[list[str]] = []
+    loaded: list = []
+
+    def spy_iter(self):
+        for hb, b in orig_iter(self):
+            if self.shuffle:                 # the train loader
+                seen.append(list(hb.utt_ids))
+            yield hb, b
+
+    def spy_prepare(params, *a, **kw):
+        loaded[:] = [params, orig_prepare(params, *a, **kw)]
+        return loaded[1]
+
+    def train_run(run_dir: Path, *extra: str) -> int:
+        seen.clear()
+        rc = train.main([*flag, *wer_run, f"training.checkpoint_dir={run_dir}", *extra])
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rc
+
+    def decode_run(out: Path, ckpt: Path, *extra: str) -> None:
+        rc = decode.main([*flag, *dec_run, f"decode.output_dir={out}", *extra,
+                          "--checkpoint", str(ckpt)])
+        check(rc == 0, f"decode CLI --checkpoint {ckpt} returned {rc}")
+        res, wer = list(out.glob("results_*.txt")), list(out.glob("wer_*.txt"))
+        check(len(res) == 1 and len(wer) == 1, f"decode artifacts missing in {out}")
+        check(res[0].read_text().count("UTT: ") == 8, f"{out}: not 8 utterances")
+        m = re.search(r"WER: ([0-9.]+)", wer[0].read_text())
+        check(m is not None and np.isfinite(float(m.group(1))), f"{out}: no WER")
+
+    hb = serving_host_batch(cfg, seed)
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    gen_kw = dict(max_new_tokens=cfg.decode.max_new_tokens, eos_id=-1,
+                  compute_dtype=torch.bfloat16)
+    res: dict = {}
+    DataLoader.__iter__ = spy_iter
+    common.prepare_params_for_decode = spy_prepare
+    reset_counts()
+    try:
+        # Run A: two steps with a checkpoint each, then validation + WER
+        t0 = time.perf_counter()
+        check(train_run(ab, "training.max_steps=2", "training.save_every_steps=1") == 0,
+              "run A failed")
+        res["run_a_s"] = time.perf_counter() - t0
+        ck = ab / "ckpt"
+        check((ck / "1").is_dir() and (ck / "2").is_dir(), "run A: steps 1 and 2 not saved")
+        meta = json.loads((ck / "meta_2.json").read_text())
+        check("data_state" in meta and "fit_state" in meta, f"meta_2.json: {sorted(meta)}")
+        check((ck / "best.json").exists(), "run A wrote no best.json")
+        rows = loss_rows(ab)
+        splits = [r[2] for r in rows]
+        check(splits.count("train") == 2 and splits.count("val") == 1
+              and splits.count("val_wer") == 1, f"run A loss_log rows {splits}")
+        wer_a = float(next(r[5] for r in rows if r[2] == "val_wer"))
+        check(np.isfinite(wer_a), f"run A val WER {wer_a}")
+        res["run_a"] = dict(val_wer=wer_a, data_state=meta["data_state"],
+                            fit_state=meta["fit_state"],
+                            step_s=[float(r[7]) for r in rows if r[2] == "train"])
+
+        # Run B: the same directory, one step more, resumed
+        resumed = len(rec.args("resumed from step"))
+        check(train_run(ab, "training.max_steps=3", "training.save_every_steps=1") == 0,
+              "run B failed")
+        got = rec.args("resumed from step")[resumed:]
+        accum = cfg.training.grad_accum_steps
+        check(got == [(2, 1, 2 * accum)], f"run B resume log {got}")
+        seen_b = list(seen)
+        # Run C: a fresh directory, three steps uninterrupted, no save before
+        # the end (its step times against run A's show what a save costs)
+        check(train_run(c, "training.max_steps=3", "training.save_every_steps=0") == 0,
+              "run C failed")
+        third = seen[2 * accum:3 * accum]
+        check(len(seen_b) == accum and seen_b == third,
+              f"run B saw batches {seen_b}, run C's third step {third}")
+        pb, pc = (path_leaves(load_params(d / "ckpt" / "3")) for d in (ab, c))
+        mask = path_leaves(trainable_mask(load_params(ab / "ckpt" / "3"), mc))
+        worst = 0.0
+        identical = True
+        for k, m in mask.items():
+            if m and not torch.equal(pb[k], pc[k]):
+                identical = False
+                d = (pb[k].float() - pc[k].float()).abs().max().item()
+                worst = max(worst, d / max(pc[k].abs().max().item(), 1e-30))
+        loss_b = [r[3] for r in loss_rows(ab) if r[2] == "train" and r[0] == "3"]
+        loss_c = [r[3] for r in loss_rows(c) if r[2] == "train" and r[0] == "3"]
+        check(len(loss_b) == len(loss_c) == 1, "step-3 loss rows")
+        check(identical or worst <= 1e-5, f"run B vs run C: max|d|/max|leaf| {worst:.3e}")
+        check(identical or abs(float(loss_b[0]) - float(loss_c[0]))
+              <= 1e-5 * abs(float(loss_c[0])), f"step-3 loss B {loss_b} vs C {loss_c}")
+        rows_c = loss_rows(c)
+        res["b_vs_c"] = dict(bit_identical=identical and loss_b == loss_c,
+                             worst_rel=worst, loss_b=loss_b[0], loss_c=loss_c[0],
+                             trainable_leaves=sum(mask.values()))
+        res["run_c"] = dict(step_s=[float(r[7]) for r in rows_c if r[2] == "train"])
+        print(f"checkpoint phase: runs A (2 steps), B (resumed, 1 step), C (3 steps); "
+              f"B vs C {json.dumps(res['b_vs_c'])}")
+        del pb, pc
+        shutil.rmtree(c)
+
+        # Decode from the checkpoint, bf16: the leaves the CLI loaded, then
+        # one generate_tokens call at phase 3's geometry
+        decode_run(base / "dec_bf16", ck)
+        b3 = path_leaves(load_params(ck / "3"))
+        got_p = path_leaves(loaded[0])
+        keys = [k for k in b3 if "lora" in k.split("/") or k.split("/")[0].endswith("connector")]
+        check(keys and all(torch.equal(got_p[k], b3[k].to(got_p[k].device, torch.bfloat16))
+                           for k in keys),
+              "the decode CLI's connector/LoRA leaves differ from run B's step 3")
+        del b3, got_p
+        params = loaded[1]
+        loaded.clear()
+        generate_tokens(params, mc, batch, **{**gen_kw, "max_new_tokens": 4})
+        before = counts()
+        st: dict = {}
+        out = generate_tokens(params, mc, batch, stats=st, **gen_kw)
+        n = since(before)
+        want = {k: 0 for k in n}
+        want["flash_fwd"] = mc.whisper.n_layers + mc.llm.n_layers
+        check(n == want, f"bf16 from checkpoint: launches {n}, expected {want}")
+        check(bool(torch.isfinite(st["prefill_logits"]).all()), "logits not finite")
+        res["decode_bf16"] = _serving(st, out, hb, n, bf16)
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The same checkpoint with the serving preset: quantized after restore
+        decode_run(base / "dec_preset", ck, *PRESET_OVERRIDES)
+        params = loaded[1]
+        loaded.clear()
+        pcfg = flagship(list(PRESET_OVERRIDES))
+        kw = dict(gen_kw, kv_cache_dtype=pcfg.decode.kv_cache_dtype)
+        generate_tokens(params, pcfg.model, batch, **{**kw, "max_new_tokens": 4})
+        before = counts()
+        st = {}
+        out = generate_tokens(params, pcfg.model, batch, stats=st, **kw)
+        n = since(before)
+        steps = st["decode_steps"]
+        want = dict(flash_fwd=mc.whisper.n_layers + mc.llm.n_layers, flash_bwd_dq=0,
+                    flash_bwd_dkv=0, qmatmul_int8=steps + 1,
+                    qmatmul_int4=4 * mc.llm.n_layers * steps)
+        check(n == want, f"preset from checkpoint: launches {n}, expected {want}")
+        check(bool(torch.isfinite(st["prefill_logits"]).all()), "logits not finite")
+        res["decode_preset"] = _serving(st, out, hb, n, preset)
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Average the newest two steps into an export, and decode it
+        check(average.main([*flag, "--checkpoint", str(ck), "--last", "2",
+                            "--out", str(avg)]) == 0, "average CLI failed")
+        pa, p2, p3 = (path_leaves(load_params(d)) for d in (avg, ck / "2", ck / "3"))
+        check(pa.keys() == p2.keys(), "averaged export's key paths")
+        for k, v in pa.items():
+            a, b = p2[k].cuda(), p3[k].cuda()
+            want_k = ((a.float() + b.float()) / 2).to(a.dtype)
+            check(v.dtype == a.dtype and torch.equal(v.cuda(), want_k),
+                  f"averaged leaf {k} is not the f32 mean of steps 2 and 3")
+        del pa, p2, p3
+        decode_run(base / "dec_avg", avg)
+        loaded.clear()
+        shutil.rmtree(avg)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Preemption: SIGTERM after step 1; the run saves at the end of step
+        # 2 and stops, and the next run resumes from that checkpoint
+        class PreemptedAfterStep1(Trainer):
+            def _step(self, micro_batches, epoch):
+                m = super()._step(micro_batches, epoch)
+                if self.state.step == 1:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return m
+
+        handler = signal.getsignal(signal.SIGTERM)
+        train.Trainer = PreemptedAfterStep1
+        try:
+            check(train.main([*flag, "training.max_steps=3", "training.save_every_steps=0",
+                              f"training.checkpoint_dir={pre}"]) == 0, "preempted run failed")
+        finally:
+            train.Trainer = Trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        meta = json.loads((pre / "ckpt" / "meta_2.json").read_text())
+        check(meta["tag"] == "preempt" and (pre / "ckpt" / "2").is_dir(),
+              f"no preempt checkpoint: {meta['tag']}")
+        check(signal.getsignal(signal.SIGTERM) is handler,
+              "the Trainer left its SIGTERM handler installed")
+        resumed = len(rec.args("resumed from step"))
+        check(train.main([*flag, "training.max_steps=3", "training.save_every_steps=0",
+                          f"training.checkpoint_dir={pre}"]) == 0, "resumed run failed")
+        check([a[0] for a in rec.args("resumed from step")[resumed:]] == [2],
+              "the run after the preemption did not resume from step 2")
+        steps_pre = [int(r[0]) for r in loss_rows(pre) if r[2] == "train"]
+        check(steps_pre == [1, 2, 3], f"preempted and resumed steps {steps_pre}")
+        res["preempt"] = dict(steps=steps_pre, data_state=meta["data_state"])
+    finally:
+        DataLoader.__iter__ = orig_iter
+        common.prepare_params_for_decode = orig_prepare
+        logging.getLogger("avsr_tpu_torch").removeHandler(rec)
+        shutil.rmtree(base, ignore_errors=True)
+    check(not base.exists(), f"{base} not removed")
+    res["launches"] = counts()
+    saves = rec.args("checkpoint step")
+    res["saves"] = [dict(step=a[0], gb=a[1], host_copy_s=a[2], write_s=a[3])
+                    for a in saves]
+    res["restores_s"] = [a[2] for a in rec.args("restored step")]
+    res["wer_eval_s"] = [a[4] for a in rec.args("epoch %d | val WER")]
+    print(f"checkpoint phase: {saves[0][1]:.3f} GB per step; saves (host copy, write s) "
+          f"{[(round(a[2], 3), round(a[3], 3)) for a in saves]}; restores "
+          f"{[round(x, 3) for x in res['restores_s']]} s; WER evals (8 utts) "
+          f"{[round(x, 3) for x in res['wer_eval_s']]} s")
+    print("checkpoint: " + json.dumps(res))
+    return res
+
+
+def _serving(st: dict, out, hb, launches: dict, phase: dict) -> dict:
+    """Serving numbers of one generate_tokens call beside an earlier
+    phase's."""
+    B, steps = len(hb.utt_ids), st["decode_steps"]
+    new = out.tokens.shape[1]
+    return dict(encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+                ms_per_token=st["decode_s"] * 1e3 / steps,
+                new_tokens_per_s=B * new / (st["encode_s"] + st["prefill_s"] + st["decode_s"]),
+                launches=launches,
+                random_init=dict(encode_ms=phase["encode_ms"], prefill_ms=phase["prefill_ms"],
+                                 ms_per_token=phase["ms_per_token"],
+                                 new_tokens_per_s=phase["new_tokens_per_s"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1282,6 +1600,10 @@ def main(argv: list[str] | None = None) -> int:
                                        against_bf16_weights=False)
     torch.cuda.empty_cache()
     cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_phase(args.seed, res, serve["serve_preset"])
+    cl = ckpt["launches"]
+    check(all(cl.values()), f"a kernel did not launch on the checkpoint path: {cl}")
 
     def total(key: str) -> float:
         return sum(r[key] * r["launches_per_call"] for r in rows)
@@ -1290,8 +1612,9 @@ def main(argv: list[str] | None = None) -> int:
     kernels = [dict(
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
-        launches=res["flash_launches"] + tl["fwd"],
-        launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"]},
+        launches=res["flash_launches"] + tl["fwd"] + cl["flash_fwd"],
+        launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"],
+                          "checkpoint": cl["flash_fwd"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_lse_err=max(r["max_lse_err"] for r in rows),
         ms=total("ms"), kernel_ms=total("ms"), plain_ms=total("plain_ms"),
@@ -1313,7 +1636,8 @@ def main(argv: list[str] | None = None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
-            launches=tl[key], launches_by_path={"train_3_steps": tl[key]},
+            launches=tl[key] + cl[name],
+            launches_by_path={"train_3_steps": tl[key], "checkpoint": cl[name]},
             max_abs_err=max(bwd["max_abs_err"][e] for e in errs),
             max_rel_err=max(bwd["max_rel_err"][e] for e in errs),
             ms=bwd[key]["ms"], plain_ms=bwd[key]["plain_ms"],
@@ -1332,6 +1656,7 @@ def main(argv: list[str] | None = None) -> int:
             return sum(r[key] * n for r in qrows for n in r["launches_by_call"].values())
 
         by_path = {path: out["launches"][name] for path, out in serve.items()}
+        by_path["checkpoint"] = cl[name]
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",

@@ -17,7 +17,8 @@ for n in names:
     importlib.import_module(n)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "avsr_tpu", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "avsr_tpu", "flax", "optax",
+                                    "orbax"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -29,6 +30,7 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "avsr_tpu_torch.infer.generate" in res["modules"]
     assert "avsr_tpu_torch.cli.decode" in res["modules"]
+    assert "avsr_tpu_torch.train.checkpoint" in res["modules"]
     assert res["bad"] == []
 
 
@@ -41,4 +43,4 @@ def test_port_sources_name_no_jax():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "avsr_tpu"), f"{f}: {s}"
+                assert mod not in ("jax", "jaxlib", "avsr_tpu", "orbax"), f"{f}: {s}"

@@ -367,3 +367,130 @@ def test_qdot_auto_never_reaches_the_plain_version_on_cuda(cuda, monkeypatch):
     assert Q.int4_launches == before + 1
     # the dequantize path rounds every weight (q * scale) to bf16
     assert _rel_err(y, y_never) <= 1e-2, _rel_err(y, y_never)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a train state on the card
+# ---------------------------------------------------------------------------
+
+# the widened tiny config of tests/test_torch_train.py, without YAML (the
+# card's host has no PyYAML): the LLM's head width 64 and its packed width
+# 288 take the flash kernels
+TINY_TRAIN = ["data.batch_size=2", "data.max_label_length=24",
+              "data.audio_buckets=100,200", "data.video_buckets=4,8",
+              "model.modality=both", "model.whisper.d_model=32",
+              "model.whisper.n_heads=2", "model.whisper.n_layers=1",
+              "model.whisper.max_frames=500", "model.clip.image_size=16",
+              "model.clip.patch_size=8", "model.clip.d_model=24",
+              "model.clip.n_heads=2", "model.clip.n_layers=1",
+              "model.llm.vocab_size=260", "model.llm.d_model=128",
+              "model.llm.n_layers=2", "model.llm.n_heads=2",
+              "model.llm.n_kv_heads=1", "model.llm.ffn_dim=256",
+              "model.llm.max_seq_len=512", "model.lora.r=2", "model.lora.alpha=4",
+              "model.lora.dropout=0", "training.warmup_steps=2",
+              "training.learning_rate=1e-3", "mesh.remat=false"]
+
+
+def _train_state(device):
+    from avsr_tpu_torch.core.config import load_config
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.train.state import cast_frozen, create_train_state
+
+    cfg = load_config(None, TINY_TRAIN)
+    p = init_avsr_model(cfg.model, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    for layer in p["llm"]["layers"]:        # LoRA b is zero at init
+        for node in layer.values():
+            if isinstance(node, dict) and "lora" in node:
+                b = node["lora"]["b"]
+                node["lora"]["b"] = 0.05 * torch.randn(b.shape, generator=g)
+    p = cast_frozen({k: _to(v, device) for k, v in p.items()}, cfg.model)
+    return cfg, create_train_state(p, cfg, 10)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _train_batch(device):
+    from avsr_tpu_torch.models.avsr import Batch
+    from avsr_tpu_torch.train.step import microbatch
+
+    g = torch.Generator().manual_seed(0)
+    b = Batch(mel=torch.randn((2, 80, 500), generator=g),
+              mel_lens=torch.tensor([500, 380], dtype=torch.int32),
+              frames=torch.randn((2, 4, 3, 16, 16), generator=g),
+              frame_lens=torch.tensor([4, 3], dtype=torch.int32),
+              prompt_tokens=torch.tensor([[256, 72, 105, 33, 9]] * 2, dtype=torch.int32),
+              labels=torch.randint(0, 258, (2, 24), generator=g, dtype=torch.int32),
+              label_lens=torch.tensor([24, 17], dtype=torch.int32))
+    return microbatch(Batch(*[x.to(device) for x in b]), 1)
+
+
+def _leaves(state):
+    from avsr_tpu_torch.train.state import path_leaves
+    return path_leaves(state.state_dict())
+
+
+@pytest.mark.cuda
+def test_train_state_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A train state saved on the card restores into a CPU state bit for
+    bit, and a checkpoint of that CPU state restores back onto the card."""
+    from avsr_tpu_torch.train.checkpoint import CheckpointManager
+    from avsr_tpu_torch.train.step import make_train_step
+
+    cfg, st = _train_state(cuda)
+    step = make_train_step(cfg)
+    batch = _train_batch(cuda)
+    for i in range(3):
+        step(st, batch, i)
+    m = CheckpointManager(tmp_path / "card")
+    m.save(st)
+    m.wait()
+    _, cpu = _train_state("cpu")
+    CheckpointManager(tmp_path / "card").restore(cpu)
+    want = _leaves(st)
+    for k, v in _leaves(cpu).items():
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == "cpu" and torch.equal(v, want[k].cpu()), k
+        else:
+            assert v == want[k], k
+    m = CheckpointManager(tmp_path / "cpu")
+    m.save(cpu)
+    m.wait()
+    _, back = _train_state(cuda)
+    CheckpointManager(tmp_path / "cpu").restore(back)
+    for k, v in _leaves(back).items():
+        if isinstance(v, torch.Tensor) and not k.endswith("/step"):
+            assert v.is_cuda and torch.equal(v, want[k]), k
+
+
+@pytest.mark.cuda
+def test_resumed_step_equals_uninterrupted_step_on_the_card(cuda, tmp_path):
+    """Two steps, a checkpoint, a fresh state restored from it: its third
+    step (flash forward, dQ, dK/dV on the card) equals the third step of
+    the state that never stopped."""
+    from avsr_tpu_torch.train.checkpoint import CheckpointManager
+    from avsr_tpu_torch.train.step import make_train_step
+
+    cfg, st = _train_state(cuda)
+    step = make_train_step(cfg)
+    batch = _train_batch(cuda)
+    for i in range(2):
+        step(st, batch, i)
+    m = CheckpointManager(tmp_path)
+    m.save(st)
+    m.wait()
+    _, resumed = _train_state(cuda)
+    m.restore(resumed)
+    launches = (A.launches, A.dq_launches, A.dkv_launches)
+    m_a, m_b = step(st, batch, 2), step(resumed, batch, 2)
+    assert A.dq_launches - launches[1] == A.dkv_launches - launches[2] == 2 * 2
+    assert m_a["loss"] == m_b["loss"] and m_a["grad_norm"] == m_b["grad_norm"]
+    for k, v in _leaves(resumed).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, _leaves(st)[k]), k

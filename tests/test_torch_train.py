@@ -402,8 +402,8 @@ def test_trainer_three_steps_loss_falls(tmp_path):
         tavsr.init_avsr_model(cfg.model, seed=0, device="cpu"), cfg.model)
     tr = Trainer(cfg, params, loader)
     out = tr.train()
-    assert out["steps"] == 3 and len(tr.history) == 3
-    assert tr.history[-1] < tr.history[0] - 1e-3
+    assert out["steps"] == 3 and len(tr.history["train"]) == 3
+    assert tr.history["train"][-1] < tr.history["train"][0] - 1e-3
     rows = (tmp_path / "loss_log.csv").read_text().splitlines()
     assert rows[0].startswith("step,epoch,split,loss") and len(rows) == 4
 
@@ -429,31 +429,13 @@ def test_unported_config_knobs_raise(override):
         tcfg.load_config(TINY_YAML, [override])
 
 
-@pytest.mark.parametrize("override", [
-    "training.save_every_steps=10", "training.resume_from=/x",
-    "training.eval_wer_every_epochs=1", "training.early_stop_patience=2",
-    "runtime.profile_dir=/x"])
+@pytest.mark.parametrize("override", ["model.use_4bit=true", "model.use_8bit=true"])
 def test_trainer_refuses_unported_features(tmp_path, override):
+    """QLoRA training (a quantized base under the train step) is not yet
+    ported."""
     with pytest.raises(NotImplementedError):
         tcli_train.main(["--config", str(TINY_YAML), "--device", "cpu",
                          override, f"training.checkpoint_dir={tmp_path}"])
-
-
-@pytest.mark.parametrize("secs,warns", [("7200", True), ("inf", False)])
-def test_trainer_warns_timed_checkpoints_are_not_written(tmp_path, caplog,
-                                                         secs, warns):
-    """The port writes no checkpoint; the JAX Trainer's timed checkpoint
-    (``save_every_secs``, on by default) is named in a warning."""
-    cfg = tcfg.load_config(TINY_YAML, ["data.synthetic_size=2",
-                                       f"training.save_every_secs={secs}",
-                                       f"training.checkpoint_dir={tmp_path}"])
-    tok = ByteTokenizer()
-    ds = SyntheticAVSRDataset(cfg.data, tok, modality="audio", image_size=16)
-    loader = DataLoader(ds, cfg.data, tok, model_cfg=cfg.model, device="cpu")
-    params = tavsr.init_avsr_model(cfg.model, seed=0, device="cpu")
-    with caplog.at_level("WARNING", logger="avsr_tpu_torch.train"):
-        Trainer(cfg, params, loader)
-    assert ("timed checkpoint" in caplog.text) == warns
 
 
 def test_chip_smoke_overrides_give_the_flagship():
