@@ -9,14 +9,16 @@ Layering (bottom-up):
     csrc/    CUDA C++ kernels, built with nvcc at first use (ops/_build.py)
     ops/     flash-attention forward and backward (kernels + plain versions,
              the autograd Function), int8/int4 weight-only quantization and
-             its decode-shape matmul kernels, log-mel, frames
+             its decode-shape matmul kernels (QDot under autograd), log-mel,
+             frames, SpecAugment, video augmentation
     models/  Whisper encoder, CLIP ViT, simple connector, Llama + LoRA
              (dropout, remat, quantized base, fused decode layout, int8 KV
              cache), AVSR (encode, prefix, training forward)
     data/    byte tokenizer, synthetic dataset, collate + featurize, DataLoader
     infer/   prefill + KV-cache greedy/sampled generation, WER
-    train/   masks, AdamW + schedules, train/eval steps, the Trainer
-    cli/     decode and train entry points
+    train/   masks, AdamW / adafactor / lion + schedules, train/eval steps,
+             the Trainer, checkpoints, the batch-size probe
+    cli/     decode, train (with the --mode presets) and average entry points
 """
 
 __version__ = "0.1.0"

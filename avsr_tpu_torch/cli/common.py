@@ -4,7 +4,8 @@ params export over it).
 
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
 wins over YAML wins over defaults), ``--seed`` for the random weights and
-``--device`` (default ``cuda``; tests pass ``cpu``).
+``--device`` (default ``cuda``; tests pass ``cpu``). The train CLI also
+takes ``--mode``, a memory preset (:data:`MODE_OVERRIDES`).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from pathlib import Path
 import torch
 
 from avsr_tpu_torch.convert import cast_tree
-from avsr_tpu_torch.core.config import AVSRConfig
+from avsr_tpu_torch.core.config import AVSRConfig, load_config
 from avsr_tpu_torch.data.dataset import SyntheticAVSRDataset
 from avsr_tpu_torch.infer.generate import prepare_params_for_decode
 from avsr_tpu_torch.models.avsr import init_avsr_model
@@ -28,15 +29,46 @@ from avsr_tpu_torch.train.state import cast_frozen
 log = logging.getLogger("avsr_tpu_torch.cli")
 
 
-def base_parser(description: str) -> argparse.ArgumentParser:
+# Memory presets, the JAX train CLI's ``--mode`` (the reference's
+# train_modes.sh: standard / fp16 / 4bit / max, plus 8bit): each is a list
+# of dotted overrides applied before the positional ones, so an explicit
+# key=value still wins. bf16 is the half type of the card's tensor cores
+# as well, so "fp16" pins the bf16 compute dtype.
+MODE_OVERRIDES: dict[str, list[str]] = {
+    "standard": [],
+    "fp16": ["runtime.compute_dtype=bfloat16"],
+    "4bit": ["model.use_4bit=true"],
+    "8bit": ["model.use_8bit=true"],
+    "max": ["model.use_4bit=true", "mesh.remat=true",
+            "training.grad_accum_steps=8", "data.batch_size=1"],
+}
+
+
+def base_parser(description: str, *, modes: bool = False) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--device", default="cuda")
+    if modes:
+        p.add_argument("--mode", dest="memory_mode", choices=sorted(MODE_OVERRIDES),
+                       default=None,
+                       help="memory preset (config overrides; an explicit "
+                            "key=value still wins)")
     p.add_argument("overrides", nargs="*",
                    help="dotted config overrides, e.g. training.max_steps=10")
     return p
+
+
+def load_cli_config(args: argparse.Namespace) -> AVSRConfig:
+    """The config of parsed CLI arguments: the YAML file, then the
+    ``--mode`` preset's overrides, then the positional ones."""
+    overrides = list(args.overrides)
+    mode = getattr(args, "memory_mode", None)
+    if mode:
+        overrides = MODE_OVERRIDES[mode] + overrides
+        log.info("mode=%s -> %s", mode, " ".join(MODE_OVERRIDES[mode]) or "(defaults)")
+    return load_config(args.config, overrides)
 
 
 def build_dataset(cfg: AVSRConfig, tok, split: str) -> SyntheticAVSRDataset:

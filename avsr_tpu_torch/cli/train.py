@@ -5,36 +5,52 @@
         data.synthetic=true training.max_steps=10 training.save_every_steps=5
 
 The weights are a random init from ``--seed`` (trainable leaves f32,
-frozen ones in the compute dtype). The loss log, the loss history and the
-checkpoints (``ckpt/``, the port's own format) go to
-``training.checkpoint_dir``; a run whose ``ckpt/`` holds a step, or one
-given ``training.resume_from``, resumes from it mid-epoch. The manifest
-dataset and QLoRA training are still to be ported.
+frozen ones in the compute dtype; with ``model.use_4bit`` or ``use_8bit``
+the LLM's projections quantized, QLoRA). ``--mode`` picks a memory preset
+(``cli/common.py::MODE_OVERRIDES``), and ``training.auto_batch_size`` sets
+``data.batch_size`` from the batch-size probe (``train/probe.py``) on a
+second init. The loss log, the loss history and the checkpoints (``ckpt/``,
+the port's own format) go to ``training.checkpoint_dir``; a run whose
+``ckpt/`` holds a step, or one given ``training.resume_from``, resumes from
+it mid-epoch. The manifest dataset is still to be ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import logging
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser, build_dataset, init_params
-from avsr_tpu_torch.core.config import load_config
+from avsr_tpu_torch.cli.common import (base_parser, build_dataset, init_params,
+                                       load_cli_config)
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
 from avsr_tpu_torch.models.avsr import summarize
-from avsr_tpu_torch.train.loop import Trainer, check_supported
+from avsr_tpu_torch.train.loop import Trainer
+from avsr_tpu_torch.train.probe import find_optimal_batch_size
 
 log = logging.getLogger("avsr_tpu_torch.cli.train")
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = base_parser("Train the AVSR model").parse_args(argv)
+    args = base_parser("Train the AVSR model", modes=True).parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    cfg = load_config(args.config, args.overrides)
-    check_supported(cfg)
+    cfg = load_cli_config(args)
     device = torch.device(args.device)
+    if cfg.training.auto_batch_size:
+        probe_params = init_params(cfg, seed=args.seed, device=device)
+        best = find_optimal_batch_size(cfg, probe_params, device=device)
+        del probe_params
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if best > cfg.data.batch_size:
+            log.info("auto_batch_size: %d -> %d", cfg.data.batch_size, best)
+            cfg = dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, batch_size=best))
     dtype = getattr(torch, cfg.runtime.compute_dtype)
     tok = ByteTokenizer()
 

@@ -4,10 +4,9 @@ A copy of the sections of ``avsr_tpu.core.config`` that the port reads
 (``data``, ``model`` with its Whisper/CLIP/LLM/LoRA subsections,
 ``training``, ``mesh``, ``runtime``, ``decode``), with the same field names
 and defaults, so that a YAML file written for the JAX package loads here
-unchanged. Knobs whose feature is not ported raise ``NotImplementedError``
-at validation rather than being ignored: mesh axes above 1, optimizers
-other than AdamW, SpecAugment, video augmentation, layer-norm unfreezing
-and the batch-size probe. ``mesh.donate`` is accepted and means nothing
+unchanged. Mesh axes above 1 (multi-GPU layouts, not yet ported) raise
+``NotImplementedError`` at validation rather than being ignored.
+``mesh.donate`` is accepted and means nothing
 here: it is an XLA buffer-donation hint, and eager PyTorch updates the
 train state in place anyway.
 
@@ -201,7 +200,7 @@ class MeshConfig:
     pp: int = 1
     dcn_dp: int = 1
     axis_names: tuple[str, ...] = ("dcn", "dp", "fsdp", "ep", "sp", "tp", "pp")
-    remat: bool = True           # torch.utils.checkpoint on LLM blocks
+    remat: bool = True           # torch.utils.checkpoint on LLM and encoder blocks
     donate: bool = True          # XLA buffer donation; no meaning here
 
 
@@ -283,7 +282,7 @@ class AVSRConfig:
 
 
 def _check_ported(cfg: AVSRConfig) -> None:
-    """Raises for knobs whose feature the port does not have yet."""
+    """Raises for mesh axes above 1: the port runs on one card."""
     mesh = cfg.mesh
     axes = {"dp": mesh.dp, "fsdp": mesh.fsdp, "tp": mesh.tp, "sp": mesh.sp,
             "ep": mesh.ep, "pp": mesh.pp, "dcn_dp": mesh.dcn_dp}
@@ -292,15 +291,6 @@ def _check_ported(cfg: AVSRConfig) -> None:
         raise NotImplementedError(
             f"{', '.join(wide)}: the port runs on one card; multi-GPU "
             "layouts are not yet ported")
-    off = {"training.optimizer": cfg.training.optimizer != "adamw",
-           "training.auto_batch_size": cfg.training.auto_batch_size,
-           "data.specaugment": cfg.data.specaugment,
-           "data.video_augment": cfg.data.video_augment,
-           "model.unfreeze_layer_norms": cfg.model.unfreeze_layer_norms}
-    asked = [k for k, v in off.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: not yet ported to avsr_tpu_torch")
 
 
 # ---------------------------------------------------------------------------

@@ -148,13 +148,16 @@ def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:
 
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
-           use_kernel: str = "auto") -> EncodeOut:
+           use_kernel: str = "auto", remat: bool = False) -> EncodeOut:
     """Run the modality encoders + connectors and fuse them. Frozen
     encoders run under ``torch.no_grad()`` (the JAX ``stop_gradient``):
-    no backward graph is built for them."""
+    no backward graph is built for them. ``model.unfreeze_layer_norms``
+    trains their layer norms, so then they run with grad (and ``remat``
+    recomputes their blocks in the backward), as the JAX package drops its
+    ``stop_gradient`` for that knob."""
     _check_ported(cfg)
     conn = get_connector(cfg.connector_type)
-    frozen = (torch.no_grad() if cfg.freeze_encoders
+    frozen = (torch.no_grad() if cfg.freeze_encoders and not cfg.unfreeze_layer_norms
               else contextlib.nullcontext())
     a_out = a_lens = v_out = v_lens = None
     if cfg.modality in ("audio", "both"):
@@ -162,13 +165,13 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
             feats, alens = whisper_encoder_apply(
                 params["whisper"], batch.mel, cfg.whisper,
                 mel_lengths=batch.mel_lens, compute_dtype=compute_dtype,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, remat=remat)
         a_out, a_lens = conn.apply(params["audio_connector"], feats, alens)
     if cfg.modality in ("video", "both"):
         with frozen:
             vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
                                     compute_dtype=compute_dtype,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, remat=remat)
         vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
@@ -225,7 +228,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     the hidden state at label_start + i - 1. Metrics: ``loss``,
     ``accuracy``, ``label_tokens`` and ``feat_len_mean``."""
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
-                 use_kernel=use_kernel)
+                 use_kernel=use_kernel, remat=remat)
     B = enc.features.shape[0]
     dev = enc.features.device
     prompt = batch.prompt_tokens.to(dev)

@@ -7,12 +7,16 @@
 feature the model consumes is taken before it.
 
 At CLIP-B/32 a frame is 50 tokens, below the kernel's 256-token threshold,
-so attention takes the plain path, as in the JAX package.
+so attention takes the plain path, as in the JAX package. ``remat``
+recomputes each block in the backward while grad mode is on.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import ClipConfig
 from avsr_tpu_torch.models.layers import (
@@ -56,7 +60,7 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 def clip_vit_apply(params: Params, frames: torch.Tensor, cfg: ClipConfig, *,
                    compute_dtype: torch.dtype = torch.float32,
-                   use_kernel: str = "auto") -> torch.Tensor:
+                   use_kernel: str = "auto", remat: bool = False) -> torch.Tensor:
     """frames [B, T, 3, S, S] -> per-frame features [B, T, d]: the CLS token
     of the last hidden state, without post-LN (the reference's feature)."""
     B, T = frames.shape[:2]
@@ -68,7 +72,11 @@ def clip_vit_apply(params: Params, frames: torch.Tensor, cfg: ClipConfig, *,
     x = torch.cat([cls, x], dim=1)                  # [N, P+1, d]
     x = x + params["pos"].to(compute_dtype)[None]
     x = layer_norm(params["ln_pre"], x)
+    block = functools.partial(encoder_block_apply, n_heads=cfg.n_heads,
+                              act=quick_gelu, use_kernel=use_kernel)
     for bp in params["blocks"]:
-        x = encoder_block_apply(bp, x, n_heads=cfg.n_heads, act=quick_gelu,
-                                use_kernel=use_kernel)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, bp, x, use_reentrant=False)
+        else:
+            x = block(bp, x)
     return x[:, 0].reshape(B, T, -1)

@@ -26,7 +26,9 @@ Training: ``proj`` applies LoRA dropout to the adapter branch's input, and
 counterpart of ``jax.checkpoint``) with ``torch.utils.checkpoint``. Dropout
 masks are drawn from a generator seeded per (call, layer) inside the
 block, so the recomputation draws the same masks (``checkpoint`` replays
-only the default generators' state).
+only the default generators' state). On a quantized base (QLoRA) the base
+product carries the gradient of x through ``qdot``'s autograd Function
+(``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
 Still to be ported: MoE FFN layers, the pipeline path, per-row LoRA
 adapter banks, and the prefill-continue / split-cache steps.

@@ -5,12 +5,17 @@
 
 k_proj has no bias, gelu is exact-erf. Attention masks padding with the
 per-utterance feature lengths; at Tq = Tk >= 256 it runs the flash kernel.
+``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
+the counterpart of ``jax.checkpoint``) while grad mode is on.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import WhisperConfig
 from avsr_tpu_torch.models.layers import (
@@ -55,7 +60,7 @@ def _conv1d(p: Params, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
 def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                           *, mel_lengths: torch.Tensor | None = None,
                           compute_dtype: torch.dtype = torch.float32,
-                          use_kernel: str = "auto"
+                          use_kernel: str = "auto", remat: bool = False
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """mel [B, n_mels, T] -> (features [B, ceil(T/2), d], feat_lengths [B])."""
     B = mel.shape[0]
@@ -77,9 +82,13 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     pad_t = -Tf % 16
     if pad_t:
         x = F.pad(x, (0, 0, 0, pad_t))
+    block = functools.partial(encoder_block_apply, n_heads=cfg.n_heads,
+                              lengths=feat_lengths, act=gelu, use_kernel=use_kernel)
     for bp in params["blocks"]:
-        x = encoder_block_apply(bp, x, n_heads=cfg.n_heads, lengths=feat_lengths,
-                                act=gelu, use_kernel=use_kernel)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, bp, x, use_reentrant=False)
+        else:
+            x = block(bp, x)
     if pad_t:
         x = x[:, :Tf]
     return layer_norm(params["ln_post"], x), feat_lengths

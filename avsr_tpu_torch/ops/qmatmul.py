@@ -201,9 +201,14 @@ def qmatmul(x: torch.Tensor, qp, out_dtype: torch.dtype = torch.float32
     output in one of them too.
     A CPU tensor takes :func:`qmatmul_reference`; a CUDA tensor launches the
     kernel (on the current stream) or raises. Ragged M, N and K are handled
-    by the kernel; nothing is padded."""
+    by the kernel; nothing is padded. The kernel records no gradient, so a
+    CUDA x that requires grad under grad mode raises: ``ops/quant.py::qdot``
+    (``QDot``) is the differentiable path."""
     if x.device.type == "cpu":
         return qmatmul_reference(x, qp, out_dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("qmatmul records no gradient; call ops/quant.py::qdot "
+                           "for a differentiable quantized product")
     w, int4 = _weight(qp)
     _check_k(x, w, int4)
     scale = qp["scale"]

@@ -10,8 +10,10 @@ for leaf. The legacy row-interleaved int4 layout ("qw4") is still read.
 ``qdot`` computes x @ dequant(q): at decode shapes (M <= 64 rows) on a
 CUDA tensor through the Hopper kernels of ``ops/qmatmul.py``, otherwise
 by dequantizing the weight and a plain matmul, which is also what the JAX
-package does outside its Pallas kernel. ``quantize_llm`` rewrites a Llama
-tree; LoRA adapters stay full precision on top of the quantized base.
+package does outside its Pallas kernel. Under autograd (QLoRA training) it
+goes through :class:`QDot`, which keeps no dequantized weight for the
+backward. ``quantize_llm`` rewrites a Llama tree; LoRA adapters stay full
+precision on top of the quantized base.
 """
 
 from __future__ import annotations
@@ -91,19 +93,15 @@ def dequantize(qp: Params, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return unpacked(qp).to(dtype) * qp["scale"].to(dtype)[None, :]
 
 
-def qdot(x: torch.Tensor, qp: Params, out_dtype: torch.dtype | None = None,
-         use_kernel: str = "auto") -> torch.Tensor:
-    """x @ dequant(qp) -> ``out_dtype`` (default x.dtype).
+def _weight_key(qp: Params) -> str:
+    return next(k for k in ("qw4h", "qw4", "qw") if k in qp)
 
-    ``use_kernel``: "auto" takes the kernel for a CUDA tensor at M <= 64
-    rows, "always" for any tensor at M <= 64 (on the CPU that is the
-    kernel's plain version), "never" always dequantizes; see
-    ``qmatmul.eligible``. The kernel accumulates bf16(x) times the integers
-    in f32; the dequantized path multiplies in the wider of x's dtype and
-    ``out_dtype``."""
+
+def _qdot(x: torch.Tensor, qp: Params, dt_out: torch.dtype,
+          use_kernel: str) -> torch.Tensor:
+    """The dispatch of :func:`qdot`, with no autograd graph of its own."""
     from avsr_tpu_torch.ops import qmatmul as qm
 
-    dt_out = out_dtype or x.dtype
     lead, K = x.shape[:-1], x.shape[-1]
     m = 1
     for s in lead:
@@ -114,6 +112,51 @@ def qdot(x: torch.Tensor, qp: Params, out_dtype: torch.dtype | None = None,
     acc = torch.promote_types(x.dtype, dt_out)
     w = dequantize(qp, x.dtype)
     return torch.matmul(x.to(acc), w.to(acc)).to(dt_out)
+
+
+class QDot(torch.autograd.Function):
+    """x @ dequant(qp) with a gradient for x only (the quantized base is
+    frozen): the forward is :func:`qdot`'s dispatch (the kernel at M <= 64
+    on the card, else dequantize and matmul), and the backward dequantizes
+    again, dx = dy @ dequant(qp, x.dtype)^T in the wider of x's dtype and
+    the output's, the transpose of the JAX dequantize path. It saves the
+    packed leaves, which are resident anyway, and not the dequantized
+    weight: autograd through ``dequantize(qp) @`` would keep a copy of
+    every base weight in the compute dtype until the backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                key: str, dt_out: torch.dtype, use_kernel: str) -> torch.Tensor:
+        ctx.save_for_backward(w, scale)
+        ctx.key, ctx.x_dtype, ctx.dt_out = key, x.dtype, dt_out
+        return _qdot(x, {key: w, "scale": scale}, dt_out, use_kernel)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        w, scale = ctx.saved_tensors
+        acc = torch.promote_types(ctx.x_dtype, ctx.dt_out)
+        wq = dequantize({ctx.key: w, "scale": scale}, ctx.x_dtype)
+        dx = torch.matmul(dy.to(acc), wq.to(acc).t()).to(ctx.x_dtype)
+        return dx, None, None, None, None, None
+
+
+def qdot(x: torch.Tensor, qp: Params, out_dtype: torch.dtype | None = None,
+         use_kernel: str = "auto") -> torch.Tensor:
+    """x @ dequant(qp) -> ``out_dtype`` (default x.dtype).
+
+    ``use_kernel``: "auto" takes the kernel for a CUDA tensor at M <= 64
+    rows, "always" for any tensor at M <= 64 (on the CPU that is the
+    kernel's plain version), "never" always dequantizes; see
+    ``qmatmul.eligible``. The kernel accumulates bf16(x) times the integers
+    in f32; the dequantized path multiplies in the wider of x's dtype and
+    ``out_dtype``. With grad mode on and an x that requires grad it runs
+    through :class:`QDot`, which returns a gradient for x and none for the
+    quantized leaves."""
+    dt_out = out_dtype or x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        key = _weight_key(qp)
+        return QDot.apply(x, qp[key], qp["scale"], key, dt_out, use_kernel)
+    return _qdot(x, qp, dt_out, use_kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ module does not read).
 
 A checkpoint directory holds:
 
-  {step}/params.pt     the parameter tree (``torch.save``)
-  {step}/train.pt      {"step", "opt_state"}: the step and the optimizer
+  {step}/params.pt     the parameter tree (``torch.save``); a QLoRA run's
+                       holds its quantized base as it is (integer leaves)
+  {step}/train.pt      {"step", "opt_state"}: the step and the optimizer's
+                       state dict (AdamW, adafactor or lion)
   meta_{step}.json     step, time, metrics, tag, is_best, and data_state,
                        fit_state and config when given
   best.json            the meta of the newest save with ``is_best``

@@ -21,8 +21,10 @@ early-stop progress, so :meth:`Trainer.maybe_resume` continues mid-epoch
 without repeating a sample.
 
 Dropout seeds restart from ``training.seed`` on resume, as the JAX
-Trainer's dropout key does. Training on a quantized base (QLoRA,
-``model.use_4bit`` / ``use_8bit``) is still to be ported and refused.
+Trainer's dropout key does. A quantized base (QLoRA, ``model.use_4bit`` /
+``use_8bit``) trains like a float one: its integer leaves are frozen, the
+checkpoints hold the quantized tree, and the in-training WER eval decodes
+through the quantized kernels.
 """
 
 from __future__ import annotations
@@ -55,13 +57,6 @@ CSV_FIELDS = ["step", "epoch", "split", "loss", "accuracy", "wer", "grad_norm",
 PROFILE_STEPS = (4, 7)
 
 
-def check_supported(cfg: AVSRConfig) -> None:
-    if cfg.model.use_4bit or cfg.model.use_8bit:
-        raise NotImplementedError(
-            "model.use_4bit / model.use_8bit (QLoRA training): not yet "
-            "ported to avsr_tpu_torch")
-
-
 class _Preempted(Exception):
     pass
 
@@ -73,7 +68,6 @@ class _EarlyStopped(Exception):
 class Trainer:
     def __init__(self, cfg: AVSRConfig, params, train_loader: DataLoader,
                  val_loader: DataLoader | None = None, tok=None):
-        check_supported(cfg)
         self.cfg = cfg
         t = cfg.training
         steps_per_epoch = max(len(train_loader) // max(t.grad_accum_steps, 1), 1)
@@ -295,13 +289,17 @@ class Trainer:
         """Puts back the handler that :meth:`_install_preemption_handler`
         replaced, unless someone bound another one since: a finished
         Trainer that kept its handler would swallow the process's SIGTERM.
-        A previous handler of None (set from C) restores as SIG_DFL."""
+        A previous handler of None (set from C) restores as SIG_DFL. Both
+        references are dropped: the handler's closure refers back to this
+        Trainer, a cycle that would hold its parameters until a garbage
+        collection."""
         if not self._sigterm_installed:
             return
         self._sigterm_installed = False
         if signal.getsignal(signal.SIGTERM) is self._own_sigterm:
             signal.signal(signal.SIGTERM, signal.SIG_DFL if self._old_sigterm is None
                           else self._old_sigterm)
+        self._own_sigterm = self._old_sigterm = None
 
     def _log_device_memory(self, step: int) -> None:
         if not self._cuda:

@@ -7,15 +7,17 @@ Freezing is structural, as there: trainable leaves are f32 tensors with
 ``requires_grad`` and the only ones the optimizer sees; frozen leaves are
 stored in the compute dtype and never get a gradient.
 
-The update is optax's ``chain(clip_by_global_norm(max_norm),
-adamw(schedule, b1, b2, weight_decay, mask=decay_mask))``: the clip scales
-by max_norm / ||g|| only when ||g|| > max_norm (``clip_grad_norm_`` would
-add 1e-6 to the norm), and the schedule and Adam's bias correction count
-applied updates, so a skipped step moves neither.
+The update is optax's ``chain(clip_by_global_norm(max_norm), rule)`` with
+the rule of ``training.optimizer`` as the JAX package builds it: adamw,
+adafactor or lion, each with the schedule and the decay mask. The clip
+scales by max_norm / ||g|| only when ||g|| >= max_norm, and the schedule
+and the rules' step counts count applied updates, so a skipped step moves
+none of them.
 
 A train state goes to a checkpoint and back through its state dict
 (:meth:`TrainState.state_dict`, :meth:`TrainState.load_state_dict`): the
-step, the parameters, the optimizer's count and AdamW's per-leaf moments.
+step, the parameters, the optimizer's count and its per-leaf state (AdamW's
+moments, adafactor's factored or full second moment, lion's momentum).
 Loading checks every key path, shape and dtype before it writes anything,
 and copies into the live tensors, which the optimizer holds.
 """
@@ -26,6 +28,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, TrainingConfig
@@ -228,26 +231,21 @@ SCHEDULES = {"cosine": cosine_schedule, "linear": linear_schedule,
 # Optimizer and state
 # ---------------------------------------------------------------------------
 
-class ClippedAdamW:
-    """Global-norm clip, then AdamW with decay groups and a schedule.
+class ClippedOptimizer:
+    """Global-norm clip, then an update rule with a schedule: optax's
+    ``chain(clip_by_global_norm(max_norm), rule)``. Subclasses give the rule
+    (:meth:`_apply`) and its per-leaf state.
 
     ``count`` is the number of updates applied: the learning rate of the
-    next update is ``schedule(count)`` and Adam's bias correction uses
-    ``count + 1`` (``torch.optim.AdamW`` keeps the latter per parameter and
-    advances it only when it steps)."""
+    next update is ``schedule(count)``, and the rules' own step counts
+    (Adam's bias correction, adafactor's decay) are ``count + 1``."""
 
     def __init__(self, leaves: list[torch.Tensor], names: list[str],
                  decay: list[bool], schedule: Callable[[int], float],
                  cfg: TrainingConfig):
-        groups = [{"params": [p for p, d in zip(leaves, decay) if d],
-                   "weight_decay": cfg.weight_decay},
-                  {"params": [p for p, d in zip(leaves, decay) if not d],
-                   "weight_decay": 0.0}]
-        self.opt = torch.optim.AdamW([g for g in groups if g["params"]],
-                                     lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2),
-                                     eps=1e-8)
         self.leaves = leaves
         self.names = names          # the leaves' key paths, in the state dict
+        self.decay = decay          # weight decay on this leaf
         self.schedule = schedule
         self.max_norm = cfg.max_grad_norm
         self.count = 0
@@ -256,14 +254,60 @@ class ClippedAdamW:
         """Apply one update from f32 ``grads`` (one per leaf) whose global
         norm is ``grad_norm``, in place."""
         clip = grad_norm >= self.max_norm
+        grads = [torch.where(clip, g / grad_norm * self.max_norm, g) for g in grads]
+        with torch.no_grad():
+            self._apply(grads, self.schedule(self.count))
+        self.count += 1
+
+    def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
+        raise NotImplementedError
+
+    # The state of the rules written here: {name: {key: tensor}}, made at
+    # construction, updated in place.
+    state: dict[str, dict[str, torch.Tensor]]
+
+    def state_dict(self) -> dict[str, Any]:
+        """{"count", "leaves": {name: {key: tensor}}}, the live tensors."""
+        return {"count": self.count, "leaves": self.state}
+
+    def check_state_dict(self, sd: dict[str, Any]) -> None:
+        check_like(sd["leaves"], self.state, what="optimizer state")
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        """Loads what :meth:`state_dict` gave (checked first), in place."""
+        self.check_state_dict(sd)
+        live = path_leaves(self.state)
+        with torch.no_grad():
+            for k, v in path_leaves(sd["leaves"]).items():
+                live[k].copy_(v)
+        self.count = int(sd["count"])
+
+
+class ClippedAdamW(ClippedOptimizer):
+    """optax.adamw(schedule, b1, b2, eps 1e-8, weight_decay, mask) after the
+    clip, through ``torch.optim.AdamW`` with one group for the decayed
+    leaves and one without (the clip scales by max_norm / ||g|| only when
+    ||g|| >= max_norm; ``clip_grad_norm_`` would add 1e-6 to the norm).
+    Its bias correction counts applied updates: ``torch.optim.AdamW`` keeps
+    the count per parameter and advances it only when it steps."""
+
+    def __init__(self, leaves, names, decay, schedule, cfg: TrainingConfig):
+        super().__init__(leaves, names, decay, schedule, cfg)
+        groups = [{"params": [p for p, d in zip(leaves, decay) if d],
+                   "weight_decay": cfg.weight_decay},
+                  {"params": [p for p, d in zip(leaves, decay) if not d],
+                   "weight_decay": 0.0}]
+        self.opt = torch.optim.AdamW([g for g in groups if g["params"]],
+                                     lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2),
+                                     eps=1e-8)
+
+    def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
         for p, g in zip(self.leaves, grads):
-            p.grad = torch.where(clip, g / grad_norm * self.max_norm, g)
-        lr = self.schedule(self.count)
+            p.grad = g
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
-        self.count += 1
 
     def state_dict(self) -> dict[str, Any]:
         """{"count", "leaves": {name: {"step", "exp_avg", "exp_avg_sq"}}},
@@ -303,11 +347,114 @@ class ClippedAdamW:
         self.count = int(sd["count"])
 
 
+def factored_dims(shape: tuple[int, ...], min_dim: int = 128
+                  ) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest axis (ties by index, as a stable argsort gives them), when the
+    second largest has at least ``min_dim`` entries; else None."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim:
+        return None
+    return order[-2], order[-1]
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
+class ClippedAdafactor(ClippedOptimizer):
+    """optax.adafactor(schedule, weight_decay_rate=weight_decay or None,
+    weight_decay_mask=mask) after the clip, with optax's defaults: second
+    moments factored into row and column means for a leaf whose second
+    largest axis has >= 128 entries (else a full one), decay 1 - t^-0.8 at
+    update t, eps 1e-30, the update clipped to block RMS 1, times the
+    learning rate, times the leaf's RMS (at least 1e-3), plus
+    weight_decay * p on the decayed leaves (not scaled by the learning
+    rate, as in optax), no momentum. State per leaf: "v_row" and "v_col"
+    (factored) or "v"."""
+
+    EPS = 1e-30
+    DECAY = 0.8
+    CLIP = 1.0
+    MIN_SCALE = 1e-3
+
+    def __init__(self, leaves, names, decay, schedule, cfg: TrainingConfig):
+        super().__init__(leaves, names, decay, schedule, cfg)
+        self.weight_decay = cfg.weight_decay
+        self.state = {}
+        for name, p in zip(names, leaves):
+            dims = factored_dims(tuple(p.shape))
+            if dims is None:
+                self.state[name] = {"v": torch.zeros_like(p)}
+            else:
+                d1, d0 = dims
+                self.state[name] = {
+                    "v_row": torch.zeros_like(p.sum(dim=d0)),
+                    "v_col": torch.zeros_like(p.sum(dim=d1))}
+
+    def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
+        t = np.float32(self.count + 1)
+        rate = np.float32(1.0) - t ** np.float32(-self.DECAY)
+        keep, new = float(rate), float(np.float32(1.0) - rate)
+        for name, p, g, dec in zip(self.names, self.leaves, grads, self.decay):
+            st = self.state[name]
+            g2 = g * g + self.EPS
+            dims = factored_dims(tuple(p.shape))
+            if dims is None:
+                st["v"].mul_(keep).add_(new * g2)
+                u = g * st["v"] ** -0.5
+            else:
+                d1, d0 = dims
+                st["v_row"].copy_(keep * st["v_row"] + new * g2.mean(dim=d0))
+                st["v_col"].copy_(keep * st["v_col"] + new * g2.mean(dim=d1))
+                rd1 = d1 - 1 if d1 > d0 else d1
+                row = (st["v_row"] / st["v_row"].mean(dim=rd1, keepdim=True)) ** -0.5
+                u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
+            u = u / torch.clamp(_rms(u) / self.CLIP, min=1.0)
+            u = u * lr
+            p_rms = _rms(p)
+            u = u * torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
+            if dec and self.weight_decay:
+                u = u + self.weight_decay * p
+            p.sub_(u)
+
+
+class ClippedLion(ClippedOptimizer):
+    """optax.lion(schedule, b1=adam_b1, b2=0.99, weight_decay, mask) after
+    the clip: u = sign((1 - b1) g + b1 m), then m = (1 - b2) g + b2 m,
+    plus weight_decay * p on the decayed leaves, times the learning rate.
+    State per leaf: "mu"."""
+
+    B2 = 0.99
+
+    def __init__(self, leaves, names, decay, schedule, cfg: TrainingConfig):
+        super().__init__(leaves, names, decay, schedule, cfg)
+        self.b1 = cfg.adam_b1
+        self.weight_decay = cfg.weight_decay
+        self.state = {name: {"mu": torch.zeros_like(p)}
+                      for name, p in zip(names, leaves)}
+
+    def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
+        for name, p, g, dec in zip(self.names, self.leaves, grads, self.decay):
+            mu = self.state[name]["mu"]
+            u = torch.sign((1.0 - self.b1) * g + self.b1 * mu)
+            mu.copy_((1.0 - self.B2) * g + self.B2 * mu)
+            if dec:
+                u = u + self.weight_decay * p
+            p.sub_(lr * u)
+
+
+OPTIMIZERS = {"adamw": ClippedAdamW, "adafactor": ClippedAdafactor,
+              "lion": ClippedLion}
+
+
 @dataclass
 class TrainState:
     step: int                   # train steps taken, skipped ones included
     params: Params              # updated in place
-    optimizer: ClippedAdamW
+    optimizer: ClippedOptimizer
 
     def state_dict(self) -> dict[str, Any]:
         """{"step", "params", "opt_state"}: the live tensors (copy them
@@ -329,20 +476,18 @@ class TrainState:
 
 
 def create_optimizer(cfg: AVSRConfig, train_params: Params,
-                     total_steps: int) -> ClippedAdamW:
-    """The optimizer over the trainable partition only (the train side of
-    :func:`partition_trainable`)."""
+                     total_steps: int) -> ClippedOptimizer:
+    """The optimizer of ``training.optimizer`` over the trainable partition
+    only (the train side of :func:`partition_trainable`)."""
     t = cfg.training
-    if t.optimizer != "adamw":
-        raise NotImplementedError(f"training.optimizer={t.optimizer!r} is not yet ported")
     if t.schedule not in SCHEDULES:
         raise ValueError(f"training.schedule must be one of {tuple(SCHEDULES)}, "
                          f"got {t.schedule!r}")
     named = path_leaves(train_params)
     decay = tree_leaves(_zip_map(lambda p, d: None if p is None else d,
                                  train_params, decay_mask(train_params)))
-    return ClippedAdamW(list(named.values()), list(named), decay,
-                        SCHEDULES[t.schedule](t, total_steps), t)
+    return OPTIMIZERS[t.optimizer](list(named.values()), list(named), decay,
+                                   SCHEDULES[t.schedule](t, total_steps), t)
 
 
 def create_train_state(params: Params, cfg: AVSRConfig,

@@ -6,7 +6,9 @@ A step takes a batch whose leaves carry a leading [accum, micro, ...] axis
 the f32 gradients of the trainable leaves over the micro-batches. If the
 mean loss or the gradients' global norm is not finite, the parameters and
 the optimizer are left as they were and only ``state.step`` advances, as
-the JAX step's ``lax.cond`` does.
+the JAX step's ``lax.cond`` does. A train step (and only a train step: it
+has a dropout seed) augments its micro-batches when ``data.specaugment`` or
+``data.video_augment`` asks.
 """
 
 from __future__ import annotations
@@ -19,10 +21,40 @@ import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig
 from avsr_tpu_torch.models.avsr import Batch, forward
+from avsr_tpu_torch.ops.specaugment import specaugment
+from avsr_tpu_torch.ops.videoaug import video_augment
 from avsr_tpu_torch.train.state import TrainState
 
 
+def augment(cfg: AVSRConfig, batch: Batch, seed: int) -> tuple[Batch, int]:
+    """SpecAugment (``data.specaugment``) and video augmentation
+    (``data.video_augment``) of a training batch, drawn from generators on
+    the batch's device seeded from ``seed``; returns the batch and the seed
+    left for dropout. As the JAX step splits its dropout key once per
+    augmentation, the dropout seed changes only when one is on."""
+    d = cfg.data
+    spec = d.specaugment and batch.mel is not None
+    video = d.video_augment and batch.frames is not None
+    if not (spec or video):
+        return batch, seed
+    seed, spec_seed, video_seed = micro_seeds(seed, 3)
+    if spec:
+        gen = torch.Generator(device=batch.mel.device).manual_seed(spec_seed)
+        batch = batch._replace(mel=specaugment(
+            batch.mel, batch.mel_lens, gen, time_masks=d.spec_time_masks,
+            time_width=d.spec_time_width, freq_masks=d.spec_freq_masks,
+            freq_width=d.spec_freq_width))
+    if video:
+        gen = torch.Generator(device=batch.frames.device).manual_seed(video_seed)
+        batch = batch._replace(frames=video_augment(
+            batch.frames, batch.frame_lens, gen, max_shift=d.vid_max_shift,
+            flip=d.vid_flip, brightness=d.vid_brightness, contrast=d.vid_contrast))
+    return batch, seed
+
+
 def _loss_fn(params, cfg: AVSRConfig, batch: Batch, dropout_seed: int | None):
+    if dropout_seed is not None:        # the training path only
+        batch, dropout_seed = augment(cfg, batch, dropout_seed)
     return forward(params, cfg.model, batch,
                    compute_dtype=getattr(torch, cfg.runtime.compute_dtype),
                    use_kernel=cfg.runtime.use_pallas, remat=cfg.mesh.remat,

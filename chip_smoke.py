@@ -61,6 +61,19 @@
    saves a preempt checkpoint at step 2 and the next run resumes from it.
    Prints the checkpoint's size and its save, restore and WER-eval times,
    and removes every directory it wrote.
+12. Train-knobs phase (``train_knobs_phase``), at full width: QLoRA with
+   ``--mode 4bit`` (f32 gradient parity of the kernel path, three steps
+   with their split, peak memory below phase 6's, the dequantize calls of
+   a step and their device time; the train CLI's runs A, B (resumed) and
+   C as in phase 11, B's third step equal to C's bit for bit), the decode
+   CLI from that checkpoint with the serving preset (loaded leaves equal
+   the checkpoint's, exact launch counts), one step each of ``--mode
+   8bit`` and ``--mode max``, ``model.unfreeze_layer_norms`` (f32 gradient
+   parity of the encoder layer norms, the Whisper encoder's dQ and dK/dV
+   launches, both kernels timed at the Whisper shape), the batch-size
+   probe at the worst-case bucket in bf16 and 4bit, SpecAugment and video
+   augmentation (padding bit-identical, the eval step unchanged), and two
+   steps each of adafactor and lion with their state bytes.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -76,6 +89,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import logging
 import os
@@ -1032,10 +1046,13 @@ def _grads(params, mc, batch, dtype, use_kernel: str):
         t.requires_grad_(True)
     loss, _ = forward(params, mc, batch, compute_dtype=dtype,
                       use_kernel=use_kernel, remat=True)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf that feeds no output (CLIP's ln_post under
+    # unfreeze_layer_norms) gets a zero gradient, as in JAX
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     for t in leaves:
         t.requires_grad_(False)
-    return loss.item(), [g.float() for g in grads]
+    return loss.item(), [torch.zeros_like(t, dtype=torch.float32) if g is None
+                         else g.float() for t, g in zip(leaves, grads)]
 
 
 def _dist(a: list, b: list) -> float:
@@ -1517,6 +1534,517 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Train-knobs phase
+# ---------------------------------------------------------------------------
+
+def bwd_shape_rows(seed: int, B: int, H: int, T: int, n: int) -> dict:
+    """dQ and dK/dV at one more shape, non-causal [B, H, T, 64] with H
+    kv heads and n valid rows of T (bf16): held against their plain
+    versions (max|d| <= 2e-2 max|ref|), then the kernels and the SDPA
+    backward of q, k and v timed from replayed CUDA graphs, the plain
+    versions eagerly, beside each kernel's bound."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, T, 64), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    o, lse = A.flash_attention(q, k, v, lens, lens, False)
+    args_dq = (q, k, v, o, lse, do, lens, lens, False)
+    dq, delta = A.flash_bwd_dq(*args_dq)
+    args_dkv = (q, k, v, lse, delta, do, lens, lens, False)
+    dk, dv = A.flash_bwd_dkv(*args_dkv)
+    refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, lens, lens, False)
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        check(bool(torch.isfinite(got.float()).all()), f"bwd [{B},{H},{T}]: {name} not finite")
+        errs[name] = rel_err(got, ref)
+        check(errs[name] <= 2e-2, f"bwd [{B},{H},{T}]: {name} max|d| {errs[name]:.3e} "
+                                  f"x max|ref| > 2e-2")
+    times = {"dq": graph_ms([lambda: A.flash_bwd_dq(*args_dq)]),
+             "dkv": graph_ms([lambda: A.flash_bwd_dkv(*args_dkv)])}
+    plain = {"dq": time_ms(lambda: A.flash_bwd_dq_reference(*args_dq), 3),
+             "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args_dkv), 3)}
+    library = sdpa_ms(q, k, v, lens, False, do)
+    bounds = attn_bounds(q, k, lens, lens, False)
+    res = {"shape": dict(q=list(q.shape), kv=list(k.shape), causal=False, lens=n,
+                         dtype="bfloat16"),
+           "max_rel_err": errs, "library_bwd_pair": library}
+    for name in ("dq", "dkv"):
+        ops_ms, bytes_ms = bounds[name]
+        res[name] = dict(ms=times[name], plain_ms=plain[name],
+                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"kernel {name} at [{B},{H},{T},64] non-causal, {n} rows: {times[name]:.4f} ms "
+              f"(plain {plain[name]:.4f}, bound {res[name]['bound_ms']:.4f} by "
+              f"{res[name]['bound_by']})")
+    print(f"SDPA backward of q, k, v at [{B},{H},{T},64]: {library['ms']:.4f} ms "
+          f"[{library['call']}; masked {library['masked_ms']:.4f}, flash "
+          f"{library['flash_ms']:.4f}]; max|d|/max|ref| {errs}")
+    return res
+
+
+def _stack(micro: list):
+    """Micro-batches [B, ...] -> one batch [accum, B, ...]."""
+    import torch
+
+    return type(micro[0])(*[None if x[0] is None else torch.stack(x)
+                            for x in zip(*micro)])
+
+
+def _tree_bytes(tree) -> int:
+    from avsr_tpu_torch.train.state import path_leaves
+
+    return sum(t.numel() * t.element_size() for t in path_leaves(tree).values())
+
+
+def _run_steps(cfg, params, batch, n: int, tag: str, seed: int, expect=None) -> tuple:
+    """``n`` optimizer steps of ``make_train_step(cfg)`` on ``batch`` from a
+    fresh train state over ``params`` (updated in place): per step its ms,
+    forward / backward / optimizer ms, loss and launches, and the peak
+    device memory of the steps (counted from a reset just before them)."""
+    import torch
+
+    from avsr_tpu_torch.train.state import create_train_state
+    from avsr_tpu_torch.train.step import make_train_step
+
+    state = create_train_state(params, cfg, total_steps=1000)
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(n):
+        before = counts()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        m = step(state, batch, seed + i, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = since(before)
+        check(np.isfinite(m["loss"]) and m["skipped"] == 0.0,
+              f"{tag} step {i + 1}: loss {m['loss']}, skipped {m['skipped']}")
+        if expect is not None:
+            check(got == expect, f"{tag} step {i + 1} launches {got}, expected {expect}")
+        steps.append(dict(ms=dt * 1e3, loss=m["loss"], grad_norm=m["grad_norm"],
+                          launches=got,
+                          **{k[:-2] + "_ms": v * 1e3 for k, v in stats.items()}))
+        print(f"{tag} step {i + 1}: {dt * 1e3:.1f} ms ("
+              + ", ".join(f"{k[:-2]} {v * 1e3:.1f}" for k, v in stats.items())
+              + f"), loss {m['loss']:.4f}, gnorm {m['grad_norm']:.3f}")
+    peak = torch.cuda.max_memory_allocated()
+    res = dict(steps=steps, ms_per_step=steps[-1]["ms"], peak_mem_gb=peak / 1e9,
+               resident_before_gb=resident / 1e9)
+    return state, res
+
+
+def train_knobs_phase(seed: int, train: dict) -> dict:
+    """The training knobs at the flagship's full width (random weights from
+    --seed, base.yaml settings, 4 x 8 utterances of 10 s and 25 frames):
+
+    a. QLoRA, ``--mode 4bit``: f32 gradients of the kernel path against
+       the plain path; three optimizer steps with their split, peak memory
+       (below the bf16 train phase's) and launches; the dequantize calls
+       of a step and their device time; then the train CLI with ``--mode
+       4bit``: run A (2 steps, a checkpoint each, validation, in-training
+       WER), run B (resumed, step 3), run C (3 steps uninterrupted), B's
+       third step equal to C's bit for bit.
+    b. The decode CLI from run B's checkpoint with the serving preset: the
+       quantized and LoRA leaves it loaded equal the checkpoint's, and one
+       generate_tokens call has exact launch counts.
+    c. One optimizer step (after one more) each of ``--mode 8bit``,
+       ``--mode max`` and bf16 (``standard``, the 4bit step's yardstick):
+       ms and peak memory.
+    d. ``model.unfreeze_layer_norms``: f32 gradients (the encoder layer
+       norms included) of the kernel path against the plain path, and
+       steps with the Whisper encoder's backward launches; then dQ and
+       dK/dV at the Whisper shape, timed.
+    e. The batch-size probe at the worst-case bucket (30 s, 100 frames,
+       128 labels), bf16 and ``--mode 4bit``, up to 64.
+    f. SpecAugment and video augmentation: padding bit-identical, the eval
+       step unchanged by the knobs, one train step.
+    g. Two steps each of adafactor and lion, their state bytes against
+       AdamW's.
+
+    The parts run in the order c, a, b, f, g, d, e, so that each step's
+    peak memory counts only its own weights and batches. Every launch count
+    is reset at the start; the counts of each part and of the whole phase
+    are returned. Directories written are removed."""
+    import gc
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import common, decode
+    from avsr_tpu_torch.cli import train as train_cli
+    from avsr_tpu_torch.core.config import flagship, load_config
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.generate import generate_tokens
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.ops import quant
+    from avsr_tpu_torch.train import probe
+    from avsr_tpu_torch.train.checkpoint import load_params
+    from avsr_tpu_torch.train.state import (cast_frozen, path_leaves,
+                                            trainable_mask)
+    from avsr_tpu_torch.train.step import augment, make_eval_step, microbatch
+
+    def mode_cfg(mode: str, *extra: str):
+        """``--config base.yaml --mode MODE extra...``: the flagship's
+        settings take the YAML file's place, under the preset."""
+        return load_config(None, [*FLAGSHIP_OVERRIDES, *common.MODE_OVERRIDES[mode],
+                                  *extra])
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    res: dict = {}
+    by_path: dict = {}
+    reset_counts()
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed + 5)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    cfg4 = mode_cfg("4bit")
+    mc, accum = cfg4.model, cfg4.training.grad_accum_steps
+    L = mc.llm.n_layers
+    hbs = [train_host_batch(cfg4, tok, rng) for _ in range(accum)]
+
+    micro = [featurize(hb, "cuda", torch.bfloat16) for hb in hbs]
+    stacked = _stack(micro)
+
+    # c. --mode 8bit and --mode max, one step each after a first one, and
+    # the bf16 step ("standard") with this phase's resident set, the 4bit
+    # step's yardstick (phase 6's peak also holds its frozen-leaf copy)
+    before = counts()
+    for mode in ("standard", "8bit", "max"):
+        mcfg = mode_cfg(mode)
+        mp = common.init_params(mcfg, seed=seed, device="cuda")
+        free()
+        macc = mcfg.training.grad_accum_steps
+        mbatch = stacked if macc == accum else microbatch(micro[0], macc)
+        st_m, r = _run_steps(mcfg, mp, mbatch, 2, f"--mode {mode}", seed)
+        r.update(grad_accum_steps=macc, micro_batch=int(mbatch.labels.shape[1]))
+        res[f"mode_{mode}"] = r
+        del st_m, mp
+        free()
+    check(res["mode_max"]["grad_accum_steps"] == 8 and res["mode_max"]["micro_batch"] == 1,
+          "--mode max did not give 8 micro-batches of 1")
+    by_path["modes"] = since(before)
+
+    # a. QLoRA: f32 gradient parity, then bf16 steps
+    before = counts()
+    p32 = init_avsr_model(mc, seed=seed, device="cuda", dtype=torch.float32)
+    _perturb_lora_b(p32, gen)
+    p32["llm"] = quant.quantize_llm(p32["llm"], 4)
+    free()
+    b32 = featurize(hbs[0], "cuda", torch.float32)
+    loss_k, g_k = _grads(p32, mc, b32, torch.float32, "auto")
+    loss_p, g_p = _grads(p32, mc, b32, torch.float32, "never")
+    per_leaf = [_dist([a], [b]) for a, b in zip(g_k, g_p)]
+    check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+          f"4bit f32 loss: kernel {loss_k} vs plain {loss_p}")
+    check(max(per_leaf) <= 1e-3, f"4bit f32 grads: worst leaf off by {max(per_leaf):.3e}")
+    print(f"4bit f32 parity: loss {loss_k:.6f} vs {loss_p:.6f}; worst leaf "
+          f"||dg||/||g|| {max(per_leaf):.3e} over {len(per_leaf)} trainable leaves")
+    res["qlora_f32_parity"] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                                   worst_leaf=max(per_leaf), leaves=len(per_leaf))
+    params = cast_frozen(p32, mc, torch.bfloat16)
+    del p32, b32, g_k, g_p
+    free()
+    calls = [0]
+    orig_dequantize = quant.dequantize
+
+    def counting(qp, dtype=torch.float32):
+        calls[0] += 1
+        return orig_dequantize(qp, dtype)
+
+    per_step = dict(flash_fwd=accum * (mc.whisper.n_layers + 2 * L), flash_bwd_dq=accum * L,
+                    flash_bwd_dkv=accum * L, qmatmul_int8=0, qmatmul_int4=0)
+    quant.dequantize = counting
+    try:
+        state, q4 = _run_steps(cfg4, params, stacked, 3, "4bit", seed, per_step)
+    finally:
+        quant.dequantize = orig_dequantize
+    n_proj = sum(quant.is_quantized(nd) for layer in params["llm"]["layers"]
+                 for nd in layer.values())
+    per_step_calls = calls[0] / 3
+    check(per_step_calls == 3 * accum * n_proj,
+          f"a 4bit step dequantized {per_step_calls} times, expected 3 x {accum} x "
+          f"{n_proj} (forward, remat's recompute, backward)")
+    adamw_bytes = _tree_bytes(state.optimizer.state_dict()["leaves"])
+    del state
+    free()
+    check(q4["peak_mem_gb"] < train["peak_mem_gb"],
+          f"4bit step peak {q4['peak_mem_gb']:.3f} GB not below the bf16 train "
+          f"phase's {train['peak_mem_gb']:.3f} GB")
+    check(q4["peak_mem_gb"] < res["mode_standard"]["peak_mem_gb"],
+          f"4bit step peak {q4['peak_mem_gb']:.3f} GB not below the bf16 step's "
+          f"{res['mode_standard']['peak_mem_gb']:.3f} GB in this phase")
+    nodes = [nd for layer in params["llm"]["layers"] for nd in layer.values()
+             if quant.is_quantized(nd)]
+
+    def dequantize_llm():
+        for nd in nodes:
+            quant.dequantize(nd, torch.bfloat16)
+
+    full_ms = graph_ms([dequantize_llm], reps=5)
+    q4.update(dequantize_calls_per_step=per_step_calls, full_llm_dequantize_ms=full_ms,
+              dequantize_ms_per_step=full_ms * per_step_calls / n_proj,
+              llm_bytes=quant.quant_bytes(params["llm"]["layers"]),
+              adamw_state_bytes=adamw_bytes, bf16_peak_mem_gb=train["peak_mem_gb"])
+    print(f"4bit: peak {q4['peak_mem_gb']:.3f} GB (bf16 train phase "
+          f"{train['peak_mem_gb']:.3f}); {per_step_calls:.0f} dequantizes per step = "
+          f"{per_step_calls / n_proj:.0f} full-LLM dequantizes of {full_ms:.3f} ms = "
+          f"{q4['dequantize_ms_per_step']:.2f} ms per step")
+    res["qlora_4bit"] = q4
+    by_path["qlora_steps"] = since(before)
+
+    # a (cont.) and b: the train CLI with --mode 4bit, resume, decode
+    base = ROOT / "outputs" / "chip_smoke" / time.strftime("knobs_%Y%m%d_%H%M%S")
+    ab, c = base / "ab", base / "c"
+    common_args = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES,
+                   "data.synthetic=true", "model.lora.dropout=0"]
+    wer_run = ["training.keep_checkpoints=2", "training.eval_wer_every_epochs=1",
+               "training.eval_wer_max_utts=8"]
+    rec = _Records()
+    logging.getLogger("avsr_tpu_torch").addHandler(rec)
+    orig_prepare = common.prepare_params_for_decode
+    loaded: list = []
+
+    def spy_prepare(p, *a, **kw):
+        loaded[:] = [p, orig_prepare(p, *a, **kw)]
+        return loaded[1]
+
+    def train_run(run_dir: Path, *extra: str) -> None:
+        rc = train_cli.main(["--mode", "4bit", *common_args, *wer_run,
+                             f"training.checkpoint_dir={run_dir}", *extra])
+        check(rc == 0, f"train CLI --mode 4bit ({run_dir.name} {extra}) returned {rc}")
+        free()
+
+    common.prepare_params_for_decode = spy_prepare
+    try:
+        before = counts()
+        t0 = time.perf_counter()
+        train_run(ab, "training.max_steps=2", "training.save_every_steps=1")
+        res_cli = dict(run_a_s=time.perf_counter() - t0)
+        ck = ab / "ckpt"
+        check((ck / "1").is_dir() and (ck / "2").is_dir(), "4bit run A: steps not saved")
+        rows = loss_rows(ab)
+        splits = [r[2] for r in rows]
+        check(splits.count("train") == 2 and splits.count("val") == 1
+              and splits.count("val_wer") == 1, f"4bit run A loss_log rows {splits}")
+        wer_a = float(next(r[5] for r in rows if r[2] == "val_wer"))
+        check(np.isfinite(wer_a), f"4bit run A val WER {wer_a}")
+        resumed = len(rec.args("resumed from step"))
+        train_run(ab, "training.max_steps=3", "training.save_every_steps=1")
+        got = rec.args("resumed from step")[resumed:]
+        check(got == [(2, 1, 2 * accum)], f"4bit run B resume log {got}")
+        train_run(c, "training.max_steps=3", "training.save_every_steps=0")
+        pb, pc = (path_leaves(load_params(d / "ckpt" / "3")) for d in (ab, c))
+        mask = path_leaves(trainable_mask(load_params(ab / "ckpt" / "3"), mc))
+        differ = [k for k, m in mask.items() if m and not torch.equal(pb[k], pc[k])]
+        loss_b = [r[3] for r in loss_rows(ab) if r[2] == "train" and r[0] == "3"]
+        loss_c = [r[3] for r in loss_rows(c) if r[2] == "train" and r[0] == "3"]
+        check(not differ and len(loss_b) == 1 and loss_b == loss_c,
+              f"4bit run B vs C: step-3 losses {loss_b} / {loss_c}, "
+              f"{len(differ)} trainable leaves differ ({differ[:3]})")
+        q_leaves = [k for k in pb if k.endswith("qw4h")]
+        check(len(q_leaves) == 7 * L and all(pb[k].dtype == torch.int8 for k in q_leaves),
+              f"the 4bit checkpoint holds {len(q_leaves)} int4 leaves")
+        saves = rec.args("checkpoint step")
+        res_cli.update(
+            b_equals_c=dict(loss=loss_b[0], trainable_leaves=sum(mask.values())),
+            step_s_run_c=[float(r[7]) for r in loss_rows(c) if r[2] == "train"],
+            val_wer_run_a=wer_a,
+            saves=[dict(step=a[0], gb=a[1], host_copy_s=a[2], write_s=a[3]) for a in saves],
+            wer_eval_s=[a[4] for a in rec.args("epoch %d | val WER")])
+        print(f"4bit train CLI: runs A, B (resumed), C; B's step 3 equals C's "
+              f"(loss {loss_b[0]}); checkpoint {saves[0][1]:.3f} GB, writes "
+              f"{[round(a[3], 3) for a in saves]} s; step s (run C) "
+              f"{res_cli['step_s_run_c']}")
+        del pc
+        shutil.rmtree(c)
+        by_path["qlora_train_cli"] = since(before)
+
+        # b. the decode CLI from run B's checkpoint with the serving preset
+        before = counts()
+        out = base / "dec"
+        rc = decode.main([*common_args, "data.synthetic_size=40", "decode.max_new_tokens=16",
+                          *PRESET_OVERRIDES, f"decode.output_dir={out}",
+                          "--checkpoint", str(ck)])
+        check(rc == 0, f"decode CLI from the 4bit checkpoint returned {rc}")
+        check(len(list(out.glob("results_*.txt"))) == 1, "decode artifacts missing")
+        got_p = path_leaves(loaded[0])
+        lora = [k for k in pb if "lora" in k.split("/")]
+        check(lora and all(torch.equal(got_p[k], pb[k].to(got_p[k].device, torch.bfloat16))
+                           for k in lora),
+              "the decode CLI's LoRA leaves differ from the checkpoint's")
+        check(all(torch.equal(got_p[k], pb[k].to(got_p[k].device)) for k in q_leaves),
+              "the decode CLI's int4 leaves differ from the checkpoint's")
+        dparams = loaded[1]
+        loaded.clear()
+        del pb, got_p
+        pcfg = flagship(list(PRESET_OVERRIDES))
+        hb = serving_host_batch(pcfg, seed)
+        batch = featurize(hb, "cuda", torch.bfloat16)
+        kw = dict(max_new_tokens=pcfg.decode.max_new_tokens, eos_id=-1,
+                  compute_dtype=torch.bfloat16, kv_cache_dtype=pcfg.decode.kv_cache_dtype)
+        generate_tokens(dparams, pcfg.model, batch, **{**kw, "max_new_tokens": 4})
+        one = counts()
+        st: dict = {}
+        gout = generate_tokens(dparams, pcfg.model, batch, stats=st, **kw)
+        n = since(one)
+        steps = st["decode_steps"]
+        want = dict(flash_fwd=mc.whisper.n_layers + L, flash_bwd_dq=0, flash_bwd_dkv=0,
+                    qmatmul_int8=steps + 1, qmatmul_int4=4 * L * steps)
+        check(n == want, f"decode from the 4bit checkpoint: launches {n}, expected {want}")
+        check(bool(torch.isfinite(st["prefill_logits"]).all()) and
+              tuple(gout.tokens.shape) == (8, pcfg.decode.max_new_tokens),
+              "decode from the 4bit checkpoint: logits or tokens")
+        res_cli["decode"] = dict(launches=n, decode_steps=steps,
+                                 ms_per_token=st["decode_s"] * 1e3 / steps,
+                                 prefill_ms=st["prefill_s"] * 1e3)
+        print(f"decode from the 4bit checkpoint (preset): launches {n}")
+        del dparams, gout, batch
+        free()
+        by_path["qlora_decode"] = since(before)
+    finally:
+        common.prepare_params_for_decode = orig_prepare
+        logging.getLogger("avsr_tpu_torch").removeHandler(rec)
+        shutil.rmtree(base, ignore_errors=True)
+    check(not base.exists(), f"{base} not removed")
+    res["qlora_cli"] = res_cli
+
+    # f. SpecAugment and video augmentation (on the QLoRA params)
+    before = counts()
+    acfg = mode_cfg("4bit", "data.specaugment=true", "data.video_augment=true")
+    lens = micro[0].mel_lens.clone()
+    flens = micro[0].frame_lens.clone()
+    lens[::2] = lens[::2] * 7 // 10          # rows with padding frames
+    flens[::2] = flens[::2] - 7
+    padded = micro[0]._replace(mel_lens=lens, frame_lens=flens)
+    aug, _ = augment(acfg, padded, seed)
+    for i in range(0, 8, 2):
+        n_mel, n_vid = int(lens[i]), int(flens[i])
+        check(torch.equal(aug.mel[i, :, n_mel:], padded.mel[i, :, n_mel:])
+              and torch.equal(aug.frames[i, n_vid:], padded.frames[i, n_vid:]),
+              f"augmentation touched padding of row {i}")
+        check(not torch.equal(aug.mel[i, :, :n_mel], padded.mel[i, :, :n_mel])
+              and not torch.equal(aug.frames[i, :n_vid], padded.frames[i, :n_vid]),
+              f"augmentation left row {i} unchanged")
+    ev = [make_eval_step(c_)(params, padded) for c_ in (acfg, cfg4)]
+    check(ev[0] == ev[1], f"the eval step changed with the augmentation knobs: {ev}")
+    st_a, ra = _run_steps(acfg, params, microbatch(padded, 1), 1, "augment", seed)
+    ra["eval"] = ev[0]
+    res["augment"] = ra
+    del st_a
+    free()
+
+    # g. adafactor and lion (on the QLoRA params)
+    opts = {"adamw": dict(state_bytes=adamw_bytes)}
+    tmask4 = path_leaves(trainable_mask(params, mc))
+
+    def trainable_now() -> list:
+        return [v.detach().clone() for k, v in path_leaves(params).items() if tmask4[k]]
+
+    for name in ("adafactor", "lion"):
+        ocfg = mode_cfg("4bit", f"training.optimizer={name}")
+        leaves0 = trainable_now()
+        st_o, ro = _run_steps(ocfg, params, stacked, 2, name, seed)
+        ro["state_bytes"] = _tree_bytes(st_o.optimizer.state_dict()["leaves"])
+        after = trainable_now()
+        check(any(not torch.equal(a, b) for a, b in zip(leaves0, after)),
+              f"{name}: no trainable leaf changed in two steps")
+        print(f"{name}: optimizer state {ro['state_bytes'] / 1e6:.2f} MB "
+              f"(AdamW {adamw_bytes / 1e6:.2f} MB)")
+        opts[name] = ro
+        del st_o, leaves0, after
+        free()
+    res["optimizers"] = opts
+    by_path["augment_and_optimizers"] = since(before)
+    del params
+    free()
+
+    # d. unfreeze_layer_norms
+    before = counts()
+    lcfg = mode_cfg("standard", "model.unfreeze_layer_norms=true")
+    lmc = lcfg.model
+    p32 = init_avsr_model(lmc, seed=seed, device="cuda", dtype=torch.float32)
+    _perturb_lora_b(p32, gen)
+    b32 = featurize(hbs[0], "cuda", torch.float32)
+    tmask = path_leaves(trainable_mask(p32, lmc))
+    train_names = [k for k, m in tmask.items() if m]
+    loss_k, g_k = _grads(p32, lmc, b32, torch.float32, "auto")
+    loss_p, g_p = _grads(p32, lmc, b32, torch.float32, "never")
+    ln_worst, all_worst, live = 0.0, 0.0, 0
+    for k, a, b in zip(train_names, g_k, g_p):
+        if not b.abs().max():              # CLIP's ln_post feeds no output
+            check(not a.abs().max(), f"unfreeze_layer_norms: {k} has a gradient")
+            continue
+        d = _dist([a], [b])
+        all_worst = max(all_worst, d)
+        if k.split("/")[0] in ("whisper", "clip"):
+            ln_worst, live = max(ln_worst, d), live + 1
+    check(live >= 4 * mc.whisper.n_layers and all_worst <= 1e-3
+          and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+          f"unfreeze_layer_norms f32: {live} live encoder LN leaves, worst leaf "
+          f"{all_worst:.3e}, loss {loss_k} vs {loss_p}")
+    print(f"unfreeze_layer_norms f32 parity: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"worst LN leaf {ln_worst:.3e} over {live} encoder LN leaves, worst leaf "
+          f"{all_worst:.3e}")
+    lparams = cast_frozen(p32, lmc, torch.bfloat16)
+    del p32, b32, g_k, g_p
+    free()
+    W = mc.whisper.n_layers
+    lstep = dict(flash_fwd=accum * (2 * W + 2 * L), flash_bwd_dq=accum * (W + L),
+                 flash_bwd_dkv=accum * (W + L), qmatmul_int8=0, qmatmul_int4=0)
+    st_l, lr_ = _run_steps(lcfg, lparams, stacked, 2, "unfreeze_layer_norms", seed, lstep)
+    lr_.update(f32_loss_kernel=loss_k, f32_loss_plain=loss_p, f32_worst_ln_leaf=ln_worst,
+               f32_worst_leaf=all_worst, live_ln_leaves=live, launches_per_step=lstep)
+    res["unfreeze_layer_norms"] = lr_
+    del st_l, lparams
+    free()
+    by_path["unfreeze_layer_norms"] = since(before)
+    # the Whisper encoder's attention: 10 s of audio, 500 of 512 rows
+    res["whisper_bwd"] = bwd_shape_rows(seed + 6, 8, mc.whisper.n_heads, 512, 500)
+    free()
+
+    # e. the batch-size probe at the worst-case bucket
+    before = counts()
+    probes = {}
+    for mode in ("standard", "4bit"):
+        pcfg_ = mode_cfg(mode)
+        pp = common.init_params(pcfg_, seed=seed, device="cuda")
+        t0 = time.perf_counter()
+        best = probe.find_optimal_batch_size(pcfg_, pp, max_batch=64, device="cuda")
+        dt = time.perf_counter() - t0
+        del pp
+        free()
+        check(best >= 1, f"probe ({mode}): not even one utterance fits")
+        probes["bf16" if mode == "standard" else mode] = dict(
+            best=best, seconds=dt, mel_frames=pcfg_.data.audio_buckets[-1],
+            video_frames=pcfg_.data.video_buckets[-1],
+            labels=pcfg_.data.max_label_length)
+        print(f"probe ({mode}): largest batch {best} at the worst-case bucket "
+              f"({pcfg_.data.audio_buckets[-1]} mel frames, "
+              f"{pcfg_.data.video_buckets[-1]} frames, {pcfg_.data.max_label_length} "
+              f"labels) in {dt:.1f} s")
+    res["probe"] = probes
+    by_path["probe"] = since(before)
+    del micro, stacked
+    free()
+    res["launches_by_path"] = by_path
+    # the parts' sums: the launches that timed dQ and dK/dV at the Whisper
+    # shape are not the path's
+    res["launches"] = {k: sum(part[k] for part in by_path.values()) for k in counts()}
+    print("train knobs: " + json.dumps(res))
+    return res
+
+
 def _serving(st: dict, out, hb, launches: dict, phase: dict) -> dict:
     """Serving numbers of one generate_tokens call beside an earlier
     phase's."""
@@ -1574,36 +2102,50 @@ def main(argv: list[str] | None = None) -> int:
                     spills.append(f"{name} {fn}")
     check(not spills, f"kernels that spill registers: {spills}")
 
+    def settle() -> None:
+        """Between phases: collect the garbage of the last one (reference
+        cycles can hold its tensors until a collection runs), so that the
+        next phase's peak memory counts only what it keeps itself."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
     rows = kernel_phase(args.seed, {"whisper": 500, "llm_prefill": 533})
     res = main_path_phase(args.seed)
-    torch.cuda.empty_cache()
+    settle()
     cli_phase(args.seed)
-    torch.cuda.empty_cache()
+    settle()
     # train lengths: 33 prompt tokens + 500 features + 48 label tokens = 581
     # valid of 661 packed, padded to 672
     bwd = bwd_kernel_phase(args.seed, 581)
-    torch.cuda.empty_cache()
+    settle()
     train = train_phase(args.seed)
-    torch.cuda.empty_cache()
+    settle()
     train_cli_phase(args.seed)
-    torch.cuda.empty_cache()
+    settle()
     # Quantized serving last, so that the phases above run as they did
     # before it existed. The flagship LLM has 16 layers; 100 tokens take 99
     # decode steps.
     qmm = qmm_kernel_phase(args.seed, n_layers=16, steps=res["decode_steps"])
-    torch.cuda.empty_cache()
+    settle()
     serve = {"serve_preset": preset_phase(args.seed, res, qmm)}
-    torch.cuda.empty_cache()
+    settle()
     serve["serve_8bit"] = preset_phase(args.seed, res, qmm, INT8_OVERRIDES, tag="use_8bit",
                                        against_bf16_weights=False)
-    torch.cuda.empty_cache()
+    settle()
     cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
-    torch.cuda.empty_cache()
+    settle()
     ckpt = checkpoint_phase(args.seed, res, serve["serve_preset"])
     cl = ckpt["launches"]
     check(all(cl.values()), f"a kernel did not launch on the checkpoint path: {cl}")
+    settle()
+    knobs = train_knobs_phase(args.seed, train)
+    kl = knobs["launches"]
+    check(all(kl.values()), f"a kernel did not launch on the train-knobs path: {kl}")
+
+    def knob_paths(name: str) -> dict[str, int]:
+        return {f"knobs_{part}": n[name] for part, n in knobs["launches_by_path"].items()}
 
     def total(key: str) -> float:
         return sum(r[key] * r["launches_per_call"] for r in rows)
@@ -1612,9 +2154,9 @@ def main(argv: list[str] | None = None) -> int:
     kernels = [dict(
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
-        launches=res["flash_launches"] + tl["fwd"] + cl["flash_fwd"],
+        launches=res["flash_launches"] + tl["fwd"] + cl["flash_fwd"] + kl["flash_fwd"],
         launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"],
-                          "checkpoint": cl["flash_fwd"]},
+                          "checkpoint": cl["flash_fwd"], **knob_paths("flash_fwd")},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_lse_err=max(r["max_lse_err"] for r in rows),
         ms=total("ms"), kernel_ms=total("ms"), plain_ms=total("plain_ms"),
@@ -1627,17 +2169,23 @@ def main(argv: list[str] | None = None) -> int:
                   "time per launch from a replayed CUDA graph x launches)",
         shapes=rows, train_shape={**bwd["fwd"], "library_ms": bwd["library_fwd"]["ms"],
                                   "library": bwd["library_fwd"]})]
+    wb = knobs["whisper_bwd"]
     for name, key, line, errs, extra in (
             ("flash_bwd_dq", "dq", 181, ("dq",),
              dict(also_writes="delta = rowsum(dO * O), [B, H, Tq] f32")),
             ("flash_bwd_dkv", "dkv", 241, ("dk", "dv"),
              dict(reads="delta in place of O",
                   noncausal_ms=bwd["dkv_noncausal_ms"]))):
+        extra["whisper_shape"] = dict(
+            **wb[key], shape=wb["shape"], library_ms=wb["library_bwd_pair"]["ms"],
+            library=wb["library_bwd_pair"],
+            max_rel_err=max(wb["max_rel_err"][e] for e in errs))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
-            launches=tl[key] + cl[name],
-            launches_by_path={"train_3_steps": tl[key], "checkpoint": cl[name]},
+            launches=tl[key] + cl[name] + kl[name],
+            launches_by_path={"train_3_steps": tl[key], "checkpoint": cl[name],
+                              **knob_paths(name)},
             max_abs_err=max(bwd["max_abs_err"][e] for e in errs),
             max_rel_err=max(bwd["max_rel_err"][e] for e in errs),
             ms=bwd[key]["ms"], plain_ms=bwd[key]["plain_ms"],
@@ -1657,6 +2205,7 @@ def main(argv: list[str] | None = None) -> int:
 
         by_path = {path: out["launches"][name] for path, out in serve.items()}
         by_path["checkpoint"] = cl[name]
+        by_path.update(knob_paths(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",

@@ -341,6 +341,8 @@ def test_preemption_checkpoint_resume_and_handler(weights, tmp_path):
     assert signal.getsignal(signal.SIGTERM) is before
     if threading.current_thread() is threading.main_thread():
         assert during[0] is not before
+        # the handler's closure refers to the Trainer: no cycle is left
+        assert tr._own_sigterm is None and tr._old_sigterm is None
     tr2 = port_trainer(tc, weights)
     assert tr2.maybe_resume() and tr2.state.step == 2
     assert tr2.train()["steps"] == 4

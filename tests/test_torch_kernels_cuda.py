@@ -369,6 +369,47 @@ def test_qdot_auto_never_reaches_the_plain_version_on_cuda(cuda, monkeypatch):
     assert _rel_err(y, y_never) <= 1e-2, _rel_err(y, y_never)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_qdot_carries_the_gradient_on_the_card(cuda, bits, M):
+    """Under grad mode a quantized product at M <= 64 launches the kernel
+    through QDot and returns dx = dy @ dequant(qp)^T, the dequantize path's
+    dx; the packed leaves get none."""
+    g = torch.Generator(device=cuda).manual_seed(M + bits)
+    qp = _qnode(bits, 512, 384, g, cuda)
+    x = torch.randn((M, 512), generator=g, device=cuda, dtype=torch.bfloat16)
+    dy = torch.randn((M, 384), generator=g, device=cuda, dtype=torch.bfloat16)
+    grads = []
+    for use_kernel in ("auto", "never"):
+        before = Q.int8_launches + Q.int4_launches
+        xl = x.clone().requires_grad_()
+        y = quant.qdot(xl, qp, use_kernel=use_kernel)
+        assert type(y.grad_fn).__name__ == "QDotBackward"
+        assert Q.int8_launches + Q.int4_launches == before + (use_kernel == "auto")
+        y.backward(dy)
+        grads.append(xl.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+    assert _rel_err(grads[0], dy.float() @ quant.dequantize(qp, torch.bfloat16).float().t()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_bare_qmatmul_refuses_gradients(cuda):
+    """The qmatmul kernels record no gradient, so the bare wrapper raises on
+    an x that requires grad (as the bare flash_attention does); qdot is the
+    differentiable path."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qp = _qnode(4, 256, 256, g, cuda)
+    x = torch.randn((8, 256), generator=g, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        Q.qmatmul(x, qp)
+    with torch.no_grad():
+        Q.qmatmul(x, qp)
+    quant.qdot(x, qp).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
 # ---------------------------------------------------------------------------
 # checkpoints of a train state on the card
 # ---------------------------------------------------------------------------

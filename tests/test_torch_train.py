@@ -420,22 +420,10 @@ def test_train_cli_writes_loss_log(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
-    "training.optimizer=lion", "data.specaugment=true",
-    "data.video_augment=true", "model.unfreeze_layer_norms=true",
-    "training.auto_batch_size=true"])
+    "mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2"])
 def test_unported_config_knobs_raise(override):
     with pytest.raises(NotImplementedError):
         tcfg.load_config(TINY_YAML, [override])
-
-
-@pytest.mark.parametrize("override", ["model.use_4bit=true", "model.use_8bit=true"])
-def test_trainer_refuses_unported_features(tmp_path, override):
-    """QLoRA training (a quantized base under the train step) is not yet
-    ported."""
-    with pytest.raises(NotImplementedError):
-        tcli_train.main(["--config", str(TINY_YAML), "--device", "cpu",
-                         override, f"training.checkpoint_dir={tmp_path}"])
 
 
 def test_chip_smoke_overrides_give_the_flagship():
