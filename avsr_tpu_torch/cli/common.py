@@ -141,14 +141,18 @@ def _restore(checkpoint: str, params_like: Params) -> Params:
 
 
 def load_decode_params(cfg: AVSRConfig, checkpoint: str | None = None, *,
-                       seed: int, device: str | torch.device = "cuda") -> Params:
+                       seed: int, device: str | torch.device = "cuda",
+                       return_raw: bool = False) -> Params | tuple[Params, Params]:
     """The serving weights, the counterpart of the JAX
     ``load_decode_params``: :func:`init_or_load_params`, the trainable
     leaves (connectors, LoRA) in the compute dtype too (decode never
     trains, and every use casts them to the activation dtype anyway), then
     ``prepare_params_for_decode`` with ``decode.lm_head_bits``, whose head
-    keeps its f32 scale."""
-    params = cast_tree(init_or_load_params(cfg, checkpoint, seed=seed, device=device),
-                       getattr(torch, cfg.runtime.compute_dtype))
-    return prepare_params_for_decode(params, cfg.model,
-                                     lm_head_bits=cfg.decode.lm_head_bits)
+    keeps its f32 scale. ``return_raw`` also returns the tree of
+    :func:`init_or_load_params` (speculative decoding builds its self-draft
+    from it); it shares the frozen leaves of the serving tree's encoders."""
+    raw = init_or_load_params(cfg, checkpoint, seed=seed, device=device)
+    params = prepare_params_for_decode(
+        cast_tree(raw, getattr(torch, cfg.runtime.compute_dtype)), cfg.model,
+        lm_head_bits=cfg.decode.lm_head_bits)
+    return (params, raw) if return_raw else params

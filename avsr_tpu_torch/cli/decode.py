@@ -1,23 +1,30 @@
 """Decoding / WER evaluation entry point of the PyTorch port.
 
-The counterpart of ``avsr_tpu/cli/decode.py`` for static batches with greedy
-or sampled decoding: runs batched generation over a split, streams HYP/REF
+The counterpart of ``avsr_tpu/cli/decode.py`` for static batches: runs
+batched generation over a split (greedy, sampled, beam search or
+speculative decoding, ``infer/generate.py::generate``), streams HYP/REF
 pairs, and writes ``results_{ts}.txt`` + ``wer_{ts}.txt`` with the corpus
 WER and CER, the same artifacts as the JAX package.
 
     python -m avsr_tpu_torch.cli.decode --config cfg.yaml --seed 0 \\
         data.synthetic=true decode.max_new_tokens=16 \\
-        --checkpoint outputs/avsr/ckpt
+        --checkpoint outputs/avsr/ckpt decode.num_beams=5
 
 The serving preset adds ``model.use_4bit=true decode.lm_head_bits=8
-decode.kv_cache_dtype=int8`` (int4 projections, int8 head, int8 KV cache).
-``--checkpoint`` names a trainer checkpoint directory of the port (its
-newest step is read) or a params export (``cli/average.py``); without it
-the weights are a random init from ``--seed``. A quantized config
-quantizes a full-precision checkpoint after loading it. Either way the
-weights end in the decode layout (``cli/common.py::load_decode_params``).
-The manifest dataset, beam search, the continuous-batching engine and
-speculative decoding are still to be ported.
+decode.kv_cache_dtype=int8`` (int4 projections, int8 head, int8 KV cache),
+with beams too. ``decode.speculative=true`` decodes with a draft: the
+target quantized to ``decode.spec_draft_bits`` (the self-draft), its first
+``decode.spec_draft_layers`` blocks so quantized (layer-skip), or a
+trained draft (``decode.spec_draft_checkpoint`` and
+``decode.spec_draft_config``, written by ``cli/distill.py``), which
+encodes its own prefix. ``--checkpoint`` names a trainer checkpoint
+directory of the port (its newest step is read) or a params export
+(``cli/average.py``); without it the weights are a random init from
+``--seed``. A quantized config quantizes a full-precision checkpoint after
+loading it. Either way the weights end in the decode layout
+(``cli/common.py::load_decode_params``). The manifest dataset and the
+continuous-batching engine (``decode.engine_slots``) are still to be
+ported.
 """
 
 from __future__ import annotations
@@ -29,12 +36,16 @@ from pathlib import Path
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser, build_dataset, load_decode_params
-from avsr_tpu_torch.core.config import AVSRConfig, load_config
+from avsr_tpu_torch.cli.common import (base_parser, build_dataset,
+                                       init_or_load_params, load_decode_params)
+from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, load_config
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
-from avsr_tpu_torch.infer.generate import generate_tokens
+from avsr_tpu_torch.infer.generate import generate
+from avsr_tpu_torch.infer.speculative import (break_even_tokens_per_pass,
+                                              make_draft_params, make_layerskip_draft)
 from avsr_tpu_torch.infer.wer import WERAccumulator
+from avsr_tpu_torch.models.layers import Params
 
 log = logging.getLogger("avsr_tpu_torch.cli.decode")
 
@@ -48,11 +59,96 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_supported(cfg: AVSRConfig) -> None:
-    d = cfg.decode
-    if d.num_beams > 1 or d.engine_slots or d.speculative:
+    if cfg.decode.engine_slots:
         raise NotImplementedError(
-            "beam search, the serving engine and speculative decoding are "
-            "not yet ported")
+            "the continuous-batching serving engine (decode.engine_slots) "
+            "is not yet ported")
+
+
+def _warn_if_speculative_loses(cfg: AVSRConfig,
+                               draft_model_cfg: ModelConfig | None = None) -> None:
+    """The JAX decode CLI's warning, message for message: decode.speculative
+    in a regime that the cost model (``break_even_tokens_per_pass``) or the
+    JAX package's measurements say must lose. The text equals greedy's by
+    construction, so such a setting only costs throughput. With a trained
+    draft, ``draft_model_cfg`` gives its true depth to the cost model."""
+    d = cfg.decode
+    gamma = d.spec_gamma
+    trained = bool(d.spec_draft_checkpoint)
+    draft_layers = d.spec_draft_layers
+    if trained and draft_model_cfg is not None:
+        draft_layers = min(draft_model_cfg.llm.n_layers, cfg.model.llm.n_layers)
+    need = break_even_tokens_per_pass(cfg.model, bits=d.spec_draft_bits, gamma=gamma,
+                                      draft_layers=draft_layers)
+    ceiling = gamma + 1.0
+    batch = d.engine_slots if d.engine_slots > 0 else d.batch_size
+    if need >= ceiling:
+        log.warning(
+            "speculative config (int%d, gamma=%d, draft_layers=%d) can "
+            "NEVER win: the cost model needs E[tokens/pass] > %.2f but the "
+            "acceptance ceiling is %.0f (gamma+1). A round costs "
+            "gamma*cost_ratio+1 target-steps; use fewer draft bits, "
+            "layer-skip, or smaller gamma (docs/serving.md).",
+            d.spec_draft_bits, gamma, d.spec_draft_layers, need, ceiling)
+    elif batch >= 4:
+        log.warning(
+            "speculative at batch %d is a MEASURED LOSS on this geometry "
+            "regardless of draft quality (at batch 8 the crossover is "
+            "unreachable at ANY acceptance rate — the verify pass is no "
+            "longer bandwidth-free at batch >= 4 and every draft dispatch "
+            "pays host RTT). Output is token-identical to greedy, so this "
+            "setting only slows decoding; it profits, if anywhere, at "
+            "batch 1-2 latency. See docs/serving.md 'Measured honesty'.",
+            batch)
+    elif trained:
+        log.info(
+            "speculative at batch %d with a trained separate draft "
+            "(depth %d/%d, int%d): profitable when measured acceptance "
+            "exceeds %.2f tokens/pass (ceiling %.0f) — check "
+            "distill_report.json teacher_agree or return_stats "
+            "(docs/serving.md: a task-trained 1/2-depth draft measured "
+            "4.75/5).",
+            batch, draft_layers, cfg.model.llm.n_layers,
+            d.spec_draft_bits, need, ceiling)
+    else:
+        log.warning(
+            "speculative at batch %d profits ONLY with a trained draft: "
+            "measured B=1 verdict is ~4 tokens/pass to break even "
+            "(best random-init config 0.79x greedy; cost model needs "
+            "E[tokens/pass] > %.2f, ceiling %.0f). Check your draft's "
+            "acceptance with return_stats before enabling; see "
+            "docs/serving.md 'Measured honesty'.",
+            batch, need, ceiling)
+
+
+def load_draft(cfg: AVSRConfig, checkpoint: str | None, *, seed: int,
+               device: torch.device
+               ) -> tuple[Params, Params, ModelConfig | None]:
+    """(target params in the decode layout, draft params, the draft's
+    model config or None) for ``decode.speculative``, built as the JAX
+    decode CLI builds them: a trained draft from
+    ``decode.spec_draft_checkpoint`` with its own config, else the
+    target's raw tree (cut to its first ``decode.spec_draft_layers``
+    blocks for layer-skip), quantized to ``decode.spec_draft_bits``."""
+    d = cfg.decode
+    if d.spec_draft_checkpoint:
+        params = load_decode_params(cfg, checkpoint, seed=seed, device=device)
+        dcfg_full = load_config(d.spec_draft_config)
+        draft_cfg = dcfg_full.model
+        if draft_cfg.llm.vocab_size != cfg.model.llm.vocab_size:
+            raise SystemExit(
+                "spec_draft_checkpoint vocab mismatch: "
+                f"{draft_cfg.llm.vocab_size} vs {cfg.model.llm.vocab_size}")
+        d_raw = init_or_load_params(dcfg_full, d.spec_draft_checkpoint, seed=seed,
+                                    device=device)
+        return params, make_draft_params(d_raw, draft_cfg, bits=d.spec_draft_bits), draft_cfg
+    params, raw = load_decode_params(cfg, checkpoint, seed=seed, device=device,
+                                     return_raw=True)
+    draft_cfg = None
+    if d.spec_draft_layers > 0:
+        raw, draft_cfg = make_layerskip_draft(raw, cfg.model, d.spec_draft_layers)
+    return params, make_draft_params(raw, draft_cfg or cfg.model,
+                                     bits=d.spec_draft_bits), draft_cfg
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -64,15 +160,34 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device(args.device)
     tok = ByteTokenizer()
     ds = build_dataset(cfg, tok, args.split)
-    params = load_decode_params(cfg, args.checkpoint, seed=args.seed,
-                                device=device)
+    d = cfg.decode
+    draft_params = draft_cfg = None
+    if d.speculative:
+        params, draft_params, draft_cfg = load_draft(cfg, args.checkpoint,
+                                                     seed=args.seed, device=device)
+        log.info("speculative decode: int%d %s-draft, gamma=%d", d.spec_draft_bits,
+                 "trained-separate" if d.spec_draft_checkpoint
+                 else f"{d.spec_draft_layers}-layer-skip" if d.spec_draft_layers
+                 else "self", d.spec_gamma)
+        _warn_if_speculative_loses(cfg, draft_model_cfg=draft_cfg)
+    else:
+        params = load_decode_params(cfg, args.checkpoint, seed=args.seed,
+                                    device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return run_protocol(cfg, params, tok, ds, device=device, generator=gen)
+    # a trained draft ran its own encoders in training; the target's prefix
+    # would feed it activations it never learned to read
+    return run_protocol(cfg, params, tok, ds, device=device, generator=gen,
+                        draft_params=draft_params, draft_model_cfg=draft_cfg,
+                        draft_shares_prefix=False if d.spec_draft_checkpoint else None)
 
 
 def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
-                 generator: torch.Generator | None = None) -> int:
-    """Batched decode over ``ds`` with per-utterance HYP/REF lines and the
+                 generator: torch.Generator | None = None,
+                 draft_params: Params | None = None,
+                 draft_model_cfg: ModelConfig | None = None,
+                 draft_shares_prefix: bool | None = None) -> int:
+    """Batched decode over ``ds`` (``generate``: greedy, sampled, beam or,
+    with a draft, speculative) with per-utterance HYP/REF lines and the
     corpus WER/CER summary, written to ``decode.output_dir``."""
     out_dir = Path(cfg.decode.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -88,13 +203,11 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
         for hb, batch in DataLoader(ds, cfg.data, tok, model_cfg=cfg.model,
                                     batch_size=d.batch_size, shuffle=False,
                                     device=device, compute_dtype=dtype):
-            out = generate_tokens(params, cfg.model, batch,
-                                  max_new_tokens=d.max_new_tokens,
-                                  temperature=d.temperature, top_p=d.top_p,
-                                  eos_id=tok.eos_id, generator=generator,
-                                  compute_dtype=dtype,
-                                  use_kernel=cfg.runtime.use_pallas,
-                                  kv_cache_dtype=d.kv_cache_dtype)
+            out = generate(params, cfg.model, batch, d, eos_id=tok.eos_id,
+                           generator=generator, compute_dtype=dtype,
+                           use_kernel=cfg.runtime.use_pallas,
+                           draft_params=draft_params, draft_model_cfg=draft_model_cfg,
+                           draft_shares_prefix=draft_shares_prefix)
             tokens = out.tokens.cpu().numpy()
             lens = out.lengths.cpu().numpy()
             for i, (utt, ref) in enumerate(zip(hb.utt_ids, hb.texts)):

@@ -10,14 +10,16 @@ unchanged. Mesh axes above 1 (multi-GPU layouts, not yet ported) raise
 here: it is an XLA buffer-donation hint, and eager PyTorch updates the
 train state in place anyway.
 
-PyYAML is imported only inside :func:`load_config`: the flagship config is
-also built in Python by :func:`flagship`, which mirrors
-``avsr_tpu/configs/base.yaml`` for hosts without PyYAML.
+PyYAML is imported only inside :func:`load_config`, for a file that is not
+JSON: the flagship config is also built in Python by :func:`flagship`,
+which mirrors ``avsr_tpu/configs/base.yaml``, and :func:`save_config`
+writes JSON, so both serve hosts without PyYAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
@@ -278,7 +280,66 @@ class AVSRConfig:
             raise ValueError("decode.lm_head_bits must be 0, 4 or 8")
         if self.decode.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError("decode.kv_cache_dtype must be bfloat16|int8")
+        _check_speculative(self)
         return self
+
+
+def _check_speculative(cfg: AVSRConfig) -> None:
+    """The JAX package's checks of the speculative-decoding knobs, message
+    for message."""
+    d, m = cfg.decode, cfg.model
+    if (d.spec_draft_checkpoint or d.spec_draft_config) and not d.speculative:
+        raise ValueError(
+            "decode.spec_draft_checkpoint/spec_draft_config are set "
+            "but decode.speculative is false — the trained draft "
+            "would be silently ignored; add decode.speculative=true")
+    if not d.speculative:
+        return
+    if d.num_beams > 1:
+        raise ValueError(
+            "decode.speculative requires num_beams=1 (greedy or "
+            "sampled; beam search has its own decode loop)")
+    if m.use_4bit or m.use_8bit:
+        raise ValueError(
+            "decode.speculative with a quantized target has no "
+            "cheaper self-draft to build (spec_draft_bits IS the "
+            "quantization); serve the bf16 target speculatively "
+            "or the quantized target directly")
+    if d.spec_draft_bits not in (4, 8):
+        raise ValueError("decode.spec_draft_bits must be 4 or 8")
+    if d.spec_gamma < 1:
+        raise ValueError("decode.spec_gamma must be >= 1")
+    if not 0 <= d.spec_draft_layers < m.llm.n_layers:
+        raise ValueError(
+            "decode.spec_draft_layers must be 0 (full-depth "
+            "self-draft) or in [1, n_layers-1] — got "
+            f"{d.spec_draft_layers} with {m.llm.n_layers} layers")
+    if d.kv_cache_dtype != "bfloat16":
+        raise ValueError(
+            "decode.speculative needs kv_cache_dtype=bfloat16 "
+            "(the verify pass extends a bf16 cache in place)")
+    if d.engine_slots and d.temperature > 0:
+        raise ValueError(
+            "speculative serving (engine_slots + speculative) is "
+            "greedy-only; set decode.temperature=0 or drop one "
+            "of the two knobs")
+    if bool(d.spec_draft_checkpoint) != bool(d.spec_draft_config):
+        raise ValueError(
+            "decode.spec_draft_checkpoint and "
+            "decode.spec_draft_config come as a pair (the export "
+            "dir and the draft's config.yaml — avsr-distill "
+            "writes both)")
+    if d.spec_draft_checkpoint:
+        if d.spec_draft_layers:
+            raise ValueError(
+                "decode.spec_draft_checkpoint (separate trained "
+                "draft) and spec_draft_layers (layer-skip "
+                "self-draft) are mutually exclusive")
+        if d.engine_slots:
+            raise ValueError(
+                "decode.spec_draft_checkpoint is standalone-decode "
+                "only: engine slot caches assume the self/"
+                "layer-skip draft geometry")
 
 
 def _check_ported(cfg: AVSRConfig) -> None:
@@ -389,17 +450,30 @@ def to_dict(cfg: Any) -> dict[str, Any]:
 def load_config(yaml_path: str | Path | None = None,
                 overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
     """Load a YAML config written for either package. CLI overrides win over
-    YAML, which wins over defaults."""
+    YAML, which wins over defaults. A file of JSON text (what
+    :func:`save_config` writes) is read without PyYAML."""
     tree: dict[str, Any] = {}
     if yaml_path:
-        import yaml
+        text = Path(yaml_path).read_text()
+        try:
+            loaded = json.loads(text)
+        except json.JSONDecodeError:
+            import yaml
 
-        with open(yaml_path) as fh:
-            loaded = yaml.safe_load(fh) or {}
+            loaded = yaml.safe_load(text) or {}
         if not isinstance(loaded, dict):
             raise TypeError(f"{yaml_path}: top level must be a mapping")
         tree = loaded
     return from_dict(tree, overrides)
+
+
+def save_config(cfg: AVSRConfig, path: str | Path) -> None:
+    """Write the resolved config as JSON text. JSON is YAML too, so the file
+    may be called ``config.yaml`` and the JAX package's ``load_config``
+    reads it, while this package's reads it on a host without PyYAML."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(to_dict(cfg), indent=1) + "\n")
 
 
 def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:

@@ -216,7 +216,7 @@ def build_prefix(params: Params, cfg: ModelConfig, batch: Batch, enc: EncodeOut,
 def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
             compute_dtype: torch.dtype = torch.float32,
             use_kernel: str = "auto", remat: bool = False,
-            dropout_seed: int | None = None
+            dropout_seed: int | None = None, return_logits: bool = False
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training/eval forward: (mean CE loss over label tokens, metrics).
 
@@ -226,7 +226,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     projects to the vocabulary only the rows that predict a label: label
     token i sits at packed position label_start + i and is predicted from
     the hidden state at label_start + i - 1. Metrics: ``loss``,
-    ``accuracy``, ``label_tokens`` and ``feat_len_mean``."""
+    ``accuracy``, ``label_tokens`` and ``feat_len_mean``; with
+    ``return_logits`` also ``label_logits`` [B, Tl, V] f32 and their
+    validity mask ``label_mask`` [B, Tl] (draft distillation matches a
+    student against a teacher's)."""
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
                  use_kernel=use_kernel, remat=remat)
     B = enc.features.shape[0]
@@ -268,6 +271,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
                "accuracy": (correct * mask).sum() / n_tokens,
                "label_tokens": n_tokens,
                "feat_len_mean": enc.lengths.float().mean()}
+    if return_logits:
+        metrics["label_logits"] = logits
+        metrics["label_mask"] = mask
     return loss, metrics
 
 

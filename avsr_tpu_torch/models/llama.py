@@ -30,8 +30,15 @@ only the default generators' state). On a quantized base (QLoRA) the base
 product carries the gradient of x through ``qdot``'s autograd Function
 (``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
-Still to be ported: MoE FFN layers, the pipeline path, per-row LoRA
-adapter banks, and the prefill-continue / split-cache steps.
+Decode variants: ``llama_prefill_continue`` extends a cache by a block of
+rows at per-row offsets (the streaming continuation and the speculative
+verify pass), and ``llama_decode_step_split`` is beam search's step over a
+[B]-row prefix cache shared by all beams and a per-beam suffix cache,
+whose new columns ``merge_new_columns`` lands during the next step's beam
+gather. Their attention is plain PyTorch, as the decode step's is.
+
+Still to be ported: MoE FFN layers, the pipeline path and per-row LoRA
+adapter banks.
 """
 
 from __future__ import annotations
@@ -173,6 +180,25 @@ def add_lora(gen: torch.Generator, params: Params, cfg: LLMConfig,
 
 def lora_scale(lora: LoRAConfig | None) -> float:
     return lora.alpha / lora.r if lora is not None and lora.use_lora else 0.0
+
+
+def merge_lora(params: Params, lora: LoRAConfig) -> Params:
+    """Fold every adapter into its base weight, w + scale * (a @ b) in w's
+    dtype, as the JAX package does for export and for the speculative
+    self-draft; returns a new tree whose merged nodes hold only "w"."""
+    s = lora_scale(lora)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "lora" in node and "w" in node:
+                a, b = node["lora"]["a"], node["lora"]["b"]
+                node = {"w": node["w"] + s * torch.matmul(a, b).to(node["w"].dtype)}
+            return {k: walk(v) if k != "lora" else v for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
 
 
 def _fuse_group(nodes: list[Params]) -> Params | None:
@@ -503,3 +529,174 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
         x = _ffn(layer, x, cfg, ls, use_kernel)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     return compute_logits(params, cfg, x, use_kernel)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill continuation (streaming, the speculative verify pass)
+# ---------------------------------------------------------------------------
+
+def _gqa_prefill_attention(q: torch.Tensor, k_all: torch.Tensor,
+                           v_all: torch.Tensor, base_lens: torch.Tensor,
+                           tail_lens: torch.Tensor) -> torch.Tensor:
+    """Tail-block attention against the cache history and causal self: q
+    [B,H,T,D] at absolute positions base_lens[b] + t, k/v the cache
+    [B,Hkv,M,D] already holding the history (< base) and this tail (base
+    .. base + T). Position m is visible to tail row t iff m <= base_lens[b]
+    + t and t < tail_lens[b], so stale columns past the tail (an earlier
+    chunk's decode writes) are masked out. Rows t >= tail_lens[b] see
+    nothing and come out as the mean of V, as in the JAX package; no
+    caller reads them."""
+    B, H, T, D = q.shape
+    Hkv, M = k_all.shape[1], k_all.shape[2]
+    qg = (q.float() * (D ** -0.5)).to(k_all.dtype).reshape(B, Hkv, H // Hkv * T, D)
+    s = torch.matmul(qg.float(), k_all.float().transpose(-1, -2))
+    s = s.reshape(B, Hkv, H // Hkv, T, M)
+    t = torch.arange(T, device=q.device)
+    lim = base_lens.long()[:, None] + t[None, :]                       # [B, T]
+    vis = torch.arange(M, device=q.device)[None, None, :] <= lim[:, :, None]
+    vis &= (t[None, :] < tail_lens[:, None])[:, :, None]               # [B, T, M]
+    s = torch.where(vis[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1).reshape(B, Hkv, H // Hkv * T, M)
+    o = torch.matmul(p.to(v_all.dtype).float(), v_all.float())
+    return o.reshape(B, H, T, D).to(q.dtype)
+
+
+def llama_prefill_continue(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
+                           cache: KVCache, base_lens: torch.Tensor,
+                           tail_lens: torch.Tensor,
+                           lora: LoRAConfig | None = None,
+                           compute_dtype: torch.dtype = torch.float32,
+                           use_kernel: str = "auto"
+                           ) -> tuple[torch.Tensor, KVCache]:
+    """Extend a KV cache by a tail block x [B, T, d] (right-padded,
+    ``tail_lens`` valid rows) after ``base_lens`` [B] history tokens: each
+    layer writes the block's K/V into columns base_lens[b] .. base_lens[b]
+    + T of ``cache`` (in place; every one of them must exist) and attends
+    to the history and causally to the block. Returns (the normed hidden
+    states [B, T, d], cache); one ``llama_apply`` over [history | tail]
+    gives the same rows. ``use_kernel`` goes to the quantized products."""
+    B, T, d = x.shape
+    hd = d // cfg.n_heads
+    x = x.to(compute_dtype)
+    cols = base_lens.long()[:, None] + torch.arange(T, device=x.device)[None, :]
+    cos, sin = rope_cos_sin(cols, hd, cfg.rope_theta)
+    ls = lora_scale(lora)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
+        q = apply_rope(q.reshape(B, T, cfg.n_heads, hd).transpose(1, 2), cos, sin)
+        k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
+        v = v.reshape(B, T, cfg.n_kv_heads, hd)
+        k_i, v_i = cache.k[i], cache.v[i]                          # views
+        k_i[b_idx, :, cols] = k.transpose(1, 2).to(k_i.dtype)     # [B, T, Hkv, Dh]
+        v_i[b_idx, :, cols] = v.to(v_i.dtype)
+        attn = _gqa_prefill_attention(q, k_i, v_i, base_lens, tail_lens)
+        x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, T, d),
+                     lora_scale=ls, use_kernel=use_kernel)
+        x = _ffn(layer, x, cfg, ls, use_kernel)
+    return rms_norm(params["ln_f"], x, eps=cfg.rms_eps), cache
+
+
+# ---------------------------------------------------------------------------
+# Beam decode step over a shared-prefix split cache
+# ---------------------------------------------------------------------------
+
+def _gqa_split_decode_attention(q: torch.Tensor, k_pre: torch.Tensor,
+                                v_pre: torch.Tensor, k_suf: torch.Tensor,
+                                v_suf: torch.Tensor, k_self: torch.Tensor,
+                                v_self: torch.Tensor, prefix_lens: torch.Tensor,
+                                step: int, k_scale: torch.Tensor | None = None,
+                                v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Beam decode attention over a split cache: q [B*W,H,1,D]; the prefix
+    k/v [B,Hkv,Mp,D], shared by a sample's W beams, so one read of it
+    serves them all (an int8 prefix is dequantized to bf16 with its scales
+    [B,Hkv,1,1]); the per-beam suffix [B*W,Hkv,Ms,D], whose columns below
+    ``step`` are valid; and this step's own k/v [B*W,Hkv,D], not yet in
+    the suffix, as a rank-1 term. One softmax over [prefix | suffix |
+    self]; scores and outputs accumulate in f32 from exact products of the
+    stored dtypes, as the JAX einsums do."""
+    BW, H, _, D = q.shape
+    B, Hkv, Mp = k_pre.shape[:3]
+    W, Ms, g = BW // B, k_suf.shape[2], H // Hkv
+    if k_pre.dtype == torch.int8:
+        k_pre = k_pre.to(torch.bfloat16) * k_scale
+        v_pre = v_pre.to(torch.bfloat16) * v_scale
+    qs = (q.float() * (D ** -0.5)).to(k_pre.dtype).reshape(B, W, Hkv, g, D)
+    s_pre = torch.einsum("bwhgd,bhmd->bwhgm", qs.float(), k_pre.float())
+    q_suf = qs.reshape(BW, Hkv, g, D).to(k_suf.dtype)
+    s_suf = torch.matmul(q_suf.float(), k_suf.float().transpose(-1, -2))
+    s_suf = s_suf.reshape(B, W, Hkv, g, Ms)
+    s_self = torch.einsum("bhgd,bhd->bhg", q_suf.to(k_self.dtype).float(),
+                          k_self.float()).reshape(B, W, Hkv, g, 1)
+    mask_pre = torch.arange(Mp, device=q.device)[None, :] < prefix_lens[:, None]
+    s_pre = torch.where(mask_pre[:, None, None, None, :], s_pre, -1e30)
+    s_suf = torch.where(torch.arange(Ms, device=q.device) < step, s_suf, -1e30)
+    p = torch.softmax(torch.cat([s_pre, s_suf, s_self], dim=-1), dim=-1)
+    p_pre, p_suf, p_self = p[..., :Mp], p[..., Mp:Mp + Ms], p[..., -1:]
+    o = torch.einsum("bwhgm,bhmd->bwhgd", p_pre.to(v_pre.dtype).float(), v_pre.float())
+    o = o + torch.einsum("bwhgm,bwhmd->bwhgd", p_suf.to(v_suf.dtype).float(),
+                         v_suf.reshape(B, W, Hkv, Ms, D).float())
+    o = o + p_self.float() * v_self.reshape(B, W, Hkv, 1, D).float()
+    return o.reshape(BW, H, 1, D).to(q.dtype)
+
+
+def llama_decode_step_split(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
+                            prefix_cache: KVCache, suffix_cache: KVCache,
+                            prefix_lens: torch.Tensor, step: int,
+                            lora: LoRAConfig | None = None,
+                            compute_dtype: torch.dtype = torch.float32,
+                            use_kernel: str = "auto"
+                            ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One beam-decode step for x [B*W, 1, d] (W beams per sample, beam-
+    major within a sample) at positions prefix_lens[b] + ``step``, against
+    the [L, B, ...] prefix cache (read only) and the [L, B*W, ...] suffix
+    cache of the tokens generated so far. Writes nothing: returns (logits
+    [B*W, V] f32, (k, v) [L, B*W, Hkv, Dh] of this step, in the suffix's
+    dtype), which :func:`merge_new_columns` lands at column ``step``
+    during the next step's beam gather."""
+    BW = x.shape[0]
+    B = prefix_cache.k.shape[1]
+    W = BW // B
+    d = cfg.d_model
+    hd = d // cfg.n_heads
+    x = x.to(compute_dtype)
+    pos = (prefix_lens.long().repeat_interleave(W) + step)[:, None]    # [B*W, 1]
+    cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
+    ls = lora_scale(lora)
+    qpre = prefix_cache.quantized
+    k_news, v_news = [], []
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
+        q = apply_rope(q.reshape(BW, 1, cfg.n_heads, hd).transpose(1, 2), cos, sin)
+        k = apply_rope(k.reshape(BW, 1, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
+        k_news.append(k[:, :, 0])
+        v_news.append(v.reshape(BW, cfg.n_kv_heads, hd))
+        attn = _gqa_split_decode_attention(
+            q, prefix_cache.k[i], prefix_cache.v[i], suffix_cache.k[i],
+            suffix_cache.v[i], k_news[-1], v_news[-1], prefix_lens, step,
+            k_scale=prefix_cache.k_scale[i] if qpre else None,
+            v_scale=prefix_cache.v_scale[i] if qpre else None)
+        x = x + proj(layer["o"], attn.transpose(1, 2).reshape(BW, 1, d),
+                     lora_scale=ls, use_kernel=use_kernel)
+        x = _ffn(layer, x, cfg, ls, use_kernel)
+    x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
+    logits = compute_logits(params, cfg, x, use_kernel)[:, 0]
+    dt = suffix_cache.k.dtype
+    return logits, (torch.stack(k_news).to(dt), torch.stack(v_news).to(dt))
+
+
+def merge_new_columns(suffix_cache: KVCache, k_new: torch.Tensor,
+                      v_new: torch.Tensor, gather: torch.Tensor,
+                      col: int) -> KVCache:
+    """Reindex the suffix cache by beam (row r takes row gather[r]) and
+    land the previous step's K/V [L, B*W, Hkv, Dh] at column ``col`` of the
+    same rows; ``col`` < 0 (the first step) lands nothing. Returns a new
+    cache: out[l, r, :, m] = new[l, gather[r]] if m == col else
+    suffix[l, gather[r], :, m]."""
+    k, v = suffix_cache.k[:, gather], suffix_cache.v[:, gather]
+    if col >= 0:
+        k[:, :, :, col] = k_new[:, gather]
+        v[:, :, :, col] = v_new[:, gather]
+    return KVCache(k, v)

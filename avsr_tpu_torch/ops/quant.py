@@ -30,8 +30,10 @@ Params = dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def quantize_tensor(w: torch.Tensor, bits: int = 8) -> Params:
-    """Symmetric per-output-channel quantization of w [in, out]."""
-    w = w.float()
+    """Symmetric per-output-channel quantization of w [in, out]. The leaves
+    are contiguous whatever w's strides (a tied head is quantized from the
+    transposed embedding), as the kernels of ``ops/qmatmul.py`` need."""
+    w = w.float().contiguous()
     qmax = 127.0 if bits == 8 else 7.0
     scale = (w.abs().amax(dim=0) / qmax).clamp(min=1e-12)      # [out]
     q = torch.clamp(torch.round(w / scale[None, :]), -qmax, qmax).to(torch.int8)

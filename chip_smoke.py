@@ -74,6 +74,24 @@
    probe at the worst-case bucket in bf16 and 4bit, SpecAugment and video
    augmentation (padding bit-identical, the eval step unchanged), and two
    steps each of adafactor and lion with their state bytes.
+13. Decode-variants phase (``decode_variants_phase``), at full width on the
+   same 8 utterances as phase 3. In f32 (TF32 off): beam search (W = 5, 32
+   tokens) equal to a flat-cache oracle token for token and score for
+   score (relative 1e-4), W = 1 equal to greedy; speculative decoding
+   (gamma 4, 32 tokens) with the int8 and int4 self-drafts and an 8-layer
+   layer-skip draft equal to greedy, with exact launches per counted draft
+   step; the streaming continuation (``prefill_extend`` of the first 7/16
+   of the prefix, then ``generate_continue``) equal to greedy. In bf16 and
+   the serving preset: beam search over 100 tokens with its numbers and
+   exact launches, and one preset beam step's logits against the
+   dequantize path with phase 9's gates; speculative decoding with each
+   draft over 100 tokens beside greedy (verify passes, tokens per pass,
+   ms per token), and sampling repeatable from one seed. Then the flagship's
+   random init exported as a teacher, two steps of the distill CLI with a
+   4-layer student (exact launches per step), and the decode CLI in f32
+   greedy and speculative with the distilled draft: the same HYP lines.
+   Last, the int4 and int8 kernels at M = 40 (the beam step's rows) and
+   the int4 head at M = 8, timed as in phase 8.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -559,6 +577,61 @@ def qmm_bound(M: int, K: int, N: int, bits: int) -> tuple[float, float]:
     return 2 * M * K * N / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def qmm_row(name: str, bits: int, M: int, K: int, N: int, by_call: dict,
+            gen) -> dict:
+    """One weight-only matmul shape: the kernel against its plain version,
+    and the device times of the kernel, its plain version, one bf16 matmul
+    on the dequantized weight and the dequantize-then-matmul pair, each
+    from a replayed CUDA graph with the weights cycled through more memory
+    than the L2 holds (as in a decode step), beside the bound and the
+    launch plan."""
+    import torch
+
+    from avsr_tpu_torch.ops import qmatmul as Q
+    from avsr_tpu_torch.ops import quant
+
+    dev = "cuda"
+    l2_bytes = 128e6
+    qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=gen, device=dev), bits)
+    x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
+    y = Q.qmatmul(x, qp)
+    ref = Q.qmatmul_reference(x, qp)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"qmatmul {name} int{bits} M={M}: not finite")
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    check(rel <= 1e-4, f"qmatmul {name} int{bits} M={M}: max|d| {err:.3e} = {rel:.3e} "
+                       f"x max|ref| > 1e-4")
+    wkey = "qw4h" if bits == 4 else "qw"
+    wbytes = qp[wkey].numel()
+    nodes = [qp] + [{wkey: qp[wkey].clone(), "scale": qp["scale"].clone()}
+                    for _ in range(int(np.ceil(l2_bytes / wbytes)) - 1)]
+    ms = graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
+    w16 = quant.dequantize(qp, torch.bfloat16)
+    w16s = [w16] + [w16.clone() for _ in range(int(np.ceil(l2_bytes / (2 * wbytes))) - 1)]
+    library_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in w16s])
+    pair_ms = graph_ms([lambda n=n: torch.matmul(x, quant.dequantize(n, torch.bfloat16))
+                        for n in nodes])
+    plain_ms = graph_ms([lambda n=n: Q.qmatmul_reference(x, n) for n in nodes])
+    del nodes, w16, w16s
+    ops_ms, bytes_ms = qmm_bound(M, K, N, bits)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = dict(zip(("splits", "rows_per_cta", "n8_tiles"),
+                    Q.int4_plan(M, K // 2, N, sms) if bits == 4 else Q.int8_plan(M, K, N, sms)))
+    row = dict(shape=name, bits=bits, M=M, K=K, N=N,
+               launches_per_call=max(by_call.values(), default=0), launches_by_call=by_call,
+               max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, dequant_matmul_ms=pair_ms,
+               bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes", plan=plan)
+    print(f"qmatmul {name} int{bits} [{M}x{K}] x [{K}x{N}]: {ms * 1e3:.2f} us "
+          f"(bound {row['bound_ms'] * 1e3:.2f} by {row['bound_by']}, plain "
+          f"{plain_ms * 1e3:.1f}, bf16 matmul {library_ms * 1e3:.2f}, dequant + "
+          f"matmul {pair_ms * 1e3:.1f}; {plan}); max|d| "
+          f"{err:.3e} = {rel:.2e} x max|ref|")
+    return row
+
+
 def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
     import torch
 
@@ -567,49 +640,8 @@ def qmm_kernel_phase(seed: int, n_layers: int, steps: int) -> dict:
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    l2_bytes = 128e6     # timed weights cycle through this much memory: the
-    #                      50 MB L2 cannot hold them, as in a decode step
-    rows = []
-    for name, bits, K, N, by_call in qmm_shapes(n_layers, steps):
-        M = 8
-        qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=gen, device=dev), bits)
-        x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
-        y = Q.qmatmul(x, qp)
-        ref = Q.qmatmul_reference(x, qp)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(y).all()), f"qmatmul {name} int{bits}: not finite")
-        err = (y - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        check(rel <= 1e-4, f"qmatmul {name} int{bits}: max|d| {err:.3e} = {rel:.3e} "
-                           f"x max|ref| > 1e-4")
-        wkey = "qw4h" if bits == 4 else "qw"
-        wbytes = qp[wkey].numel()
-        nodes = [qp] + [{wkey: qp[wkey].clone(), "scale": qp["scale"].clone()}
-                        for _ in range(int(np.ceil(l2_bytes / wbytes)) - 1)]
-        ms = graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
-        w16 = quant.dequantize(qp, torch.bfloat16)
-        w16s = [w16] + [w16.clone() for _ in range(int(np.ceil(l2_bytes / (2 * wbytes))) - 1)]
-        library_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in w16s])
-        pair_ms = graph_ms([lambda n=n: torch.matmul(x, quant.dequantize(n, torch.bfloat16))
-                            for n in nodes])
-        plain_ms = graph_ms([lambda n=n: Q.qmatmul_reference(x, n) for n in nodes])
-        del nodes, w16, w16s
-        ops_ms, bytes_ms = qmm_bound(M, K, N, bits)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        plan = dict(zip(("splits", "rows_per_cta", "n8_tiles"),
-                        Q.int4_plan(M, K // 2, N, sms) if bits == 4 else Q.int8_plan(M, K, N, sms)))
-        row = dict(shape=name, bits=bits, M=M, K=K, N=N,
-                   launches_per_call=max(by_call.values()), launches_by_call=by_call,
-                   max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, dequant_matmul_ms=pair_ms,
-                   bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", plan=plan)
-        rows.append(row)
-        print(f"qmatmul {name} int{bits} [{M}x{K}] x [{K}x{N}]: {ms * 1e3:.2f} us "
-              f"(bound {row['bound_ms'] * 1e3:.2f} by {row['bound_by']}, plain "
-              f"{plain_ms * 1e3:.1f}, bf16 matmul {library_ms * 1e3:.2f}, dequant + "
-              f"matmul {pair_ms * 1e3:.1f}; {plan}); max|d| "
-              f"{err:.3e} = {rel:.2e} x max|ref|")
+    rows = [qmm_row(name, bits, 8, K, N, by_call, gen)
+            for name, bits, K, N, by_call in qmm_shapes(n_layers, steps)]
 
     # Edge cases off the main path: ragged M (9 and 17 take two n8 tiles of
     # x, 17 also two units along M), f32 x, N and K off the tile (N = 2050
@@ -1189,17 +1221,28 @@ def train_phase(seed: int) -> dict:
     return res
 
 
+def settle() -> None:
+    """Between phases: collect the garbage of the last one (reference
+    cycles can hold its tensors until a collection runs), so that the next
+    phase's peak memory counts only what it keeps itself."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # CLI phase
 # ---------------------------------------------------------------------------
 
-def cli_phase(seed: int, extra: tuple[str, ...] = (), tag: str = "cli") -> None:
+def cli_phase(seed: int, extra: tuple[str, ...] = (), tag: str = "cli",
+              out_dir: Path | None = None) -> None:
     import torch
 
     from avsr_tpu_torch.cli import decode
     from avsr_tpu_torch.core.config import flagship, load_config
 
-    out_dir = ROOT / "outputs" / "chip_smoke" / time.strftime(f"{tag}_%Y%m%d_%H%M%S")
+    out_dir = out_dir or ROOT / "outputs" / "chip_smoke" / time.strftime(f"{tag}_%Y%m%d_%H%M%S")
     # the flagship config through CLI overrides (no YAML parser needed);
     # synthetic_size 40 gives an 8-utterance test split
     run = ["data.synthetic=true", "data.synthetic_size=40",
@@ -2045,6 +2088,423 @@ def train_knobs_phase(seed: int, train: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Decode-variants phase
+# ---------------------------------------------------------------------------
+
+def beam_oracle(params, mc, batch, W: int, N: int, dtype):
+    """Beam search over a flat cache, the JAX package's test oracle: the
+    prefix cache repeated W-fold, ``llama_decode_step`` on [B*W] rows, the
+    whole cache gathered by beam every step, candidates ranked by a stable
+    descending sort. Returns (best tokens [B, N], scores [B, W]); eos_id
+    -1 (no beam finishes)."""
+    import torch
+
+    from avsr_tpu_torch.models import llama as L
+    from avsr_tpu_torch.models.avsr import build_prefix, encode
+
+    lora = mc.lora if mc.lora.use_lora else None
+    with torch.inference_mode():
+        enc = encode(params, mc, batch, compute_dtype=dtype)
+        prefix, plens = build_prefix(params, mc, batch, enc, compute_dtype=dtype)
+        B, T = prefix.shape[:2]
+        dev = prefix.device
+        hidden, cache = L.llama_apply(params["llm"], mc.llm, inputs_embeds=prefix,
+                                      lengths=plens, lora=lora, compute_dtype=dtype,
+                                      return_cache=True, cache_len=T + N, output="hidden")
+        h_last = hidden[torch.arange(B, device=dev), plens.long() - 1][:, None]
+        logits = L.compute_logits(params["llm"], mc.llm, h_last)[:, 0]
+        del hidden
+        V = logits.shape[-1]
+        cache = L.KVCache(cache.k.repeat_interleave(W, 1), cache.v.repeat_interleave(W, 1))
+        cur = plens.long().repeat_interleave(W)
+        logits = logits.repeat_interleave(W, 0)
+        scores = torch.full((B, W), -1e30, device=dev)
+        scores[:, 0] = 0.0
+        tokens = torch.zeros((B, W, N), dtype=torch.int64, device=dev)
+        for step in range(N):
+            flat = (scores[..., None]
+                    + torch.log_softmax(logits, -1).reshape(B, W, V)).reshape(B, W * V)
+            top = torch.sort(flat, dim=-1, descending=True, stable=True).indices[:, :W]
+            scores = torch.gather(flat, -1, top)
+            src, new = top // V, top % V
+            gather = (torch.arange(B, device=dev)[:, None] * W + src).reshape(-1)
+            cache = L.KVCache(cache.k[:, gather], cache.v[:, gather])
+            cur = cur[gather]
+            tokens = torch.take_along_dim(tokens, src[..., None], dim=1)
+            tokens[:, :, step] = new
+            if step + 1 < N:
+                logits, cache = L.llama_decode_step(
+                    params["llm"], mc.llm,
+                    x=L.embed_tokens(params["llm"], new.reshape(-1)[:, None], dtype),
+                    cache=cache, cur_lens=cur, lora=lora, compute_dtype=dtype)
+                cur = cur + 1
+        best = scores.argmax(-1)          # equal lengths: the best score
+    return tokens[torch.arange(B, device=dev), best], scores
+
+
+def split_step_logits(params, mc, hb, dtype, use_kernels, toks=None):
+    """One prefill (kernels on) into an int8 prefix cache, then beam step 0
+    (``llama_decode_step_split``, B x 5 rows) per ``use_kernels`` entry:
+    {use_kernel: logits [B*5, V] f32}, and the step's tokens (each row's top
+    5 of the prefill unless ``toks`` is given)."""
+    import torch
+
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.models import llama as L
+    from avsr_tpu_torch.models.avsr import build_prefix, encode
+
+    W = 5
+    lora = mc.lora if mc.lora.use_lora else None
+    with torch.inference_mode():
+        batch = featurize(hb, "cuda", dtype)
+        enc = encode(params, mc, batch, compute_dtype=dtype)
+        prefix, lens = build_prefix(params, mc, batch, enc, compute_dtype=dtype)
+        B, T = prefix.shape[:2]
+        hidden, pre = L.llama_apply(params["llm"], mc.llm, inputs_embeds=prefix,
+                                    lengths=lens, lora=lora, compute_dtype=dtype,
+                                    return_cache=True, cache_len=-(-T // 128) * 128,
+                                    output="hidden")
+        pre = L.quantize_cache(pre)
+        if toks is None:
+            h_last = hidden[torch.arange(B, device=prefix.device), lens.long() - 1][:, None]
+            lg = L.compute_logits(params["llm"], mc.llm, h_last, "never")[:, 0]
+            toks = lg.topk(W, dim=-1).indices.reshape(-1)
+        hd = mc.llm.d_model // mc.llm.n_heads
+        shape = (mc.llm.n_layers, B * W, mc.llm.n_kv_heads, 128, hd)
+        suf = L.KVCache(torch.zeros(shape, dtype=dtype, device="cuda"),
+                        torch.zeros(shape, dtype=dtype, device="cuda"))
+        emb = L.embed_tokens(params["llm"], toks[:, None], dtype)
+        out = {uk: L.llama_decode_step_split(
+            params["llm"], mc.llm, x=emb, prefix_cache=pre, suffix_cache=suf,
+            prefix_lens=lens, step=0, lora=lora, compute_dtype=dtype, use_kernel=uk)[0]
+            for uk in use_kernels}
+    return out, toks
+
+
+def logit_gates(tag: str, l32: dict, l16: dict) -> dict:
+    """Phase 9's gates on one step's logits, kernel path ("auto") against
+    the dequantize path ("never"): in f32 mean |d| within 1e-2 * std and
+    max |d| no larger than the bf16 step's own distance from f32; in bf16
+    the kernel path no further from f32 than 2x the dequantize path."""
+    ref = l32["never"]
+    std = ref.std().item()
+    d32 = (l32["auto"] - ref).abs()
+    dk, dn = (l16["auto"] - ref).abs(), (l16["never"] - ref).abs()
+    c = dict(std_f32=std, f32_kernel_vs_dequant_max=d32.max().item(),
+             f32_kernel_vs_dequant_mean=d32.mean().item(),
+             bf16_kernel_vs_f32_mean=dk.mean().item(),
+             bf16_dequant_vs_f32_mean=dn.mean().item(),
+             bf16_dequant_vs_f32_max=dn.max().item(),
+             top1_f32_kernel_vs_dequant=(l32["auto"].argmax(-1) == ref.argmax(-1))
+             .float().mean().item())
+    print(f"{tag} step logits " + json.dumps(c))
+    check(c["f32_kernel_vs_dequant_mean"] <= 1e-2 * std,
+          f"{tag} f32: kernel vs dequant mean|d| {c['f32_kernel_vs_dequant_mean']:.4e} "
+          f"> 1e-2 * std {std:.4e}")
+    check(c["f32_kernel_vs_dequant_max"] <= c["bf16_dequant_vs_f32_max"],
+          f"{tag} f32: kernel vs dequant max|d| {c['f32_kernel_vs_dequant_max']:.4e} > "
+          f"the bf16 step's own {c['bf16_dequant_vs_f32_max']:.4e}")
+    check(c["bf16_kernel_vs_f32_mean"] <= 2.0 * c["bf16_dequant_vs_f32_mean"],
+          f"{tag} bf16: kernel path mean|d| to f32 {c['bf16_kernel_vs_f32_mean']:.4e} > "
+          f"2x the dequantize path's {c['bf16_dequant_vs_f32_mean']:.4e}")
+    return c
+
+
+def decode_variants_phase(seed: int, bf16: dict) -> dict:
+    """Beam search, speculative decoding with its three drafts, the
+    streaming continuation and the draft-distillation CLI at the
+    flagship's full width (see the module docstring, phase 13)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import common, decode, distill
+    from avsr_tpu_torch.convert import cast_tree
+    from avsr_tpu_torch.core.config import flagship, save_config
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.infer import speculative as S
+    from avsr_tpu_torch.infer.generate import (beam_search, generate_continue,
+                                               generate_tokens, prefill_extend,
+                                               prepare_params_for_decode)
+    from avsr_tpu_torch.models import llama as L
+    from avsr_tpu_torch.models.avsr import build_prefix, encode
+    from avsr_tpu_torch.train.checkpoint import export_params
+
+    res: dict = {}
+    by_path: dict[str, dict[str, int]] = {}
+    cfg = flagship()
+    mc = cfg.model
+    nL, W, G = mc.llm.n_layers, 5, 4
+    enc_layers = mc.whisper.n_layers
+    hb = serving_host_batch(cfg, seed)
+    B = len(hb.utt_ids)
+
+    def run(tag: str, fn):
+        """``fn()`` between a count reset and a reading: its launches go to
+        ``launches_by_path[tag]``; returns (result, launches, seconds)."""
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_path[tag] = since(before)
+        return out, by_path[tag], dt
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv,
+                    qmatmul_int8=int8, qmatmul_int4=int4)
+
+    # ---- f32 exactness gates (TF32 is off for the whole script) ----------
+    cfg32 = flagship(["runtime.compute_dtype=float32"])
+    raw32 = common.init_or_load_params(cfg32, seed=seed, device="cuda")
+    p32 = prepare_params_for_decode(raw32, mc)
+    b32 = featurize(hb, "cuda", torch.float32)
+    k32 = dict(eos_id=-1, compute_dtype=torch.float32)
+    N32 = 32
+    greedy32 = generate_tokens(p32, mc, b32, max_new_tokens=N32, **k32)
+    st: dict = {}
+    beam32, _, _ = run("beam_f32", lambda: beam_search(
+        p32, mc, b32, max_new_tokens=N32, num_beams=W, stats=st, **k32))
+    o_tok, o_scores = beam_oracle(p32, mc, b32, W, N32, torch.float32)
+    rel = ((st["scores"] - o_scores).abs() / o_scores.abs()).max().item()
+    check(torch.equal(beam32.tokens, o_tok),
+          f"f32 beam (W={W}, {N32} tokens): split cache != flat-cache oracle, "
+          f"{(beam32.tokens != o_tok).sum().item()} tokens differ")
+    check(rel <= 1e-4, f"f32 beam scores off the oracle's by {rel:.3e} (relative 1e-4)")
+    beam1 = beam_search(p32, mc, b32, max_new_tokens=N32, num_beams=1, **k32)
+    check(torch.equal(beam1.tokens, greedy32.tokens), "f32 beam W=1 != greedy")
+    print(f"beam f32: W={W} x {N32} tokens equal the flat-cache oracle token for token "
+          f"(scores within {rel:.2e} relative); W=1 equals greedy")
+    res["beam_f32"] = dict(oracle_scores_max_rel=rel, tokens_equal=True, w1_equals_greedy=True)
+
+    spec32 = {}
+    drafts32 = {"int8": (S.make_draft_params(raw32, mc, bits=8), None, 8),
+                "int4": (S.make_draft_params(raw32, mc, bits=4), None, 4)}
+    d_raw, dcfg = S.make_layerskip_draft(raw32, mc, 8)
+    drafts32["layerskip8"] = (S.make_draft_params(d_raw, dcfg, bits=8), dcfg, 8)
+    del d_raw
+    for name, (dp, dc, bits) in drafts32.items():
+        (out, sst), n, _ = run(f"spec_f32_{name}", lambda: S.speculative_generate(
+            p32, dp, mc, b32, gamma=G, max_new_tokens=N32, return_stats=True,
+            draft_model_cfg=dc, **k32))
+        check(torch.equal(out.tokens, greedy32.tokens) and torch.equal(out.lengths, greedy32.lengths),
+              f"f32 speculative ({name} draft) != greedy: "
+              f"{(out.tokens != greedy32.tokens).sum().item()} tokens differ")
+        Ld = dc.llm.n_layers if dc else nL
+        per = (4 * Ld + 1) * sst["draft_steps"]
+        w = want(flash=enc_layers + nL + Ld, int8=per if bits == 8 else 0,
+                 int4=per if bits == 4 else 0)
+        check(n == w, f"f32 speculative ({name}) launches {n}, expected {w}")
+        spec32[name] = dict(sst, launches=n)
+    print(f"speculative f32 (gamma {G}, {N32} tokens): int8, int4 and 8-layer "
+          f"layer-skip drafts equal greedy token for token; " + json.dumps(spec32))
+    res["spec_f32"] = spec32
+    del drafts32, dp        # a draft shares the f32 tree's encoders and embedding
+
+    # streaming continuation: freeze the first 7/16 of the prefix (233 of
+    # the flagship's 533 rows), decode from the rest
+    with torch.inference_mode():
+        def stream():
+            nonlocal Sf
+            enc = encode(p32, mc, b32, compute_dtype=torch.float32)
+            prefix, plens = build_prefix(p32, mc, b32, enc, compute_dtype=torch.float32)
+            Sf = int(plens.min()) * 7 // 16
+            M = -(-(prefix.shape[1] + N32) // 128) * 128
+            cache = L.init_cache(mc.llm, B, M, torch.float32, "cuda")
+            base = torch.full((B,), Sf, dtype=torch.int32, device="cuda")
+            cache = prefill_extend(p32, mc, cache, torch.zeros_like(base),
+                                   prefix[:, :Sf], base, compute_dtype=torch.float32)
+            return generate_continue(p32, mc, cache, base, prefix[:, Sf:], plens - Sf,
+                                     max_new_tokens=N32, eos_id=-1,
+                                     compute_dtype=torch.float32)[0]
+        Sf = 0
+        cont, n, _ = run("stream_f32", stream)
+    check(torch.equal(cont.tokens, greedy32.tokens),
+          f"f32 generate_continue over a prefix frozen at {Sf} rows != generate_tokens")
+    check(n == want(flash=enc_layers), f"stream launches {n}")
+    print(f"stream f32: prefill_extend of {Sf} rows + generate_continue equals "
+          f"generate_tokens over the whole prefix ({N32} tokens)")
+    res["stream_f32"] = dict(frozen_rows=Sf, tokens_equal=True)
+    del p32, b32, raw32
+    settle()
+
+    # ---- bf16 and the serving preset: beam numbers, exact launches --------
+    N = cfg.decode.max_new_tokens
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    k16 = dict(eos_id=-1, compute_dtype=torch.bfloat16)
+    beams = {}
+    for tag, over in (("beam_bf16", ()), ("beam_preset", PRESET_OVERRIDES)):
+        c = flagship(list(over))
+        params = common.load_decode_params(c, seed=seed, device="cuda")
+        kw = dict(num_beams=W, kv_cache_dtype=c.decode.kv_cache_dtype, **k16)
+        beam_search(params, c.model, batch, max_new_tokens=4, **kw)     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        stb: dict = {}
+        out, n, _ = run(tag, lambda: beam_search(params, c.model, batch, max_new_tokens=N,
+                                                 stats=stb, **kw))
+        steps = stb["decode_steps"]
+        q = tag == "beam_preset"
+        w = want(flash=enc_layers + nL, int8=steps + 1 if q else 0,
+                 int4=4 * nL * steps if q else 0)
+        check(n == w, f"{tag} launches {n}, expected {w}")
+        check(out.tokens.shape == (B, N) and bool((out.lengths == N).all()), f"{tag} tokens")
+        check(bool(torch.isfinite(stb["scores"]).all()), f"{tag} scores not finite")
+        tot = stb["encode_s"] + stb["prefill_s"] + stb["decode_s"]
+        beams[tag] = dict(config="flagship + " + " ".join(over), batch=B, beams=W,
+                          max_new_tokens=N, encode_ms=stb["encode_s"] * 1e3,
+                          prefill_ms=stb["prefill_s"] * 1e3, decode_steps=steps,
+                          ms_per_step=stb["decode_s"] * 1e3 / steps,
+                          new_tokens_per_s=B * N / tot,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=n)
+        if q:
+            p32q = cast_tree(params, torch.float32)
+            l32, toks = split_step_logits(p32q, c.model, hb, torch.float32, ("auto", "never"))
+            del p32q
+            torch.cuda.empty_cache()
+            l16, _ = split_step_logits(params, c.model, hb, torch.bfloat16,
+                                       ("auto", "never"), toks)
+            beams[tag]["step_logits"] = logit_gates("beam preset", l32, l16)
+        del params
+        settle()
+    beams["greedy_bf16_phase3"] = dict(encode_ms=bf16["encode_ms"],
+                                       prefill_ms=bf16["prefill_ms"],
+                                       ms_per_step=bf16["ms_per_token"],
+                                       new_tokens_per_s=bf16["new_tokens_per_s"],
+                                       peak_mem_gb=bf16["peak_mem_gb"])
+    print("beam: " + json.dumps(beams))
+    res["beam"] = beams
+
+    # ---- speculative decoding in bf16: numbers beside greedy ---------------
+    params, raw = common.load_decode_params(cfg, seed=seed, device="cuda", return_raw=True)
+    generate_tokens(params, mc, batch, max_new_tokens=4, **k16)                # warm-up
+    g16, _, g_s = run("greedy_bf16", lambda: generate_tokens(params, mc, batch,
+                                                             max_new_tokens=N, **k16))
+    del by_path["greedy_bf16"]             # phase 3's path, timed here as the yardstick
+    spec = {"greedy_bf16": dict(ms_per_token=g_s * 1e3 / N, new_tokens_per_s=B * N / g_s)}
+    layer_raw, lcfg = S.make_layerskip_draft(raw, mc, 8)
+    for name, bits, dc, src in (("int8", 8, None, raw), ("int4", 4, None, raw),
+                                ("layerskip8", 8, lcfg, layer_raw)):
+        dp = S.make_draft_params(src, dc or mc, bits=bits)
+        kw = dict(gamma=G, return_stats=True, draft_model_cfg=dc, **k16)
+        S.speculative_generate(params, dp, mc, batch, max_new_tokens=4, **kw)  # warm-up
+        (out, sst), n, secs = run(f"spec_bf16_{name}", lambda: S.speculative_generate(
+            params, dp, mc, batch, max_new_tokens=N, **kw))
+        Ld = dc.llm.n_layers if dc else nL
+        per = (4 * Ld + 1) * sst["draft_steps"]
+        w = want(flash=enc_layers + nL + Ld, int8=per if bits == 8 else 0,
+                 int4=per if bits == 4 else 0)
+        check(n == w, f"bf16 speculative ({name}) launches {n}, expected {w}")
+        check(out.tokens.shape == (B, N) and bool(((out.tokens >= 0)
+                                                   & (out.tokens < mc.llm.vocab_size)).all()),
+              f"bf16 speculative ({name}) tokens")
+        spec[name] = dict(sst, ms_per_token=secs * 1e3 / N, new_tokens_per_s=B * N / secs,
+                          launches=n, token_agreement_with_greedy=(
+                              out.tokens == g16.tokens).float().mean().item())
+        if name == "int8":
+            def sampled(s):
+                return S.speculative_generate(
+                    params, dp, mc, batch, gamma=G, max_new_tokens=N, temperature=0.7,
+                    top_p=0.9, eos_id=-1, compute_dtype=torch.bfloat16,
+                    generator=torch.Generator(device="cuda").manual_seed(s)).tokens
+            a, b = sampled(seed + 11), sampled(seed + 11)
+            check(torch.equal(a, b), "sampled speculative: one seed, two streams")
+            spec["sampled_t0.7_same_seed_equal"] = True
+        del dp
+        torch.cuda.empty_cache()
+    print("speculative bf16: " + json.dumps(spec))
+    res["spec_bf16"] = spec
+    del params, raw, layer_raw
+    settle()
+
+    # ---- distillation, and decoding with the distilled draft ---------------
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("distill_%Y%m%d_%H%M%S")
+    try:
+        teacher = common.init_params(cfg, seed=seed, device="cuda")
+        export_params(teacher, work / "teacher")
+        del teacher
+        save_config(cfg, work / "teacher.yaml")
+        settle()
+        flag = list(FLAGSHIP_OVERRIDES)
+        student = ["model.llm.n_layers=4", "model.freeze_llm=false",
+                   "model.lora.use_lora=false", "data.synthetic=true",
+                   "training.max_steps=2", "training.log_interval=1"]
+        rec = _Records()
+        logging.getLogger("avsr_tpu_torch").addHandler(rec)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rc, n, secs = run("distill_cli", lambda: distill.main([
+                "--seed", str(seed), "--device", "cuda",
+                "--teacher-config", str(work / "teacher.yaml"),
+                "--teacher-checkpoint", str(work / "teacher"),
+                "--out", str(work / "draft"), *flag, *student]))
+        finally:
+            logging.getLogger("avsr_tpu_torch").removeHandler(rec)
+        check(rc == 0, f"distill CLI returned {rc}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stamps = [r.created for r in rec.records if str(r.msg).startswith("step %d/%d")]
+        check(len(stamps) == 2, f"distill CLI logged {len(stamps)} steps, not 2")
+        per_step = want(flash=2 * enc_layers + nL + 4, dq=4, dkv=4)
+        check(n == {k: 2 * v for k, v in per_step.items()},
+              f"distill launches {n} over 2 steps, expected 2 x {per_step}")
+        report = json.loads((work / "draft" / "distill_report.json").read_text())
+        check(np.isfinite(report["loss"]), "distill loss not finite")
+        res["distill"] = dict(step2_ms=(stamps[1] - stamps[0]) * 1e3, cli_s=secs,
+                              peak_mem_gb=peak, launches_per_step=per_step, report=report)
+        shutil.rmtree(work / "teacher")
+        settle()
+
+        f32 = ["runtime.compute_dtype=float32"]
+        spec_run = ["decode.speculative=true",
+                    f"decode.spec_draft_checkpoint={work / 'draft'}",
+                    f"decode.spec_draft_config={work / 'draft' / 'config.yaml'}"]
+        hyps = {}
+        for tag, extra in (("greedy", f32), ("speculative", f32 + spec_run)):
+            out_dir = work / f"decode_{tag}"
+            _, n, _ = run(f"distill_decode_{tag}", lambda: cli_phase(
+                seed, tuple(extra), tag=f"distill_{tag}", out_dir=out_dir))
+            text = next(out_dir.glob("results_*.txt")).read_text()
+            hyps[tag] = [line for line in text.splitlines() if line.startswith("HYP")]
+        check(hyps["greedy"] == hyps["speculative"],
+              "decode CLI with the distilled draft: HYP lines differ from greedy's")
+        c = flagship(f32 + spec_run + ["data.synthetic=true", "data.synthetic_size=40",
+                                       "decode.max_new_tokens=16"])
+        tp, dp, dc = decode.load_draft(c, None, seed=seed, device=torch.device("cuda"))
+        b = featurize(hb, "cuda", torch.float32)
+        (out, sst), n, _ = run("distill_spec_stats", lambda: S.speculative_generate(
+            tp, dp, c.model, b, gamma=G, max_new_tokens=16, eos_id=-1,
+            compute_dtype=torch.float32, return_stats=True, draft_model_cfg=dc,
+            draft_shares_prefix=False))
+        w = want(flash=2 * enc_layers + nL + 4, int8=(4 * 4 + 1) * sst["draft_steps"])
+        check(n == w, f"speculative with the distilled draft: launches {n}, expected {w}")
+        res["distill"]["decode"] = dict(hyp_lines_equal=True, utterances=len(hyps["greedy"]),
+                                        spec_stats=sst)
+        del tp, dp
+        print("distill: " + json.dumps(res["distill"]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    settle()
+
+    # ---- kernel rows at the new shapes --------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    steps = beams["beam_preset"]["decode_steps"]
+    rows = []
+    for bits in (4, 8):
+        for name, K, Nn in (("qkv", 2048, 3072), ("o", 2048, 2048), ("gateup", 2048, 16384),
+                            ("down", 8192, 2048), ("lm_head", 2048, 129024)):
+            on_path = (bits == 4 and name != "lm_head") or (bits == 8 and name == "lm_head")
+            by_call = {"beam_preset": (nL if bits == 4 else 1) * steps} if on_path else {}
+            rows.append(qmm_row(name, bits, W * B, K, Nn, by_call, gen))
+    spec4 = res["spec_bf16"]["int4"]["draft_steps"]
+    rows.append(qmm_row("lm_head", 4, B, 2048, 129024, {"spec_bf16_int4": spec4}, gen))
+    res["qmm_rows"] = rows
+    res["launches_by_path"] = by_path
+    res["launches"] = {k: sum(p[k] for p in by_path.values()) for k in counts()}
+    print("decode variants: launches " + json.dumps(by_path))
+    return res
+
+
 def _serving(st: dict, out, hb, launches: dict, phase: dict) -> dict:
     """Serving numbers of one generate_tokens call beside an earlier
     phase's."""
@@ -2102,13 +2562,6 @@ def main(argv: list[str] | None = None) -> int:
                     spills.append(f"{name} {fn}")
     check(not spills, f"kernels that spill registers: {spills}")
 
-    def settle() -> None:
-        """Between phases: collect the garbage of the last one (reference
-        cycles can hold its tensors until a collection runs), so that the
-        next phase's peak memory counts only what it keeps itself."""
-        gc.collect()
-        torch.cuda.empty_cache()
-
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
     rows = kernel_phase(args.seed, {"whisper": 500, "llm_prefill": 533})
@@ -2144,8 +2597,32 @@ def main(argv: list[str] | None = None) -> int:
     kl = knobs["launches"]
     check(all(kl.values()), f"a kernel did not launch on the train-knobs path: {kl}")
 
+    settle()
+    # Phase 13 at full width: beam search, speculative decoding, the
+    # streaming continuation and the distillation CLI.
+    variants = decode_variants_phase(args.seed, res)
+    vl = variants["launches"]
+    check(all(vl.values()), f"a kernel did not launch on the decode-variants path: {vl}")
+
     def knob_paths(name: str) -> dict[str, int]:
-        return {f"knobs_{part}": n[name] for part, n in knobs["launches_by_path"].items()}
+        return {**{f"knobs_{part}": n[name] for part, n in knobs["launches_by_path"].items()},
+                **{part: n[name] for part, n in variants["launches_by_path"].items()}}
+
+    # the speculative drafts' M = 8 products of the bf16 runs, on the rows of
+    # the qmatmul phase (the int4 head at M = 8 is a row of phase 13)
+    sb = variants["spec_bf16"]
+    for r in qmm["rows"]:
+        if r["shape"] == "lm_head":
+            r["launches_by_call"].update(spec_bf16_int8=sb["int8"]["draft_steps"],
+                                         spec_bf16_layerskip8=sb["layerskip8"]["draft_steps"])
+        elif r["bits"] == 8:
+            r["launches_by_call"].update(
+                spec_bf16_int8=16 * sb["int8"]["draft_steps"],
+                spec_bf16_layerskip8=8 * sb["layerskip8"]["draft_steps"])
+        else:
+            r["launches_by_call"]["spec_bf16_int4"] = 16 * sb["int4"]["draft_steps"]
+        r["launches_per_call"] = max(r["launches_by_call"].values())
+    qmm["rows"] += variants["qmm_rows"]
 
     def total(key: str) -> float:
         return sum(r[key] * r["launches_per_call"] for r in rows)
@@ -2154,7 +2631,8 @@ def main(argv: list[str] | None = None) -> int:
     kernels = [dict(
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
-        launches=res["flash_launches"] + tl["fwd"] + cl["flash_fwd"] + kl["flash_fwd"],
+        launches=(res["flash_launches"] + tl["fwd"] + cl["flash_fwd"] + kl["flash_fwd"]
+                  + vl["flash_fwd"]),
         launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"],
                           "checkpoint": cl["flash_fwd"], **knob_paths("flash_fwd")},
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2183,7 +2661,7 @@ def main(argv: list[str] | None = None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
-            launches=tl[key] + cl[name] + kl[name],
+            launches=tl[key] + cl[name] + kl[name] + vl[name],
             launches_by_path={"train_3_steps": tl[key], "checkpoint": cl[name],
                               **knob_paths(name)},
             max_abs_err=max(bwd["max_abs_err"][e] for e in errs),
@@ -2219,9 +2697,10 @@ def main(argv: list[str] | None = None) -> int:
             library_is="torch.matmul of the bf16 x with the weight dequantized to "
                        "bf16 beforehand (cuBLAS), per shape",
             dequant_matmul_ms=qtotal("dequant_matmul_ms"),
-            times_are="sums over the launches of one generate_tokens call of each "
-                      "serving path (the preset, and use_8bit: device time per launch "
-                      "from a replayed CUDA graph x launches)",
+            times_are="sums over the launches of one call of each path that runs "
+                      "the kernel (generate_tokens with the preset and with use_8bit, "
+                      "the preset's beam search, the bf16 speculative calls; device "
+                      "time per launch from a replayed CUDA graph x launches)",
             shapes=qrows))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -276,6 +276,96 @@ def test_qmatmul_int8_at_main_path_shapes(cuda, name):
     assert _rel_err(y, ref) <= 1e-4, _rel_err(y, ref)
 
 
+# the four projections at M = B x W = 40 rows: a beam step of the serving
+# preset (8 utterances, 5 beams)
+BEAM_SHAPES = {n: MAIN_SHAPES[n] for n in ("qkv", "o", "gateup", "down")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", sorted(BEAM_SHAPES))
+def test_qmatmul_at_beam_shapes(cuda, bits, name):
+    """int8 and int4 at M = 40, the beam step's rows, against the plain
+    version: max|d| <= 1e-4 max|ref|."""
+    K, N = BEAM_SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qp = quant.quantize_tensor(0.02 * torch.randn((K, N), generator=g, device=cuda), bits)
+    x = torch.randn((40, K), generator=g, device=cuda, dtype=torch.bfloat16)
+    y = Q.qmatmul(x, qp)
+    ref = Q.qmatmul_reference(x, qp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert _rel_err(y, ref) <= 1e-4, _rel_err(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 40])
+def test_qmatmul_int4_head(cuda, M):
+    """The int4 head of a spec_draft_bits=4 self-draft, [2048 x 129024]
+    over the 2048-padded vocabulary: against the plain version (max|d| <=
+    1e-4 max|ref|), and the same bits on every launch."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qp = quant.quantize_tensor(0.02 * torch.randn((2048, 129024), generator=g, device=cuda), 4)
+    x = torch.randn((M, 2048), generator=g, device=cuda, dtype=torch.bfloat16)
+    y = Q.qmatmul(x, qp)
+    again = Q.qmatmul(x, qp)
+    ref = Q.qmatmul_reference(x, qp)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert _rel_err(y, ref) <= 1e-4, _rel_err(y, ref)
+
+
+@pytest.mark.cuda
+def test_split_decode_step_kernel_path_matches_dequantize_path(cuda):
+    """``llama_decode_step_split`` in the serving preset's layout (int4
+    projections, int8 head, int8 prefix cache) at M = 40 rows: 4 int4
+    launches per layer and one int8 head launch, and logits against the
+    dequantize path with the serving gates: in f32 mean|d| <= 1e-2 std and
+    max|d| no larger than the bf16 step's own distance from f32 (the
+    kernels round x to bf16, the dequantize path does not)."""
+    from avsr_tpu_torch.convert import cast_tree
+    from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
+    from avsr_tpu_torch.models import llama as L
+
+    cfg = LLMConfig(vocab_size=4096, d_model=512, n_layers=2, n_heads=8, n_kv_heads=2,
+                    ffn_dim=1024)
+    lora = LoRAConfig(r=4, alpha=8)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    p = L.add_lora(g, L.init_llama(g, cfg), cfg, lora)
+    for layer in p["layers"]:
+        for node in layer.values():
+            if "lora" in node:
+                node["lora"]["b"] = 0.05 * torch.randn(node["lora"]["b"].shape,
+                                                       generator=g, device=cuda)
+    p = L.fuse_decode_layout(quant.quantize_llm(p, 4, lm_head_bits=8))
+    B, W, hd = 8, 5, cfg.d_model // cfg.n_heads
+    pre = L.quantize_cache(L.KVCache(*(torch.randn((2, B, 2, 256, hd), generator=g,
+                                                   device=cuda) for _ in range(2))))
+    suf = [torch.randn((2, B * W, 2, 128, hd), generator=g, device=cuda) for _ in range(2)]
+    x = torch.randn((B * W, 1, cfg.d_model), generator=g, device=cuda)
+    plens = torch.randint(100, 257, (B,), generator=g, device=cuda)
+
+    def step(params, dt, uk):
+        return L.llama_decode_step_split(
+            params, cfg, x=x.to(dt), prefix_cache=pre,
+            suffix_cache=L.KVCache(*(t.to(dt) for t in suf)), prefix_lens=plens, step=3,
+            lora=lora, compute_dtype=dt, use_kernel=uk)[0]
+
+    p32, p16 = cast_tree(p, torch.float32), cast_tree(p, torch.bfloat16)
+    before = (Q.int8_launches, Q.int4_launches)
+    auto = step(p32, torch.float32, "auto")
+    assert (Q.int8_launches - before[0], Q.int4_launches - before[1]) == (1, 4 * cfg.n_layers)
+    ref = step(p32, torch.float32, "never")
+    bf16 = step(p16, torch.bfloat16, "never")
+    assert (Q.int8_launches - before[0], Q.int4_launches - before[1]) == (1, 4 * cfg.n_layers)
+    torch.cuda.synchronize()
+    d = (auto - ref).abs()
+    assert auto.shape == (B * W, cfg.vocab_size) and torch.isfinite(auto).all()
+    assert d.mean() <= 1e-2 * ref.std(), (d.mean().item(), ref.std().item())
+    assert d.max() <= (bf16 - ref).abs().max(), (d.max().item(),
+                                                 (bf16 - ref).abs().max().item())
+
+
 @pytest.mark.cuda
 def test_qmatmul_on_two_streams_at_once(cuda):
     """int8 and int4 products with a K split launched on two streams at
