@@ -2,6 +2,9 @@
 the weights (a random init, or a checkpoint of the port's Trainer or a
 params export over it).
 
+``load_multilora`` gives the base and the adapter bank of multi-tenant
+serving (``cli/serve.py --adapter``).
+
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
 wins over YAML wins over defaults), ``--seed`` for the random weights and
 ``--device`` (default ``cuda``; tests pass ``cpu``). The train CLI also
@@ -19,6 +22,7 @@ import torch
 from avsr_tpu_torch.convert import cast_tree
 from avsr_tpu_torch.core.config import AVSRConfig, load_config
 from avsr_tpu_torch.data.dataset import SyntheticAVSRDataset
+from avsr_tpu_torch.infer.adapters import extract_lora, stack_lora_bank, tree_map
 from avsr_tpu_torch.infer.generate import prepare_params_for_decode
 from avsr_tpu_torch.models.avsr import init_avsr_model
 from avsr_tpu_torch.models.layers import Params
@@ -69,6 +73,20 @@ def load_cli_config(args: argparse.Namespace) -> AVSRConfig:
         overrides = MODE_OVERRIDES[mode] + overrides
         log.info("mode=%s -> %s", mode, " ".join(MODE_OVERRIDES[mode]) or "(defaults)")
     return load_config(args.config, overrides)
+
+
+def validate_modality_media(cfg: AVSRConfig, parser: argparse.ArgumentParser, *,
+                            have_audio: bool, have_video: bool) -> None:
+    """The params tree is built from model.modality, so the media given
+    must match it (override model.modality=... to run another mode)."""
+    need_audio = cfg.model.modality in ("audio", "both")
+    need_video = cfg.model.modality in ("video", "both")
+    if (need_audio and not have_audio) or (need_video and not have_video):
+        parser.error(
+            f"model.modality={cfg.model.modality!r} needs "
+            f"{'--audio ' if need_audio else ''}"
+            f"{'--video' if need_video else ''} "
+            "(or override model.modality=audio/video/both)")
 
 
 def build_dataset(cfg: AVSRConfig, tok, split: str) -> SyntheticAVSRDataset:
@@ -156,3 +174,43 @@ def load_decode_params(cfg: AVSRConfig, checkpoint: str | None = None, *,
         cast_tree(raw, getattr(torch, cfg.runtime.compute_dtype)), cfg.model,
         lm_head_bits=cfg.decode.lm_head_bits)
     return (params, raw) if return_raw else params
+
+
+def load_multilora(cfg: AVSRConfig, checkpoint: str | None, adapter_ckpts: list[str], *,
+                   seed: int, device: str | torch.device = "cuda"
+                   ) -> tuple[Params, Params | None]:
+    """Base params + stacked adapter bank for multi-tenant LoRA serving,
+    the JAX ``load_multilora``.
+
+    The base loads RAW (unfused — the per-projection adapters must target
+    unconcatenated q/k/v; quantized base leaves from use_4bit/8bit compose
+    fine), with only the lm head optionally quantized for serving
+    (decode.lm_head_bits keeps the tree structure). Each adapter
+    checkpoint is any trainer checkpoint or params export for THIS config
+    whose LLM carries lora leaves; only those leaves are read
+    (:func:`load_adapter`) and moved to ``device``. Returns
+    (params, bank) for ``ServingEngine``/``AVSRServer(adapter_bank=...)``;
+    no adapters give no bank (the runtime-onboarding start state)."""
+    if not cfg.model.lora.use_lora:
+        raise ValueError("--adapter serving needs model.lora.use_lora=true")
+    params = init_or_load_params(cfg, checkpoint, seed=seed, device=device)
+    if cfg.decode.lm_head_bits:
+        params = {**params, "llm": quantize_llm(params["llm"], 0,
+                                                lm_head_bits=cfg.decode.lm_head_bits)}
+    bank = (stack_lora_bank([tree_map(lambda t: t.to(device), load_adapter(ck))
+                             for ck in adapter_ckpts]) if adapter_ckpts else None)
+    return params, bank
+
+
+def load_adapter(checkpoint: str) -> Params:
+    """The LoRA leaves (``extract_lora``) of a trainer checkpoint
+    directory (its newest step) or a params export, read to the CPU with
+    no model built around them: adapter onboarding loads them on a server's
+    handler thread, which touches no device."""
+    ck = Path(checkpoint)
+    if (ck / "best.json").exists() or any(ck.glob("meta_*.json")):
+        step = CheckpointManager(ck).latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint step in {ck}")
+        ck = ck / str(step)
+    return extract_lora(load_params(ck)["llm"])

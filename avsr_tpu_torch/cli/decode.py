@@ -22,9 +22,11 @@ directory of the port (its newest step is read) or a params export
 (``cli/average.py``); without it the weights are a random init from
 ``--seed``. A quantized config quantizes a full-precision checkpoint after
 loading it. Either way the weights end in the decode layout
-(``cli/common.py::load_decode_params``). The manifest dataset and the
-continuous-batching engine (``decode.engine_slots``) are still to be
-ported.
+(``cli/common.py::load_decode_params``). ``decode.engine_slots=S``
+decodes through the continuous-batching engine (``infer/engine.py``, S
+slots refilled mid-flight; with ``decode.speculative`` its slots
+speculate) instead of static batches; the HYP lines are the same. The
+manifest dataset is still to be ported.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from avsr_tpu_torch.cli.common import (base_parser, build_dataset,
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, load_config
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.infer.engine import ServingEngine
 from avsr_tpu_torch.infer.generate import generate
 from avsr_tpu_torch.infer.speculative import (break_even_tokens_per_pass,
                                               make_draft_params, make_layerskip_draft)
@@ -56,13 +59,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None,
                    help="trainer checkpoint dir or params export")
     return p
-
-
-def _check_supported(cfg: AVSRConfig) -> None:
-    if cfg.decode.engine_slots:
-        raise NotImplementedError(
-            "the continuous-batching serving engine (decode.engine_slots) "
-            "is not yet ported")
 
 
 def _warn_if_speculative_loses(cfg: AVSRConfig,
@@ -156,7 +152,6 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_config(args.config, args.overrides)
-    _check_supported(cfg)
     device = torch.device(args.device)
     tok = ByteTokenizer()
     ds = build_dataset(cfg, tok, args.split)
@@ -187,7 +182,8 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
                  draft_model_cfg: ModelConfig | None = None,
                  draft_shares_prefix: bool | None = None) -> int:
     """Batched decode over ``ds`` (``generate``: greedy, sampled, beam or,
-    with a draft, speculative) with per-utterance HYP/REF lines and the
+    with a draft, speculative; or the serving engine with
+    ``decode.engine_slots``) with per-utterance HYP/REF lines and the
     corpus WER/CER summary, written to ``decode.output_dir``."""
     out_dir = Path(cfg.decode.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -198,6 +194,37 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
     d = cfg.decode
     acc = WERAccumulator()
     t0 = time.perf_counter()
+
+    def record(rf, utt: str, ref: str, hyp: str) -> None:
+        u_wer = acc.add(ref, hyp)
+        log.info("utt %s | WER %.3f", utt, u_wer)
+        print(f"UTT: {utt}", file=rf)
+        print(f"REF: {ref}", file=rf)
+        print(f"HYP: {hyp}", file=rf)
+        print(f"WER: {u_wer:.4f}", file=rf)
+        print("", file=rf)
+
+    if d.engine_slots > 0:
+        # continuous batching: a fixed slot pool, refilled mid-flight as
+        # transcripts finish — no head-of-line blocking on ragged lengths
+        eng = ServingEngine(params, cfg, tok, num_slots=d.engine_slots,
+                            seed=cfg.training.seed, draft_params=draft_params,
+                            draft_model_cfg=draft_model_cfg,
+                            spec_gamma=d.spec_gamma if d.speculative else 0)
+        # decode.temperature/top_p apply engine-wide; the engine API also
+        # takes them per request
+        with open(results_path, "w") as rf:
+            for start in range(0, len(ds), 256):   # bound host memory
+                samples = [ds[i] for i in range(start, min(start + 256, len(ds)))]
+                ids_all = eng.transcribe(
+                    samples, temperature_per_request=[d.temperature] * len(samples),
+                    top_p_per_request=[d.top_p] * len(samples))
+                for sample, ids in zip(samples, ids_all):
+                    record(rf, sample.utt_id, sample.text, tok.decode(ids))
+        log.info("engine stats: %s", eng.stats())
+        eng.close()
+        return _summarize(acc, time.perf_counter() - t0, wer_path)
+
     seen: set[str] = set()
     with open(results_path, "w") as rf:
         for hb, batch in DataLoader(ds, cfg.data, tok, model_cfg=cfg.model,
@@ -214,15 +241,11 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
                 if utt in seen:   # final short batch is wrap-padded
                     continue
                 seen.add(utt)
-                hyp = tok.decode(tokens[i, : lens[i]])
-                u_wer = acc.add(ref, hyp)
-                log.info("utt %s | WER %.3f", utt, u_wer)
-                print(f"UTT: {utt}", file=rf)
-                print(f"REF: {ref}", file=rf)
-                print(f"HYP: {hyp}", file=rf)
-                print(f"WER: {u_wer:.4f}", file=rf)
-                print("", file=rf)
-    dt = time.perf_counter() - t0
+                record(rf, utt, ref, tok.decode(tokens[i, : lens[i]]))
+    return _summarize(acc, time.perf_counter() - t0, wer_path)
+
+
+def _summarize(acc: WERAccumulator, dt: float, wer_path: Path) -> int:
     summary = (
         f"utterances: {acc.utterances}\n"
         f"reference words: {acc.ref_words}\n"

@@ -281,6 +281,7 @@ class AVSRConfig:
         if self.decode.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError("decode.kv_cache_dtype must be bfloat16|int8")
         _check_speculative(self)
+        _check_serving(self)
         return self
 
 
@@ -340,6 +341,27 @@ def _check_speculative(cfg: AVSRConfig) -> None:
                 "decode.spec_draft_checkpoint is standalone-decode "
                 "only: engine slot caches assume the self/"
                 "layer-skip draft geometry")
+
+
+def _check_serving(cfg: AVSRConfig) -> None:
+    """The JAX package's checks of the engine and streaming knobs, message
+    for message."""
+    d = cfg.decode
+    if d.stream_block_s > 0 and d.stream_video_fps <= 0:
+        raise ValueError(
+            "decode.stream_video_fps must be > 0 (it sizes the "
+            "video-frame block for blockwise streaming)")
+    if d.engine_slots > 0 and d.num_beams > 1:
+        raise ValueError(
+            "decode.engine_slots (continuous batching) decodes slot by "
+            "slot (greedy or per-request sampling) — incompatible with "
+            "num_beams>1; use static batches for beam search")
+    if d.stream_block_s > 0 and d.kv_cache_dtype == "int8":
+        raise ValueError(
+            "decode.stream_block_s (blockwise streaming) keeps a live "
+            "float KV cache that is extended in place per block; "
+            "int8 kv_cache_dtype quantizes once at prefill and is "
+            "incompatible — use it with the exact mode only")
 
 
 def _check_ported(cfg: AVSRConfig) -> None:

@@ -3,8 +3,9 @@
 
 Deterministic random samples with byte-tokenizable transcripts, so the
 whole serving path (including WER) runs with no media assets; the same
-seed and index give the same sample as the JAX package's dataset. The
-manifest dataset and media I/O are still to be ported.
+seed and index give the same sample as the JAX package's dataset.
+``resize_crop_frames`` brings decoded frames to the model's image size on
+the host. The manifest dataset is still to be ported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from avsr_tpu_torch.core.config import DataConfig
 
@@ -23,6 +26,26 @@ class Sample:
     frames: np.ndarray | None      # uint8 [T, S, S, 3]
     text: str
     tokens: list[int]              # label token ids (no BOS, with EOS)
+
+
+def resize_crop_frames(frames: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [T,H,W,3] -> uint8 [T,size,size,3]: shortest-side bilinear
+    resize (half-pixel centres, no antialiasing, as cv2's INTER_LINEAR)
+    and a centre crop, on the host's CPU with torch (the JAX package uses
+    cv2 or its native library; values may differ by one step of 255).
+    Frames already at ``size`` come back as they are."""
+    T, H, W, _ = frames.shape
+    if H == size and W == size:
+        return frames
+    if H <= W:
+        nh, nw = size, max(size, int(round(W * size / H)))
+    else:
+        nh, nw = max(size, int(round(H * size / W))), size
+    x = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2).float()
+    y = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False)
+    y = y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+    top, left = (nh - size) // 2, (nw - size) // 2
+    return np.ascontiguousarray(y[:, top:top + size, left:left + size].numpy())
 
 
 _WORDS = ("the quick brown fox jumps over a lazy dog while seven wizards "

@@ -1,5 +1,5 @@
 """Llama-family causal LM with LoRA and a KV cache, the port of
-``avsr_tpu/models/llama.py`` (dense FFN, 2-D LoRA adapters).
+``avsr_tpu/models/llama.py`` (dense FFN, LoRA adapters, per row too).
 
 GQA attention (n_kv_heads <= n_heads), RoPE (rotate-half, HF convention),
 RMSNorm, SiLU-gated MLP, tied embeddings. ``llama_apply`` runs the full
@@ -37,8 +37,11 @@ verify pass), and ``llama_decode_step_split`` is beam search's step over a
 whose new columns ``merge_new_columns`` lands during the next step's beam
 gather. Their attention is plain PyTorch, as the decode step's is.
 
-Still to be ported: MoE FFN layers, the pipeline path and per-row LoRA
-adapter banks.
+Multi-tenant serving: a LoRA node may hold per-row adapters (``a`` [B,
+din, r], ``b`` [B, r, dout], gathered from a bank by ``infer/adapters.py``),
+which ``proj`` applies row by row; only the raw layout carries them.
+
+Still to be ported: MoE FFN layers and the pipeline path.
 """
 
 from __future__ import annotations
@@ -105,15 +108,16 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
     else:
         y = qdot(x, p, use_kernel=use_kernel)
     if lora_scale and "lora" in p:
-        a, b = p["lora"]["a"], p["lora"]["b"]
-        if a.ndim != 2:
-            raise NotImplementedError("per-row LoRA adapter banks are not yet ported")
+        a, b = p["lora"]["a"].to(dt), p["lora"]["b"].to(dt)
         xl = x
         if generator is not None and lora_dropout > 0.0:
             keep = torch.rand(x.shape, generator=generator,
                               device=x.device) < 1.0 - lora_dropout
             xl = torch.where(keep, x / (1.0 - lora_dropout), 0.0)
-        y = y + lora_scale * torch.matmul(torch.matmul(xl, a.to(dt)), b.to(dt))
+        # per-row adapters a [B, din, r], b [B, r, dout] (the serving
+        # engine's multi-LoRA bank, infer/adapters.py): each row of x
+        # [B, T, din] takes its own update; 2-D adapters broadcast
+        y = y + lora_scale * torch.matmul(torch.matmul(xl, a), b)
     return y
 
 

@@ -92,6 +92,26 @@
    greedy and speculative with the distilled draft: the same HYP lines.
    Last, the int4 and int8 kernels at M = 40 (the beam step's rows) and
    the int4 head at M = 8, timed as in phase 8.
+14. Serving phase (``serving_phase``), at full width: 32 requests of 4-10 s
+   synthetic audio and 25 frames from --seed with budgets of 10-100 new
+   tokens, through the continuous-batching engine with 8 slots (a slot
+   cache of M = 3200 columns). In f32: every request equal to
+   ``generate_tokens`` for it; speculative slots (int8 self-draft, gamma 4)
+   equal to the greedy engine, with tokens per verify pass; the multi-LoRA
+   bank (the base and 3 random adapters, a fourth onboarded mid-flight)
+   equal to ``generate_tokens`` with each request's adapter; exact
+   streaming (10 s in 1 s chunks) whose finalize equals the offline
+   decode. In bf16, the preset and use_8bit: utterances/s, new tokens/s,
+   slot occupancy, p50/p95 latency and time to first token, peak memory,
+   the steps run past the last finish, and the same 32 requests as static
+   ``generate_tokens`` batches of 8 in the same run; the preset engine's
+   decode step against the dequantize path with phase 9's gates; a decode
+   step at M = 640 and M = 3200; streaming ms per chunk, exact and
+   blockwise (2 s blocks). The HTTP server (audio-only flagship) on
+   127.0.0.1 with 16 concurrent clients and one num_beams 5 client: in f32
+   the responses equal ``generate_tokens`` and ``beam_search``; in bf16
+   p50/p95 latency and requests/s; a timed-out request is cancelled in
+   the engine. Exact launch counts on every path.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -2505,6 +2525,589 @@ def decode_variants_phase(seed: int, bf16: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: serving (the engine, the multi-LoRA bank, speculative slots, the
+# HTTP server and streaming transcription)
+# ---------------------------------------------------------------------------
+
+def serving_traffic(seed: int, n: int = 32, audio_only: bool = False):
+    """``n`` requests of 4-10 s synthetic audio (+ 25 frames) and their
+    budgets, 10-100 new tokens, from ``seed``."""
+    from avsr_tpu_torch.data.dataset import Sample
+
+    rng = np.random.default_rng(seed + 1400)
+    samples, budgets = [], []
+    for i in range(n):
+        ns = int(rng.integers(4 * 16000, 10 * 16000 + 1))
+        t = np.arange(ns, dtype=np.float32) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
+                 + 0.05 * rng.standard_normal(ns)).astype(np.float32)
+        frames = (None if audio_only
+                  else rng.integers(0, 256, (25, 224, 224, 3), dtype=np.uint8))
+        samples.append(Sample(f"serve/{i}", audio, frames, "", [257]))
+        budgets.append(int(rng.integers(10, 101)))
+    return samples, budgets
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def drive_engine(eng, samples, budgets, adapters=None, mid=None) -> dict:
+    """Submit every request at once and step the engine until all finish:
+    tokens per request, each one's latency and time to its first token on
+    the host (seconds from the submit), and the wall time. ``mid``, when
+    given, runs after the first step (a mid-flight action) and returns
+    more (sample, budget, adapter) requests to submit then."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aids = adapters or [0] * len(samples)
+    ids = [eng.submit(s, max_new=b, adapter=a) for s, b, a in zip(samples, budgets, aids)]
+    first: dict[int, float] = {}
+    fin_t: dict[int, float] = {}
+    out: dict[int, list[int]] = {}
+    steps = 0
+    while eng.outstanding():
+        fin = eng.step()
+        steps += 1
+        t = time.perf_counter() - t0
+        if mid is not None and steps == 1:
+            ids += [eng.submit(s, max_new=b, adapter=a) for s, b, a in mid()]
+        seen = ([(rid, r.tokens) for rid, r in eng._reqs.items()]
+                + [(st.req, st.tokens) for st in eng.slots if st.req is not None])
+        for rid, toks in seen:
+            if toks and rid not in first:
+                first[rid] = t
+        for rid, toks in fin.items():
+            out[rid], fin_t[rid] = toks, t
+            first.setdefault(rid, t)
+            eng.collect(rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=[out[i] for i in ids], latency=[fin_t[i] for i in ids],
+                ttft=[first[i] for i in ids], wall=wall)
+
+
+def static_batches(params, cfg, samples, budgets, dtype, kv: str = "bfloat16",
+                   B: int = 8) -> dict:
+    """The same requests as static ``generate_tokens`` batches of ``B`` in
+    submit order, each decoding to its largest budget; a request's tokens
+    are its row cut to its budget (and EOS), its latency and first token
+    the end of its batch's call."""
+    import torch
+
+    from avsr_tpu_torch.data.loader import collate, featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.generate import generate_tokens
+
+    tok = ByteTokenizer()
+    mc = cfg.model
+    prompt = tok.encode(mc.prompt, add_bos=True)
+    toks, lat = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(samples), B):
+        group, bud = samples[s:s + B], budgets[s:s + B]
+        batch = featurize(collate(group, cfg.data, prompt, tok.pad_id), "cuda", dtype)
+        out = generate_tokens(params, mc, batch, max_new_tokens=max(bud), eos_id=tok.eos_id,
+                              compute_dtype=dtype, kv_cache_dtype=kv)
+        rows, lens = out.tokens.tolist(), out.lengths.tolist()
+        t = time.perf_counter() - t0
+        for r, n, b in zip(rows, lens, bud):
+            toks.append(r[: min(n, b)])
+            lat.append(t)
+    return dict(tokens=toks, latency=lat, ttft=lat, wall=time.perf_counter() - t0)
+
+
+def serving_numbers(run: dict, n_slots: int | None = None, eng=None) -> dict:
+    new = sum(len(t) for t in run["tokens"])
+    res = dict(requests=len(run["tokens"]), new_tokens=new, wall_s=run["wall"],
+               utterances_per_s=len(run["tokens"]) / run["wall"],
+               new_tokens_per_s=new / run["wall"],
+               latency_p50_s=pct(run["latency"], 50), latency_p95_s=pct(run["latency"], 95),
+               ttft_p50_s=pct(run["ttft"], 50), ttft_p95_s=pct(run["ttft"], 95))
+    if eng is not None:
+        st = eng.stats()
+        res.update(stats=st, steps_launched=eng.steps_launched,
+                   slot_occupancy=st["tokens_emitted"] / max(eng.slot_capacity, 1),
+                   steps_past_last_finish=eng.steps_launched - eng.decode_steps_total)
+    return res
+
+
+def token_share(a: list[list[int]], b: list[list[int]]) -> float:
+    """The share of token positions where two runs agree (over the longer
+    of each pair)."""
+    same = sum(sum(x == y for x, y in zip(p, q)) for p, q in zip(a, b))
+    return same / max(sum(max(len(p), len(q)) for p, q in zip(a, b)), 1)
+
+
+def engine_step_logits(params, cfg, samples, dtype, use_kernels) -> dict:
+    """The engine's decode step at its own shapes: ``stage`` of up to 8
+    requests into int8 rows of the slot cache's width (M = 3200), then one
+    ``llama_decode_step`` per ``use_kernels`` entry on copies of those rows
+    from the staged first tokens: {use_kernel: logits [S, V] f32}."""
+    import torch
+
+    from avsr_tpu_torch.data.loader import collate, featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.engine import stage
+    from avsr_tpu_torch.models import llama as L
+
+    tok = ByteTokenizer()
+    mc = cfg.model
+    hb = collate(samples, cfg.data, tok.encode(mc.prompt, add_bos=True), tok.pad_id)
+    S = len(samples)
+    with torch.inference_mode():
+        rows, tok0, plens = stage(
+            params, mc, featurize(hb, "cuda", dtype), torch.zeros(S, device="cuda"),
+            torch.ones(S, device="cuda"), cache_len=3200, quantize=True, compute_dtype=dtype)
+        emb = L.embed_tokens(params["llm"], tok0[:, None], dtype)
+        out = {}
+        for uk in use_kernels:
+            c = L.KVCache(*(t.clone() for t in rows))
+            out[uk] = L.llama_decode_step(params["llm"], mc.llm, x=emb, cache=c, cur_lens=plens,
+                                          lora=mc.lora, compute_dtype=dtype, use_kernel=uk)[0]
+    return out
+
+
+def serving_phase(seed: int, bf16: dict) -> dict:
+    """The serving engine, the multi-LoRA bank, speculative slots, the
+    HTTP server and streaming transcription at the flagship's full width
+    (see the module docstring, phase 14)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from avsr_tpu_torch.cli import common
+    from avsr_tpu_torch.convert import cast_tree
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.dataset import Sample
+    from avsr_tpu_torch.data.loader import collate, featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer import adapters as ad
+    from avsr_tpu_torch.infer import speculative as S
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import beam_search, generate_tokens
+    from avsr_tpu_torch.infer.generate import prepare_params_for_decode
+    from avsr_tpu_torch.infer.server import AVSRServer
+    from avsr_tpu_torch.infer.streaming import StreamingTranscriber
+    from avsr_tpu_torch.models import llama as L
+
+    tok = ByteTokenizer()
+    res: dict = {}
+    by_path: dict[str, dict[str, int]] = {}
+    samples, budgets = serving_traffic(seed)
+    base_alloc = torch.cuda.memory_allocated()
+    half = 16
+    nW, nL = 24, 16                      # Whisper and LLM layers: flash per encode/prefill
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = since(before)
+        return out
+
+    def want(flash=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=0, flash_bwd_dkv=0, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    def engine(params, cfg, **kw):
+        eng = ServingEngine(params, cfg, tok, num_slots=8, k_steps=16,
+                            seed=cfg.training.seed, **kw)
+        eng.warmup(samples[0])
+        settle()
+        print(f"serving: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before "
+              "the run (weights, the slot cache)")
+        check(eng.M == 3200, f"slot cache width {eng.M}, expected 33 + 3000 + 100 -> 3200")
+        return eng
+
+    # ---- f32: the engine's contract, the bank, speculative slots, streaming --
+    cfg32 = flagship(["runtime.compute_dtype=float32"])
+    mc = cfg32.model
+    t0 = time.perf_counter()
+    raw32 = common.init_or_load_params(cfg32, seed=seed, device="cuda")
+    p32 = prepare_params_for_decode(raw32, mc)
+    print(f"serving f32: init and decode layout in {time.perf_counter() - t0:.2f} s")
+
+    eng = engine(p32, cfg32)
+    run = counted("engine_f32", lambda: drive_engine(eng, samples, budgets))
+    ref = static_batches(p32, cfg32, samples, budgets, torch.float32)
+    diff = [i for i, (a, b) in enumerate(zip(run["tokens"], ref["tokens"])) if a != b]
+    check(not diff, f"f32 engine != generate_tokens for requests {diff}")
+    n = by_path["engine_f32"]
+    check(n == want(flash=(nW + nL) * eng.stages_run),
+          f"f32 engine launches {n}, expected 40 per stage x {eng.stages_run}")
+    res["engine_f32"] = dict(serving_numbers(run, eng=eng), tokens_equal_generate_tokens=True,
+                             launches=n)
+    greedy32 = run["tokens"]
+    print("serving f32 engine: 32 requests equal generate_tokens token for token; "
+          + json.dumps(res["engine_f32"]["stats"]))
+    eng.close()
+    del eng, ref
+    settle()
+
+    # speculative slots: the int8 self-draft, gamma 4, token-equal to greedy
+    draft = S.make_draft_params(raw32, mc, bits=8)
+    eng = ServingEngine(p32, cfg32, tok, num_slots=8, seed=seed, draft_params=draft,
+                        spec_gamma=4, spec_rounds=4)
+    eng.warmup(samples[0])
+    run = counted("engine_spec_f32", lambda: drive_engine(eng, samples[:half], budgets[:half]))
+    diff = [i for i, (a, b) in enumerate(zip(run["tokens"], greedy32[:half])) if a != b]
+    check(not diff, f"f32 speculative slots != the greedy engine for requests {diff}")
+    n = by_path["engine_spec_f32"]
+    w = want(flash=2 * (nW + nL) * eng.stages_run,
+             int8=(4 * nL + 1) * eng.draft_steps + eng.stages_run)
+    check(n == w, f"speculative engine launches {n}, expected {w}")
+    st = eng.stats()
+    res["engine_spec_f32"] = dict(
+        serving_numbers(run), stats=st, draft_steps=eng.draft_steps, launches=n,
+        verify_passes=eng.chunks_run * eng.spec_rounds,
+        tokens_per_verify_pass=(st["tokens_emitted"] - st["requests_done"])
+        / max(eng.spec_slot_rounds, 1), tokens_equal_greedy_engine=True)
+    print("serving f32 speculative slots: " + json.dumps(res["engine_spec_f32"]))
+    eng.close()
+    del eng, draft
+    settle()
+
+    # multi-LoRA: 3 adapters with nonzero b plus the base in the bank, and a
+    # fourth onboarded mid-flight (the bank doubles from 4 rows to 8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    skel = ad.extract_lora(raw32["llm"])
+    tenants = [ad.random_adapter_like(skel, gen, std=0.02) for _ in range(4)]
+    eng = ServingEngine(raw32, cfg32, tok, num_slots=8, seed=seed,
+                        adapter_bank=ad.stack_lora_bank([skel] + tenants[:3]))
+    eng.warmup(samples[0])
+    lora_s, lora_b = samples[:half], budgets[:half]
+    aids = [i % 4 for i in range(12)]
+    late = [(lora_s[i], lora_b[i], 4) for i in range(12, half)]
+
+    def onboard():
+        check(eng.add_adapter(tenants[3]) == 4, "add_adapter mid-flight: not row 4")
+        return late
+
+    run = counted("engine_lora_f32", lambda: drive_engine(eng, lora_s[:12], lora_b[:12],
+                                                          aids, mid=onboard))
+    aids += [4] * len(late)
+    rows = [skel] + tenants
+    for a in range(5):
+        idx = [i for i in range(half) if aids[i] == a]
+        p = {**raw32, "llm": ad.inject_lora(raw32["llm"], rows[a])}
+        want_a = static_batches(p, cfg32, [lora_s[i] for i in idx], [lora_b[i] for i in idx],
+                                torch.float32)
+        diff = [i for i, t in zip(idx, want_a["tokens"]) if run["tokens"][i] != t]
+        check(not diff, f"multi-LoRA: requests {diff} of adapter {a} != generate_tokens "
+                        "with that adapter")
+    moved = token_share(run["tokens"][:12], greedy32[:12])
+    n = by_path["engine_lora_f32"]
+    check(n == want(flash=(nW + nL) * eng.stages_run), f"multi-LoRA launches {n}")
+    res["engine_lora_f32"] = dict(serving_numbers(run, eng=eng), adapters=5, onboarded=1,
+                                  tokens_equal_generate_tokens_with_adapter=True,
+                                  token_share_equal_to_base=moved, launches=n)
+    print("serving f32 multi-LoRA: 16 requests over 5 bank rows equal generate_tokens "
+          "with their adapter; " + json.dumps(res["engine_lora_f32"]["stats"]))
+    eng.close()
+    del eng, tenants, rows, skel, p, want_a
+    settle()
+
+    # streaming, exact mode: 10 s in 1 s chunks, no commit before finalize
+    st_cfg = flagship(["runtime.compute_dtype=float32", "decode.max_new_tokens=32"])
+    hb10 = serving_host_batch(st_cfg, seed + 14, B=1)
+    audio10, frames10 = hb10.audio[0], None
+    rng = np.random.default_rng(seed + 15)
+    frames10 = rng.integers(0, 256, (25, 224, 224, 3), dtype=np.uint8)
+
+    def feeds():
+        return [dict(audio=audio10[i * 16000:(i + 1) * 16000],
+                     frames=frames10[i * 25 // 10:(i + 1) * 25 // 10]) for i in range(10)]
+
+    def stream(params, cfg, agree):
+        stt = StreamingTranscriber(params, cfg, tok, agree_n=agree)
+        prev, ms = [], []
+        for kw in feeds():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stt.feed(**kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(stt.committed_tokens[: len(prev)] == prev, "streaming retracted a commit")
+            prev = stt.committed_tokens
+        stt.finalize()
+        check(stt.committed_tokens[: len(prev)] == prev, "finalize retracted a commit")
+        return stt, ms
+
+    stt, _ = counted("stream_exact_f32", lambda: stream(p32, st_cfg, 11))
+    b1 = featurize(collate([Sample("x", audio10, frames10, "", [tok.eos_id])], st_cfg.data,
+                           tok.encode(mc.prompt, add_bos=True), tok.pad_id), "cuda",
+                   torch.float32)
+    off = generate_tokens(p32, mc, b1, max_new_tokens=32, eos_id=tok.eos_id)
+    off_ids = off.tokens[0, : int(off.lengths[0])].tolist()
+    off_ids = off_ids[:-1] if off_ids and off_ids[-1] == tok.eos_id else off_ids
+    check(stt.committed_tokens == off_ids, "f32 streaming finalize != the offline decode")
+    n = by_path["stream_exact_f32"]
+    check(n == want(flash=(nW + nL) * 11), f"exact streaming launches {n}, expected 40 x 11")
+    res["stream_exact_f32"] = dict(finalize_equals_offline=True, feeds=10,
+                                   committed=len(stt.committed_tokens), launches=n)
+    print("serving stream_exact_f32: finalize equals the offline decode; "
+          + json.dumps(res["stream_exact_f32"]))
+    del p32, raw32, stt, b1, off
+    settle()
+    left = (torch.cuda.memory_allocated() - base_alloc) / 1e9
+    check(left < 1.0, f"{left:.2f} GB of the f32 part still allocated")
+
+    # ---- bf16: the engine beside static batches, streaming, cache width ------
+    cfg = flagship()
+    params = common.load_decode_params(cfg, seed=seed, device="cuda")
+    eng = engine(params, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    run = counted("engine_bf16", lambda: drive_engine(eng, samples, budgets))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = by_path["engine_bf16"]
+    check(n == want(flash=(nW + nL) * eng.stages_run), f"bf16 engine launches {n}")
+    out16 = serving_numbers(run, eng=eng)
+    step_ms = run["wall"] * 1e3 / max(eng.steps_launched, 1)
+    eng.close()
+    del eng
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    ref = static_batches(params, cfg, samples, budgets, torch.bfloat16)
+    res["engine_bf16"] = dict(out16, peak_mem_gb=peak, launches=n,
+                              ms_per_step_of_the_run=step_ms,
+                              token_share_equal_to_static=token_share(run["tokens"],
+                                                                      ref["tokens"]),
+                              static_batches=dict(serving_numbers(ref),
+                                                  peak_mem_gb=torch.cuda.max_memory_allocated()
+                                                  / 1e9))
+    print("serving bf16 engine vs static batches: " + json.dumps(res["engine_bf16"]))
+
+    # what a decode step pays for the slot cache's width: the plain decode
+    # attention of one layer (8 rows, 32 q and 8 kv heads of 64, bf16) over
+    # M = 640 (a static call's ceil128(533 + 100)) and M = 3200 columns,
+    # 520 of them valid, from a replayed CUDA graph, x 16 layers; and whole
+    # eager steps, where the host's launch pace hides it
+    with torch.inference_mode():
+        g = torch.Generator(device="cuda").manual_seed(seed + 16)
+        q = torch.randn((8, 32, 1, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+        x = torch.randn((8, 1, 2048), generator=g, device="cuda", dtype=torch.bfloat16)
+        cur = torch.full((8,), 520, device="cuda")
+        width = {}
+        for M in (640, 3200):
+            kv = [torch.randn((8, 8, M, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2)]
+            attn = graph_ms([lambda: L._gqa_decode_attention(q, *kv, kv_lens=cur + 1)])
+            c = L.init_cache(cfg.model.llm, 8, M, torch.bfloat16, "cuda")
+            step = time_ms(lambda: L.llama_decode_step(
+                params["llm"], cfg.model.llm, x=x, cache=c, cur_lens=cur, lora=cfg.model.lora,
+                compute_dtype=torch.bfloat16), 20)
+            width[M] = dict(attention_ms_per_layer=attn, attention_ms_per_step=nL * attn,
+                            eager_step_ms=step)
+            del kv, c
+    res["cache_width"] = dict(
+        M640=width[640], M3200=width[3200],
+        extra_device_ms_per_step=width[3200]["attention_ms_per_step"]
+        - width[640]["attention_ms_per_step"],
+        times_are="attention: replayed CUDA graph; eager_step_ms: CUDA events around 20 "
+                  "eager bf16 decode steps of 8 rows (the host's launch pace included)")
+    print("serving cache width: " + json.dumps(res["cache_width"]))
+
+    # streaming in bf16: ms per 1 s chunk, exact and blockwise (2 s blocks)
+    for tag, over in (("stream_exact_bf16", []),
+                      ("stream_block_bf16", ["decode.stream_block_s=2",
+                                             "decode.stream_video_fps=2.5"])):
+        c = flagship(["decode.max_new_tokens=32", *over])
+        stt, ms = counted(tag, lambda: stream(params, c, 2))
+        n = by_path[tag]
+        blocks = stt._frozen_samples // 32000
+        w = (want(flash=(nW + nL) * 11) if not over
+             else want(flash=nW * (blocks + 11)))
+        check(n == w, f"{tag} launches {n}, expected {w}")
+        if over:
+            check(blocks > 0 and stt._frozen_frames == 5 * blocks,
+                  f"blockwise streaming froze {blocks} audio blocks and "
+                  f"{stt._frozen_frames} frames")
+        res[tag] = dict(ms_per_chunk=ms, ms_per_chunk_mean=float(np.mean(ms)),
+                        committed=len(stt.committed_tokens), frozen_blocks=blocks,
+                        launches=n)
+        print(f"serving {tag}: " + json.dumps(res[tag]))
+        del stt
+    del params
+    settle()
+
+    # ---- the preset and use_8bit engines beside static batches --------------
+    for tag, over, bits in (("engine_preset", PRESET_OVERRIDES, 4),
+                            ("engine_8bit", INT8_OVERRIDES, 8)):
+        c = flagship(list(over))
+        params = common.load_decode_params(c, seed=seed, device="cuda")
+        eng = engine(params, c)
+        torch.cuda.reset_peak_memory_stats()
+        run = counted(tag, lambda: drive_engine(eng, samples, budgets))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        k = eng.steps_launched
+        proj = 4 * nL * k
+        w = want(flash=(nW + nL) * eng.stages_run,
+                 int8=k + eng.stages_run + (proj if bits == 8 else 0),
+                 int4=proj if bits == 4 else 0)
+        n = by_path[tag]
+        check(n == w, f"{tag} launches {n}, expected {w}")
+        nums = dict(serving_numbers(run, eng=eng), peak_mem_gb=peak, launches=n,
+                    launches_per_step=dict(int4=4 * nL if bits == 4 else 0,
+                                           int8=1 + (4 * nL if bits == 8 else 0)))
+        eng.close()
+        del eng
+        settle()
+        ref = static_batches(params, c, samples, budgets, torch.bfloat16, kv="int8")
+        nums.update(token_share_equal_to_static=token_share(run["tokens"], ref["tokens"]),
+                    static_batches=serving_numbers(ref))
+        if bits == 4:
+            # the engine's decode step (M = S = 8, the int8 slot cache's
+            # width) against the dequantize path, with phase 9's gates
+            p32q = cast_tree(params, torch.float32)
+            l32 = engine_step_logits(p32q, c, samples[:8], torch.float32, ("auto", "never"))
+            del p32q
+            torch.cuda.empty_cache()
+            l16 = engine_step_logits(params, c, samples[:8], torch.bfloat16, ("auto", "never"))
+            nums["step_logits"] = logit_gates("engine preset", l32, l16)
+        res[tag] = nums
+        print(f"serving {tag}: " + json.dumps(nums))
+        del params
+        settle()
+
+    # ---- the HTTP server: 16 clients and a beam client, f32 then bf16 --------
+    aud_s, aud_b = serving_traffic(seed, half, audio_only=True)
+    beam_sample = aud_s[0]
+
+    def post(port, body, timeout=600):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/transcribe",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+
+    def serve(dtype_over, tag):
+        c = flagship(["model.modality=audio", *dtype_over])
+        params = common.load_decode_params(c, seed=seed, device="cuda")
+        warm = Sample("warmup", np.zeros(16000, np.float32), None, "", [tok.eos_id])
+        srv = AVSRServer(params, c, tok, port=0, num_slots=8, warmup_sample=warm,
+                         request_timeout_s=600.0)
+        out: dict = {}
+        try:
+            t_ready = time.perf_counter()
+            srv.start()
+            print(f"serving {tag}: server up with warmup in "
+                  f"{time.perf_counter() - t_ready:.1f} s on port {srv.port}")
+            bodies = [{"audio": s.audio.tolist(), "max_new_tokens": b}
+                      for s, b in zip(aud_s, aud_b)]
+            bodies.append({"audio": beam_sample.audio.tolist(), "max_new_tokens": 32,
+                           "num_beams": 5})
+            results, lat, errors = [None] * len(bodies), [0.0] * len(bodies), []
+
+            def client(i):
+                t0 = time.perf_counter()
+                try:
+                    results[i] = post(srv.port, bodies[i])
+                except Exception as e:          # surfaced below
+                    errors.append((i, repr(e)))
+                lat[i] = time.perf_counter() - t0
+
+            before = counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            by_path[tag] = since(before)
+            check(not errors, f"{tag}: client errors {errors}")
+            # a request that times out is cancelled: in the engine when it
+            # was submitted (100 tokens take well over 0.5 s), or never
+            # submitted when its client gave up first; either way it does
+            # not decode to its end
+            eng = srv.engine
+            b_done, b_cancel, b_next = eng.requests_done, eng.requests_cancelled, eng._next_req
+            try:
+                post(srv.port, {"audio": aud_s[1].audio.tolist(), "max_new_tokens": 100,
+                                "timeout_s": 0.5})
+                check(False, f"{tag}: a 0.5 s timeout did not time out")
+            except urllib.error.HTTPError as e:
+                body = json.loads(e.read())
+                check(e.code == 504 and body.get("cancelled") is True,
+                      f"{tag}: timed-out request answered {e.code} {body}")
+            # a request cancelled while staged is counted when its row is
+            # swept at the next step (as in the JAX package); until then it
+            # waits in the engine's cancelled set. The scheduler thread
+            # updates these counters one after the other: poll them all.
+            def settled() -> bool:
+                n = eng._next_req - b_next
+                return (eng.outstanding() == 0 and eng.requests_cancelled - b_cancel
+                        + len(eng._cancelled) == n)
+
+            deadline = time.time() + 120
+            while not settled() and time.time() < deadline:
+                time.sleep(0.05)
+            check(eng.outstanding() == 0, f"{tag}: the cancelled request kept decoding")
+            submitted = eng._next_req - b_next
+            swept = eng.requests_cancelled - b_cancel
+            check(eng.requests_done == b_done and swept + len(eng._cancelled) == submitted,
+                  f"{tag}: timed-out request: submitted {submitted}, done "
+                  f"{eng.requests_done - b_done}, cancelled {swept}, pending "
+                  f"{len(eng._cancelled)}")
+            g = lat[:half]
+            out = dict(clients=half, beam_clients=1, wall_s=wall,
+                       requests_per_s=len(bodies) / wall,
+                       latency_p50_s=pct(g, 50), latency_p95_s=pct(g, 95),
+                       beam_latency_s=lat[half], timed_out_request_cancelled=True,
+                       timed_out_request_was_submitted=bool(submitted),
+                       timed_out_request_swept=bool(swept),
+                       engine_stats=srv.engine.stats(), launches=by_path[tag])
+            out["_tokens"] = [r["tokens"] for r in results]
+            out["_params"] = (params, c)
+        finally:
+            srv.stop()
+        return out
+
+    s32 = serve(["runtime.compute_dtype=float32"], "server_f32")
+    params, c = s32.pop("_params")
+    toks = s32.pop("_tokens")
+    ref = static_batches(params, c, aud_s, aud_b, torch.float32)
+    diff = [i for i in range(half) if toks[i] != ref["tokens"][i]]
+    check(not diff, f"f32 server responses {diff} != generate_tokens")
+    bb = featurize(collate([beam_sample], c.data, tok.encode(c.model.prompt, add_bos=True),
+                           tok.pad_id), "cuda", torch.float32)
+    bo = beam_search(params, c.model, bb, max_new_tokens=32, num_beams=5, eos_id=tok.eos_id,
+                     compute_dtype=torch.float32)
+    check(toks[half] == bo.tokens[0, : int(bo.lengths[0])].tolist(),
+          "f32 server beam response != beam_search")
+    s32.update(responses_equal_generate_tokens=True, beam_equals_beam_search=True)
+    res["server_f32"] = s32
+    print("serving server f32: " + json.dumps(s32))
+    del params, c
+    settle()
+    s16 = serve([], "server_bf16")
+    s16.pop("_params")
+    s16.pop("_tokens")
+    res["server_bf16"] = s16
+    print("serving server bf16: " + json.dumps(s16))
+    settle()
+
+    for tag, n in by_path.items():
+        check(n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 0, f"{tag} launched a backward kernel")
+        check(n["flash_fwd"] > 0, f"{tag} launched no flash forward")
+    res["greedy_bf16_phase3"] = dict(ms_per_token=bf16["ms_per_token"],
+                                     new_tokens_per_s=bf16["new_tokens_per_s"],
+                                     peak_mem_gb=bf16["peak_mem_gb"])
+    res["launches_by_path"] = by_path
+    res["launches"] = {k: sum(p[k] for p in by_path.values()) for k in counts()}
+    print("serving: launches " + json.dumps(by_path))
+    return res
+
+
 def _serving(st: dict, out, hb, launches: dict, phase: dict) -> dict:
     """Serving numbers of one generate_tokens call beside an earlier
     phase's."""
@@ -2604,6 +3207,18 @@ def main(argv: list[str] | None = None) -> int:
     vl = variants["launches"]
     check(all(vl.values()), f"a kernel did not launch on the decode-variants path: {vl}")
 
+    settle()
+    # Phase 14 at full width: the serving engine, the multi-LoRA bank,
+    # speculative slots, the HTTP server and streaming transcription.
+    serving = serving_phase(args.seed, res)
+    sl = serving["launches"]
+    check(all(sl[k] for k in ("flash_fwd", "qmatmul_int8", "qmatmul_int4")),
+          f"a kernel did not launch on the serving path: {sl}")
+
+    def serve_paths(name: str) -> dict[str, int]:
+        return {f"serving_{part}": n[name]
+                for part, n in serving["launches_by_path"].items() if n[name]}
+
     def knob_paths(name: str) -> dict[str, int]:
         return {**{f"knobs_{part}": n[name] for part, n in knobs["launches_by_path"].items()},
                 **{part: n[name] for part, n in variants["launches_by_path"].items()}}
@@ -2632,9 +3247,10 @@ def main(argv: list[str] | None = None) -> int:
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
         launches=(res["flash_launches"] + tl["fwd"] + cl["flash_fwd"] + kl["flash_fwd"]
-                  + vl["flash_fwd"]),
+                  + vl["flash_fwd"] + sl["flash_fwd"]),
         launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"],
-                          "checkpoint": cl["flash_fwd"], **knob_paths("flash_fwd")},
+                          "checkpoint": cl["flash_fwd"], **knob_paths("flash_fwd"),
+                          **serve_paths("flash_fwd")},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_lse_err=max(r["max_lse_err"] for r in rows),
         ms=total("ms"), kernel_ms=total("ms"), plain_ms=total("plain_ms"),
@@ -2684,6 +3300,7 @@ def main(argv: list[str] | None = None) -> int:
         by_path = {path: out["launches"][name] for path, out in serve.items()}
         by_path["checkpoint"] = cl[name]
         by_path.update(knob_paths(name))
+        by_path.update(serve_paths(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",

@@ -31,6 +31,9 @@ def test_port_imports_no_jax():
     assert "avsr_tpu_torch.infer.generate" in res["modules"]
     assert "avsr_tpu_torch.cli.decode" in res["modules"]
     assert "avsr_tpu_torch.train.checkpoint" in res["modules"]
+    for name in ("infer.engine", "infer.adapters", "infer.server", "infer.streaming",
+                 "cli.serve", "cli.stream", "cli.infer", "data.audio_io", "data.video_io"):
+        assert f"avsr_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
 

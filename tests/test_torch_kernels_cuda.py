@@ -625,3 +625,82 @@ def test_resumed_step_equals_uninterrupted_step_on_the_card(cuda, tmp_path):
     for k, v in _leaves(resumed).items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, _leaves(st)[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the serving engine on the card
+# ---------------------------------------------------------------------------
+
+PRESET = ["model.use_4bit=true", "decode.lm_head_bits=8", "decode.kv_cache_dtype=int8"]
+
+
+def _engine_setup(cuda, extra=()):
+    import numpy as np
+
+    from avsr_tpu_torch.cli.common import load_decode_params
+    from avsr_tpu_torch.core.config import load_config
+    from avsr_tpu_torch.data.dataset import Sample
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+
+    cfg = load_config(None, TINY_TRAIN + ["runtime.compute_dtype=bfloat16",
+                                          "decode.max_new_tokens=12", *extra])
+    params = load_decode_params(cfg, None, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    samples = [Sample(f"u{i}", (0.3 * rng.standard_normal(n)).astype(np.float32),
+                      rng.integers(0, 256, (4, 16, 16, 3)).astype(np.uint8), "", [1])
+               for i, n in enumerate((8000, 16000, 12000, 20000, 6400, 9600))]
+    return cfg, params, ByteTokenizer(), samples
+
+
+@pytest.mark.cuda
+def test_preset_engine_chunk_launches_per_step(cuda):
+    """The serving preset through the engine (4 slots, ragged budgets):
+    every chunk step launches 4 int4 products per layer and the int8 head
+    at M = S, and every stage the int8 head at M = W; nothing else
+    launches a qmatmul kernel."""
+    from avsr_tpu_torch.infer.engine import ServingEngine
+
+    cfg, params, tok, samples = _engine_setup(cuda, PRESET)
+    eng = ServingEngine(params, cfg, tok, num_slots=4, k_steps=8)
+    eng.warmup(samples[0])
+    before = (Q.int8_launches, Q.int4_launches)
+    got = eng.transcribe(samples, max_new_per_request=[12, 3, 9, 12, 5, 7])
+    torch.cuda.synchronize()
+    k = eng.steps_launched
+    assert k > 0 and eng.decode_steps_total <= k
+    assert (Q.int8_launches - before[0], Q.int4_launches - before[1]) == (
+        k + eng.stages_run, 4 * cfg.model.llm.n_layers * k)
+    assert [len(g) for g in got] == [12, 3, 9, 12, 5, 7]
+    assert eng.cache.k.dtype == torch.int8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], PRESET], ids=["bf16", "preset"])
+def test_engine_first_launches_on_a_scheduler_thread(cuda, extra):
+    """An engine built on one thread and warmed up and driven on another
+    (as the server's scheduler does, on the default stream) gives the
+    tokens of the same engine driven on the building thread."""
+    import threading
+
+    from avsr_tpu_torch.infer.engine import ServingEngine
+
+    cfg, params, tok, samples = _engine_setup(cuda, extra)
+    budgets = [12, 4, 9, 12, 5, 8]
+    out, errors = {}, []
+
+    def serve():
+        try:
+            eng = out["eng"]
+            eng.warmup(samples[0])
+            out["tokens"] = eng.transcribe(samples, max_new_per_request=budgets)
+        except Exception as e:        # surfaced in the main thread
+            errors.append(e)
+
+    out["eng"] = ServingEngine(params, cfg, tok, num_slots=4, k_steps=8)
+    th = threading.Thread(target=serve)
+    th.start()
+    th.join(timeout=600)
+    assert not errors, errors
+    main = ServingEngine(params, cfg, tok, num_slots=4, k_steps=8)
+    main.warmup(samples[0])
+    assert out["tokens"] == main.transcribe(samples, max_new_per_request=budgets)
