@@ -20,8 +20,7 @@ from typing import Any
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser
-from avsr_tpu_torch.core.config import load_config
+from avsr_tpu_torch.cli.common import base_parser, load_cli_config
 from avsr_tpu_torch.models.avsr import init_avsr_model
 from avsr_tpu_torch.train.checkpoint import (CheckpointManager, export_params,
                                              load_params)
@@ -63,9 +62,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="comma-separated step list (overrides --last)")
     p.add_argument("--out", required=True, help="params export path")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    cfg = load_config(args.config, args.overrides)
+    cfg = load_cli_config(args)
     if cfg.model.use_4bit or cfg.model.use_8bit:
         raise SystemExit(
             "average: quantized (use_4bit/use_8bit) checkpoints do not "

@@ -1,14 +1,17 @@
-"""Shared CLI plumbing of the port: the argument parser, the dataset and
-the weights (a random init, or a checkpoint of the port's Trainer or a
-params export over it).
+"""Shared CLI plumbing of the port: the argument parser, the config (with
+logging set up), the tokenizer, dataset and loader of a
+split, and the weights (a random init, or a checkpoint of the port's
+Trainer or a params export over it).
 
 ``load_multilora`` gives the base and the adapter bank of multi-tenant
 serving (``cli/serve.py --adapter``).
 
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
-wins over YAML wins over defaults), ``--seed`` for the random weights and
-``--device`` (default ``cuda``; tests pass ``cpu``). The train CLI also
-takes ``--mode``, a memory preset (:data:`MODE_OVERRIDES`).
+wins over YAML wins over defaults), ``--seed`` for the random weights,
+``--device`` (default ``cuda``; tests pass ``cpu``), ``--log_file`` and
+``--verbose``. The train CLI also takes ``--mode``, a memory preset
+(:data:`MODE_OVERRIDES`). The tokenizer is ``model.llm_path``'s HF
+tokenizer when it is set, the byte tokenizer otherwise.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import torch
 
 from avsr_tpu_torch.convert import cast_tree
 from avsr_tpu_torch.core.config import AVSRConfig, load_config
-from avsr_tpu_torch.data.dataset import SyntheticAVSRDataset
+from avsr_tpu_torch.core.logging import setup_logging
+from avsr_tpu_torch.data.dataset import build_dataset
+from avsr_tpu_torch.data.loader import DataLoader
+from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.infer.adapters import extract_lora, stack_lora_bank, tree_map
 from avsr_tpu_torch.infer.generate import prepare_params_for_decode
 from avsr_tpu_torch.models.avsr import init_avsr_model
@@ -54,6 +60,8 @@ def base_parser(description: str, *, modes: bool = False) -> argparse.ArgumentPa
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--log_file", default=None)
+    p.add_argument("--verbose", action="store_true")
     if modes:
         p.add_argument("--mode", dest="memory_mode", choices=sorted(MODE_OVERRIDES),
                        default=None,
@@ -66,7 +74,10 @@ def base_parser(description: str, *, modes: bool = False) -> argparse.ArgumentPa
 
 def load_cli_config(args: argparse.Namespace) -> AVSRConfig:
     """The config of parsed CLI arguments: the YAML file, then the
-    ``--mode`` preset's overrides, then the positional ones."""
+    ``--mode`` preset's overrides, then the positional ones. Sets up
+    logging (``--log_file``, ``--verbose``) first."""
+    setup_logging(getattr(args, "log_file", None),
+                  level=logging.DEBUG if getattr(args, "verbose", False) else logging.INFO)
     overrides = list(args.overrides)
     mode = getattr(args, "memory_mode", None)
     if mode:
@@ -89,15 +100,19 @@ def validate_modality_media(cfg: AVSRConfig, parser: argparse.ArgumentParser, *,
             "(or override model.modality=audio/video/both)")
 
 
-def build_dataset(cfg: AVSRConfig, tok, split: str) -> SyntheticAVSRDataset:
-    """The synthetic dataset of ``split`` (the manifest dataset is not yet
-    ported)."""
-    if not cfg.data.synthetic:
-        raise NotImplementedError(
-            "the manifest dataset is not yet ported; set data.synthetic=true")
-    return SyntheticAVSRDataset(cfg.data, tok, split=split,
-                                modality=cfg.model.modality,
-                                image_size=cfg.model.image_size)
+def build_data(cfg: AVSRConfig, split: str = "train", *, shuffle: bool | None = None,
+               batch_size: int | None = None, device: str | torch.device = "cuda"):
+    """-> (tokenizer, dataset, loader) of ``split``: ``model.llm_path``'s
+    tokenizer, the synthetic or manifest dataset (``data.synthetic``), and
+    a loader shuffling the train split only (unless ``shuffle`` says)."""
+    tok = load_tokenizer(cfg.model.llm_path or None)
+    ds = build_dataset(cfg.data, tok, split=split, modality=cfg.model.modality,
+                       image_size=cfg.model.image_size)
+    loader = DataLoader(ds, cfg.data, tok, model_cfg=cfg.model, batch_size=batch_size,
+                        shuffle=(split == "train") if shuffle is None else shuffle,
+                        seed=cfg.training.seed, device=device,
+                        compute_dtype=getattr(torch, cfg.runtime.compute_dtype))
+    return tok, ds, loader
 
 
 def init_or_load_params(cfg: AVSRConfig, checkpoint: str | None = None, *,

@@ -25,8 +25,11 @@ loading it. Either way the weights end in the decode layout
 (``cli/common.py::load_decode_params``). ``decode.engine_slots=S``
 decodes through the continuous-batching engine (``infer/engine.py``, S
 slots refilled mid-flight; with ``decode.speculative`` its slots
-speculate) instead of static batches; the HYP lines are the same. The
-manifest dataset is still to be ported.
+speculate) instead of static batches; the HYP lines are the same.
+``data.synthetic=false`` decodes the manifest split under ``data.path``
+and scores the references of its ``.wrd`` file; the wrap-padded rows of
+the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
+the byte tokenizer.
 """
 
 from __future__ import annotations
@@ -38,11 +41,10 @@ from pathlib import Path
 
 import torch
 
-from avsr_tpu_torch.cli.common import (base_parser, build_dataset,
-                                       init_or_load_params, load_decode_params)
+from avsr_tpu_torch.cli.common import (base_parser, build_data, init_or_load_params,
+                                       load_cli_config, load_decode_params)
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, load_config
 from avsr_tpu_torch.data.loader import DataLoader
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
 from avsr_tpu_torch.infer.engine import ServingEngine
 from avsr_tpu_torch.infer.generate import generate
 from avsr_tpu_torch.infer.speculative import (break_even_tokens_per_pass,
@@ -149,12 +151,10 @@ def load_draft(cfg: AVSRConfig, checkpoint: str | None, *, seed: int,
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    cfg = load_config(args.config, args.overrides)
+    cfg = load_cli_config(args)
     device = torch.device(args.device)
-    tok = ByteTokenizer()
-    ds = build_dataset(cfg, tok, args.split)
+    tok, ds, loader = build_data(cfg, args.split, shuffle=False,
+                                 batch_size=cfg.decode.batch_size, device=device)
     d = cfg.decode
     draft_params = draft_cfg = None
     if d.speculative:
@@ -171,12 +171,15 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     # a trained draft ran its own encoders in training; the target's prefix
     # would feed it activations it never learned to read
-    return run_protocol(cfg, params, tok, ds, device=device, generator=gen,
-                        draft_params=draft_params, draft_model_cfg=draft_cfg,
-                        draft_shares_prefix=False if d.spec_draft_checkpoint else None)
+    try:
+        return run_protocol(cfg, params, tok, ds, loader, generator=gen,
+                            draft_params=draft_params, draft_model_cfg=draft_cfg,
+                            draft_shares_prefix=False if d.spec_draft_checkpoint else None)
+    finally:
+        loader.close()
 
 
-def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
+def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
                  generator: torch.Generator | None = None,
                  draft_params: Params | None = None,
                  draft_model_cfg: ModelConfig | None = None,
@@ -227,9 +230,7 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, *, device: torch.device,
 
     seen: set[str] = set()
     with open(results_path, "w") as rf:
-        for hb, batch in DataLoader(ds, cfg.data, tok, model_cfg=cfg.model,
-                                    batch_size=d.batch_size, shuffle=False,
-                                    device=device, compute_dtype=dtype):
+        for hb, batch in loader:
             out = generate(params, cfg.model, batch, d, eos_id=tok.eos_id,
                            generator=generator, compute_dtype=dtype,
                            use_kernel=cfg.runtime.use_pallas,

@@ -31,11 +31,9 @@ from typing import Any, Callable
 
 import torch
 
-from avsr_tpu_torch.cli.common import (base_parser, build_dataset,
-                                       init_or_load_params, load_cli_config)
+from avsr_tpu_torch.cli.common import (base_parser, build_data, init_or_load_params,
+                                       load_cli_config)
 from avsr_tpu_torch.core.config import AVSRConfig, load_config, save_config
-from avsr_tpu_torch.data.loader import DataLoader
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
 from avsr_tpu_torch.models.avsr import Batch, forward, init_avsr_model
 from avsr_tpu_torch.models.layers import Params
 from avsr_tpu_torch.train.checkpoint import export_params
@@ -128,8 +126,6 @@ def main(argv: list[str] | None = None) -> int:
                    help="random student init instead of copying "
                         "shape-matching teacher weights")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_cli_config(args)                        # the student
     tcfg = load_config(args.teacher_config, args.teacher_override)
     if cfg.model.llm.vocab_size != tcfg.model.llm.vocab_size:
@@ -152,10 +148,7 @@ def main(argv: list[str] | None = None) -> int:
         student, n_copied = warm_start(student, teacher)
         log.info("warm start: %d leaves copied from the teacher", n_copied)
 
-    tok = ByteTokenizer()
-    loader = DataLoader(build_dataset(cfg, tok, "train"), cfg.data, tok,
-                        model_cfg=cfg.model, shuffle=True, seed=cfg.training.seed,
-                        device=device, compute_dtype=getattr(torch, cfg.runtime.compute_dtype))
+    _, _, loader = build_data(cfg, "train", device=device)
     if len(loader) == 0:
         raise SystemExit(f"empty train split under data.path={cfg.data.path!r} — "
                          f"nothing to distill on")
@@ -182,6 +175,7 @@ def main(argv: list[str] | None = None) -> int:
                          done, total, m["loss"], m["kl"], m["ce"], m["agree"])
             if done >= total:
                 break
+    loader.close()
     if not math.isfinite(m["loss"]):
         log.error("non-finite final loss")
         return 1

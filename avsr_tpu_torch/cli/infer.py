@@ -21,7 +21,7 @@ from avsr_tpu_torch.cli.common import (base_parser, load_cli_config, load_decode
 from avsr_tpu_torch.data.audio_io import load_audio
 from avsr_tpu_torch.data.dataset import Sample, resize_crop_frames
 from avsr_tpu_torch.data.loader import collate, featurize
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.data.video_io import load_frames
 from avsr_tpu_torch.infer.generate import generate
 
@@ -44,7 +44,7 @@ def main(argv: list[str] | None = None) -> int:
 
     device = torch.device(args.device)
     dtype = getattr(torch, cfg.runtime.compute_dtype)
-    tok = ByteTokenizer()
+    tok = load_tokenizer(cfg.model.llm_path or None)
     audio = (load_audio(args.audio, max_samples=cfg.data.max_audio_length)
              if args.audio else None)
     frames = None

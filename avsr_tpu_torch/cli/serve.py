@@ -25,7 +25,7 @@ import torch
 from avsr_tpu_torch.cli.common import (base_parser, load_cli_config, load_decode_params,
                                        load_multilora)
 from avsr_tpu_torch.data.dataset import Sample
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.infer.server import AVSRServer
 
 log = logging.getLogger("avsr_tpu_torch.cli.serve")
@@ -56,7 +56,7 @@ def build_server(argv: list[str] | None = None) -> AVSRServer:
     args = p.parse_args(argv)
     cfg = load_cli_config(args)
     device = torch.device(args.device)
-    tok = ByteTokenizer()
+    tok = load_tokenizer(cfg.model.llm_path or None)
     bank = None
     if args.adapter or args.allow_onboarding:
         params, bank = load_multilora(cfg, args.checkpoint, args.adapter or [],
@@ -77,8 +77,6 @@ def build_server(argv: list[str] | None = None) -> AVSRServer:
 
 
 def main(argv: list[str] | None = None) -> int:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
     server = build_server(argv)
     server.start()
     print(f"ready: http://{server.host}:{server.port}  "

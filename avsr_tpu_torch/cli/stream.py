@@ -24,7 +24,7 @@ from avsr_tpu_torch.cli.common import (base_parser, load_cli_config, load_decode
                                        validate_modality_media)
 from avsr_tpu_torch.data.audio_io import load_audio
 from avsr_tpu_torch.data.dataset import resize_crop_frames
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.data.video_io import load_frames
 from avsr_tpu_torch.infer.streaming import StreamingTranscriber
 
@@ -47,7 +47,7 @@ def main(argv: list[str] | None = None) -> int:
         p.error("at least one of --audio / --video is required")
     validate_modality_media(cfg, p, have_audio=bool(args.audio), have_video=bool(args.video))
 
-    tok = ByteTokenizer()
+    tok = load_tokenizer(cfg.model.llm_path or None)
     params = load_decode_params(cfg, args.checkpoint, seed=args.seed,
                                 device=torch.device(args.device))
     st = StreamingTranscriber(params, cfg, tok, agree_n=args.agree)

@@ -12,7 +12,10 @@ the LLM's projections quantized, QLoRA). ``--mode`` picks a memory preset
 second init. The loss log, the loss history and the checkpoints (``ckpt/``,
 the port's own format) go to ``training.checkpoint_dir``; a run whose
 ``ckpt/`` holds a step, or one given ``training.resume_from``, resumes from
-it mid-epoch. The manifest dataset is still to be ported.
+it mid-epoch. ``data.synthetic=false`` trains on the manifest corpus
+under ``data.path`` (``{train,valid}.{tsv,wrd}``, e.g. written by
+``cli/prepare_data.py``); without a valid split it trains without
+validation. The tokenizer is ``model.llm_path``'s, or the byte tokenizer.
 """
 
 from __future__ import annotations
@@ -23,10 +26,7 @@ import logging
 
 import torch
 
-from avsr_tpu_torch.cli.common import (base_parser, build_dataset, init_params,
-                                       load_cli_config)
-from avsr_tpu_torch.data.loader import DataLoader
-from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.cli.common import base_parser, build_data, init_params, load_cli_config
 from avsr_tpu_torch.models.avsr import summarize
 from avsr_tpu_torch.train.loop import Trainer
 from avsr_tpu_torch.train.probe import find_optimal_batch_size
@@ -36,8 +36,6 @@ log = logging.getLogger("avsr_tpu_torch.cli.train")
 
 def main(argv: list[str] | None = None) -> int:
     args = base_parser("Train the AVSR model", modes=True).parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_cli_config(args)
     device = torch.device(args.device)
     if cfg.training.auto_batch_size:
@@ -51,21 +49,23 @@ def main(argv: list[str] | None = None) -> int:
             log.info("auto_batch_size: %d -> %d", cfg.data.batch_size, best)
             cfg = dataclasses.replace(
                 cfg, data=dataclasses.replace(cfg.data, batch_size=best))
-    dtype = getattr(torch, cfg.runtime.compute_dtype)
-    tok = ByteTokenizer()
-
-    def loader(split: str, shuffle: bool) -> DataLoader:
-        return DataLoader(build_dataset(cfg, tok, split), cfg.data, tok,
-                          model_cfg=cfg.model, shuffle=shuffle,
-                          seed=cfg.training.seed, device=device,
-                          compute_dtype=dtype)
+    tok, _, train_loader = build_data(cfg, "train", device=device)
+    try:
+        _, _, val_loader = build_data(cfg, "valid", shuffle=False, device=device)
+    except FileNotFoundError:
+        log.warning("no validation split found — training without val")
+        val_loader = None
 
     params = init_params(cfg, seed=args.seed, device=device)
     log.info("model summary: %s", summarize(params, cfg.model))
-    trainer = Trainer(cfg, params, loader("train", True), loader("valid", False),
-                      tok=tok)
-    trainer.maybe_resume()
-    result = trainer.train()
+    trainer = Trainer(cfg, params, train_loader, val_loader, tok=tok)
+    try:
+        trainer.maybe_resume()
+        result = trainer.train()
+    finally:
+        for loader in (train_loader, val_loader):
+            if loader is not None:
+                loader.close()
     log.info("done: %s", result)
     return 0
 

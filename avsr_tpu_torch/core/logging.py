@@ -1,19 +1,47 @@
-"""Metrics logging of the Trainer, a copy of the corresponding parts of
-``avsr_tpu/core/logging.py``: the per-step loss CSV, a windowed
-tokens/s + utterances/s meter, the loss-stability monitor behind the
-emergency checkpoint, and the loss history (JSON, and a PNG where
-matplotlib imports).
+"""Logging and the Trainer's metric logs, a copy of the corresponding parts
+of ``avsr_tpu/core/logging.py``: console (and file) logging with noisy
+third-party loggers quieted (``setup_logging``, which every CLI calls), the
+per-step loss CSV, a windowed tokens/s + utterances/s meter, the
+loss-stability monitor behind the emergency checkpoint, and the loss
+history (JSON, and a PNG where matplotlib imports).
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import logging
 import math
+import sys
 import time
 from collections import deque
 from pathlib import Path
 from typing import Any
+
+_NOISY = ("urllib3", "filelock", "fsspec", "matplotlib", "PIL", "transformers")
+
+
+def setup_logging(log_file: str | Path | None = None, level: int = logging.INFO,
+                  name: str = "avsr_tpu_torch") -> logging.Logger:
+    """Console (and, with ``log_file``, file) logging on the root logger,
+    replacing its handlers, with noisy third-party loggers at WARNING."""
+    root = logging.getLogger()
+    root.setLevel(level)
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    fmt = logging.Formatter("%(asctime)s | %(levelname)-7s | %(name)s | %(message)s",
+                            "%H:%M:%S")
+    sh = logging.StreamHandler(sys.stderr)
+    sh.setFormatter(fmt)
+    root.addHandler(sh)
+    if log_file:
+        Path(log_file).parent.mkdir(parents=True, exist_ok=True)
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(fmt)
+        root.addHandler(fh)
+    for noisy in _NOISY:
+        logging.getLogger(noisy).setLevel(logging.WARNING)
+    return logging.getLogger(name)
 
 
 class CSVLogger:

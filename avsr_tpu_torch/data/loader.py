@@ -1,37 +1,46 @@
-"""Collate and on-device featurize, the port of the corresponding parts of
-``avsr_tpu/data/loader.py``.
+"""Batching, length bucketing, on-device featurize and prefetch, the port
+of ``avsr_tpu/data/loader.py``.
 
   * ``collate`` pads raw waveforms and uint8 frames up to a length bucket
     (``DataConfig.audio_buckets``/``video_buckets``), pads labels with
-    pad_id and carries explicit lengths, and tiles the prompt ids.
+    pad_id and carries explicit lengths, and tiles the prompt ids. With ``data.compact_transfer`` it packs the link format:
+    int16 PCM audio and planar YUV420 frames (~2.3x fewer host->device
+    bytes for an AV batch).
   * ``featurize`` moves a host batch to the device and computes the
-    log-mel and the normalized frames there.
+    log-mel and the normalized frames there (reconstructing f32 audio and
+    RGB frames from the compact format first).
   * ``DataLoader`` walks a dataset in a per-epoch shuffled order (numpy's
     ``default_rng(seed + epoch)``, so the order is the JAX loader's) or in
     order, wrap-padding the final short batch (its repeated rows get label
-    length 0), with one prefetching worker thread that collates and
+    length 0). It loads a batch's samples over ``data.num_workers``
+    threads, decodes the WAVs a manifest dataset deferred in one native
+    batch call, and runs one prefetching worker thread that collates and
     featurizes ahead of the consumer. Its position (``state``,
     ``set_position``) lets a resumed run replay an epoch's order and skip
     the batches already consumed, without loading them.
 
-Multi-host sharding and the compact int16/YUV420 link format are still to
-be ported.
+Multi-host sharding (``data_shard``, the metadata buckets) is still to be
+ported: the port runs on one card.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from dataclasses import dataclass
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, replace
 from typing import Any, Iterator
 
 import numpy as np
 import torch
 
+from avsr_tpu_torch import native
 from avsr_tpu_torch.core.config import DataConfig, ModelConfig
-from avsr_tpu_torch.data.dataset import Sample
+from avsr_tpu_torch.data.audio_io import load_audio
+from avsr_tpu_torch.data.dataset import MAX_RETRY_WALK, Sample
 from avsr_tpu_torch.models.avsr import Batch
-from avsr_tpu_torch.ops.image import normalize_frames
+from avsr_tpu_torch.ops.image import (normalize_frames, normalize_yuv420_frames,
+                                      rgb_to_yuv420_np)
 from avsr_tpu_torch.ops.logmel import HOP_LENGTH, log_mel_spectrogram
 
 
@@ -41,13 +50,16 @@ class HostBatch:
 
     utt_ids: list[str]
     texts: list[str]
-    audio: np.ndarray | None       # [B, S_a] f32
+    audio: np.ndarray | None       # [B, S_a] f32 (i16 with compact_transfer)
     audio_lens: np.ndarray | None  # [B]
     frames: np.ndarray | None      # [B, T_v, S, S, 3] u8
     frame_lens: np.ndarray | None  # [B]
     labels: np.ndarray             # [B, L] int32 (pad_id-padded)
     label_lens: np.ndarray         # [B]
     prompt: np.ndarray             # [B, Tp] int32
+    # planar YUV420 link format (data.compact_transfer; replaces ``frames``)
+    frames_y: np.ndarray | None = None   # [B, T_v, S, S] u8
+    frames_uv: np.ndarray | None = None  # [B, T_v, S/2, S/2, 2] u8
 
 
 def pick_bucket(value: int, buckets: tuple[int, ...]) -> int:
@@ -60,8 +72,6 @@ def pick_bucket(value: int, buckets: tuple[int, ...]) -> int:
 def collate(samples: list[Sample], cfg: DataConfig, prompt_ids: list[int],
             pad_id: int) -> HostBatch:
     """Pad a list of samples to the smallest static bucket shapes that fit."""
-    if cfg.compact_transfer:
-        raise NotImplementedError("data.compact_transfer is not yet ported")
     B = len(samples)
     audio = audio_lens = frames = frame_lens = None
     if samples[0].audio is not None:
@@ -92,10 +102,27 @@ def collate(samples: list[Sample], cfg: DataConfig, prompt_ids: list[int],
         n = min(len(s.tokens), L)
         labels[i, :n] = s.tokens[:n]
         label_lens[i] = n
+
+    frames_y = frames_uv = None
+    if cfg.compact_transfer:
+        if audio is not None:
+            # int16 PCM: bit-exact round trip for WAV-PCM16 sources (their
+            # decoder made these floats as v / 32768), half the bytes
+            audio = np.clip(np.rint(audio * 32768.0), -32768, 32767).astype(np.int16)
+        if frames is not None:
+            packed = native.rgb_to_yuv420(frames)
+            frames_y, frames_uv = packed if packed is not None else rgb_to_yuv420_np(frames)
+            frames = None
     prompt = np.tile(np.asarray(prompt_ids, np.int32)[None], (B, 1))
     return HostBatch([s.utt_id for s in samples], [s.text for s in samples],
                      audio, audio_lens, frames, frame_lens, labels, label_lens,
-                     prompt)
+                     prompt, frames_y, frames_uv)
+
+
+def _pcm16_to_f32(audio: torch.Tensor) -> torch.Tensor:
+    """int16 PCM of the link format -> the f32 waveform the front end reads
+    (the exact inverse of the collate quantization for PCM16 sources)."""
+    return audio.float() / 32768.0
 
 
 def featurize(hb: HostBatch, device: str | torch.device = "cuda",
@@ -107,11 +134,17 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
 
     mel = mel_lens = vframes = None
     if hb.audio is not None:
+        audio = dev(hb.audio)
+        if audio.dtype == torch.int16:      # compact_transfer PCM
+            audio = _pcm16_to_f32(audio)
         audio_lens = dev(hb.audio_lens)
-        mel = log_mel_spectrogram(dev(hb.audio), audio_lens)
+        mel = log_mel_spectrogram(audio, audio_lens)
         mel_lens = audio_lens // HOP_LENGTH
     if hb.frames is not None:
         vframes = normalize_frames(dev(hb.frames), dtype=compute_dtype)
+    elif hb.frames_y is not None:           # compact_transfer YUV420
+        vframes = normalize_yuv420_frames(dev(hb.frames_y), dev(hb.frames_uv),
+                                          dtype=compute_dtype)
     return Batch(mel=mel, mel_lens=mel_lens, frames=vframes,
                  frame_lens=dev(hb.frame_lens) if hb.frame_lens is not None else None,
                  prompt_tokens=dev(hb.prompt), labels=dev(hb.labels),
@@ -140,6 +173,7 @@ class DataLoader:
         self.pad_id = tokenizer.pad_id
         self.prompt_ids = tokenizer.encode(model_cfg.prompt, add_bos=True)
         self._epoch = 0
+        self._pool: ThreadPoolExecutor | None = None
         self._skip = 0        # batches to skip on the next epoch (resume)
         self._yielded = 0     # batches handed out in the current epoch
 
@@ -175,10 +209,69 @@ class DataLoader:
                 # repeated rows get label length 0, so the loss weighs them
                 # zero (decode skips their repeated utterance ids)
                 chunk = np.concatenate([chunk, order[: bs - n_real]])
-            hb = collate([self.ds[int(i)] for i in chunk], self.cfg,
-                         self.prompt_ids, self.pad_id)
+            samples = self._resolve_audio(self._fetch(chunk), chunk)
+            hb = collate(samples, self.cfg, self.prompt_ids, self.pad_id)
             hb.label_lens[n_real:] = 0
             yield hb
+
+    def _fetch(self, chunk: np.ndarray) -> list[Sample]:
+        """The chunk's samples, loaded over ``data.num_workers`` threads
+        when it is above 1 (media decode and resize release the GIL)."""
+        if self.cfg.num_workers <= 1 or len(chunk) <= 1:
+            return [self.ds[int(i)] for i in chunk]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.cfg.num_workers)
+        return list(self._pool.map(lambda i: self.ds[int(i)], chunk))
+
+    def close(self) -> None:
+        """Stop the fetch threads (idempotent)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def __del__(self):   # a backstop for loaders never closed
+        try:
+            self.close()
+        except Exception:   # noqa: BLE001 — interpreter shutdown
+            pass
+
+    def _resolve_audio(self, samples: list[Sample], idxs: np.ndarray) -> list[Sample]:
+        """Decode the WAVs the dataset deferred: the whole group in one
+        native threaded call, then a per-file Python decode of a row the
+        native decoder failed, then the dataset's retry walk forward from a
+        row that stays corrupt."""
+        pend = [i for i, s in enumerate(samples) if s.audio is None and s.audio_path]
+        if not pend:
+            return samples
+        cap = self.cfg.max_audio_length
+        res = native.decode_wav_batch([samples[i].audio_path for i in pend],
+                                      max_samples=cap)
+        out, lens = res if res is not None else (None, None)
+        for j, i in enumerate(pend):
+            if out is not None and lens[j] > 0:
+                samples[i] = replace(samples[i], audio=out[j, :lens[j]].copy())
+                continue
+            try:
+                samples[i] = replace(samples[i], audio=load_audio(
+                    samples[i].audio_path, max_samples=cap))
+                continue
+            except Exception:  # noqa: BLE001 — any decode fault walks forward
+                pass
+            last_err: Exception | None = None
+            for probe in range(1, MAX_RETRY_WALK + 1):
+                try:
+                    rep = self.ds[(int(idxs[i]) + probe) % len(self.ds)]
+                    if rep.audio is None and rep.audio_path:
+                        rep = replace(rep, audio=load_audio(rep.audio_path,
+                                                            max_samples=cap))
+                    samples[i] = rep
+                    break
+                except Exception as e:  # noqa: BLE001 — the retry walk
+                    last_err = e
+            else:
+                raise IOError(f"failed to decode {samples[i].audio_path} and "
+                              f"{MAX_RETRY_WALK} subsequent samples") from last_err
+        return samples
 
     def __iter__(self) -> Iterator[tuple[HostBatch, Batch]]:
         """One worker thread collates and featurizes (host -> device copy

@@ -59,12 +59,13 @@ import functools
 import queue
 import threading
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig
+from avsr_tpu_torch.core.config import AVSRConfig, DataConfig, ModelConfig
+from avsr_tpu_torch.data.audio_io import load_audio
 from avsr_tpu_torch.data.dataset import Sample
 from avsr_tpu_torch.data.loader import HostBatch, collate, featurize, pick_bucket
 from avsr_tpu_torch.infer import adapters as ad
@@ -73,6 +74,19 @@ from avsr_tpu_torch.models import llama as L
 from avsr_tpu_torch.models.avsr import Batch, build_prefix, encode
 from avsr_tpu_torch.models.layers import Params
 from avsr_tpu_torch.ops.logmel import HOP_LENGTH
+
+
+def collate_group(samples: list[Sample], cfg: DataConfig, prompt_ids: list[int],
+                  pad_id: int) -> HostBatch:
+    """A request group's host batch (host work only: the prep thread runs
+    it). A manifest dataset's sample whose WAV decode was deferred to the
+    batch loader (``audio_path``) is decoded here, so the engine admits
+    samples straight from the dataset; with ``data.compact_transfer`` the
+    batch is packed in the compact link format, which ``featurize`` unpacks
+    on the device."""
+    samples = [replace(s, audio=load_audio(s.audio_path, max_samples=cfg.max_audio_length))
+               if s.audio is None and s.audio_path else s for s in samples]
+    return collate(samples, cfg, prompt_ids, pad_id)
 
 
 def slot_noise(S: int, V: int, generator: torch.Generator,
@@ -643,9 +657,8 @@ class ServingEngine:
     # -- host-side scheduling --------------------------------------------
 
     def _collate(self, samples: list[Sample]) -> HostBatch:
-        """Pad a group into a host batch (no device work: runs on the prep
-        thread)."""
-        return collate(samples, self.cfg.data, self._prompt_ids, self.tok.pad_id)
+        """Pad a group into a host batch (no device work)."""
+        return collate_group(samples, self.cfg.data, self._prompt_ids, self.tok.pad_id)
 
     def _stage_group(self, group: list, hb: HostBatch | None = None) -> None:
         """Prefill (req, sample, budget, temperature, top_p, adapter) tuples
@@ -742,7 +755,7 @@ class ServingEngine:
             # the worker holds no reference to the engine, so a dropped
             # engine is freed (close() also stops the thread)
             self._prep = _PrepWorker(functools.partial(
-                collate, cfg=self.cfg.data, prompt_ids=self._prompt_ids,
+                collate_group, cfg=self.cfg.data, prompt_ids=self._prompt_ids,
                 pad_id=self.tok.pad_id))
         ahead = self._prep_rows + sum(st.remaining for st in self._staged)
         while self._queue and ahead < 2 * self.S:

@@ -6,9 +6,13 @@ A step takes a batch whose leaves carry a leading [accum, micro, ...] axis
 the f32 gradients of the trainable leaves over the micro-batches. If the
 mean loss or the gradients' global norm is not finite, the parameters and
 the optimizer are left as they were and only ``state.step`` advances, as
-the JAX step's ``lax.cond`` does. A train step (and only a train step: it
-has a dropout seed) augments its micro-batches when ``data.specaugment`` or
-``data.video_augment`` asks.
+the JAX step's ``lax.cond`` does; with ``runtime.debug_nans`` a NaN loss
+or gradient norm raises ``FloatingPointError`` instead (as
+``jax_debug_nans`` does; an inf alone is still skipped), and so does a NaN
+eval loss. ``runtime.prng_impl`` and ``runtime.compilation_cache_dir`` are
+XLA settings with no meaning in eager PyTorch: accepted, and no-ops. A
+train step (and only a train step: it has a dropout seed) augments its
+micro-batches when ``data.specaugment`` or ``data.video_augment`` asks.
 """
 
 from __future__ import annotations
@@ -107,6 +111,9 @@ def make_train_step(cfg: AVSRConfig
             acc_sum = acc_sum + w * metrics["accuracy"].detach()
             clock.lap("backward_s")
         grad_norm = global_norm(grads)
+        if cfg.runtime.debug_nans:
+            _raise_on_nan("train step", step=state.step, loss=loss_sum,
+                          grad_norm=grad_norm)
         finite = bool(torch.isfinite(loss_sum) & torch.isfinite(grad_norm))
         if finite:
             state.optimizer.update(grads, grad_norm)
@@ -116,6 +123,18 @@ def make_train_step(cfg: AVSRConfig
                 "grad_norm": float(grad_norm), "skipped": float(not finite)}
 
     return train_step
+
+
+def _raise_on_nan(where: str, **values) -> None:
+    """``runtime.debug_nans``: raise on a NaN among ``values`` (tensors or
+    ints; an inf is not a NaN)."""
+    nan = [k for k, v in values.items()
+           if isinstance(v, torch.Tensor) and bool(torch.isnan(v).any())]
+    if nan:
+        shown = ", ".join(f"{k}={float(v) if isinstance(v, torch.Tensor) else v}"
+                          for k, v in values.items())
+        raise FloatingPointError(f"runtime.debug_nans: NaN {'/'.join(nan)} in the "
+                                 f"{where} ({shown})")
 
 
 class _Clock:
@@ -144,6 +163,8 @@ def make_eval_step(cfg: AVSRConfig) -> Callable[..., dict[str, float]]:
     @torch.no_grad()
     def eval_step(params, batch: Batch) -> dict[str, float]:
         loss, metrics = _loss_fn(params, cfg, batch, None)
+        if cfg.runtime.debug_nans:
+            _raise_on_nan("eval step", loss=loss)
         return {"loss": float(loss), "accuracy": float(metrics["accuracy"]),
                 "label_tokens": float(metrics["label_tokens"])}
 

@@ -112,6 +112,21 @@
    the responses equal ``generate_tokens`` and ``beam_search``; in bf16
    p50/p95 latency and requests/s; a timed-out request is cancelled in
    the engine. Exact launch counts on every path.
+15. Corpus phase (``corpus_phase``), at full width: 48 utterances of 2-10 s
+   written as real files from --seed by ``prepare_data.make_demo`` (PCM16 WAVs, a quarter at 48 kHz; 96 x
+   96 frames at 25 per second as .npy, resized to 224 on the host; 2-7 word
+   transcripts), manifests by the prepare_data CLI's scan mode (24 / 12 /
+   12). The train CLI takes one epoch (3 steps of 8, the native batch WAV
+   decode over 4 fetch threads) and validates; the decode CLI scores the
+   test split from its checkpoint in bf16 and with the serving preset, each
+   utterance once. The compact link (int16 PCM, planar YUV420): the first
+   batch's featurize against the raw one at the JAX package's bounds, one
+   train step and the bf16 decode. The f32 engine admits the test split
+   straight from the manifest dataset (WAV decode deferred; compact link)
+   and equals generate_tokens token for token. Prints the loader's pace:
+   host prep per batch with 1 and 4 fetch threads, the consumer's wait per
+   batch against the step, and the native batch decode against per-file
+   Python. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -3123,6 +3138,251 @@ def _serving(st: dict, out, hb, launches: dict, phase: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Corpus phase
+# ---------------------------------------------------------------------------
+
+def wav_rate(path: str) -> int:
+    import wave
+
+    with wave.open(path) as w:
+        return w.getframerate()
+
+
+def link_bytes(hb) -> int:
+    """The bytes of a host batch's media on the host->device link."""
+    return sum(a.nbytes for a in (hb.audio, hb.frames, hb.frames_y, hb.frames_uv)
+               if a is not None)
+
+
+def corpus_phase(seed: int) -> dict:
+    """Phase 15: a real-file corpus through every entry point at the
+    flagship's full width (see the module docstring)."""
+    import shutil
+    from dataclasses import replace
+
+    import torch
+
+    from avsr_tpu_torch import native
+    from avsr_tpu_torch.cli import common, decode, prepare_data, train
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.audio_io import load_audio
+    from avsr_tpu_torch.data.loader import DataLoader, collate, featurize
+    from avsr_tpu_torch.data.manifest import load_manifest
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import generate_tokens, prepare_params_for_decode
+
+    check(native.available(), "the native data library did not build on this host")
+    base = ROOT / "outputs" / "chip_smoke" / time.strftime("corpus_%Y%m%d_%H%M%S")
+    corpus, run, run_c = base / "data", base / "run", base / "run_compact"
+    res: dict = {}
+    by_path: dict[str, dict[str, int]] = {}
+    data = ["data.synthetic=false", f"data.path={corpus}", "data.num_workers=4"]
+    flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES, *data]
+    orig_iter = DataLoader.__iter__
+    waits: list[float] = []
+
+    def spy_iter(self):
+        """The train loader's batches, timing how long the consumer waits
+        for each one."""
+        it = orig_iter(self)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                if self.shuffle:
+                    waits.append(time.perf_counter() - t0)
+                yield item
+        finally:
+            it.close()
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        settle()
+        return out
+
+    def train_run(out: Path, steps: int, *extra: str) -> list[list[str]]:
+        rc = train.main([*flag, "training.grad_accum_steps=1", f"training.max_steps={steps}",
+                         "training.save_every_steps=0", f"training.checkpoint_dir={out}",
+                         *extra])
+        check(rc == 0, f"train CLI on the corpus returned {rc}")
+        rows = loss_rows(out)
+        train_rows = [r for r in rows if r[2] == "train"]
+        check(len(train_rows) == steps and all(np.isfinite(float(r[3])) for r in train_rows),
+              f"{out}: train rows {train_rows}")
+        check([r[2] for r in rows].count("val") == 1, f"{out}: no validation row")
+        return rows
+
+    def decode_run(out: Path, *extra: str) -> list[str]:
+        rc = decode.main([*flag, "decode.max_new_tokens=32", f"decode.output_dir={out}",
+                          *extra, "--checkpoint", str(run / "ckpt"), "--split", "test"])
+        check(rc == 0, f"decode CLI on the corpus returned {rc}")
+        res_f, wer_f = list(out.glob("results_*.txt")), list(out.glob("wer_*.txt"))
+        check(len(res_f) == 1 and len(wer_f) == 1, f"decode artifacts missing in {out}")
+        text = res_f[0].read_text()
+        check(text.count("UTT: ") == 12 and "utterances: 12\n" in wer_f[0].read_text(),
+              f"{out}: the test split's 12 utterances were not each scored once")
+        refs = sorted(ln[5:] for ln in text.splitlines() if ln.startswith("REF: "))
+        check(refs == sorted((corpus / "test.wrd").read_text().splitlines()),
+              f"{out}: references differ from test.wrd")
+        m = re.search(r"WER: ([0-9.]+)", wer_f[0].read_text())
+        check(m is not None and np.isfinite(float(m.group(1))), f"{out}: no WER")
+        return [ln for ln in text.splitlines() if ln.startswith(("UTT: ", "HYP: "))]
+
+    t_all = time.perf_counter()
+    try:
+        # 1. the corpus: real files, manifests by the prepare_data CLI's scan mode
+        t0 = time.perf_counter()
+        raw = prepare_data.make_demo(base / "raw", 48, seed + 1500, secs_range=(2.0, 10.0),
+                                     rates=(48_000, 16_000, 16_000, 16_000), frame_size=96)
+        check(prepare_data.main(["--data_dir", str(raw), "--transcripts",
+                                 str(raw / "transcripts.txt"),
+                                 "--out", str(corpus), "--splits", "0.5,0.25,0.25",
+                                 "--seed", str(seed)]) == 0, "prepare_data failed")
+        sizes = {s: len((corpus / f"{s}.wrd").read_text().splitlines())
+                 for s in ("train", "valid", "test")}
+        check(sizes == {"train": 24, "valid": 12, "test": 12}, f"split sizes {sizes}")
+        res["corpus"] = dict(utterances=48, splits=sizes, write_and_scan_s=time.perf_counter() - t0,
+                             mb_on_disk=sum(p.stat().st_size for p in base.rglob("*")
+                                            if p.is_file()) / 1e6)
+
+        # 2. training: one epoch of the train split (3 steps of 8), validation
+        DataLoader.__iter__ = spy_iter
+        try:
+            rows = counted("manifest_train", lambda: train_run(run, 3))
+        finally:
+            DataLoader.__iter__ = orig_iter
+        step_s = [float(r[7]) for r in rows if r[2] == "train"]
+        res["train"] = dict(losses=[float(r[3]) for r in rows if r[2] == "train"],
+                            val_loss=float(next(r[3] for r in rows if r[2] == "val")),
+                            step_ms=[1e3 * s for s in step_s],
+                            wait_ms=[1e3 * w for w in waits],
+                            mean_wait_ms_after_first=1e3 * float(np.mean(waits[1:])))
+        check(len(waits) == 3, f"the train loader handed out {len(waits)} batches, not 3")
+        n = by_path["manifest_train"]
+        check(n["flash_fwd"] > 0 and n["flash_bwd_dq"] > 0 and n["flash_bwd_dkv"] > 0,
+              f"training on the corpus launches {n}")
+        print("corpus train: " + json.dumps(res["train"]))
+
+        # 3. decoding the test split from that checkpoint: bf16 and the preset
+        hyp_bf16 = counted("manifest_decode_bf16", lambda: decode_run(base / "dec_bf16"))
+        counted("manifest_decode_preset",
+                lambda: decode_run(base / "dec_preset", *PRESET_OVERRIDES))
+        n = by_path["manifest_decode_preset"]
+        check(n["flash_fwd"] > 0 and n["qmatmul_int4"] > 0 and n["qmatmul_int8"] > 0,
+              f"the preset decode on the corpus launches {n}")
+        check(by_path["manifest_decode_bf16"]["flash_fwd"] > 0, "bf16 decode: no flash")
+
+        # 4. the compact link: its first batch against the raw one on the
+        # card, one train step and the bf16 decode
+        def first_batch(compact: bool):
+            cfg = flagship([*data, f"data.compact_transfer={str(compact).lower()}"])
+            _, _, loader = common.build_data(cfg, "test", shuffle=False, device="cuda")
+            hb = next(loader._host_batches())
+            loader.close()
+            return hb, featurize(hb, "cuda", torch.float32)
+
+        (h_raw, b_raw), (h_c, b_c) = first_batch(False), first_batch(True)
+        mel_d = (b_c.mel - b_raw.mel).abs().max().item()
+        frame_d = (b_c.frames - b_raw.frames).abs().mean().item()
+        check(h_c.audio.dtype == np.int16 and h_c.frames is None, "no compact host batch")
+        check(mel_d <= 2e-2, f"compact mel max |d| {mel_d}")
+        check(frame_d < 0.6, f"compact frames mean |d| {frame_d}")
+        check(torch.equal(b_c.labels, b_raw.labels), "compact labels differ")
+        counted("manifest_compact_train",
+                lambda: train_run(run_c, 1, "data.compact_transfer=true"))
+        shutil.rmtree(run_c / "ckpt", ignore_errors=True)
+        hyp_c = counted("manifest_compact_decode",
+                        lambda: decode_run(base / "dec_compact", "data.compact_transfer=true"))
+        same = sum(a == b for a, b in zip(hyp_c, hyp_bf16) if a.startswith("HYP: "))
+        res["compact"] = dict(mel_max_abs_diff=mel_d, frames_mean_abs_diff=frame_d,
+                              link_bytes=link_bytes(h_c), raw_bytes=link_bytes(h_raw),
+                              bf16_hyps_equal_raw_share=same / 12)
+        print("corpus compact link: " + json.dumps(res["compact"]))
+
+        # 5. the engine in f32 on the test split, straight from the manifest
+        # dataset (WAV decode deferred), compact link on, budgets <= 32
+        cfg32 = flagship(["runtime.compute_dtype=float32", *data,
+                          "data.compact_transfer=true"])
+        tok, ds, loader = common.build_data(cfg32, "test", shuffle=False, device="cuda")
+        loader.close()
+        samples = [ds[i] for i in range(len(ds))]
+        check(ds.defer_audio and all(s.audio is None and s.audio_path for s in samples),
+              "the test split's audio was not deferred")
+        budgets = [int(b) for b in np.random.default_rng(seed + 1501).integers(8, 33, 12)]
+        p32 = prepare_params_for_decode(common.init_or_load_params(cfg32, seed=seed,
+                                                                   device="cuda"), cfg32.model)
+        eng = ServingEngine(p32, cfg32, tok, num_slots=8, k_steps=16, seed=seed)
+        run_e = counted("manifest_engine", lambda: drive_engine(eng, samples, budgets))
+        check(by_path["manifest_engine"]["flash_fwd"] == 40 * eng.stages_run,
+              f"engine launches {by_path['manifest_engine']}, stages {eng.stages_run}")
+        eng.close()
+        prompt = tok.encode(cfg32.model.prompt, add_bos=True)
+        cap = cfg32.data.max_audio_length
+        decoded = [replace(s, audio=load_audio(s.audio_path, max_samples=cap)) for s in samples]
+        want = []
+        for s in range(0, 12, 8):
+            hb = collate(decoded[s:s + 8], cfg32.data, prompt, tok.pad_id)
+            out = generate_tokens(p32, cfg32.model, featurize(hb, "cuda", torch.float32),
+                                  max_new_tokens=max(budgets[s:s + 8]), eos_id=tok.eos_id,
+                                  compute_dtype=torch.float32)
+            want += [r[: min(n, b)] for r, n, b in zip(out.tokens.tolist(),
+                                                       out.lengths.tolist(), budgets[s:s + 8])]
+        diff = [i for i, (a, b) in enumerate(zip(run_e["tokens"], want)) if a != b]
+        check(not diff, f"f32 engine on the corpus != generate_tokens for requests {diff}")
+        res["engine_f32"] = dict(serving_numbers(run_e, eng=eng),
+                                 tokens_equal_generate_tokens=True)
+        del p32, eng
+        settle()
+        print("corpus engine f32: 12 requests equal generate_tokens token for token; "
+              + json.dumps(res["engine_f32"]["stats"]))
+
+        # 6. the loader's pace, on the host: prep per batch with 1 and 4
+        # fetch threads, and the native batch decode against per-file Python
+        pace = {}
+        for workers in (1, 4):
+            cfg = flagship([*data[:-1], f"data.num_workers={workers}"])
+            _, _, loader = common.build_data(cfg, "train", shuffle=False, device="cuda")
+            times, t0 = [], time.perf_counter()
+            for _ in loader._host_batches():
+                times.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+            loader.close()
+            pace[f"prep_ms_per_batch_workers_{workers}"] = [1e3 * t for t in times]
+        root, entries = load_manifest(corpus / "train.tsv")
+        paths = [str(root / e.audio_path) for e in entries]
+        t0 = time.perf_counter()
+        out, lens = native.decode_wav_batch(paths, max_samples=cap)
+        pace["native_batch_decode_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        py = [load_audio(p, max_samples=cap) for p in paths]
+        pace["python_decode_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(all(abs(int(n) - len(a)) <= 4 for n, a in zip(lens, py)),
+              "native and Python decodes differ in length")
+        pace["native_vs_python_max_abs_diff"] = max(   # scipy's resampler for 48 kHz
+            float(np.abs(out[i, :min(int(lens[i]), len(a))] - a[:int(lens[i])]).max())
+            for i, a in enumerate(py))
+        pace.update(files=len(paths), files_48khz=sum(
+            wav_rate(p) == 48_000 for p in paths))
+        res["loader_pace"] = pace
+        print(f"corpus loader pace ({gpu_line()}): " + json.dumps(pace))
+    finally:
+        DataLoader.__iter__ = orig_iter
+        shutil.rmtree(base, ignore_errors=True)
+    check(not base.exists(), f"{base} not removed")
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"corpus phase: {res['seconds']:.1f} s; launches " + json.dumps(by_path))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3215,6 +3475,14 @@ def main(argv: list[str] | None = None) -> int:
     check(all(sl[k] for k in ("flash_fwd", "qmatmul_int8", "qmatmul_int4")),
           f"a kernel did not launch on the serving path: {sl}")
 
+    settle()
+    # Phase 15 at full width: a real-file corpus through the train, decode
+    # and prepare_data CLIs, the compact link and the engine.
+    corpus = corpus_phase(args.seed)
+
+    def corpus_paths(name: str) -> dict[str, int]:
+        return {part: n[name] for part, n in corpus["launches_by_path"].items() if n[name]}
+
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
                 for part, n in serving["launches_by_path"].items() if n[name]}
@@ -3247,10 +3515,11 @@ def main(argv: list[str] | None = None) -> int:
         name="flash_fwd", route="cuda", source="avsr_tpu_torch/csrc/flash_fwd.cu",
         replaces="avsr_tpu/ops/attention.py:98",
         launches=(res["flash_launches"] + tl["fwd"] + cl["flash_fwd"] + kl["flash_fwd"]
-                  + vl["flash_fwd"] + sl["flash_fwd"]),
+                  + vl["flash_fwd"] + sl["flash_fwd"]
+                  + sum(corpus_paths("flash_fwd").values())),
         launches_by_path={"serve": res["flash_launches"], "train_3_steps": tl["fwd"],
                           "checkpoint": cl["flash_fwd"], **knob_paths("flash_fwd"),
-                          **serve_paths("flash_fwd")},
+                          **serve_paths("flash_fwd"), **corpus_paths("flash_fwd")},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_lse_err=max(r["max_lse_err"] for r in rows),
         ms=total("ms"), kernel_ms=total("ms"), plain_ms=total("plain_ms"),
@@ -3277,9 +3546,10 @@ def main(argv: list[str] | None = None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
-            launches=tl[key] + cl[name] + kl[name] + vl[name],
+            launches=tl[key] + cl[name] + kl[name] + vl[name]
+            + sum(corpus_paths(name).values()),
             launches_by_path={"train_3_steps": tl[key], "checkpoint": cl[name],
-                              **knob_paths(name)},
+                              **knob_paths(name), **corpus_paths(name)},
             max_abs_err=max(bwd["max_abs_err"][e] for e in errs),
             max_rel_err=max(bwd["max_rel_err"][e] for e in errs),
             ms=bwd[key]["ms"], plain_ms=bwd[key]["plain_ms"],
@@ -3301,6 +3571,7 @@ def main(argv: list[str] | None = None) -> int:
         by_path["checkpoint"] = cl[name]
         by_path.update(knob_paths(name))
         by_path.update(serve_paths(name))
+        by_path.update(corpus_paths(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",

@@ -1,6 +1,7 @@
 """The port's entry points with checkpoints vs the JAX package's (f32, CPU):
-train, average and decode ``--checkpoint``, and a quantized config loading
-a full-precision checkpoint.
+train, average and decode ``--checkpoint`` (on the synthetic set, and on a
+demo corpus's manifests with an HF tokenizer), and a quantized config
+loading a full-precision checkpoint.
 
 The JAX CLIs run on the tests' 8-device virtual CPU mesh (so batches of
 8); the port's on the CPU. Greedy decoding is token-exact in f32, so the
@@ -25,6 +26,7 @@ from avsr_tpu.models import avsr as javsr
 from avsr_tpu.train import checkpoint as jcheckpoint
 from avsr_tpu.train import state as jstate
 from avsr_tpu_torch.cli import average as tcli_average
+from avsr_tpu_torch.cli import prepare_data as tprep
 from avsr_tpu_torch.cli import common as tcommon
 from avsr_tpu_torch.cli import decode as tcli_decode
 from avsr_tpu_torch.cli import train as tcli_train
@@ -34,6 +36,7 @@ from avsr_tpu_torch.train import state as tstate
 from avsr_tpu_torch.train.checkpoint import (CheckpointManager, export_params,
                                              load_params)
 
+from test_torch_data import write_word_tokenizer
 from test_torch_models import np_tree
 from test_torch_train import jax_paths, port_paths
 
@@ -97,6 +100,42 @@ def test_train_checkpoint_decode_matches_jax(tmp_path):
     for d in ("jdec", "tdec"):
         (w,) = (tmp_path / d).glob("wer_*.txt")
         assert re.search(r"WER: [0-9.]+", w.read_text())
+
+
+def test_manifest_train_decode_with_hf_tokenizer_matches_jax(tmp_path):
+    """The same chain on a real-file corpus (``prepare_data --demo``) with
+    ``model.llm_path`` naming an HF tokenizer: both packages' train and
+    decode CLIs read the manifests, tokenize with it and give the same
+    hypotheses; decode scores each utterance of the split once."""
+    assert tprep.main(["--demo", "16", "--out", str(tmp_path / "demo"), "--seed", "4"]) == 0
+    write_word_tokenizer(tmp_path / "tok")
+    extra = {"data.synthetic": "false", "data.path": str(tmp_path / "demo"),
+             "model.llm_path": str(tmp_path / "tok"), "data.num_workers": 3,
+             "model.llm.vocab_size": 32}     # the tokenizer's 25 ids, so most decode
+    jover = overrides(tmp_path / "jrun", tmp_path / "jdec", **extra)
+    assert jcli_train.main(jover) == 0
+    assert jcli_decode.main(["--checkpoint", str(tmp_path / "jrun" / "ckpt"),
+                             "--split", "train", *jover]) == 0
+
+    tover = overrides(tmp_path / "trun", tmp_path / "tdec", **extra)
+    jc, tc = jload_config(None, jover), tcfg.load_config(None, tover)
+    init = np_tree(jstate.cast_frozen(
+        javsr.init_avsr_model(jax.random.key(jc.training.seed), jc.model),
+        jc.model, dtype=jnp.float32))
+    mngr = CheckpointManager(tmp_path / "trun" / "ckpt", tc)
+    mngr.save(tstate.create_train_state(from_numpy_tree(init, "cpu"), tc, 1))
+    mngr.close()
+    assert tcli_train.main(["--device", "cpu", *tover]) == 0
+    assert tcli_decode.main(["--device", "cpu", *tover, "--checkpoint",
+                             str(tmp_path / "trun" / "ckpt"), "--split", "train"]) == 0
+    hyps = hyp_lines(tmp_path / "tdec")
+    assert len(hyps) == 14 and hyps == hyp_lines(tmp_path / "jdec")
+    (results,) = (tmp_path / "tdec").glob("results_*.txt")
+    refs = [ln[5:] for ln in results.read_text().splitlines() if ln.startswith("REF:")]
+    assert sorted(refs) == sorted((tmp_path / "demo" / "train.wrd").read_text().splitlines())
+    for d in ("jdec", "tdec"):
+        (w,) = (tmp_path / d).glob("wer_*.txt")
+        assert "utterances: 14\n" in w.read_text()
 
 
 def test_average_params_matches_jax():

@@ -1,6 +1,6 @@
 """The port's continuous-batching engine and multi-LoRA bank vs the JAX
 package (f32, CPU), the counterparts of ``tests/test_engine.py``'s cases
-(tensor parallelism, MoE and the compact link format are not ported).
+(tensor parallelism and MoE are not ported).
 
 The engine's contract: every request's transcript equals a standalone
 ``generate_tokens`` call for it, token for token. Each case holds the
@@ -33,6 +33,7 @@ from avsr_tpu.models import avsr as javsr
 from avsr_tpu.ops import quant as jquant
 from avsr_tpu_torch.convert import from_numpy_tree
 from avsr_tpu_torch.core import config as tcfg
+from avsr_tpu_torch.data import dataset as tdataset
 from avsr_tpu_torch.data import loader as tloader
 from avsr_tpu_torch.data.dataset import Sample
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
@@ -321,6 +322,59 @@ def test_engine_av_modality():
     got = eng.transcribe(ts)
     for i, s in enumerate(ts):
         assert got[i] == ref_t(p_t, tc, tok, s, 5)
+
+
+@pytest.mark.parametrize("modality", ["audio", "both"])
+def test_engine_compact_transfer_token_exact(sync, modality):
+    """data.compact_transfer (int16 PCM, planar YUV420 frames) through the
+    engine's staging path: token-exact against the standalone decode of the
+    same compact batches, and equal to JAX's engine (the counterpart of
+    tests/test_engine.py::test_engine_compact_transfer_token_exact)."""
+    jc, tc = configs(**{"data.compact_transfer": True, "model.modality": modality})
+    p_j, p_t = model(jc)
+    tok = Tok()
+    ts, js = samples([4800, 16000, 8000], seed=7, frames=modality == "both")
+    hb = tloader.collate(ts, tc.data, [1, 2], tok.pad_id)
+    assert hb.audio.dtype == np.int16 and (hb.frames_y is not None) == (modality == "both")
+    kw = dict(num_slots=2, max_new_tokens=6, k_steps=3)
+    got = tengine.ServingEngine(p_t, tc, tok, **kw).transcribe(ts)
+    assert got == jengine.ServingEngine(p_j, jc, tok, **kw).transcribe(js)
+    for i, s in enumerate(ts):
+        assert got[i] == ref_t(p_t, tc, tok, s, 6), i
+
+
+def test_engine_admits_deferred_manifest_samples(tiny, sync, tmp_path):
+    """Samples straight from a manifest dataset whose WAV decode is deferred
+    (``audio_path``, no audio): the engine decodes them on admission and
+    gives the tokens of the decoded samples, and JAX's engine's."""
+    from avsr_tpu_torch.data.audio_io import write_wav
+    from avsr_tpu_torch.data.manifest import ManifestEntry, write_manifest
+
+    rng = np.random.default_rng(8)
+    entries = []
+    for i, n in enumerate([4800, 16000, 8000, 12000]):
+        write_wav(tmp_path / f"u{i}.wav", (0.3 * rng.standard_normal(n)).astype(np.float32))
+        entries.append(ManifestEntry(f"u{i}", "none", f"u{i}.wav", 0, n))
+    write_manifest(tmp_path / "test.tsv", tmp_path, entries)
+    (tmp_path / "test.wrd").write_text("a\nb\nc\nd\n")
+    r = tiny
+    ds_t = tdataset.ManifestAVSRDataset(
+        tcfg.DataConfig(**{**vars(r["tc"].data), "path": str(tmp_path)}), r["tok"],
+        split="test", modality="audio", defer_audio=True)
+    ds_j = jdataset.ManifestAVSRDataset(
+        type(r["jc"].data)(**{**vars(r["jc"].data), "path": str(tmp_path)}), r["tok"],
+        split="test", modality="audio", defer_audio=True)
+    deferred = [ds_t[i] for i in range(len(ds_t))]
+    assert all(s.audio is None and s.audio_path for s in deferred)
+    kw = dict(num_slots=2, max_new_tokens=6, k_steps=3)
+    got = tengine.ServingEngine(r["p_t"], r["tc"], r["tok"], **kw).transcribe(deferred)
+    decoded = [tdataset.Sample(s.utt_id, tdataset.load_audio(s.audio_path), None, s.text,
+                               s.tokens) for s in deferred]
+    assert got == tengine.ServingEngine(r["p_t"], r["tc"], r["tok"], **kw).transcribe(decoded)
+    assert got == jengine.ServingEngine(r["p_j"], r["jc"], r["tok"], **kw).transcribe(
+        [ds_j[i] for i in range(len(ds_j))])
+    for i, s in enumerate(decoded):
+        assert got[i] == ref_t(r["p_t"], r["tc"], r["tok"], s, 6), i
 
 
 def test_engine_reset_recovers(tiny):

@@ -32,9 +32,21 @@ def test_port_imports_no_jax():
     assert "avsr_tpu_torch.cli.decode" in res["modules"]
     assert "avsr_tpu_torch.train.checkpoint" in res["modules"]
     for name in ("infer.engine", "infer.adapters", "infer.server", "infer.streaming",
-                 "cli.serve", "cli.stream", "cli.infer", "data.audio_io", "data.video_io"):
+                 "cli.serve", "cli.stream", "cli.infer", "data.audio_io", "data.video_io",
+                 "data.manifest", "native", "cli.prepare_data"):
         assert f"avsr_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
+
+
+def test_tokenizer_module_imports_no_tokenizers():
+    """The HF tokenizer's library is imported when one is built, so the
+    package imports on a host without it."""
+    probe = ("import sys, avsr_tpu_torch.data.tokenizer as t, avsr_tpu_torch.cli.common; "
+             "print('tokenizers' in sys.modules, type(t.load_tokenizer(None)).__name__)")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "ByteTokenizer"]
 
 
 def test_port_sources_name_no_jax():

@@ -262,12 +262,19 @@ def test_decode_cli_engine_matches_static(tmp_path, extra):
 @pytest.mark.parametrize("over", ["model.llm.moe_experts=4", "model.connector_type=moe",
                                   "data.compact_transfer=true"])
 def test_engine_path_refuses_moe_and_the_compact_link(tmp_path, over):
-    """MoE layers and the compact link format are still to be ported: the
-    engine path of the decode CLI raises, as the static path does."""
+    """MoE layers are still to be ported: the engine path of the decode CLI
+    raises, as the static path does. The compact link format is ported: the
+    engine path decodes with it and gives the static path's HYP lines."""
+    common = ["--config", str(TINY_YAML), "--device", "cpu", "data.synthetic=true", over]
+    if over == "data.compact_transfer=true":
+        assert tdecode.main([*common, f"decode.output_dir={tmp_path / 'static'}"]) == 0
+        assert tdecode.main([*common, "decode.engine_slots=2",
+                             f"decode.output_dir={tmp_path / 'eng'}"]) == 0
+        assert _hyps(tmp_path / "static") == _hyps(tmp_path / "eng")
+        assert len(_hyps(tmp_path / "eng")) == 2
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdecode.main(["--config", str(TINY_YAML), "--device", "cpu",
-                      "data.synthetic=true", "decode.engine_slots=2", over,
-                      f"decode.output_dir={tmp_path}"])
+        tdecode.main([*common, "decode.engine_slots=2", f"decode.output_dir={tmp_path}"])
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -293,6 +293,45 @@ def test_train_steps_match_jax_with_nonfinite_skip(weights):
     assert not torch.equal(port_paths(state_t.params)[lora_b], before[lora_b])
 
 
+def test_debug_nans_raises_on_nan_and_skips_inf(weights, monkeypatch):
+    """runtime.debug_nans: a NaN step raises FloatingPointError in the port
+    as under JAX's jax_debug_nans (and the parameters stay as they were); a
+    step whose loss is +inf with finite gradients is still skipped, as JAX
+    (which never sets jax_debug_infs) skips it; a NaN eval loss raises."""
+    jc, tc = configs(**{"runtime.debug_nans": True})
+    assert tc.runtime.debug_nans
+    bad = np_batch(1)
+    bad["mel"][:] = np.nan
+    state_j, tx = jstate.create_train_state(
+        jax.tree_util.tree_map(jnp.asarray, weights), jc, 10)
+    with jax.debug_nans(True), pytest.raises(FloatingPointError):
+        jstep.make_train_step(jc, tx)(state_j, jstep.microbatch(jbatch(bad), 1),
+                                      jax.random.key(0))
+    p_t = tstate.cast_frozen(from_numpy_tree(weights, "cpu"), tc.model, torch.float32)
+    state_t = tstate.create_train_state(p_t, tc, 10)
+    step_t = tstep.make_train_step(tc)
+    before = {k: v.clone() for k, v in port_paths(p_t).items()}
+    with pytest.raises(FloatingPointError, match="runtime.debug_nans: NaN loss/grad_norm"):
+        step_t(state_t, tstep.microbatch(tbatch(bad), 1), 0)
+    with pytest.raises(FloatingPointError, match="NaN loss in the eval step"):
+        tstep.make_eval_step(tc)(p_t, tbatch(bad))
+    forward = tstep.forward
+
+    def inf_loss(*a, **k):
+        loss, metrics = forward(*a, **k)
+        return loss + torch.tensor(float("inf")), metrics
+
+    monkeypatch.setattr(tstep, "forward", inf_loss)
+    m = step_t(state_t, tstep.microbatch(tbatch(np_batch(1)), 1), 1)
+    assert m["skipped"] == 1.0 and m["loss"] == float("inf") and np.isfinite(m["grad_norm"])
+    assert state_t.step == 1 and state_t.optimizer.count == 0
+    for path, leaf in port_paths(state_t.params).items():
+        assert torch.equal(leaf, before[path]), path
+    _, tc_off = configs()
+    m = tstep.make_train_step(tc_off)(state_t, tstep.microbatch(tbatch(bad), 1), 2)
+    assert m["skipped"] == 1.0     # without debug_nans a NaN step is skipped
+
+
 def test_weighted_accumulation_equals_full_batch(weights):
     """accum 2 over two halves of equal label counts == accum 1 over the
     whole batch (same loss, same gradient norm, same parameters after two
