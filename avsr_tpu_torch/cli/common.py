@@ -1,7 +1,10 @@
 """Shared CLI plumbing of the port: the argument parser, the config (with
 logging set up), the tokenizer, dataset and loader of a
 split, and the weights (a random init, or a checkpoint of the port's
-Trainer or a params export over it).
+Trainer or a params export over it: ``cli/average.py``'s, or the
+converters' ``cli/convert_hf.py`` and ``cli/convert_ref_ckpt.py``, whose
+f32 exports restore into any config of the same geometry and are
+quantized after loading for a quantized one).
 
 ``load_multilora`` gives the base and the adapter bank of multi-tenant
 serving (``cli/serve.py --adapter``).

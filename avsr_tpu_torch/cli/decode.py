@@ -19,7 +19,8 @@ trained draft (``decode.spec_draft_checkpoint`` and
 ``decode.spec_draft_config``, written by ``cli/distill.py``), which
 encodes its own prefix. ``--checkpoint`` names a trainer checkpoint
 directory of the port (its newest step is read) or a params export
-(``cli/average.py``); without it the weights are a random init from
+(``cli/average.py``, ``cli/convert_hf.py``, ``cli/convert_ref_ckpt.py``);
+without it the weights are a random init from
 ``--seed``. A quantized config quantizes a full-precision checkpoint after
 loading it. Either way the weights end in the decode layout
 (``cli/common.py::load_decode_params``). ``decode.engine_slots=S``

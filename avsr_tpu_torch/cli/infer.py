@@ -54,7 +54,8 @@ def main(argv: list[str] | None = None) -> int:
     hb = collate([Sample("cli", audio, frames, "", [tok.eos_id])], cfg.data,
                  tok.encode(cfg.model.prompt, add_bos=True), tok.pad_id)
     params = load_decode_params(cfg, args.checkpoint, seed=args.seed, device=device)
-    out = generate(params, cfg.model, featurize(hb, device, dtype), cfg.decode,
+    batch = featurize(hb, device, dtype, cfg.model)
+    out = generate(params, cfg.model, batch, cfg.decode,
                    eos_id=tok.eos_id,
                    generator=torch.Generator(device=device).manual_seed(cfg.training.seed),
                    compute_dtype=dtype, use_kernel=cfg.runtime.use_pallas)

@@ -6,7 +6,9 @@
 
 The weights are a random init from ``--seed`` (trainable leaves f32,
 frozen ones in the compute dtype; with ``model.use_4bit`` or ``use_8bit``
-the LLM's projections quantized, QLoRA). ``--mode`` picks a memory preset
+the LLM's projections quantized, QLoRA), or with ``--checkpoint`` a params
+export (``cli/convert_hf.py``, ``cli/convert_ref_ckpt.py``,
+``cli/average.py``) or a trainer checkpoint's newest step over it. ``--mode`` picks a memory preset
 (``cli/common.py::MODE_OVERRIDES``), and ``training.auto_batch_size`` sets
 ``data.batch_size`` from the batch-size probe (``train/probe.py``) on a
 second init. The loss log, the loss history and the checkpoints (``ckpt/``,
@@ -26,7 +28,8 @@ import logging
 
 import torch
 
-from avsr_tpu_torch.cli.common import base_parser, build_data, init_params, load_cli_config
+from avsr_tpu_torch.cli.common import (base_parser, build_data, init_or_load_params,
+                                       init_params, load_cli_config)
 from avsr_tpu_torch.models.avsr import summarize
 from avsr_tpu_torch.train.loop import Trainer
 from avsr_tpu_torch.train.probe import find_optimal_batch_size
@@ -35,7 +38,10 @@ log = logging.getLogger("avsr_tpu_torch.cli.train")
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = base_parser("Train the AVSR model", modes=True).parse_args(argv)
+    p = base_parser("Train the AVSR model", modes=True)
+    p.add_argument("--checkpoint", default=None,
+                   help="initial weights: a params export or trainer checkpoint dir")
+    args = p.parse_args(argv)
     cfg = load_cli_config(args)
     device = torch.device(args.device)
     if cfg.training.auto_batch_size:
@@ -56,7 +62,7 @@ def main(argv: list[str] | None = None) -> int:
         log.warning("no validation split found — training without val")
         val_loader = None
 
-    params = init_params(cfg, seed=args.seed, device=device)
+    params = init_or_load_params(cfg, args.checkpoint, seed=args.seed, device=device)
     log.info("model summary: %s", summarize(params, cfg.model))
     trainer = Trainer(cfg, params, train_loader, val_loader, tok=tok)
     try:

@@ -1,7 +1,7 @@
 """Typed configuration of the PyTorch port.
 
 A copy of the sections of ``avsr_tpu.core.config`` that the port reads
-(``data``, ``model`` with its Whisper/CLIP/LLM/LoRA subsections,
+(``data``, ``model`` with its Whisper/HuBERT-Wav2Vec2/CLIP/LLM/LoRA subsections,
 ``training``, ``mesh``, ``runtime``, ``decode``), with the same field names
 and defaults, so that a YAML file written for the JAX package loads here
 unchanged. Mesh axes above 1 (multi-GPU layouts, not yet ported) raise
@@ -11,9 +11,10 @@ here: it is an XLA buffer-donation hint, and eager PyTorch updates the
 train state in place anyway.
 
 PyYAML is imported only inside :func:`load_config`, for a file that is not
-JSON: the flagship config is also built in Python by :func:`flagship`,
-which mirrors ``avsr_tpu/configs/base.yaml``, and :func:`save_config`
-writes JSON, so both serve hosts without PyYAML.
+JSON: the two shipped configs are also built in Python, by :func:`flagship`
+(``avsr_tpu/configs/base.yaml``) and :func:`hubert_base`
+(``avsr_tpu/configs/hubert_base.yaml``), and :func:`save_config` writes
+JSON, so both serve hosts without PyYAML.
 """
 
 from __future__ import annotations
@@ -77,6 +78,34 @@ class WhisperConfig:
 
 
 @dataclass(frozen=True)
+class SpeechSSLConfig:
+    """HuBERT / Wav2Vec2 audio-encoder geometry (HF facebook/hubert-*,
+    facebook/wav2vec2-*), selected by ``model.audio_encoder``."""
+
+    d_model: int = 768           # *-base; 1024 for *-large
+    n_heads: int = 12
+    n_layers: int = 12
+    ffn_mult: int = 4
+    conv_dims: tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernels: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_strides: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False                  # True for *-large
+    feat_extract_norm: str = "group"         # group (base) | layer (large)
+    do_stable_layer_norm: bool = False       # pre-LN blocks (large)
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    sample_rate: int = 16000
+    normalize_input: bool = True             # per-utterance zero-mean/unit-var
+
+    @property
+    def downsample(self) -> int:
+        out = 1
+        for s in self.conv_strides:
+            out *= s
+        return out
+
+
+@dataclass(frozen=True)
 class ClipConfig:
     image_size: int = 224
     patch_size: int = 32
@@ -134,6 +163,7 @@ class ModelConfig:
     use_8bit: bool = False
     prompt: str = "Transcribe the speech into text:"
     whisper: WhisperConfig = field(default_factory=WhisperConfig)
+    ssl: SpeechSSLConfig = field(default_factory=SpeechSSLConfig)
     clip: ClipConfig = field(default_factory=ClipConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
@@ -152,7 +182,10 @@ class ModelConfig:
 
     @property
     def audio_dim(self) -> int:
-        return self.whisper.d_model
+        """Feature dim the audio connector consumes."""
+        if self.audio_encoder == "whisper":
+            return self.whisper.d_model
+        return self.ssl.d_model
 
     @property
     def video_dim(self) -> int:
@@ -267,15 +300,26 @@ class AVSRConfig:
                 f"got {m.connector_type!r}")
         if m.use_4bit and m.use_8bit:
             raise ValueError("use_4bit and use_8bit are mutually exclusive")
+        if m.audio_encoder not in ("whisper", "hubert", "wav2vec2"):
+            raise ValueError(
+                f"audio_encoder must be whisper|hubert|wav2vec2, "
+                f"got {m.audio_encoder!r}")
+        if m.ssl.feat_extract_norm not in ("group", "layer"):
+            raise ValueError("ssl.feat_extract_norm must be group|layer")
+        if not (len(m.ssl.conv_dims) == len(m.ssl.conv_kernels)
+                == len(m.ssl.conv_strides)):
+            raise ValueError("ssl conv_dims/conv_kernels/conv_strides lengths differ")
         if m.llm.n_heads % max(m.llm.n_kv_heads, 1) != 0:
             raise ValueError("llm.n_heads must be divisible by llm.n_kv_heads")
         for b, nxt in zip(self.data.audio_buckets, self.data.audio_buckets[1:]):
             if nxt <= b:
                 raise ValueError("audio_buckets must be strictly increasing")
-        if self.data.audio_buckets[-1] > m.whisper.max_frames:
+        if (m.audio_encoder == "whisper"
+                and self.data.audio_buckets[-1] > m.whisper.max_frames):
             raise ValueError(
                 f"largest audio bucket ({self.data.audio_buckets[-1]} mel "
-                f"frames) exceeds whisper.max_frames ({m.whisper.max_frames})")
+                f"frames) exceeds whisper.max_frames "
+                f"({m.whisper.max_frames})")
         if self.decode.lm_head_bits not in (0, 4, 8):
             raise ValueError("decode.lm_head_bits must be 0, 4 or 8")
         if self.decode.kv_cache_dtype not in ("bfloat16", "int8"):
@@ -535,3 +579,33 @@ def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
     }
     return from_dict(tree, overrides)
 
+
+def hubert_base(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
+    """The second shipped config, a Python mirror of
+    ``avsr_tpu/configs/hubert_base.yaml``: HuBERT-base (12 post-LN layers of
+    768, group-norm feature extractor, raw 16 kHz waveform in) +
+    Llama-3.2-1B with LoRA r=16, audio only, bf16 compute. Set
+    ``model.audio_encoder=wav2vec2`` for the same geometry under the
+    Wav2Vec2 name."""
+    tree = {
+        "data": {"path": "", "batch_size": 8, "max_audio_length": 480000,
+                 "max_label_length": 128, "audio_buckets": [1000, 2000, 3000]},
+        "model": {
+            "modality": "audio", "audio_encoder": "hubert",
+            "connector_type": "simple", "max_seq_len": 1536,
+            "freeze_encoders": True, "freeze_llm": True,
+            "prompt": "Transcribe the speech into text:",
+            "ssl": {"d_model": 768, "n_heads": 12, "n_layers": 12,
+                    "feat_extract_norm": "group", "do_stable_layer_norm": False,
+                    "conv_bias": False},
+            "llm": {"vocab_size": 128256, "d_model": 2048, "n_layers": 16,
+                    "n_heads": 32, "n_kv_heads": 8, "ffn_dim": 8192,
+                    "rope_theta": 500000.0},
+            "lora": {"use_lora": True, "r": 16, "alpha": 32},
+        },
+        "training": {"num_epochs": 10, "learning_rate": 2.0e-5,
+                     "grad_accum_steps": 4, "max_grad_norm": 0.5,
+                     "warmup_steps": 100, "checkpoint_dir": "outputs/avsr_hubert"},
+        "runtime": {"compute_dtype": "bfloat16"},
+    }
+    return from_dict(tree, overrides)

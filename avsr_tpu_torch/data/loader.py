@@ -7,8 +7,10 @@ of ``avsr_tpu/data/loader.py``.
     int16 PCM audio and planar YUV420 frames (~2.3x fewer host->device
     bytes for an AV batch).
   * ``featurize`` moves a host batch to the device and computes the
-    log-mel and the normalized frames there (reconstructing f32 audio and
-    RGB frames from the compact format first).
+    log-mel (or, for the HuBERT/Wav2Vec2 encoders its config names, passes
+    the padded waveform through) and the normalized frames
+    there (reconstructing f32 audio and RGB frames from the compact format
+    first).
   * ``DataLoader`` walks a dataset in a per-epoch shuffled order (numpy's
     ``default_rng(seed + epoch)``, so the order is the JAX loader's) or in
     order, wrap-padding the final short batch (its repeated rows get label
@@ -126,20 +128,27 @@ def _pcm16_to_f32(audio: torch.Tensor) -> torch.Tensor:
 
 
 def featurize(hb: HostBatch, device: str | torch.device = "cuda",
-              compute_dtype: torch.dtype = torch.float32) -> Batch:
-    """Host batch -> device Batch: log-mel and frame normalization on the
-    device."""
+              compute_dtype: torch.dtype = torch.float32,
+              model_cfg: ModelConfig | None = None) -> Batch:
+    """Host batch -> device Batch: the audio front end and frame
+    normalization on the device. The audio front end is the one
+    ``model_cfg.audio_encoder`` consumes: the padded f32 waveform and its
+    lengths for HuBERT/Wav2Vec2, which own their conv front end; else
+    (Whisper, or no config) the log-mel."""
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    mel = mel_lens = vframes = None
+    mel = mel_lens = vframes = wave = wave_lens = None
     if hb.audio is not None:
         audio = dev(hb.audio)
         if audio.dtype == torch.int16:      # compact_transfer PCM
             audio = _pcm16_to_f32(audio)
         audio_lens = dev(hb.audio_lens)
-        mel = log_mel_spectrogram(audio, audio_lens)
-        mel_lens = audio_lens // HOP_LENGTH
+        if model_cfg is not None and model_cfg.audio_encoder != "whisper":
+            wave, wave_lens = audio, audio_lens
+        else:
+            mel = log_mel_spectrogram(audio, audio_lens)
+            mel_lens = audio_lens // HOP_LENGTH
     if hb.frames is not None:
         vframes = normalize_frames(dev(hb.frames), dtype=compute_dtype)
     elif hb.frames_y is not None:           # compact_transfer YUV420
@@ -148,7 +157,7 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
     return Batch(mel=mel, mel_lens=mel_lens, frames=vframes,
                  frame_lens=dev(hb.frame_lens) if hb.frame_lens is not None else None,
                  prompt_tokens=dev(hb.prompt), labels=dev(hb.labels),
-                 label_lens=dev(hb.label_lens))
+                 label_lens=dev(hb.label_lens), wave=wave, wave_lens=wave_lens)
 
 
 # Batches the worker thread prepares ahead of the consumer.
@@ -170,6 +179,7 @@ class DataLoader:
         self.seed = seed
         self.device = device
         self.compute_dtype = compute_dtype
+        self.model_cfg = model_cfg
         self.pad_id = tokenizer.pad_id
         self.prompt_ids = tokenizer.encode(model_cfg.prompt, add_bos=True)
         self._epoch = 0
@@ -287,7 +297,8 @@ class DataLoader:
                 for hb in self._host_batches(skip):
                     if stop.is_set():
                         return
-                    q.put((hb, featurize(hb, self.device, self.compute_dtype)))
+                    q.put((hb, featurize(hb, self.device, self.compute_dtype,
+                                         self.model_cfg)))
             except Exception as e:  # noqa: BLE001 — re-raised in the consumer
                 q.put(e)
             finally:

@@ -668,7 +668,7 @@ class ServingEngine:
         is collated here."""
         if hb is None:
             hb = self._collate([s for _, s, *_ in group])
-        batch = featurize(hb, self.device, self.dt)
+        batch = featurize(hb, self.device, self.dt, self.cfg.model)
         kw = dict(cache_len=self.M, compute_dtype=self.dt, use_kernel=self.use_kernel)
         rows, tok0, plens = stage(
             self.params, self.cfg.model, batch,

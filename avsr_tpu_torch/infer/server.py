@@ -273,7 +273,8 @@ class AVSRServer:
         prompt_ids = self.tok.encode(cfg.model.prompt, add_bos=True)
         hb = collate([p.sample for p in group], cfg.data, prompt_ids, self.tok.pad_id)
         out = beam_search(
-            eng.params, cfg.model, featurize(hb, eng.device, eng.dt),
+            eng.params, cfg.model,
+            featurize(hb, eng.device, eng.dt, cfg.model),
             max_new_tokens=group[0].max_new or cfg.decode.max_new_tokens,
             num_beams=group[0].num_beams, length_penalty=cfg.decode.length_penalty,
             eos_id=self.tok.eos_id, compute_dtype=eng.dt, use_kernel=eng.use_kernel,

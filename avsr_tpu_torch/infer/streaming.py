@@ -213,7 +213,7 @@ class StreamingTranscriber:
         sample = Sample("stream", audio, frames, "", [self.tok.eos_id])
         prompt_ids = self.tok.encode(self.cfg.model.prompt, add_bos=True)
         hb = collate([sample], self.cfg.data, prompt_ids, self.tok.pad_id)
-        return featurize(hb, self._device, self._dt)
+        return featurize(hb, self._device, self._dt, self.cfg.model)
 
     @staticmethod
     def _ids(out) -> list[int]:

@@ -1,10 +1,12 @@
 """AVSR model composition, the port of ``avsr_tpu/models/avsr.py``:
-Whisper + CLIP + simple connectors + Llama(+LoRA), with ``weighted_sum`` or
+Whisper or HuBERT/Wav2Vec2 + CLIP + simple connectors + Llama(+LoRA), with
+``weighted_sum`` or
 ``concat_seq`` fusion, the packed [prompt][features] prefix that
 generation prefills, and the training ``forward`` (packed causal-LM loss
 on the label positions).
 
-The other encoders and connectors, and MoE, are still to be ported.
+The other video encoders (ResNet, EfficientNet, AV-HuBERT), the other
+connectors, and MoE, are still to be ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.models import llama as llama_mod
 from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
 from avsr_tpu_torch.models.connectors import get_connector
+from avsr_tpu_torch.models.hubert import init_speech_ssl, speech_ssl_apply
 from avsr_tpu_torch.models.layers import Params
 from avsr_tpu_torch.models.whisper_encoder import (
     init_whisper_encoder,
@@ -37,6 +40,9 @@ class Batch(NamedTuple):
     prompt_tokens: torch.Tensor | None = None  # [Tp] or [B, Tp] (incl. BOS)
     labels: torch.Tensor | None = None         # [B, Tl]
     label_lens: torch.Tensor | None = None     # [B]
+    # raw-waveform front end (audio_encoder hubert/wav2vec2; mel unused then)
+    wave: torch.Tensor | None = None           # [B, T_samples] f32
+    wave_lens: torch.Tensor | None = None      # [B] (samples)
 
 
 class EncodeOut(NamedTuple):
@@ -45,9 +51,10 @@ class EncodeOut(NamedTuple):
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.audio_encoder != "whisper" or cfg.video_encoder != "clip":
+    if cfg.video_encoder != "clip" and cfg.modality in ("video", "both"):
         raise NotImplementedError(
-            "only the whisper and clip encoders are ported to avsr_tpu_torch")
+            f"video_encoder {cfg.video_encoder!r} is not yet ported to "
+            "avsr_tpu_torch (ported: clip)")
     if cfg.llm.moe_experts or cfg.connector_type == "moe":
         raise NotImplementedError("MoE layers are not yet ported")
 
@@ -104,7 +111,10 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
     d_llm = cfg.llm.d_model
     params: Params = {}
     if cfg.modality in ("audio", "both"):
-        params["whisper"] = init_whisper_encoder(gen, cfg.whisper, dtype)
+        if cfg.audio_encoder == "whisper":
+            params["whisper"] = init_whisper_encoder(gen, cfg.whisper, dtype)
+        else:   # hubert / wav2vec2 share one module
+            params[cfg.audio_encoder] = init_speech_ssl(gen, cfg.ssl, dtype)
         params["audio_connector"] = conn.init(gen, cfg.audio_dim, d_llm, cfg, dtype)
     if cfg.modality in ("video", "both"):
         params["clip"] = init_clip_vit(gen, cfg.clip, dtype)
@@ -162,10 +172,16 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     a_out = a_lens = v_out = v_lens = None
     if cfg.modality in ("audio", "both"):
         with frozen:
-            feats, alens = whisper_encoder_apply(
-                params["whisper"], batch.mel, cfg.whisper,
-                mel_lengths=batch.mel_lens, compute_dtype=compute_dtype,
-                use_kernel=use_kernel, remat=remat)
+            if cfg.audio_encoder == "whisper":
+                feats, alens = whisper_encoder_apply(
+                    params["whisper"], batch.mel, cfg.whisper,
+                    mel_lengths=batch.mel_lens, compute_dtype=compute_dtype,
+                    use_kernel=use_kernel, remat=remat)
+            else:
+                feats, alens = speech_ssl_apply(
+                    params[cfg.audio_encoder], batch.wave, cfg.ssl,
+                    wave_lengths=batch.wave_lens, compute_dtype=compute_dtype,
+                    use_kernel=use_kernel, remat=remat)
         a_out, a_lens = conn.apply(params["audio_connector"], feats, alens)
     if cfg.modality in ("video", "both"):
         with frozen:

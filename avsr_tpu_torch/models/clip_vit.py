@@ -14,11 +14,13 @@ recomputes each block in the backward while grad mode is on.
 from __future__ import annotations
 
 import functools
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import ClipConfig
+from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import (
     Params,
     encoder_block_apply,
@@ -80,3 +82,40 @@ def clip_vit_apply(params: Params, frames: torch.Tensor, cfg: ClipConfig, *,
         else:
             x = block(bp, x)
     return x[:, 0].reshape(B, T, -1)
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+def convert_hf_clip_vision(state_dict: dict[str, Any], cfg: ClipConfig) -> Params:
+    """An HF ``CLIPVisionModel`` (or ``CLIPModel``) state dict -> the port's
+    tree. The patch conv ``[d, 3, p, p]`` becomes the patchify matmul's
+    ``[3 * p * p, d]`` in (c, ph, pw) order; dense weights are transposed."""
+    sd = Prefixed(state_dict, ("vision_model.", "clip.vision_model.", ""))
+    arr, lin, ln = sd.arr, sd.lin, sd.ln
+
+    conv = arr("embeddings.patch_embedding.weight")     # [d, 3, p, p]
+    blocks = []
+    for i in range(cfg.n_layers):
+        pre = f"encoder.layers.{i}."
+        blocks.append({
+            "attn": {
+                "q": lin(pre + "self_attn.q_proj"),
+                "k": lin(pre + "self_attn.k_proj"),
+                "v": lin(pre + "self_attn.v_proj"),
+                "o": lin(pre + "self_attn.out_proj"),
+            },
+            "ln1": ln(pre + "layer_norm1"),
+            "fc1": lin(pre + "mlp.fc1"),
+            "fc2": lin(pre + "mlp.fc2"),
+            "ln2": ln(pre + "layer_norm2"),
+        })
+    return {
+        "patch": {"w": conv.reshape(conv.shape[0], -1).T.contiguous()},
+        "cls": arr("embeddings.class_embedding"),
+        "pos": arr("embeddings.position_embedding.weight"),
+        "ln_pre": ln("pre_layrnorm"),
+        "blocks": blocks,
+        "ln_post": ln("post_layernorm"),
+    }

@@ -46,7 +46,7 @@ Still to be ported: MoE FFN layers and the pipeline path.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
+from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
 from avsr_tpu_torch.ops.attention import attention
 from avsr_tpu_torch.ops.quant import is_quantized, qdot
@@ -704,3 +705,42 @@ def merge_new_columns(suffix_cache: KVCache, k_new: torch.Tensor,
         k[:, :, :, col] = k_new[:, gather]
         v[:, :, :, col] = v_new[:, gather]
     return KVCache(k, v)
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+def convert_hf_llama(state_dict: dict[str, Any], cfg: LLMConfig) -> Params:
+    """An HF ``LlamaForCausalLM`` state dict -> the port's tree (keys with
+    or without the ``model.`` prefix; weights ``[out, in]`` become
+    ``[in, out]``). The head is kept only for an untied config whose state
+    dict has ``lm_head.weight``."""
+    sd = Prefixed(state_dict, ("model.", ""))
+    arr = sd.arr
+
+    def lin(name: str) -> Params:
+        return sd.lin(name, bias=False)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        layers.append({
+            "ln_attn": {"scale": arr(pre + "input_layernorm.weight")},
+            "q": lin(pre + "self_attn.q_proj"),
+            "k": lin(pre + "self_attn.k_proj"),
+            "v": lin(pre + "self_attn.v_proj"),
+            "o": lin(pre + "self_attn.o_proj"),
+            "ln_mlp": {"scale": arr(pre + "post_attention_layernorm.weight")},
+            "gate": lin(pre + "mlp.gate_proj"),
+            "up": lin(pre + "mlp.up_proj"),
+            "down": lin(pre + "mlp.down_proj"),
+        })
+    params: Params = {
+        "embed": arr("embed_tokens.weight"),
+        "layers": layers,
+        "ln_f": {"scale": arr("norm.weight")},
+    }
+    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
+        params["lm_head"] = lin("lm_head")
+    return params

@@ -12,12 +12,14 @@ the counterpart of ``jax.checkpoint``) while grad mode is on.
 from __future__ import annotations
 
 import functools
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import WhisperConfig
+from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import (
     Params,
     encoder_block_apply,
@@ -92,3 +94,39 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     if pad_t:
         x = x[:, :Tf]
     return layer_norm(params["ln_post"], x), feat_lengths
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+def convert_hf_whisper_encoder(state_dict: dict[str, Any], cfg: WhisperConfig) -> Params:
+    """An HF ``WhisperModel`` (or ``WhisperForConditionalGeneration``, or
+    encoder-only) state dict -> the port's tree. Keys with or without the
+    ``model.encoder.`` / ``encoder.`` prefix; dense weights ``[out, in]``
+    become ``[in, out]``, conv kernels keep ``[out, in, k]``."""
+    sd = Prefixed(state_dict, ("model.encoder.", "encoder.", ""))
+    arr, lin, ln = sd.arr, sd.lin, sd.ln
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        blocks.append({
+            "attn": {
+                "q": lin(pre + "self_attn.q_proj"),
+                "k": lin(pre + "self_attn.k_proj", bias=False),
+                "v": lin(pre + "self_attn.v_proj"),
+                "o": lin(pre + "self_attn.out_proj"),
+            },
+            "ln1": ln(pre + "self_attn_layer_norm"),
+            "fc1": lin(pre + "fc1"),
+            "fc2": lin(pre + "fc2"),
+            "ln2": ln(pre + "final_layer_norm"),
+        })
+    return {
+        "conv1": {"w": arr("conv1.weight"), "b": arr("conv1.bias")},
+        "conv2": {"w": arr("conv2.weight"), "b": arr("conv2.bias")},
+        "pos": arr("embed_positions.weight"),
+        "blocks": blocks,
+        "ln_post": ln("layer_norm"),
+    }

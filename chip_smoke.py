@@ -127,6 +127,28 @@
    host prep per batch with 1 and 4 fetch threads, the consumer's wait per
    batch against the step, and the native batch decode against per-file
    Python. Removes what it wrote.
+16. Convert phase (``convert_phase``), at full width: random weights from
+   --seed written as HF directories without ``transformers`` (HuBERT-base
+   as ``HubertModel`` keys in f32 with the legacy ``weight_g``/``weight_v``
+   positional conv; Llama-3.2-1B as ``LlamaForCausalLM`` keys in bf16,
+   tied, in two safetensors shards and an index; Whisper-medium's encoder
+   as ``model.encoder.*`` keys in a ``pytorch_model.bin``; CLIP-B/32 as
+   ``vision_model.*`` keys), converted by ``cli/convert_hf.py`` for both
+   shipped configs (``flagship()`` and ``hubert_base()``): every converted
+   leaf equals the written one bit for bit, the positional conv within f32
+   rounding (1e-5 of max|w|). ``hubert_base`` on phase 15's corpus from its
+   export: 3 LoRA steps of the train CLI, 1 with ``unfreeze_layer_norms``,
+   the decode CLI over the test split in bf16 and with the serving preset
+   (each utterance scored once); in f32 ``generate_tokens`` from the export
+   equals it from the in-memory conversion, the engine (deferred WAVs, the
+   compact link) equals ``generate_tokens``, and exact streaming equals
+   the offline decode. A reference-trainer ``.pt`` at the flagship's width
+   (peft-wrapped bf16 LLM, r = 16 LoRA, simple connectors) through
+   ``cli/convert_ref_ckpt.py``: the adapters are Aᵀ, Bᵀ and the connectors
+   Wᵀ exactly, and one batch decodes. Exact launch counts on every path;
+   the flash forward at HuBERT's shape ([8, 12, 512, 64], 499 valid rows)
+   against its plain version, with its time, bound and SDPA's time. Prints
+   the GB written and read and the seconds. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -368,12 +390,12 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
     shapes = [
-        # name, B, H, Hkv, T, causal, launches per generate_tokens call
-        ("whisper", 8, 16, 16, 512, False, 24),
-        ("llm_prefill", 8, 32, 8, 533, True, 16),
+        # name, B, H, Hkv, T, causal
+        ("whisper", 8, 16, 16, 512, False),
+        ("llm_prefill", 8, 32, 8, 533, True),
     ]
     rows = []
-    for name, B, H, Hkv, T, causal, per_call in shapes:
+    for name, B, H, Hkv, T, causal in shapes:
         D = 64
         q, k, v = (torch.randn((B, h, T, D), generator=gen, device=dev,
                                dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
@@ -411,7 +433,7 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         row = dict(shape=name, q=list(q.shape), kv=list(k.shape), causal=causal,
-                   lens=main_lens[name], launches_per_call=per_call,
+                   lens=main_lens[name],
                    max_abs_err=err, max_lse_err=lse_max, ms=ms, plain_ms=plain_ms,
                    library_ms=lib["ms"], library=lib, bound_ms=bound_ms,
                    bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms)
@@ -479,7 +501,7 @@ def main_path_phase(seed: int) -> dict:
     from avsr_tpu_torch.core.config import flagship
     from avsr_tpu_torch.data.loader import featurize
     from avsr_tpu_torch.infer.generate import generate_tokens
-    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.models.avsr import encode, init_avsr_model
     from avsr_tpu_torch.ops import attention as A
     from avsr_tpu_torch.ops import qmatmul as Q
 
@@ -517,6 +539,14 @@ def main_path_phase(seed: int) -> dict:
           f"{launches} (expected {mc.whisper.n_layers} Whisper + "
           f"{mc.llm.n_layers} LLM = {expected})")
     check(launches == expected, f"flash_fwd launched {launches} times, not {expected}")
+    # the encoders' own share of them: one encode call on the same batch
+    reset_counts()
+    with torch.no_grad():
+        encode(params, mc, batch, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    enc_launches = A.launches
+    check(enc_launches == mc.whisper.n_layers,
+          f"encode launched flash_fwd {enc_launches} times, not {mc.whisper.n_layers}")
 
     st_never: dict = {}
     out_never = generate_tokens(params, mc, batch, stats=st_never,
@@ -574,6 +604,8 @@ def main_path_phase(seed: int) -> dict:
         decode_tokens_per_s=B * steps / st["decode_s"],
         new_tokens_per_s=B * new / (st["encode_s"] + st["prefill_s"] + st["decode_s"]),
         peak_mem_gb=peak / 1e9, flash_launches=launches,
+        flash_launches_by_shape={"whisper": enc_launches,
+                                 "llm_prefill": launches - enc_launches},
         prefill_logits=cmp, token_agreement_bf16_kernel_vs_plain=agree,
         plain_path=dict(encode_ms=st_never["encode_s"] * 1e3,
                         prefill_ms=st_never["prefill_s"] * 1e3,
@@ -3154,6 +3186,26 @@ def link_bytes(hb) -> int:
                if a is not None)
 
 
+def make_corpus(base: Path, seed: int) -> Path:
+    """48 utterances of 2-10 s as real files from ``seed`` (PCM16 WAVs, a
+    quarter at 48 kHz; 96 x 96 frames at 25 per second as .npy; 2-7 word
+    transcripts), split 24 / 12 / 12 by the prepare_data CLI's scan mode
+    into ``base / "data"``."""
+    from avsr_tpu_torch.cli import prepare_data
+
+    corpus = base / "data"
+    raw = prepare_data.make_demo(base / "raw", 48, seed + 1500, secs_range=(2.0, 10.0),
+                                 rates=(48_000, 16_000, 16_000, 16_000), frame_size=96)
+    check(prepare_data.main(["--data_dir", str(raw), "--transcripts",
+                             str(raw / "transcripts.txt"),
+                             "--out", str(corpus), "--splits", "0.5,0.25,0.25",
+                             "--seed", str(seed)]) == 0, "prepare_data failed")
+    sizes = {s: len((corpus / f"{s}.wrd").read_text().splitlines())
+             for s in ("train", "valid", "test")}
+    check(sizes == {"train": 24, "valid": 12, "test": 12}, f"split sizes {sizes}")
+    return corpus
+
+
 def corpus_phase(seed: int) -> dict:
     """Phase 15: a real-file corpus through every entry point at the
     flagship's full width (see the module docstring)."""
@@ -3163,7 +3215,7 @@ def corpus_phase(seed: int) -> dict:
     import torch
 
     from avsr_tpu_torch import native
-    from avsr_tpu_torch.cli import common, decode, prepare_data, train
+    from avsr_tpu_torch.cli import common, decode, train
     from avsr_tpu_torch.core.config import flagship
     from avsr_tpu_torch.data.audio_io import load_audio
     from avsr_tpu_torch.data.loader import DataLoader, collate, featurize
@@ -3239,15 +3291,8 @@ def corpus_phase(seed: int) -> dict:
     try:
         # 1. the corpus: real files, manifests by the prepare_data CLI's scan mode
         t0 = time.perf_counter()
-        raw = prepare_data.make_demo(base / "raw", 48, seed + 1500, secs_range=(2.0, 10.0),
-                                     rates=(48_000, 16_000, 16_000, 16_000), frame_size=96)
-        check(prepare_data.main(["--data_dir", str(raw), "--transcripts",
-                                 str(raw / "transcripts.txt"),
-                                 "--out", str(corpus), "--splits", "0.5,0.25,0.25",
-                                 "--seed", str(seed)]) == 0, "prepare_data failed")
-        sizes = {s: len((corpus / f"{s}.wrd").read_text().splitlines())
-                 for s in ("train", "valid", "test")}
-        check(sizes == {"train": 24, "valid": 12, "test": 12}, f"split sizes {sizes}")
+        check(make_corpus(base, seed) == corpus, "corpus directory")
+        sizes = {"train": 24, "valid": 12, "test": 12}
         res["corpus"] = dict(utterances=48, splits=sizes, write_and_scan_s=time.perf_counter() - t0,
                              mb_on_disk=sum(p.stat().st_size for p in base.rglob("*")
                                             if p.is_file()) / 1e6)
@@ -3383,6 +3428,780 @@ def corpus_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Convert phase: HF and reference checkpoints, and the second shipped config
+# ---------------------------------------------------------------------------
+
+# torch dtypes -> safetensors dtype names
+ST_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int64": "I64"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """One ``.safetensors`` file of CPU tensors in the public layout (an
+    8-byte little-endian header length, the JSON header padded to 8 bytes,
+    the raw bytes); returns its size. The card's host has no
+    ``safetensors`` package."""
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": ST_DTYPES[str(t.dtype).split(".")[-1]],
+                     "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + off
+
+
+def _hf_ln(name: str, p: dict) -> dict:
+    return {f"{name}.weight": p["scale"], f"{name}.bias": p["b"]}
+
+
+def _hf_lin(name: str, p: dict) -> dict:
+    out = {f"{name}.weight": p["w"].T}
+    if "b" in p:
+        out[f"{name}.bias"] = p["b"]
+    return out
+
+
+def hf_speech_ssl_state(p: dict) -> dict:
+    """A HuBERT/Wav2Vec2 tree of the port -> ``HubertModel`` keys, with the
+    positional conv's weight norm under its legacy names (g = ||w|| per
+    kernel tap, v = w, so that g * v / ||v|| gives w back within f32
+    rounding)."""
+    import torch
+
+    sd = {}
+    for i, c in enumerate(p["fe"]):
+        pre = f"feature_extractor.conv_layers.{i}."
+        sd[pre + "conv.weight"] = c["w"]
+        if "b" in c:
+            sd[pre + "conv.bias"] = c["b"]
+        if "norm" in c:
+            sd.update(_hf_ln(pre + "layer_norm", c["norm"]))
+    sd.update(_hf_ln("feature_projection.layer_norm", p["proj_ln"]))
+    sd.update(_hf_lin("feature_projection.projection", p["proj"]))
+    w = p["pos_conv"]["w"]
+    sd["encoder.pos_conv_embed.conv.weight_g"] = (
+        w.double().square().sum(dim=(0, 1), keepdim=True).sqrt().to(w.dtype))
+    sd["encoder.pos_conv_embed.conv.weight_v"] = w
+    sd["encoder.pos_conv_embed.conv.bias"] = p["pos_conv"]["b"]
+    sd.update(_hf_ln("encoder.layer_norm", p["ln"]))
+    for i, b in enumerate(p["blocks"]):
+        pre = f"encoder.layers.{i}."
+        for ours, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            sd.update(_hf_lin(pre + "attention." + hf, b["attn"][ours]))
+        sd.update(_hf_ln(pre + "layer_norm", b["ln1"]))
+        sd.update(_hf_lin(pre + "feed_forward.intermediate_dense", b["fc1"]))
+        sd.update(_hf_lin(pre + "feed_forward.output_dense", b["fc2"]))
+        sd.update(_hf_ln(pre + "final_layer_norm", b["ln2"]))
+    sd["masked_spec_embed"] = torch.zeros_like(p["proj"]["b"])
+    return sd
+
+
+def hf_llama_state(p: dict, prefix: str = "model.") -> dict:
+    """A Llama tree of the port -> ``LlamaForCausalLM`` keys (a tied head:
+    no ``lm_head.weight``)."""
+    sd = {prefix + "embed_tokens.weight": p["embed"]}
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj"}
+    for i, layer in enumerate(p["layers"]):
+        pre = f"{prefix}layers.{i}."
+        sd[pre + "input_layernorm.weight"] = layer["ln_attn"]["scale"]
+        sd[pre + "post_attention_layernorm.weight"] = layer["ln_mlp"]["scale"]
+        for ours, hf in names.items():
+            sd[f"{pre}{hf}.weight"] = layer[ours]["w"].T
+    sd[prefix + "norm.weight"] = p["ln_f"]["scale"]
+    return sd
+
+
+def hf_whisper_state(p: dict) -> dict:
+    """A Whisper encoder tree of the port -> ``WhisperForConditionalGeneration``
+    keys (``model.encoder.*``; k_proj has no bias)."""
+    pre = "model.encoder."
+    sd = {pre + "conv1.weight": p["conv1"]["w"], pre + "conv1.bias": p["conv1"]["b"],
+          pre + "conv2.weight": p["conv2"]["w"], pre + "conv2.bias": p["conv2"]["b"],
+          pre + "embed_positions.weight": p["pos"]}
+    for i, b in enumerate(p["blocks"]):
+        lp = f"{pre}layers.{i}."
+        for ours, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            sd.update(_hf_lin(lp + "self_attn." + hf, b["attn"][ours]))
+        sd.update(_hf_ln(lp + "self_attn_layer_norm", b["ln1"]))
+        sd.update(_hf_lin(lp + "fc1", b["fc1"]))
+        sd.update(_hf_lin(lp + "fc2", b["fc2"]))
+        sd.update(_hf_ln(lp + "final_layer_norm", b["ln2"]))
+    sd.update(_hf_ln(pre + "layer_norm", p["ln_post"]))
+    return sd
+
+
+def hf_clip_state(p: dict, patch: int) -> dict:
+    """A CLIP ViT tree of the port -> ``vision_model.*`` keys (the layout of
+    ``CLIPVisionModel``, and of ``CLIPModel``'s vision tower)."""
+    pre = "vision_model."
+    d = p["cls"].shape[0]
+    sd = {pre + "embeddings.class_embedding": p["cls"],
+          pre + "embeddings.patch_embedding.weight": p["patch"]["w"].T.reshape(d, 3, patch,
+                                                                              patch),
+          pre + "embeddings.position_embedding.weight": p["pos"]}
+    sd.update(_hf_ln(pre + "pre_layrnorm", p["ln_pre"]))
+    for i, b in enumerate(p["blocks"]):
+        lp = f"{pre}encoder.layers.{i}."
+        for ours, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            sd.update(_hf_lin(lp + "self_attn." + hf, b["attn"][ours]))
+        sd.update(_hf_ln(lp + "layer_norm1", b["ln1"]))
+        sd.update(_hf_lin(lp + "mlp.fc1", b["fc1"]))
+        sd.update(_hf_lin(lp + "mlp.fc2", b["fc2"]))
+        sd.update(_hf_ln(lp + "layer_norm2", b["ln2"]))
+    sd.update(_hf_ln(pre + "post_layernorm", p["ln_post"]))
+    return sd
+
+
+def hf_configs(mc) -> dict[str, dict]:
+    """config.json of each directory, from the port's model config."""
+    s, w, c, lm = mc.ssl, mc.whisper, mc.clip, mc.llm
+    return {
+        "hubert": dict(
+            model_type="hubert", architectures=["HubertModel"], hidden_size=s.d_model,
+            num_hidden_layers=s.n_layers, num_attention_heads=s.n_heads,
+            intermediate_size=s.d_model * s.ffn_mult, conv_dim=list(s.conv_dims),
+            conv_kernel=list(s.conv_kernels), conv_stride=list(s.conv_strides),
+            conv_bias=s.conv_bias, feat_extract_norm=s.feat_extract_norm,
+            do_stable_layer_norm=s.do_stable_layer_norm,
+            num_conv_pos_embeddings=s.pos_conv_kernel,
+            num_conv_pos_embedding_groups=s.pos_conv_groups,
+            num_feat_extract_layers=len(s.conv_dims), torch_dtype="float32"),
+        "llm": dict(
+            model_type="llama", architectures=["LlamaForCausalLM"], hidden_size=lm.d_model,
+            intermediate_size=lm.ffn_dim, num_hidden_layers=lm.n_layers,
+            num_attention_heads=lm.n_heads, num_key_value_heads=lm.n_kv_heads,
+            vocab_size=lm.vocab_size, rope_theta=lm.rope_theta, rms_norm_eps=lm.rms_eps,
+            tie_word_embeddings=True, torch_dtype="bfloat16"),
+        "whisper": dict(
+            model_type="whisper", architectures=["WhisperForConditionalGeneration"],
+            d_model=w.d_model, encoder_layers=w.n_layers, encoder_attention_heads=w.n_heads,
+            encoder_ffn_dim=w.d_model * w.ffn_mult, decoder_layers=w.n_layers,
+            decoder_attention_heads=w.n_heads, decoder_ffn_dim=w.d_model * w.ffn_mult,
+            num_mel_bins=w.n_mels, max_source_positions=w.max_source_positions,
+            torch_dtype="float32"),
+        "clip": dict(
+            model_type="clip_vision_model", architectures=["CLIPVisionModel"],
+            hidden_size=c.d_model, intermediate_size=c.d_model * c.ffn_mult,
+            num_hidden_layers=c.n_layers, num_attention_heads=c.n_heads,
+            image_size=c.image_size, patch_size=c.patch_size, torch_dtype="float32"),
+    }
+
+
+def write_hf_checkpoints(root: Path, trees: dict, mc) -> dict[str, int]:
+    """HF-layout directories of the port trees in ``trees`` (any of
+    "hubert", "llm", "whisper", "clip"), each with its config.json:
+    HuBERT as one ``model.safetensors`` (f32, legacy weight norm), the Llama
+    in its own dtype split into two safetensors shards plus the index, the
+    Whisper encoder as a ``pytorch_model.bin``, CLIP as one
+    ``model.safetensors``. Returns the bytes written per directory."""
+    import torch
+
+    cfgs = hf_configs(mc)
+    sizes = {}
+    for name, tree in trees.items():
+        d = root / name
+        d.mkdir(parents=True)
+        sd = {"hubert": hf_speech_ssl_state, "llm": hf_llama_state,
+              "whisper": hf_whisper_state,
+              "clip": lambda p: hf_clip_state(p, mc.clip.patch_size)}[name](tree)
+        sd = {k: v.detach().contiguous().cpu() for k, v in sd.items()}
+        (d / "config.json").write_text(json.dumps(cfgs[name], indent=1))
+        if name == "whisper":
+            torch.save(sd, d / "pytorch_model.bin")
+        elif name == "llm":
+            keys, half, acc, shards = list(sd), sum(t.nbytes for t in sd.values()) / 2, 0, [[]]
+            for k in keys:
+                if acc >= half and len(shards) == 1:
+                    shards.append([])
+                shards[-1].append(k)
+                acc += sd[k].nbytes
+            files = [f"model-0000{i + 1}-of-00002.safetensors" for i in range(2)]
+            for f, ks in zip(files, shards):
+                write_safetensors(d / f, {k: sd[k] for k in ks})
+            (d / "model.safetensors.index.json").write_text(json.dumps(
+                {"metadata": {"total_size": int(2 * half)},
+                 "weight_map": {k: f for f, ks in zip(files, shards) for k in ks}}))
+        else:
+            write_safetensors(d / "model.safetensors", sd)
+        sizes[name] = sum(f.stat().st_size for f in d.iterdir())
+    return sizes
+
+
+def jitter(tree, gen, std: float = 0.02):
+    """Random weights from ``gen`` on every float leaf of a fresh init (its
+    norms and biases are ones and zeros), in place."""
+    import torch
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif node.is_floating_point():
+            node.add_(std * torch.randn(node.shape, generator=gen, device=node.device,
+                                        dtype=node.dtype))
+
+    walk(tree)
+    return tree
+
+
+def hubert_kernel_row(seed: int) -> dict:
+    """The attention kernels at HuBERT-base's shape on 10 s of audio (B = 8,
+    12 heads, 499 valid frames padded to 512 rows, non-causal), in each
+    form the ``hubert_base`` paths launch them: the bf16 forward (decode,
+    serving, training), the f32 forward (the f32 export, engine and
+    streaming checks) and the bf16 dQ and dK/dV (the train step with
+    ``unfreeze_layer_norms``). Each is held to its plain version at 499
+    rows, on a ragged set and at 30 s (1499 frames in 1504 rows); the bf16
+    ones are then timed as the kernel phases time the other shapes."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1612)
+
+    def qkv(T: int):
+        return [torch.randn((8, 12, T, 64), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def lengths(*n: int):
+        return torch.tensor(n if len(n) == 8 else n * 8, dtype=torch.int32, device="cuda")
+
+    q, k, v, do = qkv(512)
+    lens = lengths(499)
+    cases = (("main", (q, k, v, do), lens),
+             ("ragged", (q, k, v, do), lengths(499, 311, 260, 499, 17, 400, 256, 1)),
+             ("30s", qkv(1504), lengths(1499)))
+    err = lse_max = err32 = lse32 = 0.0
+    bwd_err = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for tag, (q_, k_, v_, do_), ln in cases:
+        o, lse = A.flash_attention(q_, k_, v_, ln, ln, False)
+        o_r, lse_r = A.flash_attention_reference(q_, k_, v_, ln, ln, False)
+        torch.cuda.synchronize()
+        e = (o.float() - o_r.float()).abs()
+        check(bool((e <= 2e-2 + 2e-2 * o_r.float().abs()).all()),
+              f"hubert/{tag}: O off by {e.max().item():.3e} (atol=rtol=2e-2)")
+        fin = torch.isfinite(lse_r)
+        check(torch.equal(fin, torch.isfinite(lse)), f"hubert/{tag}: lse +inf rows differ")
+        lse_err = (lse[fin] - lse_r[fin]).abs().max().item()
+        check(lse_err <= 1e-3, f"hubert/{tag}: lse off by {lse_err:.3e} (atol 1e-3)")
+        n = int(ln.min())
+        check(bool((o[ln == n][:, :, n:] == 0).all()), f"hubert/{tag}: padded rows not zero")
+        err, lse_max = max(err, e.max().item()), max(lse_max, lse_err)
+
+        # dQ and dK/dV, dQ handing its delta on, as the train step runs them
+        dq, delta = A.flash_bwd_dq(q_, k_, v_, o, lse, do_, ln, ln, False)
+        dk, dv = A.flash_bwd_dkv(q_, k_, v_, lse, delta, do_, ln, ln, False)
+        refs = A.flash_attention_bwd_reference(q_, k_, v_, o, lse, do_, ln, ln, False)
+        delta_r = A.flash_bwd_dq_reference(q_, k_, v_, o, lse, do_, ln, ln, False)[1]
+        torch.cuda.synchronize()
+        d_err = (delta - delta_r).abs().max().item()
+        check(d_err <= 1e-4 * max(1.0, delta_r.abs().max().item()),
+              f"hubert/{tag}: delta off by {d_err:.3e}")
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            check(bool(torch.isfinite(got.float()).all()), f"hubert/{tag}: {name} not finite")
+            r = rel_err(got, ref)
+            check(r <= 2e-2, f"hubert/{tag}: {name} max|d| {r:.3e} x max|ref| > 2e-2")
+            bwd_err[name] = max(bwd_err[name], r)
+        del dq, delta, dk, dv, refs, delta_r
+
+        # the f32 forward, at the f32 edge cases' tolerance
+        q32, k32, v32 = (t.float() for t in (q_, k_, v_))
+        o, lse = A.flash_attention(q32, k32, v32, ln, ln, False)
+        o_r, lse_r = A.flash_attention_reference(q32, k32, v32, ln, ln, False)
+        torch.cuda.synchronize()
+        e32 = (o - o_r).abs().max().item()
+        check(torch.equal(fin, torch.isfinite(lse)), f"hubert/{tag}: f32 lse +inf rows differ")
+        l32 = (lse[fin] - lse_r[fin]).abs().max().item()
+        check(e32 <= 1e-4 and l32 <= 1e-4,
+              f"hubert/{tag}: f32 O off by {e32:.3e}, lse by {l32:.3e} (atol 1e-4)")
+        check(bool((o[ln == n][:, :, n:] == 0).all()),
+              f"hubert/{tag}: f32 padded rows not zero")
+        err32, lse32 = max(err32, e32), max(lse32, l32)
+        del o, lse, o_r, lse_r, q32, k32, v32
+    print(f"kernel hubert: bf16 forward, f32 forward and dQ/dK/dV held to their plain "
+          f"versions (main, ragged, 30 s): max|dO| {err:.3e}, f32 max|dO| {err32:.3e}, "
+          "max|d|/max|ref| " + ", ".join(f"{n_} {e_:.3e}" for n_, e_ in bwd_err.items()))
+
+    ms = graph_ms([lambda: A.flash_attention(q, k, v, lens, lens, False)])
+    plain_ms = time_ms(lambda: A.flash_attention_reference(q, k, v, lens, lens, False), 5)
+    lib = sdpa_ms(q, k, v, lens, False)
+    bounds = attn_bounds(q, k, lens, lens, False)
+    ops_ms, bytes_ms = bounds["fwd"]
+    row = dict(shape="hubert", q=list(q.shape), kv=list(k.shape), causal=False, lens=499,
+               max_abs_err=err, max_lse_err=lse_max, ms=ms, plain_ms=plain_ms,
+               library_ms=lib["ms"], library=lib, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops_ms=ops_ms, bytes_ms=bytes_ms,
+               f32=dict(max_abs_err=err32, max_lse_err=lse32))
+    print(f"kernel hubert ({gpu_line()}): {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
+          f"{lib['ms']:.4f} [{lib['call']}], bound {row['bound_ms']:.4f} by "
+          f"{row['bound_by']}), max|dO| {err:.3e}")
+
+    o, lse = A.flash_attention(q, k, v, lens, lens, False)
+    args_dq = (q, k, v, o, lse, do, lens, lens, False)
+    _, delta = A.flash_bwd_dq(*args_dq)
+    args_dkv = (q, k, v, lse, delta, do, lens, lens, False)
+    times = {"dq": graph_ms([lambda: A.flash_bwd_dq(*args_dq)]),
+             "dkv": graph_ms([lambda: A.flash_bwd_dkv(*args_dkv)])}
+    plain = {"dq": time_ms(lambda: A.flash_bwd_dq_reference(*args_dq), 3),
+             "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args_dkv), 3)}
+    lib_bwd = sdpa_ms(q, k, v, lens, False, do)
+    bwd = dict(max_rel_err=bwd_err, library_bwd_pair=lib_bwd)
+    for name in ("dq", "dkv"):
+        ops_ms, bytes_ms = bounds[name]
+        bwd[name] = dict(ms=times[name], plain_ms=plain[name],
+                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    row["bwd"] = bwd
+    print(f"kernel hubert bwd ({gpu_line()}): dQ {times['dq']:.4f} ms (plain "
+          f"{plain['dq']:.4f}, bound {bwd['dq']['bound_ms']:.4f}), dK/dV "
+          f"{times['dkv']:.4f} ms (plain {plain['dkv']:.4f}, bound "
+          f"{bwd['dkv']['bound_ms']:.4f}), SDPA backward {lib_bwd['ms']:.4f} ms")
+    return row
+
+
+def convert_phase(seed: int) -> dict:
+    """Phase 16: HF and reference-trainer checkpoints converted at full
+    width, and ``hubert_base`` trained, decoded, served and streamed from
+    its export (see the module docstring)."""
+    import shutil
+    from dataclasses import replace
+
+    import torch
+
+    from avsr_tpu_torch.cli import common, convert_hf, convert_ref_ckpt, decode, train
+    from avsr_tpu_torch.core.config import flagship, hubert_base, save_config
+    from avsr_tpu_torch.data.audio_io import load_audio
+    from avsr_tpu_torch.data.dataset import Sample
+    from avsr_tpu_torch.data.loader import collate, featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import generate_tokens, prepare_params_for_decode
+    from avsr_tpu_torch.infer.streaming import StreamingTranscriber
+    from avsr_tpu_torch.models.clip_vit import init_clip_vit
+    from avsr_tpu_torch.models.hubert import init_speech_ssl, speech_ssl_apply
+    from avsr_tpu_torch.models.llama import init_llama
+    from avsr_tpu_torch.models.whisper_encoder import init_whisper_encoder
+    from avsr_tpu_torch.train import loop
+    from avsr_tpu_torch.train.checkpoint import load_params
+    from avsr_tpu_torch.train.state import path_leaves
+
+    base = ROOT / "outputs" / "chip_smoke" / time.strftime("convert_%Y%m%d_%H%M%S")
+    hf, run = base / "hf", base / "run"
+    res: dict = {}
+    by_path: dict[str, dict[str, int]] = {}
+    fl, hcfg = flagship(), hubert_base()
+    nH, nL, nW = hcfg.model.ssl.n_layers, hcfg.model.llm.n_layers, fl.model.whisper.n_layers
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        settle()
+        return out
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    def gb(path: Path) -> float:
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
+
+    def same(tag: str, got: dict, ref: dict, approx=()) -> int:
+        """Every leaf of ``ref`` (a tree's path_leaves) equal to ``got``'s
+        in f32, bit for bit; the paths in ``approx`` within f32 rounding."""
+        for k, r in ref.items():
+            g = got[k].to("cuda", torch.float32)
+            r = r.to("cuda", torch.float32)
+            check(g.shape == r.shape, f"{tag}: {k} has shape {tuple(g.shape)}")
+            if k in approx:
+                rel = ((g - r).abs().max() / r.abs().max()).item()
+                check(rel <= 1e-5, f"{tag}: {k} off by {rel:.3e} of max|w| (1e-5)")
+            else:
+                check(torch.equal(g, r), f"{tag}: {k} differs from the written weight")
+        return len(ref)
+
+    t_all = time.perf_counter()
+    try:
+        # 1. random full-width weights from the seed, written as HF directories
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1600)
+        trees = {"hubert": jitter(init_speech_ssl(gen, hcfg.model.ssl), gen),
+                 "llm": jitter(init_llama(gen, fl.model.llm, torch.bfloat16), gen),
+                 "whisper": jitter(init_whisper_encoder(gen, fl.model.whisper), gen),
+                 "clip": jitter(init_clip_vit(gen, fl.model.clip), gen)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = write_hf_checkpoints(hf, trees, fl.model)
+        res["hf_write"] = dict(gb={k: v / 1e9 for k, v in written.items()},
+                               seconds=time.perf_counter() - t0)
+        print(f"convert: HF directories written ({gpu_line()}): " + json.dumps(res["hf_write"]))
+
+        # 2. convert both shipped configs through the CLI
+        hub_json = base / "hubert_base.json"
+        save_config(hcfg, hub_json)
+        convs = {
+            "base": [*FLAGSHIP_OVERRIDES,
+                     f"model.whisper_path={hf / 'whisper'}", f"model.clip_path={hf / 'clip'}",
+                     f"model.llm_path={hf / 'llm'}"],
+            "hubert_base": ["--config", str(hub_json),
+                            f"model.audio_encoder_path={hf / 'hubert'}",
+                            f"model.llm_path={hf / 'llm'}"],
+        }
+        reads = {"base": ("whisper", "clip", "llm"), "hubert_base": ("hubert", "llm")}
+        res["convert"] = {}
+        for name, args in convs.items():
+            out = base / f"export_{name}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(convert_hf.main(["--device", "cuda", "--out", str(out), *args]) == 0,
+                  f"convert_hf {name} failed")
+            secs = time.perf_counter() - t0
+            exp = path_leaves(load_params(out))
+            n = 0
+            for comp in reads[name]:
+                ref = path_leaves({comp: trees[comp]})
+                n += same(f"{name}/{comp}", exp, ref, approx=("hubert/pos_conv/w",))
+            lora_b = [v for k, v in exp.items() if k.endswith("/lora/b")]
+            check(len(lora_b) == 4 * nL and all(not v.any() for v in lora_b),
+                  f"{name}: the fresh LoRA b leaves are not zero")
+            check(all(v.dtype == torch.float32 for v in exp.values()),
+                  f"{name}: the export is not all float32")
+            read_gb = sum(written[c] for c in reads[name]) / 1e9
+            res["convert"][name] = dict(seconds=secs, gb_read=read_gb, gb_written=gb(out),
+                                        leaves_equal=n, s_per_gb_read=secs / read_gb)
+            print(f"convert {name}: {n} converted leaves equal the written weights; "
+                  + json.dumps(res["convert"][name]))
+            del exp
+            settle()
+        shutil.rmtree(base / "export_base")
+        hub_export = base / "export_hubert_base"
+        del trees
+        settle()
+
+        # 3. hubert_base on the corpus: 3 LoRA steps from the export, 1 with
+        # unfreeze_layer_norms, then the test split decoded in bf16 and the preset
+        corpus = make_corpus(base, seed)
+        data = ["data.synthetic=false", f"data.path={corpus}", "data.num_workers=4"]
+        hflag = ["--config", str(hub_json), "--seed", str(seed), "--device", "cuda", *data]
+
+        def train_run(out: Path, steps: int, *extra: str) -> list[float]:
+            rc = train.main([*hflag, "training.grad_accum_steps=1",
+                             f"training.max_steps={steps}", "training.save_every_steps=0",
+                             f"training.checkpoint_dir={out}", *extra,
+                             "--checkpoint", str(hub_export)])
+            check(rc == 0, f"train CLI (hubert_base) returned {rc}")
+            rows = loss_rows(out)
+            tr = [r for r in rows if r[2] == "train"]
+            check(len(tr) == steps and all(np.isfinite(float(r[3])) for r in tr),
+                  f"{out}: train rows {tr}")
+            check([r[2] for r in rows].count("val") == 1, f"{out}: no validation row")
+            return [1e3 * float(r[7]) for r in tr]
+
+        peaks: list[float] = []
+        make_step = loop.make_train_step
+
+        def peak_step(cfg):
+            """The train step with its peak memory read per call."""
+            step = make_step(cfg)
+
+            def run_step(*a, **k):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+                return out
+            return run_step
+
+        loop.make_train_step = peak_step
+        try:
+            step_ms = counted("hubert_train", lambda: train_run(run, 3))
+        finally:
+            loop.make_train_step = make_step
+        res["train"] = dict(step_ms=step_ms, step_peak_mem_gb=peaks)
+        # per step of 8: 12 HuBERT blocks without grad, 16 LLM blocks and their
+        # recompute; each validation batch (12 utterances: 2) 12 + 16
+        w = want(flash=3 * (nH + 2 * nL) + 2 * (nH + nL), dq=3 * nL, dkv=3 * nL)
+        check(by_path["hubert_train"] == w,
+              f"hubert_base train launches {by_path['hubert_train']}, expected {w}")
+        step_ln = counted("hubert_train_unfreeze_ln", lambda: train_run(
+            base / "run_ln", 1, "model.unfreeze_layer_norms=true"))
+        # the encoder now runs with grad and remat: its blocks are recomputed and
+        # their backward launches dQ and dK/dV at the HuBERT shape
+        w = want(flash=2 * (nH + nL) + 2 * (nH + nL), dq=nH + nL, dkv=nH + nL)
+        check(by_path["hubert_train_unfreeze_ln"] == w,
+              f"unfreeze_layer_norms launches {by_path['hubert_train_unfreeze_ln']}, "
+              f"expected {w}")
+        res["train_unfreeze_layer_norms"] = dict(step_ms=step_ln)
+        print("convert hubert_base train: " + json.dumps(res["train"]) + "; unfreeze_ln "
+              + json.dumps(step_ln))
+        shutil.rmtree(base / "run_ln", ignore_errors=True)
+
+        def decode_run(out: Path, *extra: str) -> list[str]:
+            rc = decode.main([*hflag, "decode.max_new_tokens=32", f"decode.output_dir={out}",
+                              *extra, "--checkpoint", str(run / "ckpt"), "--split", "test"])
+            check(rc == 0, f"decode CLI (hubert_base) returned {rc}")
+            (res_f,), (wer_f,) = out.glob("results_*.txt"), out.glob("wer_*.txt")
+            text = res_f.read_text()
+            check(text.count("UTT: ") == 12 and "utterances: 12\n" in wer_f.read_text(),
+                  f"{out}: the test split's 12 utterances were not each scored once")
+            refs = sorted(ln[5:] for ln in text.splitlines() if ln.startswith("REF: "))
+            check(refs == sorted((corpus / "test.wrd").read_text().splitlines()),
+                  f"{out}: references differ from test.wrd")
+            return [ln for ln in text.splitlines() if ln.startswith("HYP: ")]
+
+        counted("hubert_decode_bf16", lambda: decode_run(base / "dec_bf16"))
+        check(by_path["hubert_decode_bf16"] == want(flash=2 * (nH + nL)),
+              f"bf16 decode launches {by_path['hubert_decode_bf16']}")
+        counted("hubert_decode_preset", lambda: decode_run(base / "dec_preset",
+                                                           *PRESET_OVERRIDES))
+        n = by_path["hubert_decode_preset"]
+        # per decode step 16 layers x 4 int4 projections and the int8 head;
+        # one more head per batch at the prefill's last position
+        steps = n["qmatmul_int4"] // (4 * nL)
+        check(steps > 0 and n == want(flash=2 * (nH + nL), int4=4 * nL * steps,
+                                      int8=steps + 2),
+              f"preset decode launches {n}")
+        res["decode_preset_steps"] = steps
+
+        # one static serving call in bf16 from the export, as phase 3's:
+        # 8 test utterances in the 10 s bucket, 100 greedy tokens
+        p16 = common.load_decode_params(hcfg, str(hub_export), seed=seed, device="cuda")
+        _, _, loader = common.build_data(hubert_base(data), "test", shuffle=False,
+                                         device="cuda")
+        _, b16 = next(iter(loader))
+        loader.close()
+        kw16 = dict(max_new_tokens=100, eos_id=-1, compute_dtype=torch.bfloat16)
+        generate_tokens(p16, hcfg.model, b16, **{**kw16, "max_new_tokens": 4})  # warm-up
+        # HuBERT's own launches: one encoder call on the 10 s batch
+        with torch.no_grad():
+            counted("hubert_encoder_bf16", lambda: speech_ssl_apply(
+                p16[hcfg.model.audio_encoder], b16.wave, hcfg.model.ssl,
+                wave_lengths=b16.wave_lens, compute_dtype=torch.bfloat16))
+        check(by_path["hubert_encoder_bf16"] == want(flash=nH),
+              f"HuBERT encoder launches {by_path['hubert_encoder_bf16']}, expected {nH}")
+        torch.cuda.reset_peak_memory_stats()
+        st16: dict = {}
+        counted("hubert_generate_bf16", lambda: generate_tokens(p16, hcfg.model, b16,
+                                                                stats=st16, **kw16))
+        check(by_path["hubert_generate_bf16"] == want(flash=nH + nL),
+              f"bf16 generate launches {by_path['hubert_generate_bf16']}")
+        check(bool(torch.isfinite(st16["prefill_logits"]).all()), "bf16 prefill logits")
+        n_steps = st16["decode_steps"]
+        res["serve_bf16"] = dict(
+            encode_ms=st16["encode_s"] * 1e3, prefill_ms=st16["prefill_s"] * 1e3,
+            ms_per_token=st16["decode_s"] * 1e3 / n_steps,
+            new_tokens_per_s=8 * 100 / (st16["encode_s"] + st16["prefill_s"]
+                                        + st16["decode_s"]),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            wave=list(b16.wave.shape))
+        print(f"convert hubert_base bf16 serving call ({gpu_line()}): "
+              + json.dumps(res["serve_bf16"]))
+        del p16, b16
+        settle()
+
+        # 4. f32: the export against the in-memory conversion, the engine and
+        # exact streaming against generate_tokens
+        over32 = ["runtime.compute_dtype=float32", "data.compact_transfer=true", *data]
+        cfg32 = hubert_base(over32)
+        mem_cfg = hubert_base([*over32, f"model.audio_encoder_path={hf / 'hubert'}",
+                               f"model.llm_path={hf / 'llm'}"])
+        tok = ByteTokenizer()
+        p_exp = prepare_params_for_decode(common.init_or_load_params(
+            cfg32, str(hub_export), seed=seed, device="cuda"), cfg32.model)
+        mem, _ = convert_hf.build_converted_params(mem_cfg, device="cuda")
+        p_mem = prepare_params_for_decode(mem, cfg32.model)
+        del mem
+        _, ds, loader = common.build_data(cfg32, "test", shuffle=False, device="cuda")
+        hb, batch = next(iter(loader))
+        loader.close()
+        check(batch.wave is not None and batch.mel is None and batch.wave.shape[1] == 160_000,
+              f"the wave front end: {None if batch.wave is None else tuple(batch.wave.shape)}")
+        kw = dict(max_new_tokens=32, eos_id=tok.eos_id, compute_dtype=torch.float32)
+        out_exp = counted("hubert_generate_f32", lambda: generate_tokens(
+            p_exp, cfg32.model, batch, **kw))
+        out_mem = generate_tokens(p_mem, cfg32.model, batch, **kw)
+        check(torch.equal(out_exp.tokens, out_mem.tokens)
+              and torch.equal(out_exp.lengths, out_mem.lengths),
+              "f32 generate_tokens from the export != from the in-memory conversion")
+        check(by_path["hubert_generate_f32"] == want(flash=nH + nL),
+              f"f32 generate launches {by_path['hubert_generate_f32']}")
+        del p_mem
+        settle()
+
+        # the engine admits the split straight from the manifest dataset (its
+        # WAV decode deferred) over the compact link
+        deferred = [ds[i] for i in range(len(ds))]
+        check(all(s.audio is None and s.audio_path for s in deferred),
+              "the test split's audio was not deferred")
+        samples = [replace(s, audio=load_audio(s.audio_path,
+                                               max_samples=cfg32.data.max_audio_length))
+                   for s in deferred]
+        budgets = [int(b) for b in np.random.default_rng(seed + 1601).integers(8, 33, 12)]
+        eng = ServingEngine(p_exp, cfg32, tok, num_slots=8, k_steps=16, seed=seed)
+        run_e = counted("hubert_engine_f32", lambda: drive_engine(eng, deferred, budgets))
+        check(by_path["hubert_engine_f32"] == want(flash=(nH + nL) * eng.stages_run),
+              f"engine launches {by_path['hubert_engine_f32']}, stages {eng.stages_run}")
+        eng.close()
+        prompt = tok.encode(cfg32.model.prompt, add_bos=True)
+        ref = []
+        for s in range(0, 12, 8):
+            b = featurize(collate(samples[s:s + 8], cfg32.data, prompt, tok.pad_id), "cuda",
+                          torch.float32, cfg32.model)
+            o = generate_tokens(p_exp, cfg32.model, b, **{**kw, "max_new_tokens":
+                                                          max(budgets[s:s + 8])})
+            ref += [r[: min(n_, bud)] for r, n_, bud in zip(o.tokens.tolist(),
+                                                            o.lengths.tolist(),
+                                                            budgets[s:s + 8])]
+        diff = [i for i, (a, b) in enumerate(zip(run_e["tokens"], ref)) if a != b]
+        check(not diff, f"f32 hubert_base engine != generate_tokens for requests {diff}")
+        res["engine_f32"] = dict(serving_numbers(run_e, eng=eng),
+                                 tokens_equal_generate_tokens=True)
+        del eng
+        settle()
+
+        # exact streaming: the longest test utterance in 4 feeds, no commit
+        # before finalize (agree_n 5 > 4 feeds + finalize - 1)
+        cfg_st = hubert_base([*over32, "decode.max_new_tokens=32"])
+        audio = max((s.audio for s in samples), key=len)
+        cut = np.linspace(0, len(audio), 5).astype(int)
+
+        def stream():
+            stt = StreamingTranscriber(p_exp, cfg_st, tok, agree_n=5)
+            for a, b in zip(cut[:-1], cut[1:]):
+                stt.feed(audio=audio[a:b])
+            stt.finalize()
+            return stt
+
+        stt = counted("hubert_stream_f32", stream)
+        b1 = featurize(collate([Sample("x", audio, None, "", [tok.eos_id])], cfg_st.data,
+                               prompt, tok.pad_id), "cuda", torch.float32,
+                       cfg_st.model)
+        off = generate_tokens(p_exp, cfg_st.model, b1, **kw)
+        off_ids = off.tokens[0, : int(off.lengths[0])].tolist()
+        off_ids = off_ids[:-1] if off_ids and off_ids[-1] == tok.eos_id else off_ids
+        check(stt.committed_tokens == off_ids, "f32 hubert_base streaming != offline decode")
+        check(by_path["hubert_stream_f32"] == want(flash=(nH + nL) * 5),
+              f"exact streaming launches {by_path['hubert_stream_f32']}")
+        res["stream_exact_f32"] = dict(feeds=4, seconds=len(audio) / 16000,
+                                       committed=len(off_ids), finalize_equals_offline=True)
+        print("convert hubert_base f32: the export equals the in-memory conversion; the "
+              "engine and exact streaming equal generate_tokens; "
+              + json.dumps(res["engine_f32"]["stats"]))
+        del p_exp, stt, b1, off
+        settle()
+        shutil.rmtree(base / "export_hubert_base", ignore_errors=True)
+
+        # 5. a reference-trainer checkpoint at the flagship's width: the peft-
+        # wrapped LLM in bf16 with r = 16 LoRA, simple connectors in f32
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1602)
+        llm = jitter(init_llama(gen, fl.model.llm, torch.bfloat16), gen)
+        r = fl.model.lora.r
+        sd = {}
+        for k, v in hf_llama_state(llm).items():
+            k = "llm.base_model.model." + k
+            for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                k = k.replace(f".{proj}.weight", f".{proj}.base_layer.weight")
+            sd[k] = v
+        sd["llm.base_model.model.lm_head.weight"] = llm["embed"]
+        lora = {}
+        for i, layer in enumerate(llm["layers"]):
+            for ours, proj in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                               ("o", "o_proj")):
+                d_in, d_out = layer[ours]["w"].shape
+                A = 0.02 * torch.randn((r, d_in), generator=gen, device="cuda")
+                B = 0.02 * torch.randn((d_out, r), generator=gen, device="cuda")
+                pre = f"llm.base_model.model.model.layers.{i}.self_attn.{proj}"
+                sd[f"{pre}.lora_A.default.weight"] = A.to(torch.bfloat16)
+                sd[f"{pre}.lora_B.default.weight"] = B.to(torch.bfloat16)
+                lora[(i, ours)] = (sd[f"{pre}.lora_A.default.weight"],
+                                   sd[f"{pre}.lora_B.default.weight"])
+        conn = {}
+        for side, d_in in (("audio_connector", fl.model.audio_dim),
+                           ("video_connector", fl.model.video_dim)):
+            conn[side] = (0.02 * torch.randn((fl.model.llm.d_model, d_in), generator=gen,
+                                             device="cuda"),
+                          0.02 * torch.randn((fl.model.llm.d_model,), generator=gen,
+                                             device="cuda"))
+            sd[f"{side}.linear.weight"], sd[f"{side}.linear.bias"] = conn[side]
+        pt = base / "model_best.pt"
+        t0 = time.perf_counter()
+        on_host: dict[int, torch.Tensor] = {}      # a tied tensor is saved once
+        for k, v in sd.items():
+            if id(v) not in on_host:
+                on_host[id(v)] = v.cpu()
+            sd[k] = on_host[id(v)]
+        torch.save({"epoch": 3, "model_state_dict": sd, "train_losses": [2.0, 1.5]}, pt)
+        del sd
+        write_s = time.perf_counter() - t0
+        ref_out = base / "export_ref"
+        t0 = time.perf_counter()
+        check(convert_ref_ckpt.main(["--device", "cuda",
+                                     "--checkpoint", str(pt), "--out", str(ref_out),
+                                     *FLAGSHIP_OVERRIDES]) == 0, "convert_ref_ckpt failed")
+        conv_s = time.perf_counter() - t0
+        exp = path_leaves(load_params(ref_out))
+        n = same("ref/llm", exp, path_leaves({"llm": llm}))
+        for (i, ours), (A, B) in lora.items():
+            p = f"llm/layers/{i}/{ours}/lora/"
+            check(torch.equal(exp[p + "a"].cuda(), A.float().T)
+                  and torch.equal(exp[p + "b"].cuda(), B.float().T),
+                  f"ref: LoRA of layer {i} {ours} is not (Aᵀ, Bᵀ)")
+        for side, (W, b) in conn.items():
+            check(torch.equal(exp[f"{side}/out/w"].cuda(), W.T)
+                  and torch.equal(exp[f"{side}/out/b"].cuda(), b),
+                  f"ref: {side} is not (Wᵀ, b)")
+        res["ref_ckpt"] = dict(pt_gb=pt.stat().st_size / 1e9, write_s=write_s,
+                               convert_s=conv_s, export_gb=gb(ref_out),
+                               base_leaves_equal=n, lora_pairs_equal=len(lora))
+        del exp, llm, lora, conn
+        settle()
+        params = common.load_decode_params(fl, str(ref_out), seed=seed, device="cuda")
+        hb8 = serving_host_batch(fl, seed + 1603)
+        st: dict = {}
+        out = counted("ref_generate_bf16", lambda: generate_tokens(
+            params, fl.model, featurize(hb8, "cuda", torch.bfloat16), max_new_tokens=32,
+            eos_id=-1, compute_dtype=torch.bfloat16, stats=st))
+        check(out.tokens.shape == (8, 32) and bool(torch.isfinite(st["prefill_logits"]).all()),
+              "the reference export's decode")
+        check(by_path["ref_generate_bf16"] == want(flash=nW + nL),
+              f"reference export decode launches {by_path['ref_generate_bf16']}")
+        print("convert reference checkpoint: " + json.dumps(res["ref_ckpt"]))
+        del params, out, st
+        settle()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check(not base.exists(), f"{base} not removed")
+
+    # 6. the flash forward at the HuBERT shape
+    res["hubert_kernel"] = dict(
+        hubert_kernel_row(seed),
+        launches_per_hubert_encoder_call=by_path["hubert_encoder_bf16"]["flash_fwd"])
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"convert phase: {res['seconds']:.1f} s; launches " + json.dumps(by_path))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3429,6 +4248,8 @@ def main(argv: list[str] | None = None) -> int:
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
     rows = kernel_phase(args.seed, {"whisper": 500, "llm_prefill": 533})
     res = main_path_phase(args.seed)
+    for r in rows:            # launches per generate_tokens call, counted there
+        r["launches_per_call"] = res["flash_launches_by_shape"][r["shape"]]
     settle()
     cli_phase(args.seed)
     settle()
@@ -3480,8 +4301,15 @@ def main(argv: list[str] | None = None) -> int:
     # and prepare_data CLIs, the compact link and the engine.
     corpus = corpus_phase(args.seed)
 
+    settle()
+    # Phase 16 at full width: HF and reference-trainer checkpoints converted,
+    # and hubert_base trained, decoded, served and streamed from its export.
+    conv = convert_phase(args.seed)
+
     def corpus_paths(name: str) -> dict[str, int]:
-        return {part: n[name] for part, n in corpus["launches_by_path"].items() if n[name]}
+        return {part: n[name]
+                for phase in (corpus, conv) for part, n in phase["launches_by_path"].items()
+                if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
@@ -3531,8 +4359,10 @@ def main(argv: list[str] | None = None) -> int:
         times_are="sums over the launches of one generate_tokens call (device "
                   "time per launch from a replayed CUDA graph x launches)",
         shapes=rows, train_shape={**bwd["fwd"], "library_ms": bwd["library_fwd"]["ms"],
-                                  "library": bwd["library_fwd"]})]
+                                  "library": bwd["library_fwd"]},
+        hubert_shape=conv["hubert_kernel"])]
     wb = knobs["whisper_bwd"]
+    hbwd = kernels[0]["hubert_shape"].pop("bwd")
     for name, key, line, errs, extra in (
             ("flash_bwd_dq", "dq", 181, ("dq",),
              dict(also_writes="delta = rowsum(dO * O), [B, H, Tq] f32")),
@@ -3543,6 +4373,10 @@ def main(argv: list[str] | None = None) -> int:
             **wb[key], shape=wb["shape"], library_ms=wb["library_bwd_pair"]["ms"],
             library=wb["library_bwd_pair"],
             max_rel_err=max(wb["max_rel_err"][e] for e in errs))
+        extra["hubert_shape"] = dict(
+            **hbwd[key], shape=kernels[0]["hubert_shape"]["q"], causal=False, lens=499,
+            library_ms=hbwd["library_bwd_pair"]["ms"], library=hbwd["library_bwd_pair"],
+            max_rel_err=max(hbwd["max_rel_err"][e] for e in errs))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",

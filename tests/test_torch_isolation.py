@@ -33,7 +33,8 @@ def test_port_imports_no_jax():
     assert "avsr_tpu_torch.train.checkpoint" in res["modules"]
     for name in ("infer.engine", "infer.adapters", "infer.server", "infer.streaming",
                  "cli.serve", "cli.stream", "cli.infer", "data.audio_io", "data.video_io",
-                 "data.manifest", "native", "cli.prepare_data"):
+                 "data.manifest", "native", "cli.prepare_data", "models.hubert",
+                 "core.hf_files", "cli.convert_hf", "cli.convert_ref_ckpt"):
         assert f"avsr_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -59,3 +60,33 @@ def test_port_sources_name_no_jax():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "avsr_tpu", "orbax"), f"{f}: {s}"
+
+
+def test_converters_need_no_transformers(tmp_path):
+    """The converters read an HF directory with neither ``transformers``
+    nor ``safetensors`` (nor ``tokenizers``) imported: a safetensors file
+    written by ``chip_smoke.py``'s writer goes through ``load_pretrained``
+    in a process that has loaded only the port."""
+    probe = (
+        "import sys, torch, chip_smoke\n"
+        "import avsr_tpu_torch.cli.convert_hf, avsr_tpu_torch.cli.convert_ref_ckpt\n"
+        "from avsr_tpu_torch.core.hf_files import load_pretrained\n"
+        f"d = {str(tmp_path)!r}\n"
+        "chip_smoke.write_safetensors(__import__('pathlib').Path(d) / 'model.safetensors',\n"
+        "    {'w': torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)})\n"
+        "open(d + '/config.json', 'w').write('{}')\n"
+        "sd, _ = load_pretrained(d)\n"
+        "assert sd['w'].dtype == torch.float32 and sd['w'].tolist() == [[0, 1, 2], [3, 4, 5]]\n"
+        "print(sorted(m for m in ('transformers', 'safetensors', 'tokenizers', 'peft')\n"
+        "             if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    for f in ("cli/convert_hf.py", "cli/convert_ref_ckpt.py", "core/hf_files.py",
+              "models/hubert.py"):
+        for line in (REPO / "avsr_tpu_torch" / f).read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert s.split()[1].split(".")[0] not in (
+                    "transformers", "safetensors", "peft", "tokenizers"), f"{f}: {s}"

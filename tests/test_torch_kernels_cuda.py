@@ -559,7 +559,7 @@ def _train_batch(device):
               prompt_tokens=torch.tensor([[256, 72, 105, 33, 9]] * 2, dtype=torch.int32),
               labels=torch.randint(0, 258, (2, 24), generator=g, dtype=torch.int32),
               label_lens=torch.tensor([24, 17], dtype=torch.int32))
-    return microbatch(Batch(*[x.to(device) for x in b]), 1)
+    return microbatch(Batch(*[None if x is None else x.to(device) for x in b]), 1)
 
 
 def _leaves(state):
@@ -704,3 +704,69 @@ def test_engine_first_launches_on_a_scheduler_thread(cuda, extra):
     main = ServingEngine(params, cfg, tok, num_slots=4, k_steps=8)
     main.warmup(samples[0])
     assert out["tokens"] == main.transcribe(samples, max_new_per_request=budgets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", [
+    (512, [499] * 8),                               # 10 s: 499 frames
+    (512, [499, 311, 260, 499, 17, 400, 256, 1]),
+    (1504, [1499] * 8)])                            # 30 s: 1499 frames
+@pytest.mark.parametrize("form", ["bf16", "f32", "bwd_bf16"])
+def test_flash_fwd_at_the_hubert_shape(cuda, T, lens, form):
+    """HuBERT-base's attention: 12 heads of 64, non-causal, the frames of
+    10 s or 30 s of audio padded to a multiple of 16 rows, in each form the
+    ``hubert_base`` paths launch: the bf16 forward (serving, training), the
+    f32 forward (f32 decoding) and the bf16 dQ and dK/dV (training with
+    ``unfreeze_layer_norms``)."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    q, k, v, do = (torch.randn((8, 12, T, 64), generator=g, device=cuda, dtype=dtype)
+                   for _ in range(4))
+    lens = torch.tensor(lens, device=cuda)
+    if form == "bwd_bf16":
+        dq, dk, dv, _ = _check_bwd(q, k, v, do, lens, lens, False, 2e-2)
+        assert bool((dq[0, :, int(lens[0]):] == 0).all())
+        return
+    _check(q, k, v, lens, lens, False, 1e-4 if form == "f32" else 2e-2)
+    o, _ = A.flash_attention(q, k, v, lens, lens, False)
+    assert bool((o[0, :, int(lens[0]):] == 0).all())
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_on_this_host(cuda, tmp_path):
+    """The hand-written safetensors reader, on the card's host (which has
+    no ``safetensors`` package): a file written by ``chip_smoke.py``'s
+    writer reads back bit for bit in every dtype, sharded or not, and
+    ``load_pretrained`` upcasts to f32 on the card and fills a tied head."""
+    import json
+
+    import chip_smoke
+    from avsr_tpu_torch.core import hf_files
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    tensors = {"model.embed_tokens.weight": torch.randn((64, 32), generator=g, device=cuda,
+                                                        dtype=torch.bfloat16),
+               "a.f32": torch.randn((3, 5, 7), generator=g, device=cuda),
+               "b.f16": torch.randn((9,), generator=g, device=cuda, dtype=torch.float16),
+               "c.i64": torch.arange(6, device=cuda).reshape(2, 3),
+               "d.empty": torch.zeros((0, 4), device=cuda)}
+    host = {k: v.cpu() for k, v in tensors.items()}
+    chip_smoke.write_safetensors(tmp_path / "model-00001-of-00002.safetensors",
+                                 {k: host[k] for k in list(host)[:2]})
+    chip_smoke.write_safetensors(tmp_path / "model-00002-of-00002.safetensors",
+                                 {k: host[k] for k in list(host)[2:]})
+    (tmp_path / "model.safetensors.index.json").write_text(json.dumps({"weight_map": {
+        k: f"model-0000{1 if i < 2 else 2}-of-00002.safetensors"
+        for i, k in enumerate(host)}}))
+    (tmp_path / "config.json").write_text(json.dumps({"tie_word_embeddings": True}))
+    got = hf_files.read_weights(tmp_path)
+    assert got.keys() == host.keys()
+    for k, v in host.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    sd, _ = hf_files.load_pretrained(tmp_path, cuda)
+    assert sd["model.embed_tokens.weight"].device.type == cuda.type
+    assert sd["model.embed_tokens.weight"].dtype == torch.float32
+    assert sd["lm_head.weight"] is sd["model.embed_tokens.weight"]
+    assert torch.equal(sd["model.embed_tokens.weight"],
+                       tensors["model.embed_tokens.weight"].float())
+    assert sd["c.i64"].dtype == torch.int64
