@@ -29,6 +29,8 @@ from typing import Any
 MODALITIES = ("audio", "video", "both")
 CONNECTOR_TYPES = ("simple", "deep", "conv", "attention", "adaptive",
                    "cross_modal", "qformer", "perceiver", "adapter", "moe")
+# the connectors that fuse audio and video themselves (modality "both" only)
+DUAL_CONNECTORS = ("cross_modal", "qformer", "perceiver", "adapter")
 OPTIMIZERS = ("adamw", "adafactor", "lion")
 
 
@@ -298,6 +300,10 @@ class AVSRConfig:
             raise ValueError(
                 f"connector_type must be one of {CONNECTOR_TYPES}, "
                 f"got {m.connector_type!r}")
+        if m.connector_type in DUAL_CONNECTORS and m.modality != "both":
+            raise ValueError(
+                f"connector_type={m.connector_type!r} fuses audio+video and "
+                f"requires modality='both' (got {m.modality!r})")
         if m.use_4bit and m.use_8bit:
             raise ValueError("use_4bit and use_8bit are mutually exclusive")
         if m.audio_encoder not in ("whisper", "hubert", "wav2vec2"):

@@ -20,6 +20,10 @@
 //   LLM      q [8,32,533,64], k/v [8,8,533,64] causal: 9.3 GFLOP -> 9.4 us;
 //            44.2 MB -> 13.2 us.
 //   train    q [8,32,672,64] causal, 581 valid rows: 15.3 us by bytes.
+//   connector q = k = v [8,8,500,256] non-causal (the attention and
+//            adaptive connectors: 8 heads over the 2048-wide LLM, on the
+//            500 rows Whisper returns): 16.4 GFLOP -> 16.6 us; 65.7 MB ->
+//            19.6 us.
 // All are bound by bytes, closely followed by operations, so the kernel has
 // to stream each operand once and keep the tensor cores busy.
 //
@@ -37,6 +41,11 @@
 //     three stages. "full" mbarriers count the TMA bytes, "empty" ones the
 //     consumer threads that are done. The ring runs on across tiles, so the
 //     next tile's loads overlap the current tile's last blocks and epilogue.
+//     At D = 256 (64 keys a tile) Q is 64 KB and a stage 64 KB, and there is
+//     no room for a separate O tile within the 227 KB a block may use: the
+//     ring has two stages, and each consumer warpgroup stages its O in its
+//     own 64 rows of the Q tile, so the next tile's Q load waits for the
+//     epilogue's store (Q is released then, not after the last block).
 //   * two consumer warpgroups (232 registers) of 64 query rows each. Per
 //     K/V tile: S = Q K^T by wgmma m64n128k16 (m64n64k16 for D = 128) with
 //     both operands in shared memory and the f32 accumulators in
@@ -57,9 +66,15 @@
 // Blocks past the causal diagonal and tiles wholly past q_len are never
 // loaded.
 //
+// Registers: a consumer thread holds O (D / 2 f32: 128 at D = 256), the
+// scores of a K/V tile (32) and P as bf16 (16), within the 168 registers a
+// thread that ptxas gives a kernel of three warpgroups; no D spills.
+//
 // float32 inputs take the first design's scalar path (flash_fwd_f32_kernel):
-// 64-row tiles, 4 warps, lane pair (2r, 2r+1) owning score row r, FMAs on
-// the CUDA cores. avsr_flash_fwd dispatches on the dtype.
+// 64-row tiles (32 at D = 256, whose 64-row f32 tiles would take 203 KB),
+// 4 warps, the lanes of a row (2, or 4 at D = 256) each owning a part of its
+// scores and of its output, FMAs on the CUDA cores. avsr_flash_fwd
+// dispatches on the dtype.
 
 #include <math.h>
 
@@ -73,7 +88,6 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128;          // query rows of a CTA
-constexpr int STAGES = 3;        // K/V ring depth
 constexpr int CONSUMERS = 2;     // consumer warpgroups, 64 query rows each
 constexpr int THREADS_BF16 = (CONSUMERS + 1) * 128;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -82,19 +96,32 @@ constexpr float LN2 = 0.6931471805599453f;
 // Dynamic shared-memory layout (byte offsets from a 1024-byte boundary).
 template <int D>
 struct Layout {
-  // keys of a K/V tile: 128 for D = 64; 64 for D = 128, whose O
-  // accumulator is twice as large, so that scores, P and O stay in registers
+  // keys of a K/V tile: 128 for D = 64; 64 for D = 128 and 256, whose O
+  // accumulators are two and four times as large, so that scores, P and O
+  // stay in registers
   static constexpr int BN = D == 64 ? 128 : 64;
+  // K/V ring depth: two stages at D = 256, where a stage is 64 KB
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  // D = 256 has no room for an O staging tile: a warpgroup stages its O in
+  // its own 64 rows of the Q tile, which the next tile's Q load then waits
+  // for (Q is released after the epilogue's store, not after the last
+  // block)
+  static constexpr bool O_IN_Q = D == 256;
   static constexpr int P = D / hopper::PANEL_COLS;      // 64-column panels
   static constexpr int kQPanel = BM * hopper::ROW_BYTES;
   static constexpr int kKVPanel = BN * hopper::ROW_BYTES;
   static constexpr int kOPanel = 64 * hopper::ROW_BYTES;  // one warpgroup's rows
+  // the stride between a warpgroup's O panels
+  static constexpr int kOStride = O_IN_Q ? kQPanel : kOPanel;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + P * kQPanel;
   static constexpr int kV = kK + STAGES * P * kKVPanel;
   static constexpr int kO = kV + STAGES * P * kKVPanel;
-  static constexpr int kBar = kO + CONSUMERS * P * kOPanel;
+  static constexpr int kBar = kO + (O_IN_Q ? 0 : CONSUMERS * P * kOPanel);
   static constexpr int kBytes = kBar + (2 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
+  // warpgroup wg's first O panel: at kOBase + wg * kOWarpgroup
+  static constexpr int kOBase = O_IN_Q ? kQ : kO;
+  static constexpr int kOWarpgroup = O_IN_Q ? 64 * hopper::ROW_BYTES : P * kOPanel;
 };
 
 // One tile of work: 128 query rows of one (b, h), and the K/V tiles it
@@ -218,6 +245,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   using L = Layout<D>;
   constexpr int P = L::P;
   constexpr int BN = L::BN;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_atom(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -249,9 +277,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       int kv_it = 0, q_it = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const Tile w = tile_at<BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
+        // every consumer is done with Q: after the last block, or, when O
+        // is staged in Q, after every tile's epilogue (a tile without
+        // blocks writes its zeros there too)
+        if constexpr (L::O_IN_Q) mbar_wait(q_empty, (q_it++ & 1) ^ 1);
         if (w.n_blocks == 0) continue;
+        if constexpr (!L::O_IN_Q) mbar_wait(q_empty, (q_it++ & 1) ^ 1);
         const int bhk = w.b * Hkv + w.h / (H / Hkv);
-        mbar_wait(q_empty, (q_it++ & 1) ^ 1);   // every consumer is done with Q
         mbar_arrive_expect_tx(q_full, P * L::kQPanel);
         for (int p = 0; p < P; ++p) {
           tma_load_3d(smem + L::kQ + p * L::kQPanel, &tm_q, q_full, p * PANEL_COLS,
@@ -279,7 +311,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
     const int cq = (lane & 3) * 2;                // first column of each pair
     const uint8_t* sq = smem + L::kQ + wg * 64 * ROW_BYTES;
-    uint8_t* so = smem + L::kO + wg * P * L::kOPanel;
+    uint8_t* so = smem + L::kOBase + wg * L::kOWarpgroup;
     int kv_it = 0, q_it = 0;
 
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -307,7 +339,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
-        if (j == w.n_blocks - 1) mbar_arrive(q_empty);   // Q is read for good
+        if (!L::O_IN_Q && j == w.n_blocks - 1) mbar_arrive(q_empty);   // Q is read for good
 
         // Only the last blocks, which cross kv_len or the diagonal, mask.
         Softmax sm{m0, m1, l0, l1, 1.0f, 1.0f};
@@ -374,10 +406,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int p = 0; p < P; ++p) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          *reinterpret_cast<uint32_t*>(so + p * L::kOPanel +
+          *reinterpret_cast<uint32_t*>(so + p * L::kOStride +
                                        swizzled_offset(r, 8 * i + cq)) =
               pack_bf16(o[p][4 * i] * inv0, o[p][4 * i + 1] * inv0);
-          *reinterpret_cast<uint32_t*>(so + p * L::kOPanel +
+          *reinterpret_cast<uint32_t*>(so + p * L::kOStride +
                                        swizzled_offset(r + 8, 8 * i + cq)) =
               pack_bf16(o[p][4 * i + 2] * inv1, o[p][4 * i + 3] * inv1);
         }
@@ -386,10 +418,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       named_sync(1 + wg, 128);
       if (tid == 0 && wq0 < Tq) {
         for (int p = 0; p < P; ++p) {
-          tma_store_3d(&tm_o, so + p * L::kOPanel, p * PANEL_COLS, wq0,
+          tma_store_3d(&tm_o, so + p * L::kOStride, p * PANEL_COLS, wq0,
                        w.b * H + w.h);
         }
         tma_store_drain();
+      }
+      if constexpr (L::O_IN_Q) {
+        named_sync(1 + wg, 128);   // the store has read O out of Q's rows
+        mbar_arrive(q_empty);
       }
     }
   }
@@ -432,10 +468,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // float32: the scalar path
 // ---------------------------------------------------------------------------
 
-using flash::HALF;
-using flash::ROWS_PER_WARP;
 using flash::THREADS;
-constexpr int BLOCK = flash::BLOCK;
 
 // Q, K, V tiles and the warps' P tiles (byte offsets).
 template <int D>
@@ -456,7 +489,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
                      int causal, float scale) {
   using L = SmemF32<D>;
-  constexpr int DH = D / 2;          // output columns per lane
+  constexpr int BLOCK = L::BLOCK;
+  constexpr int COLS = L::COLS;      // score columns per lane
+  constexpr int DC = L::DCOLS;       // output columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem + L::kQ);
   float* sK = reinterpret_cast<float*>(smem + L::kK);
@@ -472,11 +507,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r = lane >> 1;      // row within the warp's 16
-  const int half = lane & 1;    // which half of the row this lane owns
-  const int row = warp * ROWS_PER_WARP + r;
-  const int qi = q0 + row;      // query position
-  float* pw = sP + warp * ROWS_PER_WARP * L::LDP;
+  const int r = lane / L::LANES;     // row within the warp's rows
+  const int part = lane % L::LANES;  // which part of the row this lane owns
+  const int row = warp * L::ROWS_PER_WARP + r;
+  const int qi = q0 + row;           // query position
+  float* pw = sP + warp * L::ROWS_PER_WARP * L::LDP;
 
   const size_t q_head = (size_t(b) * H + h) * Tq;     // row offsets
   const size_t kv_head = (size_t(b) * Hkv + hk) * Tk;
@@ -485,34 +520,34 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) kv_end = min(kv_end, min(q0 + BLOCK, q_len));
   const int n_blocks = q0 < q_len ? (kv_end + BLOCK - 1) / BLOCK : 0;
 
-  float acc[DH];
+  float acc[DC];
 #pragma unroll
-  for (int j = 0; j < DH; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < DC; ++j) acc[j] = 0.0f;
   float m_i = -INFINITY;
   float l_i = 0.0f;
 
-  if (n_blocks > 0) flash::load_tile<float, D, L::LDT>(sQ, q + q_head * D, q0, q_len);
+  if (n_blocks > 0) flash::load_tile<float, D>(sQ, q + q_head * D, q0, q_len);
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int kv0 = blk * BLOCK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    flash::load_tile<float, D, L::LDT>(sK, k + kv_head * D, kv0, kv_len);
-    flash::load_tile<float, D, L::LDT>(sV, v + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D>(sK, k + kv_head * D, kv0, kv_len);
+    flash::load_tile<float, D>(sV, v + kv_head * D, kv0, kv_len);
     __syncthreads();
 
-    float s[HALF];
-    flash::warp_abt<float, D>(sQ + warp * ROWS_PER_WARP * L::LDT, sK, r, half, s);
+    float s[COLS];
+    flash::warp_abt<float, D>(sQ + warp * L::ROWS_PER_WARP * L::LDT, sK, r, part, s);
 
-    // Online softmax; the lane pair shares the row's max and sum.
+    // Online softmax; the lanes of a row share its max and sum.
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const int kj = kv0 + half * HALF + i;
+    for (int i = 0; i < COLS; ++i) {
+      const int kj = kv0 + part * COLS + i;
       const bool ok = kj < kv_len && (!causal || kj <= qi);
       s[i] = ok ? s[i] * scale : -INFINITY;
       mx = fmaxf(mx, s[i]);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = flash::row_max<L::LANES>(mx);
     const float m_new = fmaxf(m_i, mx);
     // A row with no valid key so far keeps m = -inf; exponentiate against 0
     // so that exp(-inf - m) is 0 rather than NaN.
@@ -520,23 +555,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = __expf(m_i - m_use);
     float rs = 0.0f;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) {
+    for (int i = 0; i < COLS; ++i) {
       const float p = __expf(s[i] - m_use);
       rs += p;
-      pw[r * L::LDP + half * HALF + i] = p;
+      pw[r * L::LDP + part * COLS + i] = p;
     }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs = flash::row_sum<L::LANES>(rs);
     l_i = l_i * alpha + rs;
     m_i = m_new;
 #pragma unroll
-    for (int j = 0; j < DH; ++j) acc[j] *= alpha;
+    for (int j = 0; j < DC; ++j) acc[j] *= alpha;
     __syncwarp();  // P complete before PV
 
+    // unrolled by 4: at D = 256 ptxas otherwise settles at 128 registers
+    // and spills
+#pragma unroll 4
     for (int c = 0; c < BLOCK; ++c) {
       const float p = pw[r * L::LDP + c];
-      const float* vr = sV + c * L::LDT + half * DH;
+      const float* vr = sV + c * L::LDT + part * DC;
 #pragma unroll
-      for (int j = 0; j < DH; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
+      for (int j = 0; j < DC; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
     }
     __syncwarp();  // P is rewritten by the next block
   }
@@ -544,10 +582,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (qi < Tq) {
     const bool valid = qi < q_len && l_i > 0.0f;
     const float inv = valid ? 1.0f / l_i : 0.0f;
-    float* orow = o + (q_head + qi) * D + half * DH;
+    float* orow = o + (q_head + qi) * D + part * DC;
 #pragma unroll
-    for (int j = 0; j < DH; ++j) orow[j] = acc[j] * inv;
-    if (half == 0) lse[q_head + qi] = valid ? m_i + logf(l_i) : INFINITY;
+    for (int j = 0; j < DC; ++j) orow[j] = acc[j] * inv;
+    if (part == 0) lse[q_head + qi] = valid ? m_i + logf(l_i) : INFINITY;
   }
 }
 
@@ -561,6 +599,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
+  constexpr int BLOCK = SmemF32<D>::BLOCK;
   const dim3 grid((Tq + BLOCK - 1) / BLOCK, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -576,7 +615,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // is checked with cudaGetLastError right after it is enqueued;
 // cudaErrorNotSupported if a tensor map could not be encoded).
 // is_f32: 0 for bfloat16 operands (the wgmma kernel), 1 for float32 (the
-// scalar kernel). D must be 64 or 128.
+// scalar kernel). D must be 64, 128 or 256.
 extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_lens, const void* kv_lens, void* o,
                               void* lse, int B, int H, int Hkv, int Tq, int Tk,
@@ -593,9 +632,11 @@ extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
   if (is_f32) {
     if (D == 64) AVSR_FWD(launch_f32, 64);
     if (D == 128) AVSR_FWD(launch_f32, 128);
+    if (D == 256) AVSR_FWD(launch_f32, 256);
   } else {
     if (D == 64) AVSR_FWD(launch_bf16, 64);
     if (D == 128) AVSR_FWD(launch_bf16, 128);
+    if (D == 256) AVSR_FWD(launch_bf16, 256);
   }
 #undef AVSR_FWD
   return int(cudaErrorInvalidValue);

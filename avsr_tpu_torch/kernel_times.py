@@ -9,6 +9,10 @@ times by the same method):
 - the flash forward at the Whisper, LLM prefill and LLM train shapes, and
   dQ and dK/dV at the train shape (dK/dV also without the causal mask);
   bf16, B = 8, D = 64;
+- the flash forward, dQ and dK/dV at the connectors' shape (the
+  ``attention`` and ``adaptive`` connectors: 8 heads of 256 over the 500
+  rows Whisper returns for 10 s, non-causal; bf16, B = 8), where the
+  package's kernels take D = 256;
 - the weight-only matmuls at M = 8: int4 and int8 at the flagship's four
   decode projections (qkv, o, gateup, down; int8 is model.use_8bit) and the
   int8 lm head, with the weights
@@ -34,11 +38,12 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 
-# name: B, H, Hkv, T, valid rows, causal
+# name: B, H, Hkv, T, valid rows, causal, D
 SHAPES = {
-    "whisper": (8, 16, 16, 512, 500, False),
-    "llm_prefill": (8, 32, 8, 533, 533, True),
-    "llm_train": (8, 32, 8, 672, 581, True),
+    "whisper": (8, 16, 16, 512, 500, False, 64),
+    "llm_prefill": (8, 32, 8, 533, 533, True, 64),
+    "llm_train": (8, 32, 8, 672, 581, True, 64),
+    "connector": (8, 8, 8, 500, 500, False, 256),
 }
 # name: bits, K, N (M = 8)
 QMM_SHAPES = {
@@ -83,17 +88,20 @@ def main(argv: list[str] | None = None) -> int:
     print(smoke.gpu_line())
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     ms = {}
-    for name, (B, H, Hkv, T, n, causal) in SHAPES.items():
-        q, do = (torch.randn((B, H, T, 64), generator=gen, device="cuda",
+    for name, (B, H, Hkv, T, n, causal, D) in SHAPES.items():
+        if D not in getattr(A, "KERNEL_HEAD_DIMS", (64, 128)):
+            continue            # a checkout whose kernels do not take this width
+        q, do = (torch.randn((B, H, T, D), generator=gen, device="cuda",
                              dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn((B, Hkv, T, 64), generator=gen, device="cuda",
+        k, v = (torch.randn((B, Hkv, T, D), generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
         lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
         ms[f"fwd_{name}"] = smoke.graph_ms(
             [lambda: A.flash_attention(q, k, v, lens, lens, causal)])
-        if name != "llm_train":
+        if name not in ("llm_train", "connector"):
             continue
-        for tag, c in (("", True), ("_noncausal", False)):
+        for tag, c in ((("", True), ("_noncausal", False)) if causal
+                       else (("", False),)):
             o, lse = A.flash_attention(q, k, v, lens, lens, c)
             dq_args = (q, k, v, o, lse, do, lens, lens, c)
             if reads_delta:
@@ -101,10 +109,9 @@ def main(argv: list[str] | None = None) -> int:
                 dkv_args = (q, k, v, lse, delta, do, lens, lens, c)
             else:
                 dkv_args = dq_args
-            if c:
-                ms["dq_llm_train"] = smoke.graph_ms([lambda: A.flash_bwd_dq(*dq_args)])
-            ms[f"dkv_llm_train{tag}"] = smoke.graph_ms(
-                [lambda: A.flash_bwd_dkv(*dkv_args)])
+            if c == causal:
+                ms[f"dq_{name}"] = smoke.graph_ms([lambda: A.flash_bwd_dq(*dq_args)])
+            ms[f"dkv_{name}{tag}"] = smoke.graph_ms([lambda: A.flash_bwd_dkv(*dkv_args)])
     for name, (bits, K, N) in QMM_SHAPES.items():
         qp = quant.quantize_tensor(
             0.02 * torch.randn((K, N), generator=gen, device="cuda"), bits)

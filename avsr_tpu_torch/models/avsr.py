@@ -1,12 +1,13 @@
 """AVSR model composition, the port of ``avsr_tpu/models/avsr.py``:
-Whisper or HuBERT/Wav2Vec2 + CLIP + simple connectors + Llama(+LoRA), with
-``weighted_sum`` or
-``concat_seq`` fusion, the packed [prompt][features] prefix that
-generation prefills, and the training ``forward`` (packed causal-LM loss
-on the label positions).
+Whisper or HuBERT/Wav2Vec2 + CLIP + connectors + Llama(+LoRA): two
+single-input connectors fused by ``weighted_sum`` (any ``fusion_mode``
+other than ``concat_seq``, as in JAX) or ``concat_seq``, or one dual-input
+connector that fuses audio and video itself; the packed
+[prompt][features] prefix that generation prefills, and the training
+``forward`` (packed causal-LM loss on the label positions).
 
-The other video encoders (ResNet, EfficientNet, AV-HuBERT), the other
-connectors, and MoE, are still to be ported.
+The other video encoders (ResNet, EfficientNet, AV-HuBERT) and MoE (the
+``moe`` connector and the LLM's MoE FFN) are still to be ported.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from avsr_tpu_torch.convert import param_count
 from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.models import llama as llama_mod
 from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
-from avsr_tpu_torch.models.connectors import get_connector
+from avsr_tpu_torch.models.connectors import get_connector, upsample_to
 from avsr_tpu_torch.models.hubert import init_speech_ssl, speech_ssl_apply
 from avsr_tpu_torch.models.layers import Params
 from avsr_tpu_torch.models.whisper_encoder import (
@@ -115,10 +116,15 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
             params["whisper"] = init_whisper_encoder(gen, cfg.whisper, dtype)
         else:   # hubert / wav2vec2 share one module
             params[cfg.audio_encoder] = init_speech_ssl(gen, cfg.ssl, dtype)
-        params["audio_connector"] = conn.init(gen, cfg.audio_dim, d_llm, cfg, dtype)
+        if not conn.dual:
+            params["audio_connector"] = conn.init(gen, cfg.audio_dim, d_llm, cfg, dtype)
     if cfg.modality in ("video", "both"):
         params["clip"] = init_clip_vit(gen, cfg.clip, dtype)
-        params["video_connector"] = conn.init(gen, cfg.video_dim, d_llm, cfg, dtype)
+        if not conn.dual:
+            params["video_connector"] = conn.init(gen, cfg.video_dim, d_llm, cfg, dtype)
+    if conn.dual:
+        params["connector"] = conn.init(gen, cfg.audio_dim, cfg.video_dim, d_llm,
+                                        cfg, dtype)
     llm = llama_mod.init_llama(gen, cfg.llm, dtype)
     if cfg.lora.use_lora:
         llm = llama_mod.add_lora(gen, llm, cfg.llm, cfg.lora, dtype)
@@ -129,24 +135,6 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 # Encode (audio / video / fusion) -> LLM-space features
 # ---------------------------------------------------------------------------
-
-def _upsample_to(x: torch.Tensor, x_lens: torch.Tensor, target_T: int,
-                 target_lens: torch.Tensor) -> torch.Tensor:
-    """Nearest-index resample of [B, T, d] onto the target time grid.
-
-    A product with a one-hot [B, target_T, T] matrix: each output row has
-    one nonzero term, so the values are the gather's (the JAX
-    ``take_along_axis``), and the backward is a matrix product too. A
-    gather's backward adds the repeated rows (about 20 per video frame on
-    the flagship) with float atomics on the card, in an order that changes
-    from run to run, so a resumed run could not repeat an uninterrupted
-    one."""
-    ratio = (x_lens.clamp(min=1).float() / target_lens.clamp(min=1).float())
-    pos = torch.arange(target_T, device=x.device)[None, :] * ratio[:, None]
-    idx = pos.to(torch.int64).clamp(0, x.shape[1] - 1)
-    onehot = idx[..., None] == torch.arange(x.shape[1], device=x.device)
-    return torch.matmul(onehot.to(x.dtype), x)
-
 
 def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:
     """Honor ModelConfig.max_seq_len as a hard cap on the fused features."""
@@ -169,7 +157,7 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     conn = get_connector(cfg.connector_type)
     frozen = (torch.no_grad() if cfg.freeze_encoders and not cfg.unfreeze_layer_norms
               else contextlib.nullcontext())
-    a_out = a_lens = v_out = v_lens = None
+    feats = alens = vfeats = vlens = None
     if cfg.modality in ("audio", "both"):
         with frozen:
             if cfg.audio_encoder == "whisper":
@@ -182,7 +170,6 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
                     params[cfg.audio_encoder], batch.wave, cfg.ssl,
                     wave_lengths=batch.wave_lens, compute_dtype=compute_dtype,
                     use_kernel=use_kernel, remat=remat)
-        a_out, a_lens = conn.apply(params["audio_connector"], feats, alens)
     if cfg.modality in ("video", "both"):
         with frozen:
             vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
@@ -191,20 +178,30 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
         vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
-        v_out, v_lens = conn.apply(params["video_connector"], vfeats, vlens)
 
+    if conn.dual:
+        out, lens = conn.apply(params["connector"], feats, vfeats, alens, vlens,
+                               use_kernel=use_kernel)
+        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
     if cfg.modality == "audio":
-        return _cap_seq(EncodeOut(a_out, a_lens), cfg.max_seq_len)
+        out, lens = conn.apply(params["audio_connector"], feats, alens,
+                               use_kernel=use_kernel)
+        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
     if cfg.modality == "video":
-        return _cap_seq(EncodeOut(v_out, v_lens), cfg.max_seq_len)
+        out, lens = conn.apply(params["video_connector"], vfeats, vlens,
+                               use_kernel=use_kernel)
+        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
+    a_out, a_lens = conn.apply(params["audio_connector"], feats, alens,
+                               use_kernel=use_kernel)
+    v_out, v_lens = conn.apply(params["video_connector"], vfeats, vlens,
+                               use_kernel=use_kernel)
     if cfg.fusion_mode == "concat_seq":
         packed, total, _ = pack_segments([(a_out, a_lens), (v_out, v_lens)])
         return _cap_seq(EncodeOut(packed, total), cfg.max_seq_len)
-    if cfg.fusion_mode != "weighted_sum":
-        raise NotImplementedError(f"fusion_mode {cfg.fusion_mode!r} is not yet ported")
-    # weighted_sum: video onto the audio time grid, then
+    # weighted_sum, and every other fusion_mode (JAX sends them all here):
+    # video onto the audio time grid, then
     # fusion_scale * audio + (1 - fusion_scale) * video.
-    v_up = _upsample_to(v_out, v_lens, a_out.shape[1], a_lens)
+    v_up = upsample_to(v_out, v_lens, a_out.shape[1], a_lens)
     fused = cfg.fusion_scale * a_out + (1.0 - cfg.fusion_scale) * v_up
     return _cap_seq(EncodeOut(fused, a_lens), cfg.max_seq_len)
 

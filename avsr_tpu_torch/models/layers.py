@@ -119,16 +119,23 @@ def mha_init(gen: torch.Generator, d_model: int, *, k_bias: bool = True,
 
 
 def mha_apply(p: Params, x: torch.Tensor, *, n_heads: int,
+              kv: torch.Tensor | None = None,
               lengths: torch.Tensor | None = None,
+              kv_lengths: torch.Tensor | None = None,
+              kv_valid: torch.Tensor | None = None,
               use_kernel: str = "auto") -> torch.Tensor:
-    """Bidirectional self-attention over [B, T, D], padding-masked by
-    ``lengths``. (The JAX package's cross-attention form serves connectors
-    that are not ported yet.)"""
+    """Bidirectional self-attention (``kv`` None) or cross-attention over
+    [B, T, D] activations. Queries past ``lengths`` and keys past
+    ``kv_lengths`` (``lengths`` for self-attention) are masked;
+    ``kv_valid`` [B, Tk] masks arbitrary key positions (it always takes
+    mha_reference, as in JAX)."""
+    src = x if kv is None else kv
     q = split_heads(dense(p["q"], x), n_heads)
-    k = split_heads(dense(p["k"], x), n_heads)
-    v = split_heads(dense(p["v"], x), n_heads)
-    out = attention(q, k, v, q_lens=lengths, kv_lens=lengths,
-                    use_kernel=use_kernel)
+    k = split_heads(dense(p["k"], src), n_heads)
+    v = split_heads(dense(p["v"], src), n_heads)
+    out = attention(q, k, v, q_lens=lengths,
+                    kv_lens=kv_lengths if kv is not None else lengths,
+                    kv_valid=kv_valid, use_kernel=use_kernel)
     return dense(p["o"], merge_heads(out))
 
 

@@ -42,10 +42,11 @@ dkv_launches = 0      # flash_bwd dK/dV
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
 # the port keeps them as the reference's rule until measured on the card.
 MIN_KERNEL_SEQ = 256
-# The head widths the CUDA kernels take. The JAX rule sends every multiple
-# of 64 to its kernel; the port sends 192 and 256 (no shipped config has
-# them) to mha_reference.
-KERNEL_HEAD_DIMS = (64, 128)
+# The head widths the CUDA kernels take: 64 (Whisper, HuBERT, CLIP, the
+# LLM), 128, and 256 (the connectors' 8 heads over the 2048-wide LLM). The
+# JAX rule sends every multiple of 64 to its kernel; the port sends 192 and
+# 512 (no shipped config reaches them) to mha_reference.
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _lens(lens: torch.Tensor | None, n: int, batch: int,
@@ -254,10 +255,10 @@ def _check_qkv(name: str, q, k, v, causal: bool) -> tuple[int, ...]:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes bfloat16 or float32 operands "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (64, 128) or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
+    if D not in KERNEL_HEAD_DIMS or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
         raise ValueError(f"{name} shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}: need "
-                         "D in (64, 128) and k, v of one shape")
+                         f"D in {KERNEL_HEAD_DIMS} and k, v of one shape")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
     if causal and Tq != Tk:
@@ -300,7 +301,7 @@ def flash_attention(
     """Flash-attention forward: (O [B,H,Tq,D], lse [B,H,Tq] f32).
 
     q: [B,H,Tq,D], k/v: [B,Hkv,Tk,D], contiguous, bfloat16 or float32,
-    D in {64, 128}; causal needs Tq == Tk. Ragged tails (q_lens, kv_lens)
+    D in {64, 128, 256}; causal needs Tq == Tk. Ragged tails (q_lens, kv_lens)
     are masked inside the kernel; nothing is padded. A CPU tensor takes
     :func:`flash_attention_reference`; a CUDA tensor launches the kernel
     (on the current stream) or raises. The kernel's output has no
@@ -429,7 +430,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               use_kernel: str = "auto") -> torch.Tensor:
     """The flash kernels where the JAX package would take its Pallas kernel
     (Tq and Tk >= 256, no ``kv_valid`` mask) and the kernels take the head
-    width (64 or 128; JAX takes any multiple of 64), through
+    width (64, 128 or 256; JAX takes any multiple of 64), through
     :class:`FlashAttention` so that gradients flow; else
     :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
     tensors), "always", or "never" — the counterpart of ``use_pallas``."""

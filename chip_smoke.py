@@ -149,6 +149,26 @@
    the flash forward at HuBERT's shape ([8, 12, 512, 64], 499 valid rows)
    against its plain version, with its time, bound and SDPA's time. Prints
    the GB written and read and the seconds. Removes what it wrote.
+17. Connector phase (``connector_phase``), at full width: the flagship's
+   encoders and LLM built once (bf16, --seed) and each of the eight other
+   connectors (deep, conv, attention, adaptive, cross_modal, qformer,
+   perceiver, adapter) swapped in from seed + 1700: one ``generate_tokens``
+   call (B = 8, 10 s audio, 25 frames, 32 tokens: encode, prefill, ms per
+   token, peak memory) and one LoRA train step of 8 after a warm-up step,
+   with launches exact by the derivation (``connector_launches``:
+   ``attention`` and ``adaptive`` add one flash forward at head width 256
+   per encode and one dQ and dK/dV per step, the others none; ``qformer``'s
+   and ``perceiver``'s short prefixes keep the LLM under the dispatch
+   threshold); the audio connector's own launches are also counted alone
+   (one call, and one forward and backward). The forward, dQ and dK/dV at
+   the connectors' [8, 8, 500, 256] (Whisper's trimmed output), a ragged
+   set at 512 rows and the 30 s
+   ``adaptive`` shape (375 rows), bf16 and f32, held to their plain
+   versions and timed (``connector_kernel_rows``). In f32 the engine (4
+   slots, 8 ragged requests) equals ``generate_tokens`` token for token
+   with ``attention`` and ``qformer``. The train CLI (2 steps) and the
+   decode CLI (the test split) with ``cross_modal`` on phase 15's corpus.
+   Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -4203,6 +4223,368 @@ def convert_phase(seed: int) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 17: every connector at full width, the flash kernels at D = 256
+# ---------------------------------------------------------------------------
+
+CONNECTORS = ("deep", "conv", "attention", "adaptive", "cross_modal", "qformer",
+              "perceiver", "adapter")
+# the connectors that attend over the audio features with 8 heads of 256
+# (the flagship's 2048-wide LLM): one flash forward per encode at T = 500
+# (adaptive pools by 4 only past 512 rows), one dQ and one dK/dV per step
+ATTENTIVE = ("attention", "adaptive")
+
+
+def connector_launches(name: str, n_feat: int, prompt: int, labels: int,
+                       n_whisper: int = 24, n_llm: int = 16) -> dict[str, dict[str, int]]:
+    """The flash launches each path makes with connector ``name``, derived
+    from the code: Whisper's 24 layers over 500 frames; the attention and
+    adaptive connectors' one attention at head width 256 over the 500
+    features; and the LLM's 16 layers only where the packed width reaches
+    the dispatch threshold (``ops/attention.py::MIN_KERNEL_SEQ``): the
+    prefix of ``prompt`` + ``n_feat`` rows for a prefill, the packed
+    [prompt][features][labels] width rounded up to 16 for a train step
+    (forward and remat's recompute). ``qformer``'s 32 and ``perceiver``'s
+    64 features keep both under it."""
+    from avsr_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
+    extra = 1 if name in ATTENTIVE else 0
+    prefill = n_llm if prompt + n_feat >= MIN_KERNEL_SEQ else 0
+    width = -(-(prompt + n_feat + labels) // 16) * 16
+    step = n_llm if width >= MIN_KERNEL_SEQ else 0
+    return dict(encode=dict(fwd=n_whisper + extra, dq=0, dkv=0),
+                generate=dict(fwd=n_whisper + extra + prefill, dq=0, dkv=0),
+                train_step=dict(fwd=n_whisper + extra + 2 * step, dq=extra + step,
+                                dkv=extra + step))
+
+
+def connector_kernel_rows(seed: int) -> dict:
+    """The flash forward, dQ and dK/dV at the connectors' shape: q = k = v
+    [8, 8, T, 256], non-causal, over 10 s of audio (the 500 Whisper frames
+    the encoder returns, trimmed from its 512 padded rows: the width the
+    main path launches, not a multiple of 64), a ragged set at 512 rows and
+    the 30 s ``adaptive`` shape (1500 frames pooled to 375). Each form the
+    connector paths launch (bf16 and f32 forward, bf16 and f32 dQ and dK/dV)
+    is held to its plain version; the bf16 kernels are timed at T = 500 from
+    replayed CUDA graphs beside their bound, their plain versions and SDPA."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1700)
+
+    def qkv(T: int):
+        return [torch.randn((8, 8, T, 256), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def lengths(*n: int):
+        return torch.tensor(n if len(n) == 8 else n * 8, dtype=torch.int32, device="cuda")
+
+    q, k, v, do = qkv(500)
+    lens = lengths(500)
+    cases = (("main", (q, k, v, do), lens),
+             ("ragged", qkv(512), lengths(500, 311, 260, 512, 17, 400, 256, 1)),
+             ("30s", qkv(375), lengths(375)))
+    err = {"bf16": 0.0, "f32": 0.0}
+    lse_err = {"bf16": 0.0, "f32": 0.0}
+    bwd_err = {f"{n}_{dt}": 0.0 for n in ("dq", "dk", "dv") for dt in ("bf16", "f32")}
+    for tag, tensors, ln in cases:
+        n = int(ln.min())
+        for dt, tol, lse_tol, bwd_tol in (("bf16", 2e-2, 1e-3, 2e-2), ("f32", 1e-4, 1e-4, 1e-4)):
+            q_, k_, v_, do_ = (t.float() if dt == "f32" else t for t in tensors)
+            o, lse = A.flash_attention(q_, k_, v_, ln, ln, False)
+            o_r, lse_r = A.flash_attention_reference(q_, k_, v_, ln, ln, False)
+            torch.cuda.synchronize()
+            e = (o.float() - o_r.float()).abs()
+            check(bool((e <= tol + tol * o_r.float().abs()).all()),
+                  f"connector/{tag}/{dt}: O off by {e.max().item():.3e} (atol=rtol={tol})")
+            fin = torch.isfinite(lse_r)
+            check(torch.equal(fin, torch.isfinite(lse)), f"connector/{tag}/{dt}: lse +inf rows")
+            le = (lse[fin] - lse_r[fin]).abs().max().item()
+            check(le <= lse_tol, f"connector/{tag}/{dt}: lse off by {le:.3e} (atol {lse_tol})")
+            check(bool((o[ln == n][:, :, n:] == 0).all()), f"connector/{tag}/{dt}: padded rows")
+            err[dt], lse_err[dt] = max(err[dt], e.max().item()), max(lse_err[dt], le)
+
+            dq, delta = A.flash_bwd_dq(q_, k_, v_, o, lse, do_, ln, ln, False)
+            dk, dv = A.flash_bwd_dkv(q_, k_, v_, lse, delta, do_, ln, ln, False)
+            refs = A.flash_attention_bwd_reference(q_, k_, v_, o, lse, do_, ln, ln, False)
+            delta_r = A.flash_bwd_dq_reference(q_, k_, v_, o, lse, do_, ln, ln, False)[1]
+            torch.cuda.synchronize()
+            d_err = (delta - delta_r).abs().max().item()
+            check(d_err <= 1e-4 * max(1.0, delta_r.abs().max().item()),
+                  f"connector/{tag}/{dt}: delta off by {d_err:.3e}")
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"connector/{tag}/{dt}: {name} not finite")
+                r = rel_err(got, ref)
+                check(r <= bwd_tol, f"connector/{tag}/{dt}: {name} max|d| {r:.3e} x max|ref| "
+                                    f"> {bwd_tol}")
+                bwd_err[f"{name}_{dt}"] = max(bwd_err[f"{name}_{dt}"], r)
+            del o, lse, o_r, lse_r, dq, delta, dk, dv, refs, delta_r
+    print(f"kernel connector (D = 256): forward, dQ and dK/dV held to their plain versions "
+          f"(main, ragged, 30 s): max|dO| bf16 {err['bf16']:.3e}, f32 {err['f32']:.3e}; "
+          "max|d|/max|ref| " + ", ".join(f"{n_} {e_:.3e}" for n_, e_ in bwd_err.items()))
+
+    bounds = attn_bounds(q, k, lens, lens, False)
+    o, lse = A.flash_attention(q, k, v, lens, lens, False)
+    args_dq = (q, k, v, o, lse, do, lens, lens, False)
+    _, delta = A.flash_bwd_dq(*args_dq)
+    args_dkv = (q, k, v, lse, delta, do, lens, lens, False)
+    times = {"fwd": graph_ms([lambda: A.flash_attention(q, k, v, lens, lens, False)]),
+             "dq": graph_ms([lambda: A.flash_bwd_dq(*args_dq)]),
+             "dkv": graph_ms([lambda: A.flash_bwd_dkv(*args_dkv)])}
+    plain = {"fwd": time_ms(lambda: A.flash_attention_reference(q, k, v, lens, lens, False), 3),
+             "dq": time_ms(lambda: A.flash_bwd_dq_reference(*args_dq), 3),
+             "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args_dkv), 3)}
+    lib_fwd = sdpa_ms(q, k, v, lens, False)
+    lib_bwd = sdpa_ms(q, k, v, lens, False, do)
+    rows = {}
+    for name in ("fwd", "dq", "dkv"):
+        ops_ms, bytes_ms = bounds[name]
+        lib = lib_fwd if name == "fwd" else lib_bwd
+        rows[name] = dict(
+            shape="connector", q=list(q.shape), kv=list(k.shape), causal=False, lens=500,
+            ms=times[name], plain_ms=plain[name], library_ms=lib["ms"], library=lib,
+            bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    rows["fwd"].update(max_abs_err=err["bf16"], max_lse_err=lse_err["bf16"],
+                       f32=dict(max_abs_err=err["f32"], max_lse_err=lse_err["f32"]))
+    rows["dq"]["max_rel_err"] = dict(bf16=bwd_err["dq_bf16"], f32=bwd_err["dq_f32"])
+    rows["dkv"]["max_rel_err"] = {k_: v_ for k_, v_ in bwd_err.items() if k_[:2] in ("dk", "dv")}
+    print(f"kernel connector ({gpu_line()}): forward {times['fwd']:.4f} ms (plain "
+          f"{plain['fwd']:.4f}, SDPA {lib_fwd['ms']:.4f} [{lib_fwd['call']}], bound "
+          f"{rows['fwd']['bound_ms']:.4f} by {rows['fwd']['bound_by']}); dQ {times['dq']:.4f} "
+          f"(plain {plain['dq']:.4f}, bound {rows['dq']['bound_ms']:.4f}), dK/dV "
+          f"{times['dkv']:.4f} (plain {plain['dkv']:.4f}, bound {rows['dkv']['bound_ms']:.4f}), "
+          f"SDPA backward {lib_bwd['ms']:.4f} ms")
+    return rows
+
+
+def connector_phase(seed: int) -> dict:
+    """Phase 17: each of the eight connectors at the flagship's full width
+    (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+    from avsr_tpu_torch.convert import cast_tree
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import generate_tokens, prepare_params_for_decode
+    from avsr_tpu_torch.models.avsr import encode, init_avsr_model
+    from avsr_tpu_torch.models.connectors import get_connector
+    from avsr_tpu_torch.models.whisper_encoder import whisper_encoder_apply
+    from avsr_tpu_torch.train.state import cast_frozen
+
+    t_all = time.perf_counter()
+    res: dict = {"kernels": connector_kernel_rows(seed)}
+    by_path: dict[str, dict[str, int]] = {}
+    nW, nL = 24, 16                 # Whisper and LLM layers: flash per encode, prefill
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        return out
+
+    def want(flash=0, dq=0, dkv=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=0,
+                    qmatmul_int4=0)
+
+    # the flagship's encoders and LLM once, bf16, from --seed; each connector's
+    # own leaves from seed + 1700
+    base = init_avsr_model(flagship().model, seed=seed, device="cuda", dtype=torch.bfloat16)
+    for side in ("audio_connector", "video_connector"):
+        del base[side]
+
+    def with_connector(mc, dtype, tree=None):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1700)
+        conn, d = get_connector(mc.connector_type), mc.llm.d_model
+        params = dict(tree if tree is not None else base)
+        if conn.dual:
+            params["connector"] = conn.init(gen, mc.audio_dim, mc.video_dim, d, mc, dtype)
+        else:
+            params["audio_connector"] = conn.init(gen, mc.audio_dim, d, mc, dtype)
+            params["video_connector"] = conn.init(gen, mc.video_dim, d, mc, dtype)
+        return params
+
+    tok = ByteTokenizer()
+    cfg0 = flagship()
+    hb = serving_host_batch(cfg0, seed)
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    micro = featurize(train_host_batch(cfg0, tok, np.random.default_rng(seed + 1701)),
+                      "cuda", torch.bfloat16)
+    stacked = _stack([micro])
+    rows = {}
+    derived = {}
+    for name in CONNECTORS:
+        cfg = flagship([f"model.connector_type={name}", "training.grad_accum_steps=1"])
+        mc = cfg.model
+        n_feat = {"qformer": mc.qformer_queries, "perceiver": mc.perceiver_latents}.get(name, 500)
+        d = derived[name] = connector_launches(name, n_feat, hb.prompt.shape[1],
+                                               micro.labels.shape[1], nW, nL)
+        params = with_connector(mc, torch.bfloat16)
+        kw = dict(max_new_tokens=32, eos_id=-1, compute_dtype=torch.bfloat16)
+        generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 2})     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        st: dict = {}
+        out = counted(f"{name}_generate", lambda: generate_tokens(params, mc, batch, stats=st,
+                                                                  **kw))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        w = want(*d["generate"].values())
+        check(by_path[f"{name}_generate"] == w,
+              f"{name}: generate launches {by_path[f'{name}_generate']}, expected {w}")
+        check(out.tokens.shape == (8, 32) and bool((out.lengths == 32).all())
+              and bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
+              f"{name}: tokens {tuple(out.tokens.shape)}")
+        check(bool(torch.isfinite(st["prefill_logits"]).all()), f"{name}: prefill logits")
+        with torch.no_grad():
+            enc = counted(f"{name}_encode", lambda: encode(params, mc, batch,
+                                                           compute_dtype=torch.bfloat16))
+        check(enc.features.shape == (8, n_feat, mc.llm.d_model)
+              and bool(torch.isfinite(enc.features.float()).all())
+              and enc.lengths.tolist() == [n_feat] * 8,
+              f"{name}: features {tuple(enc.features.shape)}, lengths {enc.lengths.tolist()}")
+        check(by_path[f"{name}_encode"] == want(*d["encode"].values()),
+              f"{name}: encode launches {by_path[f'{name}_encode']}")
+        if name in ATTENTIVE:
+            # the audio connector's own launches, counted apart from
+            # Whisper's: one call on the 500 encoder frames, and one forward
+            # and backward of it (the gradient reaches q, k and v through
+            # the features, as the connector's leaves' does in a train step)
+            conn = get_connector(name)
+            with torch.no_grad():
+                feats, alens = whisper_encoder_apply(
+                    params["whisper"], batch.mel, mc.whisper, mel_lengths=batch.mel_lens,
+                    compute_dtype=torch.bfloat16)
+            check(feats.shape[1] == 500, f"{name}: Whisper gives {feats.shape[1]} rows, not 500")
+            with torch.no_grad():
+                counted(f"{name}_audio_connector", lambda: conn.apply(
+                    params["audio_connector"], feats, alens, use_kernel="auto"))
+            check(by_path[f"{name}_audio_connector"] == want(flash=1),
+                  f"{name}: audio connector launches {by_path[f'{name}_audio_connector']}")
+            feats.requires_grad_(True)
+
+            def connector_grad():
+                y, _ = conn.apply(params["audio_connector"], feats, alens, use_kernel="auto")
+                y.float().square().mean().backward()
+
+            counted(f"{name}_audio_connector_grad", connector_grad)
+            check(by_path[f"{name}_audio_connector_grad"] == want(1, 1, 1),
+                  f"{name}: audio connector forward and backward launches "
+                  f"{by_path[f'{name}_audio_connector_grad']}")
+            check(bool(torch.isfinite(feats.grad.float()).all()), f"{name}: feature gradient")
+            del feats, alens
+
+        # one LoRA train step of 8 (accum 1) after a warm-up step; the
+        # connector and LoRA leaves f32, the frozen ones bf16
+        tparams = cast_frozen(params, mc, torch.bfloat16)
+        _, tr = _run_steps(cfg, tparams, stacked, 2, f"connector {name}", seed,
+                           expect=want(*d["train_step"].values()))
+        by_path[f"{name}_train_2_steps"] = {
+            k_: sum(s_["launches"][k_] for s_ in tr["steps"]) for k_ in counts()}
+        rows[name] = dict(
+            encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+            ms_per_token=st["decode_s"] * 1e3 / st["decode_steps"], peak_mem_gb=peak,
+            features=n_feat, train_step_ms=tr["steps"][-1]["ms"],
+            train_first_step_ms=tr["steps"][0]["ms"], train_peak_mem_gb=tr["peak_mem_gb"],
+            launches_derived=d)
+        print(f"connector {name}: " + json.dumps(rows[name]))
+        del params, tparams, out, enc, st
+        settle()
+    res["connectors"] = rows
+
+    # f32 exactness: the engine (4 slots, 8 ragged requests) token for token
+    # equal to generate_tokens, with the f32 kernel at D = 256 (attention) and
+    # fixed-length features (qformer)
+    samples, budgets = serving_traffic(seed + 17, n=8)
+    budgets = [min(b, 16) for b in budgets]
+    b32 = cast_tree(base, torch.float32)
+    for name in ("attention", "qformer"):
+        cfg32 = flagship(["runtime.compute_dtype=float32", f"model.connector_type={name}"])
+        p32 = prepare_params_for_decode(with_connector(cfg32.model, torch.float32, b32),
+                                        cfg32.model)
+        eng = ServingEngine(p32, cfg32, tok, num_slots=4, k_steps=8, seed=seed)
+        try:
+            run = counted(f"{name}_engine_f32", lambda: drive_engine(eng, samples, budgets))
+            stages = eng.stages_run
+        finally:
+            eng.close()
+        ref = static_batches(p32, cfg32, samples, budgets, torch.float32)
+        diff = [i for i, (a, b_) in enumerate(zip(run["tokens"], ref["tokens"])) if a != b_]
+        check(not diff, f"{name}: f32 engine != generate_tokens for requests {diff}")
+        per_stage = derived[name]["generate"]["fwd"]
+        check(by_path[f"{name}_engine_f32"] == want(flash=per_stage * stages),
+              f"{name}: f32 engine launches {by_path[f'{name}_engine_f32']}, "
+              f"{stages} stages of {per_stage}")
+        res[f"engine_f32_{name}"] = dict(requests=8, slots=4, stages=stages,
+                                         tokens_equal_generate_tokens=True,
+                                         new_tokens=sum(len(t) for t in run["tokens"]))
+        print(f"connector {name}: f32 engine equals generate_tokens token for token "
+              f"({stages} stages)")
+        del p32, eng
+        settle()
+    del b32, base
+    settle()
+
+    # the train and decode CLIs with cross_modal on phase 15's corpus
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("connector_%Y%m%d_%H%M%S")
+    try:
+        corpus = make_corpus(work, seed)
+        flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES,
+                "data.synthetic=false", f"data.path={corpus}", "data.num_workers=4",
+                "model.connector_type=cross_modal"]
+        run = work / "run"
+
+        def train_run():
+            rc = train.main([*flag, "training.grad_accum_steps=1", "training.max_steps=2",
+                             "training.save_every_steps=0", f"training.checkpoint_dir={run}"])
+            check(rc == 0, f"train CLI (cross_modal) returned {rc}")
+            rows_ = loss_rows(run)
+            tr_ = [r for r in rows_ if r[2] == "train"]
+            check(len(tr_) == 2 and all(np.isfinite(float(r[3])) for r in tr_),
+                  f"cross_modal train rows {tr_}")
+            check([r[2] for r in rows_].count("val") == 1, "cross_modal: no validation row")
+            return [float(r[3]) for r in tr_]
+
+        losses = counted("cross_modal_train_cli", train_run)
+        # 2 steps of 8: Whisper 24 without grad, the LLM's 16 and their
+        # recompute; the 12 validation utterances in 2 batches of 24 + 16
+        w = want(flash=2 * (nW + 2 * nL) + 2 * (nW + nL), dq=2 * nL, dkv=2 * nL)
+        check(by_path["cross_modal_train_cli"] == w,
+              f"cross_modal train CLI launches {by_path['cross_modal_train_cli']}, expected {w}")
+
+        def decode_run():
+            out = work / "dec"
+            rc = decode.main([*flag, "decode.max_new_tokens=32", f"decode.output_dir={out}",
+                              "--checkpoint", str(run / "ckpt"), "--split", "test"])
+            check(rc == 0, f"decode CLI (cross_modal) returned {rc}")
+            (res_f,), (wer_f,) = out.glob("results_*.txt"), out.glob("wer_*.txt")
+            check(res_f.read_text().count("UTT: ") == 12
+                  and "utterances: 12\n" in wer_f.read_text(),
+                  "cross_modal decode: the test split's 12 utterances were not each scored once")
+            m = re.search(r"WER: ([0-9.]+)", wer_f.read_text())
+            check(m is not None and np.isfinite(float(m.group(1))), "cross_modal decode: no WER")
+            return float(m.group(1))
+
+        wer = counted("cross_modal_decode_cli", decode_run)
+        check(by_path["cross_modal_decode_cli"] == want(flash=2 * (nW + nL)),
+              f"cross_modal decode CLI launches {by_path['cross_modal_decode_cli']}")
+        res["cli_cross_modal"] = dict(train_losses=losses, test_wer=wer)
+        print(f"connector cross_modal CLIs on the corpus: losses {losses}, test WER {wer}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"connector phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4306,10 +4688,15 @@ def main(argv: list[str] | None = None) -> int:
     # and hubert_base trained, decoded, served and streamed from its export.
     conv = convert_phase(args.seed)
 
+    settle()
+    # Phase 17 at full width: every connector decoded and trained, the flash
+    # kernels at head width 256, the f32 engine and the CLIs with cross_modal.
+    connectors = connector_phase(args.seed)
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv) for part, n in phase["launches_by_path"].items()
-                if n[name]}
+                for phase in (corpus, conv, connectors)
+                for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
@@ -4318,6 +4705,12 @@ def main(argv: list[str] | None = None) -> int:
     def knob_paths(name: str) -> dict[str, int]:
         return {**{f"knobs_{part}": n[name] for part, n in knobs["launches_by_path"].items()},
                 **{part: n[name] for part, n in variants["launches_by_path"].items()}}
+
+    def conn_launches(suffix: str, name: str) -> dict[str, int]:
+        """One audio connector call's launches (or one forward and backward
+        of it), counted alone in phase 17."""
+        return {c: connectors["launches_by_path"][f"{c}_audio_connector{suffix}"][name]
+                for c in ATTENTIVE}
 
     # the speculative drafts' M = 8 products of the bf16 runs, on the rows of
     # the qmatmul phase (the int4 head at M = 8 is a row of phase 13)
@@ -4360,7 +4753,9 @@ def main(argv: list[str] | None = None) -> int:
                   "time per launch from a replayed CUDA graph x launches)",
         shapes=rows, train_shape={**bwd["fwd"], "library_ms": bwd["library_fwd"]["ms"],
                                   "library": bwd["library_fwd"]},
-        hubert_shape=conv["hubert_kernel"])]
+        hubert_shape=conv["hubert_kernel"],
+        connector_shape=dict(**connectors["kernels"]["fwd"], times_are="per launch",
+                             launches_per_audio_connector_call=conn_launches("", "flash_fwd")))]
     wb = knobs["whisper_bwd"]
     hbwd = kernels[0]["hubert_shape"].pop("bwd")
     for name, key, line, errs, extra in (
@@ -4377,6 +4772,10 @@ def main(argv: list[str] | None = None) -> int:
             **hbwd[key], shape=kernels[0]["hubert_shape"]["q"], causal=False, lens=499,
             library_ms=hbwd["library_bwd_pair"]["ms"], library=hbwd["library_bwd_pair"],
             max_rel_err=max(hbwd["max_rel_err"][e] for e in errs))
+        extra["connector_shape"] = dict(
+            **connectors["kernels"][key],
+            launches_per_audio_connector_backward=conn_launches("_grad", name),
+            times_are="per launch; library_ms is SDPA's backward of q, k and v together")
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",

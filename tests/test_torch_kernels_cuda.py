@@ -40,8 +40,10 @@ def _check(q, k, v, q_lens, kv_lens, causal, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 64, 2e-2),
                                          (torch.bfloat16, 128, 2e-2),
+                                         (torch.bfloat16, 256, 2e-2),
                                          (torch.float32, 64, 1e-4),
-                                         (torch.float32, 128, 1e-4)])
+                                         (torch.float32, 128, 1e-4),
+                                         (torch.float32, 256, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_matches_plain_version(cuda, dtype, D, tol, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -100,8 +102,10 @@ def _check_bwd(q, k, v, do, q_lens, kv_lens, causal, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 64, 2e-2),
                                          (torch.bfloat16, 128, 2e-2),
+                                         (torch.bfloat16, 256, 2e-2),
                                          (torch.float32, 64, 1e-4),
-                                         (torch.float32, 128, 1e-4)])
+                                         (torch.float32, 128, 1e-4),
+                                         (torch.float32, 256, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_matches_plain_version(cuda, dtype, D, tol, causal):
     """dQ and dK/dV kernels against flash_attention_bwd_reference: GQA 8:2,
@@ -730,6 +734,48 @@ def test_flash_fwd_at_the_hubert_shape(cuda, T, lens, form):
     _check(q, k, v, lens, lens, False, 1e-4 if form == "f32" else 2e-2)
     o, _ = A.flash_attention(q, k, v, lens, lens, False)
     assert bool((o[0, :, int(lens[0]):] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", [
+    (500, [500] * 8),                               # 10 s: 500 Whisper frames
+    (512, [500, 311, 260, 512, 17, 400, 256, 1]),
+    (375, [375] * 8)])                              # adaptive at 30 s: 1500 -> 375
+@pytest.mark.parametrize("form", ["bf16", "f32", "bwd_bf16", "bwd_f32"])
+def test_flash_kernels_at_the_connector_shape(cuda, T, lens, form):
+    """The ``attention`` and ``adaptive`` connectors' attention: 8 heads of
+    256 over the 2048-wide LLM, non-causal, over the audio features, in
+    each form their paths launch: the bf16 and f32 forward (decoding) and
+    dQ and dK/dV (training)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    dtype = torch.float32 if form.endswith("f32") else torch.bfloat16
+    q, k, v, do = (torch.randn((8, 8, T, 256), generator=g, device=cuda, dtype=dtype)
+                   for _ in range(4))
+    lens = torch.tensor(lens, device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    if form.startswith("bwd"):
+        dq, dk, dv, _ = _check_bwd(q, k, v, do, lens, lens, False, tol)
+        assert bool((dq[0, :, int(lens[0]):] == 0).all())
+        assert bool((dk[0, :, int(lens[0]):] == 0).all())
+        return
+    _check(q, k, v, lens, lens, False, tol)
+    o, _ = A.flash_attention(q, k, v, lens, lens, False)
+    assert bool((o[0, :, int(lens[0]):] == 0).all())
+
+
+@pytest.mark.cuda
+def test_attention_at_head_width_256_launches_the_kernels(cuda):
+    """``attention()`` at D = 256 with Tq, Tk >= 256 takes the kernels (the
+    forward, and dQ with dK/dV under grad), never mha_reference."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q, k, v = (torch.randn((2, 8, 300, 256), generator=g, device=cuda,
+                           dtype=torch.bfloat16, requires_grad=True) for _ in range(3))
+    lens = torch.tensor([300, 200], device=cuda)
+    before = (A.launches, A.dq_launches, A.dkv_launches)
+    out = A.attention(q, k, v, q_lens=lens, kv_lens=lens)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (A.launches, A.dq_launches, A.dkv_launches) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.cuda

@@ -216,7 +216,7 @@ def test_simple_connector_matches_jax():
     close(y_t, y_j)
     np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tget_connector("qformer")
+        tget_connector("moe")
 
 
 # ---------------------------------------------------------------------------

@@ -107,16 +107,24 @@ def test_cli_end_to_end_matches_jax(ref_ckpt, tmp_path):
 
 
 def test_nontransferable_connector(ref_ckpt, caplog):
-    """JAX warns and keeps its fresh ``deep`` connectors; the port has no
-    ``deep`` connector yet, so it refuses the config before converting."""
+    """JAX warns and keeps its fresh ``deep`` connectors; so does the port:
+    the same notes, one "NOT transferable" warning per connector, and each
+    connector equal to the port's fresh init from the same seed."""
     path, _ = ref_ckpt
     with caplog.at_level("WARNING", logger="avsr.cli.convert_ref"):
-        _, notes = jref.build_ref_converted_params(_cfg("deep"), str(path))
-    assert "audio_connector" not in notes
+        _, notes_j = jref.build_ref_converted_params(_cfg("deep"), str(path))
+    assert "audio_connector" not in notes_j
     assert any("NOT transferable" in r.message for r in caplog.records)
-    with pytest.raises(NotImplementedError, match="connector 'deep' is not yet ported"):
-        tref.build_ref_converted_params(to_port_cfg(_cfg("deep"), tcfg.AVSRConfig),
-                                        str(path), device="cpu")
+    caplog.clear()
+    cfg = to_port_cfg(_cfg("deep"), tcfg.AVSRConfig)
+    with caplog.at_level(logging.WARNING, logger="avsr_tpu_torch.cli.convert_ref"):
+        p_t, notes = tref.build_ref_converted_params(cfg, str(path), device="cpu")
+    assert notes == notes_j
+    assert sum("NOT transferable" in r.message for r in caplog.records) == 2
+    fresh = tref.init_avsr_model(cfg.model, seed=cfg.training.seed, device="cpu")
+    for side in ("audio_connector", "video_connector"):
+        for key in ("inp", "mid", "out", "res"):
+            assert torch.equal(p_t[side][key]["w"], fresh[side][key]["w"]), (side, key)
 
 
 def test_nontransferable_connector_warning_in_the_port(ref_ckpt, caplog, monkeypatch):
