@@ -292,6 +292,7 @@ class AVSRConfig:
                 f"got {t.optimizer!r}")
         if t.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
+        _check_moe(self)
         _check_ported(self)
         if m.modality not in MODALITIES:
             raise ValueError(
@@ -412,6 +413,51 @@ def _check_serving(cfg: AVSRConfig) -> None:
             "float KV cache that is extended in place per block; "
             "int8 kv_cache_dtype quantizes once at prefill and is "
             "incompatible — use it with the exact mode only")
+
+
+def _check_moe(cfg: AVSRConfig) -> None:
+    """The JAX package's MoE rules, with its messages. They run before the
+    one-card refusal of wide meshes, so that a config the JAX package
+    refuses over ``mesh.pp`` or ``mesh.ep`` is refused with its words."""
+    m, mesh = cfg.model, cfg.mesh
+    if m.connector_type == "moe":
+        if m.moe_topk < 1 or m.moe_topk > m.moe_experts:
+            raise ValueError(
+                f"moe_topk must be in [1, moe_experts={m.moe_experts}], "
+                f"got {m.moe_topk}")
+        if m.moe_capacity_factor <= 0:
+            raise ValueError("moe_capacity_factor must be > 0")
+    llm = m.llm
+    if llm.moe_experts:
+        if llm.moe_topk < 1 or llm.moe_topk > llm.moe_experts:
+            raise ValueError(
+                f"llm.moe_topk must be in [1, moe_experts="
+                f"{llm.moe_experts}], got {llm.moe_topk}")
+        if llm.moe_every < 1 or llm.moe_every > llm.n_layers:
+            raise ValueError(
+                f"llm.moe_every must be in [1, n_layers="
+                f"{llm.n_layers}] (larger would create zero MoE "
+                f"layers), got {llm.moe_every}")
+        if mesh.pp > 1:
+            raise ValueError(
+                "llm.moe_experts with mesh.pp > 1 is unsupported (the "
+                "GPipe stage scan does not thread MoE aux losses)")
+    if mesh.ep > 1:
+        conn_moe = m.connector_type == "moe"
+        llm_moe = llm.moe_experts > 0
+        if not (conn_moe or llm_moe):
+            raise ValueError(
+                "mesh.ep > 1 requires MoE somewhere (connector_type="
+                "'moe' or llm.moe_experts > 0); with dense models it "
+                "would silently act as extra data parallelism)")
+        if conn_moe and m.moe_experts % mesh.ep != 0:
+            raise ValueError(
+                f"moe_experts={m.moe_experts} must divide evenly "
+                f"over mesh.ep={mesh.ep}")
+        if llm_moe and llm.moe_experts % mesh.ep != 0:
+            raise ValueError(
+                f"llm.moe_experts={llm.moe_experts} must divide evenly "
+                f"over mesh.ep={mesh.ep}")
 
 
 def _check_ported(cfg: AVSRConfig) -> None:

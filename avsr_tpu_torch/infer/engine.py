@@ -138,13 +138,14 @@ def stage(params: Params, model_cfg: ModelConfig, batch: Batch,
     dt = compute_dtype
     cfg = model_cfg.llm
     llm = _with_bank(params["llm"], adapters, adapter_ids)
-    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel)
+    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
+                 moe_rowwise=True)
     prefix, plens = build_prefix(params, model_cfg, batch, enc, compute_dtype=dt)
     hidden, rows = L.llama_apply(
         llm, cfg, inputs_embeds=prefix, lengths=plens,
         lora=model_cfg.lora if model_cfg.lora.use_lora else None,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True,
-        cache_len=cache_len, output="hidden")
+        cache_len=cache_len, output="hidden", moe_rowwise=True)
     W = prefix.shape[0]
     h_last = hidden[torch.arange(W, device=hidden.device), plens.long() - 1][:, None]
     logits = L.compute_logits(llm, cfg, h_last, use_kernel)[:, 0]

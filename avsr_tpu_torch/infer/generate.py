@@ -108,7 +108,8 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     cfg = model_cfg.llm
     lora = model_cfg.lora if model_cfg.lora.use_lora else None
     t0 = time.perf_counter()
-    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel)
+    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
+                 moe_rowwise=True)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc,
                                        compute_dtype=dt)
     dev = prefix.device
@@ -123,7 +124,7 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     hidden, cache = L.llama_apply(
         params["llm"], cfg, inputs_embeds=prefix, lengths=prefix_lens, lora=lora,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True, cache_len=M,
-        output="hidden")
+        output="hidden", moe_rowwise=True)
     if kv_cache_dtype == "int8":
         cache = L.quantize_cache(cache)
     elif kv_cache_dtype != "bfloat16":
@@ -298,7 +299,8 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     lora = model_cfg.lora if model_cfg.lora.use_lora else None
     W = num_beams
     t0 = time.perf_counter()
-    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel)
+    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
+                 moe_rowwise=True)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc, compute_dtype=dt)
     dev = prefix.device
     if stats is not None:
@@ -312,7 +314,7 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     hidden, pre_cache = L.llama_apply(
         params["llm"], cfg, inputs_embeds=prefix, lengths=prefix_lens, lora=lora,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True, cache_len=Mp,
-        output="hidden")
+        output="hidden", moe_rowwise=True)
     h_last = hidden[torch.arange(B, device=dev), prefix_lens.long() - 1][:, None]
     last = L.compute_logits(params["llm"], cfg, h_last, use_kernel)[:, 0]
     if kv_cache_dtype == "int8":

@@ -159,7 +159,8 @@ def _prefill(params: Params, mc: ModelConfig, prefix: torch.Tensor,
     M = -(-(prefix.shape[1] + extra) // 128) * 128
     return L.llama_apply(params["llm"], mc.llm, inputs_embeds=prefix, lengths=lens,
                          lora=lora, compute_dtype=dt, use_kernel=use_kernel,
-                         return_cache=True, cache_len=M, output="hidden")
+                         return_cache=True, cache_len=M, output="hidden",
+                         moe_rowwise=True)
 
 
 @torch.inference_mode()
@@ -208,7 +209,8 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
     G = gamma
 
     # target prefill, as in generate_tokens
-    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel)
+    enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
+                 moe_rowwise=True)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc, compute_dtype=dt)
     dev = prefix.device
     B = prefix.shape[0]
@@ -224,7 +226,8 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
     if draft_shares_prefix:
         d_prefix, d_plens = prefix, prefix_lens
     else:
-        d_enc = encode(draft_params, dcfg, batch, compute_dtype=dt, use_kernel=use_kernel)
+        d_enc = encode(draft_params, dcfg, batch, compute_dtype=dt, use_kernel=use_kernel,
+                       moe_rowwise=True)
         d_prefix, d_plens = build_prefix(draft_params, dcfg, batch, d_enc,
                                          compute_dtype=dt)
     _, d_cache = _prefill(draft_params, dcfg, d_prefix, d_plens, extra, dlora, dt,

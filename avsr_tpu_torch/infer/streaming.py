@@ -269,7 +269,7 @@ class StreamingTranscriber:
         """Connector features [1, Tf, d] of one media block and their
         valid length."""
         enc = encode(self.params, self.cfg.model, batch, compute_dtype=self._dt,
-                     use_kernel=self.cfg.runtime.use_pallas)
+                     use_kernel=self.cfg.runtime.use_pallas, moe_rowwise=True)
         return enc.features.to(self._dt), int(enc.lengths[0])
 
     def _ensure_cache(self) -> None:

@@ -4,10 +4,11 @@ single-input connectors fused by ``weighted_sum`` (any ``fusion_mode``
 other than ``concat_seq``, as in JAX) or ``concat_seq``, or one dual-input
 connector that fuses audio and video itself; the packed
 [prompt][features] prefix that generation prefills, and the training
-``forward`` (packed causal-LM loss on the label positions).
+``forward`` (packed causal-LM loss on the label positions, plus the MoE
+router losses of the ``moe`` connector and the LLM's MoE blocks).
 
-The other video encoders (ResNet, EfficientNet, AV-HuBERT) and MoE (the
-``moe`` connector and the LLM's MoE FFN) are still to be ported.
+The other video encoders (ResNet, EfficientNet, AV-HuBERT) are still to be
+ported.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class Batch(NamedTuple):
 class EncodeOut(NamedTuple):
     features: torch.Tensor                     # [B, Tf, d_llm]
     lengths: torch.Tensor                      # [B]
+    # the MoE connector's {"moe_lb", "moe_z"}; None for the dense ones
+    aux: dict | None = None
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -56,8 +59,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"video_encoder {cfg.video_encoder!r} is not yet ported to "
             "avsr_tpu_torch (ported: clip)")
-    if cfg.llm.moe_experts or cfg.connector_type == "moe":
-        raise NotImplementedError("MoE layers are not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -141,18 +142,27 @@ def _cap_seq(enc: EncodeOut, max_seq_len: int) -> EncodeOut:
     if enc.features.shape[1] <= max_seq_len:
         return enc
     return EncodeOut(enc.features[:, :max_seq_len],
-                     enc.lengths.clamp(max=max_seq_len))
+                     enc.lengths.clamp(max=max_seq_len), enc.aux)
+
+
+def _conn_out(ret: tuple) -> tuple:
+    """A connector's (y, lens) or (y, lens, aux) as (y, lens, aux)."""
+    return ret if len(ret) == 3 else (*ret, {})
 
 
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
-           use_kernel: str = "auto", remat: bool = False) -> EncodeOut:
+           use_kernel: str = "auto", remat: bool = False,
+           moe_rowwise: bool = False) -> EncodeOut:
     """Run the modality encoders + connectors and fuse them. Frozen
     encoders run under ``torch.no_grad()`` (the JAX ``stop_gradient``):
     no backward graph is built for them. ``model.unfreeze_layer_norms``
     trains their layer norms, so then they run with grad (and ``remat``
     recomputes their blocks in the backward), as the JAX package drops its
-    ``stop_gradient`` for that knob."""
+    ``stop_gradient`` for that knob. ``moe_rowwise`` (inference callers)
+    routes the MoE connector row by row, so a request's features do not
+    depend on its batch; two single-input MoE connectors' aux losses are
+    averaged."""
     _check_ported(cfg)
     conn = get_connector(cfg.connector_type)
     frozen = (torch.no_grad() if cfg.freeze_encoders and not cfg.unfreeze_layer_norms
@@ -179,31 +189,33 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
 
+    ckw = dict(use_kernel=use_kernel, model_cfg=cfg, moe_rowwise=moe_rowwise)
     if conn.dual:
-        out, lens = conn.apply(params["connector"], feats, vfeats, alens, vlens,
-                               use_kernel=use_kernel)
-        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
+        out, lens, aux = _conn_out(conn.apply(params["connector"], feats, vfeats,
+                                              alens, vlens, **ckw))
+        return _cap_seq(EncodeOut(out, lens, aux), cfg.max_seq_len)
     if cfg.modality == "audio":
-        out, lens = conn.apply(params["audio_connector"], feats, alens,
-                               use_kernel=use_kernel)
-        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
+        out, lens, aux = _conn_out(conn.apply(params["audio_connector"], feats, alens,
+                                              **ckw))
+        return _cap_seq(EncodeOut(out, lens, aux), cfg.max_seq_len)
     if cfg.modality == "video":
-        out, lens = conn.apply(params["video_connector"], vfeats, vlens,
-                               use_kernel=use_kernel)
-        return _cap_seq(EncodeOut(out, lens), cfg.max_seq_len)
-    a_out, a_lens = conn.apply(params["audio_connector"], feats, alens,
-                               use_kernel=use_kernel)
-    v_out, v_lens = conn.apply(params["video_connector"], vfeats, vlens,
-                               use_kernel=use_kernel)
+        out, lens, aux = _conn_out(conn.apply(params["video_connector"], vfeats, vlens,
+                                              **ckw))
+        return _cap_seq(EncodeOut(out, lens, aux), cfg.max_seq_len)
+    a_out, a_lens, a_aux = _conn_out(conn.apply(params["audio_connector"], feats,
+                                                alens, **ckw))
+    v_out, v_lens, v_aux = _conn_out(conn.apply(params["video_connector"], vfeats,
+                                                vlens, **ckw))
+    aux = {k: 0.5 * (a_aux[k] + v_aux[k]) for k in a_aux}
     if cfg.fusion_mode == "concat_seq":
         packed, total, _ = pack_segments([(a_out, a_lens), (v_out, v_lens)])
-        return _cap_seq(EncodeOut(packed, total), cfg.max_seq_len)
+        return _cap_seq(EncodeOut(packed, total, aux), cfg.max_seq_len)
     # weighted_sum, and every other fusion_mode (JAX sends them all here):
     # video onto the audio time grid, then
     # fusion_scale * audio + (1 - fusion_scale) * video.
     v_up = upsample_to(v_out, v_lens, a_out.shape[1], a_lens)
     fused = cfg.fusion_scale * a_out + (1.0 - cfg.fusion_scale) * v_up
-    return _cap_seq(EncodeOut(fused, a_lens), cfg.max_seq_len)
+    return _cap_seq(EncodeOut(fused, a_lens, aux), cfg.max_seq_len)
 
 
 def build_prefix(params: Params, cfg: ModelConfig, batch: Batch, enc: EncodeOut,
@@ -242,7 +254,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     ``accuracy``, ``label_tokens`` and ``feat_len_mean``; with
     ``return_logits`` also ``label_logits`` [B, Tl, V] f32 and their
     validity mask ``label_mask`` [B, Tl] (draft distillation matches a
-    student against a teacher's)."""
+    student against a teacher's). With MoE (the connector, the LLM or
+    both) the loss adds ``moe_aux_weight`` * lb + ``moe_z_weight`` * z,
+    where lb and z sum the connector's and the LLM's router losses, and
+    the metrics report them as ``moe_lb`` and ``moe_z``."""
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
                  use_kernel=use_kernel, remat=remat)
     B = enc.features.shape[0]
@@ -262,11 +277,12 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     ])
     packed = F.pad(packed, (0, 0, 0, -packed.shape[1] % 16))
     Ttot = packed.shape[1]
-    hidden, _ = llama_mod.llama_apply(
+    llm_moe = cfg.llm.moe_experts > 0
+    hidden, _, *llm_aux = llama_mod.llama_apply(
         params["llm"], cfg.llm, inputs_embeds=packed, lengths=total,
         lora=cfg.lora if cfg.lora.use_lora else None,
         compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
-        dropout_seed=dropout_seed, output="hidden")
+        dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe)
 
     Tl = labels.shape[1]
     i = torch.arange(Tl, device=dev)[None, :]
@@ -287,6 +303,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     if return_logits:
         metrics["label_logits"] = logits
         metrics["label_mask"] = mask
+    # the MoE router losses, weighted into the optimized loss so that the
+    # routers learn a balanced dispatch (the metrics keep them unweighted)
+    enc_aux = enc.aux or {}
+    moe_lb, moe_z = enc_aux.get("moe_lb"), enc_aux.get("moe_z")
+    if llm_aux:
+        moe_lb = llm_aux[0]["moe_lb"] + (0.0 if moe_lb is None else moe_lb)
+        moe_z = llm_aux[0]["moe_z"] + (0.0 if moe_z is None else moe_z)
+    if moe_lb is not None:
+        loss = loss + (cfg.moe_aux_weight * moe_lb + cfg.moe_z_weight * moe_z).to(loss.dtype)
+        metrics.update(moe_lb=moe_lb, moe_z=moe_z, loss=loss)
     return loss, metrics
 
 

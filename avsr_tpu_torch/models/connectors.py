@@ -19,13 +19,20 @@ dual-input (audio, video -> fused; ``ConnectorDef.dual``):
   adapter     both modalities projected, video aligned to the audio grid
               and added, then bottleneck adapter layers
 
+single-input mixture of experts:
+  moe        in-proj + 2 residual MoE-FFN blocks (gelu experts, top-k
+             capacity routing shared with the LLM's MoE FFN, ``ops/moe.py``)
+
 The parameter trees are the JAX package's leaf for leaf (conv kernels keep
 JAX's [K, C_in, C_out] layout), so ``convert.from_numpy_tree`` carries a
 JAX init across. Apply signatures:
   single: apply(params, x, lengths, *, use_kernel) -> (y, lengths)
   dual:   apply(params, audio, video, a_lens, v_lens, *, use_kernel)
           -> (y, lengths)
-``moe`` (shared routing with the LLM's MoE FFN) is still to be ported.
+  moe:    apply(params, x, lengths, *, model_cfg, moe_rowwise)
+          -> (y, lengths, {"moe_lb", "moe_z"})
+Every apply takes (and all but ``moe`` ignore) ``model_cfg`` and
+``moe_rowwise``, which ``models/avsr.py::encode`` passes to each.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from avsr_tpu_torch.models.layers import (
     normal_init,
     sinusoid_position_embedding,
 )
+from avsr_tpu_torch.ops import moe
 
 
 class ConnectorDef(NamedTuple):
@@ -362,6 +370,69 @@ def adapter_apply(p: Params, audio, video, a_lens=None, v_lens=None, **_):
 
 
 # ---------------------------------------------------------------------------
+# moe (single-input): a sparse mixture-of-experts projector
+# ---------------------------------------------------------------------------
+
+_MOE_LAYERS = 2
+
+
+def moe_init(gen, d_in, d_out, cfg: ModelConfig, dtype=torch.float32) -> Params:
+    E = cfg.moe_experts
+    hid = d_out * cfg.connector_hidden_mult
+    dev = gen.device
+    blocks = [{
+        "ln": norm_init(gen, d_out, dtype=dtype),
+        "router": {"w": normal_init(gen, (d_out, E), std=d_out ** -0.5, dtype=dtype)},
+        "experts": {
+            "w1": normal_init(gen, (E, d_out, hid), std=d_out ** -0.5, dtype=dtype),
+            "b1": torch.zeros((E, hid), dtype=dtype, device=dev),
+            "w2": normal_init(gen, (E, hid, d_out), std=hid ** -0.5, dtype=dtype),
+            "b2": torch.zeros((E, d_out), dtype=dtype, device=dev),
+        },
+    } for _ in range(_MOE_LAYERS)]
+    return {"inp": dense_init(gen, d_in, d_out, dtype=dtype), "blocks": blocks}
+
+
+def _moe_block(blk: Params, x: torch.Tensor, valid: torch.Tensor, topk: int,
+               cap_factor: float, rowwise: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One MoE-FFN over x [B, T, d] (the block's residual is the caller's):
+    (y, lb loss, z loss), the gelu two-matrix experts in x's dtype.
+    ``rowwise`` (inference) routes each row within its own capacity slots
+    (``ops/moe.py::ffn``), so a request's features are the same in any
+    batch: the encode-side half of the engine == generate_tokens
+    contract."""
+    cdt = x.dtype
+    w1, b1, w2, b2 = (blk["experts"][n].to(cdt) for n in ("w1", "b1", "w2", "b2"))
+
+    def experts(xs: torch.Tensor) -> torch.Tensor:               # [E, C', d]
+        h = gelu(torch.matmul(xs, w1) + b1[:, None, :])
+        return torch.matmul(h, w2) + b2[:, None, :]
+
+    return moe.ffn(x, blk["router"]["w"], valid, topk, cap_factor, experts, rowwise=rowwise)
+
+
+def moe_apply(p: Params, x: torch.Tensor, lengths=None, *,
+              model_cfg: ModelConfig | None = None, moe_rowwise: bool = False, **_):
+    if model_cfg is None:
+        raise ValueError("moe connector needs model_cfg threaded into apply")
+    lens = _ident_lens(x, lengths)
+    h = dense(p["inp"], x)
+    valid = (torch.arange(h.shape[1], device=h.device)[None, :]
+             < lens.to(h.device)[:, None])
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    z = torch.zeros((), dtype=torch.float32, device=h.device)
+    for blk in p["blocks"]:
+        y, blb, bz = _moe_block(blk, layer_norm(blk["ln"], h), valid, model_cfg.moe_topk,
+                                model_cfg.moe_capacity_factor, rowwise=moe_rowwise)
+        h = h + y
+        lb = lb + blb
+        z = z + bz
+    n = float(len(p["blocks"]))
+    return h, lens, {"moe_lb": lb / n, "moe_z": z / n}
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -375,14 +446,11 @@ _CONNECTORS = {
     "qformer": ConnectorDef(qformer_init, qformer_apply, dual=True),
     "perceiver": ConnectorDef(perceiver_init, perceiver_apply, dual=True),
     "adapter": ConnectorDef(adapter_init, adapter_apply, dual=True),
+    "moe": ConnectorDef(moe_init, moe_apply),
 }
 
 
 def get_connector(name: str) -> ConnectorDef:
     if name in _CONNECTORS:
         return _CONNECTORS[name]
-    if name in CONNECTOR_TYPES:
-        raise NotImplementedError(
-            f"connector {name!r} is not yet ported to avsr_tpu_torch "
-            f"(ported: {sorted(_CONNECTORS)})")
     raise KeyError(f"Unknown connector {name!r}; valid: {sorted(CONNECTOR_TYPES)}")

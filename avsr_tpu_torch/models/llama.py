@@ -41,7 +41,16 @@ Multi-tenant serving: a LoRA node may hold per-row adapters (``a`` [B,
 din, r], ``b`` [B, r, dout], gathered from a bank by ``infer/adapters.py``),
 which ``proj`` applies row by row; only the raw layout carries them.
 
-Still to be ported: MoE FFN layers and the pipeline path.
+Mixture of experts (``llm.moe_experts`` > 0): every ``moe_every``-th block
+swaps its SwiGLU MLP for capacity-routed SwiGLU experts (``router`` and
+``experts`` leaves, ``ops/moe.py``). Training routes with the flattened
+bounded capacity and returns the router losses (``return_aux``); every
+inference prefill routes row by row (``moe_rowwise``) and every token step
+(decode, verify, beam) without drops (``dropless``), so a request's tokens
+never depend on what shares its batch. The routers and experts stay float
+under quantization.
+
+Still to be ported: the pipeline path.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
+from avsr_tpu_torch.ops import moe
 from avsr_tpu_torch.ops.attention import attention
 from avsr_tpu_torch.ops.quant import is_quantized, qdot
 
@@ -126,10 +136,17 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
 # Init
 # ---------------------------------------------------------------------------
 
+def is_moe_layer(cfg: LLMConfig, i: int) -> bool:
+    """Block ``i`` carries a sparse MoE FFN: llm.moe_experts > 0 and the
+    block index hits the ``moe_every`` interleave (1 = every block)."""
+    return cfg.moe_experts > 0 and (i + 1) % cfg.moe_every == 0
+
+
 def init_llama(gen: torch.Generator, cfg: LLMConfig,
                dtype: torch.dtype = torch.float32) -> Params:
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE LLM layers are not yet ported")
+    """Random init; a MoE block holds ``router`` {w [d, E]} and ``experts``
+    {w_gate, w_up [E, d, f], w_down [E, f, d]} in place of gate/up/down
+    (the JAX package's keys and order)."""
     d = cfg.d_model
     hd = d // cfg.n_heads
     kvd = cfg.n_kv_heads * hd
@@ -141,13 +158,22 @@ def init_llama(gen: torch.Generator, cfg: LLMConfig,
     def ones() -> Params:
         return {"scale": torch.ones((d,), dtype=dtype, device=dev)}
 
-    layers = [{
-        "ln_attn": ones(),
-        "q": lin(d, d), "k": lin(d, kvd), "v": lin(d, kvd), "o": lin(d, d),
-        "ln_mlp": ones(),
-        "gate": lin(d, cfg.ffn_dim), "up": lin(d, cfg.ffn_dim),
-        "down": lin(cfg.ffn_dim, d),
-    } for _ in range(cfg.n_layers)]
+    layers = []
+    for i in range(cfg.n_layers):
+        layer = {"ln_attn": ones(),
+                 "q": lin(d, d), "k": lin(d, kvd), "v": lin(d, kvd), "o": lin(d, d),
+                 "ln_mlp": ones()}
+        if is_moe_layer(cfg, i):
+            E, f = cfg.moe_experts, cfg.ffn_dim
+            layer["router"] = {"w": normal_init(gen, (d, E), std=d ** -0.5, dtype=dtype)}
+            layer["experts"] = {
+                "w_gate": normal_init(gen, (E, d, f), std=0.02, dtype=dtype),
+                "w_up": normal_init(gen, (E, d, f), std=0.02, dtype=dtype),
+                "w_down": normal_init(gen, (E, f, d), std=0.02, dtype=dtype)}
+        else:
+            layer.update(gate=lin(d, cfg.ffn_dim), up=lin(d, cfg.ffn_dim),
+                         down=lin(cfg.ffn_dim, d))
+        layers.append(layer)
     params: Params = {
         "embed": normal_init(gen, (cfg.vocab_size, d), std=0.02, dtype=dtype),
         "layers": layers,
@@ -165,7 +191,8 @@ _LORA_NAMES = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "o_proj": "o",
 def add_lora(gen: torch.Generator, params: Params, cfg: LLMConfig,
              lora: LoRAConfig, dtype: torch.dtype = torch.float32) -> Params:
     """Attach LoRA adapters (a ~ N(0, 1/r) * init_scale, b = 0) to the
-    target projections; returns a new tree sharing the base weights."""
+    target projections a layer has (a MoE block has no gate/up/down);
+    returns a new tree sharing the base weights."""
     del cfg
     targets = [_LORA_NAMES.get(t, t) for t in lora.target_modules]
     layers = []
@@ -242,8 +269,9 @@ def _fuse_group(nodes: list[Params]) -> Params | None:
 def fuse_decode_layout(params: Params) -> Params:
     """The decode layout: q|k|v and gate|up fused per layer, so that a
     decode step makes 4 projection products per layer instead of 7 (one
-    kernel launch each when quantized). Exact: the fused product
-    concatenates the outputs. Training never sees this layout."""
+    kernel launch each when quantized; a MoE block, which has no gate/up,
+    makes 2). Exact: the fused product concatenates the outputs. Training
+    never sees this layout."""
     layers = []
     for layer in params["layers"]:
         fl = dict(layer)
@@ -285,12 +313,46 @@ def _proj_mlp(layer: Params, h: torch.Tensor, ls: float,
     return F.silu(gate) * up
 
 
+def _moe_mlp(layer: Params, h: torch.Tensor, cfg: LLMConfig,
+             valid: torch.Tensor | None = None, dropless: bool = False,
+             rowwise: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sparse SwiGLU MoE FFN over h [B, T, d]: (y, lb loss, z loss).
+    ``valid`` [B, T] masks right-padding (None: every token is live).
+    Training routes with the flattened bounded capacity; every inference
+    prefill passes ``rowwise`` and every token step (decode, verify, beam)
+    ``dropless`` (``ops/moe.py::ffn``), so that a request's tokens do not
+    depend on what shares its batch. ``dropless`` is a topk * N^2 * E
+    dispatch, so not for prefills."""
+    cdt = h.dtype
+    wg, wu, wd = (layer["experts"][n].to(cdt) for n in ("w_gate", "w_up", "w_down"))
+
+    def experts(xs: torch.Tensor) -> torch.Tensor:               # [E, C', d]
+        return torch.matmul(F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu), wd)
+
+    if valid is None:
+        valid = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
+    return moe.ffn(h, layer["router"]["w"], valid, cfg.moe_topk, cfg.moe_capacity_factor,
+                   experts, rowwise=rowwise, dropless=dropless)
+
+
 def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float,
-         use_kernel: str = "auto") -> torch.Tensor:
-    """Post-attention SwiGLU residual: x + down(silu(gate) * up)(ln(x))."""
+         use_kernel: str = "auto", lengths: torch.Tensor | None = None,
+         dropless: bool = False, rowwise: bool = False
+         ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Post-attention FFN residual: (x + ffn(ln(x)), aux). A dense block
+    runs down(silu(gate) * up) and gives aux None; a MoE block (one with
+    ``experts``) runs :func:`_moe_mlp`, its valid tokens the first
+    ``lengths`` [B] of each row, and gives aux (lb, z)."""
     h = rms_norm(layer["ln_mlp"], x, eps=cfg.rms_eps)
+    if "experts" in layer:
+        valid = None
+        if lengths is not None:
+            valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                     < lengths.to(x.device)[:, None])
+        y, lb, z = _moe_mlp(layer, h, cfg, valid, dropless=dropless, rowwise=rowwise)
+        return x + y, (lb, z)
     return x + proj(layer["down"], _proj_mlp(layer, h, ls, use_kernel),
-                    lora_scale=ls, use_kernel=use_kernel)
+                    lora_scale=ls, use_kernel=use_kernel), None
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +417,8 @@ def _layer_generator(seed: int, layer: int,
 def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
            lengths: torch.Tensor | None, ls: float, use_kernel: str,
            ldrop: float = 0.0, dropout_seed: int | None = None,
-           index: int = 0):
+           index: int = 0, moe_rowwise: bool = False):
+    """One block over [B, T, d]: (x, (k, v), MoE aux or None)."""
     B, T, d = x.shape
     hd = d // cfg.n_heads
     # created inside the block so that a remat recomputation redraws the
@@ -374,7 +437,15 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     attn = attn.transpose(1, 2).reshape(B, T, d)
     x = x + proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
                  generator=gen, use_kernel=use_kernel)
-    return _ffn(layer, x, cfg, ls, use_kernel), (k, v)
+    x, aux = _ffn(layer, x, cfg, ls, use_kernel, lengths=lengths, rowwise=moe_rowwise)
+    return x, (k, v), aux
+
+
+def _block_remat(*args):
+    """:func:`_block` under ``checkpoint``: keeps x and the MoE aux (whose
+    gradients reach the router through the recomputation)."""
+    x, _, aux = _block(*args)
+    return x, aux
 
 
 def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
@@ -383,16 +454,21 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
                 use_kernel: str = "auto", remat: bool = False,
                 dropout_seed: int | None = None, return_cache: bool = False,
-                cache_len: int | None = None,
-                output: str = "logits") -> tuple[torch.Tensor, KVCache | None]:
+                cache_len: int | None = None, output: str = "logits",
+                return_aux: bool = False, moe_rowwise: bool = False):
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
-    final normed hidden [B,T,d] with ``output="hidden"``, cache or None).
+    final normed hidden [B,T,d] with ``output="hidden"``, cache or None),
+    and with ``return_aux`` a third item, {"moe_lb", "moe_z"}: the MoE
+    blocks' router losses averaged over those blocks (0 without any).
 
     ``return_cache`` writes each layer's post-RoPE K/V into a cache of
     ``cache_len`` positions (default T) in ``compute_dtype``. ``remat``
     keeps only each block's input for backward and recomputes the rest
-    (while grad mode is on). ``dropout_seed`` turns on LoRA dropout
-    (``lora.dropout``), the counterpart of ``dropout_rng``."""
+    (while grad mode is on; the aux losses ride through the recompute).
+    ``dropout_seed`` turns on LoRA dropout (``lora.dropout``), the
+    counterpart of ``dropout_rng``. ``moe_rowwise`` (every inference
+    prefill sets it) routes MoE blocks row by row (see :func:`_moe_mlp`);
+    training keeps the flattened bounded capacity."""
     B, T, d = inputs_embeds.shape
     if T > cfg.max_seq_len:
         raise ValueError(
@@ -407,18 +483,28 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     ldrop = lora.dropout if (lora is not None and dropout_seed is not None) else 0.0
     cache = (init_cache(cfg, B, cache_len or T, compute_dtype, x.device)
              if return_cache else None)
+    lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0
     for i, layer in enumerate(params["layers"]):
         args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
-                dropout_seed, i)
+                dropout_seed, i, moe_rowwise)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(lambda *a: _block(*a)[0], *args, use_reentrant=False)
-            continue
-        x, (k, v) = _block(*args)
-        if cache is not None:
-            cache.k[i, :, :, :T] = k
-            cache.v[i, :, :, :T] = v
+            x, aux = checkpoint(_block_remat, *args, use_reentrant=False)
+        else:
+            x, (k, v), aux = _block(*args)
+            if cache is not None:
+                cache.k[i, :, :, :T] = k
+                cache.v[i, :, :, :T] = v
+        if aux is not None:
+            lb_sum = lb_sum + aux[0]
+            z_sum = z_sum + aux[1]
+            n_moe += 1
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     out = x if output == "hidden" else compute_logits(params, cfg, x)
+    if return_aux:
+        n = max(n_moe, 1)
+        return out, cache, {"moe_lb": lb_sum / n, "moe_z": z_sum / n}
     return out, cache
 
 
@@ -531,7 +617,7 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
                                      k_scale=sk, v_scale=sv)
         x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, 1, d),
                      lora_scale=ls, use_kernel=use_kernel)
-        x = _ffn(layer, x, cfg, ls, use_kernel)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     return compute_logits(params, cfg, x, use_kernel)[:, 0], cache
 
@@ -599,7 +685,7 @@ def llama_prefill_continue(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
         attn = _gqa_prefill_attention(q, k_i, v_i, base_lens, tail_lens)
         x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, T, d),
                      lora_scale=ls, use_kernel=use_kernel)
-        x = _ffn(layer, x, cfg, ls, use_kernel)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, lengths=tail_lens, dropless=True)
     return rms_norm(params["ln_f"], x, eps=cfg.rms_eps), cache
 
 
@@ -685,7 +771,7 @@ def llama_decode_step_split(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
             v_scale=prefix_cache.v_scale[i] if qpre else None)
         x = x + proj(layer["o"], attn.transpose(1, 2).reshape(BW, 1, d),
                      lora_scale=ls, use_kernel=use_kernel)
-        x = _ffn(layer, x, cfg, ls, use_kernel)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     logits = compute_logits(params, cfg, x, use_kernel)[:, 0]
     dt = suffix_cache.k.dtype

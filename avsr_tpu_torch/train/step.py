@@ -85,11 +85,17 @@ def make_train_step(cfg: AVSRConfig
     takes per-micro-batch weights so that it can pad a partial group to its
     compiled shape with zero-weight copies; eager PyTorch runs the partial
     group as it is, which gives the same update. Metrics: ``loss``,
-    ``accuracy``, ``grad_norm``, ``skipped``.
+    ``accuracy``, ``grad_norm``, ``skipped``, and with MoE (the ``moe``
+    connector or ``llm.moe_experts``) the router losses ``moe_lb`` and
+    ``moe_z``, summed over the micro-batches with their weights.
 
     ``stats``, when given, accumulates the seconds spent in ``forward_s``,
     ``backward_s`` and ``optimizer_s`` (host clock, with a device
     synchronize at each boundary)."""
+
+    extra_keys = (("moe_lb", "moe_z")
+                  if cfg.model.connector_type == "moe" or cfg.model.llm.moe_experts > 0
+                  else ())
 
     def train_step(state: TrainState, batch: Batch, seed: int,
                    stats: dict | None = None) -> dict[str, float]:
@@ -99,6 +105,7 @@ def make_train_step(cfg: AVSRConfig
         grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         clock = _Clock(stats, leaves[0].device)
         loss_sum = acc_sum = 0.0
+        extra = dict.fromkeys(extra_keys, 0.0)
         for mb_i, mseed in enumerate(micro_seeds(seed, accum)):
             mb = Batch(*[None if x is None else x[mb_i] for x in batch])
             loss, metrics = _loss_fn(state.params, cfg, mb, mseed)
@@ -109,6 +116,8 @@ def make_train_step(cfg: AVSRConfig
                     acc.add_(gi.float(), alpha=w)
             loss_sum = loss_sum + w * loss.detach().float()
             acc_sum = acc_sum + w * metrics["accuracy"].detach()
+            for k in extra_keys:
+                extra[k] = extra[k] + w * metrics[k].detach()
             clock.lap("backward_s")
         grad_norm = global_norm(grads)
         if cfg.runtime.debug_nans:
@@ -120,7 +129,8 @@ def make_train_step(cfg: AVSRConfig
         state.step += 1
         clock.lap("optimizer_s")
         return {"loss": float(loss_sum), "accuracy": float(acc_sum),
-                "grad_norm": float(grad_norm), "skipped": float(not finite)}
+                "grad_norm": float(grad_norm), "skipped": float(not finite),
+                **{k: float(v) for k, v in extra.items()}}
 
     return train_step
 

@@ -169,6 +169,24 @@
    with ``attention`` and ``qformer``. The train CLI (2 steps) and the
    decode CLI (the test split) with ``cross_modal`` on phase 15's corpus.
    Removes what it wrote.
+18. MoE phase (``moe_phase``), at full width: ``flagship_moe()``, the
+   flagship with the ``moe`` connector (8 experts, top-2, capacity factor
+   1.25, hidden 2 x 2048) and every second Llama block sparse (8 SwiGLU
+   experts of 8192, top-2), random weights from --seed. A static bf16 call
+   (B = 8, 10 s audio, 25 frames, 32 tokens: encode, prefill, ms per token,
+   peak memory); a bf16 train step of 8 (accum 1, 48-token transcripts)
+   after a warm-up step, with finite router losses, run again from an
+   identical state with bit-equal results (no float atomics on the gradient
+   path); the serving preset's call (its routers and experts stay float:
+   2 int4 products per MoE block and step) with phase 9's decode-step logit
+   gates. In f32 with both capacity factors at 0.25 (tokens drop): the
+   kernel path's prefill logits against the plain path's; the engine (4
+   slots, 8 requests of 4-14 s in the 10 s and 20 s buckets, budgets <= 16)
+   equal to ``generate_tokens``; speculative decoding (int8 self-draft,
+   gamma 4) equal to greedy; beam search (W = 5) to its end; the decode CLI
+   on phase 15's corpus, static and ``decode.engine_slots=4``, with equal
+   HYP lines. Launches exact on every path, derived from the tree and the
+   widths. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -816,13 +834,13 @@ def decode_step_logits(params, mc, hb, dtype, use_kernels, nxt=None):
     lora = mc.lora if mc.lora.use_lora else None
     with torch.inference_mode():
         batch = featurize(hb, "cuda", dtype)
-        enc = encode(params, mc, batch, compute_dtype=dtype)
+        enc = encode(params, mc, batch, compute_dtype=dtype, moe_rowwise=True)
         prefix, lens = build_prefix(params, mc, batch, enc, compute_dtype=dtype)
         B, T = prefix.shape[:2]
         hidden, cache = L.llama_apply(
             params["llm"], mc.llm, inputs_embeds=prefix, lengths=lens, lora=lora,
             compute_dtype=dtype, return_cache=True, cache_len=-(-(T + 2) // 128) * 128,
-            output="hidden")
+            output="hidden", moe_rowwise=True)
         cache = L.quantize_cache(cache)
         if nxt is None:
             h_last = hidden[torch.arange(B, device=prefix.device), lens.long() - 1][:, None]
@@ -1760,7 +1778,7 @@ def _run_steps(cfg, params, batch, n: int, tag: str, seed: int, expect=None) -> 
         if expect is not None:
             check(got == expect, f"{tag} step {i + 1} launches {got}, expected {expect}")
         steps.append(dict(ms=dt * 1e3, loss=m["loss"], grad_norm=m["grad_norm"],
-                          launches=got,
+                          launches=got, **{k: m[k] for k in ("moe_lb", "moe_z") if k in m},
                           **{k[:-2] + "_ms": v * 1e3 for k, v in stats.items()}))
         print(f"{tag} step {i + 1}: {dt * 1e3:.1f} ms ("
               + ", ".join(f"{k[:-2]} {v * 1e3:.1f}" for k, v in stats.items())
@@ -4585,6 +4603,308 @@ def connector_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: mixture of experts at full width
+# ---------------------------------------------------------------------------
+
+# the moe connector (8 experts, top-2, capacity factor 1.25, hidden 2 x 2048)
+# and every second Llama block sparse (8 experts, top-2)
+MOE_OVERRIDES = ("model.connector_type=moe", "model.llm.moe_experts=8",
+                 "model.llm.moe_topk=2", "model.llm.moe_every=2")
+# both capacity factors at 0.25: the bounded routings drop tokens
+MOE_SQUEEZE = ("model.moe_capacity_factor=0.25", "model.llm.moe_capacity_factor=0.25")
+
+
+def flagship_moe(extra=()):
+    """``flagship()`` with both MoE forms (``MOE_OVERRIDES``)."""
+    from avsr_tpu_torch.core.config import flagship
+
+    return flagship([*MOE_OVERRIDES, *extra])
+
+
+def moe_traffic(seed: int):
+    """8 requests of 4-14 s synthetic audio + 25 frames from ``seed``, in
+    the 10 s and 20 s buckets, with budgets of 8-16 new tokens."""
+    from avsr_tpu_torch.data.dataset import Sample
+
+    rng = np.random.default_rng(seed + 1800)
+    secs = [4.3, 12.6, 9.8, 5.1, 13.7, 7.2, 4.0, 10.9]
+    samples, budgets = [], []
+    for i, sec in enumerate(secs):
+        ns = int(sec * 16000)
+        t = np.arange(ns, dtype=np.float32) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
+                 + 0.05 * rng.standard_normal(ns)).astype(np.float32)
+        frames = rng.integers(0, 256, (25, 224, 224, 3), dtype=np.uint8)
+        samples.append(Sample(f"moe/{i}", audio, frames, "", [257]))
+        budgets.append(int(rng.integers(8, 17)))
+    return samples, budgets
+
+
+def moe_phase(seed: int) -> dict:
+    """Phase 18: ``flagship_moe()`` at full width (see the module
+    docstring): a static bf16 call, a bf16 train step of 8 repeated bit for
+    bit, the serving preset, and in f32 the engine, speculative decoding,
+    beam search and the decode CLI, with launches derived from the tree."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import common, decode
+    from avsr_tpu_torch.convert import cast_tree, param_count
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer import speculative as S
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import (beam_search, generate_tokens,
+                                               prepare_params_for_decode)
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.models.llama import is_moe_layer
+    from avsr_tpu_torch.ops.quant import is_quantized
+    from avsr_tpu_torch.train.state import cast_frozen, create_train_state, path_leaves
+    from avsr_tpu_torch.train.step import make_train_step
+
+    t_all = time.perf_counter()
+    res: dict = {}
+    by_path: dict[str, dict[str, int]] = {}
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        return out
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    def quantized_per_step(llm) -> int:
+        """The quantized products of one decode step: every quantized node
+        of the layers (a MoE block has no gate/up/down)."""
+        return sum(is_quantized(v) for layer in llm["layers"] for v in layer.values())
+
+    cfg = flagship_moe()
+    mc = cfg.model
+    nW, nL = mc.whisper.n_layers, mc.llm.n_layers
+    n_moe = sum(is_moe_layer(mc.llm, i) for i in range(nL))
+    tok = ByteTokenizer()
+    hb = serving_host_batch(cfg, seed)
+    B = len(hb.utt_ids)
+    d = connector_launches("moe", 500, hb.prompt.shape[1], cfg.data.max_label_length, nW, nL)
+
+    # ---- a static bf16 call (B = 8, 10 s, 25 frames, 32 tokens) ----------
+    t0 = time.perf_counter()
+    params = init_avsr_model(mc, seed=seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    experts = sum(t.numel() for k, t in path_leaves(params).items() if "experts" in k)
+    print(f"moe: random init of {param_count(params) / 1e9:.3f} B params (bf16, "
+          f"{experts / 1e9:.3f} B in experts; {n_moe} of {nL} LLM blocks sparse) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    kw = dict(max_new_tokens=32, eos_id=-1, compute_dtype=torch.bfloat16)
+    generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 2})       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    st: dict = {}
+    out = counted("moe_generate", lambda: generate_tokens(params, mc, batch, stats=st, **kw))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    w = want(*d["generate"].values())
+    check(by_path["moe_generate"] == w, f"moe generate launches {by_path['moe_generate']}, "
+                                        f"expected {w}")
+    check(out.tokens.shape == (B, 32) and bool((out.lengths == 32).all())
+          and bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
+          f"moe tokens {tuple(out.tokens.shape)}")
+    check(bool(torch.isfinite(st["prefill_logits"]).all()), "moe prefill logits")
+    res["static_bf16"] = dict(
+        encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+        ms_per_token=st["decode_s"] * 1e3 / st["decode_steps"], peak_mem_gb=peak,
+        params_b=param_count(params) / 1e9, expert_params_b=experts / 1e9, launches=w)
+    print("moe static bf16: " + json.dumps(res["static_bf16"]))
+
+    # ---- a bf16 train step of 8, and the same step again from the same state
+    tcfg = flagship_moe(["training.grad_accum_steps=1"])
+    micro = featurize(train_host_batch(tcfg, tok, np.random.default_rng(seed + 1801)),
+                      "cuda", torch.bfloat16)
+    stacked = _stack([micro])
+    # two trees of the same values: trainable leaves (the connectors' routers
+    # and experts, LoRA) in f32 each, the frozen bf16 leaves shared
+    ta, tb = cast_frozen(params, mc, torch.bfloat16), cast_frozen(params, mc, torch.bfloat16)
+    state_a, tr = _run_steps(tcfg, ta, stacked, 2, "moe train", seed,
+                             expect=want(*d["train_step"].values()))
+    by_path["moe_train_2_steps"] = {k: sum(s_["launches"][k] for s_ in tr["steps"])
+                                    for k in counts()}
+    state_b = create_train_state(tb, tcfg, total_steps=1000)
+    step = make_train_step(tcfg)
+    m_b = [step(state_b, stacked, seed + i) for i in range(2)]
+    for i, s_ in enumerate(tr["steps"]):
+        check(np.isfinite(s_["moe_lb"]) and np.isfinite(s_["moe_z"]) and s_["moe_lb"] > 0,
+              f"moe train step {i + 1}: moe_lb {s_['moe_lb']}, moe_z {s_['moe_z']}")
+        check(all(s_[k] == m_b[i][k] for k in ("loss", "grad_norm", "moe_lb", "moe_z")),
+              f"moe train step {i + 1} repeated: {m_b[i]} != {s_}")
+    la, lb = path_leaves(state_a.state_dict()), path_leaves(state_b.state_dict())
+    diff = [k for k, v in la.items() if isinstance(v, torch.Tensor) and not torch.equal(v, lb[k])]
+    check(not diff, f"moe train steps from one state differ in {diff[:5]}")
+    res["train_bf16"] = dict(
+        step_ms=tr["steps"][-1]["ms"], first_step_ms=tr["steps"][0]["ms"],
+        peak_mem_gb=tr["peak_mem_gb"], moe_lb=tr["steps"][-1]["moe_lb"],
+        moe_z=tr["steps"][-1]["moe_z"], loss=tr["steps"][-1]["loss"],
+        split_ms={k: v for k, v in tr["steps"][-1].items() if k.endswith("_ms")},
+        repeated_step_bit_equal=True, launches_per_step=tr["steps"][-1]["launches"])
+    print("moe train bf16: " + json.dumps(res["train_bf16"]))
+    del params, ta, tb, state_a, state_b, step, micro, stacked, batch, la, lb
+    settle()
+
+    # ---- the serving preset (int4 projections, int8 head and cache) ------
+    pcfg = flagship_moe(PRESET_OVERRIDES)
+    pp = common.load_decode_params(pcfg, seed=seed, device="cuda")
+    per = quantized_per_step(pp["llm"])
+    check(per == 4 * (nL - n_moe) + 2 * n_moe,
+          f"preset: {per} quantized products per step, not 4 per dense and 2 per MoE block")
+    check(all(not is_quantized(v) for lay in pp["llm"]["layers"] if "experts" in lay
+              for k, v in lay.items() if k in ("router", "experts")), "preset: a router quantized")
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    kq = dict(kw, kv_cache_dtype="int8")
+    generate_tokens(pp, pcfg.model, batch, **{**kq, "max_new_tokens": 2})   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    stq: dict = {}
+    outq = counted("moe_preset_generate",
+                   lambda: generate_tokens(pp, pcfg.model, batch, stats=stq, **kq))
+    peak_q = torch.cuda.max_memory_allocated() / 1e9
+    steps = stq["decode_steps"]
+    w = want(flash=nW + nL, int8=steps + 1, int4=per * steps)
+    check(by_path["moe_preset_generate"] == w,
+          f"moe preset launches {by_path['moe_preset_generate']}, expected {w}")
+    check(outq.tokens.shape == (B, 32) and bool(torch.isfinite(stq["prefill_logits"]).all()),
+          "moe preset tokens or logits")
+    p32 = cast_tree(pp, torch.float32)
+    l32, nxt = decode_step_logits(p32, pcfg.model, hb, torch.float32, ("auto", "never"))
+    del p32
+    settle()
+    l16, _ = decode_step_logits(pp, pcfg.model, hb, torch.bfloat16, ("auto", "never"), nxt)
+    ref = l32["never"]
+    std = ref.std().item()
+    d32, dk, dn = ((l32["auto"] - ref).abs(), (l16["auto"] - ref).abs(),
+                   (l16["never"] - ref).abs())
+    check(d32.mean().item() <= 1e-2 * std and d32.max().item() <= dn.max().item()
+          and dk.mean().item() <= 2.0 * dn.mean().item(),
+          f"moe preset decode step: f32 kernel vs dequantize mean {d32.mean().item():.4e}, "
+          f"max {d32.max().item():.4e}; bf16 kernel {dk.mean().item():.4e} vs dequantize "
+          f"{dn.mean().item():.4e} (std {std:.4e})")
+    res["preset"] = dict(
+        encode_ms=stq["encode_s"] * 1e3, prefill_ms=stq["prefill_s"] * 1e3,
+        ms_per_token=stq["decode_s"] * 1e3 / steps, peak_mem_gb=peak_q,
+        quantized_products_per_step=per, launches=w,
+        decode_step_logits=dict(std_f32=std, f32_kernel_vs_dequant_mean=d32.mean().item(),
+                                f32_kernel_vs_dequant_max=d32.max().item(),
+                                bf16_kernel_vs_f32_mean=dk.mean().item(),
+                                bf16_dequant_vs_f32_mean=dn.mean().item()))
+    print("moe preset: " + json.dumps(res["preset"]))
+    del pp, batch, l32, l16, ref, d32, dk, dn
+    settle()
+
+    # ---- f32 (TF32 off): kernels against plain, engine, speculative, beam --
+    cfg32 = flagship_moe(["runtime.compute_dtype=float32", *MOE_SQUEEZE])
+    m32 = cfg32.model
+    raw32 = common.init_or_load_params(cfg32, seed=seed, device="cuda")
+    p32 = prepare_params_for_decode(raw32, m32)
+    b32 = featurize(hb, "cuda", torch.float32)
+    k32 = dict(eos_id=-1, compute_dtype=torch.float32)
+    sk: dict = {}
+    sn: dict = {}
+    generate_tokens(p32, m32, b32, max_new_tokens=1, stats=sk, **k32)
+    generate_tokens(p32, m32, b32, max_new_tokens=1, stats=sn, use_kernel="never", **k32)
+    lref = sn["prefill_logits"]
+    dmax = (sk["prefill_logits"] - lref).abs().max().item()
+    check(dmax <= 2e-2 * lref.std().item(),
+          f"moe f32 prefill logits: kernel vs plain max|d| {dmax:.4e} > 2e-2 * std")
+    res["f32_prefill_kernel_vs_plain"] = dict(max=dmax, std=lref.std().item())
+    greedy32 = generate_tokens(p32, m32, b32, max_new_tokens=32, **k32)
+
+    samples, budgets = moe_traffic(seed)
+    eng = ServingEngine(p32, cfg32, tok, num_slots=4, k_steps=8, seed=seed)
+    try:
+        run = counted("moe_engine_f32", lambda: drive_engine(eng, samples, budgets))
+        stages = eng.stages_run
+        est = eng.stats()
+    finally:
+        eng.close()
+    ref_run = static_batches(p32, cfg32, samples, budgets, torch.float32)
+    diff = [i for i, (a, b_) in enumerate(zip(run["tokens"], ref_run["tokens"])) if a != b_]
+    check(not diff, f"moe f32 engine != generate_tokens for requests {diff}")
+    check(by_path["moe_engine_f32"] == want(flash=(nW + nL) * stages),
+          f"moe f32 engine launches {by_path['moe_engine_f32']}, {stages} stages of {nW + nL}")
+    res["engine_f32"] = dict(requests=len(samples), slots=4, stages=stages, stats=est,
+                             tokens_equal_generate_tokens=True,
+                             new_tokens=sum(len(t) for t in run["tokens"]),
+                             audio_s=[round(len(s_.audio) / 16000, 2) for s_ in samples])
+    print("moe f32 engine: " + json.dumps(res["engine_f32"]))
+
+    draft = S.make_draft_params(raw32, m32, bits=8)
+    dper = quantized_per_step(draft["llm"])
+    (spec, sst) = counted("moe_spec_f32", lambda: S.speculative_generate(
+        p32, draft, m32, b32, gamma=4, max_new_tokens=32, return_stats=True, **k32))
+    check(torch.equal(spec.tokens, greedy32.tokens),
+          f"moe f32 speculative != greedy: {(spec.tokens != greedy32.tokens).sum().item()} "
+          f"tokens differ")
+    w = want(flash=nW + 2 * nL, int8=(dper + 1) * sst["draft_steps"])
+    check(by_path["moe_spec_f32"] == w,
+          f"moe f32 speculative launches {by_path['moe_spec_f32']}, expected {w}")
+    res["spec_f32"] = dict(sst, tokens_equal_greedy=True, draft_products_per_step=dper + 1)
+    del draft
+    stb: dict = {}
+    beam = counted("moe_beam_f32", lambda: beam_search(p32, m32, b32, max_new_tokens=32,
+                                                      num_beams=5, stats=stb, **k32))
+    check(beam.tokens.shape == (B, 32) and bool(torch.isfinite(stb["scores"]).all()),
+          "moe f32 beam")
+    check(by_path["moe_beam_f32"] == want(flash=nW + nL),
+          f"moe f32 beam launches {by_path['moe_beam_f32']}")
+    res["beam_f32"] = dict(num_beams=5, tokens=32, steps=stb["decode_steps"],
+                           scores_finite=True)
+    print("moe f32 speculative and beam: " + json.dumps(
+        {"spec": res["spec_f32"], "beam": res["beam_f32"]}))
+    del p32, raw32, b32, greedy32, eng
+    settle()
+
+    # ---- the decode CLI on phase 15's corpus, static and engine, f32 ------
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("moe_%Y%m%d_%H%M%S")
+    rec = _Records()
+    logging.getLogger("avsr_tpu_torch").addHandler(rec)
+    try:
+        corpus = make_corpus(work, seed)
+        flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES, *MOE_OVERRIDES,
+                *MOE_SQUEEZE, "runtime.compute_dtype=float32", "data.synthetic=false",
+                f"data.path={corpus}", "decode.max_new_tokens=16"]
+        hyps = {}
+        for tag, extra in (("static", []), ("engine", ["decode.engine_slots=4"])):
+            out_dir = work / tag
+            rc = counted(f"moe_decode_cli_{tag}", lambda: decode.main(
+                [*flag, *extra, f"decode.output_dir={out_dir}", "--split", "test"]))
+            check(rc == 0, f"moe decode CLI ({tag}) returned {rc}")
+            (res_f,) = out_dir.glob("results_*.txt")
+            hyps[tag] = [ln for ln in res_f.read_text().splitlines() if ln.startswith("HYP: ")]
+            check(len(hyps[tag]) == 12, f"moe decode CLI ({tag}): {len(hyps[tag])} HYP lines")
+        check(hyps["static"] == hyps["engine"], "moe decode CLI: engine HYP lines != static")
+        check(by_path["moe_decode_cli_static"] == want(flash=2 * (nW + nL)),
+              f"moe decode CLI launches {by_path['moe_decode_cli_static']}")
+        cli_stages = rec.args("engine stats")[-1]["stages_run"]   # a dict is the args
+        check(by_path["moe_decode_cli_engine"] == want(flash=cli_stages * (nW + nL)),
+              f"moe decode CLI (engine) launches {by_path['moe_decode_cli_engine']}, "
+              f"{cli_stages} stages")
+        res["decode_cli_f32"] = dict(utterances=12, hyp_lines_equal=True,
+                                     engine_stages=cli_stages)
+        print(f"moe decode CLI (f32, the corpus's 12 test utterances): the engine's HYP lines "
+              f"equal the static batches' ({cli_stages} engine stages)")
+    finally:
+        logging.getLogger("avsr_tpu_torch").removeHandler(rec)
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches_by_path"] = by_path
+    res["launches_derived"] = d
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"moe phase: {res['seconds']:.1f} s; launches " + json.dumps(by_path))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4693,9 +5013,14 @@ def main(argv: list[str] | None = None) -> int:
     # kernels at head width 256, the f32 engine and the CLIs with cross_modal.
     connectors = connector_phase(args.seed)
 
+    settle()
+    # Phase 18 at full width: both MoE forms trained, decoded, quantized and
+    # served; the f32 engine, speculative decoding and the decode CLI exact.
+    moe = moe_phase(args.seed)
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors)
+                for phase in (corpus, conv, connectors, moe)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:

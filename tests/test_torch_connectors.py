@@ -188,8 +188,9 @@ def test_video_alignment_with_ragged_lengths(name, a_lens, v_lens):
 
 
 def test_moe_is_refused_and_unknown_names_raise_as_in_jax():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tget("moe")
+    """``moe`` is ported (``tests/test_torch_moe.py``): single-input, as in
+    JAX. An unknown name raises JAX's KeyError."""
+    assert not tget("moe").dual and not jget("moe").dual
     with pytest.raises(KeyError) as e_j:
         jget("nope")
     with pytest.raises(KeyError) as e_t:

@@ -1,6 +1,7 @@
 """The port's continuous-batching engine and multi-LoRA bank vs the JAX
 package (f32, CPU), the counterparts of ``tests/test_engine.py``'s cases
-(tensor parallelism and MoE are not ported).
+(tensor parallelism is not ported; the MoE case is in
+``test_torch_moe_llm.py``).
 
 The engine's contract: every request's transcript equals a standalone
 ``generate_tokens`` call for it, token for token. Each case holds the

@@ -526,12 +526,12 @@ TINY_TRAIN = ["data.batch_size=2", "data.max_label_length=24",
               "training.learning_rate=1e-3", "mesh.remat=false"]
 
 
-def _train_state(device):
+def _train_state(device, extra=()):
     from avsr_tpu_torch.core.config import load_config
     from avsr_tpu_torch.models.avsr import init_avsr_model
     from avsr_tpu_torch.train.state import cast_frozen, create_train_state
 
-    cfg = load_config(None, TINY_TRAIN)
+    cfg = load_config(None, TINY_TRAIN + list(extra))
     p = init_avsr_model(cfg.model, seed=0, device="cpu")
     g = torch.Generator().manual_seed(3)
     for layer in p["llm"]["layers"]:        # LoRA b is zero at init
@@ -629,6 +629,86 @@ def test_resumed_step_equals_uninterrupted_step_on_the_card(cuda, tmp_path):
     for k, v in _leaves(resumed).items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, _leaves(st)[k]), k
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts on the card
+# ---------------------------------------------------------------------------
+
+# both MoE forms on TINY_TRAIN: the moe connector and block 1 of the LLM
+MOE = ["model.connector_type=moe", "model.moe_experts=4", "model.llm.moe_experts=4",
+       "model.llm.moe_every=2", "model.moe_capacity_factor=0.5",
+       "model.llm.moe_capacity_factor=0.5"]
+
+
+def _moe_layer(device):
+    from avsr_tpu_torch.core.config import LLMConfig
+    from avsr_tpu_torch.models.llama import init_llama
+
+    cfg = LLMConfig(vocab_size=64, d_model=256, n_layers=1, n_heads=4, n_kv_heads=2,
+                    ffn_dim=512, moe_experts=8, moe_topk=2, moe_capacity_factor=0.5)
+    layer = init_llama(torch.Generator().manual_seed(0), cfg)["layers"][0]
+    return cfg, {k: {n: t.to(device) for n, t in v.items()} for k, v in layer.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "rowwise", "dropless"])
+def test_moe_layer_forward_and_backward_match_the_cpu(cuda, mode):
+    """The LLM's MoE FFN (f32, TF32 off) on the card against the same call
+    on the CPU: the same routing (the dispatch exactly), y and the aux
+    losses within 1e-5, and the gradients of x, the router and the experts
+    within 1e-5 of max|ref| (f32 sums in another order)."""
+    from avsr_tpu_torch.models.llama import _moe_mlp
+    from avsr_tpu_torch.ops import moe
+
+    cfg, layer_c = _moe_layer("cpu")
+    _, layer_g = _moe_layer(cuda)
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn((4, 64, 256), generator=g)
+    valid = torch.arange(64)[None, :] < torch.tensor([64, 50, 9, 33])[:, None]
+    w = torch.randn((4, 64, 256), generator=g)
+    kw = dict(valid=valid, rowwise=mode == "rowwise", dropless=mode == "dropless")
+    outs = []
+    for layer, dev in ((layer_c, "cpu"), (layer_g, cuda)):
+        leaves = [layer["router"]["w"], *layer["experts"].values()]
+        x = h.to(dev).requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        y, lb, z = _moe_mlp(layer, x, cfg, **{**kw, "valid": valid.to(dev)})
+        grads = torch.autograd.grad((y * w.to(dev)).sum() + lb + z, [x, *leaves])
+        logits = h.reshape(-1, 256).to(dev) @ layer["router"]["w"].detach()
+        disp = moe.route(logits, valid.reshape(-1).to(dev), 2, 64)[0]
+        outs.append([t.detach().cpu() for t in (y, lb, z, disp, *grads)])
+    (y_c, lb_c, z_c, d_c, *g_c), (y_g, lb_g, z_g, d_g, *g_g) = outs
+    assert torch.equal(d_c, d_g)
+    torch.testing.assert_close(y_g, y_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(torch.stack([lb_g, z_g]), torch.stack([lb_c, z_c]),
+                               atol=1e-6, rtol=1e-5)
+    for a, ref in zip(g_g, g_c):
+        assert _rel_err(a, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_train_step_repeats_bit_for_bit(cuda):
+    """A train step with both MoE forms (the connector's experts and routers
+    train, the LLM's block 1 is MoE; flash forward, dQ and dK/dV on the
+    card), run from two identical states, gives bit-equal states and
+    metrics: nothing on the gradient path adds with float atomics."""
+    from avsr_tpu_torch.train.step import make_train_step
+
+    cfg, a = _train_state(cuda, MOE)
+    _, b = _train_state(cuda, MOE)
+    step = make_train_step(cfg)
+    batch = _train_batch(cuda)
+    launches = A.dq_launches
+    for i in range(2):
+        m_a, m_b = step(a, batch, i), step(b, batch, i)
+        assert m_a == m_b and m_a["moe_lb"] > 0
+    assert A.dq_launches - launches == 2 * 2 * 2
+    want = _leaves(a)
+    for k, v in _leaves(b).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, want[k]), k
 
 
 # ---------------------------------------------------------------------------

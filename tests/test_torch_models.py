@@ -215,8 +215,17 @@ def test_simple_connector_matches_jax():
         from_numpy_tree(params, "cpu"), x_t, torch.tensor([5, 3]))
     close(y_t, y_j)
     np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tget_connector("moe")
+    # the moe connector's apply (its own tests: test_torch_moe.py)
+    mc = jcfg.ModelConfig(connector_type="moe", moe_experts=4)
+    params = np_tree(jget_connector("moe").init(jax.random.key(3), 24, 32, mc))
+    y_j, l_j, a_j = jget_connector("moe").apply(
+        jax.tree_util.tree_map(jnp.asarray, params), x_j, jnp.array([5, 3]), model_cfg=mc)
+    y_t, l_t, a_t = tget_connector("moe").apply(
+        from_numpy_tree(params, "cpu"), x_t, torch.tensor([5, 3]),
+        model_cfg=to_port_cfg(mc, tcfg.ModelConfig))
+    close(y_t, y_j)
+    np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
+    close(a_t["moe_lb"], a_j["moe_lb"])
 
 
 # ---------------------------------------------------------------------------

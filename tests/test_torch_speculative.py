@@ -262,19 +262,16 @@ def test_decode_cli_engine_matches_static(tmp_path, extra):
 @pytest.mark.parametrize("over", ["model.llm.moe_experts=4", "model.connector_type=moe",
                                   "data.compact_transfer=true"])
 def test_engine_path_refuses_moe_and_the_compact_link(tmp_path, over):
-    """MoE layers are still to be ported: the engine path of the decode CLI
-    raises, as the static path does. The compact link format is ported: the
-    engine path decodes with it and gives the static path's HYP lines."""
+    """MoE (the LLM's blocks, the connector) and the compact link format are
+    ported: the engine path of the decode CLI decodes with each and gives
+    the static path's HYP lines (MoE's own decode tests:
+    test_torch_moe_llm.py)."""
     common = ["--config", str(TINY_YAML), "--device", "cpu", "data.synthetic=true", over]
-    if over == "data.compact_transfer=true":
-        assert tdecode.main([*common, f"decode.output_dir={tmp_path / 'static'}"]) == 0
-        assert tdecode.main([*common, "decode.engine_slots=2",
-                             f"decode.output_dir={tmp_path / 'eng'}"]) == 0
-        assert _hyps(tmp_path / "static") == _hyps(tmp_path / "eng")
-        assert len(_hyps(tmp_path / "eng")) == 2
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdecode.main([*common, "decode.engine_slots=2", f"decode.output_dir={tmp_path}"])
+    assert tdecode.main([*common, f"decode.output_dir={tmp_path / 'static'}"]) == 0
+    assert tdecode.main([*common, "decode.engine_slots=2",
+                         f"decode.output_dir={tmp_path / 'eng'}"]) == 0
+    assert _hyps(tmp_path / "static") == _hyps(tmp_path / "eng")
+    assert len(_hyps(tmp_path / "eng")) == 2
 
 
 @pytest.mark.parametrize("bits", [8, 4])
