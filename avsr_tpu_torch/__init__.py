@@ -11,9 +11,11 @@ Layering (bottom-up):
     ops/     flash-attention forward and backward (kernels + plain versions,
              the autograd Function), int8/int4 weight-only quantization and
              its decode-shape matmul kernels (QDot under autograd), log-mel,
-             frames (and the compact link's YUV420), SpecAugment, video
+             frames under each encoder's image statistics (and the compact
+             link's YUV420), SpecAugment, video
              augmentation
-    models/  Whisper encoder, CLIP ViT, simple connector, Llama + LoRA
+    models/  Whisper and HuBERT/Wav2Vec2 encoders, the CLIP ViT, ResNet,
+             EfficientNet and AV-HuBERT video encoders, connectors, Llama + LoRA
              (dropout, remat, quantized base, fused decode layout, int8 KV
              cache), AVSR (encode, prefix, training forward)
     data/    byte and HF tokenizers, manifests, the manifest and synthetic
@@ -26,7 +28,8 @@ Layering (bottom-up):
     train/   masks, AdamW / adafactor / lion + schedules, train/eval steps,
              the Trainer, checkpoints, the batch-size probe
     cli/     decode, train (with the --mode presets), average, distill, serve,
-             stream, infer and prepare_data entry points
+             stream, infer, prepare_data, convert_hf and convert_ref_ckpt entry
+             points
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,12 @@
-"""Convert local HF checkpoints (Whisper, HuBERT/Wav2Vec2, CLIP, Llama) into
-a params export of the port, the port of ``avsr_tpu/cli/convert_hf.py``.
+"""Convert local HF checkpoints (Whisper, HuBERT/Wav2Vec2, CLIP, ResNet,
+EfficientNet, Llama) and fairseq AV-HuBERT checkpoints into a params export
+of the port, the port of ``avsr_tpu/cli/convert_hf.py``.
 
-Each component whose HF directory is configured (``model.whisper_path``,
+Each component whose checkpoint is configured (``model.whisper_path``,
 ``model.audio_encoder_path`` for hubert/wav2vec2, ``model.clip_path``,
-``model.llm_path``) replaces its random init with the converted weights;
+``model.video_encoder_path`` for resnet/efficientnet (an HF directory) or
+avhubert (a fairseq ``.pt``), ``model.llm_path``) replaces its random init
+with the converted weights;
 the rest (connectors, LoRA) stays freshly initialized, from
 ``training.seed`` (the LoRA of a converted Llama from ``training.seed + 1``),
 as in the JAX package. The directories are read by ``core/hf_files.py``,
@@ -25,10 +28,13 @@ import torch
 
 from avsr_tpu_torch.cli.common import base_parser, load_cli_config
 from avsr_tpu_torch.core.hf_files import load_pretrained
+from avsr_tpu_torch.models.avhubert import convert_fairseq_avhubert, load_fairseq_checkpoint
 from avsr_tpu_torch.models.avsr import init_avsr_model
 from avsr_tpu_torch.models.clip_vit import convert_hf_clip_vision
+from avsr_tpu_torch.models.efficientnet import convert_hf_efficientnet
 from avsr_tpu_torch.models.hubert import convert_hf_speech_ssl
 from avsr_tpu_torch.models.llama import add_lora, convert_hf_llama
+from avsr_tpu_torch.models.resnet import convert_hf_resnet
 from avsr_tpu_torch.models.whisper_encoder import convert_hf_whisper_encoder
 from avsr_tpu_torch.train.checkpoint import export_params
 
@@ -37,17 +43,14 @@ log = logging.getLogger("avsr_tpu_torch.cli.convert_hf")
 
 def build_converted_params(cfg, *, device: str | torch.device = "cuda"
                            ) -> tuple[dict, list[str]]:
-    """Fresh-init params (f32, on ``device``) with every component whose HF
-    directory is configured replaced by its converted weights. Returns
+    """Fresh-init params (f32, on ``device``) with every component whose
+    checkpoint is configured replaced by its converted weights. Returns
     (params, notes); notes names the converted components."""
     m = cfg.model
-    if m.modality in ("video", "both") and m.video_encoder != "clip":
-        raise NotImplementedError(
-            f"video_encoder {m.video_encoder!r}: its model and converter are not "
-            "yet ported (ROADMAP.md Queue 1 item 4: ResNet, EfficientNet, AV-HuBERT)")
     params = init_avsr_model(m, seed=cfg.training.seed, device=device)
     notes: list[str] = []
     audio = m.modality in ("audio", "both")
+    video = m.modality in ("video", "both")
 
     if m.whisper_path and audio:
         sd, hf = load_pretrained(m.whisper_path, device)
@@ -67,7 +70,33 @@ def build_converted_params(cfg, *, device: str | torch.device = "cuda"
         notes.append(m.audio_encoder)
         log.info("converted %s from %s", m.audio_encoder, m.audio_encoder_path)
 
-    if m.clip_path and m.modality in ("video", "both"):
+    if m.video_encoder_path and video and m.video_encoder == "resnet":
+        sd, hf = load_pretrained(m.video_encoder_path, device)
+        if tuple(hf["hidden_sizes"]) != m.resnet.hidden_sizes:
+            raise ValueError(f"resnet hidden_sizes mismatch: HF {hf['hidden_sizes']} "
+                             f"vs config {m.resnet.hidden_sizes}")
+        params["resnet"] = convert_hf_resnet(sd, m.resnet)
+        notes.append("resnet")
+        log.info("converted resnet from %s", m.video_encoder_path)
+
+    if m.video_encoder_path and video and m.video_encoder == "efficientnet":
+        sd, hf = load_pretrained(m.video_encoder_path, device)
+        if hf["hidden_dim"] != m.efficientnet.hidden_dim:
+            raise ValueError(f"efficientnet hidden_dim mismatch: HF {hf['hidden_dim']} "
+                             f"vs config {m.efficientnet.hidden_dim}")
+        params["efficientnet"] = convert_hf_efficientnet(sd, m.efficientnet)
+        notes.append("efficientnet")
+        log.info("converted efficientnet from %s", m.video_encoder_path)
+
+    if m.video_encoder_path and video and m.video_encoder == "avhubert":
+        # AV-HuBERT ships as fairseq .pt checkpoints, not HF directories
+        sd = {k: v.to(device) for k, v in
+              load_fairseq_checkpoint(m.video_encoder_path).items()}
+        params["avhubert"] = convert_fairseq_avhubert(sd, m.avhubert)
+        notes.append("avhubert")
+        log.info("converted avhubert from fairseq ckpt %s", m.video_encoder_path)
+
+    if m.clip_path and video and m.video_encoder == "clip":
         sd, hf = load_pretrained(m.clip_path, device)
         hf = hf.get("vision_config", hf)         # a CLIPModel directory
         if hf["hidden_size"] != m.clip.d_model:

@@ -1,8 +1,9 @@
 """Typed configuration of the PyTorch port.
 
 A copy of the sections of ``avsr_tpu.core.config`` that the port reads
-(``data``, ``model`` with its Whisper/HuBERT-Wav2Vec2/CLIP/LLM/LoRA subsections,
-``training``, ``mesh``, ``runtime``, ``decode``), with the same field names
+(``data``, ``model`` with its Whisper/HuBERT-Wav2Vec2/CLIP/ResNet/EfficientNet/
+AV-HuBERT/LLM/LoRA subsections, ``training``, ``mesh``, ``runtime``,
+``decode``), with the same field names
 and defaults, so that a YAML file written for the JAX package loads here
 unchanged. Mesh axes above 1 (multi-GPU layouts, not yet ported) raise
 ``NotImplementedError`` at validation rather than being ignored.
@@ -32,6 +33,7 @@ CONNECTOR_TYPES = ("simple", "deep", "conv", "attention", "adaptive",
 # the connectors that fuse audio and video themselves (modality "both" only)
 DUAL_CONNECTORS = ("cross_modal", "qformer", "perceiver", "adapter")
 OPTIMIZERS = ("adamw", "adafactor", "lion")
+VIDEO_ENCODERS = ("clip", "resnet", "efficientnet", "avhubert")
 
 
 @dataclass(frozen=True)
@@ -118,6 +120,62 @@ class ClipConfig:
 
 
 @dataclass(frozen=True)
+class ResNetConfig:
+    """ResNet video-encoder geometry (HF microsoft/resnet-*), selected by
+    ``model.video_encoder``."""
+
+    image_size: int = 224
+    embedding_size: int = 64
+    hidden_sizes: tuple[int, ...] = (256, 512, 1024, 2048)   # resnet-50
+    depths: tuple[int, ...] = (3, 4, 6, 3)
+    layer_type: str = "bottleneck"       # bottleneck (50+) | basic (18/34)
+    reduction: int = 4                   # bottleneck channel reduction
+    downsample_in_first_stage: bool = False
+
+
+@dataclass(frozen=True)
+class EfficientNetConfig:
+    """EfficientNet video-encoder geometry (HF google/efficientnet-b*); the
+    defaults are b0's block table, b1-b7 scale by the width and depth
+    coefficients."""
+
+    image_size: int = 224
+    width_coefficient: float = 1.0
+    depth_coefficient: float = 1.0
+    depth_divisor: int = 8
+    in_channels: tuple[int, ...] = (32, 16, 24, 40, 80, 112, 192)
+    out_channels: tuple[int, ...] = (16, 24, 40, 80, 112, 192, 320)
+    kernel_sizes: tuple[int, ...] = (3, 3, 5, 3, 5, 5, 3)
+    strides: tuple[int, ...] = (1, 2, 2, 2, 1, 2, 1)
+    num_block_repeats: tuple[int, ...] = (1, 2, 2, 3, 3, 4, 1)
+    expand_ratios: tuple[int, ...] = (1, 6, 6, 6, 6, 6, 6)
+    depthwise_padding: tuple[int, ...] = ()   # block indices with symmetric pad
+    squeeze_expansion_ratio: float = 0.25
+    hidden_dim: int = 1280                    # top width (b0/b1 1280, b2 1408...)
+
+
+@dataclass(frozen=True)
+class AVHubertConfig:
+    """AV-HuBERT video-branch geometry (base: 12 x 768 over a ResNet-18
+    trunk on 88 x 88 gray lip crops)."""
+
+    image_size: int = 88
+    frontend_channels: int = 64          # 3-D conv stem width
+    trunk_widths: tuple[int, ...] = (64, 128, 256, 512)   # resnet-18
+    trunk_depths: tuple[int, ...] = (2, 2, 2, 2)
+    d_model: int = 768                   # base; 1024 for large
+    n_heads: int = 12
+    n_layers: int = 12
+    ffn_mult: int = 4
+    do_stable_layer_norm: bool = False
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    # the transformer layer whose output is the feature: -1 the last, 0 the
+    # front end, k > 0 after the first k blocks
+    avhubert_layer: int = -1
+
+
+@dataclass(frozen=True)
 class LLMConfig:
     vocab_size: int = 128_256    # llama-3.2
     d_model: int = 2048          # llama-3.2-1B
@@ -167,6 +225,9 @@ class ModelConfig:
     whisper: WhisperConfig = field(default_factory=WhisperConfig)
     ssl: SpeechSSLConfig = field(default_factory=SpeechSSLConfig)
     clip: ClipConfig = field(default_factory=ClipConfig)
+    resnet: ResNetConfig = field(default_factory=ResNetConfig)
+    efficientnet: EfficientNetConfig = field(default_factory=EfficientNetConfig)
+    avhubert: AVHubertConfig = field(default_factory=AVHubertConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     unfreeze_layer_norms: bool = False
@@ -191,11 +252,21 @@ class ModelConfig:
 
     @property
     def video_dim(self) -> int:
-        return self.clip.d_model
+        """Feature dim the video connector consumes."""
+        if self.video_encoder == "clip":
+            return self.clip.d_model
+        if self.video_encoder == "resnet":
+            return self.resnet.hidden_sizes[-1]
+        if self.video_encoder == "efficientnet":
+            return self.efficientnet.hidden_dim
+        return (self.avhubert.trunk_widths[-1]
+                if self.avhubert.avhubert_layer == 0
+                else self.avhubert.d_model)
 
     @property
     def image_size(self) -> int:
-        return self.clip.image_size
+        """The square frame size the video encoder reads."""
+        return getattr(self, self.video_encoder).image_size
 
 
 @dataclass(frozen=True)
@@ -311,6 +382,16 @@ class AVSRConfig:
             raise ValueError(
                 f"audio_encoder must be whisper|hubert|wav2vec2, "
                 f"got {m.audio_encoder!r}")
+        if m.video_encoder not in VIDEO_ENCODERS:
+            raise ValueError(
+                f"video_encoder must be clip|resnet|efficientnet|avhubert, "
+                f"got {m.video_encoder!r}")
+        if m.avhubert.avhubert_layer > m.avhubert.n_layers:
+            raise ValueError("avhubert_layer exceeds avhubert.n_layers")
+        if m.resnet.layer_type not in ("bottleneck", "basic"):
+            raise ValueError("resnet.layer_type must be bottleneck|basic")
+        if len(m.resnet.hidden_sizes) != len(m.resnet.depths):
+            raise ValueError("resnet hidden_sizes/depths lengths differ")
         if m.ssl.feat_extract_norm not in ("group", "layer"):
             raise ValueError("ssl.feat_extract_norm must be group|layer")
         if not (len(m.ssl.conv_dims) == len(m.ssl.conv_kernels)
@@ -594,11 +675,14 @@ def save_config(cfg: AVSRConfig, path: str | Path) -> None:
     path.write_text(json.dumps(to_dict(cfg), indent=1) + "\n")
 
 
-def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
+def flagship(overrides: dict[str, Any] | list[str] | None = None,
+             video_encoder: str = "clip") -> AVSRConfig:
     """The flagship config, a Python mirror of ``avsr_tpu/configs/base.yaml``
     (Whisper-medium + CLIP-B/32 + Llama-3.2-1B with LoRA r=16, modality
     ``both``, bf16 compute; AdamW with a cosine schedule, 4-step gradient
-    accumulation and remat)."""
+    accumulation and remat). ``video_encoder`` swaps CLIP for another video
+    encoder at its section's published geometry: ``resnet`` (resnet-50),
+    ``efficientnet`` (b0) or ``avhubert`` (base)."""
     tree = {
         "data": {
             "path": "", "batch_size": 8, "max_audio_length": 480000,
@@ -607,8 +691,8 @@ def flagship(overrides: dict[str, Any] | list[str] | None = None) -> AVSRConfig:
             "video_buckets": [25, 50, 100],
         },
         "model": {
-            "modality": "both", "connector_type": "simple",
-            "fusion_scale": 0.5, "fusion_mode": "weighted_sum",
+            "modality": "both", "video_encoder": video_encoder,
+            "connector_type": "simple", "fusion_scale": 0.5, "fusion_mode": "weighted_sum",
             "max_seq_len": 1536, "freeze_encoders": True, "freeze_llm": True,
             "prompt": "Transcribe the speech into text:",
             "whisper": {"d_model": 1024, "n_heads": 16, "n_layers": 24,

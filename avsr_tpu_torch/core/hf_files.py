@@ -16,8 +16,8 @@ neither ``transformers`` nor ``tokenizers`` nor ``safetensors``:
 gives where the converters can tell: floating tensors in float32 (its
 default dtype; a bf16 file is upcast), and a tied head's
 ``lm_head.weight`` (a tied Llama file has none). The converters try the
-base-model prefixes (``model.``, ``vision_model.``, ``hubert.``) through
-:class:`Prefixed`, and both names of the weight-normed positional conv
+base-model prefixes (``model.``, ``vision_model.``, ``hubert.``,
+``resnet.``, ``efficientnet.``) through :class:`Prefixed`, and both names of the weight-normed positional conv
 themselves.
 """
 

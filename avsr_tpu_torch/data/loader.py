@@ -8,8 +8,9 @@ of ``avsr_tpu/data/loader.py``.
     bytes for an AV batch).
   * ``featurize`` moves a host batch to the device and computes the
     log-mel (or, for the HuBERT/Wav2Vec2 encoders its config names, passes
-    the padded waveform through) and the normalized frames
-    there (reconstructing f32 audio and RGB frames from the compact format
+    the padded waveform through) and the frames normalized with the
+    statistics of the video encoder it names (``image_stats_for``) there
+    (reconstructing f32 audio and RGB frames from the compact format
     first).
   * ``DataLoader`` walks a dataset in a per-epoch shuffled order (numpy's
     ``default_rng(seed + epoch)``, so the order is the JAX loader's) or in
@@ -127,14 +128,25 @@ def _pcm16_to_f32(audio: torch.Tensor) -> torch.Tensor:
     return audio.float() / 32768.0
 
 
+def image_stats_for(model_cfg: ModelConfig | None) -> str:
+    """The normalization statistics the configured video encoder expects."""
+    encoder = model_cfg.video_encoder if model_cfg is not None else "clip"
+    return {"resnet": "imagenet", "efficientnet": "inception",
+            "avhubert": "avhubert"}.get(encoder, "clip")
+
+
 def featurize(hb: HostBatch, device: str | torch.device = "cuda",
               compute_dtype: torch.dtype = torch.float32,
-              model_cfg: ModelConfig | None = None) -> Batch:
+              model_cfg: ModelConfig | None = None,
+              image_stats: str | None = None) -> Batch:
     """Host batch -> device Batch: the audio front end and frame
     normalization on the device. The audio front end is the one
     ``model_cfg.audio_encoder`` consumes: the padded f32 waveform and its
     lengths for HuBERT/Wav2Vec2, which own their conv front end; else
-    (Whisper, or no config) the log-mel."""
+    (Whisper, or no config) the log-mel. Frames are normalized with
+    ``image_stats``, by default the statistics of
+    ``model_cfg.video_encoder`` (CLIP's without a config)."""
+    stats = image_stats or image_stats_for(model_cfg)
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
@@ -150,10 +162,10 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
             mel = log_mel_spectrogram(audio, audio_lens)
             mel_lens = audio_lens // HOP_LENGTH
     if hb.frames is not None:
-        vframes = normalize_frames(dev(hb.frames), dtype=compute_dtype)
+        vframes = normalize_frames(dev(hb.frames), dtype=compute_dtype, stats=stats)
     elif hb.frames_y is not None:           # compact_transfer YUV420
         vframes = normalize_yuv420_frames(dev(hb.frames_y), dev(hb.frames_uv),
-                                          dtype=compute_dtype)
+                                          dtype=compute_dtype, stats=stats)
     return Batch(mel=mel, mel_lens=mel_lens, frames=vframes,
                  frame_lens=dev(hb.frame_lens) if hb.frame_lens is not None else None,
                  prompt_tokens=dev(hb.prompt), labels=dev(hb.labels),

@@ -1,14 +1,12 @@
 """AVSR model composition, the port of ``avsr_tpu/models/avsr.py``:
-Whisper or HuBERT/Wav2Vec2 + CLIP + connectors + Llama(+LoRA): two
-single-input connectors fused by ``weighted_sum`` (any ``fusion_mode``
-other than ``concat_seq``, as in JAX) or ``concat_seq``, or one dual-input
-connector that fuses audio and video itself; the packed
-[prompt][features] prefix that generation prefills, and the training
-``forward`` (packed causal-LM loss on the label positions, plus the MoE
-router losses of the ``moe`` connector and the LLM's MoE blocks).
-
-The other video encoders (ResNet, EfficientNet, AV-HuBERT) are still to be
-ported.
+Whisper or HuBERT/Wav2Vec2 + CLIP, ResNet, EfficientNet or AV-HuBERT +
+connectors + Llama(+LoRA): two single-input connectors fused by
+``weighted_sum`` (any ``fusion_mode`` other than ``concat_seq``, as in
+JAX) or ``concat_seq``, or one dual-input connector that fuses audio and
+video itself; the packed [prompt][features] prefix that generation
+prefills, and the training ``forward`` (packed causal-LM loss on the label
+positions, plus the MoE router losses of the ``moe`` connector and the
+LLM's MoE blocks).
 """
 
 from __future__ import annotations
@@ -22,14 +20,23 @@ import torch.nn.functional as F
 from avsr_tpu_torch.convert import param_count
 from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.models import llama as llama_mod
+from avsr_tpu_torch.models.avhubert import avhubert_apply, init_avhubert
 from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
 from avsr_tpu_torch.models.connectors import get_connector, upsample_to
+from avsr_tpu_torch.models.efficientnet import efficientnet_apply, init_efficientnet
 from avsr_tpu_torch.models.hubert import init_speech_ssl, speech_ssl_apply
 from avsr_tpu_torch.models.layers import Params
+from avsr_tpu_torch.models.resnet import init_resnet, resnet_apply
 from avsr_tpu_torch.models.whisper_encoder import (
     init_whisper_encoder,
     whisper_encoder_apply,
 )
+
+# Params-tree keys of the (freezable) encoder subtrees, by config name.
+ENCODER_KEYS = ("whisper", "hubert", "wav2vec2", "clip", "resnet",
+                "efficientnet", "avhubert")
+_VIDEO_INIT = {"clip": init_clip_vit, "resnet": init_resnet,
+               "efficientnet": init_efficientnet, "avhubert": init_avhubert}
 
 
 class Batch(NamedTuple):
@@ -52,13 +59,6 @@ class EncodeOut(NamedTuple):
     lengths: torch.Tensor                      # [B]
     # the MoE connector's {"moe_lb", "moe_z"}; None for the dense ones
     aux: dict | None = None
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.video_encoder != "clip" and cfg.modality in ("video", "both"):
-        raise NotImplementedError(
-            f"video_encoder {cfg.video_encoder!r} is not yet ported to "
-            "avsr_tpu_torch (ported: clip)")
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +107,6 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
     and casts frozen ones to the compute dtype; since every apply function
     casts a weight to the activation dtype before its matmul, storing all
     leaves in the compute dtype gives the same numbers at half the bytes."""
-    _check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     conn = get_connector(cfg.connector_type)
     d_llm = cfg.llm.d_model
@@ -120,7 +119,8 @@ def init_avsr_model(cfg: ModelConfig, *, seed: int = 0,
         if not conn.dual:
             params["audio_connector"] = conn.init(gen, cfg.audio_dim, d_llm, cfg, dtype)
     if cfg.modality in ("video", "both"):
-        params["clip"] = init_clip_vit(gen, cfg.clip, dtype)
+        enc = cfg.video_encoder
+        params[enc] = _VIDEO_INIT[enc](gen, getattr(cfg, enc), dtype)
         if not conn.dual:
             params["video_connector"] = conn.init(gen, cfg.video_dim, d_llm, cfg, dtype)
     if conn.dual:
@@ -150,6 +150,23 @@ def _conn_out(ret: tuple) -> tuple:
     return ret if len(ret) == 3 else (*ret, {})
 
 
+def encode_video(params: Params, cfg: ModelConfig, batch: Batch, *,
+                 compute_dtype: torch.dtype, use_kernel: str, remat: bool) -> torch.Tensor:
+    """The configured video encoder: frames [B, T, 3, S, S] -> [B, T, d]."""
+    enc = cfg.video_encoder
+    kw = dict(compute_dtype=compute_dtype, remat=remat)
+    if enc == "clip":
+        return clip_vit_apply(params["clip"], batch.frames, cfg.clip,
+                              use_kernel=use_kernel, **kw)
+    if enc == "resnet":
+        return resnet_apply(params["resnet"], batch.frames, cfg.resnet, **kw)
+    if enc == "efficientnet":
+        return efficientnet_apply(params["efficientnet"], batch.frames, cfg.efficientnet,
+                                  **kw)
+    return avhubert_apply(params["avhubert"], batch.frames, cfg.avhubert,
+                          frame_lengths=batch.frame_lens, use_kernel=use_kernel, **kw)
+
+
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
            use_kernel: str = "auto", remat: bool = False,
@@ -159,17 +176,21 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     no backward graph is built for them. ``model.unfreeze_layer_norms``
     trains their layer norms, so then they run with grad (and ``remat``
     recomputes their blocks in the backward), as the JAX package drops its
-    ``stop_gradient`` for that knob. ``moe_rowwise`` (inference callers)
-    routes the MoE connector row by row, so a request's features do not
-    depend on its batch; two single-input MoE connectors' aux losses are
-    averaged."""
-    _check_ported(cfg)
+    ``stop_gradient`` for that knob; so does the video branch when
+    ``finetune_avhubert_layers`` names AV-HuBERT blocks to train.
+    ``moe_rowwise`` (inference callers) routes the MoE connector row by
+    row, so a request's features do not depend on its batch; two
+    single-input MoE connectors' aux losses are averaged."""
     conn = get_connector(cfg.connector_type)
-    frozen = (torch.no_grad() if cfg.freeze_encoders and not cfg.unfreeze_layer_norms
-              else contextlib.nullcontext())
+    frozen = cfg.freeze_encoders and not cfg.unfreeze_layer_norms
+    tune_avhubert = cfg.video_encoder == "avhubert" and bool(cfg.finetune_avhubert_layers)
+
+    def grad_ctx(stop: bool):
+        return torch.no_grad() if stop else contextlib.nullcontext()
+
     feats = alens = vfeats = vlens = None
     if cfg.modality in ("audio", "both"):
-        with frozen:
+        with grad_ctx(frozen):
             if cfg.audio_encoder == "whisper":
                 feats, alens = whisper_encoder_apply(
                     params["whisper"], batch.mel, cfg.whisper,
@@ -181,10 +202,9 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
                     wave_lengths=batch.wave_lens, compute_dtype=compute_dtype,
                     use_kernel=use_kernel, remat=remat)
     if cfg.modality in ("video", "both"):
-        with frozen:
-            vfeats = clip_vit_apply(params["clip"], batch.frames, cfg.clip,
-                                    compute_dtype=compute_dtype,
-                                    use_kernel=use_kernel, remat=remat)
+        with grad_ctx(frozen and not tune_avhubert):
+            vfeats = encode_video(params, cfg, batch, compute_dtype=compute_dtype,
+                                  use_kernel=use_kernel, remat=remat)
         vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))

@@ -2,7 +2,9 @@
 ``avsr_tpu/ops/image.py::normalize_frames`` and of its compact link format.
 
 The host ships uint8 frames, already resized and cropped to S x S; the
-rescale to [0, 1], the CLIP mean/std normalization and the channels-first
+rescale to [0, 1], the mean/std normalization with the statistics the
+video encoder expects (``stats``: ``clip``, ``imagenet`` for ResNet,
+``inception`` for EfficientNet, ``avhubert``) and the channels-first
 transpose run on the device.
 
 The compact link format (``data.compact_transfer``) ships frames as planar
@@ -18,19 +20,34 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# HF's image processors for microsoft/resnet-*
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# HF's EfficientNetImageProcessor defaults
+INCEPTION_MEAN = (0.5, 0.5, 0.5)
+INCEPTION_STD = (0.5, 0.5, 0.5)
+# AV-HuBERT's gray lip-crop statistics broadcast to RGB (the encoder averages
+# the channels to gray, which commutes with this)
+AVHUBERT_MEAN = (0.421, 0.421, 0.421)
+AVHUBERT_STD = (0.165, 0.165, 0.165)
+
+STATS = {"clip": (CLIP_MEAN, CLIP_STD),
+         "imagenet": (IMAGENET_MEAN, IMAGENET_STD),
+         "inception": (INCEPTION_MEAN, INCEPTION_STD),
+         "avhubert": (AVHUBERT_MEAN, AVHUBERT_STD)}
 
 
-def _clip_normalize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _normalize(x: torch.Tensor, dtype: torch.dtype, stats: str) -> torch.Tensor:
     """f32 [..., S, S, 3] in [0, 1] -> (x - mean) / std as [..., 3, S, S]."""
     mean, std = (torch.tensor(s, dtype=torch.float32, device=x.device)
-                 for s in (CLIP_MEAN, CLIP_STD))
+                 for s in STATS[stats])
     return ((x - mean) / std).movedim(-1, -3).to(dtype)
 
 
-def normalize_frames(frames: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 [B,T,S,S,3] -> CLIP-normalized [B,T,3,S,S] in ``dtype``."""
-    return _clip_normalize(frames.float() / 255.0, dtype)
+def normalize_frames(frames: torch.Tensor, dtype: torch.dtype = torch.float32,
+                     stats: str = "clip") -> torch.Tensor:
+    """uint8 [B,T,S,S,3] -> normalized [B,T,3,S,S] in ``dtype``."""
+    return _normalize(frames.float() / 255.0, dtype, stats)
 
 
 def rgb_to_yuv420_np(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -52,8 +69,9 @@ def rgb_to_yuv420_np(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def normalize_yuv420_frames(y: torch.Tensor, uv: torch.Tensor,
-                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Planar YUV420 -> CLIP-normalized [B,T,3,S,S] on the tensors' device:
+                            dtype: torch.dtype = torch.float32,
+                            stats: str = "clip") -> torch.Tensor:
+    """Planar YUV420 -> normalized [B,T,3,S,S] on the tensors' device:
     the inverse of the packing (nearest-neighbour chroma upsample, BT.601
     full-range matrix), then the [0, 1] rescale and the normalization."""
     yf = y.float()
@@ -64,4 +82,4 @@ def normalize_yuv420_frames(y: torch.Tensor, uv: torch.Tensor,
     g = yf - 0.344136 * u - 0.714136 * v
     b = yf + 1.772 * u
     x = torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0) / 255.0
-    return _clip_normalize(x, dtype)
+    return _normalize(x, dtype, stats)

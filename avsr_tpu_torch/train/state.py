@@ -32,10 +32,9 @@ import numpy as np
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, TrainingConfig
+from avsr_tpu_torch.models.avsr import ENCODER_KEYS
 from avsr_tpu_torch.models.layers import Params
 
-ENCODERS = ("whisper", "hubert", "wav2vec2", "clip", "resnet", "efficientnet",
-            "avhubert")
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +97,7 @@ def trainable_mask(params: Params, cfg: ModelConfig) -> Params:
         top = keys[0]
         if top in ("audio_connector", "video_connector", "connector"):
             return True
-        if top in ENCODERS:
+        if top in ENCODER_KEYS:
             # BatchNorm running statistics are data, not weights
             if keys[-1] in ("mean", "var"):
                 return False

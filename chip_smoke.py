@@ -187,6 +187,28 @@
    on phase 15's corpus, static and ``decode.engine_slots=4``, with equal
    HYP lines. Launches exact on every path, derived from the tree and the
    widths. Removes what it wrote.
+19. Video-encoder phase (``video_encoder_phase``), at full width:
+   ``flagship(video_encoder=...)`` with ResNet-50, EfficientNet-b0 and
+   AV-HuBERT-base (88 px gray crops), random weights from --seed. For each:
+   a static bf16 call (B = 8, 10 s audio, 25 frames, 32 tokens: encode,
+   prefill, ms per token, peak) and the encoder's own forward at 25 and 100
+   frames; a train step of 8 (accum 1) after a warm-up step, repeated bit
+   for bit from an identical state; the encoder in f32 on the card (TF32
+   off) against the same function on the CPU (max|d| <= 1e-4 max|ref|) and
+   bf16 against f32 (mean|d| <= 0.1 std); the f32 engine (4 slots, 8
+   requests of 4-10 s, budgets <= 16) equal to ``generate_tokens``; the
+   published layout written from the seed (a ``ResNetForImageClassification``
+   safetensors directory, an ``EfficientNetForImageClassification`` ``.bin``
+   directory, a fairseq ``.pt`` whose config class does not import) and
+   converted by ``cli/convert_hf.py``, every leaf bit-equal (the positional
+   conv within 1e-5 of max|w|). Then AV-HuBERT at 300 frames (304 rows,
+   ragged lengths): the attention kernels held to their plain versions
+   and timed there, 12 flash launches per encode, the f32 kernel path
+   against ``mha_reference``; a step with ``finetune_avhubert_layers=[10,
+   11]`` that moves blocks 10-11 only and repeats bit for bit; the train (2
+   steps) and decode CLIs with AV-HuBERT on phase 15's corpus over the
+   compact link; one serving-preset call with ResNet. Launches exact on
+   every path. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -504,9 +526,9 @@ def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def serving_host_batch(cfg, seed: int, B: int = 8, n_samples: int = 160_000,
-                       n_frames: int = 25):
-    """B utterances of 10 s audio and 25 frames from ``seed``, collated on
-    the host (the serving phases' input)."""
+                       n_frames: int = 25, size: int = 224):
+    """B utterances of 10 s audio and 25 frames of ``size`` px from
+    ``seed``, collated on the host (the serving phases' input)."""
     from avsr_tpu_torch.data.dataset import Sample
     from avsr_tpu_torch.data.loader import collate
     from avsr_tpu_torch.data.tokenizer import ByteTokenizer
@@ -518,7 +540,7 @@ def serving_host_batch(cfg, seed: int, B: int = 8, n_samples: int = 160_000,
     for i in range(B):
         audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
                  + 0.05 * rng.standard_normal(n_samples)).astype(np.float32)
-        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
+        frames = rng.integers(0, 256, (n_frames, size, size, 3), dtype=np.uint8)
         samples.append(Sample(f"smoke/{i}", audio, frames, "", [tok.eos_id]))
     return collate(samples, cfg.data, tok.encode(cfg.model.prompt, add_bos=True),
                    tok.pad_id)
@@ -1139,9 +1161,9 @@ def bwd_kernel_phase(seed: int, main_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def train_host_batch(cfg, tok, rng, B: int = 8, n_samples: int = 160_000,
-                     n_frames: int = 25, n_label: int = 48):
-    """8 utterances of 10 s audio, 25 frames and a transcript of n_label
-    tokens (n_label - 1 bytes + EOS), collated on the host."""
+                     n_frames: int = 25, n_label: int = 48, size: int = 224):
+    """8 utterances of 10 s audio, 25 frames of ``size`` px and a transcript
+    of n_label tokens (n_label - 1 bytes + EOS), collated on the host."""
     from avsr_tpu_torch.data.dataset import Sample
     from avsr_tpu_torch.data.loader import collate
 
@@ -1152,7 +1174,7 @@ def train_host_batch(cfg, tok, rng, B: int = 8, n_samples: int = 160_000,
     for i in range(B):
         audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
                  + 0.05 * rng.standard_normal(n_samples)).astype(np.float32)
-        frames = rng.integers(0, 256, (n_frames, 224, 224, 3), dtype=np.uint8)
+        frames = rng.integers(0, 256, (n_frames, size, size, 3), dtype=np.uint8)
         samples.append(Sample(f"train/{i}", audio, frames, text,
                               tok.encode(text, add_eos=True)))
     return collate(samples, cfg.data, tok.encode(cfg.model.prompt, add_bos=True),
@@ -2695,7 +2717,7 @@ def static_batches(params, cfg, samples, budgets, dtype, kv: str = "bfloat16",
     t0 = time.perf_counter()
     for s in range(0, len(samples), B):
         group, bud = samples[s:s + B], budgets[s:s + B]
-        batch = featurize(collate(group, cfg.data, prompt, tok.pad_id), "cuda", dtype)
+        batch = featurize(collate(group, cfg.data, prompt, tok.pad_id), "cuda", dtype, mc)
         out = generate_tokens(params, mc, batch, max_new_tokens=max(bud), eos_id=tok.eos_id,
                               compute_dtype=dtype, kv_cache_dtype=kv)
         rows, lens = out.tokens.tolist(), out.lengths.tolist()
@@ -3707,11 +3729,22 @@ def hubert_kernel_row(seed: int) -> dict:
     ``unfreeze_layer_norms``). Each is held to its plain version at 499
     rows, on a ragged set and at 30 s (1499 frames in 1504 rows); the bf16
     ones are then timed as the kernel phases time the other shapes."""
+    return ssl_kernel_row(seed + 1612, "hubert", (512, 499),
+                          (499, 311, 260, 499, 17, 400, 256, 1), (1504, 1499, "30s"))
+
+
+def ssl_kernel_row(seed: int, tag: str, main: tuple[int, int], ragged: tuple[int, ...],
+                   long: tuple[int, int, str]) -> dict:
+    """The attention kernels of a 12-head SSL transformer (B = 8, head width
+    64, non-causal) at ``main`` = (rows, valid rows): the bf16 and f32
+    forward and the bf16 dQ and dK/dV held to their plain versions there,
+    on the ``ragged`` lengths and at ``long`` = (rows, valid rows, name);
+    the bf16 ones timed at ``main``."""
     import torch
 
     from avsr_tpu_torch.ops import attention as A
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1612)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def qkv(T: int):
         return [torch.randn((8, 12, T, 64), generator=gen, device="cuda",
@@ -3720,26 +3753,26 @@ def hubert_kernel_row(seed: int) -> dict:
     def lengths(*n: int):
         return torch.tensor(n if len(n) == 8 else n * 8, dtype=torch.int32, device="cuda")
 
-    q, k, v, do = qkv(512)
-    lens = lengths(499)
+    q, k, v, do = qkv(main[0])
+    lens = lengths(main[1])
     cases = (("main", (q, k, v, do), lens),
-             ("ragged", (q, k, v, do), lengths(499, 311, 260, 499, 17, 400, 256, 1)),
-             ("30s", qkv(1504), lengths(1499)))
+             ("ragged", (q, k, v, do), lengths(*ragged)),
+             (long[2], qkv(long[0]), lengths(long[1])))
     err = lse_max = err32 = lse32 = 0.0
     bwd_err = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for tag, (q_, k_, v_, do_), ln in cases:
+    for case, (q_, k_, v_, do_), ln in cases:
         o, lse = A.flash_attention(q_, k_, v_, ln, ln, False)
         o_r, lse_r = A.flash_attention_reference(q_, k_, v_, ln, ln, False)
         torch.cuda.synchronize()
         e = (o.float() - o_r.float()).abs()
         check(bool((e <= 2e-2 + 2e-2 * o_r.float().abs()).all()),
-              f"hubert/{tag}: O off by {e.max().item():.3e} (atol=rtol=2e-2)")
+              f"{tag}/{case}: O off by {e.max().item():.3e} (atol=rtol=2e-2)")
         fin = torch.isfinite(lse_r)
-        check(torch.equal(fin, torch.isfinite(lse)), f"hubert/{tag}: lse +inf rows differ")
+        check(torch.equal(fin, torch.isfinite(lse)), f"{tag}/{case}: lse +inf rows differ")
         lse_err = (lse[fin] - lse_r[fin]).abs().max().item()
-        check(lse_err <= 1e-3, f"hubert/{tag}: lse off by {lse_err:.3e} (atol 1e-3)")
+        check(lse_err <= 1e-3, f"{tag}/{case}: lse off by {lse_err:.3e} (atol 1e-3)")
         n = int(ln.min())
-        check(bool((o[ln == n][:, :, n:] == 0).all()), f"hubert/{tag}: padded rows not zero")
+        check(bool((o[ln == n][:, :, n:] == 0).all()), f"{tag}/{case}: padded rows not zero")
         err, lse_max = max(err, e.max().item()), max(lse_max, lse_err)
 
         # dQ and dK/dV, dQ handing its delta on, as the train step runs them
@@ -3750,11 +3783,11 @@ def hubert_kernel_row(seed: int) -> dict:
         torch.cuda.synchronize()
         d_err = (delta - delta_r).abs().max().item()
         check(d_err <= 1e-4 * max(1.0, delta_r.abs().max().item()),
-              f"hubert/{tag}: delta off by {d_err:.3e}")
+              f"{tag}/{case}: delta off by {d_err:.3e}")
         for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-            check(bool(torch.isfinite(got.float()).all()), f"hubert/{tag}: {name} not finite")
+            check(bool(torch.isfinite(got.float()).all()), f"{tag}/{case}: {name} not finite")
             r = rel_err(got, ref)
-            check(r <= 2e-2, f"hubert/{tag}: {name} max|d| {r:.3e} x max|ref| > 2e-2")
+            check(r <= 2e-2, f"{tag}/{case}: {name} max|d| {r:.3e} x max|ref| > 2e-2")
             bwd_err[name] = max(bwd_err[name], r)
         del dq, delta, dk, dv, refs, delta_r
 
@@ -3764,16 +3797,16 @@ def hubert_kernel_row(seed: int) -> dict:
         o_r, lse_r = A.flash_attention_reference(q32, k32, v32, ln, ln, False)
         torch.cuda.synchronize()
         e32 = (o - o_r).abs().max().item()
-        check(torch.equal(fin, torch.isfinite(lse)), f"hubert/{tag}: f32 lse +inf rows differ")
+        check(torch.equal(fin, torch.isfinite(lse)), f"{tag}/{case}: f32 lse +inf rows differ")
         l32 = (lse[fin] - lse_r[fin]).abs().max().item()
         check(e32 <= 1e-4 and l32 <= 1e-4,
-              f"hubert/{tag}: f32 O off by {e32:.3e}, lse by {l32:.3e} (atol 1e-4)")
+              f"{tag}/{case}: f32 O off by {e32:.3e}, lse by {l32:.3e} (atol 1e-4)")
         check(bool((o[ln == n][:, :, n:] == 0).all()),
-              f"hubert/{tag}: f32 padded rows not zero")
+              f"{tag}/{case}: f32 padded rows not zero")
         err32, lse32 = max(err32, e32), max(lse32, l32)
         del o, lse, o_r, lse_r, q32, k32, v32
-    print(f"kernel hubert: bf16 forward, f32 forward and dQ/dK/dV held to their plain "
-          f"versions (main, ragged, 30 s): max|dO| {err:.3e}, f32 max|dO| {err32:.3e}, "
+    print(f"kernel {tag}: bf16 forward, f32 forward and dQ/dK/dV held to their plain "
+          f"versions (main, ragged, {long[2]}): max|dO| {err:.3e}, f32 max|dO| {err32:.3e}, "
           "max|d|/max|ref| " + ", ".join(f"{n_} {e_:.3e}" for n_, e_ in bwd_err.items()))
 
     ms = graph_ms([lambda: A.flash_attention(q, k, v, lens, lens, False)])
@@ -3781,13 +3814,13 @@ def hubert_kernel_row(seed: int) -> dict:
     lib = sdpa_ms(q, k, v, lens, False)
     bounds = attn_bounds(q, k, lens, lens, False)
     ops_ms, bytes_ms = bounds["fwd"]
-    row = dict(shape="hubert", q=list(q.shape), kv=list(k.shape), causal=False, lens=499,
+    row = dict(shape=tag, q=list(q.shape), kv=list(k.shape), causal=False, lens=main[1],
                max_abs_err=err, max_lse_err=lse_max, ms=ms, plain_ms=plain_ms,
                library_ms=lib["ms"], library=lib, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                ops_ms=ops_ms, bytes_ms=bytes_ms,
                f32=dict(max_abs_err=err32, max_lse_err=lse32))
-    print(f"kernel hubert ({gpu_line()}): {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
+    print(f"kernel {tag} ({gpu_line()}): {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
           f"{lib['ms']:.4f} [{lib['call']}], bound {row['bound_ms']:.4f} by "
           f"{row['bound_by']}), max|dO| {err:.3e}")
 
@@ -3807,7 +3840,7 @@ def hubert_kernel_row(seed: int) -> dict:
                          bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
                          bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     row["bwd"] = bwd
-    print(f"kernel hubert bwd ({gpu_line()}): dQ {times['dq']:.4f} ms (plain "
+    print(f"kernel {tag} bwd ({gpu_line()}): dQ {times['dq']:.4f} ms (plain "
           f"{plain['dq']:.4f}, bound {bwd['dq']['bound_ms']:.4f}), dK/dV "
           f"{times['dkv']:.4f} ms (plain {plain['dkv']:.4f}, bound "
           f"{bwd['dkv']['bound_ms']:.4f}), SDPA backward {lib_bwd['ms']:.4f} ms")
@@ -4905,6 +4938,580 @@ def moe_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the ResNet, EfficientNet and AV-HuBERT video encoders at full width
+# ---------------------------------------------------------------------------
+
+VIDEO_ENCODERS = ("resnet", "efficientnet", "avhubert")
+
+
+def _bn_state(name: str, bn: dict) -> dict:
+    """A torch BatchNorm's keys (``num_batches_tracked`` too, as torch
+    writes it)."""
+    import torch
+
+    return {f"{name}.weight": bn["scale"], f"{name}.bias": bn["b"],
+            f"{name}.running_mean": bn["mean"], f"{name}.running_var": bn["var"],
+            f"{name}.num_batches_tracked": torch.tensor(0, dtype=torch.int64)}
+
+
+def hf_resnet_state(p: dict, n_labels: int = 1000) -> dict:
+    """A ResNet tree of the port -> ``ResNetForImageClassification`` keys:
+    the ``resnet.`` prefix and a random classifier."""
+    import torch
+
+    def conv_bn(name: str, c: dict) -> dict:
+        return {f"resnet.{name}.convolution.weight": c["conv"]["w"],
+                **_bn_state(f"resnet.{name}.normalization", c["bn"])}
+
+    sd = conv_bn("embedder.embedder", p["stem"])
+    for si, layers in enumerate(p["stages"]):
+        for li, lp in enumerate(layers):
+            pre = f"encoder.stages.{si}.layers.{li}."
+            for ci, c in enumerate(lp["convs"]):
+                sd.update(conv_bn(pre + f"layer.{ci}", c))
+            if "shortcut" in lp:
+                sd.update(conv_bn(pre + "shortcut", lp["shortcut"]))
+    d = p["stages"][-1][-1]["convs"][-1]["conv"]["w"].shape[0]
+    gen = torch.Generator().manual_seed(1)
+    sd["classifier.1.weight"] = 0.01 * torch.randn((n_labels, d), generator=gen)
+    sd["classifier.1.bias"] = torch.zeros(n_labels)
+    return sd
+
+
+def hf_efficientnet_state(p: dict, n_labels: int = 1000) -> dict:
+    """An EfficientNet tree of the port -> ``EfficientNetForImageClassification``
+    keys: the ``efficientnet.`` prefix and a random classifier."""
+    import torch
+
+    pre = "efficientnet."
+    sd = {pre + "embeddings.convolution.weight": p["stem"]["conv"]["w"],
+          **_bn_state(pre + "embeddings.batchnorm", p["stem"]["bn"])}
+    for i, b in enumerate(p["blocks"]):
+        bp = f"{pre}encoder.blocks.{i}."
+        if "expand" in b:
+            sd[bp + "expansion.expand_conv.weight"] = b["expand"]["conv"]["w"]
+            sd.update(_bn_state(bp + "expansion.expand_bn", b["expand"]["bn"]))
+        sd[bp + "depthwise_conv.depthwise_conv.weight"] = b["dw"]["conv"]["w"]
+        sd.update(_bn_state(bp + "depthwise_conv.depthwise_norm", b["dw"]["bn"]))
+        for n in ("reduce", "expand"):
+            sd[f"{bp}squeeze_excite.{n}.weight"] = b["se"][n]["w"]
+            sd[f"{bp}squeeze_excite.{n}.bias"] = b["se"][n]["b"]
+        sd[bp + "projection.project_conv.weight"] = b["project"]["conv"]["w"]
+        sd.update(_bn_state(bp + "projection.project_bn", b["project"]["bn"]))
+    sd[pre + "encoder.top_conv.weight"] = p["top"]["conv"]["w"]
+    sd.update(_bn_state(pre + "encoder.top_bn", p["top"]["bn"]))
+    gen = torch.Generator().manual_seed(2)
+    d = p["top"]["bn"]["scale"].shape[0]
+    sd["classifier.weight"] = 0.01 * torch.randn((n_labels, d), generator=gen)
+    sd["classifier.bias"] = torch.zeros(n_labels)
+    return sd
+
+
+def fairseq_avhubert_state(p: dict) -> dict:
+    """An AV-HuBERT tree of the port in the layout of a converted fairseq
+    checkpoint (``fuse_ln`` of width 2d and ``post_proj``: concat fuse;
+    PReLU trunk) -> ``AVHubertModel`` keys, the positional conv's weight
+    norm as g = ||w|| per kernel tap and v = w, plus audio-branch and
+    pretraining-head keys that the converter does not read."""
+    import torch
+
+    res = "feature_extractor_video.resnet."
+    sd = {res + "frontend3D.0.weight": p["stem"]["conv"]["w"],
+          **_bn_state(res + "frontend3D.1", p["stem"]["bn"]),
+          res + "frontend3D.2.weight": p["stem"]["prelu"]}
+    for si, layers in enumerate(p["trunk"]):
+        for li, lp in enumerate(layers):
+            pre = f"{res}trunk.layer{si + 1}.{li}."
+            for ci in range(2):
+                sd[f"{pre}conv{ci + 1}.weight"] = lp["convs"][ci]["conv"]["w"]
+                sd.update(_bn_state(f"{pre}bn{ci + 1}", lp["convs"][ci]["bn"]))
+                sd[f"{pre}relu{ci + 1}.weight"] = lp["prelus"][ci]
+            if "shortcut" in lp:
+                sd[pre + "downsample.0.weight"] = lp["shortcut"]["conv"]["w"]
+                sd.update(_bn_state(pre + "downsample.1", lp["shortcut"]["bn"]))
+    sd.update(_hf_lin("feature_extractor_video.proj", p["proj"]))
+    sd.update(_hf_ln("layer_norm", p["fuse_ln"]))
+    sd.update(_hf_lin("post_extract_proj", p["post_proj"]))
+    w = p["pos_conv"]["w"]
+    sd["encoder.pos_conv.0.weight_g"] = w.double().square().sum(dim=(0, 1),
+                                                                keepdim=True).sqrt().to(w.dtype)
+    sd["encoder.pos_conv.0.weight_v"] = w
+    sd["encoder.pos_conv.0.bias"] = p["pos_conv"]["b"]
+    sd.update(_hf_ln("encoder.layer_norm", p["ln"]))
+    for i, b in enumerate(p["blocks"]):
+        pre = f"encoder.layers.{i}."
+        for ours, fs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            sd.update(_hf_lin(pre + "self_attn." + fs, b["attn"][ours]))
+        sd.update(_hf_ln(pre + "self_attn_layer_norm", b["ln1"]))
+        sd.update(_hf_lin(pre + "fc1", b["fc1"]))
+        sd.update(_hf_lin(pre + "fc2", b["fc2"]))
+        sd.update(_hf_ln(pre + "final_layer_norm", b["ln2"]))
+    d = p["proj"]["b"].shape[0]
+    sd["feature_extractor_audio.proj.weight"] = torch.zeros((d, 104))
+    sd["final_proj.weight"] = torch.zeros((256, d))
+    sd["mask_emb"] = torch.zeros(d)
+    return sd
+
+
+def write_video_checkpoint(root: Path, enc: str, tree: dict, mc) -> Path:
+    """The published layout of a video encoder's weights: a
+    ``ResNetForImageClassification`` safetensors directory, an
+    ``EfficientNetForImageClassification`` ``pytorch_model.bin`` directory,
+    or a fairseq ``.pt`` whose config object's class does not import when
+    it is read. Returns the path ``model.video_encoder_path`` names."""
+    import types
+
+    import torch
+
+    if enc == "avhubert":
+        sd = {k: v.detach().contiguous().cpu() for k, v in fairseq_avhubert_state(tree).items()}
+        # a config object of a class from a module that is gone when the
+        # file is read (fairseq pickles an OmegaConf config beside the model)
+        mod = types.ModuleType("chip_smoke_fairseq_cfg")
+        exec("class AVHubertConfig:\n    def __init__(self):\n        self.fuse = 'concat'\n",
+             mod.__dict__)
+        sys.modules[mod.__name__] = mod
+        try:
+            path = root / "avhubert_base.pt"
+            torch.save({"model": sd, "cfg": mod.AVHubertConfig(), "task_state": {}}, path)
+        finally:
+            del sys.modules[mod.__name__]
+        return path
+    d = root / enc
+    d.mkdir(parents=True)
+    if enc == "resnet":
+        r = mc.resnet
+        sd = hf_resnet_state(tree)
+        cfg = dict(model_type="resnet", architectures=["ResNetForImageClassification"],
+                   num_labels=1000, num_channels=3, embedding_size=r.embedding_size,
+                   hidden_sizes=list(r.hidden_sizes), depths=list(r.depths),
+                   layer_type=r.layer_type, hidden_act="relu",
+                   downsample_in_first_stage=r.downsample_in_first_stage)
+    else:
+        e = mc.efficientnet
+        sd = hf_efficientnet_state(tree)
+        cfg = dict(model_type="efficientnet",
+                   architectures=["EfficientNetForImageClassification"], num_labels=1000,
+                   num_channels=3,
+                   image_size=e.image_size, width_coefficient=e.width_coefficient,
+                   depth_coefficient=e.depth_coefficient, depth_divisor=e.depth_divisor,
+                   kernel_sizes=list(e.kernel_sizes), in_channels=list(e.in_channels),
+                   out_channels=list(e.out_channels), strides=list(e.strides),
+                   num_block_repeats=list(e.num_block_repeats),
+                   expand_ratios=list(e.expand_ratios),
+                   depthwise_padding=list(e.depthwise_padding),
+                   squeeze_expansion_ratio=e.squeeze_expansion_ratio,
+                   hidden_dim=e.hidden_dim, hidden_act="swish", batch_norm_eps=1e-3)
+    sd = {k: v.detach().contiguous().cpu() for k, v in sd.items()}
+    (d / "config.json").write_text(json.dumps(cfg, indent=1))
+    if enc == "resnet":
+        write_safetensors(d / "model.safetensors", sd)
+    else:
+        torch.save(sd, d / "pytorch_model.bin")
+    return d
+
+
+def video_weights(enc: str, mc, gen) -> dict:
+    """A full-width tree of encoder ``enc`` (f32, on the card) with random
+    values on every leaf from ``gen``; AV-HuBERT's in the layout of a
+    converted fairseq checkpoint (PReLU trunk, concat fuse head)."""
+    import torch
+
+    from avsr_tpu_torch.models.avhubert import init_avhubert
+    from avsr_tpu_torch.models.efficientnet import init_efficientnet
+    from avsr_tpu_torch.models.layers import dense_init, norm_init
+    from avsr_tpu_torch.models.resnet import init_resnet
+
+    if enc == "resnet":
+        return jitter(init_resnet(gen, mc.resnet), gen)
+    if enc == "efficientnet":
+        return jitter(init_efficientnet(gen, mc.efficientnet), gen)
+    tree = init_avhubert(gen, mc.avhubert)
+    del tree["proj_ln"]
+    d = mc.avhubert.d_model
+    tree["fuse_ln"] = norm_init(gen, 2 * d)
+    tree["post_proj"] = dense_init(gen, 2 * d, d)
+    for layers in tree["trunk"]:
+        for lp in layers:
+            lp["prelus"] = [torch.full((lp["convs"][i]["conv"]["w"].shape[0],), 0.25,
+                                       device=gen.device) for i in range(2)]
+    return jitter(tree, gen)
+
+
+def video_traffic(seed: int, size: int):
+    """8 requests of 4-10 s synthetic audio and 25 frames of ``size`` px from
+    ``seed``, with budgets of 8-16 new tokens."""
+    from avsr_tpu_torch.data.dataset import Sample
+
+    rng = np.random.default_rng(seed + 1900)
+    samples, budgets = [], []
+    for i in range(8):
+        ns = int(rng.integers(4 * 16000, 10 * 16000 + 1))
+        t = np.arange(ns, dtype=np.float32) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * t)
+                 + 0.05 * rng.standard_normal(ns)).astype(np.float32)
+        frames = rng.integers(0, 256, (25, size, size, 3), dtype=np.uint8)
+        samples.append(Sample(f"video/{i}", audio, frames, "", [257]))
+        budgets.append(int(rng.integers(8, 17)))
+    return samples, budgets
+
+
+def video_encoder_phase(seed: int) -> dict:
+    """Phase 19: ``flagship(video_encoder=...)`` with ResNet-50,
+    EfficientNet-b0 and AV-HuBERT-base at full width (see the module
+    docstring)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import common, convert_hf, decode, train
+    from avsr_tpu_torch.convert import cast_tree, from_numpy_tree, param_count, to_numpy_tree
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.engine import ServingEngine
+    from avsr_tpu_torch.infer.generate import generate_tokens, prepare_params_for_decode
+    from avsr_tpu_torch.models.avhubert import avhubert_apply, init_avhubert
+    from avsr_tpu_torch.models.avsr import Batch, encode_video, init_avsr_model
+    from avsr_tpu_torch.train.state import (cast_frozen, create_train_state, path_leaves,
+                                            trainable_mask)
+    from avsr_tpu_torch.train.step import make_train_step
+
+    t_all = time.perf_counter()
+    res: dict = {"kernel": ssl_kernel_row(seed + 1902, "avhubert", (304, 300),
+                                          (300, 287, 256, 300, 17, 199, 260, 1),
+                                          (752, 750, "30s"))}
+    by_path: dict[str, dict[str, int]] = {}
+    nW, nL, nA = 24, 16, 12         # Whisper, LLM and AV-HuBERT layers
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        return out
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    def frames_batch(frames, lens=None):
+        return Batch(frames=frames, frame_lens=lens)
+
+    tok = ByteTokenizer()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1903)
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("video_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    bf16, f32 = torch.bfloat16, torch.float32
+    try:
+        for enc in VIDEO_ENCODERS:
+            t_enc = time.perf_counter()
+            row: dict = {}
+            cfg = flagship(video_encoder=enc)
+            mc = cfg.model
+            S = mc.image_size
+            hb = serving_host_batch(cfg, seed, size=S)
+            d = connector_launches("simple", 500, hb.prompt.shape[1], 48, nW, nL)
+
+            # ---- a static bf16 call (B = 8, 10 s, 25 frames, 32 tokens) ---
+            params = init_avsr_model(mc, seed=seed, device="cuda", dtype=bf16)
+            row["params_b"] = param_count(params) / 1e9
+            row["encoder_params_m"] = param_count(params[enc]) / 1e6
+            batch = featurize(hb, "cuda", bf16, mc)
+            check(tuple(batch.frames.shape) == (8, 25, 3, S, S), f"{enc}: frames "
+                  f"{tuple(batch.frames.shape)}")
+            kw = dict(max_new_tokens=32, eos_id=-1, compute_dtype=bf16)
+            generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 2})     # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            st: dict = {}
+            out = counted(f"{enc}_generate",
+                          lambda: generate_tokens(params, mc, batch, stats=st, **kw))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            w = want(*d["generate"].values())
+            check(by_path[f"{enc}_generate"] == w,
+                  f"{enc}: generate launches {by_path[f'{enc}_generate']}, expected {w}")
+            check(out.tokens.shape == (8, 32) and bool((out.lengths == 32).all())
+                  and bool(torch.isfinite(st["prefill_logits"]).all()), f"{enc}: the call")
+            row["static_bf16"] = dict(
+                encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+                ms_per_token=st["decode_s"] * 1e3 / st["decode_steps"], peak_mem_gb=peak,
+                launches=w)
+            # the encoder's own forward (bf16, B = 8) at 25 and 100 frames
+            row["encoder_ms"] = {}
+            for T in (25, 100):
+                fr = torch.randn((8, T, 3, S, S), generator=gen, device="cuda").to(bf16)
+                with torch.no_grad():
+                    row["encoder_ms"][T] = time_ms(lambda: encode_video(
+                        params, mc, frames_batch(fr), compute_dtype=bf16, use_kernel="auto",
+                        remat=False), 5)
+                del fr
+            print(f"{enc} static bf16: " + json.dumps(row))
+
+            # ---- a train step of 8 (accum 1) after a warm-up step, and the
+            # same two steps again from an identical state -------------------
+            tcfg = flagship(["training.grad_accum_steps=1"], video_encoder=enc)
+            micro = featurize(train_host_batch(tcfg, tok, np.random.default_rng(seed + 1901),
+                                               size=S), "cuda", bf16, mc)
+            stacked = _stack([micro])
+            ta, tb = cast_frozen(params, mc, bf16), cast_frozen(params, mc, bf16)
+            state_a, tr = _run_steps(tcfg, ta, stacked, 2, f"{enc} train", seed,
+                                     expect=want(*d["train_step"].values()))
+            by_path[f"{enc}_train_2_steps"] = {k: sum(s_["launches"][k] for s_ in tr["steps"])
+                                               for k in counts()}
+            state_b = create_train_state(tb, tcfg, total_steps=1000)
+            step = make_train_step(tcfg)
+            m_b = [step(state_b, stacked, seed + i) for i in range(2)]
+            for i, s_ in enumerate(tr["steps"]):
+                check(s_["loss"] == m_b[i]["loss"] and s_["grad_norm"] == m_b[i]["grad_norm"],
+                      f"{enc} train step {i + 1} repeated: {m_b[i]} != {s_}")
+            la, lb = path_leaves(state_a.state_dict()), path_leaves(state_b.state_dict())
+            diff = [k for k, v in la.items()
+                    if isinstance(v, torch.Tensor) and not torch.equal(v, lb[k])]
+            check(not diff, f"{enc}: train steps from one state differ in {diff[:5]}")
+            row["train_bf16"] = dict(
+                step_ms=tr["steps"][-1]["ms"], first_step_ms=tr["steps"][0]["ms"],
+                peak_mem_gb=tr["peak_mem_gb"], loss=tr["steps"][-1]["loss"],
+                split_ms={k: v for k, v in tr["steps"][-1].items() if k.endswith("_ms")},
+                repeated_step_bit_equal=True, launches_per_step=tr["steps"][-1]["launches"])
+            print(f"{enc} train bf16: " + json.dumps(row["train_bf16"]))
+            del ta, tb, state_a, state_b, step, micro, stacked, la, lb
+
+            # ---- the encoder in f32 on the card (TF32 off) against the same
+            # function on the CPU, and bf16 against f32 on the card ----------
+            n_fr, lens = (25, [25, 17]) if enc == "avhubert" else (4, None)
+            fr = torch.randn((2, n_fr, 3, S, S), generator=gen, device="cuda")
+            ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+            t32 = {enc: cast_tree(params[enc], f32)}
+            tcpu = {enc: from_numpy_tree(to_numpy_tree(t32), "cpu")[enc]}
+            with torch.no_grad():
+                on_card = encode_video(t32, mc, frames_batch(fr, ln), compute_dtype=f32,
+                                       use_kernel="auto", remat=False)
+                on_cpu = encode_video(tcpu, mc, frames_batch(fr.cpu(), None if ln is None
+                                                             else ln.cpu()),
+                                      compute_dtype=f32, use_kernel="auto", remat=False)
+                half = encode_video(params, mc, frames_batch(fr.to(bf16), ln),
+                                    compute_dtype=bf16, use_kernel="auto", remat=False)
+            ref = on_cpu
+            rel = ((on_card.cpu() - ref).abs().max() / ref.abs().max()).item()
+            check(rel <= 1e-4, f"{enc}: f32 on the card vs the CPU max|d| {rel:.3e} x max|ref| "
+                               "> 1e-4")
+            ratio = ((half.float() - on_card).abs().mean() / on_card.std()).item()
+            check(ratio <= 0.1, f"{enc}: bf16 vs f32 mean|d| {ratio:.3e} x std > 0.1")
+            row["f32_card_vs_cpu_max_rel"] = rel
+            row["bf16_vs_f32_mean_over_std"] = ratio
+            print(f"{enc}: f32 card vs CPU max|d|/max|ref| {rel:.3e} (gate 1e-4); bf16 vs f32 "
+                  f"mean|d|/std {ratio:.3e} (gate 0.1)")
+            del t32, tcpu, on_card, on_cpu, half, fr, params, batch
+            settle()
+
+            # ---- f32: the engine (4 slots, 8 requests) == generate_tokens --
+            cfg32 = flagship(["runtime.compute_dtype=float32"], video_encoder=enc)
+            p32 = prepare_params_for_decode(common.init_or_load_params(
+                cfg32, seed=seed, device="cuda"), cfg32.model)
+            samples, budgets = video_traffic(seed, S)
+            eng = ServingEngine(p32, cfg32, tok, num_slots=4, k_steps=8, seed=seed)
+            try:
+                run = counted(f"{enc}_engine_f32", lambda: drive_engine(eng, samples, budgets))
+                stages = eng.stages_run
+            finally:
+                eng.close()
+            ref_run = static_batches(p32, cfg32, samples, budgets, f32)
+            diff = [i for i, (a, b_) in enumerate(zip(run["tokens"], ref_run["tokens"]))
+                    if a != b_]
+            check(not diff, f"{enc}: f32 engine != generate_tokens for requests {diff}")
+            check(by_path[f"{enc}_engine_f32"] == want(flash=(nW + nL) * stages),
+                  f"{enc}: f32 engine launches {by_path[f'{enc}_engine_f32']}, {stages} "
+                  f"stages")
+            row["engine_f32"] = dict(requests=8, slots=4, stages=stages,
+                                     tokens_equal_generate_tokens=True,
+                                     new_tokens=sum(len(t) for t in run["tokens"]))
+            del p32, eng
+            settle()
+
+            # ---- the converter on the published layout at full width ------
+            tree = video_weights(enc, mc, gen)
+            t0 = time.perf_counter()
+            path = write_video_checkpoint(work, enc, tree, mc)
+            write_s = time.perf_counter() - t0
+            gb = (sum(f.stat().st_size for f in path.iterdir()) if path.is_dir()
+                  else path.stat().st_size) / 1e9
+            ccfg = flagship([f"model.video_encoder_path={path}"], video_encoder=enc)
+            t0 = time.perf_counter()
+            conv, notes = convert_hf.build_converted_params(ccfg, device="cuda")
+            torch.cuda.synchronize()
+            conv_s = time.perf_counter() - t0
+            check(notes == [enc], f"{enc}: converted {notes}")
+            got, want_l = path_leaves(conv[enc]), path_leaves(tree)
+            check(got.keys() == want_l.keys(), f"{enc}: converted key paths differ: "
+                  f"{sorted(got.keys() ^ want_l.keys())[:5]}")
+            for k, v in want_l.items():
+                if k == "pos_conv/w":
+                    e = (got[k] - v).abs().max().item()
+                    check(e <= 1e-5 * v.abs().max().item(), f"{enc}: pos_conv off by {e:.3e}")
+                else:
+                    check(got[k].dtype == torch.float32 and torch.equal(got[k], v),
+                          f"{enc}: converted {k} differs")
+            row["convert"] = dict(leaves=len(want_l), gb_read=gb, write_s=write_s,
+                                  convert_s=conv_s, s_per_gb_read=conv_s / gb,
+                                  layout=path.name)
+            print(f"{enc} convert: {len(want_l)} leaves bit-equal, {gb:.3f} GB in "
+                  f"{conv_s:.2f} s ({conv_s / gb:.2f} s per GB read)")
+            del conv, tree
+            settle()
+            row["seconds"] = time.perf_counter() - t_enc
+            res[enc] = row
+
+        # ---- AV-HuBERT at 300 frames: the flash forward in its 12 blocks ---
+        mc = flagship(video_encoder="avhubert").model
+        S = mc.image_size
+        av = init_avhubert(gen, mc.avhubert, bf16)
+        lens300 = torch.tensor([300, 287, 256, 300, 263, 199, 300, 281], dtype=torch.int32,
+                               device="cuda")
+        fr = torch.randn((8, 300, 3, S, S), generator=gen, device="cuda")
+        with torch.no_grad():
+            o16 = counted("avhubert_300_encode", lambda: avhubert_apply(
+                av, fr.to(bf16), mc.avhubert, frame_lengths=lens300, compute_dtype=bf16))
+            check(by_path["avhubert_300_encode"] == want(flash=nA),
+                  f"avhubert at 300 frames: launches {by_path['avhubert_300_encode']}")
+            av32 = cast_tree(av, f32)
+            k32 = avhubert_apply(av32, fr, mc.avhubert, frame_lengths=lens300,
+                                 compute_dtype=f32)
+            p32_ = avhubert_apply(av32, fr, mc.avhubert, frame_lengths=lens300,
+                                  compute_dtype=f32, use_kernel="never")
+        valid = torch.arange(300, device="cuda")[None, :] < lens300[:, None]
+        e300 = ((k32 - p32_).abs()[valid].max() / p32_.abs()[valid].max()).item()
+        check(e300 <= 1e-4 and bool(torch.isfinite(o16.float()).all()),
+              f"avhubert at 300 frames: f32 kernel path vs mha_reference {e300:.3e} x max|ref|")
+        res["avhubert_300"] = dict(frames=300, rows=304, lens=lens300.tolist(),
+                                   launches_per_encode=by_path["avhubert_300_encode"]["flash_fwd"],
+                                   f32_kernel_vs_plain_max_rel=e300)
+        print(f"avhubert at 300 frames: {nA} flash launches per encode; f32 kernel path vs "
+              f"mha_reference max|d|/max|ref| {e300:.3e} (gate 1e-4)")
+        del av, av32, fr, o16, k32, p32_
+        settle()
+
+        # one step with model.finetune_avhubert_layers=[10, 11] at 300 frames:
+        # the video branch runs with grad; blocks 10-11 (and their remat
+        # recompute) launch forward, dQ and dK/dV
+        tuned = (10, 11)
+        fcfg = flagship(["training.grad_accum_steps=1", "model.finetune_avhubert_layers=10,11",
+                         "data.video_buckets=25,50,100,300", "data.max_video_length=300"],
+                        video_encoder="avhubert")
+        fm = fcfg.model
+        params = init_avsr_model(fm, seed=seed, device="cuda", dtype=bf16)
+        micro = featurize(train_host_batch(fcfg, tok, np.random.default_rng(seed + 1904),
+                                           n_frames=300, size=S), "cuda", bf16, fm)
+        check(tuple(micro.frames.shape[:2]) == (8, 300), f"finetune frames "
+              f"{tuple(micro.frames.shape)}")
+        stacked = _stack([micro])
+        ta, tb = cast_frozen(params, fm, bf16), cast_frozen(params, fm, bf16)
+        before = {k: v.clone() for k, v in path_leaves(ta["avhubert"]).items()}
+        w = want(flash=nW + nA + len(tuned) + 2 * nL, dq=len(tuned) + nL, dkv=len(tuned) + nL)
+        state_a, tr = _run_steps(fcfg, ta, stacked, 2, "avhubert finetune", seed, expect=w)
+        by_path["avhubert_finetune_2_steps"] = {
+            k: sum(s_["launches"][k] for s_ in tr["steps"]) for k in counts()}
+        state_b = create_train_state(tb, fcfg, total_steps=1000)
+        step = make_train_step(fcfg)
+        m_b = [step(state_b, stacked, seed + i) for i in range(2)]
+        for i, s_ in enumerate(tr["steps"]):
+            check(s_["loss"] == m_b[i]["loss"] and s_["grad_norm"] == m_b[i]["grad_norm"],
+                  f"avhubert finetune step {i + 1} repeated: {m_b[i]} != {s_}")
+        la, lb = path_leaves(state_a.state_dict()), path_leaves(state_b.state_dict())
+        diff = [k for k, v in la.items()
+                if isinstance(v, torch.Tensor) and not torch.equal(v, lb[k])]
+        check(not diff, f"avhubert finetune: steps from one state differ in {diff[:5]}")
+        after = path_leaves(state_a.params["avhubert"])
+        mask = path_leaves(trainable_mask(ta, fm)["avhubert"])
+        moved = sorted(k for k, v in after.items() if not torch.equal(v, before[k]))
+        check(moved and all(k.split("/")[:2] in (["blocks", "10"], ["blocks", "11"])
+                            for k in moved),
+              f"avhubert finetune: moved leaves outside blocks 10-11: {moved[:5]}")
+        check(all(k in moved for k in mask if mask[k] and k.endswith("/w")),
+              "avhubert finetune: a tuned weight did not move")
+        res["avhubert_finetune"] = dict(
+            tuned=list(tuned), frames=300, moved_leaves=len(moved),
+            step_ms=tr["steps"][-1]["ms"], first_step_ms=tr["steps"][0]["ms"],
+            peak_mem_gb=tr["peak_mem_gb"], launches_per_step=tr["steps"][-1]["launches"],
+            repeated_step_bit_equal=True)
+        print("avhubert finetune [10, 11] at 300 frames: " + json.dumps(res["avhubert_finetune"]))
+        del params, micro, stacked, ta, tb, state_a, state_b, step, la, lb, before, after
+        settle()
+
+        # ---- the train and decode CLIs with AV-HuBERT on the corpus, with
+        # the compact link (88 px frames, AV-HuBERT's statistics, YUV420) --
+        corpus = make_corpus(work, seed)
+        flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES,
+                "data.synthetic=false", f"data.path={corpus}", "data.num_workers=4",
+                "data.compact_transfer=true", "model.video_encoder=avhubert"]
+        run_dir = work / "run"
+
+        def train_run():
+            rc = train.main([*flag, "training.grad_accum_steps=1", "training.max_steps=2",
+                             "training.save_every_steps=0", f"training.checkpoint_dir={run_dir}"])
+            check(rc == 0, f"train CLI (avhubert) returned {rc}")
+            rows_ = loss_rows(run_dir)
+            tr_ = [r for r in rows_ if r[2] == "train"]
+            check(len(tr_) == 2 and all(np.isfinite(float(r[3])) for r in tr_),
+                  f"avhubert train rows {tr_}")
+            return [float(r[3]) for r in tr_]
+
+        losses = counted("avhubert_train_cli", train_run)
+        w = want(flash=2 * (nW + 2 * nL) + 2 * (nW + nL), dq=2 * nL, dkv=2 * nL)
+        check(by_path["avhubert_train_cli"] == w,
+              f"avhubert train CLI launches {by_path['avhubert_train_cli']}, expected {w}")
+
+        def decode_run():
+            out_dir = work / "dec"
+            rc = decode.main([*flag, "decode.max_new_tokens=32", f"decode.output_dir={out_dir}",
+                              "--checkpoint", str(run_dir / "ckpt"), "--split", "test"])
+            check(rc == 0, f"decode CLI (avhubert) returned {rc}")
+            (res_f,), (wer_f,) = out_dir.glob("results_*.txt"), out_dir.glob("wer_*.txt")
+            check(res_f.read_text().count("UTT: ") == 12
+                  and "utterances: 12\n" in wer_f.read_text(),
+                  "avhubert decode: the test split's 12 utterances were not each scored once")
+            m = re.search(r"WER: ([0-9.]+)", wer_f.read_text())
+            check(m is not None and np.isfinite(float(m.group(1))), "avhubert decode: no WER")
+            return float(m.group(1))
+
+        wer = counted("avhubert_decode_cli", decode_run)
+        check(by_path["avhubert_decode_cli"] == want(flash=2 * (nW + nL)),
+              f"avhubert decode CLI launches {by_path['avhubert_decode_cli']}")
+        res["cli_avhubert"] = dict(train_losses=losses, test_wer=wer, compact_transfer=True)
+        print(f"avhubert CLIs on the corpus (compact link): losses {losses}, test WER {wer}")
+
+        # ---- the serving preset with ResNet --------------------------------
+        pcfg = flagship(list(PRESET_OVERRIDES), video_encoder="resnet")
+        pp = common.load_decode_params(pcfg, seed=seed, device="cuda")
+        batch = featurize(serving_host_batch(pcfg, seed), "cuda", bf16, pcfg.model)
+        kq = dict(max_new_tokens=32, eos_id=-1, compute_dtype=bf16, kv_cache_dtype="int8")
+        generate_tokens(pp, pcfg.model, batch, **{**kq, "max_new_tokens": 2})   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        stq: dict = {}
+        outq = counted("resnet_preset_generate",
+                       lambda: generate_tokens(pp, pcfg.model, batch, stats=stq, **kq))
+        steps = stq["decode_steps"]
+        w = want(flash=nW + nL, int8=steps + 1, int4=4 * nL * steps)
+        check(by_path["resnet_preset_generate"] == w,
+              f"resnet preset launches {by_path['resnet_preset_generate']}, expected {w}")
+        check(outq.tokens.shape == (8, 32) and bool(torch.isfinite(stq["prefill_logits"]).all()),
+              "resnet preset tokens or logits")
+        res["resnet_preset"] = dict(
+            encode_ms=stq["encode_s"] * 1e3, prefill_ms=stq["prefill_s"] * 1e3,
+            ms_per_token=stq["decode_s"] * 1e3 / steps,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=w)
+        print("resnet preset: " + json.dumps(res["resnet_preset"]))
+        del pp, batch
+        settle()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"video encoder phase: {res['seconds']:.1f} s; launches " + json.dumps(by_path))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5018,9 +5625,15 @@ def main(argv: list[str] | None = None) -> int:
     # served; the f32 engine, speculative decoding and the decode CLI exact.
     moe = moe_phase(args.seed)
 
+    settle()
+    # Phase 19 at full width: ResNet-50, EfficientNet-b0 and AV-HuBERT-base
+    # decoded, trained, served and converted; AV-HuBERT's flash path at 300
+    # frames, its tuned blocks, its CLIs on the corpus; the preset with ResNet.
+    video = video_encoder_phase(args.seed)
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe)
+                for phase in (corpus, conv, connectors, moe, video)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:
@@ -5080,9 +5693,13 @@ def main(argv: list[str] | None = None) -> int:
                                   "library": bwd["library_fwd"]},
         hubert_shape=conv["hubert_kernel"],
         connector_shape=dict(**connectors["kernels"]["fwd"], times_are="per launch",
-                             launches_per_audio_connector_call=conn_launches("", "flash_fwd")))]
+                             launches_per_audio_connector_call=conn_launches("", "flash_fwd")),
+        avhubert_shape=dict(video["kernel"], times_are="per launch",
+                            launches_per_encode=video["avhubert_300"]["launches_per_encode"]))]
     wb = knobs["whisper_bwd"]
     hbwd = kernels[0]["hubert_shape"].pop("bwd")
+    abwd = kernels[0]["avhubert_shape"].pop("bwd")
+    tuned = video["avhubert_finetune"]["launches_per_step"]
     for name, key, line, errs, extra in (
             ("flash_bwd_dq", "dq", 181, ("dq",),
              dict(also_writes="delta = rowsum(dO * O), [B, H, Tq] f32")),
@@ -5097,6 +5714,11 @@ def main(argv: list[str] | None = None) -> int:
             **hbwd[key], shape=kernels[0]["hubert_shape"]["q"], causal=False, lens=499,
             library_ms=hbwd["library_bwd_pair"]["ms"], library=hbwd["library_bwd_pair"],
             max_rel_err=max(hbwd["max_rel_err"][e] for e in errs))
+        extra["avhubert_shape"] = dict(
+            **abwd[key], shape=kernels[0]["avhubert_shape"]["q"], causal=False, lens=300,
+            library_ms=abwd["library_bwd_pair"]["ms"], library=abwd["library_bwd_pair"],
+            max_rel_err=max(abwd["max_rel_err"][e] for e in errs),
+            launches_per_finetune_step=tuned[name])
         extra["connector_shape"] = dict(
             **connectors["kernels"][key],
             launches_per_audio_connector_backward=conn_launches("_grad", name),

@@ -14,7 +14,9 @@ which both packages compute as g * v / ||v|| in f32 (rtol 1e-6, atol
 match in key path, shape and dtype, and LoRA ``b`` is zero. End to end,
 each package's ``convert_hf --out`` then decode ``--checkpoint`` gives the
 same hypotheses (f32, greedy) once the port's export carries JAX's fresh
-leaves.
+leaves. The video encoders' checkpoints: ResNet and EfficientNet
+directories (base and ``*ForImageClassification`` models) and a
+fairseq-layout AV-HuBERT ``.pt``, held leaf for leaf the same way.
 """
 
 import jax
@@ -221,11 +223,116 @@ def test_dim_mismatch_errors_match_jax(hf_dirs, component, key):
     assert errs[0] == errs[1] and errs[0].startswith(component)
 
 
+VIDEO = {"resnet": {"model.resnet.image_size": 32, "model.resnet.embedding_size": 16,
+                    "model.resnet.hidden_sizes": "[32,64]", "model.resnet.depths": "[1,2]"},
+         "efficientnet": {"model.efficientnet.image_size": 32,
+                          "model.efficientnet.in_channels": "[32,16]",
+                          "model.efficientnet.out_channels": "[16,24]",
+                          "model.efficientnet.kernel_sizes": "[3,5]",
+                          "model.efficientnet.strides": "[1,2]",
+                          "model.efficientnet.num_block_repeats": "[1,2]",
+                          "model.efficientnet.expand_ratios": "[1,6]"},
+         "avhubert": {"model.avhubert.image_size": 32, "model.avhubert.frontend_channels": 8,
+                      "model.avhubert.trunk_widths": "[8,16,24,32]",
+                      "model.avhubert.trunk_depths": "[1,1,1,1]",
+                      "model.avhubert.d_model": 32, "model.avhubert.n_heads": 4,
+                      "model.avhubert.n_layers": 2, "model.avhubert.ffn_mult": 2,
+                      "model.avhubert.pos_conv_kernel": 16,
+                      "model.avhubert.pos_conv_groups": 4}}
+
+
+@pytest.fixture(scope="module")
+def video_ckpts(tmp_path_factory):
+    """{encoder: [checkpoint, ...]}: tiny random ResNet and EfficientNet
+    directories that ``transformers`` writes (the base model in one layout,
+    the ``*ForImageClassification`` model, with its ``resnet.`` /
+    ``efficientnet.`` prefix, classifier and ``num_batches_tracked``, in the
+    other), and a fairseq-layout AV-HuBERT ``.pt`` whose config object's
+    class cannot be imported when it is read."""
+    import sys
+    import types
+
+    from transformers import (EfficientNetConfig, EfficientNetForImageClassification,
+                              EfficientNetModel, ResNetConfig, ResNetForImageClassification,
+                              ResNetModel)
+
+    from test_avhubert_fairseq import _AVHubertOracle, _randomize
+
+    def randomize(model):
+        """Random BatchNorm statistics (init leaves them 0 and 1)."""
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for k, t in model.state_dict().items():
+                if k.endswith("running_var"):
+                    t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+                elif k.endswith("running_mean"):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=g))
+        return model.eval()
+
+    root = tmp_path_factory.mktemp("video")
+    rc = ResNetConfig(num_channels=3, embedding_size=16, hidden_sizes=[32, 64], depths=[1, 2],
+                      layer_type="bottleneck", num_labels=5)
+    ec = EfficientNetConfig(image_size=32, width_coefficient=1.0, depth_coefficient=1.0,
+                            in_channels=[32, 16], out_channels=[16, 24],
+                            kernel_sizes=[3, 5], strides=[1, 2], num_block_repeats=[1, 2],
+                            expand_ratios=[1, 6], depthwise_padding=[], hidden_dim=1280,
+                            num_labels=5)
+    torch.manual_seed(0)
+    out = {"resnet": [], "efficientnet": [], "avhubert": []}
+    for name, cls, cfg, kw in (
+            ("resnet_base", ResNetModel, rc, {}),
+            ("resnet_cls", ResNetForImageClassification, rc, dict(safe_serialization=False)),
+            ("efficientnet_base", EfficientNetModel, ec, dict(safe_serialization=False)),
+            ("efficientnet_cls", EfficientNetForImageClassification, ec, {})):
+        randomize(cls(cfg)).save_pretrained(root / name, **kw)
+        out[name.split("_")[0]].append(root / name)
+    assert "resnet.embedder.embedder.convolution.weight" in hf_files.read_weights(
+        root / "resnet_cls")
+    assert "classifier.weight" in hf_files.read_weights(root / "efficientnet_cls")
+
+    oracle = _AVHubertOracle("concat", False).eval()
+    _randomize(oracle)
+    mod = types.ModuleType("fake_fairseq_cfg_pkg")
+    exec("class FakeDictConfig:\n    def __init__(self):\n        self.x = {'y': 1}\n",
+         mod.__dict__)
+    sys.modules["fake_fairseq_cfg_pkg"] = mod
+    try:
+        torch.save({"model": oracle.state_dict(), "cfg": mod.FakeDictConfig()},
+                   root / "avhubert.pt")
+    finally:
+        del sys.modules["fake_fairseq_cfg_pkg"]
+    out["avhubert"].append(root / "avhubert.pt")
+    return out
+
+
 @pytest.mark.parametrize("encoder", ["resnet", "efficientnet", "avhubert"])
-def test_unported_video_encoders_are_refused(hf_dirs, encoder):
-    over = _over(**_paths(hf_dirs["safetensors"], "av")) + [f"model.video_encoder={encoder}"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tconvert.build_converted_params(tcfg.load_config(None, over), device="cpu")
+def test_video_encoder_converters_equal_jax(video_ckpts, encoder):
+    """``model.video_encoder_path`` through each package's
+    ``build_converted_params``: every converted leaf equals JAX's (the
+    AV-HuBERT positional conv's g * v / ||v|| to f32 rounding), and the
+    configured width must match the checkpoint's, with JAX's message."""
+    for ckpt in video_ckpts[encoder]:
+        over = _over(**{"model.modality": "video", "model.video_encoder": encoder,
+                        "model.video_encoder_path": ckpt, **VIDEO[encoder]})
+        p_j, notes_j = jconvert.build_converted_params(jload_config(None, over))
+        p_t, notes_t = tconvert.build_converted_params(tcfg.load_config(None, over),
+                                                       device="cpu")
+        assert notes_t == notes_j == [encoder]
+        _compare(p_j, p_t, notes_t)
+        assert not any("num_batches_tracked" in "/".join(k) for k in port_paths(p_t))
+    bad = {"resnet": ["model.resnet.hidden_sizes=[32,128]"],
+           # a b2-wide top (1408) over the b0-wide checkpoint's 1280
+           "efficientnet": ["model.efficientnet.width_coefficient=1.1",
+                            "model.efficientnet.hidden_dim=1408"]}.get(encoder)
+    if bad:
+        errs = []
+        for build in (lambda: jconvert.build_converted_params(jload_config(None, over + bad)),
+                      lambda: tconvert.build_converted_params(
+                          tcfg.load_config(None, over + bad), device="cpu")):
+            with pytest.raises(ValueError, match="mismatch") as e:
+                build()
+            errs.append(str(e.value))
+        assert errs[0] == errs[1] and errs[0].startswith(encoder)
 
 
 @pytest.mark.parametrize("kind", ["av", "ssl"])
@@ -379,3 +486,56 @@ def test_infer_and_stream_clis_read_a_converted_export(hf_dirs, tmp_path, capsys
     assert capsys.readouterr().out.splitlines()[-1] == want
     assert tcli_stream.main([*args, "--chunk-s", "0.3", "--agree", "9"]) == 0
     assert capsys.readouterr().out.splitlines()[-1] == want
+
+
+def test_chip_smoke_video_writer_key_map(tmp_path):
+    """``chip_smoke.py``'s writers of the video encoders' published layouts
+    (no ``transformers`` on the card's host): at a tiny width,
+    ``from_pretrained`` loads the ResNet and EfficientNet directories with no
+    missing and no unexpected key, the fairseq-layout oracle takes the
+    AV-HuBERT state strictly but for the keys the converter skips, and the
+    port's conversion of each gives the written tree back (the positional
+    conv within f32 rounding)."""
+    import chip_smoke
+    from transformers import EfficientNetForImageClassification, ResNetForImageClassification
+
+    from avsr_tpu_torch.train.state import path_leaves
+    from test_avhubert_fairseq import _AVHubertOracle
+
+    over = {**VIDEO["resnet"], **VIDEO["efficientnet"], **VIDEO["avhubert"],
+            "model.efficientnet.hidden_dim": 1280}
+    mc = tcfg.load_config(None, _over(**over)).model
+    gen = torch.Generator().manual_seed(0)
+    for enc, cls in (("resnet", ResNetForImageClassification),
+                     ("efficientnet", EfficientNetForImageClassification), ("avhubert", None)):
+        tree = chip_smoke.video_weights(enc, mc, gen)
+        path = chip_smoke.write_video_checkpoint(tmp_path, enc, tree, mc)
+        if cls is not None:
+            _, info = cls.from_pretrained(path, output_loading_info=True)
+            assert info["unexpected_keys"] == [] and info["missing_keys"] == [], (enc, info)
+        else:
+            sd = torch.load(path, weights_only=False,
+                            pickle_module=tavh_pickle())["model"]
+            oracle = _AVHubertOracle("concat", False)
+            skipped = {"feature_extractor_audio.proj.weight", "final_proj.weight", "mask_emb"}
+            missing, unexpected = oracle.load_state_dict(
+                {k: v for k, v in sd.items() if k not in skipped}, strict=False)
+            assert missing == [] and unexpected == [], (missing, unexpected)
+        cfg = tcfg.load_config(None, _over(**over, **{"model.modality": "video",
+                                                      "model.video_encoder": enc,
+                                                      "model.video_encoder_path": path}))
+        p_t, notes = tconvert.build_converted_params(cfg, device="cpu")
+        assert notes == [enc]
+        got, want = path_leaves(p_t[enc]), path_leaves(tree)
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            if k == "pos_conv/w":
+                torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-7)
+            else:
+                assert torch.equal(got[k], v), (enc, k)
+
+
+def tavh_pickle():
+    from avsr_tpu_torch.models.avhubert import _PermissivePickle
+
+    return _PermissivePickle
