@@ -184,11 +184,14 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
                  generator: torch.Generator | None = None,
                  draft_params: Params | None = None,
                  draft_model_cfg: ModelConfig | None = None,
-                 draft_shares_prefix: bool | None = None) -> int:
+                 draft_shares_prefix: bool | None = None,
+                 stats_out: dict | None = None) -> int:
     """Batched decode over ``ds`` (``generate``: greedy, sampled, beam or,
     with a draft, speculative; or the serving engine with
     ``decode.engine_slots``) with per-utterance HYP/REF lines and the
-    corpus WER/CER summary, written to ``decode.output_dir``."""
+    corpus WER/CER summary, written to ``decode.output_dir``. ``stats_out``
+    receives ``wer``, ``cer``, ``utterances``, ``decode_s`` and the two
+    files' paths (``cli/parity.py --manifest`` reports them)."""
     out_dir = Path(cfg.decode.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     ts = time.strftime("%Y%m%d_%H%M%S")
@@ -227,7 +230,7 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
                     record(rf, sample.utt_id, sample.text, tok.decode(ids))
         log.info("engine stats: %s", eng.stats())
         eng.close()
-        return _summarize(acc, time.perf_counter() - t0, wer_path)
+        return _summarize(acc, time.perf_counter() - t0, wer_path, results_path, stats_out)
 
     seen: set[str] = set()
     with open(results_path, "w") as rf:
@@ -244,10 +247,11 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
                     continue
                 seen.add(utt)
                 record(rf, utt, ref, tok.decode(tokens[i, : lens[i]]))
-    return _summarize(acc, time.perf_counter() - t0, wer_path)
+    return _summarize(acc, time.perf_counter() - t0, wer_path, results_path, stats_out)
 
 
-def _summarize(acc: WERAccumulator, dt: float, wer_path: Path) -> int:
+def _summarize(acc: WERAccumulator, dt: float, wer_path: Path,
+               results_path: Path | None = None, stats_out: dict | None = None) -> int:
     summary = (
         f"utterances: {acc.utterances}\n"
         f"reference words: {acc.ref_words}\n"
@@ -256,6 +260,9 @@ def _summarize(acc: WERAccumulator, dt: float, wer_path: Path) -> int:
         f"CER: {acc.cer:.4f}\n"
         f"decode time: {dt:.1f}s ({acc.utterances / max(dt, 1e-9):.2f} utt/s)\n")
     wer_path.write_text(summary)
+    if stats_out is not None:
+        stats_out.update(wer=acc.wer, cer=acc.cer, utterances=acc.utterances, decode_s=dt,
+                         results_path=str(results_path), wer_path=str(wer_path))
     log.info("overall WER %.4f CER %.4f (%d utts) -> %s", acc.wer, acc.cer,
              acc.utterances, wer_path)
     print(summary)

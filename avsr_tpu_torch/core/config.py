@@ -412,6 +412,14 @@ class AVSRConfig:
             raise ValueError("decode.lm_head_bits must be 0, 4 or 8")
         if self.decode.kv_cache_dtype not in ("bfloat16", "int8"):
             raise ValueError("decode.kv_cache_dtype must be bfloat16|int8")
+        if t.best_metric not in ("loss", "wer"):
+            raise ValueError(
+                "training.best_metric must be loss | wer, got "
+                f"{t.best_metric!r}")
+        if t.best_metric == "wer" and t.eval_wer_every_epochs <= 0:
+            raise ValueError(
+                "training.best_metric='wer' needs in-training WER eval: "
+                "set training.eval_wer_every_epochs > 0")
         _check_speculative(self)
         _check_serving(self)
         return self

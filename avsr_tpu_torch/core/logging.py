@@ -3,11 +3,13 @@ of ``avsr_tpu/core/logging.py``: console (and file) logging with noisy
 third-party loggers quieted (``setup_logging``, which every CLI calls), the
 per-step loss CSV, a windowed tokens/s + utterances/s meter, the
 loss-stability monitor behind the emergency checkpoint, and the loss
-history (JSON, and a PNG where matplotlib imports).
+history (JSON, and a PNG where matplotlib imports); and the profiler
+ranges of the hot paths (``trace_range``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import logging
@@ -17,6 +19,8 @@ import time
 from collections import deque
 from pathlib import Path
 from typing import Any
+
+import torch
 
 _NOISY = ("urllib3", "filelock", "fsspec", "matplotlib", "PIL", "transformers")
 
@@ -42,6 +46,18 @@ def setup_logging(log_file: str | Path | None = None, level: int = logging.INFO,
     for noisy in _NOISY:
         logging.getLogger(noisy).setLevel(logging.WARNING)
     return logging.getLogger(name)
+
+
+def trace_range(name: str) -> contextlib.AbstractContextManager:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs, else a no-op: an unguarded range costs ~10 us a call,
+    and a serving-preset decode step makes 65 kernel calls. ``cli/profile.py`` reads the
+    ranges back: the kernel wrappers' (named after their kernel) give the
+    hand-written kernels a launching host op, ``avsr::decode_loop`` and
+    ``avsr::micro_batch`` mark the loop bodies."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class CSVLogger:

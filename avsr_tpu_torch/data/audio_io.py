@@ -3,8 +3,9 @@ dependency-free WAV reading + resampling.
 
 WAV parsing is implemented directly (RIFF PCM 8/16/24/32 + IEEE float, the
 extensible format tag, mono-ized by averaging); resampling to 16 kHz uses
-scipy's polyphase resampler. The JAX package's C++ batch decoder
-(``native/``) is not ported; this is its numerics reference.
+scipy's polyphase resampler. The JAX package's C++ batch decoder is
+ported as ``native/__init__.py::decode_wav_batch``; this module is its
+numerics reference and the fallback without the native library.
 """
 
 from __future__ import annotations

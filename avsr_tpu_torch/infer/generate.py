@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from avsr_tpu_torch.core.config import DecodeConfig, ModelConfig
+from avsr_tpu_torch.core.logging import trace_range
 from avsr_tpu_torch.models import llama as L
 from avsr_tpu_torch.models.avsr import Batch, build_prefix, encode
 from avsr_tpu_torch.models.layers import Params
@@ -166,20 +167,21 @@ def _decode_loop(params: Params, model_cfg: ModelConfig, logits: torch.Tensor,
     tokens = torch.full((B, max_new_tokens), eos_id, dtype=torch.int64, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     steps = 0
-    for step in range(max_new_tokens):
-        nxt = _sample_or_greedy(logits, temperature, top_p, generator)
-        nxt = torch.where(done, eos_id, nxt)
-        tokens[:, step] = nxt
-        done |= nxt == eos_id
-        # The last token needs no forward pass after it.
-        if step + 1 == max_new_tokens or bool(done.all()):
-            break
-        emb = L.embed_tokens(params["llm"], nxt[:, None], dt)
-        logits, cache = L.llama_decode_step(params["llm"], cfg, x=emb, cache=cache,
-                                            cur_lens=cur, lora=lora,
-                                            compute_dtype=dt, use_kernel=use_kernel)
-        cur = cur + 1
-        steps += 1
+    with trace_range("avsr::decode_loop"):
+        for step in range(max_new_tokens):
+            nxt = _sample_or_greedy(logits, temperature, top_p, generator)
+            nxt = torch.where(done, eos_id, nxt)
+            tokens[:, step] = nxt
+            done |= nxt == eos_id
+            # The last token needs no forward pass after it.
+            if step + 1 == max_new_tokens or bool(done.all()):
+                break
+            emb = L.embed_tokens(params["llm"], nxt[:, None], dt)
+            logits, cache = L.llama_decode_step(params["llm"], cfg, x=emb, cache=cache,
+                                                cur_lens=cur, lora=lora,
+                                                compute_dtype=dt, use_kernel=use_kernel)
+            cur = cur + 1
+            steps += 1
     return GenOut(tokens, _lengths(tokens, eos_id)), cache, steps
 
 

@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from avsr_tpu_torch.core.logging import trace_range
+
 NEG_INF = -1e30
 
 # Launches of each CUDA kernel (incremented once per launch, nowhere else).
@@ -277,7 +279,7 @@ def _launch(source: str, symbol: str, ptrs: list[torch.Tensor], dims,
             dtype: torch.dtype, causal: bool, scale: float,
             dev: torch.device) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace_range(symbol.removeprefix("avsr_")):
         err = _kernel_fn(source, symbol)(
             *[t.data_ptr() for t in ptrs], *dims, _DTYPES[dtype], int(causal),
             float(scale), stream)

@@ -27,6 +27,8 @@ import ctypes
 
 import torch
 
+from avsr_tpu_torch.core.logging import trace_range
+
 # Decode and beam-search shapes only: the JAX package's threshold (set on a
 # TPU, kept until it is measured on the card). Past it the product is
 # compute-shaped and the dequantize-then-matmul path is the right one.
@@ -239,10 +241,11 @@ def qmatmul(x: torch.Tensor, qp, out_dtype: torch.dtype = torch.float32
         if n_split > 1:
             tiles = -(-N // BLOCK_N) * -(-M // (8 * nt))
             counters, scratch = _workspace(dev, tiles, tiles * n_split * 8 * nt * BLOCK_N)
-        err = _kernel_fn(symbol)(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in (scratch, counters)),
-            M, K, N, *plan, *kinds, torch.cuda.current_stream(dev).cuda_stream)
+        with trace_range(symbol.removeprefix("avsr_")):
+            err = _kernel_fn(symbol)(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() if t is not None else None for t in (scratch, counters)),
+                M, K, N, *plan, *kinds, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     global int8_launches, int4_launches

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig
+from avsr_tpu_torch.core.logging import trace_range
 from avsr_tpu_torch.models.avsr import Batch, forward
 from avsr_tpu_torch.ops.specaugment import specaugment
 from avsr_tpu_torch.ops.videoaug import video_augment
@@ -107,18 +108,19 @@ def make_train_step(cfg: AVSRConfig
         loss_sum = acc_sum = 0.0
         extra = dict.fromkeys(extra_keys, 0.0)
         for mb_i, mseed in enumerate(micro_seeds(seed, accum)):
-            mb = Batch(*[None if x is None else x[mb_i] for x in batch])
-            loss, metrics = _loss_fn(state.params, cfg, mb, mseed)
-            clock.lap("forward_s")
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for acc, gi in zip(grads, g):
-                if gi is not None:
-                    acc.add_(gi.float(), alpha=w)
-            loss_sum = loss_sum + w * loss.detach().float()
-            acc_sum = acc_sum + w * metrics["accuracy"].detach()
-            for k in extra_keys:
-                extra[k] = extra[k] + w * metrics[k].detach()
-            clock.lap("backward_s")
+            with trace_range("avsr::micro_batch"):
+                mb = Batch(*[None if x is None else x[mb_i] for x in batch])
+                loss, metrics = _loss_fn(state.params, cfg, mb, mseed)
+                clock.lap("forward_s")
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+                for acc, gi in zip(grads, g):
+                    if gi is not None:
+                        acc.add_(gi.float(), alpha=w)
+                loss_sum = loss_sum + w * loss.detach().float()
+                acc_sum = acc_sum + w * metrics["accuracy"].detach()
+                for k in extra_keys:
+                    extra[k] = extra[k] + w * metrics[k].detach()
+                clock.lap("backward_s")
         grad_norm = global_norm(grads)
         if cfg.runtime.debug_nans:
             _raise_on_nan("train step", step=state.step, loss=loss_sum,

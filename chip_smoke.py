@@ -209,6 +209,17 @@
    steps) and decode CLIs with AV-HuBERT on phase 15's corpus over the
    compact link; one serving-preset call with ResNet. Launches exact on
    every path. Removes what it wrote.
+20. Tooling phase (``tooling_phase``), at full width on the flagship,
+   random weights from --seed: the validate CLI over 2 synthetic batches
+   (rc 0, 40 flash launches a batch), then from an export whose first LoRA
+   leaf is NaN (rc 1, and ``FloatingPointError`` under ``--checkify``); the
+   analyze_memory CLI (every component's bytes on the card at least its
+   logical bytes, the allocator's delta beside them, the four modes'
+   totals); the profile CLI over 2 train steps at the largest buckets (B =
+   8) and over one decode call of 32 tokens in bf16 and with the serving
+   preset: each trace's kernels by name equal the wrappers' counters over
+   the traced steps, its device time, duty cycle and top categories,
+   scopes and kernels printed. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -5512,6 +5523,161 @@ def video_encoder_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Tooling phase
+# ---------------------------------------------------------------------------
+
+def tooling_phase(seed: int) -> dict:
+    """Phase 20: the validate, analyze_memory and profile CLIs at full width
+    on the flagship (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import analyze_memory, profile, validate
+    from avsr_tpu_torch.cli.common import init_params
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.train.checkpoint import export_params
+    from avsr_tpu_torch.train.state import path_leaves, tree_leaves
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("tooling_%Y%m%d_%H%M%S")
+    flag = list(FLAGSHIP_OVERRIDES)
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    nW, nL = 24, 16                 # Whisper and LLM layers
+    by_path: dict[str, dict[str, int]] = {}
+    res: dict = {"profiles": {}}
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    def times(w: dict[str, int], n: int) -> dict[str, int]:
+        return {k: v * n for k, v in w.items()}
+
+    def run(tag: str, main, argv: list[str]) -> int:
+        """One CLI call with the launch counts set to 0 just before it and
+        read just after it."""
+        torch.cuda.synchronize()
+        reset_counts()
+        try:
+            return main(argv)
+        finally:
+            torch.cuda.synchronize()
+            by_path[tag] = counts()
+
+    rec = _Records()
+    logging.getLogger("avsr_tpu_torch").addHandler(rec)
+    try:
+        # ---- validate: the gate passes, then fires on a NaN leaf ------------
+        t0 = time.perf_counter()
+        rc = run("validate", validate.main, cli + ["--synthetic", "--num_batches", "2", *flag])
+        check(rc == 0, f"validate CLI returned {rc} on the flagship")
+        w = want(flash=2 * (nW + nL))           # per eval batch: 24 Whisper + 16 LLM
+        check(by_path["validate"] == w, f"validate launches {by_path['validate']}, expected {w}")
+        losses = [a[1] for a in rec.args("batch ")]
+        check(len(losses) == 2 and all(np.isfinite(losses)), f"validate losses {losses}")
+        res["validate"] = dict(losses=losses, seconds=time.perf_counter() - t0)
+
+        params = init_params(flagship(), seed=seed, device="cuda")
+        lora = next(k for k in path_leaves(params) if "lora" in k)
+        path_leaves(params)[lora].fill_(float("nan"))
+        export_params(params, work / "poisoned")
+        del params
+        settle()
+        poisoned = cli + ["--synthetic", "--num_batches", "1", "--checkpoint",
+                          str(work / "poisoned"), *flag]
+        rc = run("validate_poisoned", validate.main, poisoned)
+        check(rc == 1, f"validate CLI returned {rc} with {lora} set to NaN, not 1")
+        raised = None
+        try:
+            run("validate_poisoned_checkify", validate.main, poisoned[:-len(flag)]
+                + ["--checkify", *flag])
+        except FloatingPointError as e:
+            raised = str(e)
+        check(raised is not None and "NaN loss in the eval step" in raised,
+              f"validate --checkify with a NaN leaf raised {raised!r}")
+        for tag in ("validate_poisoned", "validate_poisoned_checkify"):
+            check(by_path[tag] == want(flash=nW + nL), f"{tag} launches {by_path[tag]}")
+        res["validate"].update(poisoned_leaf=lora, poisoned_rc=rc, checkify_raised=raised)
+        print("tooling validate: " + json.dumps(res["validate"]))
+        shutil.rmtree(work / "poisoned", ignore_errors=True)
+        settle()
+
+        # ---- analyze_memory ------------------------------------------------
+        t0 = time.perf_counter()
+        rc = run("analyze_memory", analyze_memory.main,
+                 cli + ["--output_dir", str(work / "memory"), *flag])
+        check(rc == 0, f"analyze_memory CLI returned {rc}")
+        mem = json.loads((work / "memory" / "memory_stats.json").read_text())
+        shapes = analyze_memory.shape_tree(flagship())
+        check(set(mem["measured_fp32"]) == set(shapes), "analyze_memory components")
+        for name, row in mem["measured_fp32"].items():
+            logical = sum(x.numel() * x.element_size() for x in tree_leaves(shapes[name]))
+            check(row["allocator_delta"] >= row["on_device"] >= logical > 0,
+                  f"analyze_memory {name}: {row}, logical {logical}")
+            row["logical"] = logical
+        check(mem["device_memory"] and all(isinstance(v, int)
+                                           for v in mem["device_memory"].values()),
+              "analyze_memory device_memory")
+        res["analyze_memory"] = dict(
+            totals_gib={m: v["total_gib"] for m, v in mem["modes"].items()},
+            params_total=mem["params_total"], params_trainable=mem["params_trainable"],
+            measured=mem["measured_fp32"], seconds=time.perf_counter() - t0)
+        print("tooling analyze_memory: " + json.dumps(res["analyze_memory"]))
+        settle()
+
+        # ---- profile: train (the largest buckets, B = 8), decode, preset -----
+        steps_after_first = 31                  # 32 tokens, no EOS
+        for tag, mode, steps, over, per_step in (
+                ("profile_train", "train", 2, [],
+                 want(flash=nW + 2 * nL, dq=nL, dkv=nL)),     # remat: the LLM twice
+                ("profile_decode", "decode", 1, ["decode.max_new_tokens=32"],
+                 want(flash=nW + nL)),
+                ("profile_decode_preset", "decode", 1,
+                 ["decode.max_new_tokens=32", *PRESET_OVERRIDES],
+                 want(flash=nW + nL, int8=1 + steps_after_first,
+                      int4=4 * nL * steps_after_first))):
+            out = work / tag
+            n_logged = len(rec.args("kernel launches"))
+            rc = run(tag, profile.main, cli + ["--mode", mode, "--steps", str(steps),
+                                               "--output_dir", str(out), *flag, *over])
+            check(rc == 0, f"profile CLI ({tag}) returned {rc}")
+            traced_counts = rec.args("kernel launches")[n_logged:]
+            check(len(traced_counts) == 1, f"{tag}: the counters' log line")
+            counters = traced_counts[0]
+            report = json.loads((out / "profile_report.json").read_text())
+            in_trace = profile.kernel_counts(report["trace"])
+            check(counters == in_trace == times(per_step, steps),
+                  f"{tag}: kernels in the trace {in_trace}, the wrappers' counters "
+                  f"{counters}, expected {times(per_step, steps)}")
+            check(by_path[tag] == times(per_step, steps + 1),     # + the warm-up step
+                  f"{tag}: launches {by_path[tag]}, expected {times(per_step, steps + 1)}")
+            check(report["device_busy_ms"] > 0 and report["planes"][0].startswith("GPU"),
+                  f"{tag}: no device time in the trace: {report['planes']}")
+            summary = {k: report[k] for k in (
+                "device_busy_ms", "async_dma_ms", "trace_span_ms", "device_duty_cycle",
+                "loop_ms", "prefix_ms", "wall_s", "steps", "planes")}
+            summary.update(kernels_in_trace=in_trace, by_category=report["by_category"][:8],
+                           by_scope=report["by_scope"][:10], top_ops=report["top_ops"][:6])
+            res["profiles"][tag] = summary
+            print(f"tooling {tag}: busy {report['device_busy_ms']} ms over a span of "
+                  f"{report['trace_span_ms']} ms (duty cycle "
+                  f"{report['device_duty_cycle']}), loop {report['loop_ms']} ms, prefix "
+                  f"{report['prefix_ms']} ms, {steps} step(s) in {report['wall_s']} s")
+            print(f"tooling {tag} by_category: " + json.dumps(report["by_category"][:8]))
+            print(f"tooling {tag} by_scope: " + json.dumps(report["by_scope"][:10]))
+            print(f"tooling {tag} top_ops: " + json.dumps(report["top_ops"][:6]))
+            settle()
+    finally:
+        logging.getLogger("avsr_tpu_torch").removeHandler(rec)
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches_by_path"] = {f"tooling_{k}": v for k, v in by_path.items()}
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"tooling phase: {res['seconds']:.1f} s; launches " + json.dumps(by_path))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5631,9 +5797,17 @@ def main(argv: list[str] | None = None) -> int:
     # frames, its tuned blocks, its CLIs on the corpus; the preset with ResNet.
     video = video_encoder_phase(args.seed)
 
+    settle()
+    # Phase 20 at full width: the tooling CLIs; validate's gate on a NaN
+    # leaf, each component's bytes, and profiles of the train step and of a
+    # decode call (bf16 and the preset) whose kernels equal the counters.
+    tooling = tooling_phase(args.seed)
+    tk = {k: sum(n[k] for n in tooling["launches_by_path"].values()) for k in counts()}
+    check(all(tk.values()), f"a kernel did not launch on the tooling path: {tk}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video)
+                for phase in (corpus, conv, connectors, moe, video, tooling)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:

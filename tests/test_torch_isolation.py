@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
     for name in ("infer.engine", "infer.adapters", "infer.server", "infer.streaming",
                  "cli.serve", "cli.stream", "cli.infer", "data.audio_io", "data.video_io",
                  "data.manifest", "native", "cli.prepare_data", "models.hubert",
-                 "core.hf_files", "cli.convert_hf", "cli.convert_ref_ckpt"):
+                 "core.hf_files", "cli.convert_hf", "cli.convert_ref_ckpt", "cli.validate",
+                 "cli.analyze_memory", "cli.profile", "cli.parity"):
         assert f"avsr_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
