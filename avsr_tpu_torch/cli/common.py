@@ -9,6 +9,13 @@ quantized after loading for a quantized one).
 ``load_multilora`` gives the base and the adapter bank of multi-tenant
 serving (``cli/serve.py --adapter``).
 
+Multi-process runs (torchrun's environment, ``mesh/multihost.py``):
+``maybe_mesh`` is the JAX ``maybe_mesh`` for one process per card (the
+process group, this rank's device, the mesh of ``cfg.mesh`` over the
+world; None at a world of 1), ``build_data`` gives the train and valid
+splits' loaders their ``data_shard`` at a world above 1, ranks above 0 log
+warnings only, and ``refuse_world`` stops the CLIs that run on one card.
+
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
 wins over YAML wins over defaults), ``--seed`` for the random weights,
 ``--device`` (default ``cuda``; tests pass ``cpu``), ``--log_file`` and
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import sys
 from pathlib import Path
 
 import torch
@@ -33,6 +41,9 @@ from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.infer.adapters import extract_lora, stack_lora_bank, tree_map
 from avsr_tpu_torch.infer.generate import prepare_params_for_decode
+from avsr_tpu_torch.mesh.multihost import (init_distributed, process_shard, refuse_world,
+                                           world_size)
+from avsr_tpu_torch.mesh.sharding import Mesh, build_mesh, check_model
 from avsr_tpu_torch.models.avsr import init_avsr_model
 from avsr_tpu_torch.models.layers import Params
 from avsr_tpu_torch.ops.quant import quantize_llm
@@ -75,12 +86,19 @@ def base_parser(description: str, *, modes: bool = False) -> argparse.ArgumentPa
     return p
 
 
-def load_cli_config(args: argparse.Namespace) -> AVSRConfig:
+def load_cli_config(args: argparse.Namespace, *,
+                    across_processes: bool = False) -> AVSRConfig:
     """The config of parsed CLI arguments: the YAML file, then the
     ``--mode`` preset's overrides, then the positional ones. Sets up
-    logging (``--log_file``, ``--verbose``) first."""
-    setup_logging(getattr(args, "log_file", None),
-                  level=logging.DEBUG if getattr(args, "verbose", False) else logging.INFO)
+    logging (``--log_file``, ``--verbose``) first. A CLI that does not run
+    ``across_processes`` (all but train and decode) stops in a world above
+    1 (:func:`refuse_world`)."""
+    if not across_processes:
+        refuse_world(f"the {Path(sys.argv[0]).stem} CLI")
+    level = logging.DEBUG if getattr(args, "verbose", False) else logging.INFO
+    if process_shard()[0] > 0:      # a multi-process run logs from rank 0
+        level = logging.WARNING
+    setup_logging(getattr(args, "log_file", None), level=level)
     overrides = list(args.overrides)
     mode = getattr(args, "memory_mode", None)
     if mode:
@@ -104,18 +122,41 @@ def validate_modality_media(cfg: AVSRConfig, parser: argparse.ArgumentParser, *,
 
 
 def build_data(cfg: AVSRConfig, split: str = "train", *, shuffle: bool | None = None,
-               batch_size: int | None = None, device: str | torch.device = "cuda"):
+               batch_size: int | None = None, device: str | torch.device = "cuda",
+               whole: bool = False):
     """-> (tokenizer, dataset, loader) of ``split``: ``model.llm_path``'s
     tokenizer, the synthetic or manifest dataset (``data.synthetic``), and
-    a loader shuffling the train split only (unless ``shuffle`` says)."""
+    a loader shuffling the train split only (unless ``shuffle`` says). At a
+    world above 1 the train and valid loaders yield this rank's rows of
+    each global batch (``data_shard``, as the JAX CLI does), unless
+    ``whole`` (the decode CLI splits whole batches itself)."""
     tok = load_tokenizer(cfg.model.llm_path or None)
     ds = build_dataset(cfg.data, tok, split=split, modality=cfg.model.modality,
                        image_size=cfg.model.image_size)
+    data_shard = None
+    if split in ("train", "valid") and world_size() > 1 and not whole:
+        data_shard = process_shard()
     loader = DataLoader(ds, cfg.data, tok, model_cfg=cfg.model, batch_size=batch_size,
                         shuffle=(split == "train") if shuffle is None else shuffle,
                         seed=cfg.training.seed, device=device,
-                        compute_dtype=getattr(torch, cfg.runtime.compute_dtype))
+                        compute_dtype=getattr(torch, cfg.runtime.compute_dtype),
+                        data_shard=data_shard)
     return tok, ds, loader
+
+
+def maybe_mesh(cfg: AVSRConfig, device: str | torch.device
+               ) -> tuple[torch.device, Mesh | None]:
+    """(this rank's device, the mesh) of a multi-process run, the JAX
+    ``maybe_mesh`` for one process per card: the process group from
+    torchrun's environment and the mesh of ``cfg.mesh`` over its world.
+    (``device``, None) at a world of 1: no process group, the single-card
+    port."""
+    device, backend = init_distributed(device)
+    if backend is None:
+        return device, None
+    check_model(cfg.model)
+    rank, world = process_shard()
+    return device, build_mesh(cfg.mesh, world=world, rank=rank)
 
 
 def init_or_load_params(cfg: AVSRConfig, checkpoint: str | None = None, *,

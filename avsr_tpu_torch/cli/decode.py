@@ -31,6 +31,20 @@ speculate) instead of static batches; the HYP lines are the same.
 and scores the references of its ``.wrd`` file; the wrap-padded rows of
 the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
 the byte tokenizer.
+
+Across processes (``torchrun --nproc_per_node N -m avsr_tpu_torch.cli.decode
+...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp`` over the world) every rank
+loads each batch and decodes its contiguous share of the rows on its own
+card; rank 0 gathers the hypotheses in dataset order and alone writes the
+results and WER files. JAX's ``infer_batch_sharder`` replicates a batch
+that does not divide the data-parallel ways (with a warning); here the
+batch is padded to a multiple of the ways by repeating its last row and
+the padded rows' outputs are dropped. Every rank holds the whole tree,
+which is what gathering an fsdp-sharded tree once at load gives (a gather
+per layer inside the token loop would cost two collectives per layer per
+token). Greedy, beam and speculative hypotheses are a row's own, so they
+equal the single-card decode's; sampling draws from each rank's generator.
+The continuous-batching engine (``decode.engine_slots``) runs on one card.
 """
 
 from __future__ import annotations
@@ -43,7 +57,8 @@ from pathlib import Path
 import torch
 
 from avsr_tpu_torch.cli.common import (base_parser, build_data, init_or_load_params,
-                                       load_cli_config, load_decode_params)
+                                       load_cli_config, load_decode_params, maybe_mesh,
+                                       refuse_world)
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, load_config
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.infer.engine import ServingEngine
@@ -51,6 +66,8 @@ from avsr_tpu_torch.infer.generate import generate
 from avsr_tpu_torch.infer.speculative import (break_even_tokens_per_pass,
                                               make_draft_params, make_layerskip_draft)
 from avsr_tpu_torch.infer.wer import WERAccumulator
+from avsr_tpu_torch.mesh.multihost import local_rows
+from avsr_tpu_torch.mesh.sharding import pad_rows, take_rows
 from avsr_tpu_torch.models.layers import Params
 
 log = logging.getLogger("avsr_tpu_torch.cli.decode")
@@ -152,10 +169,13 @@ def load_draft(cfg: AVSRConfig, checkpoint: str | None, *, seed: int,
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    cfg = load_cli_config(args)
-    device = torch.device(args.device)
+    cfg = load_cli_config(args, across_processes=True)
+    if cfg.decode.engine_slots > 0:
+        refuse_world("the continuous-batching engine (decode.engine_slots)")
+    device, mesh = maybe_mesh(cfg, args.device)
     tok, ds, loader = build_data(cfg, args.split, shuffle=False,
-                                 batch_size=cfg.decode.batch_size, device=device)
+                                 batch_size=cfg.decode.batch_size, device=device,
+                                 whole=True)
     d = cfg.decode
     draft_params = draft_cfg = None
     if d.speculative:
@@ -175,7 +195,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         return run_protocol(cfg, params, tok, ds, loader, generator=gen,
                             draft_params=draft_params, draft_model_cfg=draft_cfg,
-                            draft_shares_prefix=False if d.spec_draft_checkpoint else None)
+                            draft_shares_prefix=False if d.spec_draft_checkpoint else None,
+                            mesh=mesh)
     finally:
         loader.close()
 
@@ -185,19 +206,27 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
                  draft_params: Params | None = None,
                  draft_model_cfg: ModelConfig | None = None,
                  draft_shares_prefix: bool | None = None,
-                 stats_out: dict | None = None) -> int:
+                 stats_out: dict | None = None, mesh=None) -> int:
     """Batched decode over ``ds`` (``generate``: greedy, sampled, beam or,
     with a draft, speculative; or the serving engine with
     ``decode.engine_slots``) with per-utterance HYP/REF lines and the
     corpus WER/CER summary, written to ``decode.output_dir``. ``stats_out``
     receives ``wer``, ``cer``, ``utterances``, ``decode_s`` and the two
-    files' paths (``cli/parity.py --manifest`` reports them)."""
+    files' paths (``cli/parity.py --manifest`` reports them). With
+    ``mesh`` each rank decodes its rows of every batch and rank 0 writes
+    (see the module docstring)."""
+    rows = _decode_rows(cfg, params, tok, loader, mesh, generator=generator,
+                        draft_params=draft_params, draft_model_cfg=draft_model_cfg,
+                        draft_shares_prefix=draft_shares_prefix)
+    if mesh is not None and mesh.rank > 0:
+        for _ in rows:
+            pass
+        return 0
     out_dir = Path(cfg.decode.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     ts = time.strftime("%Y%m%d_%H%M%S")
     results_path = out_dir / f"results_{ts}.txt"
     wer_path = out_dir / f"wer_{ts}.txt"
-    dtype = getattr(torch, cfg.runtime.compute_dtype)
     d = cfg.decode
     acc = WERAccumulator()
     t0 = time.perf_counter()
@@ -234,20 +263,36 @@ def run_protocol(cfg: AVSRConfig, params, tok, ds, loader: DataLoader, *,
 
     seen: set[str] = set()
     with open(results_path, "w") as rf:
-        for hb, batch in loader:
-            out = generate(params, cfg.model, batch, d, eos_id=tok.eos_id,
-                           generator=generator, compute_dtype=dtype,
-                           use_kernel=cfg.runtime.use_pallas,
-                           draft_params=draft_params, draft_model_cfg=draft_model_cfg,
-                           draft_shares_prefix=draft_shares_prefix)
-            tokens = out.tokens.cpu().numpy()
-            lens = out.lengths.cpu().numpy()
-            for i, (utt, ref) in enumerate(zip(hb.utt_ids, hb.texts)):
+        for utt_ids, texts, hyps in rows:
+            for utt, ref, hyp in zip(utt_ids, texts, hyps):
                 if utt in seen:   # final short batch is wrap-padded
                     continue
                 seen.add(utt)
-                record(rf, utt, ref, tok.decode(tokens[i, : lens[i]]))
+                record(rf, utt, ref, hyp)
     return _summarize(acc, time.perf_counter() - t0, wer_path, results_path, stats_out)
+
+
+def _decode_rows(cfg: AVSRConfig, params, tok, loader: DataLoader, mesh=None, **kw):
+    """Yields (utterance ids, references, hypotheses) per batch of
+    ``loader``; with ``mesh`` this rank decodes its rows of the batch
+    padded to a multiple of the ways, and every rank gets every row's
+    hypothesis (so every rank must run it to its end)."""
+    d = cfg.decode
+    dtype = getattr(torch, cfg.runtime.compute_dtype)
+    for hb, batch in loader:
+        n = len(hb.utt_ids)
+        if mesh is not None:
+            batch, _ = pad_rows(batch, mesh.ways)
+            lo, hi = local_rows(batch.labels.shape[0], (mesh.data.rank, mesh.ways))
+            batch = take_rows(batch, lo, hi)
+        out = generate(params, cfg.model, batch, d, eos_id=tok.eos_id,
+                       compute_dtype=dtype, use_kernel=cfg.runtime.use_pallas, **kw)
+        tokens = out.tokens.cpu().numpy()
+        lens = out.lengths.cpu().numpy()
+        hyps = [tok.decode(tokens[i, : lens[i]]) for i in range(tokens.shape[0])]
+        if mesh is not None:
+            hyps = [h for part in mesh.data.all_gather_object(hyps) for h in part]
+        yield hb.utt_ids, hb.texts, hyps[:n]
 
 
 def _summarize(acc: WERAccumulator, dt: float, wer_path: Path,

@@ -27,6 +27,7 @@ from avsr_tpu_torch.core.logging import setup_logging
 from avsr_tpu_torch.data.audio_io import wav_num_samples, write_wav
 from avsr_tpu_torch.data.dataset import _WORDS
 from avsr_tpu_torch.data.manifest import ManifestEntry, write_manifest
+from avsr_tpu_torch.mesh.multihost import refuse_world
 
 log = logging.getLogger("avsr_tpu_torch.cli.prepare_data")
 
@@ -120,6 +121,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="generate N synthetic utterances instead of scanning")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    refuse_world("the prepare_data CLI")
     setup_logging(None)
 
     out = Path(args.out)

@@ -18,6 +18,16 @@ it mid-epoch. ``data.synthetic=false`` trains on the manifest corpus
 under ``data.path`` (``{train,valid}.{tsv,wrd}``, e.g. written by
 ``cli/prepare_data.py``); without a valid split it trains without
 validation. The tokenizer is ``model.llm_path``'s, or the byte tokenizer.
+
+Across processes, one per card (torchrun's environment; ``mesh.dp``,
+``mesh.fsdp`` and ``mesh.dcn_dp`` over the world, ``mesh.dp=-1`` inferred
+from it):
+
+    torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.fsdp=2
+
+each rank loads its rows of every global batch (``data.batch_size`` stays
+the global batch), the probe runs under the mesh, and rank 0 alone writes
+the logs and checkpoints, which resume at any world.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import logging
 import torch
 
 from avsr_tpu_torch.cli.common import (base_parser, build_data, init_or_load_params,
-                                       init_params, load_cli_config)
+                                       init_params, load_cli_config, maybe_mesh)
 from avsr_tpu_torch.models.avsr import summarize
 from avsr_tpu_torch.train.loop import Trainer
 from avsr_tpu_torch.train.probe import find_optimal_batch_size
@@ -42,11 +52,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--checkpoint", default=None,
                    help="initial weights: a params export or trainer checkpoint dir")
     args = p.parse_args(argv)
-    cfg = load_cli_config(args)
-    device = torch.device(args.device)
+    cfg = load_cli_config(args, across_processes=True)
+    device, mesh = maybe_mesh(cfg, args.device)
     if cfg.training.auto_batch_size:
         probe_params = init_params(cfg, seed=args.seed, device=device)
-        best = find_optimal_batch_size(cfg, probe_params, device=device)
+        best = find_optimal_batch_size(cfg, probe_params, device=device, mesh=mesh)
         del probe_params
         gc.collect()
         if device.type == "cuda":
@@ -64,7 +74,8 @@ def main(argv: list[str] | None = None) -> int:
 
     params = init_or_load_params(cfg, args.checkpoint, seed=args.seed, device=device)
     log.info("model summary: %s", summarize(params, cfg.model))
-    trainer = Trainer(cfg, params, train_loader, val_loader, tok=tok)
+    trainer = Trainer(cfg, params, train_loader, val_loader, tok=tok, mesh=mesh)
+    del params
     try:
         trainer.maybe_resume()
         result = trainer.train()

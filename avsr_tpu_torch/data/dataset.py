@@ -12,7 +12,9 @@ and, with ``defer_audio`` (the default when the native library is
 available), leaves WAV decode to the loader, which decodes each batch in
 one native call. ``SyntheticAVSRDataset`` gives deterministic random
 samples with byte-tokenizable transcripts, the same as the JAX package's
-for the same seed and index. ``build_dataset`` picks one by
+for the same seed and index. Both give ``length_hints`` (a sample's audio
+samples and video frames without reading it), which multi-process loaders
+agree on buckets from. ``build_dataset`` picks one by
 ``data.synthetic``.
 """
 
@@ -71,6 +73,13 @@ class ManifestAVSRDataset:
 
     def __len__(self) -> int:
         return len(self.entries)
+
+    def length_hints(self, idx: int) -> tuple[int, int]:
+        """(audio_samples, video_frames) from the manifest's metadata alone,
+        without reading media: the loaders of a multi-process run agree on
+        a batch's bucket from these (``DataLoader(data_shard=)``)."""
+        e = self.entries[idx]
+        return e.num_samples, e.num_frames
 
     def __getitem__(self, idx: int) -> Sample:
         last_err: Exception | None = None
@@ -178,6 +187,18 @@ class SyntheticAVSRDataset:
         rng = np.random.default_rng(self.seed + idx)
         n = int(rng.integers(2, 8))
         return " ".join(rng.choice(_WORDS, n))
+
+    def length_hints(self, idx: int) -> tuple[int, int]:
+        """(audio_samples, video_frames) without making the sample: the
+        draws of :meth:`__getitem__` replayed in order (``transcript`` has
+        a generator of its own), so the hints are exact."""
+        rng = np.random.default_rng(self.seed + idx)
+        n_a = n_v = 0
+        if self.modality in ("audio", "both"):
+            n_a = int(rng.integers(8000, min(self.cfg.max_audio_length, 48000)))
+        if self.modality in ("video", "both"):
+            n_v = int(rng.integers(4, min(self.cfg.max_video_length, 16) + 1))
+        return n_a, n_v
 
     def __getitem__(self, idx: int) -> Sample:
         rng = np.random.default_rng(self.seed + idx)

@@ -22,8 +22,12 @@ of ``avsr_tpu/data/loader.py``.
     ``set_position``) lets a resumed run replay an epoch's order and skip
     the batches already consumed, without loading them.
 
-Multi-host sharding (``data_shard``, the metadata buckets) is still to be
-ported: the port runs on one card.
+With ``data_shard=(rank, world)`` (one process per card,
+``mesh/multihost.py``) ``batch_size`` stays the global batch: every rank
+walks the same shuffle and yields only its contiguous rows of each global
+batch, collated to the bucket that the whole chunk's ``length_hints``
+metadata implies (``_metadata_buckets``), so every rank pads to the same
+shapes without reading another rank's media.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from avsr_tpu_torch import native
 from avsr_tpu_torch.core.config import DataConfig, ModelConfig
 from avsr_tpu_torch.data.audio_io import load_audio
 from avsr_tpu_torch.data.dataset import MAX_RETRY_WALK, Sample
+from avsr_tpu_torch.mesh.multihost import local_rows
 from avsr_tpu_torch.models.avsr import Batch
 from avsr_tpu_torch.ops.image import (normalize_frames, normalize_yuv420_frames,
                                       rgb_to_yuv420_np)
@@ -73,14 +78,18 @@ def pick_bucket(value: int, buckets: tuple[int, ...]) -> int:
 
 
 def collate(samples: list[Sample], cfg: DataConfig, prompt_ids: list[int],
-            pad_id: int) -> HostBatch:
-    """Pad a list of samples to the smallest static bucket shapes that fit."""
+            pad_id: int, *, audio_bucket: int | None = None,
+            video_bucket: int | None = None) -> HostBatch:
+    """Pad a list of samples to the smallest static bucket shapes that fit,
+    or to ``audio_bucket`` (mel frames) / ``video_bucket`` (frames) when
+    given: a multi-process loader takes them from the global chunk's
+    metadata, so that every rank collates its rows to the same shapes."""
     B = len(samples)
     audio = audio_lens = frames = frame_lens = None
     if samples[0].audio is not None:
         mel_lens = [min(s.audio.shape[0], cfg.max_audio_length) // HOP_LENGTH
                     for s in samples]
-        bucket = pick_bucket(max(mel_lens), cfg.audio_buckets)
+        bucket = audio_bucket or pick_bucket(max(mel_lens), cfg.audio_buckets)
         S_a = bucket * HOP_LENGTH
         audio = np.zeros((B, S_a), np.float32)
         audio_lens = np.zeros((B,), np.int32)
@@ -90,7 +99,7 @@ def collate(samples: list[Sample], cfg: DataConfig, prompt_ids: list[int],
             audio_lens[i] = n
     if samples[0].frames is not None:
         t_lens = [s.frames.shape[0] for s in samples]
-        bucket = pick_bucket(max(t_lens), cfg.video_buckets)
+        bucket = video_bucket or pick_bucket(max(t_lens), cfg.video_buckets)
         S = samples[0].frames.shape[1]
         frames = np.zeros((B, bucket, S, S, 3), np.uint8)
         frame_lens = np.zeros((B,), np.int32)
@@ -183,10 +192,28 @@ class DataLoader:
                  model_cfg: ModelConfig, batch_size: int | None = None,
                  shuffle: bool = True, seed: int = 0,
                  device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype = torch.float32) -> None:
+                 compute_dtype: torch.dtype = torch.float32,
+                 data_shard: tuple[int, int] | None = None) -> None:
+        """``data_shard=(rank, world)``: a loader of one process of a
+        multi-process run (see the module docstring), with the JAX
+        package's checks."""
         self.ds = dataset
         self.cfg = cfg
         self.batch_size = batch_size or cfg.batch_size
+        self.data_shard = data_shard
+        if data_shard is not None:
+            idx, count = data_shard
+            if not 0 <= idx < count:
+                raise ValueError(f"data_shard {data_shard}: index out of range")
+            if self.batch_size % count != 0:
+                raise ValueError(
+                    f"global batch size {self.batch_size} must divide the "
+                    f"{count} data-loading processes")
+            if not hasattr(dataset, "length_hints"):
+                raise ValueError(
+                    f"{type(dataset).__name__} has no length_hints(); "
+                    "multi-host bucket agreement needs per-sample length "
+                    "metadata (manifest num_frames/num_samples columns)")
         self.shuffle = shuffle
         self.seed = seed
         self.device = device
@@ -220,6 +247,20 @@ class DataLoader:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         return idx
 
+    def _metadata_buckets(self, chunk: np.ndarray) -> tuple[int | None, int | None]:
+        """(audio, video) buckets of a global chunk from the dataset's
+        ``length_hints`` alone: the same on every rank, since the chunk's
+        indices and the metadata are shared."""
+        hints = [self.ds.length_hints(int(i)) for i in chunk]
+        ab = vb = None
+        if any(h[0] > 0 for h in hints):
+            mels = [min(h[0], self.cfg.max_audio_length) // HOP_LENGTH for h in hints]
+            ab = pick_bucket(max(mels), self.cfg.audio_buckets)
+        if any(h[1] > 0 for h in hints):
+            ts = [min(h[1], self.cfg.max_video_length) for h in hints]
+            vb = pick_bucket(max(ts), self.cfg.video_buckets)
+        return ab, vb
+
     def _host_batches(self, skip: int = 0) -> Iterator[HostBatch]:
         order = self._order()
         bs = self.batch_size
@@ -231,9 +272,21 @@ class DataLoader:
                 # repeated rows get label length 0, so the loss weighs them
                 # zero (decode skips their repeated utterance ids)
                 chunk = np.concatenate([chunk, order[: bs - n_real]])
+            buckets: dict[str, int | None] = {}
+            lo = 0
+            if self.data_shard is not None:
+                # a split smaller than the batch wraps more than once, so
+                # that every rank has its rows; the shapes from the whole
+                # chunk's metadata, then this rank's rows
+                chunk = np.resize(chunk, bs)
+                ab, vb = self._metadata_buckets(chunk)
+                buckets = {"audio_bucket": ab, "video_bucket": vb}
+                lo, hi = local_rows(bs, self.data_shard)
+                chunk = chunk[lo:hi]
             samples = self._resolve_audio(self._fetch(chunk), chunk)
-            hb = collate(samples, self.cfg, self.prompt_ids, self.pad_id)
-            hb.label_lens[n_real:] = 0
+            hb = collate(samples, self.cfg, self.prompt_ids, self.pad_id, **buckets)
+            # the wrap boundary is a global row: zero this rank's rows past it
+            hb.label_lens[max(n_real - lo, 0):] = 0
             yield hb
 
     def _fetch(self, chunk: np.ndarray) -> list[Sample]:

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from avsr_tpu_torch.convert import param_count
 from avsr_tpu_torch.core.config import ModelConfig
+from avsr_tpu_torch.mesh.sharding import RowShard, gather_tree
 from avsr_tpu_torch.models import llama as llama_mod
 from avsr_tpu_torch.models.avhubert import avhubert_apply, init_avhubert
 from avsr_tpu_torch.models.clip_vit import clip_vit_apply, init_clip_vit
@@ -180,8 +181,13 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     ``finetune_avhubert_layers`` names AV-HuBERT blocks to train.
     ``moe_rowwise`` (inference callers) routes the MoE connector row by
     row, so a request's features do not depend on its batch; two
-    single-input MoE connectors' aux losses are averaged."""
+    single-input MoE connectors' aux losses are averaged. Sharded leaves
+    (fsdp, ``mesh/sharding.py``) are gathered where they are used."""
     conn = get_connector(cfg.connector_type)
+    # under fsdp the other encoders and the connectors gather their whole
+    # subtree here; Whisper and CLIP gather block by block
+    params = {k: v if k in ("whisper", "clip", "llm") else gather_tree(v)
+              for k, v in params.items()}
     frozen = cfg.freeze_encoders and not cfg.unfreeze_layer_norms
     tune_avhubert = cfg.video_encoder == "avhubert" and bool(cfg.finetune_avhubert_layers)
 
@@ -261,7 +267,8 @@ def build_prefix(params: Params, cfg: ModelConfig, batch: Batch, enc: EncodeOut,
 def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
             compute_dtype: torch.dtype = torch.float32,
             use_kernel: str = "auto", remat: bool = False,
-            dropout_seed: int | None = None, return_logits: bool = False
+            dropout_seed: int | None = None, return_logits: bool = False,
+            shard: RowShard | None = None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training/eval forward: (mean CE loss over label tokens, metrics).
 
@@ -277,7 +284,18 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     student against a teacher's). With MoE (the connector, the LLM or
     both) the loss adds ``moe_aux_weight`` * lb + ``moe_z_weight`` * z,
     where lb and z sum the connector's and the LLM's router losses, and
-    the metrics report them as ``moe_lb`` and ``moe_z``."""
+    the metrics report them as ``moe_lb`` and ``moe_z``.
+
+    ``shard`` (a rank of a multi-process run, ``mesh/sharding.py``): the
+    batch is rows ``shard.start`` on of a global batch of ``shard.total``.
+    The label-token count is then the global batch's (summed over
+    ``shard.group``), so ``loss`` and ``accuracy`` are this rank's shares
+    of the global values, which sum to them, and the dropout masks are
+    these rows' masks of the global batch. The embedding and the head
+    gather their sharded leaves once here."""
+    llm = params["llm"]
+    params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"}),
+                                "layers": llm["layers"]}}
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
                  use_kernel=use_kernel, remat=remat)
     B = enc.features.shape[0]
@@ -302,7 +320,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
         params["llm"], cfg.llm, inputs_embeds=packed, lengths=total,
         lora=cfg.lora if cfg.lora.use_lora else None,
         compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
-        dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe)
+        dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe,
+        dropout_row0=shard.start if shard is not None else 0)
 
     Tl = labels.shape[1]
     i = torch.arange(Tl, device=dev)[None, :]
@@ -313,7 +332,10 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     mask = (i < lab_lens[:, None]).float()
     logp = torch.log_softmax(logits, dim=-1)
     pred_lp = torch.gather(logp, -1, labels[..., None])[..., 0]
-    n_tokens = mask.sum().clamp(min=1.0)
+    n_tokens = mask.sum()
+    if shard is not None:
+        n_tokens = shard.group.all_reduce(n_tokens.detach().clone())
+    n_tokens = n_tokens.clamp(min=1.0)
     loss = -(pred_lp * mask).sum() / n_tokens
     correct = (logits.argmax(dim=-1) == labels).float()
     metrics = {"loss": loss,

@@ -8,7 +8,8 @@ feature the model consumes is taken before it.
 
 At CLIP-B/32 a frame is 50 tokens, below the kernel's 256-token threshold,
 so attention takes the plain path, as in the JAX package. ``remat``
-recomputes each block in the backward while grad mode is on.
+recomputes each block in the backward while grad mode is on. Under fsdp
+each block gathers its sharded leaves when it runs.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from avsr_tpu_torch.core.config import ClipConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import (
     Params,
-    encoder_block_apply,
     encoder_block_init,
+    gathered_block,
     layer_norm,
     norm_init,
     normal_init,
@@ -74,7 +75,7 @@ def clip_vit_apply(params: Params, frames: torch.Tensor, cfg: ClipConfig, *,
     x = torch.cat([cls, x], dim=1)                  # [N, P+1, d]
     x = x + params["pos"].to(compute_dtype)[None]
     x = layer_norm(params["ln_pre"], x)
-    block = functools.partial(encoder_block_apply, n_heads=cfg.n_heads,
+    block = functools.partial(gathered_block, n_heads=cfg.n_heads,
                               act=quick_gelu, use_kernel=use_kernel)
     for bp in params["blocks"]:
         if remat and torch.is_grad_enabled():

@@ -17,6 +17,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from avsr_tpu_torch.mesh.sharding import gather_tree
 from avsr_tpu_torch.ops.attention import attention
 
 Params = dict[str, Any]
@@ -163,6 +164,13 @@ def encoder_block_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                       use_kernel=use_kernel)
     h = layer_norm(p["ln2"], x)
     return x + dense(p["fc2"], act(dense(p["fc1"], h)))
+
+
+def gathered_block(p: Params, x: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`encoder_block_apply` with the block's sharded leaves (fsdp)
+    gathered first: inside a remat'ed block the recomputation gathers them
+    again rather than keeping them."""
+    return encoder_block_apply(gather_tree(p), x, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,11 @@ for attention and for the quantized products alike.
 Training: ``proj`` applies LoRA dropout to the adapter branch's input, and
 ``llama_apply`` can recompute each block in backward (``remat``, the
 counterpart of ``jax.checkpoint``) with ``torch.utils.checkpoint``. Dropout
-masks are drawn from a generator seeded per (call, layer) inside the
-block, so the recomputation draws the same masks (``checkpoint`` replays
-only the default generators' state). On a quantized base (QLoRA) the base
+masks are drawn from generators seeded per (call, layer, global row) inside
+the block, so the recomputation draws the same masks (``checkpoint``
+replays only the default generators' state) and a rank holding some rows
+of a batch draws those rows of a single card's masks. Under fsdp each
+block gathers its sharded leaves when it runs (``mesh/sharding.py``). On a quantized base (QLoRA) the base
 product carries the gradient of x through ``qdot``'s autograd Function
 (``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
@@ -64,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
+from avsr_tpu_torch.mesh.sharding import gather_tree
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
 from avsr_tpu_torch.ops import moe
 from avsr_tpu_torch.ops.attention import attention
@@ -105,14 +108,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
-         lora_dropout: float = 0.0, generator: torch.Generator | None = None,
+         lora_dropout: float = 0.0,
+         generator: torch.Generator | list[torch.Generator] | None = None,
          use_kernel: str = "auto") -> torch.Tensor:
     """x @ W (no bias) + lora_scale * (x' @ a) @ b when the node has LoRA,
     in x.dtype. W is a full-precision "w" or a quantized base ("qw"/"qw4h"
     + "scale"), which goes through ``qdot`` with ``use_kernel``. x' is x,
     or with ``generator`` and ``lora_dropout`` > 0 its dropout: each
     element kept with probability 1 - p and scaled by 1 / (1 - p); the
-    base product always sees x."""
+    base product always sees x. ``generator`` is one generator, or one per
+    row of x (row i's mask drawn from generator i alone)."""
     dt = x.dtype
     if "w" in p:
         y = torch.matmul(x, p["w"].to(dt))
@@ -122,8 +127,13 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
         a, b = p["lora"]["a"].to(dt), p["lora"]["b"].to(dt)
         xl = x
         if generator is not None and lora_dropout > 0.0:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=x.device) < 1.0 - lora_dropout
+            if isinstance(generator, torch.Generator):
+                u = torch.rand(x.shape, generator=generator, device=x.device)
+            else:
+                u = torch.empty(x.shape, device=x.device)
+                for row, g in zip(u, generator):
+                    torch.rand(row.shape, generator=g, out=row)
+            keep = u < 1.0 - lora_dropout
             xl = torch.where(keep, x / (1.0 - lora_dropout), 0.0)
         # per-row adapters a [B, din, r], b [B, r, dout] (the serving
         # engine's multi-LoRA bank, infer/adapters.py): each row of x
@@ -406,24 +416,33 @@ def init_cache(cfg: LLMConfig, batch: int, max_len: int,
 # Full sequence (prefill)
 # ---------------------------------------------------------------------------
 
-def _layer_generator(seed: int, layer: int,
-                     device: torch.device) -> torch.Generator:
-    """The dropout generator of one layer of one call (the counterpart of
-    ``jax.random.fold_in(dropout_rng, layer)``)."""
-    state = np.random.SeedSequence([seed, layer]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+def _row_generators(seed: int, layer: int, rows: range,
+                    device: torch.device) -> list[torch.Generator]:
+    """The dropout generators of one layer of one call, one per global row
+    (the counterpart of ``jax.random.fold_in(dropout_rng, layer)``): a row's
+    masks do not depend on the rows beside it, so a rank holding rows
+    [a, b) of a batch draws exactly those rows of a single card's masks."""
+    gens = []
+    for row in rows:
+        state = np.random.SeedSequence([seed, layer, row]).generate_state(1, np.uint64)
+        gens.append(torch.Generator(device=device).manual_seed(int(state[0])))
+    return gens
 
 
 def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
            lengths: torch.Tensor | None, ls: float, use_kernel: str,
            ldrop: float = 0.0, dropout_seed: int | None = None,
-           index: int = 0, moe_rowwise: bool = False):
-    """One block over [B, T, d]: (x, (k, v), MoE aux or None)."""
+           index: int = 0, moe_rowwise: bool = False, row0: int = 0):
+    """One block over [B, T, d]: (x, (k, v), MoE aux or None). Its rows are
+    rows ``row0`` on of the global batch (for the dropout masks); a sharded
+    leaf (fsdp) is gathered here, so that a remat recomputation gathers it
+    again rather than keeping it."""
     B, T, d = x.shape
     hd = d // cfg.n_heads
+    layer = gather_tree(layer)
     # created inside the block so that a remat recomputation redraws the
     # same masks; drawn in the order q, k, v, o
-    gen = (_layer_generator(dropout_seed, index, x.device)
+    gen = (_row_generators(dropout_seed, index, range(row0, row0 + B), x.device)
            if dropout_seed is not None and ldrop > 0.0 else None)
     h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
     q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel)
@@ -455,7 +474,8 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 use_kernel: str = "auto", remat: bool = False,
                 dropout_seed: int | None = None, return_cache: bool = False,
                 cache_len: int | None = None, output: str = "logits",
-                return_aux: bool = False, moe_rowwise: bool = False):
+                return_aux: bool = False, moe_rowwise: bool = False,
+                dropout_row0: int = 0):
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
     final normed hidden [B,T,d] with ``output="hidden"``, cache or None),
     and with ``return_aux`` a third item, {"moe_lb", "moe_z"}: the MoE
@@ -466,7 +486,8 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     keeps only each block's input for backward and recomputes the rest
     (while grad mode is on; the aux losses ride through the recompute).
     ``dropout_seed`` turns on LoRA dropout (``lora.dropout``), the
-    counterpart of ``dropout_rng``. ``moe_rowwise`` (every inference
+    counterpart of ``dropout_rng``, with masks drawn per row; the rows are
+    rows ``dropout_row0`` on of a global batch (a rank's share of it). ``moe_rowwise`` (every inference
     prefill sets it) routes MoE blocks row by row (see :func:`_moe_mlp`);
     training keeps the flattened bounded capacity."""
     B, T, d = inputs_embeds.shape
@@ -488,7 +509,7 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     n_moe = 0
     for i, layer in enumerate(params["layers"]):
         args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
-                dropout_seed, i, moe_rowwise)
+                dropout_seed, i, moe_rowwise, dropout_row0)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_block_remat, *args, use_reentrant=False)
         else:

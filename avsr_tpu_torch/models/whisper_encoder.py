@@ -6,7 +6,9 @@
 k_proj has no bias, gelu is exact-erf. Attention masks padding with the
 per-utterance feature lengths; at Tq = Tk >= 256 it runs the flash kernel.
 ``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
-the counterpart of ``jax.checkpoint``) while grad mode is on.
+the counterpart of ``jax.checkpoint``) while grad mode is on. Under fsdp
+each block gathers its sharded leaves when it runs (again in the
+recomputation).
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from avsr_tpu_torch.core.config import WhisperConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
 from avsr_tpu_torch.models.layers import (
     Params,
-    encoder_block_apply,
     encoder_block_init,
+    gathered_block,
     gelu,
     layer_norm,
     norm_init,
@@ -84,7 +86,7 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     pad_t = -Tf % 16
     if pad_t:
         x = F.pad(x, (0, 0, 0, pad_t))
-    block = functools.partial(encoder_block_apply, n_heads=cfg.n_heads,
+    block = functools.partial(gathered_block, n_heads=cfg.n_heads,
                               lengths=feat_lengths, act=gelu, use_kernel=use_kernel)
     for bp in params["blocks"]:
         if remat and torch.is_grad_enabled():

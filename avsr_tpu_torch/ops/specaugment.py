@@ -35,15 +35,18 @@ class SpecDraws(NamedTuple):
 
 
 def draw_spans(gen: torch.Generator, n: int, max_width: int,
-               limits: torch.Tensor) -> Spans:
+               limits: torch.Tensor, rows: tuple[int, int] | None = None) -> Spans:
     """``n`` spans per row, each of width U[0, max_width] (cut to the row's
     limit) and inside [0, limits_b): the start is floor(u * (limit - w + 1))
-    for u ~ U[0, 1), as the JAX ``_mask_any`` draws it."""
+    for u ~ U[0, 1), as the JAX ``_mask_any`` draws it. ``rows=(start,
+    total)``: the batch is rows start on of a batch of ``total``, whose
+    draws are made and sliced (a rank of a multi-process run)."""
     B = limits.shape[0]
     dev = limits.device
-    w = torch.randint(0, max_width + 1, (B, n), generator=gen, device=dev)
+    lo, total = rows or (0, B)
+    w = torch.randint(0, max_width + 1, (total, n), generator=gen, device=dev)[lo:lo + B]
     w = torch.minimum(w, limits[:, None].long())
-    u = torch.rand((B, n), generator=gen, device=dev)
+    u = torch.rand((total, n), generator=gen, device=dev)[lo:lo + B]
     start = torch.floor(u * (limits[:, None] - w + 1).float()).long()
     return Spans(start, w)
 
@@ -65,14 +68,16 @@ def _lengths(mel: torch.Tensor, mel_lens: torch.Tensor | None) -> torch.Tensor:
 def draw_specaugment(mel: torch.Tensor, mel_lens: torch.Tensor | None,
                      gen: torch.Generator, *, time_masks: int = 2,
                      time_width: int = 50, freq_masks: int = 2,
-                     freq_width: int = 12) -> SpecDraws:
-    """The spans and bands of one batch (time first, then frequency)."""
+                     freq_width: int = 12,
+                     rows: tuple[int, int] | None = None) -> SpecDraws:
+    """The spans and bands of one batch (time first, then frequency);
+    ``rows`` as in :func:`draw_spans`."""
     B, F, _ = mel.shape
     lens = _lengths(mel, mel_lens)
-    tspans = (draw_spans(gen, time_masks, time_width, lens)
+    tspans = (draw_spans(gen, time_masks, time_width, lens, rows)
               if time_masks > 0 and time_width > 0 else None)
     fspans = (draw_spans(gen, freq_masks, freq_width,
-                         torch.full((B,), F, dtype=torch.int64, device=mel.device))
+                         torch.full((B,), F, dtype=torch.int64, device=mel.device), rows)
               if freq_masks > 0 and freq_width > 0 else None)
     return SpecDraws(tspans, fspans)
 
@@ -97,5 +102,5 @@ def apply_specaugment(mel: torch.Tensor, mel_lens: torch.Tensor | None,
 def specaugment(mel: torch.Tensor, mel_lens: torch.Tensor | None,
                 gen: torch.Generator, **kw) -> torch.Tensor:
     """:func:`apply_specaugment` of :func:`draw_specaugment` (``kw``: its
-    mask counts and widths)."""
+    mask counts and widths, and ``rows``)."""
     return apply_specaugment(mel, mel_lens, draw_specaugment(mel, mel_lens, gen, **kw))

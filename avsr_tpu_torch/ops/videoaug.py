@@ -36,19 +36,24 @@ class VideoDraws(NamedTuple):
 
 def draw_video_augment(frames: torch.Tensor, gen: torch.Generator, *,
                        max_shift: int = 8, flip: bool = True,
-                       brightness: float = 0.1, contrast: float = 0.1
-                       ) -> VideoDraws:
+                       brightness: float = 0.1, contrast: float = 0.1,
+                       rows: tuple[int, int] | None = None) -> VideoDraws:
     """The transforms of one batch of frames [B, T, C, H, W], drawn in the
-    order flip, shift, contrast, brightness."""
+    order flip, shift, contrast, brightness. ``rows=(start, total)``: the
+    batch is rows start on of a batch of ``total``, whose draws are made
+    and sliced (a rank of a multi-process run)."""
     B, dev, dt = frames.shape[0], frames.device, frames.dtype
+    lo, total = rows or (0, B)
 
-    def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand((B,), generator=gen, device=dev)
-        return (lo + (hi - lo) * u).to(dt)
+    def rand(*shape: int) -> torch.Tensor:
+        return torch.rand((total, *shape), generator=gen, device=dev)[lo:lo + B]
 
-    do_flip = (torch.rand((B,), generator=gen, device=dev) < 0.5) if flip else None
+    def uniform(a: float, b: float) -> torch.Tensor:
+        return (a + (b - a) * rand()).to(dt)
+
+    do_flip = (rand() < 0.5) if flip else None
     m = int(max_shift)
-    shift = (torch.randint(-m, m + 1, (B, 2), generator=gen, device=dev)
+    shift = (torch.randint(-m, m + 1, (total, 2), generator=gen, device=dev)[lo:lo + B]
              if m > 0 else None)
     c = uniform(1.0 - contrast, 1.0 + contrast) if contrast > 0 else None
     b = uniform(-brightness, brightness) if brightness > 0 else None
@@ -86,5 +91,5 @@ def apply_video_augment(frames: torch.Tensor, frame_lens: torch.Tensor | None,
 def video_augment(frames: torch.Tensor, frame_lens: torch.Tensor | None,
                   gen: torch.Generator, **kw) -> torch.Tensor:
     """:func:`apply_video_augment` of :func:`draw_video_augment` (``kw``:
-    its knobs)."""
+    its knobs, and ``rows``)."""
     return apply_video_augment(frames, frame_lens, draw_video_augment(frames, gen, **kw))

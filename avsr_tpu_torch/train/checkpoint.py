@@ -34,6 +34,12 @@ at a step not newer than the newest saved step writes nothing):
     ``latest_step`` never sees a half-written step;
   * retention keeps the newest ``keep`` steps, best or not (``best.json``
     can name a step that retention removed, as in the JAX package).
+
+In a multi-process run (``mesh=``, ``mesh/sharding.py``) rank 0 alone
+writes: it decides whether a save writes tensors and tells the others, a
+sharded leaf is gathered leaf by leaf (every rank takes part) and rank 0
+writes the full tree, so a checkpoint is the same at any world and every
+rank of a run at any world reads it (each keeping its slices).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import Any
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, to_dict
+from avsr_tpu_torch.mesh.sharding import gather_leaf, shard_of
 from avsr_tpu_torch.train.state import (TrainState, check_like, path_leaves,
                                         tree_map_with_path)
 
@@ -94,11 +101,14 @@ def _write_dir(target: Path, files: dict[str, Any]) -> None:
 
 class CheckpointManager:
     def __init__(self, directory: str | Path, cfg: AVSRConfig | None = None,
-                 keep: int = 3):
+                 keep: int = 3, mesh=None):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.dir = Path(directory).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0
+        if self.main:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.cfg = cfg
         self.keep = keep
         self._pinned: dict[str, torch.Tensor] = {}
@@ -113,8 +123,17 @@ class CheckpointManager:
              data_state: dict[str, int] | None = None,
              fit_state: dict[str, Any] | None = None) -> None:
         step = int(state.step)
-        latest = self.latest_step()
-        if latest is None or step > latest:
+        latest = self.latest_step() if self.main else None
+        write = latest is None or step > latest
+        if self.mesh is not None:       # rank 0 decides for every rank
+            flag = torch.tensor([float(write)], device=_device(state))
+            write = bool(self.mesh.data.broadcast(flag).item())
+        if write and not self.main:
+            with torch.no_grad():       # take part in the gathers only
+                for t in path_leaves(state.state_dict()).values():
+                    if shard_of(t) is not None:
+                        gather_leaf(t)
+        elif write:
             self.wait()                 # the pinned buffers are free again
             t0 = time.perf_counter()
             sd = state.state_dict()
@@ -128,6 +147,8 @@ class CheckpointManager:
                 target=self._write, args=(step, host, copy_s),
                 name=f"checkpoint-{step}")
             self._thread.start()
+        if not self.main:
+            return
         meta = {
             "step": step,
             "time": time.strftime("%Y-%m-%d %H:%M:%S"),
@@ -147,11 +168,13 @@ class CheckpointManager:
 
     def _to_host(self, tree: Any) -> Any:
         """A host copy of ``tree``: CUDA tensors into pinned buffers
-        (asynchronous; the caller synchronizes), CPU tensors cloned."""
+        (asynchronous; the caller synchronizes), CPU tensors cloned; a
+        sharded leaf gathered whole first."""
         def leaf(path: tuple[str, ...], x: Any) -> Any:
             if not isinstance(x, torch.Tensor):
                 return x
-            t = x.detach()
+            with torch.no_grad():
+                t = gather_leaf(x).detach()
             if not t.is_cuda:
                 return t.clone()
             key = "/".join(path)
@@ -196,8 +219,8 @@ class CheckpointManager:
 
     def all_steps(self) -> list[int]:
         """Saved steps, ascending (a save still being written included)."""
-        steps = {int(p.name) for p in self.dir.iterdir()
-                 if p.name.isdigit() and p.is_dir()}
+        steps = ({int(p.name) for p in self.dir.iterdir()
+                  if p.name.isdigit() and p.is_dir()} if self.dir.is_dir() else set())
         if self._pending is not None:
             steps.add(self._pending)
         return sorted(steps)
@@ -236,6 +259,10 @@ class CheckpointManager:
     def close(self) -> None:
         self.wait()
         self._pinned.clear()
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(iter(path_leaves(state.params).values())).device
 
 
 def export_params(params: Any, path: str | Path) -> None:

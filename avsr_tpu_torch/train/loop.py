@@ -20,6 +20,16 @@ emergency (three non-finite losses in a row, or an exception escaping
 early-stop progress, so :meth:`Trainer.maybe_resume` continues mid-epoch
 without repeating a sample.
 
+With ``mesh`` (one process per card, ``mesh/sharding.py``) every rank
+runs this loop over its rows of each global batch: the fsdp leaves are
+sharded before the optimizer is built, the step's gradients and metrics,
+the validation sums and counts and the in-training WER's hypotheses
+(gathered in dataset order) are the global batch's, and every decision
+(skip, unstable, best, early stop, the timed and preemption saves) is the
+same on every rank, so no rank leaves the loop alone. Rank 0 alone writes
+the loss log, the CSV, the profiler trace and the checkpoints; a failing
+rank fails the run (no emergency checkpoint across processes).
+
 Dropout seeds restart from ``training.seed`` on resume, as the JAX
 Trainer's dropout key does. A quantized base (QLoRA, ``model.use_4bit`` /
 ``use_8bit``) trains like a float one: its integer leaves are frozen, the
@@ -43,6 +53,7 @@ from avsr_tpu_torch.core.config import AVSRConfig
 from avsr_tpu_torch.core.logging import (CSVLogger, LossStabilityMonitor,
                                          ThroughputMeter, save_loss_plot)
 from avsr_tpu_torch.data.loader import DataLoader
+from avsr_tpu_torch.mesh.sharding import gather_tree, shard_params
 from avsr_tpu_torch.models.avsr import Batch
 from avsr_tpu_torch.train.checkpoint import CheckpointManager
 from avsr_tpu_torch.train.state import count_trainable, create_train_state
@@ -67,21 +78,26 @@ class _EarlyStopped(Exception):
 
 class Trainer:
     def __init__(self, cfg: AVSRConfig, params, train_loader: DataLoader,
-                 val_loader: DataLoader | None = None, tok=None):
+                 val_loader: DataLoader | None = None, tok=None, mesh=None):
         self.cfg = cfg
         t = cfg.training
         steps_per_epoch = max(len(train_loader) // max(t.grad_accum_steps, 1), 1)
         self.total_steps = (t.max_steps if t.max_steps > 0
                             else steps_per_epoch * t.num_epochs)
+        trainable, total = count_trainable(params, cfg.model)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            params = shard_params(params, mesh)
         self.state = create_train_state(params, cfg, self.total_steps)
-        self.train_step = make_train_step(cfg)
-        self.eval_step = make_eval_step(cfg)
+        self.train_step = make_train_step(cfg, mesh)
+        self.eval_step = make_eval_step(cfg, mesh)
         self.train_loader = train_loader
         self.val_loader = val_loader
         out = Path(t.checkpoint_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        self.ckpt = CheckpointManager(out / "ckpt", cfg, keep=t.keep_checkpoints)
-        self.csv = CSVLogger(out / "loss_log.csv", CSV_FIELDS)
+        self.ckpt = CheckpointManager(out / "ckpt", cfg, keep=t.keep_checkpoints,
+                                      mesh=mesh)
+        self.csv = CSVLogger(out / "loss_log.csv", CSV_FIELDS) if self.main else None
         self.monitor = LossStabilityMonitor(window=t.loss_stability_window,
                                             max_bad=3)
         self.meter = ThroughputMeter()
@@ -100,7 +116,6 @@ class Trainer:
         self._preempted = False
         self._groups: dict[tuple, list[Batch]] = {}
         self._cuda = any(p.is_cuda for p in self.state.optimizer.leaves)
-        trainable, total = count_trainable(params, cfg.model)
         log.info("model: %.2fM params, %.2fM trainable (%.1f%%)",
                  total / 1e6, trainable / 1e6, 100 * trainable / max(total, 1))
 
@@ -176,6 +191,9 @@ class Trainer:
                      self.cfg.training.best_metric, self._evals_no_improve,
                      self.best_val, self.best_wer)
         except (KeyboardInterrupt, Exception):
+            if self.mesh is not None:   # the other ranks may be gone
+                log.exception("training interrupted: resume from the last checkpoint")
+                raise
             log.exception("training interrupted: emergency checkpoint")
             self.ckpt.save(self.state, tag="emergency",
                            data_state=self._data_state(),
@@ -191,7 +209,8 @@ class Trainer:
                            data_state=self._data_state(),
                            fit_state=self._fit_state())
         self.ckpt.wait()
-        save_loss_plot(self.history, Path(self.cfg.training.checkpoint_dir))
+        if self.main:
+            save_loss_plot(self.history, Path(self.cfg.training.checkpoint_dir))
         return {"steps": self.state.step, "epochs": epoch,
                 "best_val": self.best_val, "best_wer": self.best_wer}
 
@@ -248,24 +267,41 @@ class Trainer:
                      "%.1f tok/s | %.2f utt/s", step, self.total_steps,
                      m["loss"], m["accuracy"], m["grad_norm"],
                      thr["tokens_per_sec"], thr["utts_per_sec"])
-        self.csv.log(step=step, epoch=epoch, split="train", **m,
-                     lr_step_time_s=round(thr["step_time_s"], 4),
-                     tokens_per_sec=round(thr["tokens_per_sec"], 1),
-                     utts_per_sec=round(thr["utts_per_sec"], 3))
+        self._log_csv(step=step, epoch=epoch, split="train", **m,
+                      lr_step_time_s=round(thr["step_time_s"], 4),
+                      tokens_per_sec=round(thr["tokens_per_sec"], 1),
+                      utts_per_sec=round(thr["utts_per_sec"], 3))
         if t.save_every_steps > 0 and step % t.save_every_steps == 0:
             self._save(m)
-        if time.time() - self._last_time_ckpt > t.save_every_secs:
+        timed, preempted = self._agree(
+            time.time() - self._last_time_ckpt > t.save_every_secs, self._preempted)
+        if timed:
             self._save(m, tag="timed")
             self._last_time_ckpt = time.time()
         self._maybe_profile(step)
         if step % 100 == 0:
             self._log_device_memory(step)
-        if self._preempted:
+        if preempted:
+            self._preempted = True
             log.warning("preemption signal: checkpoint and clean stop")
             self._save(m, tag="preempt")
             self.ckpt.wait()
             raise _Preempted
         return m
+
+    def _agree(self, *flags: bool) -> tuple[bool, ...]:
+        """Each flag true on any rank, on every rank (host-clock and
+        signal decisions differ between processes)."""
+        if self.mesh is None:
+            return flags
+        dev = self.state.optimizer.leaves[0].device
+        t = self.mesh.data.all_reduce(torch.tensor([float(f) for f in flags], device=dev),
+                                      op="max")
+        return tuple(bool(v) for v in t.tolist())
+
+    def _log_csv(self, **row) -> None:
+        if self.csv is not None:
+            self.csv.log(**row)
 
     # ------------------------------------------------------------------
 
@@ -316,7 +352,7 @@ class Trainer:
         ``PROFILE_STEPS[0]`` through ``PROFILE_STEPS[1]``, exported as a
         Chrome trace."""
         pdir = self.cfg.runtime.profile_dir
-        if not pdir:
+        if not pdir or not self.main:
             return
         first, last = PROFILE_STEPS
         if step == first and self._profiler is None:
@@ -357,8 +393,8 @@ class Trainer:
         self.history["val"].append(val_loss)
         log.info("epoch %d | val loss %.4f | val acc %.3f", epoch, val_loss,
                  float(np.mean(accs)))
-        self.csv.log(step=self.state.step, epoch=epoch, split="val",
-                     loss=val_loss, accuracy=float(np.mean(accs)))
+        self._log_csv(step=self.state.step, epoch=epoch, split="val",
+                      loss=val_loss, accuracy=float(np.mean(accs)))
         val_wer = None
         if (t.eval_wer_every_epochs > 0 and self.tok is not None
                 and epoch % t.eval_wer_every_epochs == 0):
@@ -392,7 +428,9 @@ class Trainer:
     def _eval_wer(self, epoch: int) -> float:
         """Greedy-decodes up to ``eval_wer_max_utts`` validation utterances
         with the current params and returns the corpus WER; each utterance
-        counts once (the last batch is wrap-padded)."""
+        counts once (the last batch is wrap-padded). With a mesh each rank
+        decodes its rows, with the tree gathered whole, and every rank
+        scores every rank's hypotheses in dataset order."""
         from avsr_tpu_torch.infer.generate import generate_tokens
         from avsr_tpu_torch.infer.wer import WERAccumulator
 
@@ -400,24 +438,30 @@ class Trainer:
         acc = WERAccumulator()
         seen: set[str] = set()
         t0 = time.perf_counter()
+        with torch.no_grad():
+            params = gather_tree(self.state.params)
         for hb, batch in self.val_loader:
             out = generate_tokens(
-                self.state.params, self.cfg.model, batch,
+                params, self.cfg.model, batch,
                 max_new_tokens=d.max_new_tokens, eos_id=self.tok.eos_id,
                 compute_dtype=getattr(torch, self.cfg.runtime.compute_dtype),
                 use_kernel=self.cfg.runtime.use_pallas,
                 kv_cache_dtype=d.kv_cache_dtype)
             tokens = out.tokens.cpu().numpy()
             lens = out.lengths.cpu().numpy()
-            for i, (utt, ref) in enumerate(zip(hb.utt_ids, hb.texts)):
+            rows = [(utt, ref, self.tok.decode(tokens[i, : lens[i]]))
+                    for i, (utt, ref) in enumerate(zip(hb.utt_ids, hb.texts))]
+            if self.mesh is not None:
+                rows = [r for part in self.mesh.data.all_gather_object(rows) for r in part]
+            for utt, ref, hyp in rows:
                 if utt in seen:
                     continue
                 seen.add(utt)
-                acc.add(ref, self.tok.decode(tokens[i, : lens[i]]))
+                acc.add(ref, hyp)
             if acc.utterances >= t.eval_wer_max_utts:
                 break
         log.info("epoch %d | val WER %.4f CER %.4f (%d utts, %.3fs)", epoch,
                  acc.wer, acc.cer, acc.utterances, time.perf_counter() - t0)
-        self.csv.log(step=self.state.step, epoch=epoch, split="val_wer",
-                     wer=round(acc.wer, 4))
+        self._log_csv(step=self.state.step, epoch=epoch, split="val_wer",
+                      wer=round(acc.wer, 4))
         return acc.wer

@@ -12,6 +12,13 @@ error propagates.
 The optimizer updates the parameters in place, so the caller hands the
 probe a parameter tree of its own (the train CLI makes a second init and
 drops it afterwards, as the JAX CLI does).
+
+Under a mesh (JAX ``probe.py:77``) the size is the global batch, from the
+data-parallel ways up, and each rank probes its own share: its rows and,
+under fsdp, its slices of the sharded leaves, over groups that gather and
+reduce locally (``Mesh.echo``). So a rank that runs out of memory never
+leaves the others waiting in a collective; at the end every rank takes
+the smallest size any rank found.
 """
 
 from __future__ import annotations
@@ -63,16 +70,21 @@ def _worst_case_batch(cfg: AVSRConfig, b: int, device: str | torch.device,
     )
 
 
-def _fits(cfg: AVSRConfig, params, b: int, device) -> bool:
-    """Whether one train step at batch ``b`` runs. Every tensor of the step
-    is local to this frame, so it is free to collect once this returns."""
+def _fits(cfg: AVSRConfig, params, b: int, device, mesh=None) -> bool:
+    """Whether one train step at batch ``b`` (this rank's rows) runs. Every
+    tensor of the step is local to this frame, so it is free to collect
+    once this returns."""
+    from avsr_tpu_torch.mesh.sharding import shard_params
     from avsr_tpu_torch.train.state import create_train_state
     from avsr_tpu_torch.train.step import make_train_step, microbatch
 
     try:
+        step = make_train_step(cfg, mesh)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         state = create_train_state(params, cfg, total_steps=2)
         batch = microbatch(_worst_case_batch(cfg, b, device), 1)
-        make_train_step(cfg)(state, batch, 0)
+        step(state, batch, 0)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         return True
@@ -84,12 +96,15 @@ def _fits(cfg: AVSRConfig, params, b: int, device) -> bool:
 
 def find_optimal_batch_size(cfg: AVSRConfig, params, *, start: int = 1,
                             max_batch: int = 512,
-                            device: str | torch.device = "cuda") -> int:
-    """Doubling probe; the largest batch whose worst-case train step runs,
-    0 if even ``start`` runs out of memory."""
-    b, best = max(start, 1), 0
+                            device: str | torch.device = "cuda", mesh=None) -> int:
+    """Doubling probe; the largest (global) batch whose worst-case train
+    step runs, 0 if even ``start`` (at least the mesh's data-parallel
+    ways) runs out of memory."""
+    ways = mesh.ways if mesh is not None else 1
+    echo = mesh.echo() if mesh is not None else None
+    b, best = max(start, ways), 0
     while b <= max_batch:
-        ok = _fits(cfg, params, b, device)
+        ok = _fits(cfg, params, b // ways, device, echo)
         gc.collect()            # the failed step's frames form cycles
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
@@ -99,4 +114,7 @@ def find_optimal_batch_size(cfg: AVSRConfig, params, *, start: int = 1,
         log.info("batch probe: %d fits", b)
         best = b
         b *= 2
+    if mesh is not None:
+        best = int(mesh.data.all_reduce(torch.tensor([float(best)], device=device),
+                                        op="min").item())
     return best

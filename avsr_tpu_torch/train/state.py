@@ -20,6 +20,16 @@ step, the parameters, the optimizer's count and its per-leaf state (AdamW's
 moments, adafactor's factored or full second moment, lion's momentum).
 Loading checks every key path, shape and dtype before it writes anything,
 and copies into the live tensors, which the optimizer holds.
+
+Under fsdp (``mesh/sharding.py``) a sharded trained leaf holds its slice,
+and so does its optimizer state: AdamW's moments and lion's momentum
+slice as the leaf does, and adafactor's factored moments hold the slice
+when they keep the sharded dimension (a moment that averages over it is
+whole, and the average is taken over every rank's slice). Adafactor's
+factoring, its update clip and its parameter scale use the full leaf's
+shape and norms, so the update is the one-card update's slice. The state
+dict's tensors are tagged with their slices (for a checkpoint to gather),
+and loading takes full tensors and keeps this rank's slices.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ import numpy as np
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, TrainingConfig
+from avsr_tpu_torch.mesh.sharding import (Shard, full_shape, is_sharded, local_part,
+                                          shard_of, tag)
 from avsr_tpu_torch.models.avsr import ENCODER_KEYS
 from avsr_tpu_torch.models.layers import Params
 
@@ -248,6 +260,7 @@ class ClippedOptimizer:
         self.schedule = schedule
         self.max_norm = cfg.max_grad_norm
         self.count = 0
+        self.shards = [shard_of(p) for p in leaves]   # fsdp slices, or None
 
     def update(self, grads: list[torch.Tensor], grad_norm: torch.Tensor) -> None:
         """Apply one update from f32 ``grads`` (one per leaf) whose global
@@ -268,6 +281,20 @@ class ClippedOptimizer:
     def state_dict(self) -> dict[str, Any]:
         """{"count", "leaves": {name: {key: tensor}}}, the live tensors."""
         return {"count": self.count, "leaves": self.state}
+
+    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> Shard | None:
+        """The slice that the state tensor ``key`` of leaf ``i`` holds: the
+        leaf's own for a tensor of the leaf's shape."""
+        s = self.shards[i]
+        return s if s is not None and t.shape == self.leaves[i].shape else None
+
+    def tag_state(self, sd: dict[str, Any]) -> dict[str, Any]:
+        """``sd`` (this optimizer's state dict) with its sharded tensors
+        tagged with their slices."""
+        for i, name in enumerate(self.names):
+            for key, t in sd["leaves"][name].items():
+                tag(t, self._state_shard(i, key, t))
+        return sd
 
     def check_state_dict(self, sd: dict[str, Any]) -> None:
         check_like(sd["leaves"], self.state, what="optimizer state")
@@ -359,8 +386,21 @@ def factored_dims(shape: tuple[int, ...], min_dim: int = 128
     return order[-2], order[-1]
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
+def _rms(x: torch.Tensor, shard: Shard | None = None) -> torch.Tensor:
+    """The root mean square of a leaf, or with ``shard`` of the full leaf
+    whose slice ``x`` is."""
+    if shard is None:
+        return torch.sqrt(torch.mean(x * x))
+    return torch.sqrt(shard.group.all_reduce((x * x).sum()) / (x.numel() * shard.group.size))
+
+
+def _mean(x: torch.Tensor, dim: int, sharded: int | None, shard: Shard | None,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``x`` over ``dim``; over every rank's slice when ``dim``
+    is the dimension ``sharded`` that ``x`` holds a slice of."""
+    if shard is None or dim != sharded:
+        return x.mean(dim=dim, keepdim=keepdim)
+    return shard.group.all_reduce(x.sum(dim=dim, keepdim=keepdim)) / shard.full
 
 
 class ClippedAdafactor(ClippedOptimizer):
@@ -384,7 +424,7 @@ class ClippedAdafactor(ClippedOptimizer):
         self.weight_decay = cfg.weight_decay
         self.state = {}
         for name, p in zip(names, leaves):
-            dims = factored_dims(tuple(p.shape))
+            dims = factored_dims(tuple(full_shape(p)))
             if dims is None:
                 self.state[name] = {"v": torch.zeros_like(p)}
             else:
@@ -393,27 +433,41 @@ class ClippedAdafactor(ClippedOptimizer):
                     "v_row": torch.zeros_like(p.sum(dim=d0)),
                     "v_col": torch.zeros_like(p.sum(dim=d1))}
 
+    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> Shard | None:
+        s = self.shards[i]
+        dims = factored_dims(tuple(full_shape(self.leaves[i])))
+        if s is None or key == "v" or dims is None:
+            return super()._state_shard(i, key, t)
+        gone = dims[1] if key == "v_row" else dims[0]     # the averaged dim
+        if s.dim == gone:
+            return None
+        return Shard(s.dim - (s.dim > gone), s.full, s.group)
+
     def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
         t = np.float32(self.count + 1)
         rate = np.float32(1.0) - t ** np.float32(-self.DECAY)
         keep, new = float(rate), float(np.float32(1.0) - rate)
-        for name, p, g, dec in zip(self.names, self.leaves, grads, self.decay):
+        for i, (name, p, g, dec) in enumerate(zip(self.names, self.leaves, grads,
+                                                  self.decay)):
             st = self.state[name]
+            sh = self.shards[i]
+            sd = sh.dim if sh is not None else None
             g2 = g * g + self.EPS
-            dims = factored_dims(tuple(p.shape))
+            dims = factored_dims(tuple(full_shape(p)))
             if dims is None:
                 st["v"].mul_(keep).add_(new * g2)
                 u = g * st["v"] ** -0.5
             else:
                 d1, d0 = dims
-                st["v_row"].copy_(keep * st["v_row"] + new * g2.mean(dim=d0))
-                st["v_col"].copy_(keep * st["v_col"] + new * g2.mean(dim=d1))
+                st["v_row"].copy_(keep * st["v_row"] + new * _mean(g2, d0, sd, sh))
+                st["v_col"].copy_(keep * st["v_col"] + new * _mean(g2, d1, sd, sh))
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row = (st["v_row"] / st["v_row"].mean(dim=rd1, keepdim=True)) ** -0.5
+                row_sd = None if sd is None or sd == d0 else sd - (sd > d0)
+                row = (st["v_row"] / _mean(st["v_row"], rd1, row_sd, sh, keepdim=True)) ** -0.5
                 u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp(_rms(u) / self.CLIP, min=1.0)
+            u = u / torch.clamp(_rms(u, sh) / self.CLIP, min=1.0)
             u = u * lr
-            p_rms = _rms(p)
+            p_rms = _rms(p, sh)
             u = u * torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
             if dec and self.weight_decay:
                 u = u + self.weight_decay * p
@@ -457,13 +511,20 @@ class TrainState:
 
     def state_dict(self) -> dict[str, Any]:
         """{"step", "params", "opt_state"}: the live tensors (copy them
-        before the next update changes them)."""
+        before the next update changes them); sharded ones are tagged with
+        their slices."""
         return {"step": self.step, "params": self.params,
-                "opt_state": self.optimizer.state_dict()}
+                "opt_state": self.optimizer.tag_state(self.optimizer.state_dict())}
 
     def load_state_dict(self, sd: dict[str, Any]) -> None:
         """Checks every key path, shape and dtype of ``sd`` against this
-        state, then copies the values into the live tensors, in place."""
+        state, then copies the values into the live tensors, in place. A
+        sharded state takes full tensors and keeps its slices."""
+        if is_sharded(self.params):
+            live = self.state_dict()
+            sd = {**sd, "params": _localize(sd["params"], live["params"]),
+                  "opt_state": {**sd["opt_state"], "leaves": _localize(
+                      sd["opt_state"]["leaves"], live["opt_state"]["leaves"])}}
         check_like(sd["params"], self.params, what="params")
         self.optimizer.check_state_dict(sd["opt_state"])
         live = path_leaves(self.params)
@@ -472,6 +533,20 @@ class TrainState:
                 live[k].copy_(v)
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
+
+
+def _localize(tree: Any, like: Any) -> Any:
+    """``tree`` of full tensors with each leaf cut to the slice that the
+    leaf of ``like`` at its path holds (checking the full shape first)."""
+    want = path_leaves(like)
+
+    def leaf(path: tuple[str, ...], x: Any) -> Any:
+        k = "/".join(path)
+        if k not in want or not isinstance(x, torch.Tensor):
+            return x
+        return local_part(x, want[k], what=k)
+
+    return tree_map_with_path(leaf, tree)
 
 
 def create_optimizer(cfg: AVSRConfig, train_params: Params,

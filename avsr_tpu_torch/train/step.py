@@ -25,19 +25,24 @@ import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig
 from avsr_tpu_torch.core.logging import trace_range
+from avsr_tpu_torch.mesh.sharding import RowShard, check_model, row_shard, shard_of, tag
 from avsr_tpu_torch.models.avsr import Batch, forward
 from avsr_tpu_torch.ops.specaugment import specaugment
 from avsr_tpu_torch.ops.videoaug import video_augment
 from avsr_tpu_torch.train.state import TrainState
 
 
-def augment(cfg: AVSRConfig, batch: Batch, seed: int) -> tuple[Batch, int]:
+def augment(cfg: AVSRConfig, batch: Batch, seed: int,
+            shard: RowShard | None = None) -> tuple[Batch, int]:
     """SpecAugment (``data.specaugment``) and video augmentation
     (``data.video_augment``) of a training batch, drawn from generators on
     the batch's device seeded from ``seed``; returns the batch and the seed
     left for dropout. As the JAX step splits its dropout key once per
-    augmentation, the dropout seed changes only when one is on."""
+    augmentation, the dropout seed changes only when one is on. With
+    ``shard`` the batch is a rank's rows of a global batch and takes those
+    rows' draws."""
     d = cfg.data
+    rows = (shard.start, shard.total) if shard is not None else None
     spec = d.specaugment and batch.mel is not None
     video = d.video_augment and batch.frames is not None
     if not (spec or video):
@@ -48,22 +53,24 @@ def augment(cfg: AVSRConfig, batch: Batch, seed: int) -> tuple[Batch, int]:
         batch = batch._replace(mel=specaugment(
             batch.mel, batch.mel_lens, gen, time_masks=d.spec_time_masks,
             time_width=d.spec_time_width, freq_masks=d.spec_freq_masks,
-            freq_width=d.spec_freq_width))
+            freq_width=d.spec_freq_width, rows=rows))
     if video:
         gen = torch.Generator(device=batch.frames.device).manual_seed(video_seed)
         batch = batch._replace(frames=video_augment(
             batch.frames, batch.frame_lens, gen, max_shift=d.vid_max_shift,
-            flip=d.vid_flip, brightness=d.vid_brightness, contrast=d.vid_contrast))
+            flip=d.vid_flip, brightness=d.vid_brightness, contrast=d.vid_contrast,
+            rows=rows))
     return batch, seed
 
 
-def _loss_fn(params, cfg: AVSRConfig, batch: Batch, dropout_seed: int | None):
+def _loss_fn(params, cfg: AVSRConfig, batch: Batch, dropout_seed: int | None,
+             shard: RowShard | None = None):
     if dropout_seed is not None:        # the training path only
-        batch, dropout_seed = augment(cfg, batch, dropout_seed)
+        batch, dropout_seed = augment(cfg, batch, dropout_seed, shard)
     return forward(params, cfg.model, batch,
                    compute_dtype=getattr(torch, cfg.runtime.compute_dtype),
                    use_kernel=cfg.runtime.use_pallas, remat=cfg.mesh.remat,
-                   dropout_seed=dropout_seed)
+                   dropout_seed=dropout_seed, shard=shard)
 
 
 def micro_seeds(seed: int, n: int) -> list[int]:
@@ -74,11 +81,43 @@ def micro_seeds(seed: int, n: int) -> list[int]:
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    """sqrt of the sum of squares of every element, in f32; a sharded
+    leaf's slices are summed over the ranks that hold the others."""
+    total = sum((t.float() ** 2).sum() for t in tensors if shard_of(t) is None)
+    sharded = [t for t in tensors if shard_of(t) is not None]
+    if sharded:
+        part = sum((t.float() ** 2).sum() for t in sharded)
+        total = total + shard_of(sharded[0]).group.all_reduce(part)
+    return torch.sqrt(total)
 
 
-def make_train_step(cfg: AVSRConfig
+# elements per all-reduce of the gradients (256 MB of f32)
+_BUCKET = 1 << 26
+
+
+def reduce_grads(grads: list[torch.Tensor], leaves: list[torch.Tensor], mesh) -> None:
+    """Sums each gradient over the ranks that hold its leaf whole or the
+    same slice of it (the data group, or the replica group of a sharded
+    leaf), in place, a bucket of flattened gradients per all-reduce. The
+    gradients come back tagged as their leaves, for :func:`global_norm`."""
+    by_group: dict[int, tuple[Any, list[torch.Tensor]]] = {}
+    for g, p in zip(grads, leaves):
+        group = mesh.replica if shard_of(p) is not None else mesh.data
+        by_group.setdefault(id(group), (group, []))[1].append(tag(g, shard_of(p)))
+    for group, gs in by_group.values():
+        if group.size == 1:
+            continue
+        bucket: list[torch.Tensor] = []
+        for i, g in enumerate(gs):
+            bucket.append(g)
+            if sum(b.numel() for b in bucket) >= _BUCKET or i == len(gs) - 1:
+                flat = group.all_reduce(torch.cat([b.reshape(-1) for b in bucket]))
+                for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                    b.copy_(part.view_as(b))
+                bucket = []
+
+
+def make_train_step(cfg: AVSRConfig, mesh=None
                     ) -> Callable[..., dict[str, float]]:
     """``train_step(state, batch, seed) -> metrics`` updates ``state`` in
     place. ``batch`` leaves are [accum, micro, ...] and each micro-batch
@@ -92,7 +131,16 @@ def make_train_step(cfg: AVSRConfig
 
     ``stats``, when given, accumulates the seconds spent in ``forward_s``,
     ``backward_s`` and ``optimizer_s`` (host clock, with a device
-    synchronize at each boundary)."""
+    synchronize at each boundary).
+
+    With ``mesh`` (``mesh/sharding.py``) the batch holds this rank's rows
+    of every micro-batch (the same number on every rank), each rank's loss
+    is its share of the global micro-batch's, and the gradients are summed
+    over the ranks before the norm, the skip decision and the update,
+    which are then the same on every rank; the metrics are the global
+    batch's."""
+    if mesh is not None:
+        check_model(cfg.model)
 
     extra_keys = (("moe_lb", "moe_z")
                   if cfg.model.connector_type == "moe" or cfg.model.llm.moe_experts > 0
@@ -110,7 +158,8 @@ def make_train_step(cfg: AVSRConfig
         for mb_i, mseed in enumerate(micro_seeds(seed, accum)):
             with trace_range("avsr::micro_batch"):
                 mb = Batch(*[None if x is None else x[mb_i] for x in batch])
-                loss, metrics = _loss_fn(state.params, cfg, mb, mseed)
+                shard = row_shard(mesh, mb.labels.shape[0])
+                loss, metrics = _loss_fn(state.params, cfg, mb, mseed, shard)
                 clock.lap("forward_s")
                 g = torch.autograd.grad(loss, leaves, allow_unused=True)
                 for acc, gi in zip(grads, g):
@@ -121,6 +170,13 @@ def make_train_step(cfg: AVSRConfig
                 for k in extra_keys:
                     extra[k] = extra[k] + w * metrics[k].detach()
                 clock.lap("backward_s")
+        if mesh is not None:
+            reduce_grads(grads, leaves, mesh)
+            sums = mesh.data.all_reduce(torch.stack([
+                torch.as_tensor(v, dtype=torch.float32, device=grads[0].device)
+                for v in (loss_sum, acc_sum, *extra.values())]))
+            loss_sum, acc_sum, *rest = sums.unbind()
+            extra = dict(zip(extra, rest))
         grad_norm = global_norm(grads)
         if cfg.runtime.debug_nans:
             _raise_on_nan("train step", step=state.step, loss=loss_sum,
@@ -168,16 +224,21 @@ class _Clock:
         self.t = now
 
 
-def make_eval_step(cfg: AVSRConfig) -> Callable[..., dict[str, float]]:
+def make_eval_step(cfg: AVSRConfig, mesh=None) -> Callable[..., dict[str, float]]:
     """``eval_step(params, batch) -> {loss, accuracy, label_tokens}``, no
-    gradient, no dropout."""
+    gradient, no dropout; with ``mesh`` the batch is this rank's rows and
+    the metrics are the global batch's."""
 
     @torch.no_grad()
     def eval_step(params, batch: Batch) -> dict[str, float]:
-        loss, metrics = _loss_fn(params, cfg, batch, None)
+        loss, metrics = _loss_fn(params, cfg, batch, None,
+                                 row_shard(mesh, batch.labels.shape[0]))
+        acc = metrics["accuracy"]
+        if mesh is not None:
+            loss, acc = mesh.data.all_reduce(torch.stack([loss.float(), acc.float()])).unbind()
         if cfg.runtime.debug_nans:
             _raise_on_nan("eval step", loss=loss)
-        return {"loss": float(loss), "accuracy": float(metrics["accuracy"]),
+        return {"loss": float(loss), "accuracy": float(acc),
                 "label_tokens": float(metrics["label_tokens"])}
 
     return eval_step

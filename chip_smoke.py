@@ -220,12 +220,35 @@
    preset: each trace's kernels by name equal the wrappers' counters over
    the traced steps, its device time, duty cycle and top categories,
    scopes and kernels printed. Removes what it wrote.
+21. Mesh phase (``mesh_phase``), at full width on the flagship, random
+   weights from --seed: ranks started as ``python3 chip_smoke.py
+   --mesh-worker JOB`` with torchrun's environment, 2 sharing card 0 over
+   gloo (and, where there are two cards, 2 on two cards over NCCL, which
+   run the same steps and CLIs), each waited for with a timeout; a failing
+   rank fails the phase. Each rank first asks the backend for every
+   collective the port makes on CUDA tensors. Train steps at the largest buckets (3000 mel frames, 100 video
+   frames, 10-48 label tokens, LoRA dropout on, accum 1) under ``dp=2``
+   and ``fsdp=2``: in f32 (TF32 off, global B = 4) two steps whose losses,
+   grad norms and two LoRA ``b`` leaves equal the one-process run's (the
+   CPU tests' gates), then in bf16 (global B = 8) two steps, each step's ms
+   and the peak memory per rank beside one process's. The train CLI (f32,
+   2 steps under ``fsdp=2``: rank 0 writes the gathered tree) and a
+   resume at world 1 from its checkpoint give one card's three losses,
+   and rank 0 alone wrote the log. The decode CLI over 8 synthetic utterances on 2 ranks: f32 hypotheses equal
+   one card's batch of 8, bf16's and the preset's one card's at the
+   per-rank batch of 4; ms per token step beside one card's. Every rank's
+   launches are counted (the flash kernels on every train path, the
+   qmatmul kernels under the preset) and go into the ``kernels`` line.
+   Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
 
 Prints the card's name and power limit, one JSON line with every kernel's
-numbers, and as its last line {"ok": true, "device": {...}}. Any failed
+numbers, and as its last line {"ok": true, "device": {...}}. With
+``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
+with two cards or more, the NCCL ranks too) and prints its results as one
+JSON line instead. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
 """
@@ -236,6 +259,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import itertools
 import json
 import logging
 import os
@@ -4000,9 +4024,9 @@ def convert_phase(seed: int) -> dict:
         peaks: list[float] = []
         make_step = loop.make_train_step
 
-        def peak_step(cfg):
+        def peak_step(*args):
             """The train step with its peak memory read per call."""
-            step = make_step(cfg)
+            step = make_step(*args)
 
             def run_step(*a, **k):
                 torch.cuda.synchronize()
@@ -5678,9 +5702,446 @@ def tooling_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: data parallelism and fsdp across processes
+# ---------------------------------------------------------------------------
+
+# the train runs of phase 21: name, global batch, compute dtype, mesh, steps
+# (the first of the two bf16 steps warms up)
+MESH_TRAIN = (("f32_dp2", 4, "float32", ("mesh.dp=2",), 2),
+              ("f32_fsdp2", 4, "float32", ("mesh.dp=1", "mesh.fsdp=2"), 2),
+              ("bf16_dp2", 8, "bfloat16", ("mesh.dp=2",), 2),
+              ("bf16_fsdp2", 8, "bfloat16", ("mesh.dp=1", "mesh.fsdp=2"), 2))
+MESH_SEED = 2100
+# LoRA b leaves held to the one-process run after the steps
+MESH_LEAVES = ("llm/layers/0/q/lora/b", "llm/layers/15/o/lora/b")
+MESH_DECODES = (("f32", ("runtime.compute_dtype=float32",), 8),
+                ("bf16", (), 4),
+                ("preset", PRESET_OVERRIDES, 4))
+MESH_RANK_TIMEOUT_S = 900
+
+
+def mesh_cfg(dtype: str, mesh: tuple[str, ...] = ()):
+    """The flagship's train config of phase 21: accum 1 (a global batch of
+    4 splits into 2 rows a rank), LoRA dropout on, the full learning rate
+    from the second step on."""
+    from avsr_tpu_torch.core.config import flagship
+
+    return flagship(["training.grad_accum_steps=1", "training.warmup_steps=1",
+                     f"runtime.compute_dtype={dtype}", *mesh])
+
+
+def mesh_params(cfg, seed: int):
+    """Random flagship weights from ``seed`` (LoRA b perturbed), frozen
+    leaves in the compute dtype: the same tree in every process."""
+    import torch
+
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.train.state import cast_frozen
+
+    params = init_avsr_model(cfg.model, seed=seed, device="cuda", dtype=torch.float32)
+    _perturb_lora_b(params, torch.Generator(device="cuda").manual_seed(seed + 1))
+    return cast_frozen(params, cfg.model, getattr(torch, cfg.runtime.compute_dtype))
+
+
+def mesh_batch(cfg, B: int, seed: int):
+    """A global train batch [1, B, ...] at the largest buckets (3000 mel
+    frames, 100 video frames), ragged lengths and 10-48 label tokens, made
+    on the card from ``seed``: the same in every process."""
+    import torch
+
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.models.avsr import Batch
+    from avsr_tpu_torch.train.step import microbatch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.runtime.compute_dtype)
+    m = cfg.model
+
+    def ints(lo: int, hi: int, shape) -> torch.Tensor:
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+
+    prompt = ByteTokenizer().encode(m.prompt, add_bos=True)
+    return microbatch(Batch(
+        mel=torch.randn((B, m.whisper.n_mels, 3000), generator=g, device="cuda"),
+        mel_lens=ints(2000, 3001, (B,)),
+        frames=torch.randn((B, 100, 3, m.image_size, m.image_size), generator=g,
+                           device="cuda").to(dt),
+        frame_lens=ints(60, 101, (B,)),
+        prompt_tokens=torch.tensor(prompt, dtype=torch.int32, device="cuda")[None].expand(B, -1),
+        labels=ints(0, min(1000, m.llm.vocab_size), (B, 48)), label_lens=ints(10, 49, (B,))), 1)
+
+
+def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None) -> dict:
+    """One run of ``MESH_TRAIN``: ``n`` steps on this rank's rows (all rows
+    without a mesh), each timed; the metrics, the step ms, the peak memory
+    and the watched LoRA leaves (gathered whole)."""
+    import torch
+
+    from avsr_tpu_torch.mesh import sharding
+    from avsr_tpu_torch.mesh.multihost import local_rows
+    from avsr_tpu_torch.models.avsr import Batch
+    from avsr_tpu_torch.train.state import create_train_state, path_leaves
+    from avsr_tpu_torch.train.step import make_train_step
+
+    cfg = mesh_cfg(dtype, mesh_over)
+    params = mesh_params(cfg, MESH_SEED)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh)
+    state = create_train_state(params, cfg, total_steps=1000)
+    del params
+    step = make_train_step(cfg, mesh)
+    batch = mesh_batch(cfg, B, MESH_SEED)
+    if mesh is not None:
+        lo, hi = local_rows(B, (mesh.data.rank, mesh.ways))
+        batch = Batch(*[None if x is None else x[:, lo:hi] for x in batch])
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(state, batch, MESH_SEED + i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    leaves = path_leaves(state.params)
+    with torch.no_grad():
+        watched = {k: sharding.gather_leaf(leaves[k]).float().cpu() for k in MESH_LEAVES}
+    res = dict(metrics=metrics, step_ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               rows=batch.labels.shape[1], leaves=watched)
+    del state, batch
+    settle()
+    return res
+
+
+def mesh_worker(job_path: str) -> int:
+    """One rank of phase 21 (``python3 chip_smoke.py --mesh-worker JOB``,
+    with torchrun's environment): the job's runs in order, each with the
+    launch counts set to 0 just before it; writes what each run returned
+    and launched, and rank 0 the watched leaves."""
+    import importlib
+
+    import torch
+
+    from avsr_tpu_torch.mesh import multihost, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = json.loads(Path(job_path).read_text())
+    device, backend = multihost.init_distributed("cuda")
+    rank, world = multihost.process_shard()
+    out: dict = dict(rank=rank, world=world, device=str(device),
+                     card=torch.cuda.get_device_name(device), backend=backend,
+                     runs={}, backend_takes=_probe_backend(device))
+    leaves = {}
+    for run in job["runs"]:
+        reset_counts()
+        t0 = time.perf_counter()
+        if run["kind"] == "train":
+            cfg = mesh_cfg(run["dtype"], tuple(run["mesh"]))
+            mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+            res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"], mesh)
+            leaves[run["name"]] = res.pop("leaves")
+            res["mesh"] = mesh.shape
+        else:
+            res = _timed_cli(importlib.import_module(f"avsr_tpu_torch.cli.{run['cli']}"),
+                             run["argv"])
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0, launches=counts())
+        out["runs"][run["name"]] = res
+    Path(job["out"].format(rank=rank)).write_text(json.dumps(out))
+    if rank == 0:
+        torch.save(leaves, job["leaves"])
+    return 0
+
+
+def _probe_backend(device) -> dict[str, str]:
+    """Whether the process group's backend takes each collective that
+    ``mesh/collectives.py`` makes, on CUDA tensors of each dtype it moves
+    ("yes", or the error). Every rank makes the same calls in order."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+
+    def x(dtype):
+        return torch.ones(4 * n, device=device).to(dtype)
+
+    calls = {f"all_reduce_{op}": (lambda op=op: dist.all_reduce(
+        x(torch.float32), op=getattr(dist.ReduceOp, op.upper()))) for op in ("sum", "max", "min")}
+    calls["broadcast"] = lambda: dist.broadcast(x(torch.float32), 0)
+    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.uint8):
+        calls[f"all_gather_{str(dt)[6:]}"] = (lambda dt=dt: dist.all_gather_into_tensor(
+            x(dt).new_empty(4 * n * n), x(dt)))
+    calls["reduce_scatter"] = lambda: dist.reduce_scatter_tensor(
+        x(torch.float32).new_empty(4), x(torch.float32))
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(device)
+            out[name] = "yes"
+        except Exception as e:  # noqa: BLE001 — reported, and failed by the phase
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _timed_cli(mod, argv: list[str]) -> dict:
+    """A CLI's ``main(argv)``; for the decode CLI also the seconds of its
+    decode loop (``run_protocol``, after the weights are made)."""
+    import torch
+
+    res: dict = {}
+    proto = getattr(mod, "run_protocol", None)
+    if proto is not None:
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return proto(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                res["protocol_s"] = time.perf_counter() - t0
+        mod.run_protocol = timed
+    try:
+        res["rc"] = mod.main(argv)
+    finally:
+        if proto is not None:
+            mod.run_protocol = proto
+    return res
+
+
+def spawn_ranks(job: dict, work: Path, world: int, shared_card: bool) -> list[dict]:
+    """Runs ``job`` in ``world`` rank processes (``--mesh-worker``) with
+    torchrun's environment on a free localhost port: all on card 0 over
+    gloo (``shared_card``), or one card each over NCCL. Waits for each
+    with a timeout; a rank that fails (or the timeout) stops the others
+    and fails the phase. Returns each rank's report."""
+    import socket
+
+    tag = job["tag"]
+    job = dict(job, out=str(work / f"{tag}_rank{{rank}}.json"),
+               leaves=str(work / f"{tag}_leaves.pt"))
+    path = work / f"{tag}_job.json"
+    path.write_text(json.dumps(job))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    if shared_card:
+        env.update(LOCAL_WORLD_SIZE=str(world), CUDA_VISIBLE_DEVICES="0")
+    logs = [work / f"{tag}_rank{r}.log" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                               str(path)], cwd=ROOT, stdout=open(logs[r], "w"),
+                              stderr=subprocess.STDOUT,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            late = time.perf_counter() - t0 > MESH_RANK_TIMEOUT_S
+            if failed or late:
+                tails = "\n".join(f"--- rank {r}:\n{logs[r].read_text()[-3000:]}"
+                                  for r in (failed or range(world)))
+                check(False, f"{tag}: rank(s) {failed or 'all'} "
+                             f"{'failed' if failed else 'timed out'}\n{tails}")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{tag}: rank {r} returned {p.returncode}\n"
+                                 f"{logs[r].read_text()[-3000:]}")
+    print(f"mesh {tag}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return [json.loads((work / f"{tag}_rank{r}.json").read_text()) for r in range(world)]
+
+
+def hyp_lines(out_dir: Path) -> list[str]:
+    (results,) = out_dir.glob("results_*.txt")
+    return [ln for ln in results.read_text().splitlines() if ln.startswith("HYP:")]
+
+
+def mesh_phase(seed: int) -> dict:
+    """Phase 21: the train and decode CLIs and the train step across
+    processes, one process per rank, at full width on the flagship (see
+    the module docstring)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("mesh_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    flag = list(FLAGSHIP_OVERRIDES)
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    cards = torch.cuda.device_count()
+    print(f"mesh phase: 2 ranks sharing card 0 over gloo"
+          + (f"; 2 ranks on 2 of the {cards} cards over NCCL" if cards >= 2 else
+             " (one card: no NCCL run)"))
+    res: dict = {"train": {}, "train_cli": {}, "decode": {}, "launches_by_path": {}}
+
+    def train_over(run_dir: Path, steps: int, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=20",
+                "training.grad_accum_steps=1", "training.save_every_steps=0",
+                "runtime.compute_dtype=float32", f"training.max_steps={steps}",
+                f"training.checkpoint_dir={run_dir}", *extra]
+
+    def dec_over(tag: str, extra: tuple, B: int) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
+                "decode.max_new_tokens=32", f"decode.batch_size={B}",
+                f"decode.output_dir={work / tag}", *extra]
+
+    def one_card(tag: str, mod, argv: list[str]) -> dict:
+        torch.cuda.synchronize()
+        reset_counts()
+        out = _timed_cli(mod, argv)
+        torch.cuda.synchronize()
+        check(out["rc"] == 0, f"{tag} returned {out['rc']}")
+        res["launches_by_path"][f"mesh_{tag}"] = counts()
+        return out
+
+    try:
+        # ---- one process: the references -----------------------------------
+        ref = {}
+        for _, B, dtype, _, n in MESH_TRAIN[::2]:    # one per dtype
+            reset_counts()
+            ref[dtype] = mesh_train_run(B, dtype, (), n)
+            res["launches_by_path"][f"mesh_train_{dtype}_one_card"] = counts()
+            settle()
+        ones = {}
+        for tag, extra, B in MESH_DECODES:
+            ones[tag] = one_card(f"decode_{tag}_one_card", decode, dec_over(
+                f"dec1_{tag}", extra, B))
+            settle()
+        one_run = work / "train_one"
+        ones["train"] = one_card("train_cli_one_card", train, train_over(one_run, 3))
+        shutil.rmtree(one_run / "ckpt", ignore_errors=True)
+        settle()
+
+        # ---- 2 ranks on card 0 (gloo), and on 2 cards (NCCL) -----------------
+        def rank_runs(group: str) -> list[dict]:
+            runs = [dict(kind="train", name=n, B=B, dtype=d, mesh=list(m), steps=k)
+                    for n, B, d, m, k in MESH_TRAIN]
+            runs.append(dict(kind="cli", name="train_cli", cli="train", argv=train_over(
+                work / f"train_{group}", 2, "mesh.dp=1", "mesh.fsdp=2")))
+            return runs + [dict(kind="cli", name=f"decode_{tag}", cli="decode",
+                                argv=dec_over(f"dec2_{group}_{tag}", extra, 8))
+                           for tag, extra, _ in MESH_DECODES]
+
+        reports = {"gloo": spawn_ranks(dict(tag="gloo", runs=rank_runs("gloo")), work, 2, True)}
+        if cards >= 2:
+            reports["nccl"] = spawn_ranks(dict(tag="nccl", runs=rank_runs("nccl")), work, 2, False)
+
+        # ---- the train steps: each mesh against one process -----------------
+        for group, reps in reports.items():
+            check(reps[0]["backend"] == group, f"{group} ranks ran {reps[0]['backend']}")
+            takes = reps[0]["backend_takes"]
+            print(f"mesh {group}: ranks on {[r['device'] for r in reps]}; the backend takes "
+                  f"on CUDA tensors {json.dumps(takes)}")
+            check(all(v == "yes" for v in takes.values()),
+                  f"{group} refuses a collective the port makes on CUDA tensors: {takes}")
+            leaves = torch.load(work / f"{group}_leaves.pt")
+            for name, B, dtype, _, n in MESH_TRAIN:
+                runs_r = [r["runs"][name] for r in reps]
+                want = ref[dtype]
+                got = runs_r[0]["metrics"]
+                dl = max(abs(g["loss"] - w["loss"]) for g, w in zip(got, want["metrics"]))
+                dg = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                         for g, w in zip(got, want["metrics"]))
+                db = max((leaves[name][k] - want["leaves"][k]).abs().max().item()
+                         for k in MESH_LEAVES)
+                same = all(r["metrics"] == runs_r[0]["metrics"] for r in runs_r)
+                row = dict(mesh=runs_r[0]["mesh"], loss=[m["loss"] for m in got],
+                           max_loss_diff=dl, max_grad_norm_rel_diff=dg, max_lora_b_diff=db,
+                           step_ms=[r["step_ms"] for r in runs_r],
+                           peak_gb=[r["peak_gb"] for r in runs_r],
+                           one_card_step_ms=want["step_ms"], one_card_peak_gb=want["peak_gb"],
+                           launches=[r["launches"] for r in runs_r])
+                res["train"][f"{group}_{name}"] = row
+                print(f"mesh {group} {name}: " + json.dumps(row))
+                check(same, f"{group} {name}: the ranks report different metrics")
+                check(all(r["launches"]["flash_fwd"] and r["launches"]["flash_bwd_dq"]
+                          and r["launches"]["flash_bwd_dkv"] for r in runs_r),
+                      f"{group} {name}: a rank launched no flash kernel: "
+                      f"{[r['launches'] for r in runs_r]}")
+                if dtype == "float32":      # the CPU tests' gates
+                    check(dl < 1e-5 and dg < 1e-5 and db < 1e-6,
+                          f"{group} {name} against one process: loss |d| {dl:.3e}, grad "
+                          f"norm rel {dg:.3e}, LoRA b |d| {db:.3e}")
+                for r, rr in enumerate(runs_r):
+                    res["launches_by_path"][f"mesh_{group}_{name}_rank{r}"] = rr["launches"]
+
+        # ---- the train CLI: 2 ranks (fsdp=2), then world 1 from their ckpt ---
+        for group, reps in reports.items():
+            run2 = work / f"train_{group}"
+            tl = [r["runs"]["train_cli"] for r in reps]
+            check(all(t["rc"] == 0 for t in tl),
+                  f"{group} train CLI ranks returned {[t['rc'] for t in tl]}")
+            rows2 = loss_rows(run2)
+            check([r[2] for r in rows2].count("train") == 2,
+                  f"the {group} 2-rank run's loss_log.csv rows {[r[:3] for r in rows2]}")
+            one_card(f"train_cli_{group}_resumed_one_card", train, train_over(run2, 3))
+            rows_r, rows_1 = loss_rows(run2), loss_rows(one_run)
+            shutil.rmtree(run2 / "ckpt", ignore_errors=True)
+            trains = [[float(r[3]) for r in rows if r[2] == "train"] for rows in (rows_r, rows_1)]
+            d = max(abs(a - b) / abs(b) for a, b in zip(*trains))
+            row = dict(mesh="dp=1 fsdp=2", two_rank_then_resumed=trains[0], one_card=trains[1],
+                       max_rel_diff=d, seconds=[t["seconds"] for t in tl])
+            res["train_cli"][group] = row
+            print(f"mesh {group} train CLI: " + json.dumps(row))
+            check(len(trains[0]) == len(trains[1]) == 3 and d < 1e-5,
+                  f"{group} train CLI losses: 2 ranks then world 1 {trains[0]}, "
+                  f"one card {trains[1]}")
+            for r, t in enumerate(tl):
+                res["launches_by_path"][f"mesh_{group}_train_cli_rank{r}"] = t["launches"]
+                check(t["launches"]["flash_fwd"] and t["launches"]["flash_bwd_dq"]
+                      and t["launches"]["flash_bwd_dkv"],
+                      f"{group} train CLI rank {r}: {t['launches']}")
+
+        # ---- the decode CLI ---------------------------------------------------
+        for (group, reps), (tag, _, B) in itertools.product(reports.items(), MESH_DECODES):
+            dl = [r["runs"][f"decode_{tag}"] for r in reps]
+            out2 = work / f"dec2_{group}_{tag}"
+            two, one = hyp_lines(out2), hyp_lines(work / f"dec1_{tag}")
+            check(len(two) == 8, f"{group} decode {tag}: {len(two)} HYP lines")
+            check(not list(out2.glob("results_*"))[1:],
+                  f"{group} decode {tag}: more than one results file")
+            row = dict(equal_hyps=two == one, one_card_batch=B,
+                       ms_per_token_step=dl[0]["protocol_s"] * 1e3 / 32,
+                       one_card_ms_per_token_step=ones[tag]["protocol_s"] * 1e3 / (32 * 8 // B),
+                       launches=[x["launches"] for x in dl])
+            res["decode"][f"{group}_{tag}"] = row
+            print(f"mesh {group} decode {tag}: " + json.dumps(row))
+            check(two == one, f"{group} decode {tag}: 2-rank HYP lines differ from the "
+                              f"one-card decode at batch {B}")
+            for r, x in enumerate(dl):
+                res["launches_by_path"][f"mesh_{group}_decode_{tag}_rank{r}"] = x["launches"]
+                lc = x["launches"]
+                check(lc["flash_fwd"] and (tag != "preset" or (lc["qmatmul_int4"]
+                                                               and lc["qmatmul_int8"])),
+                      f"{group} decode {tag} rank {r} launches {lc}")
+        res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), f"{work} not removed")
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"mesh phase: {res['seconds']:.1f} s; launches "
+          + json.dumps(res["launches_by_path"]))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh-only", action="store_true",
+                   help="build the kernels and run phase 21 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -5695,6 +6156,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: avsr_tpu_torch not found next to this script ({e})",
               file=sys.stderr)
         return 2
+    if args.mesh_worker:              # one rank of phase 21
+        return mesh_worker(args.mesh_worker)
 
     print(gpu_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5718,6 +6181,9 @@ def main(argv: list[str] | None = None) -> int:
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(f"{name} {fn}")
     check(not spills, f"kernels that spill registers: {spills}")
+    if args.mesh_only:
+        print(json.dumps(mesh_phase(args.seed)))
+        return 0
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
@@ -5805,9 +6271,17 @@ def main(argv: list[str] | None = None) -> int:
     tk = {k: sum(n[k] for n in tooling["launches_by_path"].values()) for k in counts()}
     check(all(tk.values()), f"a kernel did not launch on the tooling path: {tk}")
 
+    settle()
+    # Phase 21 at full width: the train step, the train CLI and the decode
+    # CLI across processes (2 ranks on card 0 over gloo; 2 ranks on 2 cards
+    # over NCCL where there are two), each rank's launches counted.
+    mesh = mesh_phase(args.seed)
+    mk = {k: sum(n[k] for n in mesh["launches_by_path"].values()) for k in counts()}
+    check(all(mk.values()), f"a kernel did not launch on the mesh path: {mk}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video, tooling)
+                for phase in (corpus, conv, connectors, moe, video, tooling, mesh)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:

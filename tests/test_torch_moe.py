@@ -1,7 +1,7 @@
 """The port's MoE routing (``ops/moe.py``) and ``moe`` connector vs the JAX
 package (f32, CPU), the counterparts of ``tests/test_moe.py``'s
 single-device cases (the ``ep`` mesh cases are not ported: mesh.ep > 1 is
-refused on one card).
+refused, as the next slice's axis).
 
 Parameters come from the JAX init (every leaf moved off its init by numpy
 noise, so that biases and norm scales matter) through
@@ -331,8 +331,8 @@ MOE_CASES = {
 @pytest.mark.parametrize("case", sorted(MOE_CASES))
 def test_moe_config_validation_matches_jax(case):
     """Each MoE config is accepted by both packages, or refused by both
-    with JAX's ValueError and message (a wide mesh the JAX package accepts
-    is the port's one-card refusal)."""
+    with JAX's ValueError and message (a mesh.ep or mesh.pp that the JAX
+    package accepts is the port's refusal of the next slice's axes)."""
     over = {"model.llm.n_layers": 2, **MOE_CASES[case]}
     errs = []
     for mod in (jcfg, tcfg):
@@ -353,7 +353,7 @@ def test_moe_config_validation_matches_jax(case):
         assert errs[0] is None, errs[0]
         # accepted by JAX: the port accepts it too, unless the mesh is wide
         if errs[1] is not None:
-            assert errs[1][0] is NotImplementedError and "one card" in errs[1][1]
+            assert errs[1][0] is NotImplementedError and "next slice" in errs[1][1]
     else:
         assert errs[0][0] is ValueError
         assert errs[1] == errs[0]

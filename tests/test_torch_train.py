@@ -37,6 +37,7 @@ from avsr_tpu_torch.core import config as tcfg
 from avsr_tpu_torch.data.dataset import SyntheticAVSRDataset
 from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.mesh.sharding import mesh_shape
 from avsr_tpu_torch.models import avsr as tavsr
 from avsr_tpu_torch.models import llama as tllama
 from avsr_tpu_torch.ops import attention as tattn
@@ -461,6 +462,13 @@ def test_train_cli_writes_loss_log(tmp_path):
 @pytest.mark.parametrize("override", [
     "mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2"])
 def test_unported_config_knobs_raise(override):
+    """tp, sp and pp are refused at load; the data axes load, and a mesh
+    that needs more processes than run raises JAX's message."""
+    if override.split("=")[0] in ("mesh.dp", "mesh.fsdp"):
+        cfg = tcfg.load_config(TINY_YAML, [override])
+        with pytest.raises(ValueError, match="devices"):
+            mesh_shape(cfg.mesh, 1)
+        return
     with pytest.raises(NotImplementedError):
         tcfg.load_config(TINY_YAML, [override])
 

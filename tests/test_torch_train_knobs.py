@@ -78,7 +78,7 @@ def test_probe_returns_jax_batch_under_a_fake_oom(monkeypatch, threshold):
             return state, {"loss": jnp.zeros(())}
         return step
 
-    def port_make(cfg):
+    def port_make(cfg, mesh=None):
         def step(state, batch, seed, stats=None):
             b = batch.labels.shape[1]
             tried["port"].append(b)
@@ -101,7 +101,7 @@ def test_probe_runs_real_steps_and_lets_other_errors_through(weights, monkeypatc
     params = tstate.cast_frozen(from_numpy_tree(weights, "cpu"), tc.model, torch.float32)
     assert tprobe.find_optimal_batch_size(tc, params, max_batch=2, device="cpu") == 2
 
-    def broken(cfg):
+    def broken(cfg, mesh=None):
         def step(state, batch, seed, stats=None):
             raise ValueError("not a memory error")
         return step
