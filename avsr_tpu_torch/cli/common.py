@@ -13,7 +13,8 @@ Multi-process runs (torchrun's environment, ``mesh/multihost.py``):
 ``maybe_mesh`` is the JAX ``maybe_mesh`` for one process per card (the
 process group, this rank's device, the mesh of ``cfg.mesh`` over the
 world; None at a world of 1), ``build_data`` gives the train and valid
-splits' loaders their ``data_shard`` at a world above 1, ranks above 0 log
+splits' loaders their ``data_shard`` at a world above 1 (over the data axes:
+the tp ranks of a position load the same rows), ranks above 0 log
 warnings only, and ``refuse_world`` stops the CLIs that run on one card.
 
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
@@ -41,8 +42,7 @@ from avsr_tpu_torch.data.loader import DataLoader
 from avsr_tpu_torch.data.tokenizer import load_tokenizer
 from avsr_tpu_torch.infer.adapters import extract_lora, stack_lora_bank, tree_map
 from avsr_tpu_torch.infer.generate import prepare_params_for_decode
-from avsr_tpu_torch.mesh.multihost import (init_distributed, process_shard, refuse_world,
-                                           world_size)
+from avsr_tpu_torch.mesh.multihost import init_distributed, process_shard, refuse_world
 from avsr_tpu_torch.mesh.sharding import Mesh, build_mesh, check_model
 from avsr_tpu_torch.models.avsr import init_avsr_model
 from avsr_tpu_torch.models.layers import Params
@@ -123,19 +123,20 @@ def validate_modality_media(cfg: AVSRConfig, parser: argparse.ArgumentParser, *,
 
 def build_data(cfg: AVSRConfig, split: str = "train", *, shuffle: bool | None = None,
                batch_size: int | None = None, device: str | torch.device = "cuda",
-               whole: bool = False):
+               whole: bool = False, mesh: Mesh | None = None):
     """-> (tokenizer, dataset, loader) of ``split``: ``model.llm_path``'s
     tokenizer, the synthetic or manifest dataset (``data.synthetic``), and
-    a loader shuffling the train split only (unless ``shuffle`` says). At a
-    world above 1 the train and valid loaders yield this rank's rows of
-    each global batch (``data_shard``, as the JAX CLI does), unless
-    ``whole`` (the decode CLI splits whole batches itself)."""
+    a loader shuffling the train split only (unless ``shuffle`` says). With
+    a ``mesh`` the train and valid loaders yield this rank's rows of each
+    global batch (``data_shard``: its position over the data axes, as the
+    JAX CLI splits rows over them; the tp ranks of a position load the same
+    rows), unless ``whole`` (the decode CLI splits whole batches itself)."""
     tok = load_tokenizer(cfg.model.llm_path or None)
     ds = build_dataset(cfg.data, tok, split=split, modality=cfg.model.modality,
                        image_size=cfg.model.image_size)
     data_shard = None
-    if split in ("train", "valid") and world_size() > 1 and not whole:
-        data_shard = process_shard()
+    if split in ("train", "valid") and mesh is not None and not whole:
+        data_shard = (mesh.data.rank, mesh.ways)
     loader = DataLoader(ds, cfg.data, tok, model_cfg=cfg.model, batch_size=batch_size,
                         shuffle=(split == "train") if shuffle is None else shuffle,
                         seed=cfg.training.seed, device=device,
@@ -154,7 +155,7 @@ def maybe_mesh(cfg: AVSRConfig, device: str | torch.device
     device, backend = init_distributed(device)
     if backend is None:
         return device, None
-    check_model(cfg.model)
+    check_model(cfg.model, cfg.mesh.tp, cfg.decode.lm_head_bits)
     rank, world = process_shard()
     return device, build_mesh(cfg.mesh, world=world, rank=rank)
 
@@ -219,7 +220,8 @@ def _restore(checkpoint: str, params_like: Params) -> Params:
 
 def load_decode_params(cfg: AVSRConfig, checkpoint: str | None = None, *,
                        seed: int, device: str | torch.device = "cuda",
-                       return_raw: bool = False) -> Params | tuple[Params, Params]:
+                       return_raw: bool = False,
+                       mesh: Mesh | None = None) -> Params | tuple[Params, Params]:
     """The serving weights, the counterpart of the JAX
     ``load_decode_params``: :func:`init_or_load_params`, the trainable
     leaves (connectors, LoRA) in the compute dtype too (decode never
@@ -227,11 +229,13 @@ def load_decode_params(cfg: AVSRConfig, checkpoint: str | None = None, *,
     ``prepare_params_for_decode`` with ``decode.lm_head_bits``, whose head
     keeps its f32 scale. ``return_raw`` also returns the tree of
     :func:`init_or_load_params` (speculative decoding builds its self-draft
-    from it); it shares the frozen leaves of the serving tree's encoders."""
+    from it); it shares the frozen leaves of the serving tree's encoders.
+    With a ``mesh`` (tp above 1) the serving tree holds this rank's tp
+    slices, cut after the quantization (``prepare_params_for_decode``)."""
     raw = init_or_load_params(cfg, checkpoint, seed=seed, device=device)
     params = prepare_params_for_decode(
         cast_tree(raw, getattr(torch, cfg.runtime.compute_dtype)), cfg.model,
-        lm_head_bits=cfg.decode.lm_head_bits)
+        lm_head_bits=cfg.decode.lm_head_bits, mesh=mesh)
     return (params, raw) if return_raw else params
 
 

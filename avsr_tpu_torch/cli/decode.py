@@ -33,17 +33,23 @@ the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
 the byte tokenizer.
 
 Across processes (``torchrun --nproc_per_node N -m avsr_tpu_torch.cli.decode
-...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp`` over the world) every rank
-loads each batch and decodes its contiguous share of the rows on its own
-card; rank 0 gathers the hypotheses in dataset order and alone writes the
-results and WER files. JAX's ``infer_batch_sharder`` replicates a batch
-that does not divide the data-parallel ways (with a warning); here the
-batch is padded to a multiple of the ways by repeating its last row and
-the padded rows' outputs are dropped. Every rank holds the whole tree,
-which is what gathering an fsdp-sharded tree once at load gives (a gather
-per layer inside the token loop would cost two collectives per layer per
-token). Greedy, beam and speculative hypotheses are a row's own, so they
-equal the single-card decode's; sampling draws from each rank's generator.
+...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp`` over the
+world) every rank loads each batch and decodes its contiguous share of the
+rows (split over the data axes) on its own card; rank 0 gathers the
+hypotheses in dataset order and alone writes the results and WER files.
+JAX's ``infer_batch_sharder`` replicates a batch that does not divide the
+data-parallel ways (with a warning); here the batch is padded to a
+multiple of the ways by repeating its last row and the padded rows'
+outputs are dropped. Every rank holds what fsdp would shard whole, which
+is what gathering an fsdp-sharded tree once at load gives (a gather per
+layer inside the token loop would cost two collectives per layer per
+token). Under ``mesh.tp`` the ranks of a tp group decode the same rows and
+keep their tp slices: the Megatron blocks, their KV cache heads and the
+vocab-sharded embedding and head, whose logits are gathered, so every
+rank takes the same next token (greedy, beam and speculative alike; the
+speculative draft is sliced too). Greedy, beam and speculative hypotheses
+are a row's own, so they equal the single-card decode's (in f32);
+sampling draws from each rank's generator.
 The continuous-batching engine (``decode.engine_slots``) runs on one card.
 """
 
@@ -138,17 +144,18 @@ def _warn_if_speculative_loses(cfg: AVSRConfig,
 
 
 def load_draft(cfg: AVSRConfig, checkpoint: str | None, *, seed: int,
-               device: torch.device
+               device: torch.device, mesh=None
                ) -> tuple[Params, Params, ModelConfig | None]:
     """(target params in the decode layout, draft params, the draft's
     model config or None) for ``decode.speculative``, built as the JAX
     decode CLI builds them: a trained draft from
     ``decode.spec_draft_checkpoint`` with its own config, else the
     target's raw tree (cut to its first ``decode.spec_draft_layers``
-    blocks for layer-skip), quantized to ``decode.spec_draft_bits``."""
+    blocks for layer-skip), quantized to ``decode.spec_draft_bits``. Under
+    a ``mesh`` with tp both hold this rank's tp slices."""
     d = cfg.decode
     if d.spec_draft_checkpoint:
-        params = load_decode_params(cfg, checkpoint, seed=seed, device=device)
+        params = load_decode_params(cfg, checkpoint, seed=seed, device=device, mesh=mesh)
         dcfg_full = load_config(d.spec_draft_config)
         draft_cfg = dcfg_full.model
         if draft_cfg.llm.vocab_size != cfg.model.llm.vocab_size:
@@ -157,14 +164,15 @@ def load_draft(cfg: AVSRConfig, checkpoint: str | None, *, seed: int,
                 f"{draft_cfg.llm.vocab_size} vs {cfg.model.llm.vocab_size}")
         d_raw = init_or_load_params(dcfg_full, d.spec_draft_checkpoint, seed=seed,
                                     device=device)
-        return params, make_draft_params(d_raw, draft_cfg, bits=d.spec_draft_bits), draft_cfg
+        return params, make_draft_params(d_raw, draft_cfg, bits=d.spec_draft_bits,
+                                         mesh=mesh), draft_cfg
     params, raw = load_decode_params(cfg, checkpoint, seed=seed, device=device,
-                                     return_raw=True)
+                                     return_raw=True, mesh=mesh)
     draft_cfg = None
     if d.spec_draft_layers > 0:
         raw, draft_cfg = make_layerskip_draft(raw, cfg.model, d.spec_draft_layers)
     return params, make_draft_params(raw, draft_cfg or cfg.model,
-                                     bits=d.spec_draft_bits), draft_cfg
+                                     bits=d.spec_draft_bits, mesh=mesh), draft_cfg
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -180,7 +188,8 @@ def main(argv: list[str] | None = None) -> int:
     draft_params = draft_cfg = None
     if d.speculative:
         params, draft_params, draft_cfg = load_draft(cfg, args.checkpoint,
-                                                     seed=args.seed, device=device)
+                                                     seed=args.seed, device=device,
+                                                     mesh=mesh)
         log.info("speculative decode: int%d %s-draft, gamma=%d", d.spec_draft_bits,
                  "trained-separate" if d.spec_draft_checkpoint
                  else f"{d.spec_draft_layers}-layer-skip" if d.spec_draft_layers
@@ -188,7 +197,7 @@ def main(argv: list[str] | None = None) -> int:
         _warn_if_speculative_loses(cfg, draft_model_cfg=draft_cfg)
     else:
         params = load_decode_params(cfg, args.checkpoint, seed=args.seed,
-                                    device=device)
+                                    device=device, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     # a trained draft ran its own encoders in training; the target's prefix
     # would feed it activations it never learned to read

@@ -20,14 +20,17 @@ under ``data.path`` (``{train,valid}.{tsv,wrd}``, e.g. written by
 validation. The tokenizer is ``model.llm_path``'s, or the byte tokenizer.
 
 Across processes, one per card (torchrun's environment; ``mesh.dp``,
-``mesh.fsdp`` and ``mesh.dcn_dp`` over the world, ``mesh.dp=-1`` inferred
-from it):
+``mesh.fsdp``, ``mesh.dcn_dp`` and ``mesh.tp`` over the world,
+``mesh.dp=-1`` inferred from it):
 
     torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.fsdp=2
+    torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.tp=2
 
 each rank loads its rows of every global batch (``data.batch_size`` stays
-the global batch), the probe runs under the mesh, and rank 0 alone writes
-the logs and checkpoints, which resume at any world.
+the global batch; the rows split over the data axes, and the tp ranks of
+a data position load the same rows and run Megatron blocks on their
+slices), the probe runs under the mesh, and rank 0 alone writes the logs
+and checkpoints (the full tree), which resume at any world.
 """
 
 from __future__ import annotations
@@ -65,9 +68,10 @@ def main(argv: list[str] | None = None) -> int:
             log.info("auto_batch_size: %d -> %d", cfg.data.batch_size, best)
             cfg = dataclasses.replace(
                 cfg, data=dataclasses.replace(cfg.data, batch_size=best))
-    tok, _, train_loader = build_data(cfg, "train", device=device)
+    tok, _, train_loader = build_data(cfg, "train", device=device, mesh=mesh)
     try:
-        _, _, val_loader = build_data(cfg, "valid", shuffle=False, device=device)
+        _, _, val_loader = build_data(cfg, "valid", shuffle=False, device=device,
+                                      mesh=mesh)
     except FileNotFoundError:
         log.warning("no validation split found — training without val")
         val_loader = None

@@ -551,17 +551,18 @@ def _check_moe(cfg: AVSRConfig) -> None:
 
 def _check_ported(cfg: AVSRConfig) -> None:
     """Raises for the mesh axes the port does not run yet. The data axes
-    (``dp``, ``fsdp``, ``dcn_dp``) run one process per card
-    (``mesh/sharding.py``); ``tp``, ``sp``, ``ep`` and ``pp`` change the
-    model's own code and come with the next slice."""
+    (``dp``, ``fsdp``, ``dcn_dp``) and ``tp`` run one process per card
+    (``mesh/sharding.py``); ``sp``, ``ep`` and ``pp`` change the model's
+    own code and come with the next slices."""
     mesh = cfg.mesh
-    axes = {"tp": mesh.tp, "sp": mesh.sp, "ep": mesh.ep, "pp": mesh.pp}
+    axes = {"sp": mesh.sp, "ep": mesh.ep, "pp": mesh.pp}
     wide = [f"mesh.{k}={v}" for k, v in axes.items() if v > 1]
     if wide:
         raise NotImplementedError(
             f"{', '.join(wide)}: the port runs the data axes (mesh.dp, "
-            "mesh.fsdp, mesh.dcn_dp) across processes; tensor, sequence, "
-            "expert and pipeline parallelism are the next slice of the port")
+            "mesh.fsdp, mesh.dcn_dp) and tensor parallelism (mesh.tp) across "
+            "processes; sequence, expert and pipeline parallelism are the next "
+            "slices of the port (mesh.sp first, then mesh.ep and mesh.pp)")
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import torch
 
 from avsr_tpu_torch.core.config import DecodeConfig, ModelConfig
 from avsr_tpu_torch.core.logging import trace_range
+from avsr_tpu_torch.mesh.sharding import shard_params
 from avsr_tpu_torch.models import llama as L
 from avsr_tpu_torch.models.avsr import Batch, build_prefix, encode
 from avsr_tpu_torch.models.layers import Params
@@ -49,16 +50,22 @@ class GenOut(NamedTuple):
 
 
 def prepare_params_for_decode(params: Params, model_cfg: ModelConfig,
-                              lm_head_bits: int = 0) -> Params:
+                              lm_head_bits: int = 0, mesh=None) -> Params:
     """The one-time inference layout: q|k|v and gate|up of the LLM fused
     (``llama.fuse_decode_layout``), so a decode step makes 4 projection
     products per layer instead of 7, and with ``lm_head_bits``
     (decode.lm_head_bits) the hidden -> vocab projection quantized
-    (``quantize_llm``; its scale stays f32)."""
+    (``quantize_llm``; its scale stays f32). With a ``mesh`` whose tp is
+    above 1 the tree is cut to this rank's tp slices after the head is
+    quantized (so its scales are one card's) and before the fusion (each
+    rank fuses its own slices); what fsdp would shard stays whole."""
     llm = params["llm"]
     if lm_head_bits:
         llm = quantize_llm(llm, 0, lm_head_bits=lm_head_bits)
-    return {**params, "llm": L.fuse_decode_layout(llm)}
+    params = {**params, "llm": llm}
+    if mesh is not None:
+        params = shard_params(params, mesh, axes=("tp",))
+    return {**params, "llm": L.fuse_decode_layout(params["llm"])}
 
 
 def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -331,7 +338,8 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
         t0 = t1
 
     hd = cfg.d_model // cfg.n_heads
-    suf_shape = (cfg.n_layers, B * W, cfg.n_kv_heads, Ms, hd)
+    nkv = L.local_heads(cfg, L.llm_tp(params["llm"]))[1]
+    suf_shape = (cfg.n_layers, B * W, nkv, Ms, hd)
     suf_cache = L.KVCache(torch.zeros(suf_shape, dtype=dt, device=dev),
                           torch.zeros(suf_shape, dtype=dt, device=dev))
     kv_pending = (torch.zeros(suf_shape[:3] + (hd,), dtype=dt, device=dev),) * 2

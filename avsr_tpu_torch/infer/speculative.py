@@ -34,6 +34,7 @@ import torch
 
 from avsr_tpu_torch.core.config import ModelConfig
 from avsr_tpu_torch.infer.generate import GenOut, _top_p_filter
+from avsr_tpu_torch.mesh.sharding import shard_params
 from avsr_tpu_torch.models import llama as L
 from avsr_tpu_torch.models.avsr import Batch, build_prefix, encode
 from avsr_tpu_torch.models.layers import Params
@@ -114,12 +115,15 @@ def break_even_tokens_per_pass(model_cfg: ModelConfig, *, bits: int, gamma: int,
     return gamma * (bits / 16.0) * (l_draft / n_layers) + 1.0
 
 
-def make_draft_params(params: Params, model_cfg: ModelConfig, bits: int = 8) -> Params:
+def make_draft_params(params: Params, model_cfg: ModelConfig, bits: int = 8,
+                      mesh=None) -> Params:
     """The self-draft: the same LLM with LoRA merged, its projections and
     its head quantized to ``bits`` and laid out for decode (q|k|v and
     gate|up fused), so a draft step makes 4 qmatmul launches per layer and
     one for the head. Takes the raw tree (unfused, unquantized) and refuses
-    any other, as the JAX package does."""
+    any other, as the JAX package does. Under a ``mesh`` with tp the
+    quantized LLM is cut to this rank's tp slices before the fusion (the
+    draft's encoders are the tree's own)."""
     llm = params["llm"]
     layer0 = llm["layers"][0]
     if "qkv" in layer0 or "gateup" in layer0:
@@ -134,8 +138,10 @@ def make_draft_params(params: Params, model_cfg: ModelConfig, bits: int = 8) -> 
             "— pass a layer-skip or separate draft instead)")
     if model_cfg.lora.use_lora:
         llm = L.merge_lora(llm, model_cfg.lora)
-    return {**params, "llm": L.fuse_decode_layout(
-        quantize_llm(llm, bits, lm_head_bits=bits))}
+    llm = quantize_llm(llm, bits, lm_head_bits=bits)
+    if mesh is not None:
+        llm = shard_params({"llm": llm}, mesh, axes=("tp",))["llm"]
+    return {**params, "llm": L.fuse_decode_layout(llm)}
 
 
 def make_layerskip_draft(params: Params, model_cfg: ModelConfig,

@@ -1,6 +1,6 @@
-"""Data parallelism and fsdp across processes: the port of
-``avsr_tpu/mesh/`` for the data axes (``sharding.py``, ``multihost.py``;
-every collective in ``collectives.py``)."""
+"""Data parallelism, fsdp and tensor parallelism across processes: the
+port of ``avsr_tpu/mesh/`` for the data axes and ``tp`` (``sharding.py``,
+``multihost.py``; every collective in ``collectives.py``)."""
 
 from avsr_tpu_torch.mesh.multihost import (  # noqa: F401
     data_parallel_ways,

@@ -2,9 +2,24 @@
 across processes goes through a :class:`Group`, over the default process
 group's backend (NCCL on the card, gloo on the CPU or when ranks share a
 card), which takes each of them on the tensors' own device: gloo takes
-all four on CUDA tensors too (``chip_smoke.py``'s phase 21 asks the
-backend and fails if it refuses one), so nothing is swapped or staged
-behind the caller's back.
+them on CUDA tensors too. :data:`BACKEND_TABLE` lists every collective
+the port makes, the three Megatron operators of tensor parallelism
+included, and :func:`probe_backend` asks the backend for each
+(``chip_smoke.py``'s phases 21 and 22 print the answers and fail if it
+refuses one), so nothing is swapped or staged behind the caller's back.
+
+Tensor parallelism (``mesh.tp``) uses three autograd operators over the
+``tp`` group, Megatron's f, g and gather:
+
+  * :func:`copy_to_tp`: identity forward, all-reduce backward (the input
+    of a column-parallel product, and a replicated leaf that a rank uses
+    a slice of, so that its gradient is summed over the group once);
+  * :func:`reduce_from_tp`: all-reduce forward, identity backward (the
+    partial sums of a row-parallel product);
+  * :func:`gather_from_tp`: all-gather forward, slice backward (the
+    vocab-sharded logits, and a tp-sharded leaf gathered where it is used:
+    every rank of the group computes the same gradient of the whole leaf,
+    so each keeps its own slice of it).
 
 :class:`EchoGroup` stands in for a group without talking to any other
 process: its gathers repeat the local tensor and its reductions return it,
@@ -89,6 +104,70 @@ class Group:
         return out
 
 
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return group.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        g = ctx.group
+        return grad.chunk(g.size, dim=ctx.dim)[g.rank].contiguous(), None, None
+
+
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, whose gradient is summed over ``group`` (None: ``x``)."""
+    if group is None or group.size == 1 or not _grad_path(x):
+        return x
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; the gradient passes through as it is."""
+    if group is None or group.size == 1:
+        return x
+    if _grad_path(x):
+        return _ReduceFromTP.apply(x, group)
+    return group.all_reduce(x.contiguous())
+
+
+def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; the gradient of the
+    whole is sliced back to this rank's part."""
+    if group is None or group.size == 1:
+        return x
+    dim = dim % x.ndim
+    if _grad_path(x):
+        return _GatherFromTP.apply(x, group, dim)
+    return group.all_gather(x, dim)
+
+
 def make_groups(rank_lists: list[list[int]]) -> Group:
     """The group of ``rank_lists`` that holds this rank. Creating a process
     group is collective over the world, so every rank passes the same lists
@@ -107,6 +186,65 @@ def make_groups(rank_lists: list[list[int]]) -> Group:
     if mine is None:
         raise ValueError(f"rank {me} is in none of {rank_lists}")
     return mine
+
+
+# Every collective the port makes, as (the call on the default group, the
+# dtypes it moves): the data axes' reductions, gathers and reduce-scatters,
+# and tensor parallelism's three operators, forward and backward.
+BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
+    "all_reduce_sum": ("all_reduce sum: gradients, metrics, reduce_from_tp forward, "
+                       "copy_to_tp backward", ("float32", "bfloat16")),
+    "all_reduce_max": ("all_reduce max: decisions every rank takes", ("float32",)),
+    "all_reduce_min": ("all_reduce min: the batch-size probe", ("float32",)),
+    "broadcast": ("broadcast: rank 0's checkpoint decision", ("float32",)),
+    "all_gather": ("all_gather: fsdp and tp gathers, gather_from_tp forward",
+                   ("float32", "bfloat16", "int8", "uint8")),
+    "reduce_scatter": ("reduce_scatter: the fsdp gather's backward", ("float32", "bfloat16")),
+}
+
+
+def probe_backend(device: str | torch.device) -> dict[str, str]:
+    """Whether the default process group's backend takes each collective
+    of :data:`BACKEND_TABLE` on tensors of each of its dtypes on
+    ``device`` ("yes", or the error), through :class:`Group` and the tp
+    operators as the port calls them. Every rank makes the same calls in
+    order."""
+    world = make_groups([list(range(dist.get_world_size()))])
+    n = world.size
+    out: dict[str, str] = {}
+
+    def x(dtype: str, k: int = 4) -> torch.Tensor:
+        return torch.ones(k * n, device=device).to(getattr(torch, dtype))
+
+    calls: dict[str, Any] = {}
+    for name, (_, dtypes) in BACKEND_TABLE.items():
+        for dt in dtypes:
+            if name.startswith("all_reduce"):
+                op = name.rsplit("_", 1)[1]
+                calls[f"{name}_{dt}"] = lambda dt=dt, op=op: world.all_reduce(x(dt), op)
+            elif name == "broadcast":
+                calls[f"{name}_{dt}"] = lambda dt=dt: world.broadcast(x(dt))
+            elif name == "all_gather":
+                calls[f"{name}_{dt}"] = lambda dt=dt: world.all_gather(x(dt))
+            else:
+                calls[f"{name}_{dt}"] = lambda dt=dt: world.reduce_scatter(x(dt))
+
+    def megatron(dt: str) -> None:
+        a = x(dt).requires_grad_(True)
+        y = gather_from_tp(reduce_from_tp(copy_to_tp(a, world) * 2, world), world)
+        y.sum().backward()
+
+    for dt in ("float32", "bfloat16"):
+        calls[f"tp_operators_{dt}"] = lambda dt=dt: megatron(dt)
+    for name, call in calls.items():
+        try:
+            call()
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            out[name] = "yes"
+        except Exception as e:  # noqa: BLE001 — reported; the caller fails on it
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
 
 
 class EchoGroup:

@@ -112,7 +112,8 @@ def refuse_world(what: str) -> None:
     if n > 1:
         raise SystemExit(
             f"{what} runs on one card: WORLD_SIZE={n}. Only the train and "
-            "decode CLIs run across processes (mesh.dp, mesh.fsdp, mesh.dcn_dp)")
+            "decode CLIs run across processes (mesh.dp, mesh.fsdp, mesh.dcn_dp, "
+            "mesh.tp)")
 
 
 def _destroy() -> None:

@@ -1,5 +1,5 @@
-"""The mesh of the data axes and the parameter sharding rules, the port of
-``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp`` and ``dcn_dp``.
+"""The mesh and the parameter sharding rules, the port of
+``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp`` and ``tp``.
 
 The JAX package runs one program over every device and lets pjit insert
 the collectives; the port runs one process per card, each holding its own
@@ -8,13 +8,15 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
   * **the mesh**: axes ``(dcn, dp, fsdp, ep, sp, tp, pp)`` over the world's
     ranks in row-major order, as ``build_mesh`` reshapes the device list,
     with ``dp=-1`` inferred from the world size and JAX's message when the
-    product does not match it. A rank's position in the flattened data axes
-    (``dcn``, ``dp``, ``fsdp``; ``ep`` counts too, and is 1 here) is its
-    rank: its rows of a global batch are the contiguous
-    ``multihost.local_rows``;
+    product does not match it. Every group is the set of ranks that differ
+    only in some axes' coordinates (:func:`mesh_groups`). A rank's position
+    in the flattened data axes (``dcn``, ``dp``, ``fsdp``; ``ep`` counts
+    too, and is 1 here) is its rank in the ``data`` group: its rows of a
+    global batch are the contiguous ``multihost.local_rows``; the ``tp``
+    ranks of a data position hold the same rows;
   * **dp / dcn_dp**: every rank holds every parameter; the gradients of a
-    step are summed over all ranks (each rank's loss is its rows' share of
-    the global batch's, ``models/avsr.py::forward``);
+    step are summed over the data group (each rank's loss is its rows'
+    share of the global batch's, ``models/avsr.py::forward``);
   * **fsdp**: JAX's rule table, verbatim. A leaf whose spec names ``fsdp``
     keeps only this rank's slice of that dimension (``shard_params``); the
     model gathers it where it is used (``gather_tree``: each Whisper, CLIP
@@ -22,29 +24,43 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
     subtree once per forward) through an autograd Function whose backward
     reduce-scatters the gradient of a trained leaf over the fsdp group. The
     slices of one leaf are summed over the ranks that hold the same slice
-    (the ``replica`` group) after the step's micro-batches.
+    (the ``replica`` group) after the step's micro-batches;
+  * **tp**: the same table's ``tp`` entries. A leaf keeps this rank's
+    slice of its ``tp`` dimension too (a leaf may be sliced on two
+    dimensions, ``q/w`` ``("fsdp", "tp")``). Whisper, CLIP and Llama blocks
+    run Megatron on their slices (``models/layers.py``,
+    ``models/llama.py``), the embedding and the head split the vocabulary;
+    every other tp-sharded leaf (the connectors, the other encoders, CLIP's
+    ``patch/w``, a block whose heads do not divide) is gathered where it
+    is used, and the gather's backward keeps this rank's slice of the
+    gradient, which every tp rank computed whole. A row-parallel int4 leaf
+    (``o|down|fc2`` ``qw4h``, ``("tp", "fsdp")``) is unpacked, cut to the
+    rank's rows of the weight and packed again (the half-split packing
+    pairs rows i and i + K/2, so a slice of the packed rows is not the
+    rank's rows); its gather undoes that exactly.
 
 The optimizer state of a sharded trained leaf holds the slice
 (``train/state.py``); checkpoints hold the full tree (``gather_leaf``) and
 are sliced again on load (``local_part``), so a run resumes at any world.
-``tp``, ``sp``, ``ep`` and ``pp`` are the next slice (``core/config.py``
-refuses them), and so is mixture of experts over the data axes, whose
-routing JAX computes over the global batch (:func:`check_model`).
+``sp``, ``ep`` and ``pp`` are the next slices (``core/config.py`` refuses
+them), and so is mixture of experts across processes, whose routing JAX
+computes over the global batch (:func:`check_model`).
 """
 
 from __future__ import annotations
 
 import logging
 import re
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from avsr_tpu_torch.core.config import MeshConfig, ModelConfig
-from avsr_tpu_torch.mesh.collectives import EchoGroup, make_groups
-from avsr_tpu_torch.mesh.multihost import data_parallel_ways
+from avsr_tpu_torch.mesh.collectives import EchoGroup, gather_from_tp, make_groups
+from avsr_tpu_torch.mesh.multihost import DATA_AXES, data_parallel_ways
+from avsr_tpu_torch.ops.quant import _unpack_int4, pack_int4
 
 log = logging.getLogger("avsr_tpu_torch.mesh")
 
@@ -57,17 +73,22 @@ AXES = ("dcn", "dp", "fsdp", "ep", "sp", "tp", "pp")
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's view of the mesh: the axis sizes, its coordinates and
-    its three groups. ``data``: every rank (the batch splits over all of
-    them); ``fsdp``: the ranks that share this rank's ``dcn`` and ``dp``
-    coordinates (they hold the slices of one leaf); ``replica``: the ranks
-    with this rank's ``fsdp`` coordinate (they hold the same slices)."""
+    """This rank's view of the mesh: the axis sizes and its groups.
+    ``world``: every rank (decisions every rank must share); ``data``: the
+    ranks that hold different rows (this rank's ``tp`` coordinate);
+    ``fsdp``: the ranks that differ only in their ``fsdp`` coordinate (they
+    hold the slices of one leaf); ``replica``: the ranks with this rank's
+    ``fsdp`` and ``tp`` coordinates (they hold the same slices); ``tp``:
+    the ranks that differ only in their ``tp`` coordinate (one Megatron
+    group, the same rows)."""
 
     shape: dict[str, int]
     rank: int
+    world: Any
     data: Any
     fsdp: Any
     replica: Any
+    tp: Any
 
     @property
     def ways(self) -> int:
@@ -76,14 +97,14 @@ class Mesh:
 
     @property
     def sharded(self) -> bool:
-        return self.shape["fsdp"] > 1
+        return self.shape["fsdp"] > 1 or self.shape["tp"] > 1
 
     def echo(self) -> "Mesh":
         """The same layout over groups that never communicate
         (``collectives.EchoGroup``)."""
-        return replace(self, data=EchoGroup(self.data.size, self.data.rank),
-                       fsdp=EchoGroup(self.fsdp.size, self.fsdp.rank),
-                       replica=EchoGroup(self.replica.size, self.replica.rank))
+        groups = {f.name: getattr(self, f.name) for f in fields(self)
+                  if f.name not in ("shape", "rank")}
+        return replace(self, **{k: EchoGroup(g.size, g.rank) for k, g in groups.items()})
 
 
 def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
@@ -100,31 +121,82 @@ def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
     return dict(zip(AXES, (dcn, dp, fsdp, ep, sp, tp, pp)))
 
 
+# each group: the axes along which its ranks differ
+_GROUP_AXES = {"world": AXES, "data": DATA_AXES, "fsdp": ("fsdp",),
+               "replica": ("dcn", "dp", "ep"), "tp": ("tp",)}
+
+
+def mesh_groups(shape: dict[str, int]) -> dict[str, list[list[int]]]:
+    """Every group of the mesh of ``shape`` as lists of ranks: the ranks
+    laid out row-major over ``AXES`` (rank r at the coordinates of device r
+    in JAX's ``build_mesh``), each group the ranks that share every
+    coordinate but those of its axes, in row-major order over those."""
+    grid = np.arange(int(np.prod([shape[a] for a in AXES]))).reshape(
+        [shape[a] for a in AXES])
+    out = {}
+    for name, axes in _GROUP_AXES.items():
+        vary = [AXES.index(a) for a in axes]
+        keep = [i for i in range(len(AXES)) if i not in vary]
+        size = int(np.prod([shape[a] for a in axes]))
+        out[name] = np.transpose(grid, keep + vary).reshape(-1, size).tolist()
+    return out
+
+
 def build_mesh(cfg: MeshConfig, *, world: int, rank: int) -> Mesh:
     """The mesh over a process group of ``world`` ranks (initialized:
     ``multihost.init_distributed``) as rank ``rank`` sees it. Every rank
     must call it with the same config: it creates process groups, which
-    is collective over the world."""
+    is collective over the world (groups with the same ranks share one)."""
     shape = mesh_shape(cfg, world)
-    # ranks in row-major order over the axes: the fsdp axis is the last
-    # one above 1, so a row of this grid is one fsdp group
-    fsdp = np.arange(world).reshape(-1, shape["fsdp"])
-    mesh = Mesh(shape, rank, data=make_groups([list(range(world))]),
-                fsdp=make_groups(fsdp.tolist()), replica=make_groups(fsdp.T.tolist()))
+    made: dict[str, Any] = {}
+    groups = {}
+    for name, lists in mesh_groups(shape).items():
+        key = repr(lists)
+        if key not in made:
+            made[key] = make_groups(lists)
+        groups[name] = made[key]
+    mesh = Mesh(shape, rank, **groups)
     log.info("mesh: dcn=%d dp=%d fsdp=%d ep=%d sp=%d tp=%d pp=%d over %d ranks",
              *shape.values(), world)
     return mesh
 
 
-def check_model(cfg: ModelConfig) -> None:
-    """Raises for a model the data axes cannot run yet: mixture of experts
+def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0) -> None:
+    """Raises for a model the mesh cannot run yet: mixture of experts
     routes with a capacity and balance losses over the global batch in
-    JAX, which the port's per-rank routing would change."""
+    JAX, which the port's per-rank routing would change. Under ``tp`` a
+    Llama's kv heads must divide (a rank runs whole kv heads), and so must
+    every tp dimension of the model's leaves (:func:`shard_params`' check
+    over the full-size tree as fake tensors, one block of each stack, the
+    head quantized with ``lm_head_bits`` as ``quantize_llm`` pads it)."""
     if cfg.connector_type == "moe" or cfg.llm.moe_experts > 0:
         raise NotImplementedError(
             "mixture of experts across processes routes over the global "
             "batch; it comes with mesh.ep in the next slice of the port. "
             "Run MoE on one card (WORLD_SIZE=1)")
+    if tp <= 1:
+        return
+    if cfg.llm.n_kv_heads % tp:
+        raise ValueError(
+            f"llm/layers/*/k/w: the sharding ('fsdp', 'tp') implies that the global "
+            f"number of kv heads (llm.n_kv_heads) should be divisible by {tp}, but "
+            f"it is equal to {cfg.llm.n_kv_heads}")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.ops.quant import quantize_llm
+
+    one = {k: replace(getattr(cfg, k), n_layers=1) for k in ("whisper", "clip", "llm")}
+    with FakeTensorMode():
+        tree = init_avsr_model(replace(cfg, **one), device="cpu")
+        tree["llm"] = quantize_llm(tree["llm"], 0, lm_head_bits)
+
+    def leaf(path: tuple[str, ...], t: Any) -> None:
+        spec = param_spec(path, t)
+        if "tp" in spec:
+            _check_divides(path, spec, spec.index("tp"), tuple(t.shape), tp)
+
+    _walk(leaf, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -169,36 +241,63 @@ def param_spec(path: str | tuple[str, ...], leaf) -> tuple:
     return ()
 
 
-def fsdp_dim(path: str | tuple[str, ...], leaf) -> int | None:
-    """The dimension of the leaf that the fsdp axis shards, if any."""
-    spec = param_spec(path, leaf)
-    return spec.index("fsdp") if "fsdp" in spec else None
-
-
 # ---------------------------------------------------------------------------
 # Sharded leaves
 # ---------------------------------------------------------------------------
 
 class Shard(NamedTuple):
-    """A leaf that holds its slice ``index`` of ``group.size`` along
-    ``dim``; the full leaf has ``full`` entries there."""
+    """A leaf that holds its slice ``group.rank`` of ``group.size`` along
+    ``dim`` over the mesh axis ``axis``; the full leaf has ``full`` entries
+    there. ``packed``: the dimension is the half-split int4 packing's, and
+    the slice is the rank's rows of the weight, packed again."""
 
     dim: int
     full: int
     group: Any
+    axis: str = "fsdp"
+    packed: bool = False
 
 
 _TAG = "_avsr_shard"
 
 
+def shards_of(t: Any) -> tuple[Shard, ...]:
+    """Every slicing of a leaf, the ``tp`` one first (the order of
+    :func:`shard_params`); () for a whole leaf."""
+    return getattr(t, _TAG, ())
+
+
 def shard_of(t: Any) -> Shard | None:
-    return getattr(t, _TAG, None)
+    """The fsdp slicing of a leaf, or None."""
+    return next((s for s in shards_of(t) if s.axis == "fsdp"), None)
 
 
-def tag(t: torch.Tensor, shard: Shard | None) -> torch.Tensor:
-    if shard is not None:
-        setattr(t, _TAG, shard)
+def tp_of(t: Any) -> Shard | None:
+    """The tp slicing of a leaf, or None."""
+    return next((s for s in shards_of(t) if s.axis == "tp"), None)
+
+
+def tag(t: torch.Tensor, shards: Shard | tuple[Shard, ...] | None) -> torch.Tensor:
+    if isinstance(shards, Shard):
+        shards = (shards,)
+    if shards:
+        setattr(t, _TAG, tuple(shards))
     return t
+
+
+def tp_group(tree: Any) -> Any:
+    """The tp group of the first tp-sliced leaf of ``tree`` (a Megatron
+    block's leaves), or None."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            g = tp_group(v)
+            if g is not None:
+                return g
+        return None
+    s = tp_of(tree)
+    return s.group if s is not None else None
 
 
 def _walk(fn, tree: Any, path: tuple[str, ...] = ()) -> Any:
@@ -209,35 +308,67 @@ def _walk(fn, tree: Any, path: tuple[str, ...] = ()) -> Any:
     return fn(path, tree)
 
 
-def shard_params(params: Any, mesh: Mesh) -> Any:
-    """A tree whose leaves with an fsdp spec hold this rank's slice (a
-    copy, tagged with its :class:`Shard`); the other leaves are the same
-    tensors. A dimension that does not divide raises, as
-    ``jax.device_put`` does. Without fsdp the tree comes back as it is."""
-    if not mesh.sharded:
+def _take(t: torch.Tensor, s: Shard, index: int) -> torch.Tensor:
+    """Part ``index`` of the full ``t`` under the slicing ``s``."""
+    if not s.packed:
+        return t.chunk(s.group.size, dim=s.dim)[index]
+    rows = _unpack_int4(t)
+    return pack_int4(rows.chunk(s.group.size, dim=0)[index])
+
+
+def _join(parts: torch.Tensor, s: Shard) -> torch.Tensor:
+    """The full leaf from every rank's part, concatenated along ``s.dim``."""
+    if not s.packed:
+        return parts
+    return pack_int4(torch.cat([_unpack_int4(p) for p in parts.chunk(s.group.size)]))
+
+
+def _check_divides(path: tuple[str, ...], spec: tuple, d: int, shape: tuple,
+                   ways: int, n: int | None = None) -> None:
+    """Raises ``jax.device_put``'s message unless the size ``n`` (by
+    default the full shape's) of dimension ``d`` divides over ``ways``."""
+    n = shape[d] if n is None else n
+    if n % ways:
+        raise ValueError(
+            f"{'/'.join(path)}: the sharding {spec} implies "
+            f"that the global size of its dimension {d} should be divisible "
+            f"by {ways}, but it is equal to {n} (full shape: {shape})")
+
+
+def shard_params(params: Any, mesh: Mesh, axes: tuple[str, ...] = ("fsdp", "tp")) -> Any:
+    """A tree whose leaves with an fsdp or tp spec (of ``axes``) hold this
+    rank's slice (a copy, tagged with its slicings, :class:`Shard`); the other
+    leaves are the same tensors. A dimension that does not divide raises,
+    as ``jax.device_put`` does. Without such an axis above 1 the tree comes
+    back as it is. The decode CLI passes ``axes=("tp",)``: it holds what
+    fsdp would shard whole."""
+    groups = {a: getattr(mesh, a) for a in ("tp", "fsdp") if a in axes and mesh.shape[a] > 1}
+    if not groups:
         return params
-    g = mesh.fsdp
 
     def leaf(path: tuple[str, ...], t: Any) -> Any:
         if not isinstance(t, torch.Tensor):
             return t
-        d = fsdp_dim(path, t)
-        if d is None:
+        spec = param_spec(path, t)
+        out, shards = t.detach(), []
+        for axis, g in groups.items():     # tp first: the int4 repack reads whole rows
+            if axis not in spec:
+                continue
+            d = spec.index(axis)
+            n = out.shape[d]
+            _check_divides(path, spec, d, tuple(t.shape), g.size, n)
+            s = Shard(d, n, g, axis, packed=axis == "tp" and d == 0 and path[-1] == "qw4h")
+            out = _take(out, s, g.rank)
+            shards.append(s)
+        if not shards:
             return t
-        n = t.shape[d]
-        if n % g.size:
-            raise ValueError(
-                f"{'/'.join(path)}: the sharding {param_spec(path, t)} implies "
-                f"that the global size of its dimension {d} should be divisible "
-                f"by {g.size}, but it is equal to {n} (full shape: {tuple(t.shape)})")
-        part = t.detach().chunk(g.size, dim=d)[g.rank].clone()
-        return tag(part, Shard(d, n, g))
+        return tag(out.clone(), tuple(shards))
 
     return _walk(leaf, params)
 
 
 class _Gather(torch.autograd.Function):
-    """The full leaf from its slices; the backward reduce-scatters the
+    """The full leaf from its fsdp slices; the backward reduce-scatters the
     gradient over the group (each rank keeps the sum of its slice)."""
 
     @staticmethod
@@ -250,48 +381,55 @@ class _Gather(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
 
 
-def gather_leaf(t: Any) -> Any:
-    """The full tensor of a sharded leaf (through the autograd Function
-    when it needs a gradient), or the leaf itself."""
-    s = shard_of(t)
-    if s is None:
-        return t
-    if t.requires_grad and torch.is_grad_enabled():
-        return _Gather.apply(t, s.dim, s.group)
-    return s.group.all_gather(t, s.dim)
+def gather_leaf(t: Any, keep_tp: bool = False) -> Any:
+    """The full tensor of a sharded leaf (through autograd Functions when
+    it needs a gradient), or the leaf itself. ``keep_tp`` gathers the fsdp
+    slicing only and keeps (and tags) the tp slice: a Megatron block's
+    view of its leaves."""
+    fs, tp = shard_of(t), tp_of(t)
+    out = t
+    if fs is not None:
+        if t.requires_grad and torch.is_grad_enabled():
+            out = _Gather.apply(t, fs.dim, fs.group)
+        else:
+            out = fs.group.all_gather(t, fs.dim)
+    if tp is None:
+        return out
+    if keep_tp:
+        return tag(out, tp) if out is not t else t
+    if tp.packed:       # integer leaves: never trained
+        return _join(tp.group.all_gather(out, 0), tp)
+    return gather_from_tp(out, tp.group, tp.dim)
 
 
-def gather_tree(tree: Any) -> Any:
-    """``tree`` with every sharded leaf gathered; new containers, the same
-    tensors elsewhere."""
-    return _walk(lambda _, t: gather_leaf(t), tree)
+def gather_tree(tree: Any, keep_tp: bool = False) -> Any:
+    """``tree`` with every sharded leaf gathered (``keep_tp``: its fsdp
+    slicing only); new containers, the same tensors elsewhere."""
+    return _walk(lambda _, t: gather_leaf(t, keep_tp), tree)
 
 
 def is_sharded(tree: Any) -> bool:
     found = []
-    _walk(lambda _, t: found.append(shard_of(t) is not None), tree)
+    _walk(lambda _, t: found.append(bool(shards_of(t))), tree)
     return any(found)
 
 
 def full_shape(t: torch.Tensor) -> torch.Size:
-    s = shard_of(t)
-    if s is None:
-        return t.shape
     shape = list(t.shape)
-    shape[s.dim] = s.full
+    for s in shards_of(t):
+        shape[s.dim] = s.full
     return torch.Size(shape)
 
 
 def local_part(full: torch.Tensor, like: torch.Tensor, what: str = "") -> torch.Tensor:
     """This rank's slice of ``full`` for the leaf ``like`` (sharded or not);
     raises unless ``full`` has the full leaf's shape."""
-    s = shard_of(like)
     want = full_shape(like)
     if full.shape != want:
         raise ValueError(f"{what} has shape {tuple(full.shape)}, expected {tuple(want)}")
-    if s is None:
-        return full
-    return full.chunk(s.group.size, dim=s.dim)[s.group.rank]
+    for s in shards_of(like):
+        full = _take(full, s, s.group.rank)
+    return full
 
 
 # ---------------------------------------------------------------------------

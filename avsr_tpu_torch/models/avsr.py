@@ -184,8 +184,9 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     single-input MoE connectors' aux losses are averaged. Sharded leaves
     (fsdp, ``mesh/sharding.py``) are gathered where they are used."""
     conn = get_connector(cfg.connector_type)
-    # under fsdp the other encoders and the connectors gather their whole
-    # subtree here; Whisper and CLIP gather block by block
+    # under fsdp and tp the other encoders and the connectors gather their
+    # whole subtree here; Whisper and CLIP gather (fsdp) or run Megatron
+    # (tp) block by block
     params = {k: v if k in ("whisper", "clip", "llm") else gather_tree(v)
               for k, v in params.items()}
     frozen = cfg.freeze_encoders and not cfg.unfreeze_layer_norms
@@ -292,9 +293,17 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     ``shard.group``), so ``loss`` and ``accuracy`` are this rank's shares
     of the global values, which sum to them, and the dropout masks are
     these rows' masks of the global batch. The embedding and the head
-    gather their sharded leaves once here."""
+    gather their fsdp-sharded leaves once here; under tp they keep their
+    vocab slices, and the label-position logits come back gathered over
+    the vocabulary (``llama.compute_logits``), so the log-sum-exp, the
+    target's logit and the argmax (ties to the lowest index, as
+    ``jnp.argmax``) are one card's. The gather was chosen over a
+    vocab-parallel cross-entropy: it gives the same bits with no new loss
+    code, and the [B, Tl, V] label logits it moves are small beside a
+    step's activations."""
     llm = params["llm"]
-    params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"}),
+    params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"},
+                                              keep_tp=True),
                                 "layers": llm["layers"]}}
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
                  use_kernel=use_kernel, remat=remat)

@@ -9,7 +9,10 @@ feature the model consumes is taken before it.
 At CLIP-B/32 a frame is 50 tokens, below the kernel's 256-token threshold,
 so attention takes the plain path, as in the JAX package. ``remat``
 recomputes each block in the backward while grad mode is on. Under fsdp
-each block gathers its sharded leaves when it runs.
+each block gathers its sharded leaves when it runs; under tp each block
+runs Megatron on its slices (12 heads over tp=2 or 4; over 8 it gathers
+and runs whole) and the patch projection, sharded by its columns, is
+gathered where it is used.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import ClipConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
+from avsr_tpu_torch.mesh.sharding import gather_leaf
 from avsr_tpu_torch.models.layers import (
     Params,
     encoder_block_init,
@@ -70,7 +74,7 @@ def clip_vit_apply(params: Params, frames: torch.Tensor, cfg: ClipConfig, *,
     flat = frames.reshape(B * T, *frames.shape[2:]).to(compute_dtype)
 
     x = patchify(flat, cfg.patch_size)
-    x = torch.matmul(x, params["patch"]["w"].to(compute_dtype))
+    x = torch.matmul(x, gather_leaf(params["patch"]["w"]).to(compute_dtype))
     cls = params["cls"].to(compute_dtype).expand(x.shape[0], 1, cfg.d_model)
     x = torch.cat([cls, x], dim=1)                  # [N, P+1, d]
     x = x + params["pos"].to(compute_dtype)[None]

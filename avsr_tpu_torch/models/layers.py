@@ -11,16 +11,20 @@ tensors on that generator's device.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from avsr_tpu_torch.mesh.sharding import gather_tree
+from avsr_tpu_torch.mesh.collectives import copy_to_tp, reduce_from_tp
+from avsr_tpu_torch.mesh.sharding import gather_tree, tp_group
 from avsr_tpu_torch.ops.attention import attention
 
 Params = dict[str, Any]
+
+log = logging.getLogger("avsr_tpu_torch.models")
 
 
 # ---------------------------------------------------------------------------
@@ -59,11 +63,28 @@ def norm_init(gen: torch.Generator, dim: int, *,
 # Primitive apply functions
 # ---------------------------------------------------------------------------
 
-def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b, computing in x.dtype."""
+def split_leaf(t: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """This tp rank's slice along ``dim`` of a replicated leaf that a
+    Megatron block uses in parts (a column-parallel bias, a LoRA factor);
+    its gradient is summed over the group (``copy_to_tp``), so it counts
+    once. Without a group (None, or of one rank): ``t``."""
+    if tp is None or tp.size == 1:
+        return t
+    return copy_to_tp(t, tp).chunk(tp.size, dim=dim)[tp.rank]
+
+
+def dense(p: Params, x: torch.Tensor, tp=None, *, row: bool = False) -> torch.Tensor:
+    """x @ w + b, computing in x.dtype. Under tensor parallelism (``tp``, a
+    Megatron block's group) ``w`` is this rank's column slice, and the
+    replicated bias is cut to the same columns; with ``row`` it is this
+    rank's row slice over its slice of the input features, the partial
+    products are summed over the group (``reduce_from_tp``) and the bias is
+    added once, after the sum."""
     y = torch.matmul(x, p["w"].to(x.dtype))
+    if row:
+        y = reduce_from_tp(y, tp)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + (p["b"] if row else split_leaf(p["b"], tp)).to(x.dtype)
     return y
 
 
@@ -124,20 +145,23 @@ def mha_apply(p: Params, x: torch.Tensor, *, n_heads: int,
               lengths: torch.Tensor | None = None,
               kv_lengths: torch.Tensor | None = None,
               kv_valid: torch.Tensor | None = None,
-              use_kernel: str = "auto") -> torch.Tensor:
+              use_kernel: str = "auto", tp=None) -> torch.Tensor:
     """Bidirectional self-attention (``kv`` None) or cross-attention over
     [B, T, D] activations. Queries past ``lengths`` and keys past
     ``kv_lengths`` (``lengths`` for self-attention) are masked;
     ``kv_valid`` [B, Tk] masks arbitrary key positions (it always takes
-    mha_reference, as in JAX)."""
+    mha_reference, as in JAX). Under tp (Megatron) q, k and v are
+    column-parallel and o row-parallel: attention runs on the rank's
+    ``n_heads / tp`` heads, and the result is summed over the group."""
     src = x if kv is None else kv
-    q = split_heads(dense(p["q"], x), n_heads)
-    k = split_heads(dense(p["k"], src), n_heads)
-    v = split_heads(dense(p["v"], src), n_heads)
+    heads = n_heads // (tp.size if tp is not None else 1)
+    q = split_heads(dense(p["q"], x, tp), heads)
+    k = split_heads(dense(p["k"], src, tp), heads)
+    v = split_heads(dense(p["v"], src, tp), heads)
     out = attention(q, k, v, q_lens=lengths,
                     kv_lens=kv_lengths if kv is not None else lengths,
                     kv_valid=kv_valid, use_kernel=use_kernel)
-    return dense(p["o"], merge_heads(out))
+    return dense(p["o"], merge_heads(out), tp, row=True)
 
 
 # ---------------------------------------------------------------------------
@@ -158,19 +182,38 @@ def encoder_block_init(gen: torch.Generator, d_model: int, ffn_dim: int, *,
 
 def encoder_block_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                         lengths: torch.Tensor | None = None, act=gelu,
-                        use_kernel: str = "auto") -> torch.Tensor:
-    h = layer_norm(p["ln1"], x)
+                        use_kernel: str = "auto", tp=None) -> torch.Tensor:
+    """A pre-LN block. Under tp (Megatron) it runs on this rank's slices:
+    fc1 column-parallel, fc2 row-parallel (see :func:`mha_apply`), one
+    all-reduce after the attention and one after the MLP (their backward:
+    one all-reduce each of the normed inputs' gradients)."""
+    h = copy_to_tp(layer_norm(p["ln1"], x), tp)
     x = x + mha_apply(p["attn"], h, n_heads=n_heads, lengths=lengths,
-                      use_kernel=use_kernel)
-    h = layer_norm(p["ln2"], x)
-    return x + dense(p["fc2"], act(dense(p["fc1"], h)))
+                      use_kernel=use_kernel, tp=tp)
+    h = copy_to_tp(layer_norm(p["ln2"], x), tp)
+    return x + dense(p["fc2"], act(dense(p["fc1"], h, tp)), tp, row=True)
 
 
-def gathered_block(p: Params, x: torch.Tensor, **kw) -> torch.Tensor:
-    """:func:`encoder_block_apply` with the block's sharded leaves (fsdp)
-    gathered first: inside a remat'ed block the recomputation gathers them
-    again rather than keeping them."""
-    return encoder_block_apply(gather_tree(p), x, **kw)
+_WHOLE_LOGGED: set[tuple[int, int]] = set()
+
+
+def gathered_block(p: Params, x: torch.Tensor, *, n_heads: int, **kw) -> torch.Tensor:
+    """One Whisper or CLIP block with its fsdp-sharded leaves gathered
+    first (inside a remat'ed block the recomputation gathers them again
+    rather than keeping them). Under tp it runs Megatron on its slices; a
+    block whose heads do not divide by tp (CLIP-B/32's 12 at tp=8) gathers
+    its tp slices too and runs whole, as the JAX package computes it,
+    logged once per shape."""
+    p = gather_tree(p, keep_tp=True)
+    tp = tp_group(p)
+    if tp is not None and n_heads % tp.size:
+        if (n_heads, tp.size) not in _WHOLE_LOGGED:
+            _WHOLE_LOGGED.add((n_heads, tp.size))
+            log.warning("an encoder block's %d heads do not divide over tp=%d: "
+                        "it gathers its slices and runs whole on every rank",
+                        n_heads, tp.size)
+        p, tp = gather_tree(p), None
+    return encoder_block_apply(p, x, n_heads=n_heads, tp=tp, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ masks are drawn from generators seeded per (call, layer, global row) inside
 the block, so the recomputation draws the same masks (``checkpoint``
 replays only the default generators' state) and a rank holding some rows
 of a batch draws those rows of a single card's masks. Under fsdp each
-block gathers its sharded leaves when it runs (``mesh/sharding.py``). On a quantized base (QLoRA) the base
+block gathers its sharded leaves when it runs (``mesh/sharding.py``);
+under tp each block, the decode steps and the KV cache run the rank's
+heads and slices (Megatron), the embedding looks up its vocab range and
+the head gives its vocab columns, gathered. On a quantized base (QLoRA) the base
 product carries the gradient of x through ``qdot``'s autograd Function
 (``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
@@ -66,8 +69,9 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
-from avsr_tpu_torch.mesh.sharding import gather_tree
-from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm
+from avsr_tpu_torch.mesh.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
+from avsr_tpu_torch.mesh.sharding import Shard, gather_tree, tag, tp_group, tp_of
+from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm, split_leaf
 from avsr_tpu_torch.ops import moe
 from avsr_tpu_torch.ops.attention import attention
 from avsr_tpu_torch.ops.quant import is_quantized, qdot
@@ -110,29 +114,49 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
          lora_dropout: float = 0.0,
          generator: torch.Generator | list[torch.Generator] | None = None,
-         use_kernel: str = "auto") -> torch.Tensor:
+         use_kernel: str = "auto", tp=None, row: bool = False) -> torch.Tensor:
     """x @ W (no bias) + lora_scale * (x' @ a) @ b when the node has LoRA,
     in x.dtype. W is a full-precision "w" or a quantized base ("qw"/"qw4h"
     + "scale"), which goes through ``qdot`` with ``use_kernel``. x' is x,
     or with ``generator`` and ``lora_dropout`` > 0 its dropout: each
     element kept with probability 1 - p and scaled by 1 / (1 - p); the
     base product always sees x. ``generator`` is one generator, or one per
-    row of x (row i's mask drawn from generator i alone)."""
+    row of x (row i's mask drawn from generator i alone).
+
+    Under tensor parallelism (``tp``, a Megatron block's group) W is this
+    rank's column slice, or with ``row`` its row slice and x this rank's
+    slice of the input features; the replicated adapter is cut to match
+    (column-parallel s·(x' a) b[:, r], row-parallel s·(x'_r a[r, :]) b,
+    each factor's gradient summed over the group once), and a row-parallel
+    x' takes this rank's columns of the full row's dropout mask, so the
+    masks are one card's. A row-parallel result is this rank's partial sum:
+    the caller sums it over the group once."""
     dt = x.dtype
     if "w" in p:
         y = torch.matmul(x, p["w"].to(dt))
     else:
         y = qdot(x, p, use_kernel=use_kernel)
     if lora_scale and "lora" in p:
-        a, b = p["lora"]["a"].to(dt), p["lora"]["b"].to(dt)
+        a, b = p["lora"]["a"], p["lora"]["b"]
+        if row:
+            a, b = split_leaf(a, tp, 0), copy_to_tp(b, tp)
+        else:
+            # a fused decode layout's b holds its rank's columns already
+            a = copy_to_tp(a, tp)
+            b = b if tp_of(b) is not None else split_leaf(b, tp, -1)
+        a, b = a.to(dt), b.to(dt)
         xl = x
         if generator is not None and lora_dropout > 0.0:
+            parts = tp.size if tp is not None and row else 1
+            shape = (*x.shape[:-1], x.shape[-1] * parts)
             if isinstance(generator, torch.Generator):
-                u = torch.rand(x.shape, generator=generator, device=x.device)
+                u = torch.rand(shape, generator=generator, device=x.device)
             else:
-                u = torch.empty(x.shape, device=x.device)
-                for row, g in zip(u, generator):
-                    torch.rand(row.shape, generator=g, out=row)
+                u = torch.empty(shape, device=x.device)
+                for r, g in zip(u, generator):
+                    torch.rand(r.shape, generator=g, out=r)
+            if parts > 1:
+                u = u.chunk(parts, dim=-1)[tp.rank]
             keep = u < 1.0 - lora_dropout
             xl = torch.where(keep, x / (1.0 - lora_dropout), 0.0)
         # per-row adapters a [B, din, r], b [B, r, dout] (the serving
@@ -251,11 +275,15 @@ def _fuse_group(nodes: list[Params]) -> Params | None:
     combine as a = [a_1 | a_2 | ...] and a block-structured b that routes
     each adapter's rank rows to its own output columns, so that
     x @ a @ b == concat_i(x @ a_i @ b_i) exactly. None when the nodes mix
-    kinds."""
+    kinds. Nodes that hold a tp rank's column slices fuse those slices,
+    each adapter's b cut to the same columns: the rank's q|k|v, not a slice
+    of the global concatenation."""
     kinds = {next((k for k in ("w", "qw", "qw4h") if k in n), None) for n in nodes}
     if len(kinds) != 1 or None in kinds:
         return None
     kind = kinds.pop()
+    tps = [tp_of(n[kind]) for n in nodes]
+    tp = next((s for s in tps if s is not None), None)
     fused: Params = {kind: torch.cat([n[kind] for n in nodes], dim=1)}
     if kind == "w":
         outs = [n["w"].shape[1] for n in nodes]
@@ -270,8 +298,13 @@ def _fuse_group(nodes: list[Params]) -> Params | None:
         row = 0
         for i, lo in loras:
             r = lo["a"].shape[1]
-            b[row: row + r, offs[i]: offs[i + 1]] = lo["b"]
+            bi = lo["b"]
+            if tps[i] is not None:
+                bi = bi.chunk(tps[i].group.size, dim=-1)[tps[i].group.rank]
+            b[row: row + r, offs[i]: offs[i + 1]] = bi
             row += r
+        if tp is not None:      # the rank's columns: ``proj`` cuts b no further
+            b = tag(b, Shard(1, b.shape[1] * tp.group.size, tp.group, "tp"))
         fused["lora"] = {"a": a, "b": b}
     return fused
 
@@ -281,7 +314,8 @@ def fuse_decode_layout(params: Params) -> Params:
     decode step makes 4 projection products per layer instead of 7 (one
     kernel launch each when quantized; a MoE block, which has no gate/up,
     makes 2). Exact: the fused product concatenates the outputs. Training
-    never sees this layout."""
+    never sees this layout. Under tp each rank fuses its own slices (see
+    :func:`_fuse_group`); o and down, row-parallel, stay as they are."""
     layers = []
     for layer in params["layers"]:
         fl = dict(layer)
@@ -298,28 +332,32 @@ def fuse_decode_layout(params: Params) -> Params:
 
 
 def _proj_qkv(layer: Params, h: torch.Tensor, ls: float, ldrop: float = 0.0,
-              gen: torch.Generator | None = None, use_kernel: str = "auto"):
-    """(q, k, v) raw projections, fused or per-tensor layout."""
+              gen: torch.Generator | None = None, use_kernel: str = "auto",
+              tp=None, q_width: int | None = None):
+    """(q, k, v) raw projections, fused or per-tensor layout; under tp the
+    rank's heads (``q_width`` columns of q)."""
     kw = dict(lora_scale=ls, lora_dropout=ldrop, generator=gen,
-              use_kernel=use_kernel)
+              use_kernel=use_kernel, tp=tp)
     if "qkv" in layer:
         y = proj(layer["qkv"], h, **kw)
-        d = h.shape[-1]
+        d = q_width or h.shape[-1]
         kvd = (y.shape[-1] - d) // 2
         return y[..., :d], y[..., d: d + kvd], y[..., d + kvd:]
     return tuple(proj(layer[n], h, **kw) for n in ("q", "k", "v"))
 
 
 def _proj_mlp(layer: Params, h: torch.Tensor, ls: float,
-              use_kernel: str = "auto") -> torch.Tensor:
-    """silu(gate) * up, fused or per-tensor layout."""
+              use_kernel: str = "auto", tp=None) -> torch.Tensor:
+    """silu(gate) * up, fused or per-tensor layout (under tp, the rank's
+    columns of both)."""
+    kw = dict(lora_scale=ls, use_kernel=use_kernel, tp=tp)
     if "gateup" in layer:
-        y = proj(layer["gateup"], h, lora_scale=ls, use_kernel=use_kernel)
+        y = proj(layer["gateup"], h, **kw)
         f = y.shape[-1] // 2
         gate, up = y[..., :f], y[..., f:]
     else:
-        gate = proj(layer["gate"], h, lora_scale=ls, use_kernel=use_kernel)
-        up = proj(layer["up"], h, lora_scale=ls, use_kernel=use_kernel)
+        gate = proj(layer["gate"], h, **kw)
+        up = proj(layer["up"], h, **kw)
     return F.silu(gate) * up
 
 
@@ -347,11 +385,12 @@ def _moe_mlp(layer: Params, h: torch.Tensor, cfg: LLMConfig,
 
 def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float,
          use_kernel: str = "auto", lengths: torch.Tensor | None = None,
-         dropless: bool = False, rowwise: bool = False
+         dropless: bool = False, rowwise: bool = False, tp=None
          ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Post-attention FFN residual: (x + ffn(ln(x)), aux). A dense block
-    runs down(silu(gate) * up) and gives aux None; a MoE block (one with
-    ``experts``) runs :func:`_moe_mlp`, its valid tokens the first
+    runs down(silu(gate) * up) and gives aux None (under tp, gate and up
+    column-parallel, down row-parallel, one all-reduce); a MoE block (one
+    with ``experts``) runs :func:`_moe_mlp`, its valid tokens the first
     ``lengths`` [B] of each row, and gives aux (lb, z)."""
     h = rms_norm(layer["ln_mlp"], x, eps=cfg.rms_eps)
     if "experts" in layer:
@@ -361,8 +400,10 @@ def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float,
                      < lengths.to(x.device)[:, None])
         y, lb, z = _moe_mlp(layer, h, cfg, valid, dropless=dropless, rowwise=rowwise)
         return x + y, (lb, z)
-    return x + proj(layer["down"], _proj_mlp(layer, h, ls, use_kernel),
-                    lora_scale=ls, use_kernel=use_kernel), None
+    h = copy_to_tp(h, tp)
+    y = proj(layer["down"], _proj_mlp(layer, h, ls, use_kernel, tp),
+             lora_scale=ls, use_kernel=use_kernel, tp=tp, row=True)
+    return x + reduce_from_tp(y, tp), None
 
 
 # ---------------------------------------------------------------------------
@@ -403,11 +444,26 @@ def quantize_cache(cache: KVCache) -> KVCache:
     return KVCache(k8, v8, sk, sv)
 
 
+def llm_tp(params: Params):
+    """The tp group of a Llama tree whose blocks hold Megatron slices, or
+    None."""
+    layers = params.get("layers") or [None]
+    return tp_group(layers[0])
+
+
+def local_heads(cfg: LLMConfig, tp) -> tuple[int, int]:
+    """(q heads, kv heads) of one tp rank (all of them without tp)."""
+    n = tp.size if tp is not None else 1
+    return cfg.n_heads // n, cfg.n_kv_heads // n
+
+
 def init_cache(cfg: LLMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device = "cuda") -> KVCache:
+               device: str | torch.device = "cuda", tp=None) -> KVCache:
+    """A zero cache; under tp (the Llama's group, :func:`llm_tp`) it holds
+    this rank's kv heads."""
     hd = cfg.d_model // cfg.n_heads
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, hd)
+    shape = (cfg.n_layers, batch, local_heads(cfg, tp)[1], max_len, hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -436,27 +492,34 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     """One block over [B, T, d]: (x, (k, v), MoE aux or None). Its rows are
     rows ``row0`` on of the global batch (for the dropout masks); a sharded
     leaf (fsdp) is gathered here, so that a remat recomputation gathers it
-    again rather than keeping it."""
+    again rather than keeping it. Under tp (Megatron) the block runs its
+    rank's ``n_heads / tp`` q heads and ``n_kv_heads / tp`` kv heads (the
+    GQA grouping kept), q, k, v, gate and up column-parallel, o and down
+    row-parallel, one all-reduce after the attention and one after the
+    MLP; (k, v) are the rank's heads."""
     B, T, d = x.shape
     hd = d // cfg.n_heads
-    layer = gather_tree(layer)
+    layer = gather_tree(layer, keep_tp=True)
+    tp = tp_group(layer)
+    nh, nkv = local_heads(cfg, tp)
     # created inside the block so that a remat recomputation redraws the
     # same masks; drawn in the order q, k, v, o
     gen = (_row_generators(dropout_seed, index, range(row0, row0 + B), x.device)
            if dropout_seed is not None and ldrop > 0.0 else None)
-    h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel)
-    q = q.reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
+    h = copy_to_tp(rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps), tp)
+    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel, tp, nh * hd)
+    q = q.reshape(B, T, nh, hd).transpose(1, 2)
+    k = k.reshape(B, T, nkv, hd).transpose(1, 2)
+    v = v.reshape(B, T, nkv, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attention(q, k, v, causal=True, q_lens=lengths, kv_lens=lengths,
                      use_kernel=use_kernel)
-    attn = attn.transpose(1, 2).reshape(B, T, d)
-    x = x + proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
-                 generator=gen, use_kernel=use_kernel)
-    x, aux = _ffn(layer, x, cfg, ls, use_kernel, lengths=lengths, rowwise=moe_rowwise)
+    attn = attn.transpose(1, 2).reshape(B, T, nh * hd)
+    x = x + reduce_from_tp(proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
+                                generator=gen, use_kernel=use_kernel, tp=tp, row=True), tp)
+    x, aux = _ffn(layer, x, cfg, ls, use_kernel, lengths=lengths, rowwise=moe_rowwise,
+                  tp=tp)
     return x, (k, v), aux
 
 
@@ -502,8 +565,8 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                             cfg.rope_theta)
     ls = lora_scale(lora)
     ldrop = lora.dropout if (lora is not None and dropout_seed is not None) else 0.0
-    cache = (init_cache(cfg, B, cache_len or T, compute_dtype, x.device)
-             if return_cache else None)
+    cache = (init_cache(cfg, B, cache_len or T, compute_dtype, x.device,
+                        llm_tp(params)) if return_cache else None)
     lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
@@ -529,13 +592,14 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     return out, cache
 
 
-def _head_rows(params: Params, cfg: LLMConfig) -> torch.Tensor:
-    """The output projection as [V, d] rows (the tied embedding, or the
-    transposed untied head)."""
+def _head_rows(params: Params, cfg: LLMConfig) -> tuple[torch.Tensor, Any]:
+    """(the output projection as [V, d] rows: the tied embedding, or the
+    transposed untied head; its tp group, whose ranks hold vocab slices,
+    or None)."""
     head = params.get("lm_head")
-    if cfg.tie_embeddings or head is None:
-        return params["embed"]
-    return head["w"].T
+    src = params["embed"] if cfg.tie_embeddings or head is None else head["w"]
+    s = tp_of(src)
+    return (src if src is params["embed"] else src.T), (s.group if s else None)
 
 
 def compute_logits(params: Params, cfg: LLMConfig, x: torch.Tensor,
@@ -547,27 +611,47 @@ def compute_logits(params: Params, cfg: LLMConfig, x: torch.Tensor,
     JAX package multiplies at the wider of the two dtypes with an f32
     result; products of bf16 values are exact in f32, so both cases equal
     ``x.float() @ w.float()``. A non-f32 head is upcast one vocab chunk at
-    a time, so no f32 copy of the whole head is ever live."""
+    a time, so no f32 copy of the whole head is ever live.
+
+    Under tp (a head split over the vocabulary) each rank computes its
+    vocab columns and the logits are gathered over the group (their
+    gradient sliced back), so every rank holds the same full logits and
+    takes the same next token; a quantized head's padding is dropped at
+    the global end."""
     head = params.get("lm_head")
     if is_quantized(head):
-        logits = qdot(x, head, out_dtype=torch.float32, use_kernel=use_kernel)
-        return logits[..., : cfg.vocab_size]
-    w = _head_rows(params, cfg)
-    xf = x.float()
+        s = tp_of(head[next(k for k in ("qw", "qw4h", "qw4") if k in head)])
+        tp = s.group if s is not None else None
+        logits = qdot(copy_to_tp(x, tp), head, out_dtype=torch.float32,
+                      use_kernel=use_kernel)
+        return gather_from_tp(logits, tp, -1)[..., : cfg.vocab_size]
+    w, tp = _head_rows(params, cfg)
+    xf = copy_to_tp(x, tp).float()
     if w.dtype == torch.float32:
-        return torch.matmul(xf, w.T)
+        return gather_from_tp(torch.matmul(xf, w.T), tp, -1)
     out = torch.empty((*x.shape[:-1], w.shape[0]), dtype=torch.float32,
                       device=x.device)
     for s in range(0, w.shape[0], LOGITS_CHUNK):
         e = min(s + LOGITS_CHUNK, w.shape[0])
         out[..., s:e] = torch.matmul(xf, w[s:e].float().T)
-    return out
+    return gather_from_tp(out, tp, -1)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Gather the rows first, then cast (the table is cast once at load)."""
-    return params["embed"][tokens].to(dtype)
+    """Gather the rows first, then cast (the table is cast once at load).
+    A vocab-sharded table (tp) looks up the tokens of its rank's range,
+    zeros the others and sums over the group: one nonzero per element, so
+    the sum is the row itself."""
+    table = params["embed"]
+    s = tp_of(table)
+    if s is None:
+        return table[tokens].to(dtype)
+    n = table.shape[0]
+    local = tokens - s.group.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], table[local.clamp(0, n - 1)], 0)
+    return reduce_from_tp(rows, s.group).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -610,10 +694,14 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     writes its K/V into column cur_lens[b] of ``cache`` (in place; an int8
     cache gets them quantized with its prefill scales), attends to
     cache[:cur_len + 1], and returns (logits [B, V] f32, cache).
-    ``use_kernel`` goes to the quantized products."""
+    ``use_kernel`` goes to the quantized products. Under tp each rank runs
+    its heads over its cache (:func:`init_cache`) and every rank gets the
+    full logits."""
     B = x.shape[0]
     d = cfg.d_model
     hd = d // cfg.n_heads
+    tp = llm_tp(params)
+    nh, nkv = local_heads(cfg, tp)
     x = x.to(compute_dtype)
     pos = cur_lens.long()
     cos, sin = rope_cos_sin(pos[:, None], hd, cfg.rope_theta)
@@ -621,10 +709,10 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     b_idx = torch.arange(B, device=x.device)
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
-        q = apply_rope(q.reshape(B, 1, cfg.n_heads, hd).transpose(1, 2), cos, sin)
-        k = apply_rope(k.reshape(B, 1, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
-        v = v.reshape(B, 1, cfg.n_kv_heads, hd).transpose(1, 2)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel, tp=tp, q_width=nh * hd)
+        q = apply_rope(q.reshape(B, 1, nh, hd).transpose(1, 2), cos, sin)
+        k = apply_rope(k.reshape(B, 1, nkv, hd).transpose(1, 2), cos, sin)
+        v = v.reshape(B, 1, nkv, hd).transpose(1, 2)
         k_new, v_new = k[:, :, 0], v[:, :, 0]                      # [B, Hkv, Dh]
         sk = sv = None
         if cache.quantized:
@@ -636,9 +724,9 @@ def llama_decode_step(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
         v_i[b_idx, :, pos] = v_new.to(v_i.dtype)
         attn = _gqa_decode_attention(q, k_i, v_i, kv_lens=pos + 1,
                                      k_scale=sk, v_scale=sv)
-        x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, 1, d),
-                     lora_scale=ls, use_kernel=use_kernel)
-        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True)
+        x = x + reduce_from_tp(proj(layer["o"], attn.transpose(1, 2).reshape(B, 1, nh * hd),
+                                    lora_scale=ls, use_kernel=use_kernel, tp=tp, row=True), tp)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True, tp=tp)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     return compute_logits(params, cfg, x, use_kernel)[:, 0], cache
 
@@ -686,9 +774,12 @@ def llama_prefill_continue(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     + T of ``cache`` (in place; every one of them must exist) and attends
     to the history and causally to the block. Returns (the normed hidden
     states [B, T, d], cache); one ``llama_apply`` over [history | tail]
-    gives the same rows. ``use_kernel`` goes to the quantized products."""
+    gives the same rows. ``use_kernel`` goes to the quantized products;
+    under tp each rank extends its heads' cache."""
     B, T, d = x.shape
     hd = d // cfg.n_heads
+    tp = llm_tp(params)
+    nh, nkv = local_heads(cfg, tp)
     x = x.to(compute_dtype)
     cols = base_lens.long()[:, None] + torch.arange(T, device=x.device)[None, :]
     cos, sin = rope_cos_sin(cols, hd, cfg.rope_theta)
@@ -696,17 +787,18 @@ def llama_prefill_continue(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     b_idx = torch.arange(B, device=x.device)[:, None]
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
-        q = apply_rope(q.reshape(B, T, cfg.n_heads, hd).transpose(1, 2), cos, sin)
-        k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
-        v = v.reshape(B, T, cfg.n_kv_heads, hd)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel, tp=tp, q_width=nh * hd)
+        q = apply_rope(q.reshape(B, T, nh, hd).transpose(1, 2), cos, sin)
+        k = apply_rope(k.reshape(B, T, nkv, hd).transpose(1, 2), cos, sin)
+        v = v.reshape(B, T, nkv, hd)
         k_i, v_i = cache.k[i], cache.v[i]                          # views
         k_i[b_idx, :, cols] = k.transpose(1, 2).to(k_i.dtype)     # [B, T, Hkv, Dh]
         v_i[b_idx, :, cols] = v.to(v_i.dtype)
         attn = _gqa_prefill_attention(q, k_i, v_i, base_lens, tail_lens)
-        x = x + proj(layer["o"], attn.transpose(1, 2).reshape(B, T, d),
-                     lora_scale=ls, use_kernel=use_kernel)
-        x, _ = _ffn(layer, x, cfg, ls, use_kernel, lengths=tail_lens, dropless=True)
+        x = x + reduce_from_tp(proj(layer["o"], attn.transpose(1, 2).reshape(B, T, nh * hd),
+                                    lora_scale=ls, use_kernel=use_kernel, tp=tp, row=True), tp)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, lengths=tail_lens, dropless=True,
+                    tp=tp)
     return rms_norm(params["ln_f"], x, eps=cfg.rms_eps), cache
 
 
@@ -766,12 +858,15 @@ def llama_decode_step_split(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     cache of the tokens generated so far. Writes nothing: returns (logits
     [B*W, V] f32, (k, v) [L, B*W, Hkv, Dh] of this step, in the suffix's
     dtype), which :func:`merge_new_columns` lands at column ``step``
-    during the next step's beam gather."""
+    during the next step's beam gather. Under tp: the rank's heads, full
+    logits."""
     BW = x.shape[0]
     B = prefix_cache.k.shape[1]
     W = BW // B
     d = cfg.d_model
     hd = d // cfg.n_heads
+    tp = llm_tp(params)
+    nh, nkv = local_heads(cfg, tp)
     x = x.to(compute_dtype)
     pos = (prefix_lens.long().repeat_interleave(W) + step)[:, None]    # [B*W, 1]
     cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)
@@ -780,19 +875,19 @@ def llama_decode_step_split(params: Params, cfg: LLMConfig, *, x: torch.Tensor,
     k_news, v_news = [], []
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps)
-        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel)
-        q = apply_rope(q.reshape(BW, 1, cfg.n_heads, hd).transpose(1, 2), cos, sin)
-        k = apply_rope(k.reshape(BW, 1, cfg.n_kv_heads, hd).transpose(1, 2), cos, sin)
+        q, k, v = _proj_qkv(layer, h, ls, use_kernel=use_kernel, tp=tp, q_width=nh * hd)
+        q = apply_rope(q.reshape(BW, 1, nh, hd).transpose(1, 2), cos, sin)
+        k = apply_rope(k.reshape(BW, 1, nkv, hd).transpose(1, 2), cos, sin)
         k_news.append(k[:, :, 0])
-        v_news.append(v.reshape(BW, cfg.n_kv_heads, hd))
+        v_news.append(v.reshape(BW, nkv, hd))
         attn = _gqa_split_decode_attention(
             q, prefix_cache.k[i], prefix_cache.v[i], suffix_cache.k[i],
             suffix_cache.v[i], k_news[-1], v_news[-1], prefix_lens, step,
             k_scale=prefix_cache.k_scale[i] if qpre else None,
             v_scale=prefix_cache.v_scale[i] if qpre else None)
-        x = x + proj(layer["o"], attn.transpose(1, 2).reshape(BW, 1, d),
-                     lora_scale=ls, use_kernel=use_kernel)
-        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True)
+        x = x + reduce_from_tp(proj(layer["o"], attn.transpose(1, 2).reshape(BW, 1, nh * hd),
+                                    lora_scale=ls, use_kernel=use_kernel, tp=tp, row=True), tp)
+        x, _ = _ffn(layer, x, cfg, ls, use_kernel, dropless=True, tp=tp)
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
     logits = compute_logits(params, cfg, x, use_kernel)[:, 0]
     dt = suffix_cache.k.dtype

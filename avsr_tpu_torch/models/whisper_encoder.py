@@ -8,7 +8,9 @@ per-utterance feature lengths; at Tq = Tk >= 256 it runs the flash kernel.
 ``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
 the counterpart of ``jax.checkpoint``) while grad mode is on. Under fsdp
 each block gathers its sharded leaves when it runs (again in the
-recomputation).
+recomputation). Under tp each block runs Megatron on its slices
+(``models/layers.py::encoder_block_apply``: 16 heads over tp=2 give 8 a
+rank); the convolutions, the positions and the final norm stay whole.
 """
 
 from __future__ import annotations

@@ -40,11 +40,16 @@ def quantize_tensor(w: torch.Tensor, bits: int = 8) -> Params:
     if bits == 4:
         if q.shape[0] % 2:
             raise ValueError(f"int4 needs even in-dim, got {tuple(q.shape)}")
-        half = q.shape[0] // 2
-        # int8 arithmetic wraps as the JAX package's does
-        packed = (q[:half] & 0x0F) | ((q[half:] & 0x0F) << 4)   # [in/2, out]
-        return {"qw4h": packed, "scale": scale}
+        return {"qw4h": pack_int4(q), "scale": scale}
     return {"qw": q, "scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8[in, out] values in [-8, 7] -> the half-split packing int8[in/2,
+    out]: byte row i holds row i in its low nibble and row i + in/2 in its
+    high nibble (int8 arithmetic wraps as the JAX package's does)."""
+    half = q.shape[0] // 2
+    return (q[:half] & 0x0F) | ((q[half:] & 0x0F) << 4)
 
 
 def _sign_extend(n: torch.Tensor) -> torch.Tensor:
@@ -70,9 +75,7 @@ def upgrade_legacy_int4(tree: Any) -> Any:
     kernel reads; a tree in the current layout comes back unchanged."""
     if isinstance(tree, dict):
         if "qw4" in tree:
-            q = _unpack_int4_legacy(tree["qw4"])
-            half = q.shape[0] // 2
-            packed = (q[:half] & 0x0F) | ((q[half:] & 0x0F) << 4)
+            packed = pack_int4(_unpack_int4_legacy(tree["qw4"]))
             rest = {k: upgrade_legacy_int4(v) for k, v in tree.items() if k != "qw4"}
             return {"qw4h": packed, **rest}
         return {k: upgrade_legacy_int4(v) for k, v in tree.items()}

@@ -57,7 +57,7 @@ from typing import Any
 import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, to_dict
-from avsr_tpu_torch.mesh.sharding import gather_leaf, shard_of
+from avsr_tpu_torch.mesh.sharding import gather_leaf, shards_of
 from avsr_tpu_torch.train.state import (TrainState, check_like, path_leaves,
                                         tree_map_with_path)
 
@@ -127,11 +127,11 @@ class CheckpointManager:
         write = latest is None or step > latest
         if self.mesh is not None:       # rank 0 decides for every rank
             flag = torch.tensor([float(write)], device=_device(state))
-            write = bool(self.mesh.data.broadcast(flag).item())
+            write = bool(self.mesh.world.broadcast(flag).item())
         if write and not self.main:
             with torch.no_grad():       # take part in the gathers only
                 for t in path_leaves(state.state_dict()).values():
-                    if shard_of(t) is not None:
+                    if shards_of(t):
                         gather_leaf(t)
         elif write:
             self.wait()                 # the pinned buffers are free again

@@ -295,8 +295,8 @@ class Trainer:
         if self.mesh is None:
             return flags
         dev = self.state.optimizer.leaves[0].device
-        t = self.mesh.data.all_reduce(torch.tensor([float(f) for f in flags], device=dev),
-                                      op="max")
+        t = self.mesh.world.all_reduce(torch.tensor([float(f) for f in flags], device=dev),
+                                       op="max")
         return tuple(bool(v) for v in t.tolist())
 
     def _log_csv(self, **row) -> None:
@@ -429,8 +429,9 @@ class Trainer:
         """Greedy-decodes up to ``eval_wer_max_utts`` validation utterances
         with the current params and returns the corpus WER; each utterance
         counts once (the last batch is wrap-padded). With a mesh each rank
-        decodes its rows, with the tree gathered whole, and every rank
-        scores every rank's hypotheses in dataset order."""
+        decodes its rows, with the tree gathered whole (but for its tp
+        slices, which decode as Megatron blocks), and every rank scores
+        every rank's hypotheses in dataset order."""
         from avsr_tpu_torch.infer.generate import generate_tokens
         from avsr_tpu_torch.infer.wer import WERAccumulator
 
@@ -439,7 +440,7 @@ class Trainer:
         seen: set[str] = set()
         t0 = time.perf_counter()
         with torch.no_grad():
-            params = gather_tree(self.state.params)
+            params = gather_tree(self.state.params, keep_tp=True)
         for hb, batch in self.val_loader:
             out = generate_tokens(
                 params, self.cfg.model, batch,

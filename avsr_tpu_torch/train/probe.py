@@ -15,7 +15,7 @@ drops it afterwards, as the JAX CLI does).
 
 Under a mesh (JAX ``probe.py:77``) the size is the global batch, from the
 data-parallel ways up, and each rank probes its own share: its rows and,
-under fsdp, its slices of the sharded leaves, over groups that gather and
+under fsdp or tp, its slices of the sharded leaves, over groups that gather and
 reduce locally (``Mesh.echo``). So a rank that runs out of memory never
 leaves the others waiting in a collective; at the end every rank takes
 the smallest size any rank found.
@@ -115,6 +115,6 @@ def find_optimal_batch_size(cfg: AVSRConfig, params, *, start: int = 1,
         best = b
         b *= 2
     if mesh is not None:
-        best = int(mesh.data.all_reduce(torch.tensor([float(best)], device=device),
-                                        op="min").item())
+        best = int(mesh.world.all_reduce(torch.tensor([float(best)], device=device),
+                                         op="min").item())
     return best

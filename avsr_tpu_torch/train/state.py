@@ -21,7 +21,7 @@ moments, adafactor's factored or full second moment, lion's momentum).
 Loading checks every key path, shape and dtype before it writes anything,
 and copies into the live tensors, which the optimizer holds.
 
-Under fsdp (``mesh/sharding.py``) a sharded trained leaf holds its slice,
+Under fsdp or tp (``mesh/sharding.py``) a sharded trained leaf holds its slice,
 and so does its optimizer state: AdamW's moments and lion's momentum
 slice as the leaf does, and adafactor's factored moments hold the slice
 when they keep the sharded dimension (a moment that averages over it is
@@ -43,7 +43,7 @@ import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig, ModelConfig, TrainingConfig
 from avsr_tpu_torch.mesh.sharding import (Shard, full_shape, is_sharded, local_part,
-                                          shard_of, tag)
+                                          shards_of, tag)
 from avsr_tpu_torch.models.avsr import ENCODER_KEYS
 from avsr_tpu_torch.models.layers import Params
 
@@ -260,7 +260,7 @@ class ClippedOptimizer:
         self.schedule = schedule
         self.max_norm = cfg.max_grad_norm
         self.count = 0
-        self.shards = [shard_of(p) for p in leaves]   # fsdp slices, or None
+        self.shards = [shards_of(p) for p in leaves]   # fsdp and tp slices, or ()
 
     def update(self, grads: list[torch.Tensor], grad_norm: torch.Tensor) -> None:
         """Apply one update from f32 ``grads`` (one per leaf) whose global
@@ -282,11 +282,10 @@ class ClippedOptimizer:
         """{"count", "leaves": {name: {key: tensor}}}, the live tensors."""
         return {"count": self.count, "leaves": self.state}
 
-    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> Shard | None:
-        """The slice that the state tensor ``key`` of leaf ``i`` holds: the
+    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> tuple[Shard, ...]:
+        """The slices that the state tensor ``key`` of leaf ``i`` holds: the
         leaf's own for a tensor of the leaf's shape."""
-        s = self.shards[i]
-        return s if s is not None and t.shape == self.leaves[i].shape else None
+        return self.shards[i] if t.shape == self.leaves[i].shape else ()
 
     def tag_state(self, sd: dict[str, Any]) -> dict[str, Any]:
         """``sd`` (this optimizer's state dict) with its sharded tensors
@@ -386,21 +385,25 @@ def factored_dims(shape: tuple[int, ...], min_dim: int = 128
     return order[-2], order[-1]
 
 
-def _rms(x: torch.Tensor, shard: Shard | None = None) -> torch.Tensor:
-    """The root mean square of a leaf, or with ``shard`` of the full leaf
+def _rms(x: torch.Tensor, shards: tuple[Shard, ...] = ()) -> torch.Tensor:
+    """The root mean square of a leaf, or with ``shards`` of the full leaf
     whose slice ``x`` is."""
-    if shard is None:
+    if not shards:
         return torch.sqrt(torch.mean(x * x))
-    return torch.sqrt(shard.group.all_reduce((x * x).sum()) / (x.numel() * shard.group.size))
+    total, n = (x * x).sum(), x.numel()
+    for s in shards:
+        total, n = s.group.all_reduce(total), n * s.group.size
+    return torch.sqrt(total / n)
 
 
-def _mean(x: torch.Tensor, dim: int, sharded: int | None, shard: Shard | None,
+def _mean(x: torch.Tensor, dim: int, shards: tuple[Shard, ...],
           keepdim: bool = False) -> torch.Tensor:
-    """The mean of ``x`` over ``dim``; over every rank's slice when ``dim``
-    is the dimension ``sharded`` that ``x`` holds a slice of."""
-    if shard is None or dim != sharded:
+    """The mean of ``x`` over ``dim``; over every rank's slice when ``x``
+    holds a slice of ``dim`` (one of ``shards``)."""
+    s = next((s for s in shards if s.dim == dim), None)
+    if s is None:
         return x.mean(dim=dim, keepdim=keepdim)
-    return shard.group.all_reduce(x.sum(dim=dim, keepdim=keepdim)) / shard.full
+    return s.group.all_reduce(x.sum(dim=dim, keepdim=keepdim)) / s.full
 
 
 class ClippedAdafactor(ClippedOptimizer):
@@ -433,15 +436,13 @@ class ClippedAdafactor(ClippedOptimizer):
                     "v_row": torch.zeros_like(p.sum(dim=d0)),
                     "v_col": torch.zeros_like(p.sum(dim=d1))}
 
-    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> Shard | None:
-        s = self.shards[i]
+    def _state_shard(self, i: int, key: str, t: torch.Tensor) -> tuple[Shard, ...]:
         dims = factored_dims(tuple(full_shape(self.leaves[i])))
-        if s is None or key == "v" or dims is None:
+        if key == "v" or dims is None:
             return super()._state_shard(i, key, t)
         gone = dims[1] if key == "v_row" else dims[0]     # the averaged dim
-        if s.dim == gone:
-            return None
-        return Shard(s.dim - (s.dim > gone), s.full, s.group)
+        return tuple(s._replace(dim=s.dim - (s.dim > gone))
+                     for s in self.shards[i] if s.dim != gone)
 
     def _apply(self, grads: list[torch.Tensor], lr: float) -> None:
         t = np.float32(self.count + 1)
@@ -451,7 +452,6 @@ class ClippedAdafactor(ClippedOptimizer):
                                                   self.decay)):
             st = self.state[name]
             sh = self.shards[i]
-            sd = sh.dim if sh is not None else None
             g2 = g * g + self.EPS
             dims = factored_dims(tuple(full_shape(p)))
             if dims is None:
@@ -459,11 +459,11 @@ class ClippedAdafactor(ClippedOptimizer):
                 u = g * st["v"] ** -0.5
             else:
                 d1, d0 = dims
-                st["v_row"].copy_(keep * st["v_row"] + new * _mean(g2, d0, sd, sh))
-                st["v_col"].copy_(keep * st["v_col"] + new * _mean(g2, d1, sd, sh))
+                st["v_row"].copy_(keep * st["v_row"] + new * _mean(g2, d0, sh))
+                st["v_col"].copy_(keep * st["v_col"] + new * _mean(g2, d1, sh))
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row_sd = None if sd is None or sd == d0 else sd - (sd > d0)
-                row = (st["v_row"] / _mean(st["v_row"], rd1, row_sd, sh, keepdim=True)) ** -0.5
+                row_sh = self._state_shard(i, "v_row", st["v_row"])
+                row = (st["v_row"] / _mean(st["v_row"], rd1, row_sh, keepdim=True)) ** -0.5
                 u = g * row.unsqueeze(d0) * (st["v_col"] ** -0.5).unsqueeze(d1)
             u = u / torch.clamp(_rms(u, sh) / self.CLIP, min=1.0)
             u = u * lr

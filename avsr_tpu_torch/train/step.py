@@ -25,7 +25,8 @@ import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig
 from avsr_tpu_torch.core.logging import trace_range
-from avsr_tpu_torch.mesh.sharding import RowShard, check_model, row_shard, shard_of, tag
+from avsr_tpu_torch.mesh.sharding import (RowShard, check_model, row_shard, shard_of,
+                                          shards_of, tag)
 from avsr_tpu_torch.models.avsr import Batch, forward
 from avsr_tpu_torch.ops.specaugment import specaugment
 from avsr_tpu_torch.ops.videoaug import video_augment
@@ -82,12 +83,19 @@ def micro_seeds(seed: int, n: int) -> list[int]:
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32; a sharded
-    leaf's slices are summed over the ranks that hold the others."""
-    total = sum((t.float() ** 2).sum() for t in tensors if shard_of(t) is None)
-    sharded = [t for t in tensors if shard_of(t) is not None]
-    if sharded:
-        part = sum((t.float() ** 2).sum() for t in sharded)
-        total = total + shard_of(sharded[0]).group.all_reduce(part)
+    leaf's slices are summed over the ranks that hold the others (its fsdp
+    and its tp group), so a leaf counts once whatever its slicing."""
+    total = sum((t.float() ** 2).sum() for t in tensors if not shards_of(t))
+    by_groups: dict[tuple, tuple[tuple, list[torch.Tensor]]] = {}
+    for t in tensors:
+        groups = tuple(s.group for s in shards_of(t))
+        if groups:
+            by_groups.setdefault(tuple(map(id, groups)), (groups, []))[1].append(t)
+    for groups, ts in by_groups.values():
+        part = sum((t.float() ** 2).sum() for t in ts)
+        for g in groups:
+            part = g.all_reduce(part)
+        total = total + part
     return torch.sqrt(total)
 
 
@@ -96,14 +104,18 @@ _BUCKET = 1 << 26
 
 
 def reduce_grads(grads: list[torch.Tensor], leaves: list[torch.Tensor], mesh) -> None:
-    """Sums each gradient over the ranks that hold its leaf whole or the
-    same slice of it (the data group, or the replica group of a sharded
-    leaf), in place, a bucket of flattened gradients per all-reduce. The
-    gradients come back tagged as their leaves, for :func:`global_norm`."""
+    """Sums each gradient over the ranks that hold other rows and its leaf
+    whole or the same slice of it (the data group, or the replica group of
+    an fsdp-sharded leaf, whose gather's backward already summed the fsdp
+    group's rows), in place, a bucket of flattened gradients per
+    all-reduce. A tp rank's gradient is already its slice's (or, for a
+    replicated leaf, the whole group's: ``collectives.copy_to_tp``), so the
+    tp group takes no part. The gradients come back tagged as their
+    leaves, for :func:`global_norm`."""
     by_group: dict[int, tuple[Any, list[torch.Tensor]]] = {}
     for g, p in zip(grads, leaves):
         group = mesh.replica if shard_of(p) is not None else mesh.data
-        by_group.setdefault(id(group), (group, []))[1].append(tag(g, shard_of(p)))
+        by_group.setdefault(id(group), (group, []))[1].append(tag(g, shards_of(p)))
     for group, gs in by_group.values():
         if group.size == 1:
             continue
@@ -140,7 +152,7 @@ def make_train_step(cfg: AVSRConfig, mesh=None
     which are then the same on every rank; the metrics are the global
     batch's."""
     if mesh is not None:
-        check_model(cfg.model)
+        check_model(cfg.model, mesh.shape["tp"])
 
     extra_keys = (("moe_lb", "moe_z")
                   if cfg.model.connector_type == "moe" or cfg.model.llm.moe_experts > 0

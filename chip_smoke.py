@@ -82,17 +82,17 @@
    layer-skip draft equal to greedy, with exact launches per counted draft
    step; the streaming continuation (``prefill_extend`` of the first 7/16
    of the prefix, then ``generate_continue``) equal to greedy. In bf16 and
-   the serving preset: beam search over 100 tokens with its numbers and
+   the serving preset: beam search over 32 tokens with its numbers and
    exact launches, and one preset beam step's logits against the
    dequantize path with phase 9's gates; speculative decoding with each
-   draft over 100 tokens beside greedy (verify passes, tokens per pass,
+   draft over 32 tokens beside greedy (verify passes, tokens per pass,
    ms per token), and sampling repeatable from one seed. Then the flagship's
    random init exported as a teacher, two steps of the distill CLI with a
    4-layer student (exact launches per step), and the decode CLI in f32
    greedy and speculative with the distilled draft: the same HYP lines.
    Last, the int4 and int8 kernels at M = 40 (the beam step's rows) and
    the int4 head at M = 8, timed as in phase 8.
-14. Serving phase (``serving_phase``), at full width: 32 requests of 4-10 s
+14. Serving phase (``serving_phase``), at full width: 16 requests of 4-10 s
    synthetic audio and 25 frames from --seed with budgets of 10-100 new
    tokens, through the continuous-batching engine with 8 slots (a slot
    cache of M = 3200 columns). In f32: every request equal to
@@ -103,7 +103,7 @@
    streaming (10 s in 1 s chunks) whose finalize equals the offline
    decode. In bf16, the preset and use_8bit: utterances/s, new tokens/s,
    slot occupancy, p50/p95 latency and time to first token, peak memory,
-   the steps run past the last finish, and the same 32 requests as static
+   the steps run past the last finish, and the same 16 requests as static
    ``generate_tokens`` batches of 8 in the same run; the preset engine's
    decode step against the dequantize path with phase 9's gates; a decode
    step at M = 640 and M = 3200; streaming ms per chunk, exact and
@@ -220,25 +220,49 @@
    preset: each trace's kernels by name equal the wrappers' counters over
    the traced steps, its device time, duty cycle and top categories,
    scopes and kernels printed. Removes what it wrote.
-21. Mesh phase (``mesh_phase``), at full width on the flagship, random
-   weights from --seed: ranks started as ``python3 chip_smoke.py
+21. Mesh phase (``mesh_phase``), at the flagship's widths and a quarter
+   of its depth (6 Whisper, 3 CLIP and 4 LLM blocks), random weights from
+   --seed: ranks started as ``python3 chip_smoke.py
    --mesh-worker JOB`` with torchrun's environment, 2 sharing card 0 over
    gloo (and, where there are two cards, 2 on two cards over NCCL, which
    run the same steps and CLIs), each waited for with a timeout; a failing
    rank fails the phase. Each rank first asks the backend for every
    collective the port makes on CUDA tensors. Train steps at the largest buckets (3000 mel frames, 100 video
    frames, 10-48 label tokens, LoRA dropout on, accum 1) under ``dp=2``
-   and ``fsdp=2``: in f32 (TF32 off, global B = 4) two steps whose losses,
-   grad norms and two LoRA ``b`` leaves equal the one-process run's (the
+   and ``fsdp=2``: in f32 (TF32 off, global B = 4) one step whose loss,
+   grad norm and two LoRA ``b`` leaves equal the one-process run's (the
    CPU tests' gates), then in bf16 (global B = 8) two steps, each step's ms
    and the peak memory per rank beside one process's. The train CLI (f32,
-   2 steps under ``fsdp=2``: rank 0 writes the gathered tree) and a
-   resume at world 1 from its checkpoint give one card's three losses,
-   and rank 0 alone wrote the log. The decode CLI over 8 synthetic utterances on 2 ranks: f32 hypotheses equal
+   global batch 2, 1 step under ``fsdp=2``: rank 0 writes the gathered
+   tree) and a resume at world 1 from its checkpoint to a second give one
+   card's two losses, and rank 0 alone wrote the log. The decode CLI over
+   8 synthetic utterances (16 tokens) on 2 ranks: f32 hypotheses equal
    one card's batch of 8, bf16's and the preset's one card's at the
    per-rank batch of 4; ms per token step beside one card's. Every rank's
    launches are counted (the flash kernels on every train path, the
    qmatmul kernels under the preset) and go into the ``kernels`` line.
+   Removes what it wrote.
+22. Tensor-parallel phase (``tp_phase``), at full width and depth on the
+   flagship, random weights from --seed: ``mesh.tp=2`` over 2 ranks
+   sharing card 0 (gloo), and where there are 2 cards over NCCL, and where
+   there are 4 ``mesh.dp=2 mesh.tp=2`` over NCCL (the first line says which
+   ran), each rank started as phase 21's are and asked for every collective
+   of the backend table, the tp operators included. Train steps at the
+   largest buckets with phase 21's seeds at a global batch of 1 (every tp
+   rank holds all rows, and over gloo a step's time is its all-reduces'
+   bytes): f32 (TF32 off) one step whose loss, grad norm and two LoRA
+   ``b`` leaves equal a one-process run's (phase 21's gates), then bf16 two
+   steps, ms and peak per rank. The train CLI (f32, global batch 1, 1 step
+   on the ranks) and a resume at world 1 to a second give one card's two
+   losses. The decode CLI in f32 (8 utterances, 16 tokens) writes one
+   card's HYP lines; direct ``generate_tokens`` calls (B = 8, 8 tokens) in
+   bf16 and with the serving preset give prefill logits no further from
+   the mode's f32 logits than 2x one card's (mean and max; phase 13's bf16
+   gate), the share of tokens equal to one card's and ms per token step
+   beside one card's. Every rank launches the flash forward, the backward
+   pair in training, and under the preset the int4 kernel on column and
+   repacked row slices (their K printed) and the int8 head on its vocab
+   slice; the launches go into the ``kernels`` line.
    Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
@@ -248,7 +272,9 @@ Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
-JSON line instead. Any failed
+JSON line instead; ``--tp-only`` does the same for phase 22, which then
+makes its own one-process references. Each phase boundary prints the
+seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
 """
@@ -1868,7 +1894,7 @@ def train_knobs_phase(seed: int, train: dict) -> dict:
        steps with the Whisper encoder's backward launches; then dQ and
        dK/dV at the Whisper shape, timed.
     e. The batch-size probe at the worst-case bucket (30 s, 100 frames,
-       128 labels), bf16 and ``--mode 4bit``, up to 64.
+       128 labels), bf16 and ``--mode 4bit``, up to 16.
     f. SpecAugment and video augmentation: padding bit-identical, the eval
        step unchanged by the knobs, one train step.
     g. Two steps each of adafactor and lion, their state bytes against
@@ -2225,7 +2251,10 @@ def train_knobs_phase(seed: int, train: dict) -> dict:
         pcfg_ = mode_cfg(mode)
         pp = common.init_params(pcfg_, seed=seed, device="cuda")
         t0 = time.perf_counter()
-        best = probe.find_optimal_batch_size(pcfg_, pp, max_batch=64, device="cuda")
+        # up to 16, which keeps the script within its time limit: the probe's
+        # doubling and its steps at the worst-case bucket, not the card's
+        # capacity
+        best = probe.find_optimal_batch_size(pcfg_, pp, max_batch=16, device="cuda")
         dt = time.perf_counter() - t0
         del pp
         free()
@@ -2493,7 +2522,9 @@ def decode_variants_phase(seed: int, bf16: dict) -> dict:
     settle()
 
     # ---- bf16 and the serving preset: beam numbers, exact launches --------
-    N = cfg.decode.max_new_tokens
+    # 32 tokens (the flagship decodes 100): this part's depth is cut so that
+    # the whole script keeps to its time limit
+    N = 32
     batch = featurize(hb, "cuda", torch.bfloat16)
     k16 = dict(eos_id=-1, compute_dtype=torch.bfloat16)
     beams = {}
@@ -2842,7 +2873,8 @@ def serving_phase(seed: int, bf16: dict) -> dict:
     tok = ByteTokenizer()
     res: dict = {}
     by_path: dict[str, dict[str, int]] = {}
-    samples, budgets = serving_traffic(seed)
+    # 16 requests, which keeps the script within its time limit
+    samples, budgets = serving_traffic(seed, 16)
     base_alloc = torch.cuda.memory_allocated()
     half = 16
     nW, nL = 24, 16                      # Whisper and LLM layers: flash per encode/prefill
@@ -2888,7 +2920,7 @@ def serving_phase(seed: int, bf16: dict) -> dict:
     res["engine_f32"] = dict(serving_numbers(run, eng=eng), tokens_equal_generate_tokens=True,
                              launches=n)
     greedy32 = run["tokens"]
-    print("serving f32 engine: 32 requests equal generate_tokens token for token; "
+    print(f"serving f32 engine: {len(samples)} requests equal generate_tokens token for token; "
           + json.dumps(res["engine_f32"]["stats"]))
     eng.close()
     del eng, ref
@@ -5707,18 +5739,32 @@ def tooling_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # the train runs of phase 21: name, global batch, compute dtype, mesh, steps
-# (the first of the two bf16 steps warms up)
-MESH_TRAIN = (("f32_dp2", 4, "float32", ("mesh.dp=2",), 2),
-              ("f32_fsdp2", 4, "float32", ("mesh.dp=1", "mesh.fsdp=2"), 2),
-              ("bf16_dp2", 8, "bfloat16", ("mesh.dp=2",), 2),
-              ("bf16_fsdp2", 8, "bfloat16", ("mesh.dp=1", "mesh.fsdp=2"), 2))
+# (the first of the two bf16 steps warms up; the f32 gates hold after one
+# step, which keeps the script within its time limit)
+# Phase 21 runs the flagship's widths at a quarter of its depth (6 of 24
+# Whisper, 3 of 12 CLIP and 4 of 16 LLM blocks): over gloo its steps,
+# gathers and checkpoints scale with the depth, and phase 22 drives the
+# full depth across processes, so the script keeps within its time limit
+MESH_DEPTH = ("model.whisper.n_layers=6", "model.clip.n_layers=3", "model.llm.n_layers=4")
+MESH_TRAIN = (("f32_dp2", 4, "float32", ("mesh.dp=2", *MESH_DEPTH), 1),
+              ("f32_fsdp2", 4, "float32", ("mesh.dp=1", "mesh.fsdp=2", *MESH_DEPTH), 1),
+              ("bf16_dp2", 8, "bfloat16", ("mesh.dp=2", *MESH_DEPTH), 2),
+              ("bf16_fsdp2", 8, "bfloat16", ("mesh.dp=1", "mesh.fsdp=2", *MESH_DEPTH), 2))
 MESH_SEED = 2100
-# LoRA b leaves held to the one-process run after the steps
-MESH_LEAVES = ("llm/layers/0/q/lora/b", "llm/layers/15/o/lora/b")
 MESH_DECODES = (("f32", ("runtime.compute_dtype=float32",), 8),
                 ("bf16", (), 4),
                 ("preset", PRESET_OVERRIDES, 4))
 MESH_RANK_TIMEOUT_S = 900
+# tokens of the decode CLI's calls in phases 21 and 22, and the train CLI's
+# global batch there, small enough for the script's time limit
+MESH_DECODE_TOKENS = 16
+MESH_CLI_BATCH = 2
+
+
+def mesh_leaves(cfg) -> tuple[str, str]:
+    """The LoRA b leaves held to the one-process run after the steps: the
+    first block's q and the last block's o."""
+    return ("llm/layers/0/q/lora/b", f"llm/layers/{cfg.model.llm.n_layers - 1}/o/lora/b")
 
 
 def mesh_cfg(dtype: str, mesh: tuple[str, ...] = ()):
@@ -5806,7 +5852,7 @@ def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None) -> d
         ms.append((time.perf_counter() - t0) * 1e3)
     leaves = path_leaves(state.params)
     with torch.no_grad():
-        watched = {k: sharding.gather_leaf(leaves[k]).float().cpu() for k in MESH_LEAVES}
+        watched = {k: sharding.gather_leaf(leaves[k]).float().cpu() for k in mesh_leaves(cfg)}
     res = dict(metrics=metrics, step_ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                rows=batch.labels.shape[1], leaves=watched)
     del state, batch
@@ -5843,6 +5889,15 @@ def mesh_worker(job_path: str) -> int:
             res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"], mesh)
             leaves[run["name"]] = res.pop("leaves")
             res["mesh"] = mesh.shape
+        elif run["kind"] == "decode":
+            from avsr_tpu_torch.core.config import flagship
+
+            cfg = flagship([*run["over"], *run["mesh"]])
+            mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+            res = tp_decode_run(tuple(run["over"]), run["seed"], mesh)
+            torch.save({k: res.pop(k) for k in ("tokens", "logits")},
+                       job["decodes"].format(name=run["name"], rank=rank))
+            res["mesh"] = mesh.shape
         else:
             res = _timed_cli(importlib.import_module(f"avsr_tpu_torch.cli.{run['cli']}"),
                              run["argv"])
@@ -5856,34 +5911,13 @@ def mesh_worker(job_path: str) -> int:
 
 
 def _probe_backend(device) -> dict[str, str]:
-    """Whether the process group's backend takes each collective that
-    ``mesh/collectives.py`` makes, on CUDA tensors of each dtype it moves
-    ("yes", or the error). Every rank makes the same calls in order."""
-    import torch
-    import torch.distributed as dist
+    """Whether the process group's backend takes each collective of
+    ``mesh/collectives.py::BACKEND_TABLE`` on CUDA tensors of each dtype it
+    moves, the tp operators included ("yes", or the error). Every rank
+    makes the same calls in order."""
+    from avsr_tpu_torch.mesh.collectives import probe_backend
 
-    n = dist.get_world_size()
-
-    def x(dtype):
-        return torch.ones(4 * n, device=device).to(dtype)
-
-    calls = {f"all_reduce_{op}": (lambda op=op: dist.all_reduce(
-        x(torch.float32), op=getattr(dist.ReduceOp, op.upper()))) for op in ("sum", "max", "min")}
-    calls["broadcast"] = lambda: dist.broadcast(x(torch.float32), 0)
-    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.uint8):
-        calls[f"all_gather_{str(dt)[6:]}"] = (lambda dt=dt: dist.all_gather_into_tensor(
-            x(dt).new_empty(4 * n * n), x(dt)))
-    calls["reduce_scatter"] = lambda: dist.reduce_scatter_tensor(
-        x(torch.float32).new_empty(4), x(torch.float32))
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            torch.cuda.synchronize(device)
-            out[name] = "yes"
-        except Exception as e:  # noqa: BLE001 — reported, and failed by the phase
-            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
-    return out
+    return probe_backend(device)
 
 
 def _timed_cli(mod, argv: list[str]) -> dict:
@@ -5921,7 +5955,8 @@ def spawn_ranks(job: dict, work: Path, world: int, shared_card: bool) -> list[di
 
     tag = job["tag"]
     job = dict(job, out=str(work / f"{tag}_rank{{rank}}.json"),
-               leaves=str(work / f"{tag}_leaves.pt"))
+               leaves=str(work / f"{tag}_leaves.pt"),
+               decodes=str(work / f"{tag}_{{name}}_rank{{rank}}.pt"))
     path = work / f"{tag}_job.json"
     path.write_text(json.dumps(job))
     with socket.socket() as s:
@@ -5967,8 +6002,8 @@ def hyp_lines(out_dir: Path) -> list[str]:
 
 def mesh_phase(seed: int) -> dict:
     """Phase 21: the train and decode CLIs and the train step across
-    processes, one process per rank, at full width on the flagship (see
-    the module docstring)."""
+    processes, one process per rank, at full width on the flagship cut to
+    ``MESH_DEPTH`` (see the module docstring)."""
     import shutil
 
     import torch
@@ -5978,23 +6013,23 @@ def mesh_phase(seed: int) -> dict:
     t_all = time.perf_counter()
     work = ROOT / "outputs" / "chip_smoke" / time.strftime("mesh_%Y%m%d_%H%M%S")
     work.mkdir(parents=True, exist_ok=True)
-    flag = list(FLAGSHIP_OVERRIDES)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]
     cli = ["--seed", str(seed), "--device", "cuda"]
     cards = torch.cuda.device_count()
-    print(f"mesh phase: 2 ranks sharing card 0 over gloo"
+    print(f"mesh phase ({' '.join(MESH_DEPTH)}): 2 ranks sharing card 0 over gloo"
           + (f"; 2 ranks on 2 of the {cards} cards over NCCL" if cards >= 2 else
              " (one card: no NCCL run)"))
     res: dict = {"train": {}, "train_cli": {}, "decode": {}, "launches_by_path": {}}
 
     def train_over(run_dir: Path, steps: int, *extra: str) -> list[str]:
-        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=20",
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=10",
                 "training.grad_accum_steps=1", "training.save_every_steps=0",
-                "runtime.compute_dtype=float32", f"training.max_steps={steps}",
-                f"training.checkpoint_dir={run_dir}", *extra]
+                f"data.batch_size={MESH_CLI_BATCH}", "runtime.compute_dtype=float32",
+                f"training.max_steps={steps}", f"training.checkpoint_dir={run_dir}", *extra]
 
     def dec_over(tag: str, extra: tuple, B: int) -> list[str]:
         return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
-                "decode.max_new_tokens=32", f"decode.batch_size={B}",
+                f"decode.max_new_tokens={MESH_DECODE_TOKENS}", f"decode.batch_size={B}",
                 f"decode.output_dir={work / tag}", *extra]
 
     def one_card(tag: str, mod, argv: list[str]) -> dict:
@@ -6011,7 +6046,7 @@ def mesh_phase(seed: int) -> dict:
         ref = {}
         for _, B, dtype, _, n in MESH_TRAIN[::2]:    # one per dtype
             reset_counts()
-            ref[dtype] = mesh_train_run(B, dtype, (), n)
+            ref[dtype] = mesh_train_run(B, dtype, MESH_DEPTH, n)
             res["launches_by_path"][f"mesh_train_{dtype}_one_card"] = counts()
             settle()
         ones = {}
@@ -6020,7 +6055,7 @@ def mesh_phase(seed: int) -> dict:
                 f"dec1_{tag}", extra, B))
             settle()
         one_run = work / "train_one"
-        ones["train"] = one_card("train_cli_one_card", train, train_over(one_run, 3))
+        ones["train"] = one_card("train_cli_one_card", train, train_over(one_run, 2))
         shutil.rmtree(one_run / "ckpt", ignore_errors=True)
         settle()
 
@@ -6029,7 +6064,7 @@ def mesh_phase(seed: int) -> dict:
             runs = [dict(kind="train", name=n, B=B, dtype=d, mesh=list(m), steps=k)
                     for n, B, d, m, k in MESH_TRAIN]
             runs.append(dict(kind="cli", name="train_cli", cli="train", argv=train_over(
-                work / f"train_{group}", 2, "mesh.dp=1", "mesh.fsdp=2")))
+                work / f"train_{group}", 1, "mesh.dp=1", "mesh.fsdp=2")))
             return runs + [dict(kind="cli", name=f"decode_{tag}", cli="decode",
                                 argv=dec_over(f"dec2_{group}_{tag}", extra, 8))
                            for tag, extra, _ in MESH_DECODES]
@@ -6055,7 +6090,7 @@ def mesh_phase(seed: int) -> dict:
                 dg = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
                          for g, w in zip(got, want["metrics"]))
                 db = max((leaves[name][k] - want["leaves"][k]).abs().max().item()
-                         for k in MESH_LEAVES)
+                         for k in want["leaves"])
                 same = all(r["metrics"] == runs_r[0]["metrics"] for r in runs_r)
                 row = dict(mesh=runs_r[0]["mesh"], loss=[m["loss"] for m in got],
                            max_loss_diff=dl, max_grad_norm_rel_diff=dg, max_lora_b_diff=db,
@@ -6077,16 +6112,17 @@ def mesh_phase(seed: int) -> dict:
                 for r, rr in enumerate(runs_r):
                     res["launches_by_path"][f"mesh_{group}_{name}_rank{r}"] = rr["launches"]
 
-        # ---- the train CLI: 2 ranks (fsdp=2), then world 1 from their ckpt ---
+        # ---- the train CLI: 2 ranks (fsdp=2) 1 step, then world 1 from their
+        # checkpoint to a second ---------------------------------------------
         for group, reps in reports.items():
             run2 = work / f"train_{group}"
             tl = [r["runs"]["train_cli"] for r in reps]
             check(all(t["rc"] == 0 for t in tl),
                   f"{group} train CLI ranks returned {[t['rc'] for t in tl]}")
             rows2 = loss_rows(run2)
-            check([r[2] for r in rows2].count("train") == 2,
+            check([r[2] for r in rows2].count("train") == 1,
                   f"the {group} 2-rank run's loss_log.csv rows {[r[:3] for r in rows2]}")
-            one_card(f"train_cli_{group}_resumed_one_card", train, train_over(run2, 3))
+            one_card(f"train_cli_{group}_resumed_one_card", train, train_over(run2, 2))
             rows_r, rows_1 = loss_rows(run2), loss_rows(one_run)
             shutil.rmtree(run2 / "ckpt", ignore_errors=True)
             trains = [[float(r[3]) for r in rows if r[2] == "train"] for rows in (rows_r, rows_1)]
@@ -6095,7 +6131,7 @@ def mesh_phase(seed: int) -> dict:
                        max_rel_diff=d, seconds=[t["seconds"] for t in tl])
             res["train_cli"][group] = row
             print(f"mesh {group} train CLI: " + json.dumps(row))
-            check(len(trains[0]) == len(trains[1]) == 3 and d < 1e-5,
+            check(len(trains[0]) == len(trains[1]) == 2 and d < 1e-5,
                   f"{group} train CLI losses: 2 ranks then world 1 {trains[0]}, "
                   f"one card {trains[1]}")
             for r, t in enumerate(tl):
@@ -6113,8 +6149,9 @@ def mesh_phase(seed: int) -> dict:
             check(not list(out2.glob("results_*"))[1:],
                   f"{group} decode {tag}: more than one results file")
             row = dict(equal_hyps=two == one, one_card_batch=B,
-                       ms_per_token_step=dl[0]["protocol_s"] * 1e3 / 32,
-                       one_card_ms_per_token_step=ones[tag]["protocol_s"] * 1e3 / (32 * 8 // B),
+                       ms_per_token_step=dl[0]["protocol_s"] * 1e3 / MESH_DECODE_TOKENS,
+                       one_card_ms_per_token_step=ones[tag]["protocol_s"] * 1e3
+                       / (MESH_DECODE_TOKENS * 8 // B),
                        launches=[x["launches"] for x in dl])
             res["decode"][f"{group}_{tag}"] = row
             print(f"mesh {group} decode {tag}: " + json.dumps(row))
@@ -6136,12 +6173,385 @@ def mesh_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: tensor parallelism across processes
+# ---------------------------------------------------------------------------
+
+# the tp train runs: name, global batch, compute dtype, steps, on phase
+# 21's batches, seeds and weights. Every tp rank holds all rows, and over
+# gloo the step's time is its all-reduces' bytes, which grow with the rows:
+# a global batch of 1 (also the train CLI's) keeps the phase within the
+# script's time limit
+TP_TRAIN = (("f32", 1, "float32", 1), ("bf16", 1, "bfloat16", 2))
+TP_CLI_BATCH = 1
+# the direct decodes of the ranks: name, overrides (the f32 hypotheses are
+# the decode CLI's); the one-card references add f32 and the preset in f32,
+# the two modes' own yardsticks
+TP_DECODES = (("bf16", ()), ("preset", PRESET_OVERRIDES))
+TP_REFERENCES = (("f32", ("runtime.compute_dtype=float32",)), *TP_DECODES,
+                 ("preset_f32", (*PRESET_OVERRIDES, "runtime.compute_dtype=float32")))
+TP_DECODE_TOKENS = 8
+
+
+def tp_decode_run(over: tuple, seed: int, mesh=None) -> dict:
+    """One ``generate_tokens`` call of the flagship under ``over`` (B = 8,
+    10 s audio, 25 frames, 8 tokens, no EOS; this rank's rows under a
+    mesh), after a 2-token warm-up: the prefill logits, the tokens, ms per
+    token step, and the shapes of layer 0's projections (the slices the
+    kernels see)."""
+    import torch
+
+    from avsr_tpu_torch.cli.common import load_decode_params
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.infer.generate import generate_tokens
+    from avsr_tpu_torch.mesh.multihost import local_rows
+    from avsr_tpu_torch.mesh.sharding import take_rows
+
+    cfg = flagship(list(over))
+    dt = getattr(torch, cfg.runtime.compute_dtype)
+    params = load_decode_params(cfg, seed=seed, device="cuda", mesh=mesh)
+    batch = featurize(serving_host_batch(cfg, seed), "cuda", dt)
+    lo, hi = 0, batch.labels.shape[0]
+    if mesh is not None:
+        lo, hi = local_rows(hi, (mesh.data.rank, mesh.ways))
+        batch = take_rows(batch, lo, hi)
+    kw = dict(max_new_tokens=TP_DECODE_TOKENS, eos_id=-1, compute_dtype=dt,
+              kv_cache_dtype=cfg.decode.kv_cache_dtype, use_kernel=cfg.runtime.use_pallas)
+    generate_tokens(params, cfg.model, batch, **{**kw, "max_new_tokens": 2})
+    st: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    out = generate_tokens(params, cfg.model, batch, stats=st, **kw)
+    torch.cuda.synchronize()
+    llm = params["llm"]
+    nodes = {**llm["layers"][0], "lm_head": llm.get("lm_head")}
+    shapes = {f"{name}/{key}": list(node[key].shape)
+              for name, node in nodes.items() if isinstance(node, dict)
+              for key in ("qw4h", "qw", "w") if key in node}
+    return dict(tokens=out.tokens.cpu(), logits=st["prefill_logits"].float().cpu(),
+                ms_per_token=st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, rows=(lo, hi),
+                shapes=shapes)
+
+
+def tp_qmm_parity(seed: int) -> list[dict]:
+    """The qmatmul kernels at the per-rank shapes of the preset under
+    ``tp=2`` (M = 8 rows under tp alone, 4 under dp=2 tp=2): a one-block
+    flagship LLM at full width, its projections int4 and its head int8 as
+    the preset quantizes them, cut for each rank by ``shard_params`` (o and
+    down unpacked, cut to the rank's rows of the weight and packed again;
+    q, k, v, gate and up to their columns; the padded head to its vocab
+    columns) and fused as the decode layout fuses them. Each wrapper call is
+    held against its plain version on the same inputs at 1e-4 x max|ref|
+    (the qmatmul phase's gate), and the ranks' row-parallel plain products,
+    summed, against the whole leaf's."""
+    import dataclasses
+
+    import torch
+
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.mesh.collectives import EchoGroup
+    from avsr_tpu_torch.mesh.sharding import AXES, Mesh, shard_params
+    from avsr_tpu_torch.models.llama import fuse_decode_layout, init_llama
+    from avsr_tpu_torch.ops import qmatmul as Q
+    from avsr_tpu_torch.ops.quant import quantize_llm
+
+    cfg = flagship(list(PRESET_OVERRIDES)).model.llm
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    llm = quantize_llm(init_llama(gen, dataclasses.replace(cfg, n_layers=1)), 4,
+                       lm_head_bits=8)
+    shape = dict(zip(AXES, (1, 1, 1, 1, 1, 2, 1)))
+    one = EchoGroup(1, 0)
+    ranks = [fuse_decode_layout(shard_params(
+        {"llm": llm}, Mesh(shape, r, world=EchoGroup(2, r), data=one, fsdp=one,
+                           replica=one, tp=EchoGroup(2, r)), axes=("tp",))["llm"])
+        for r in range(2)]
+    whole = fuse_decode_layout(llm)
+
+    def node(tree, name):
+        return tree["lm_head"] if name == "lm_head" else tree["layers"][0][name]
+
+    rows = []
+    for M in (8, 4):
+        for name in ("qkv", "o", "gateup", "down", "lm_head"):
+            full = node(whole, name)
+            bits = 4 if "qw4h" in full else 8
+            K = full["qw4h"].shape[0] * 2 if bits == 4 else full["qw"].shape[0]
+            x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+            row_par = name in ("o", "down")
+            refs, errs, rels = [], [], []
+            for r, tree in enumerate(ranks):
+                qp = node(tree, name)
+                xr = x.chunk(2, dim=1)[r] if row_par else x
+                y = Q.qmatmul(xr, qp)
+                ref = Q.qmatmul_reference(xr, qp)
+                torch.cuda.synchronize()
+                errs.append((y - ref).abs().max().item())
+                rels.append(errs[-1] / ref.abs().max().item())
+                refs.append(ref)
+                check(bool(torch.isfinite(y).all()) and rels[-1] <= 1e-4,
+                      f"qmatmul tp=2 rank {r} {name} int{bits} M={M} K={xr.shape[1]} "
+                      f"N={y.shape[1]}: max|d| {errs[-1]:.3e} = {rels[-1]:.3e} x max|ref|")
+            row = dict(shape=f"tp2_{name}", bits=bits, M=M, K=xr.shape[1], N=y.shape[1],
+                       full_K=K, full_N=full["scale"].shape[0], row_parallel=row_par,
+                       max_abs_err=max(errs), max_rel_err=max(rels))
+            if row_par:
+                want = Q.qmatmul_reference(x, full)
+                row["sum_vs_whole_rel"] = ((refs[0] + refs[1] - want).abs().max()
+                                           / want.abs().max()).item()
+                check(row["sum_vs_whole_rel"] <= 1e-4,
+                      f"tp=2 {name}: the ranks' partial products sum to "
+                      f"{row['sum_vs_whole_rel']:.3e} x max|ref| from the whole leaf's")
+            rows.append(row)
+    del llm, ranks, whole
+    print("qmatmul at tp=2's per-rank shapes: " + "; ".join(
+        f"{r['shape']} int{r['bits']} M={r['M']} K={r['K']} N={r['N']} "
+        f"{r['max_rel_err']:.2e}" + (f" (sum {r['sum_vs_whole_rel']:.2e})"
+                                     if r["row_parallel"] else "") for r in rows))
+    return rows
+
+
+def tp_phase(seed: int) -> dict:
+    """Phase 22: tensor parallelism (``mesh.tp=2``) across processes at
+    full width and depth on the flagship: the train step, the train CLI and
+    the decodes, every rank's launches counted (see the module
+    docstring)."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("tp_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    flag = list(FLAGSHIP_OVERRIDES)
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    cards = torch.cuda.device_count()
+    # name, ranks, sharing card 0, mesh, data-parallel ways (the global
+    # batches grow with them, so each data position holds TP_TRAIN's rows)
+    groups = [("gloo", 2, True, ("mesh.tp=2",), 1)]
+    if cards >= 2:
+        groups.append(("nccl", 2, False, ("mesh.tp=2",), 1))
+    if cards >= 4:
+        groups.append(("nccl_dp2", 4, False, ("mesh.tp=2", "mesh.dp=2"), 2))
+    meshes = {g: " ".join(m) for g, _, _, m, _ in groups}
+    print("tp phase: " + "; ".join(f"{g}: {n} ranks, {' '.join(m)}"
+                                   f"{' sharing card 0' if shared else ''}"
+                                   for g, n, shared, m, _ in groups)
+          + ("" if cards >= 4 else f" (the host has {cards} card(s): "
+             + ("no NCCL run" if cards < 2 else "no dp=2 tp=2 run") + ")"))
+    res: dict = {"train": {}, "train_cli": {}, "decode_cli": {}, "decode": {},
+                 "launches_by_path": {}}
+
+    def train_over(run_dir: Path, steps: int, ways: int, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=10",
+                "training.grad_accum_steps=1", "training.save_every_steps=0",
+                f"data.batch_size={TP_CLI_BATCH * ways}", "runtime.compute_dtype=float32",
+                f"training.max_steps={steps}", f"training.checkpoint_dir={run_dir}", *extra]
+
+    def dec_over(out: Path, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
+                f"decode.max_new_tokens={MESH_DECODE_TOKENS}", "decode.batch_size=8",
+                "runtime.compute_dtype=float32", f"decode.output_dir={out}", *extra]
+
+    def one_card(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches_by_path"][f"tp_{tag}"] = counts()
+        settle()
+        return out
+
+    res["qmm_parity"] = tp_qmm_parity(seed)
+    try:
+        # ---- one process: the references ------------------------------------
+        refs: dict = {"train": {}, "train_cli_losses": {}}
+        for ways in sorted({g[4] for g in groups}):
+            for _, B, d, n in TP_TRAIN:
+                refs["train"][d, ways] = one_card(
+                    f"train_{d}_B{B * ways}_one_card",
+                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, (), n))
+            run1 = work / f"train_one_{ways}"
+            rc = one_card(f"train_cli_B{TP_CLI_BATCH * ways}_one_card",
+                          lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
+            check(rc == 0, f"one-card train CLI returned {rc}")
+            refs["train_cli_losses"][ways] = [float(r[3]) for r in loss_rows(run1)
+                                              if r[2] == "train"]
+            shutil.rmtree(run1 / "ckpt", ignore_errors=True)
+        rc = one_card("decode_cli_one_card", lambda: decode.main(dec_over(work / "dec1")))
+        check(rc == 0, f"one-card decode CLI returned {rc}")
+        refs["decode_f32_hyps"] = hyp_lines(work / "dec1")
+        ones = {name: one_card(f"decode_{name}_one_card",
+                               lambda over=over: tp_decode_run(over, seed))
+                for name, over in TP_REFERENCES}
+
+        # ---- the ranks ---------------------------------------------------------
+        reports = {}
+        for group, world, shared, mesh, ways in groups:
+            runs = [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d, mesh=list(mesh),
+                         steps=k) for n, B, d, k in TP_TRAIN]
+            runs.append(dict(kind="cli", name="train_cli", cli="train",
+                             argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli", cli="decode",
+                             argv=dec_over(work / f"dec_{group}", *mesh)))
+            runs += [dict(kind="decode", name=f"decode_{n}", over=list(over), mesh=list(mesh),
+                          seed=seed) for n, over in TP_DECODES]
+            reports[group] = spawn_ranks(dict(tag=f"tp_{group}", runs=runs), work, world, shared)
+
+        for group, reps in reports.items():
+            world = len(reps)
+            ways = next(g[4] for g in groups if g[0] == group)
+            want_backend = "gloo" if group == "gloo" else "nccl"
+            check(reps[0]["backend"] == want_backend, f"{group} ranks ran {reps[0]['backend']}")
+            takes = reps[0]["backend_takes"]
+            print(f"tp {group}: ranks on {[r['device'] for r in reps]}; the backend takes "
+                  f"on CUDA tensors {json.dumps(takes)}")
+            check(all(v == "yes" for v in takes.values()),
+                  f"{group} refuses a collective the port makes on CUDA tensors: {takes}")
+
+            # ---- the train steps against one process -------------------------
+            leaves = torch.load(work / f"tp_{group}_leaves.pt")
+            for n, B, dtype, steps in TP_TRAIN:
+                name = f"train_{n}"
+                runs_r = [r["runs"][name] for r in reps]
+                want = refs["train"][dtype, ways]
+                got = runs_r[0]["metrics"]
+                dl = max(abs(g["loss"] - w["loss"]) for g, w in zip(got, want["metrics"]))
+                dg = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                         for g, w in zip(got, want["metrics"]))
+                db = max((leaves[name][k] - want["leaves"][k]).abs().max().item()
+                         for k in want["leaves"])
+                row = dict(mesh=runs_r[0]["mesh"], global_batch=B * ways,
+                           rows_per_rank=runs_r[0]["rows"],
+                           loss=[m["loss"] for m in got], max_loss_diff=dl,
+                           max_grad_norm_rel_diff=dg, max_lora_b_diff=db,
+                           step_ms=[r["step_ms"] for r in runs_r],
+                           peak_gb=[r["peak_gb"] for r in runs_r],
+                           one_card_step_ms=want["step_ms"], one_card_peak_gb=want["peak_gb"],
+                           launches=[r["launches"] for r in runs_r])
+                res["train"][f"{group}_{n}"] = row
+                print(f"tp {group} train {n}: " + json.dumps(row))
+                check(all(r["metrics"] == got for r in runs_r),
+                      f"tp {group} {name}: the ranks report different metrics")
+                check(all(r["launches"]["flash_fwd"] and r["launches"]["flash_bwd_dq"]
+                          and r["launches"]["flash_bwd_dkv"] for r in runs_r),
+                      f"tp {group} {name}: a rank launched no flash kernel: "
+                      f"{[r['launches'] for r in runs_r]}")
+                if dtype == "float32":      # phase 21's gates, the CPU tests'
+                    check(dl < 1e-5 and dg < 1e-5 and db < 1e-6,
+                          f"tp {group} {name} against one process: loss |d| {dl:.3e}, grad "
+                          f"norm rel {dg:.3e}, LoRA b |d| {db:.3e}")
+                for r, rr in enumerate(runs_r):
+                    res["launches_by_path"][f"tp_{group}_{name}_rank{r}"] = rr["launches"]
+
+            # ---- the train CLI: 1 step on the ranks, a second at world 1 -----
+            run2 = work / f"train_{group}"
+            tl = [r["runs"]["train_cli"] for r in reps]
+            check(all(t["rc"] == 0 for t in tl), f"tp {group} train CLI ranks returned "
+                                                  f"{[t['rc'] for t in tl]}")
+            rows2 = loss_rows(run2)
+            check([r[2] for r in rows2].count("train") == 1,
+                  f"the tp {group} run's loss_log.csv rows {[r[:3] for r in rows2]}")
+            rc = one_card(f"train_cli_{group}_resumed",
+                          lambda: train.main(train_over(run2, 2, ways)))
+            check(rc == 0, f"tp {group}: the world-1 resume returned {rc}")
+            got = [float(r[3]) for r in loss_rows(run2) if r[2] == "train"]
+            shutil.rmtree(run2 / "ckpt", ignore_errors=True)
+            want = refs["train_cli_losses"][ways]
+            d = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            row = dict(mesh=meshes[group], ranks_then_resumed=got, one_card=want, max_rel_diff=d,
+                       seconds=[t["seconds"] for t in tl])
+            res["train_cli"][group] = row
+            print(f"tp {group} train CLI: " + json.dumps(row))
+            check(len(got) == len(want) == 2 and d < 1e-5,
+                  f"tp {group} train CLI losses {got}, one card {want}")
+            for r, t in enumerate(tl):
+                res["launches_by_path"][f"tp_{group}_train_cli_rank{r}"] = t["launches"]
+                check(t["launches"]["flash_fwd"] and t["launches"]["flash_bwd_dq"]
+                      and t["launches"]["flash_bwd_dkv"],
+                      f"tp {group} train CLI rank {r}: {t['launches']}")
+
+            # ---- the decode CLI in f32: one card's hypotheses -----------------
+            dl_ = [r["runs"]["decode_cli"] for r in reps]
+            two = hyp_lines(work / f"dec_{group}")
+            row = dict(equal_hyps=two == refs["decode_f32_hyps"], lines=len(two),
+                       seconds=[x["seconds"] for x in dl_], launches=[x["launches"] for x in dl_])
+            res["decode_cli"][group] = row
+            print(f"tp {group} decode CLI f32: " + json.dumps(row))
+            check(len(two) == 8 and two == refs["decode_f32_hyps"],
+                  f"tp {group} decode CLI: HYP lines differ from the one-card decode")
+            for r, x in enumerate(dl_):
+                res["launches_by_path"][f"tp_{group}_decode_cli_rank{r}"] = x["launches"]
+                check(x["launches"]["flash_fwd"], f"tp {group} decode CLI rank {r}: "
+                                                  f"{x['launches']}")
+
+            # ---- direct decodes: logits, tokens, ms per token ------------------
+            for n, _ in TP_DECODES:
+                runs_r = [r["runs"][f"decode_{n}"] for r in reps]
+                outs = [torch.load(work / f"tp_{group}_decode_{n}_rank{r}.pt")
+                        for r in range(world)]
+                one = ones[n]
+                part = [slice(*x["rows"]) for x in runs_r]
+                tok_one = [one["tokens"][p] for p in part]
+                equal = [float((o["tokens"] == t).float().mean()) for o, t in zip(outs, tok_one)]
+                dlog = [(o["logits"] - one["logits"][p]).abs() for o, p in zip(outs, part)]
+                row = dict(rows=[x["rows"] for x in runs_r], equal_token_share=equal,
+                           logits_vs_one_card_max=max(x.max().item() for x in dlog),
+                           logits_vs_one_card_mean=max(x.mean().item() for x in dlog),
+                           ms_per_token=[x["ms_per_token"] for x in runs_r],
+                           one_card_ms_per_token=one["ms_per_token"],
+                           peak_gb=[x["peak_gb"] for x in runs_r], one_card_peak_gb=one["peak_gb"],
+                           launches=[x["launches"] for x in runs_r])
+                # phase 13's bf16 gate (``logit_gates``): no further from the
+                # mode's f32 logits than 2x one card is, in mean and in max
+                ref32 = ones["f32" if n == "bf16" else "preset_f32"]["logits"]
+                own = (one["logits"] - ref32).abs()
+                mine = [(o["logits"] - ref32[p]).abs() for o, p in zip(outs, part)]
+                row.update(own_vs_f32_mean=own.mean().item(), own_vs_f32_max=own.max().item(),
+                           tp_vs_f32_mean=max(x.mean().item() for x in mine),
+                           tp_vs_f32_max=max(x.max().item() for x in mine))
+                check(row["tp_vs_f32_mean"] <= 2.0 * row["own_vs_f32_mean"]
+                      and row["tp_vs_f32_max"] <= 2.0 * row["own_vs_f32_max"],
+                      f"tp {group} decode {n}: logits |d| to f32 (mean "
+                      f"{row['tp_vs_f32_mean']:.4e}, max {row['tp_vs_f32_max']:.4e}) "
+                      f"beyond 2x one card's ({row['own_vs_f32_mean']:.4e}, "
+                      f"{row['own_vs_f32_max']:.4e})")
+                if n == "preset":
+                    sh = runs_r[0]["shapes"]
+                    row["int4_slices"] = {k: dict(shape=v, K=2 * v[0], N=v[1])
+                                          for k, v in sh.items() if k.endswith("qw4h")}
+                    row["int8_head"] = dict(shape=sh["lm_head/qw"], N=sh["lm_head/qw"][1])
+                    print(f"tp {group} preset: the int4 kernel's K x N per slice "
+                          + json.dumps({k: f"{v['K']} x {v['N']}"
+                                        for k, v in row["int4_slices"].items()})
+                          + f"; the int8 head's vocab slice {row['int8_head']['shape']}")
+                res["decode"][f"{group}_{n}"] = row
+                print(f"tp {group} decode {n}: " + json.dumps(row))
+                for r, x in enumerate(runs_r):
+                    res["launches_by_path"][f"tp_{group}_decode_{n}_rank{r}"] = x["launches"]
+                    lc = x["launches"]
+                    check(lc["flash_fwd"] and (n != "preset" or (lc["qmatmul_int4"]
+                                                                 and lc["qmatmul_int8"])),
+                          f"tp {group} decode {n} rank {r} launches {lc}")
+        res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), f"{work} not removed")
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"tp phase: {res['seconds']:.1f} s; launches " + json.dumps(res["launches_by_path"]))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--mesh-only", action="store_true",
                    help="build the kernels and run phase 21 alone")
+    p.add_argument("--tp-only", action="store_true",
+                   help="build the kernels and run phase 22 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -6156,7 +6566,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: avsr_tpu_torch not found next to this script ({e})",
               file=sys.stderr)
         return 2
-    if args.mesh_worker:              # one rank of phase 21
+    if args.mesh_worker:              # one rank of phase 21 or 22
         return mesh_worker(args.mesh_worker)
 
     print(gpu_line())
@@ -6165,6 +6575,16 @@ def main(argv: list[str] | None = None) -> int:
     # f32 matmuls and convolutions in full f32 (cuDNN's default is TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    t_run = time.perf_counter()
+    laps = [t_run]
+
+    def lap() -> None:
+        """Between two phases: their seconds, then ``settle``."""
+        now = time.perf_counter()
+        print(f"chip_smoke: phase boundary at {now - t_run:.1f} s (+{now - laps[-1]:.1f} s)")
+        laps.append(now)
+        settle()
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -6184,6 +6604,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.mesh_only:
         print(json.dumps(mesh_phase(args.seed)))
         return 0
+    if args.tp_only:
+        print(json.dumps(tp_phase(args.seed)))
+        return 0
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
@@ -6191,45 +6614,45 @@ def main(argv: list[str] | None = None) -> int:
     res = main_path_phase(args.seed)
     for r in rows:            # launches per generate_tokens call, counted there
         r["launches_per_call"] = res["flash_launches_by_shape"][r["shape"]]
-    settle()
+    lap()
     cli_phase(args.seed)
-    settle()
+    lap()
     # train lengths: 33 prompt tokens + 500 features + 48 label tokens = 581
     # valid of 661 packed, padded to 672
     bwd = bwd_kernel_phase(args.seed, 581)
-    settle()
+    lap()
     train = train_phase(args.seed)
-    settle()
+    lap()
     train_cli_phase(args.seed)
-    settle()
+    lap()
     # Quantized serving last, so that the phases above run as they did
     # before it existed. The flagship LLM has 16 layers; 100 tokens take 99
     # decode steps.
     qmm = qmm_kernel_phase(args.seed, n_layers=16, steps=res["decode_steps"])
-    settle()
+    lap()
     serve = {"serve_preset": preset_phase(args.seed, res, qmm)}
-    settle()
+    lap()
     serve["serve_8bit"] = preset_phase(args.seed, res, qmm, INT8_OVERRIDES, tag="use_8bit",
                                        against_bf16_weights=False)
-    settle()
+    lap()
     cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
-    settle()
+    lap()
     ckpt = checkpoint_phase(args.seed, res, serve["serve_preset"])
     cl = ckpt["launches"]
     check(all(cl.values()), f"a kernel did not launch on the checkpoint path: {cl}")
-    settle()
+    lap()
     knobs = train_knobs_phase(args.seed, train)
     kl = knobs["launches"]
     check(all(kl.values()), f"a kernel did not launch on the train-knobs path: {kl}")
 
-    settle()
+    lap()
     # Phase 13 at full width: beam search, speculative decoding, the
     # streaming continuation and the distillation CLI.
     variants = decode_variants_phase(args.seed, res)
     vl = variants["launches"]
     check(all(vl.values()), f"a kernel did not launch on the decode-variants path: {vl}")
 
-    settle()
+    lap()
     # Phase 14 at full width: the serving engine, the multi-LoRA bank,
     # speculative slots, the HTTP server and streaming transcription.
     serving = serving_phase(args.seed, res)
@@ -6237,33 +6660,33 @@ def main(argv: list[str] | None = None) -> int:
     check(all(sl[k] for k in ("flash_fwd", "qmatmul_int8", "qmatmul_int4")),
           f"a kernel did not launch on the serving path: {sl}")
 
-    settle()
+    lap()
     # Phase 15 at full width: a real-file corpus through the train, decode
     # and prepare_data CLIs, the compact link and the engine.
     corpus = corpus_phase(args.seed)
 
-    settle()
+    lap()
     # Phase 16 at full width: HF and reference-trainer checkpoints converted,
     # and hubert_base trained, decoded, served and streamed from its export.
     conv = convert_phase(args.seed)
 
-    settle()
+    lap()
     # Phase 17 at full width: every connector decoded and trained, the flash
     # kernels at head width 256, the f32 engine and the CLIs with cross_modal.
     connectors = connector_phase(args.seed)
 
-    settle()
+    lap()
     # Phase 18 at full width: both MoE forms trained, decoded, quantized and
     # served; the f32 engine, speculative decoding and the decode CLI exact.
     moe = moe_phase(args.seed)
 
-    settle()
+    lap()
     # Phase 19 at full width: ResNet-50, EfficientNet-b0 and AV-HuBERT-base
     # decoded, trained, served and converted; AV-HuBERT's flash path at 300
     # frames, its tuned blocks, its CLIs on the corpus; the preset with ResNet.
     video = video_encoder_phase(args.seed)
 
-    settle()
+    lap()
     # Phase 20 at full width: the tooling CLIs; validate's gate on a NaN
     # leaf, each component's bytes, and profiles of the train step and of a
     # decode call (bf16 and the preset) whose kernels equal the counters.
@@ -6271,7 +6694,7 @@ def main(argv: list[str] | None = None) -> int:
     tk = {k: sum(n[k] for n in tooling["launches_by_path"].values()) for k in counts()}
     check(all(tk.values()), f"a kernel did not launch on the tooling path: {tk}")
 
-    settle()
+    lap()
     # Phase 21 at full width: the train step, the train CLI and the decode
     # CLI across processes (2 ranks on card 0 over gloo; 2 ranks on 2 cards
     # over NCCL where there are two), each rank's launches counted.
@@ -6279,9 +6702,17 @@ def main(argv: list[str] | None = None) -> int:
     mk = {k: sum(n[k] for n in mesh["launches_by_path"].values()) for k in counts()}
     check(all(mk.values()), f"a kernel did not launch on the mesh path: {mk}")
 
+    lap()
+    # Phase 22 at full width: tensor parallelism (mesh.tp=2) across
+    # processes, the train step, the train CLI and the decodes, each rank's
+    # launches counted.
+    tp = tp_phase(args.seed)
+    tk2 = {k: sum(n[k] for n in tp["launches_by_path"].values()) for k in counts()}
+    check(all(tk2.values()), f"a kernel did not launch on the tp path: {tk2}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video, tooling, mesh)
+                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def serve_paths(name: str) -> dict[str, int]:
@@ -6400,12 +6831,14 @@ def main(argv: list[str] | None = None) -> int:
         by_path.update(knob_paths(name))
         by_path.update(serve_paths(name))
         by_path.update(corpus_paths(name))
+        trows = [r for r in tp["qmm_parity"] if r["bits"] == bits]
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/qmatmul.cu",
             replaces=f"avsr_tpu/ops/qmatmul.py:{line}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(r["max_abs_err"] for r in qrows),
-            max_rel_err=max(r["max_rel_err"] for r in qrows),
+            max_abs_err=max(r["max_abs_err"] for r in qrows + trows),
+            max_rel_err=max(r["max_rel_err"] for r in qrows + trows),
+            tp_shapes=trows,
             edge_max_rel_err=qmm["edge_max_rel_err"],
             ms=qtotal("ms"), plain_ms=qtotal("plain_ms"), bound_ms=qtotal("bound_ms"),
             bound_by="operations" if qtotal("ops_ms") >= qtotal("bytes_ms") else "bytes",
@@ -6418,6 +6851,7 @@ def main(argv: list[str] | None = None) -> int:
                       "the preset's beam search, the bf16 speculative calls; device "
                       "time per launch from a replayed CUDA graph x launches)",
             shapes=qrows))
+    lap()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -205,10 +205,15 @@ def test_mesh_shape_matches_jax(n, axes):
 @pytest.mark.parametrize("over", ["mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
                                   "mesh.ep=2 model.connector_type=moe"])
 def test_model_axes_are_the_next_slice(over):
-    """tp, sp, ep and pp change the model's own code: refused, naming the
-    next slice; the data axes load."""
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tcfg.load_config(None, over.split())
+    """sp, ep and pp change the model's own code: refused, naming the
+    next slice; the data axes and tp load (and tp=2 needs 2 processes,
+    JAX's mesh message at a world of 1)."""
+    if over == "mesh.tp=2":
+        with pytest.raises(ValueError, match="devices"):
+            sharding.mesh_shape(tcfg.load_config(None, [over]).mesh, 1)
+    else:
+        with pytest.raises(NotImplementedError, match="next slice"):
+            tcfg.load_config(None, over.split())
     cfg = tcfg.load_config(None, ["mesh.dp=2", "mesh.fsdp=2", "mesh.dcn_dp=2"])
     assert (cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.dcn_dp) == (2, 2, 2)
 
@@ -254,8 +259,9 @@ def test_param_specs_match_jax(form):
 
 def echo_mesh(rank: int, fsdp: int = 2) -> sharding.Mesh:
     g = collectives.EchoGroup(fsdp, rank)
+    one = collectives.EchoGroup(1, 0)
     shape = dict(zip(sharding.AXES, (1, 1, fsdp, 1, 1, 1, 1)))
-    return sharding.Mesh(shape, rank, data=g, fsdp=g, replica=collectives.EchoGroup(1, 0))
+    return sharding.Mesh(shape, rank, world=g, data=g, fsdp=g, replica=one, tp=one)
 
 
 def test_slices_concatenate_back_to_each_leaf():

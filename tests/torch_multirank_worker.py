@@ -11,8 +11,18 @@ A job is a list of runs, made in order in one process:
     ``avsr_tpu/configs/tiny_cpu.yaml``) from the weights in ``weights`` (a
     ``torch.save``d tree) on this rank's rows of the global micro-batches
     in ``batch`` ([accum, B, ...] numpy arrays); rank 0 writes the metrics
-    of each step, the trained leaves and the sharded frozen leaves,
-    gathered whole, to ``out`` (``torch.save``);
+    of each step, the first step's gradients and the trained leaves and
+    the sharded frozen leaves after the steps, all gathered whole, to
+    ``out`` (``torch.save``);
+  * ``decode``: the serving layout of ``weights`` under the mesh of
+    ``overrides`` (``prepare_params_for_decode``: quantized head, this
+    rank's tp slices, each rank's fused q|k|v and gate|up), then
+    ``generate_tokens`` and ``beam_search`` on this rank's rows of the
+    batch in ``batch`` ([B, ...] numpy arrays), and for each draft depth
+    of ``spec`` (0: the self-draft, else a layer-skip draft of that many
+    blocks; int8, sliced like the target) ``speculative_generate``; every
+    rank writes its tokens and prefill logits to ``out`` (``{rank}`` in the
+    name);
   * ``cli``: ``avsr_tpu_torch.cli.<cli>.main(argv)``, whose return code
     must be 0.
 """
@@ -29,6 +39,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from avsr_tpu_torch.core import config as tcfg  # noqa: E402
+from avsr_tpu_torch.infer import generate, speculative  # noqa: E402
 from avsr_tpu_torch.mesh import multihost, sharding  # noqa: E402
 from avsr_tpu_torch.models.avsr import Batch  # noqa: E402
 from avsr_tpu_torch.train import state as tstate  # noqa: E402
@@ -46,6 +57,17 @@ def run_step(job: dict) -> None:
     params = tstate.cast_frozen(params, cfg.model, torch.float32)
     state = tstate.create_train_state(sharding.shard_params(params, mesh), cfg, 10)
     step = tstep.make_train_step(cfg, mesh)
+    grads = {}
+    update = state.optimizer.update
+
+    def record(gs, norm):       # the first step's reduced gradients, whole
+        if not grads:
+            with torch.no_grad():
+                grads.update({k: sharding.gather_leaf(g).clone()
+                              for k, g in zip(state.optimizer.names, gs)})
+        return update(gs, norm)
+
+    state.optimizer.update = record
     data = np.load(job["batch"])
     B = data["labels"].shape[1]
     lo, hi = multihost.local_rows(B, (mesh.data.rank, mesh.ways))
@@ -58,10 +80,44 @@ def run_step(job: dict) -> None:
                   for k, v in tstate.path_leaves(train).items()}
         frozen = {k: sharding.gather_leaf(v).clone()
                   for k, v in tstate.path_leaves(state.params).items()
-                  if sharding.shard_of(v) is not None and k not in leaves}
+                  if sharding.shards_of(v) and k not in leaves}
     if rank == 0:
         torch.save({"metrics": metrics, "leaves": leaves, "frozen": frozen,
-                    "shape": mesh.shape}, job["out"])
+                    "grads": grads, "shape": mesh.shape}, job["out"])
+
+
+def run_decode(job: dict) -> None:
+    cfg = tcfg.load_config(TINY_YAML, job["overrides"])
+    multihost.init_distributed("cpu")
+    rank, world = multihost.process_shard()
+    mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+    raw = torch.load(job["weights"], weights_only=True)
+    params = generate.prepare_params_for_decode(raw, cfg.model, cfg.decode.lm_head_bits,
+                                                mesh=mesh)
+    data = np.load(job["batch"])
+    lo, hi = multihost.local_rows(data["labels"].shape[0], (mesh.data.rank, mesh.ways))
+    batch = Batch(**{k: torch.from_numpy(np.ascontiguousarray(data[k][lo:hi]))
+                     for k in data.files})
+    kw = dict(eos_id=job["eos"], kv_cache_dtype=cfg.decode.kv_cache_dtype,
+              use_kernel=cfg.runtime.use_pallas)
+    stats: dict = {}
+    greedy = generate.generate_tokens(params, cfg.model, batch, stats=stats,
+                                      max_new_tokens=job["new_tokens"], **kw)
+    beam = generate.beam_search(params, cfg.model, batch, num_beams=job["beams"],
+                                max_new_tokens=job["beam_tokens"], **kw)
+    spec = {}
+    for layers in job.get("spec", ()):
+        d_raw, d_cfg = (speculative.make_layerskip_draft(raw, cfg.model, layers)
+                        if layers else (raw, None))
+        draft = speculative.make_draft_params(d_raw, d_cfg or cfg.model, bits=8, mesh=mesh)
+        spec[layers] = speculative.speculative_generate(
+            params, draft, cfg.model, batch, gamma=3, max_new_tokens=job["new_tokens"],
+            eos_id=job["eos"], use_kernel=cfg.runtime.use_pallas,
+            draft_model_cfg=d_cfg).tokens
+    torch.save({"greedy": greedy.tokens, "greedy_lens": greedy.lengths,
+                "beam": beam.tokens, "beam_lens": beam.lengths, "spec": spec,
+                "prefill_logits": stats["prefill_logits"], "shape": mesh.shape},
+               job["out"].format(rank=rank))
 
 
 def run_cli(job: dict) -> None:
@@ -74,7 +130,7 @@ def run_cli(job: dict) -> None:
 def main() -> None:
     torch.set_num_threads(1)
     for run in json.loads(Path(sys.argv[1]).read_text()):
-        {"step": run_step, "cli": run_cli}[run["kind"]](run)
+        {"step": run_step, "decode": run_decode, "cli": run_cli}[run["kind"]](run)
 
 
 if __name__ == "__main__":
