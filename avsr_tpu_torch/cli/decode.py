@@ -33,8 +33,8 @@ the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
 the byte tokenizer.
 
 Across processes (``torchrun --nproc_per_node N -m avsr_tpu_torch.cli.decode
-...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp`` over the
-world) every rank loads each batch and decodes its contiguous share of the
+...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp``/``mesh.sp`` over
+the world) every rank loads each batch and decodes its contiguous share of the
 rows (split over the data axes) on its own card; rank 0 gathers the
 hypotheses in dataset order and alone writes the results and WER files.
 JAX's ``infer_batch_sharder`` replicates a batch that does not divide the
@@ -47,7 +47,12 @@ token). Under ``mesh.tp`` the ranks of a tp group decode the same rows and
 keep their tp slices: the Megatron blocks, their KV cache heads and the
 vocab-sharded embedding and head, whose logits are gathered, so every
 rank takes the same next token (greedy, beam and speculative alike; the
-speculative draft is sliced too). Greedy, beam and speculative hypotheses
+speculative draft is sliced too). Under ``mesh.sp`` the ranks of an sp
+group decode the same rows, each running the encoders' and the prefill's
+block stacks on its chunk of the sequence (ring attention) where JAX's
+ring engages, with the prefill's KV cache gathered whole on every rank;
+one rank of each data position's hypotheses is gathered (over the data
+group). Greedy, beam and speculative hypotheses
 are a row's own, so they equal the single-card decode's (in f32);
 sampling draws from each rank's generator.
 The continuous-batching engine (``decode.engine_slots``) runs on one card.
@@ -295,7 +300,8 @@ def _decode_rows(cfg: AVSRConfig, params, tok, loader: DataLoader, mesh=None, **
             lo, hi = local_rows(batch.labels.shape[0], (mesh.data.rank, mesh.ways))
             batch = take_rows(batch, lo, hi)
         out = generate(params, cfg.model, batch, d, eos_id=tok.eos_id,
-                       compute_dtype=dtype, use_kernel=cfg.runtime.use_pallas, **kw)
+                       compute_dtype=dtype, use_kernel=cfg.runtime.use_pallas,
+                       sp=mesh.sp if mesh is not None else None, **kw)
         tokens = out.tokens.cpu().numpy()
         lens = out.lengths.cpu().numpy()
         hyps = [tok.decode(tokens[i, : lens[i]]) for i in range(tokens.shape[0])]

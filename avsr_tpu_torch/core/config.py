@@ -551,18 +551,22 @@ def _check_moe(cfg: AVSRConfig) -> None:
 
 def _check_ported(cfg: AVSRConfig) -> None:
     """Raises for the mesh axes the port does not run yet. The data axes
-    (``dp``, ``fsdp``, ``dcn_dp``) and ``tp`` run one process per card
-    (``mesh/sharding.py``); ``sp``, ``ep`` and ``pp`` change the model's
-    own code and come with the next slices."""
+    (``dp``, ``fsdp``, ``dcn_dp``), ``tp`` and ``sp`` run one process per
+    card (``mesh/sharding.py``); ``pp`` and ``ep`` change the model's own
+    code and come with the next slices (``pp`` first). A config that sets
+    both ``pp`` and ``sp`` gets the JAX package's message."""
     mesh = cfg.mesh
-    axes = {"sp": mesh.sp, "ep": mesh.ep, "pp": mesh.pp}
+    if mesh.pp > 1 and mesh.sp > 1:
+        raise ValueError("mesh.pp and mesh.sp are mutually exclusive")
+    axes = {"ep": mesh.ep, "pp": mesh.pp}
     wide = [f"mesh.{k}={v}" for k, v in axes.items() if v > 1]
     if wide:
         raise NotImplementedError(
             f"{', '.join(wide)}: the port runs the data axes (mesh.dp, "
-            "mesh.fsdp, mesh.dcn_dp) and tensor parallelism (mesh.tp) across "
-            "processes; sequence, expert and pipeline parallelism are the next "
-            "slices of the port (mesh.sp first, then mesh.ep and mesh.pp)")
+            "mesh.fsdp, mesh.dcn_dp), tensor parallelism (mesh.tp) and sequence "
+            "parallelism (mesh.sp) across processes; pipeline and expert "
+            "parallelism are the next slices of the port (mesh.pp first, then "
+            "mesh.ep)")
 
 
 # ---------------------------------------------------------------------------

@@ -101,7 +101,7 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
                     generator: torch.Generator | None = None,
                     compute_dtype: torch.dtype = torch.float32,
                     use_kernel: str = "auto", kv_cache_dtype: str = "bfloat16",
-                    stats: dict | None = None) -> GenOut:
+                    stats: dict | None = None, sp=None) -> GenOut:
     """Greedy (temperature=0) or nucleus-sampled generation.
 
     ``generator`` (on the batch's device) drives sampling; without it the
@@ -111,13 +111,19 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     reuse the prefill's scales. ``stats``, when given, receives the phase
     times in seconds (``encode_s``, ``prefill_s``, ``decode_s``, each
     ending in a device synchronize), ``decode_steps`` and the last-position
-    prefill logits (``prefill_logits`` [B, V] f32)."""
+    prefill logits (``prefill_logits`` [B, V] f32).
+
+    ``sp`` (the mesh's sp group, as JAX threads its mesh) shards the
+    sequences of the encoders' block stacks and of the prefill (ring
+    attention), where JAX's ring engages; the prefill's cache holds every
+    layer's K/V gathered whole, and the token loop runs unchanged on every
+    rank of the group, which takes the same tokens."""
     dt = compute_dtype
     cfg = model_cfg.llm
     lora = model_cfg.lora if model_cfg.lora.use_lora else None
     t0 = time.perf_counter()
     enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
-                 moe_rowwise=True)
+                 moe_rowwise=True, sp=sp)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc,
                                        compute_dtype=dt)
     dev = prefix.device
@@ -132,7 +138,7 @@ def generate_tokens(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     hidden, cache = L.llama_apply(
         params["llm"], cfg, inputs_embeds=prefix, lengths=prefix_lens, lora=lora,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True, cache_len=M,
-        output="hidden", moe_rowwise=True)
+        output="hidden", moe_rowwise=True, sp=sp)
     if kv_cache_dtype == "int8":
         cache = L.quantize_cache(cache)
     elif kv_cache_dtype != "bfloat16":
@@ -288,7 +294,7 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
                 length_penalty: float = 1.0, eos_id: int = 2,
                 compute_dtype: torch.dtype = torch.float32,
                 use_kernel: str = "auto", kv_cache_dtype: str = "bfloat16",
-                stats: dict | None = None) -> GenOut:
+                stats: dict | None = None, sp=None) -> GenOut:
     """Length-normalised beam search over the embeddings prefix.
 
     The KV cache is split: the prefix cache keeps [B] rows (Mp = ceil128(
@@ -302,14 +308,15 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     ``kv_cache_dtype="int8"`` quantizes the prefix cache. ``stats`` takes
     the phase times (``encode_s``, ``prefill_s``, ``decode_s``),
     ``decode_steps``, ``prefill_logits`` and the final beam ``scores``
-    [B, W]."""
+    [B, W]. ``sp`` shards the encoders and the prefill as in
+    :func:`generate_tokens`."""
     dt = compute_dtype
     cfg = model_cfg.llm
     lora = model_cfg.lora if model_cfg.lora.use_lora else None
     W = num_beams
     t0 = time.perf_counter()
     enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
-                 moe_rowwise=True)
+                 moe_rowwise=True, sp=sp)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc, compute_dtype=dt)
     dev = prefix.device
     if stats is not None:
@@ -323,7 +330,7 @@ def beam_search(params: Params, model_cfg: ModelConfig, batch: Batch, *,
     hidden, pre_cache = L.llama_apply(
         params["llm"], cfg, inputs_embeds=prefix, lengths=prefix_lens, lora=lora,
         compute_dtype=dt, use_kernel=use_kernel, return_cache=True, cache_len=Mp,
-        output="hidden", moe_rowwise=True)
+        output="hidden", moe_rowwise=True, sp=sp)
     h_last = hidden[torch.arange(B, device=dev), prefix_lens.long() - 1][:, None]
     last = L.compute_logits(params["llm"], cfg, h_last, use_kernel)[:, 0]
     if kv_cache_dtype == "int8":
@@ -394,12 +401,13 @@ def generate(params: Params, model_cfg: ModelConfig, batch: Batch,
              compute_dtype: torch.dtype = torch.float32, use_kernel: str = "auto",
              draft_params: Params | None = None,
              draft_model_cfg: ModelConfig | None = None,
-             draft_shares_prefix: bool | None = None) -> GenOut:
+             draft_shares_prefix: bool | None = None, sp=None) -> GenOut:
     """The decode config's protocol: speculative decoding when
     ``decode.speculative`` is set and a draft is given (built once by the
     caller: ``infer/speculative.py::make_draft_params``, or
     ``make_layerskip_draft`` with its ``draft_model_cfg``), beam search for
-    ``num_beams`` > 1, else greedy or sampled ``generate_tokens``."""
+    ``num_beams`` > 1, else greedy or sampled ``generate_tokens``; each
+    with the sp group ``sp``."""
     d = decode_cfg
     if d.speculative and draft_params is not None:
         from avsr_tpu_torch.infer.speculative import speculative_generate
@@ -410,13 +418,13 @@ def generate(params: Params, model_cfg: ModelConfig, batch: Batch,
             top_p=d.top_p, generator=generator, eos_id=eos_id,
             compute_dtype=compute_dtype, use_kernel=use_kernel,
             draft_model_cfg=draft_model_cfg,
-            draft_shares_prefix=draft_shares_prefix)
+            draft_shares_prefix=draft_shares_prefix, sp=sp)
     if d.num_beams > 1:
         return beam_search(params, model_cfg, batch, max_new_tokens=d.max_new_tokens,
                            num_beams=d.num_beams, length_penalty=d.length_penalty,
                            eos_id=eos_id, compute_dtype=compute_dtype,
-                           use_kernel=use_kernel, kv_cache_dtype=d.kv_cache_dtype)
+                           use_kernel=use_kernel, kv_cache_dtype=d.kv_cache_dtype, sp=sp)
     return generate_tokens(params, model_cfg, batch, max_new_tokens=d.max_new_tokens,
                            temperature=d.temperature, top_p=d.top_p, eos_id=eos_id,
                            generator=generator, compute_dtype=compute_dtype,
-                           use_kernel=use_kernel, kv_cache_dtype=d.kv_cache_dtype)
+                           use_kernel=use_kernel, kv_cache_dtype=d.kv_cache_dtype, sp=sp)

@@ -161,12 +161,12 @@ def make_layerskip_draft(params: Params, model_cfg: ModelConfig,
 
 def _prefill(params: Params, mc: ModelConfig, prefix: torch.Tensor,
              lens: torch.Tensor, extra: int, lora, dt: torch.dtype,
-             use_kernel: str) -> tuple[torch.Tensor, L.KVCache]:
+             use_kernel: str, sp=None) -> tuple[torch.Tensor, L.KVCache]:
     M = -(-(prefix.shape[1] + extra) // 128) * 128
     return L.llama_apply(params["llm"], mc.llm, inputs_embeds=prefix, lengths=lens,
                          lora=lora, compute_dtype=dt, use_kernel=use_kernel,
                          return_cache=True, cache_len=M, output="hidden",
-                         moe_rowwise=True)
+                         moe_rowwise=True, sp=sp)
 
 
 @torch.inference_mode()
@@ -177,7 +177,7 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
                          return_stats: bool = False, temperature: float = 0.0,
                          top_p: float = 1.0, generator: torch.Generator | None = None,
                          draft_model_cfg: ModelConfig | None = None,
-                         draft_shares_prefix: bool | None = None):
+                         draft_shares_prefix: bool | None = None, sp=None):
     """Speculative generation in about 1 / (accepted + 1) as many target
     passes.
 
@@ -195,7 +195,9 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
     too (off for the self-draft, which merged it). ``return_stats`` also
     returns {``verify_passes``, ``tokens_per_pass`` (tokens past the
     prefill's first, per row and pass), ``draft_steps`` (single-token
-    draft decode steps taken)}."""
+    draft decode steps taken)}. ``sp`` (the mesh's sp group) shards the
+    encoders' and both prefills' sequences, as JAX threads its mesh there;
+    the verify passes and draft steps run whole on every rank."""
     dt = compute_dtype
     cfg = model_cfg.llm
     dcfg = draft_model_cfg or model_cfg
@@ -216,13 +218,13 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
 
     # target prefill, as in generate_tokens
     enc = encode(params, model_cfg, batch, compute_dtype=dt, use_kernel=use_kernel,
-                 moe_rowwise=True)
+                 moe_rowwise=True, sp=sp)
     prefix, prefix_lens = build_prefix(params, model_cfg, batch, enc, compute_dtype=dt)
     dev = prefix.device
     B = prefix.shape[0]
     extra = max_new_tokens + G + 2
     hidden, t_cache = _prefill(params, model_cfg, prefix, prefix_lens, extra, lora, dt,
-                               use_kernel)
+                               use_kernel, sp)
     b_idx = torch.arange(B, device=dev)
     last = L.compute_logits(params["llm"], cfg,
                             hidden[b_idx, prefix_lens.long() - 1][:, None], use_kernel)[:, 0]
@@ -233,11 +235,11 @@ def speculative_generate(params: Params, draft_params: Params, model_cfg: ModelC
         d_prefix, d_plens = prefix, prefix_lens
     else:
         d_enc = encode(draft_params, dcfg, batch, compute_dtype=dt, use_kernel=use_kernel,
-                       moe_rowwise=True)
+                       moe_rowwise=True, sp=sp)
         d_prefix, d_plens = build_prefix(draft_params, dcfg, batch, d_enc,
                                          compute_dtype=dt)
     _, d_cache = _prefill(draft_params, dcfg, d_prefix, d_plens, extra, dlora, dt,
-                          use_kernel)
+                          use_kernel, sp)
     del d_prefix, prefix
 
     P = prefix_lens.long()

@@ -3,10 +3,11 @@ across processes goes through a :class:`Group`, over the default process
 group's backend (NCCL on the card, gloo on the CPU or when ranks share a
 card), which takes each of them on the tensors' own device: gloo takes
 them on CUDA tensors too. :data:`BACKEND_TABLE` lists every collective
-the port makes, the three Megatron operators of tensor parallelism
-included, and :func:`probe_backend` asks the backend for each
-(``chip_smoke.py``'s phases 21 and 22 print the answers and fail if it
-refuses one), so nothing is swapped or staged behind the caller's back.
+the port makes, the three Megatron operators of tensor parallelism and
+the ring shift of sequence parallelism included, and :func:`probe_backend`
+asks the backend for each (``chip_smoke.py``'s phases 21-23 print the
+answers and fail if it refuses one), so nothing is swapped or staged
+behind the caller's back.
 
 Tensor parallelism (``mesh.tp``) uses three autograd operators over the
 ``tp`` group, Megatron's f, g and gather:
@@ -20,6 +21,33 @@ Tensor parallelism (``mesh.tp``) uses three autograd operators over the
     vocab-sharded logits, and a tp-sharded leaf gathered where it is used:
     every rank of the group computes the same gradient of the whole leaf,
     so each keeps its own slice of it).
+
+Sequence parallelism (``mesh.sp``) holds one contiguous chunk of a
+sequence on each rank of the ``sp`` group inside a block stack
+(``models/``), with three autograd operators and the ring's shift:
+
+  * :func:`scatter_to_sp`: this rank's chunk of a tensor every rank holds
+    whole; the backward puts the chunk's gradient at its place in a
+    zero tensor of the whole's shape, without communication;
+  * :func:`gather_from_sp`: every rank's chunk, concatenated; the backward
+    reduce-scatters the gradient over the group;
+  * :func:`shift_sp` (``Group.shift``): each rank's tensor to the next
+    rank, the previous rank's received; the backward is the reverse shift
+    (``ppermute``'s transpose). Ring attention (``ops/ring_attention.py``)
+    rotates K and V, and in its backward their gradients, this way.
+
+Under these rules every gradient that leaves the sharded stack is a
+partial sum: a replicated tensor upstream of :func:`scatter_to_sp` gets
+only its own chunk's share on each rank, and the shares of the ranks sum
+to the whole (so does the loss, each rank's chunk of label positions,
+``models/avsr.py::forward``). Every gradient, whether its leaf is used
+inside the stack or only on replicated tensors, is then summed over the
+sp group once (``train/step.py::reduce_grads``, over the mesh's ``sums``
+group), and none is counted ``sp`` times. Over NCCL, and over gloo on CPU
+tensors, a shift is one ``batch_isend_irecv`` of send/receive pairs
+(every rank makes the same calls in the same order: in the forward,
+remat's recompute and the backward); gloo on CUDA tensors takes it as an
+all-gather (:data:`BACKEND_TABLE`, :func:`shift_route`).
 
 :class:`EchoGroup` stands in for a group without talking to any other
 process: its gathers repeat the local tensor and its reductions return it,
@@ -95,6 +123,28 @@ class Group:
         dist.reduce_scatter_tensor(out, x, group=self.pg)
         return out
 
+    def shift(self, ts: list[torch.Tensor], offset: int = 1) -> list[torch.Tensor]:
+        """Each of ``ts`` sent to group rank ``rank + offset`` (mod size);
+        returns the tensors of group rank ``rank - offset``, in one batch
+        of sends and receives (:func:`shift_route`)."""
+        n = self.size
+        if n == 1 or offset % n == 0:
+            return list(ts)
+        xs = [t.detach().contiguous() for t in ts]
+        src = (self.rank - offset) % n
+        if shift_route(xs[0].device, self.pg) == "all_gather":
+            return [self.all_gather(x.reshape(1, -1)).reshape(n, *x.shape)[src].clone()
+                    for x in xs]
+        outs = [torch.empty_like(x) for x in xs]
+        dst, peer = self.ranks[(self.rank + offset) % n], self.ranks[src]
+        ops = []
+        for x, out in zip(xs, outs):
+            ops += [dist.P2POp(dist.isend, x, dst, self.pg),
+                    dist.P2POp(dist.irecv, out, peer, self.pg)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return outs
+
     def all_gather_object(self, obj: Any) -> list[Any]:
         """Every rank's picklable ``obj``, in rank order."""
         if self.size == 1:
@@ -137,6 +187,42 @@ class _GatherFromTP(torch.autograd.Function):
         return grad.chunk(g.size, dim=ctx.dim)[g.rank].contiguous(), None, None
 
 
+class _ScatterToSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim, ctx.shape = group, dim, x.shape
+        return x.chunk(group.size, dim=dim)[group.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        g = ctx.group
+        out = grad.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, g.rank * grad.shape[ctx.dim], grad.shape[ctx.dim]).copy_(grad)
+        return out, None, None
+
+
+class _GatherFromSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
+
+
+class _ShiftSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, offset: int) -> torch.Tensor:
+        ctx.group, ctx.offset = group, offset
+        return group.shift([x], offset)[0]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.shift([grad.contiguous()], -ctx.offset)[0], None, None
+
+
 def _grad_path(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -168,6 +254,56 @@ def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     return group.all_gather(x, dim)
 
 
+def scatter_to_sp(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x``, which every rank of the
+    sp ``group`` holds whole; its gradient is this rank's share of the
+    whole's (see the module docstring). None: ``x``."""
+    if group is None or group.size == 1:
+        return x
+    dim = dim % x.ndim
+    if _grad_path(x):
+        return _ScatterToSP.apply(x, group, dim)
+    return x.chunk(group.size, dim=dim)[group.rank].contiguous()
+
+
+def gather_from_sp(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's chunk along ``dim``, concatenated in rank order; the
+    gradient of the whole is reduce-scattered back (the ranks' partial
+    sums of it, summed)."""
+    if group is None or group.size == 1:
+        return x
+    dim = dim % x.ndim
+    if _grad_path(x):
+        return _GatherFromSP.apply(x, group, dim)
+    return group.all_gather(x, dim)
+
+
+def shift_sp(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
+    """The ``x`` of group rank ``rank - offset``, ``x`` sent to ``rank +
+    offset``; the gradient travels the reverse way."""
+    if group is None or group.size == 1:
+        return x
+    if _grad_path(x):
+        return _ShiftSP.apply(x, group, offset)
+    return group.shift([x], offset)[0]
+
+
+# How gloo moves a shift of CUDA tensors: its send and receive read the
+# tensor's memory from the host ("writev ... Bad address" with torch 2.11
+# on an H100's host), so there a shift is an all-gather, which gloo takes
+# on CUDA tensors (through its own host copies), and each rank keeps its
+# source's part.
+GLOO_CUDA_SHIFT = "all_gather"
+
+
+def shift_route(device: torch.device, pg: Any = None) -> str:
+    """"p2p" (send/receive pairs) or "all_gather": how :meth:`Group.shift`
+    moves tensors on ``device`` over the process group ``pg``."""
+    if device.type == "cuda" and dist.get_backend(pg) == "gloo":
+        return GLOO_CUDA_SHIFT
+    return "p2p"
+
+
 def make_groups(rank_lists: list[list[int]]) -> Group:
     """The group of ``rank_lists`` that holds this rank. Creating a process
     group is collective over the world, so every rank passes the same lists
@@ -190,7 +326,9 @@ def make_groups(rank_lists: list[list[int]]) -> Group:
 
 # Every collective the port makes, as (the call on the default group, the
 # dtypes it moves): the data axes' reductions, gathers and reduce-scatters,
-# and tensor parallelism's three operators, forward and backward.
+# tensor parallelism's three operators, forward and backward, and sequence
+# parallelism's ring shift (send/receive pairs; an all-gather on gloo's
+# CUDA tensors, ``shift_route``) and its two operators.
 BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
     "all_reduce_sum": ("all_reduce sum: gradients, metrics, reduce_from_tp forward, "
                        "copy_to_tp backward", ("float32", "bfloat16")),
@@ -199,7 +337,10 @@ BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
     "broadcast": ("broadcast: rank 0's checkpoint decision", ("float32",)),
     "all_gather": ("all_gather: fsdp and tp gathers, gather_from_tp forward",
                    ("float32", "bfloat16", "int8", "uint8")),
-    "reduce_scatter": ("reduce_scatter: the fsdp gather's backward", ("float32", "bfloat16")),
+    "reduce_scatter": ("reduce_scatter: the fsdp gather's backward, gather_from_sp "
+                       "backward", ("float32", "bfloat16")),
+    "shift": ("send to the next rank, receive from the previous: the ring's K/V and "
+              "their gradients, shift_sp forward and backward", ("float32", "bfloat16")),
 }
 
 
@@ -226,8 +367,22 @@ def probe_backend(device: str | torch.device) -> dict[str, str]:
                 calls[f"{name}_{dt}"] = lambda dt=dt: world.broadcast(x(dt))
             elif name == "all_gather":
                 calls[f"{name}_{dt}"] = lambda dt=dt: world.all_gather(x(dt))
+            elif name == "shift":
+                calls[f"{name}_{dt}"] = lambda dt=dt: shift_check(dt)
             else:
                 calls[f"{name}_{dt}"] = lambda dt=dt: world.reduce_scatter(x(dt))
+
+    def shift_check(dt: str) -> None:
+        mine = x(dt) * world.rank
+        back = world.shift(world.shift([mine, mine + 1])[:1], -1)[0]
+        got = world.shift([mine])[0]
+        if not (torch.equal(back, mine) and bool((got == (world.rank - 1) % n).all())):
+            raise ValueError("a shift moved the wrong values")
+
+    def ring_operators(dt: str) -> None:
+        a = x(dt).requires_grad_(True)
+        y = gather_from_sp(shift_sp(scatter_to_sp(a, world, 0) * 2, world), world, 0)
+        y.sum().backward()
 
     def megatron(dt: str) -> None:
         a = x(dt).requires_grad_(True)
@@ -236,6 +391,7 @@ def probe_backend(device: str | torch.device) -> dict[str, str]:
 
     for dt in ("float32", "bfloat16"):
         calls[f"tp_operators_{dt}"] = lambda dt=dt: megatron(dt)
+        calls[f"sp_operators_{dt}"] = lambda dt=dt: ring_operators(dt)
     for name, call in calls.items():
         try:
             call()
@@ -266,3 +422,7 @@ class EchoGroup:
         if self.size == 1:
             return t
         return t.detach().chunk(self.size, dim=dim)[self.rank].contiguous()
+
+    def shift(self, ts: list[torch.Tensor], offset: int = 1) -> list[torch.Tensor]:
+        del offset
+        return [t.detach().clone() for t in ts] if self.size > 1 else list(ts)

@@ -1,5 +1,6 @@
 """The mesh and the parameter sharding rules, the port of
-``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp`` and ``tp``.
+``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp``, ``tp`` and
+``sp``.
 
 The JAX package runs one program over every device and lets pjit insert
 the collectives; the port runs one process per card, each holding its own
@@ -37,14 +38,23 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
     (``o|down|fc2`` ``qw4h``, ``("tp", "fsdp")``) is unpacked, cut to the
     rank's rows of the weight and packed again (the half-split packing
     pairs rows i and i + K/2, so a slice of the packed rows is not the
-    rank's rows); its gather undoes that exactly.
+    rank's rows); its gather undoes that exactly;
+  * **sp**: no leaf is sliced. The ranks of an ``sp`` group hold the same
+    rows (``sp`` is not a data axis) and each holds one contiguous chunk of
+    the sequence inside the Whisper, HuBERT/Wav2Vec2, AV-HuBERT and Llama
+    block stacks, whose attention is ring attention
+    (``ops/ring_attention.py``); a gradient that leaves the stack is a
+    partial sum over the group (``collectives.py``), so the gradients and
+    the metric sums span the data group and the sp group together (the
+    ``sums`` group), and a sliced leaf's slices its ``replica`` group,
+    which holds the sp axis too.
 
 The optimizer state of a sharded trained leaf holds the slice
 (``train/state.py``); checkpoints hold the full tree (``gather_leaf``) and
 are sliced again on load (``local_part``), so a run resumes at any world.
-``sp``, ``ep`` and ``pp`` are the next slices (``core/config.py`` refuses
-them), and so is mixture of experts across processes, whose routing JAX
-computes over the global batch (:func:`check_model`).
+``ep`` and ``pp`` are the next slices (``core/config.py`` refuses them),
+and so is mixture of experts across processes, whose routing JAX computes
+over the global batch (:func:`check_model`).
 """
 
 from __future__ import annotations
@@ -78,9 +88,14 @@ class Mesh:
     ranks that hold different rows (this rank's ``tp`` coordinate);
     ``fsdp``: the ranks that differ only in their ``fsdp`` coordinate (they
     hold the slices of one leaf); ``replica``: the ranks with this rank's
-    ``fsdp`` and ``tp`` coordinates (they hold the same slices); ``tp``:
-    the ranks that differ only in their ``tp`` coordinate (one Megatron
-    group, the same rows)."""
+    ``fsdp`` and ``tp`` coordinates (they hold the same slices, the sp
+    ranks too); ``tp``: the ranks that differ only in their ``tp``
+    coordinate (one Megatron group, the same rows); ``sp``: the ranks that
+    differ only in their ``sp`` coordinate (the chunks of one sequence, the
+    same rows); ``sums``: the data and sp groups together (the ranks whose
+    gradients of a whole leaf, loss and token counts add up). Without
+    ``sp`` and ``sums`` the mesh has no sp axis: a group of one, and the
+    data group."""
 
     shape: dict[str, int]
     rank: int
@@ -89,6 +104,14 @@ class Mesh:
     fsdp: Any
     replica: Any
     tp: Any
+    sp: Any = None
+    sums: Any = None
+
+    def __post_init__(self):
+        if self.sp is None:
+            object.__setattr__(self, "sp", EchoGroup(1, 0))
+        if self.sums is None:
+            object.__setattr__(self, "sums", self.data)
 
     @property
     def ways(self) -> int:
@@ -123,7 +146,8 @@ def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
 
 # each group: the axes along which its ranks differ
 _GROUP_AXES = {"world": AXES, "data": DATA_AXES, "fsdp": ("fsdp",),
-               "replica": ("dcn", "dp", "ep"), "tp": ("tp",)}
+               "replica": ("dcn", "dp", "ep", "sp"), "tp": ("tp",), "sp": ("sp",),
+               "sums": (*DATA_AXES, "sp")}
 
 
 def mesh_groups(shape: dict[str, int]) -> dict[str, list[list[int]]]:
@@ -161,14 +185,20 @@ def build_mesh(cfg: MeshConfig, *, world: int, rank: int) -> Mesh:
     return mesh
 
 
-def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0) -> None:
+def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0, sp: int = 1) -> None:
     """Raises for a model the mesh cannot run yet: mixture of experts
     routes with a capacity and balance losses over the global batch in
-    JAX, which the port's per-rank routing would change. Under ``tp`` a
+    JAX, which the port's per-rank routing would change (under ``sp`` a
+    rank would route its chunk of the sequence alone). Under ``tp`` a
     Llama's kv heads must divide (a rank runs whole kv heads), and so must
     every tp dimension of the model's leaves (:func:`shard_params`' check
     over the full-size tree as fake tensors, one block of each stack, the
     head quantized with ``lm_head_bits`` as ``quantize_llm`` pads it)."""
+    if (cfg.connector_type == "moe" or cfg.llm.moe_experts > 0) and sp > 1:
+        raise NotImplementedError(
+            f"mixture of experts under mesh.sp={sp}: JAX routes with a capacity over "
+            "the global token set, and a rank would route its own chunk of the "
+            "sequence; run MoE without mesh.sp")
     if cfg.connector_type == "moe" or cfg.llm.moe_experts > 0:
         raise NotImplementedError(
             "mixture of experts across processes routes over the global "
@@ -438,7 +468,8 @@ def local_part(full: torch.Tensor, like: torch.Tensor, what: str = "") -> torch.
 
 class RowShard(NamedTuple):
     """This rank's rows of a global batch: they start at global row
-    ``start`` of ``total``; ``group`` sums over every rank's rows."""
+    ``start`` of ``total``; ``group`` sums every rank's share (the data
+    and sp groups)."""
 
     start: int
     total: int
@@ -447,10 +478,12 @@ class RowShard(NamedTuple):
 
 def row_shard(mesh: Mesh | None, local_rows: int) -> RowShard | None:
     """The :class:`RowShard` of a rank holding ``local_rows`` rows (every
-    rank holds as many), or None without a mesh."""
+    rank holds as many), or None without a mesh; its sums span the data and
+    sp groups (the ``sums`` group: under sp each rank counts its chunk's
+    label tokens)."""
     if mesh is None:
         return None
-    return RowShard(mesh.data.rank * local_rows, mesh.ways * local_rows, mesh.data)
+    return RowShard(mesh.data.rank * local_rows, mesh.ways * local_rows, mesh.sums)
 
 
 def pad_rows(batch: NamedTuple, ways: int) -> tuple[NamedTuple, int]:

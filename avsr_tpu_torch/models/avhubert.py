@@ -96,8 +96,10 @@ def _front_end(params: Params, frames: torch.Tensor, cfg: AVHubertConfig,
 def avhubert_apply(params: Params, frames: torch.Tensor, cfg: AVHubertConfig, *,
                    frame_lengths: torch.Tensor | None = None,
                    compute_dtype: torch.dtype = torch.float32,
-                   use_kernel: str = "auto", remat: bool = False) -> torch.Tensor:
-    """frames [B, T, 3, S, S] -> per-frame features [B, T, d]."""
+                   use_kernel: str = "auto", remat: bool = False, sp=None) -> torch.Tensor:
+    """frames [B, T, 3, S, S] -> per-frame features [B, T, d]; under the sp
+    group ``sp`` the blocks run on chunks of the frames
+    (``hubert.ssl_encoder_apply``)."""
     B, T = frames.shape[:2]
     x = _front_end(params, frames, cfg, compute_dtype)
     if cfg.avhubert_layer == 0:
@@ -111,7 +113,8 @@ def avhubert_apply(params: Params, frames: torch.Tensor, cfg: AVHubertConfig, *,
     return ssl_encoder_apply(
         sub, x, lengths, n_heads=cfg.n_heads, do_stable_layer_norm=cfg.do_stable_layer_norm,
         pos_conv_kernel=cfg.pos_conv_kernel, pos_conv_groups=cfg.pos_conv_groups,
-        mask_before_pos_conv=frame_lengths is not None, use_kernel=use_kernel, remat=remat)
+        mask_before_pos_conv=frame_lengths is not None, use_kernel=use_kernel, remat=remat,
+        sp=sp)
 
 
 def _fairseq_fuse_head(params: Params, v: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from avsr_tpu_torch.models.whisper_encoder import (
     init_whisper_encoder,
     whisper_encoder_apply,
 )
+from avsr_tpu_torch.ops.attention import ring_span
 
 # Params-tree keys of the (freezable) encoder subtrees, by config name.
 ENCODER_KEYS = ("whisper", "hubert", "wav2vec2", "clip", "resnet",
@@ -152,8 +153,11 @@ def _conn_out(ret: tuple) -> tuple:
 
 
 def encode_video(params: Params, cfg: ModelConfig, batch: Batch, *,
-                 compute_dtype: torch.dtype, use_kernel: str, remat: bool) -> torch.Tensor:
-    """The configured video encoder: frames [B, T, 3, S, S] -> [B, T, d]."""
+                 compute_dtype: torch.dtype, use_kernel: str, remat: bool,
+                 sp=None) -> torch.Tensor:
+    """The configured video encoder: frames [B, T, 3, S, S] -> [B, T, d];
+    AV-HuBERT's blocks under the sp group ``sp`` (CLIP, ResNet and
+    EfficientNet get no mesh, as in JAX)."""
     enc = cfg.video_encoder
     kw = dict(compute_dtype=compute_dtype, remat=remat)
     if enc == "clip":
@@ -165,13 +169,13 @@ def encode_video(params: Params, cfg: ModelConfig, batch: Batch, *,
         return efficientnet_apply(params["efficientnet"], batch.frames, cfg.efficientnet,
                                   **kw)
     return avhubert_apply(params["avhubert"], batch.frames, cfg.avhubert,
-                          frame_lengths=batch.frame_lens, use_kernel=use_kernel, **kw)
+                          frame_lengths=batch.frame_lens, use_kernel=use_kernel, sp=sp, **kw)
 
 
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
            use_kernel: str = "auto", remat: bool = False,
-           moe_rowwise: bool = False) -> EncodeOut:
+           moe_rowwise: bool = False, sp=None) -> EncodeOut:
     """Run the modality encoders + connectors and fuse them. Frozen
     encoders run under ``torch.no_grad()`` (the JAX ``stop_gradient``):
     no backward graph is built for them. ``model.unfreeze_layer_norms``
@@ -182,7 +186,10 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     ``moe_rowwise`` (inference callers) routes the MoE connector row by
     row, so a request's features do not depend on its batch; two
     single-input MoE connectors' aux losses are averaged. Sharded leaves
-    (fsdp, ``mesh/sharding.py``) are gathered where they are used."""
+    (fsdp, ``mesh/sharding.py``) are gathered where they are used. ``sp``
+    (the mesh's sp group) shards the sequence of the Whisper, HuBERT/
+    Wav2Vec2 and AV-HuBERT block stacks (ring attention), as JAX threads
+    its mesh into them; their outputs come back whole."""
     conn = get_connector(cfg.connector_type)
     # under fsdp and tp the other encoders and the connectors gather their
     # whole subtree here; Whisper and CLIP gather (fsdp) or run Megatron
@@ -202,16 +209,16 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
                 feats, alens = whisper_encoder_apply(
                     params["whisper"], batch.mel, cfg.whisper,
                     mel_lengths=batch.mel_lens, compute_dtype=compute_dtype,
-                    use_kernel=use_kernel, remat=remat)
+                    use_kernel=use_kernel, remat=remat, sp=sp)
             else:
                 feats, alens = speech_ssl_apply(
                     params[cfg.audio_encoder], batch.wave, cfg.ssl,
                     wave_lengths=batch.wave_lens, compute_dtype=compute_dtype,
-                    use_kernel=use_kernel, remat=remat)
+                    use_kernel=use_kernel, remat=remat, sp=sp)
     if cfg.modality in ("video", "both"):
         with grad_ctx(frozen and not tune_avhubert):
             vfeats = encode_video(params, cfg, batch, compute_dtype=compute_dtype,
-                                  use_kernel=use_kernel, remat=remat)
+                                  use_kernel=use_kernel, remat=remat, sp=sp)
         vlens = (batch.frame_lens.to(torch.int32) if batch.frame_lens is not None
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
@@ -269,7 +276,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
             compute_dtype: torch.dtype = torch.float32,
             use_kernel: str = "auto", remat: bool = False,
             dropout_seed: int | None = None, return_logits: bool = False,
-            shard: RowShard | None = None
+            shard: RowShard | None = None, sp=None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training/eval forward: (mean CE loss over label tokens, metrics).
 
@@ -300,13 +307,24 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     ``jnp.argmax``) are one card's. The gather was chosen over a
     vocab-parallel cross-entropy: it gives the same bits with no new loss
     code, and the [B, Tl, V] label logits it moves are small beside a
-    step's activations."""
+    step's activations.
+
+    ``sp`` (the mesh's sp group, sequence parallelism): the encoders' and
+    the LLM's block stacks run on this rank's chunk of their sequences
+    (ring attention, ``encode`` and ``llama.llama_apply``), and the final
+    norm, the head and the cross-entropy stay on this rank's chunk of the
+    packed positions: it scores the labels predicted there (the positions
+    of a row's labels are contiguous, so at most min(Tl, chunk) of them), a
+    [B, min(Tl, chunk), V] block of logits rather than the whole sequence's.
+    ``loss``, ``accuracy`` and the label-token count are then this rank's
+    shares, summed over ``shard.group`` (the data and sp groups) or, without
+    a shard, over ``sp``; their sum is one card's."""
     llm = params["llm"]
     params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"},
                                               keep_tp=True),
                                 "layers": llm["layers"]}}
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
-                 use_kernel=use_kernel, remat=remat)
+                 use_kernel=use_kernel, remat=remat, sp=sp)
     B = enc.features.shape[0]
     dev = enc.features.device
     prompt = batch.prompt_tokens.to(dev)
@@ -325,25 +343,42 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     packed = F.pad(packed, (0, 0, 0, -packed.shape[1] % 16))
     Ttot = packed.shape[1]
     llm_moe = cfg.llm.moe_experts > 0
+    span = ring_span(sp, Ttot)
     hidden, _, *llm_aux = llama_mod.llama_apply(
         params["llm"], cfg.llm, inputs_embeds=packed, lengths=total,
         lora=cfg.lora if cfg.lora.use_lora else None,
         compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
         dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe,
-        dropout_row0=shard.start if shard is not None else 0)
+        dropout_row0=shard.start if shard is not None else 0, sp=sp,
+        gather_hidden=False)
 
     Tl = labels.shape[1]
     i = torch.arange(Tl, device=dev)[None, :]
     pred_pos = (seg_start[:, 2:3].long() + i - 1).clamp(0, Ttot - 1)  # [B, Tl]
+    mask = (i < lab_lens[:, None]).float()
+    if span is not None:
+        if return_logits:
+            raise NotImplementedError("return_logits reads every label's logits; "
+                                      "it runs without mesh.sp")
+        # this rank's labels: a contiguous run of each row's, from ``first``
+        c0, c1 = span
+        own = (pred_pos >= c0) & (pred_pos < c1)
+        first = own.int().argmax(dim=1, keepdim=True)                  # [B, 1]
+        j = first + torch.arange(min(Tl, c1 - c0), device=dev)[None, :]
+        inside = j < Tl
+        j = j.clamp(max=Tl - 1)
+        mask = mask.gather(1, j) * (own.gather(1, j) & inside).float()
+        labels = labels.gather(1, j)
+        pred_pos = (pred_pos.gather(1, j) - c0).clamp(0, c1 - c0 - 1)
     h_pred = torch.gather(hidden, 1, pred_pos[..., None].expand(-1, -1, hidden.shape[-1]))
     logits = llama_mod.compute_logits(params["llm"], cfg.llm, h_pred)  # [B,Tl,V]
 
-    mask = (i < lab_lens[:, None]).float()
     logp = torch.log_softmax(logits, dim=-1)
     pred_lp = torch.gather(logp, -1, labels[..., None])[..., 0]
     n_tokens = mask.sum()
-    if shard is not None:
-        n_tokens = shard.group.all_reduce(n_tokens.detach().clone())
+    group = shard.group if shard is not None else (sp if span is not None else None)
+    if group is not None:
+        n_tokens = group.all_reduce(n_tokens.detach().clone())
     n_tokens = n_tokens.clamp(min=1.0)
     loss = -(pred_lp * mask).sum() / n_tokens
     correct = (logits.argmax(dim=-1) == labels).float()

@@ -14,7 +14,10 @@ floor arithmetic, and attention masks the padding through
 ``ops/attention.py::attention``: at 10 s (499 frames, padded to 512 rows)
 that is the flash kernel. The convolutions are ``torch`` calls, as they
 are XLA convolutions in the JAX package. ``remat`` recomputes each block
-in the backward while grad mode is on.
+in the backward while grad mode is on. Under sp (``mesh.sp``) the ranks of
+the group run the blocks on their chunks of the padded rows, with ring
+attention, and gather them after the stack (``ssl_encoder_apply``; AV-
+HuBERT's blocks share it).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import SpeechSSLConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
+from avsr_tpu_torch.mesh.collectives import gather_from_sp, scatter_to_sp
 from avsr_tpu_torch.models.layers import (
     Params,
     dense,
@@ -38,6 +42,7 @@ from avsr_tpu_torch.models.layers import (
     mha_init,
     norm_init,
 )
+from avsr_tpu_torch.ops.attention import ring_span
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +151,10 @@ def _pos_conv(params: Params, x: torch.Tensor, kernel: int,
 def speech_ssl_apply(params: Params, wave: torch.Tensor, cfg: SpeechSSLConfig, *,
                      wave_lengths: torch.Tensor | None = None,
                      compute_dtype: torch.dtype = torch.float32,
-                     use_kernel: str = "auto", remat: bool = False
+                     use_kernel: str = "auto", remat: bool = False, sp=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """wave [B, T] -> (features [B, T', d], feat_lengths [B])."""
+    """wave [B, T] -> (features [B, T', d], feat_lengths [B]); ``sp`` the
+    sequence-parallel group of the blocks."""
     B, T = wave.shape
     x = wave.to(compute_dtype)
     if cfg.normalize_input:
@@ -182,14 +188,14 @@ def speech_ssl_apply(params: Params, wave: torch.Tensor, cfg: SpeechSSLConfig, *
         do_stable_layer_norm=cfg.do_stable_layer_norm,
         pos_conv_kernel=cfg.pos_conv_kernel, pos_conv_groups=cfg.pos_conv_groups,
         mask_before_pos_conv=wave_lengths is not None,
-        use_kernel=use_kernel, remat=remat)
+        use_kernel=use_kernel, remat=remat, sp=sp)
     return x, feat_lengths
 
 
 def _block(bp: Params, x: torch.Tensor, *, n_heads: int, lengths: torch.Tensor,
-           stable: bool, use_kernel: str) -> torch.Tensor:
+           stable: bool, use_kernel: str, sp=None) -> torch.Tensor:
     attn = functools.partial(mha_apply, n_heads=n_heads, lengths=lengths,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, sp=sp)
     if stable:                                  # pre-LN (*-large)
         x = x + attn(bp["attn"], layer_norm(bp["ln1"], x))
         h = layer_norm(bp["ln2"], x)
@@ -203,8 +209,10 @@ def ssl_encoder_apply(params: Params, x: torch.Tensor, lengths: torch.Tensor, *,
                       n_heads: int, do_stable_layer_norm: bool,
                       pos_conv_kernel: int, pos_conv_groups: int,
                       mask_before_pos_conv: bool = True, use_kernel: str = "auto",
-                      remat: bool = False) -> torch.Tensor:
-    """The positional conv + transformer stack: [B, T, d] -> [B, T, d]."""
+                      remat: bool = False, sp=None) -> torch.Tensor:
+    """The positional conv + transformer stack: [B, T, d] -> [B, T, d];
+    under the sp group ``sp`` the blocks run on this rank's chunk of the
+    padded rows where JAX's ring would engage (``ring_span``), else whole."""
     Tf = x.shape[1]
     # HF zeroes padded positions before the positional conv, so that padding
     # cannot leak into valid frames through the 128-wide kernel
@@ -221,13 +229,16 @@ def ssl_encoder_apply(params: Params, x: torch.Tensor, lengths: torch.Tensor, *,
         x = F.pad(x, (0, 0, 0, pad_t))
     if not do_stable_layer_norm:                # *-base: LN before the stack
         x = layer_norm(params["ln"], x)
+    sp = sp if ring_span(sp, x.shape[1]) else None
+    x = scatter_to_sp(x, sp, 1)
     block = functools.partial(_block, n_heads=n_heads, lengths=lengths,
-                              stable=do_stable_layer_norm, use_kernel=use_kernel)
+                              stable=do_stable_layer_norm, use_kernel=use_kernel, sp=sp)
     for bp in params["blocks"]:
         if remat and torch.is_grad_enabled():
             x = checkpoint(block, bp, x, use_reentrant=False)
         else:
             x = block(bp, x)
+    x = gather_from_sp(x, sp, 1)
     if pad_t:
         x = x[:, :Tf]
     if do_stable_layer_norm:                    # *-large: LN after the stack

@@ -145,14 +145,16 @@ def mha_apply(p: Params, x: torch.Tensor, *, n_heads: int,
               lengths: torch.Tensor | None = None,
               kv_lengths: torch.Tensor | None = None,
               kv_valid: torch.Tensor | None = None,
-              use_kernel: str = "auto", tp=None) -> torch.Tensor:
+              use_kernel: str = "auto", tp=None, sp=None) -> torch.Tensor:
     """Bidirectional self-attention (``kv`` None) or cross-attention over
     [B, T, D] activations. Queries past ``lengths`` and keys past
     ``kv_lengths`` (``lengths`` for self-attention) are masked;
     ``kv_valid`` [B, Tk] masks arbitrary key positions (it always takes
     mha_reference, as in JAX). Under tp (Megatron) q, k and v are
     column-parallel and o row-parallel: attention runs on the rank's
-    ``n_heads / tp`` heads, and the result is summed over the group."""
+    ``n_heads / tp`` heads, and the result is summed over the group. Under
+    sp (a group of a stack that sharded its sequence, ``ring_span``) x is
+    this rank's chunk, ``lengths`` global, and attention is the ring."""
     src = x if kv is None else kv
     heads = n_heads // (tp.size if tp is not None else 1)
     q = split_heads(dense(p["q"], x, tp), heads)
@@ -160,7 +162,7 @@ def mha_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     v = split_heads(dense(p["v"], src, tp), heads)
     out = attention(q, k, v, q_lens=lengths,
                     kv_lens=kv_lengths if kv is not None else lengths,
-                    kv_valid=kv_valid, use_kernel=use_kernel)
+                    kv_valid=kv_valid, use_kernel=use_kernel, sp=sp)
     return dense(p["o"], merge_heads(out), tp, row=True)
 
 
@@ -182,14 +184,15 @@ def encoder_block_init(gen: torch.Generator, d_model: int, ffn_dim: int, *,
 
 def encoder_block_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                         lengths: torch.Tensor | None = None, act=gelu,
-                        use_kernel: str = "auto", tp=None) -> torch.Tensor:
+                        use_kernel: str = "auto", tp=None, sp=None) -> torch.Tensor:
     """A pre-LN block. Under tp (Megatron) it runs on this rank's slices:
     fc1 column-parallel, fc2 row-parallel (see :func:`mha_apply`), one
     all-reduce after the attention and one after the MLP (their backward:
-    one all-reduce each of the normed inputs' gradients)."""
+    one all-reduce each of the normed inputs' gradients). Under sp x is
+    this rank's chunk of the sequence and attention the ring."""
     h = copy_to_tp(layer_norm(p["ln1"], x), tp)
     x = x + mha_apply(p["attn"], h, n_heads=n_heads, lengths=lengths,
-                      use_kernel=use_kernel, tp=tp)
+                      use_kernel=use_kernel, tp=tp, sp=sp)
     h = copy_to_tp(layer_norm(p["ln2"], x), tp)
     return x + dense(p["fc2"], act(dense(p["fc1"], h, tp)), tp, row=True)
 

@@ -31,7 +31,9 @@ of a batch draws those rows of a single card's masks. Under fsdp each
 block gathers its sharded leaves when it runs (``mesh/sharding.py``);
 under tp each block, the decode steps and the KV cache run the rank's
 heads and slices (Megatron), the embedding looks up its vocab range and
-the head gives its vocab columns, gathered. On a quantized base (QLoRA) the base
+the head gives its vocab columns, gathered; under sp (``mesh.sp``) the
+ranks of the group run the blocks on their chunks of the sequence with
+ring attention (``llama_apply``'s ``sp``). On a quantized base (QLoRA) the base
 product carries the gradient of x through ``qdot``'s autograd Function
 (``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
@@ -69,11 +71,12 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import LLMConfig, LoRAConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
-from avsr_tpu_torch.mesh.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
+from avsr_tpu_torch.mesh.collectives import (copy_to_tp, gather_from_sp, gather_from_tp,
+                                             reduce_from_tp, scatter_to_sp)
 from avsr_tpu_torch.mesh.sharding import Shard, gather_tree, tag, tp_group, tp_of
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm, split_leaf
 from avsr_tpu_torch.ops import moe
-from avsr_tpu_torch.ops.attention import attention
+from avsr_tpu_torch.ops.attention import attention, ring_span
 from avsr_tpu_torch.ops.quant import is_quantized, qdot
 
 # Vocab rows per chunk when bf16 logits are accumulated in f32 (bounds the
@@ -114,7 +117,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
          lora_dropout: float = 0.0,
          generator: torch.Generator | list[torch.Generator] | None = None,
-         use_kernel: str = "auto", tp=None, row: bool = False) -> torch.Tensor:
+         use_kernel: str = "auto", tp=None, row: bool = False,
+         seq: tuple[int, int] | None = None) -> torch.Tensor:
     """x @ W (no bias) + lora_scale * (x' @ a) @ b when the node has LoRA,
     in x.dtype. W is a full-precision "w" or a quantized base ("qw"/"qw4h"
     + "scale"), which goes through ``qdot`` with ``use_kernel``. x' is x,
@@ -130,7 +134,10 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
     each factor's gradient summed over the group once), and a row-parallel
     x' takes this rank's columns of the full row's dropout mask, so the
     masks are one card's. A row-parallel result is this rank's partial sum:
-    the caller sums it over the group once."""
+    the caller sums it over the group once. ``seq`` (c0, T): x [B, Tl, d]
+    holds positions c0 to c0 + Tl of a sequence of T (a rank's chunk under
+    sequence parallelism), whose masks are those positions of the whole
+    sequence's draws."""
     dt = x.dtype
     if "w" in p:
         y = torch.matmul(x, p["w"].to(dt))
@@ -148,7 +155,8 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
         xl = x
         if generator is not None and lora_dropout > 0.0:
             parts = tp.size if tp is not None and row else 1
-            shape = (*x.shape[:-1], x.shape[-1] * parts)
+            c0, T = seq if seq is not None else (0, x.shape[-2])
+            shape = (*x.shape[:-2], T, x.shape[-1] * parts)
             if isinstance(generator, torch.Generator):
                 u = torch.rand(shape, generator=generator, device=x.device)
             else:
@@ -157,6 +165,7 @@ def proj(p: Params, x: torch.Tensor, *, lora_scale: float = 0.0,
                     torch.rand(r.shape, generator=g, out=r)
             if parts > 1:
                 u = u.chunk(parts, dim=-1)[tp.rank]
+            u = u[..., c0: c0 + x.shape[-2], :]
             keep = u < 1.0 - lora_dropout
             xl = torch.where(keep, x / (1.0 - lora_dropout), 0.0)
         # per-row adapters a [B, din, r], b [B, r, dout] (the serving
@@ -333,11 +342,11 @@ def fuse_decode_layout(params: Params) -> Params:
 
 def _proj_qkv(layer: Params, h: torch.Tensor, ls: float, ldrop: float = 0.0,
               gen: torch.Generator | None = None, use_kernel: str = "auto",
-              tp=None, q_width: int | None = None):
+              tp=None, q_width: int | None = None, seq: tuple[int, int] | None = None):
     """(q, k, v) raw projections, fused or per-tensor layout; under tp the
-    rank's heads (``q_width`` columns of q)."""
+    rank's heads (``q_width`` columns of q); ``seq`` as in :func:`proj`."""
     kw = dict(lora_scale=ls, lora_dropout=ldrop, generator=gen,
-              use_kernel=use_kernel, tp=tp)
+              use_kernel=use_kernel, tp=tp, seq=seq)
     if "qkv" in layer:
         y = proj(layer["qkv"], h, **kw)
         d = q_width or h.shape[-1]
@@ -488,9 +497,12 @@ def _row_generators(seed: int, layer: int, rows: range,
 def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
            lengths: torch.Tensor | None, ls: float, use_kernel: str,
            ldrop: float = 0.0, dropout_seed: int | None = None,
-           index: int = 0, moe_rowwise: bool = False, row0: int = 0):
+           index: int = 0, moe_rowwise: bool = False, row0: int = 0, sp=None,
+           seq: tuple[int, int] | None = None):
     """One block over [B, T, d]: (x, (k, v), MoE aux or None). Its rows are
-    rows ``row0`` on of the global batch (for the dropout masks); a sharded
+    rows ``row0`` on of the global batch (for the dropout masks); under
+    sequence parallelism (the sp group ``sp``) x is this rank's chunk, its
+    positions ``seq`` = (c0, T) of the sequence, and attention the ring; a sharded
     leaf (fsdp) is gathered here, so that a remat recomputation gathers it
     again rather than keeping it. Under tp (Megatron) the block runs its
     rank's ``n_heads / tp`` q heads and ``n_kv_heads / tp`` kv heads (the
@@ -507,17 +519,18 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     gen = (_row_generators(dropout_seed, index, range(row0, row0 + B), x.device)
            if dropout_seed is not None and ldrop > 0.0 else None)
     h = copy_to_tp(rms_norm(layer["ln_attn"], x, eps=cfg.rms_eps), tp)
-    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel, tp, nh * hd)
+    q, k, v = _proj_qkv(layer, h, ls, ldrop, gen, use_kernel, tp, nh * hd, seq)
     q = q.reshape(B, T, nh, hd).transpose(1, 2)
     k = k.reshape(B, T, nkv, hd).transpose(1, 2)
     v = v.reshape(B, T, nkv, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attention(q, k, v, causal=True, q_lens=lengths, kv_lens=lengths,
-                     use_kernel=use_kernel)
+                     use_kernel=use_kernel, sp=sp)
     attn = attn.transpose(1, 2).reshape(B, T, nh * hd)
     x = x + reduce_from_tp(proj(layer["o"], attn, lora_scale=ls, lora_dropout=ldrop,
-                                generator=gen, use_kernel=use_kernel, tp=tp, row=True), tp)
+                                generator=gen, use_kernel=use_kernel, tp=tp, row=True,
+                                seq=seq), tp)
     x, aux = _ffn(layer, x, cfg, ls, use_kernel, lengths=lengths, rowwise=moe_rowwise,
                   tp=tp)
     return x, (k, v), aux
@@ -538,7 +551,7 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 dropout_seed: int | None = None, return_cache: bool = False,
                 cache_len: int | None = None, output: str = "logits",
                 return_aux: bool = False, moe_rowwise: bool = False,
-                dropout_row0: int = 0):
+                dropout_row0: int = 0, sp=None, gather_hidden: bool = True):
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
     final normed hidden [B,T,d] with ``output="hidden"``, cache or None),
     and with ``return_aux`` a third item, {"moe_lb", "moe_z"}: the MoE
@@ -552,7 +565,17 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     counterpart of ``dropout_rng``, with masks drawn per row; the rows are
     rows ``dropout_row0`` on of a global batch (a rank's share of it). ``moe_rowwise`` (every inference
     prefill sets it) routes MoE blocks row by row (see :func:`_moe_mlp`);
-    training keeps the flattened bounded capacity."""
+    training keeps the flattened bounded capacity.
+
+    ``sp`` (sequence parallelism, the mesh's sp group): where JAX's ring
+    engages (``ring_span``: T a multiple of the group's size) each rank runs
+    the blocks on its contiguous chunk of the T positions, RoPE at their
+    global positions, each LoRA dropout mask those positions of the whole
+    sequence's draws, and attention the ring; the cache gets every layer's
+    K/V gathered along the sequence, so every rank holds one card's. The
+    final hidden states are gathered too, unless ``gather_hidden`` is off
+    (with ``output="hidden"``: this rank's chunk of them, as the training
+    forward reads them). Elsewhere the stack runs whole on every rank."""
     B, T, d = inputs_embeds.shape
     if T > cfg.max_seq_len:
         raise ValueError(
@@ -560,8 +583,14 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     if remat and return_cache:
         raise ValueError("remat recomputes the blocks for backward; it "
                          "cannot also return the KV cache")
-    x = inputs_embeds.to(compute_dtype)
-    cos, sin = rope_cos_sin(torch.arange(T, device=x.device), d // cfg.n_heads,
+    span = ring_span(sp, T)
+    ring = sp if span else None
+    c0, c1 = span or (0, T)
+    if ring is not None and cfg.moe_experts > 0:
+        raise NotImplementedError("MoE blocks under mesh.sp route over the global token "
+                                  "set; run them without mesh.sp")
+    x = scatter_to_sp(inputs_embeds.to(compute_dtype), ring, 1)
+    cos, sin = rope_cos_sin(torch.arange(c0, c1, device=x.device), d // cfg.n_heads,
                             cfg.rope_theta)
     ls = lora_scale(lora)
     ldrop = lora.dropout if (lora is not None and dropout_seed is not None) else 0.0
@@ -572,19 +601,22 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     n_moe = 0
     for i, layer in enumerate(params["layers"]):
         args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
-                dropout_seed, i, moe_rowwise, dropout_row0)
+                dropout_seed, i, moe_rowwise, dropout_row0, ring,
+                (c0, T) if ring is not None else None)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_block_remat, *args, use_reentrant=False)
         else:
             x, (k, v), aux = _block(*args)
             if cache is not None:
-                cache.k[i, :, :, :T] = k
-                cache.v[i, :, :, :T] = v
+                cache.k[i, :, :, :T] = gather_from_sp(k, ring, 2)
+                cache.v[i, :, :, :T] = gather_from_sp(v, ring, 2)
         if aux is not None:
             lb_sum = lb_sum + aux[0]
             z_sum = z_sum + aux[1]
             n_moe += 1
     x = rms_norm(params["ln_f"], x, eps=cfg.rms_eps)
+    if gather_hidden or output != "hidden":
+        x = gather_from_sp(x, ring, 1)
     out = x if output == "hidden" else compute_logits(params, cfg, x)
     if return_aux:
         n = max(n_moe, 1)

@@ -11,6 +11,11 @@ each block gathers its sharded leaves when it runs (again in the
 recomputation). Under tp each block runs Megatron on its slices
 (``models/layers.py::encoder_block_apply``: 16 heads over tp=2 give 8 a
 rank); the convolutions, the positions and the final norm stay whole.
+Under sp (``mesh.sp``) each rank of the group runs the blocks on its
+contiguous chunk of the padded rows, attention the ring over the group
+(``ops/ring_attention.py``), and the chunks are gathered before the final
+norm; where JAX's ring would not engage (rows not a multiple of sp) the
+stack runs whole on every rank, as JAX's warning says.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.core.config import WhisperConfig
 from avsr_tpu_torch.core.hf_files import Prefixed
+from avsr_tpu_torch.mesh.collectives import gather_from_sp, scatter_to_sp
 from avsr_tpu_torch.models.layers import (
     Params,
     encoder_block_init,
@@ -33,6 +39,7 @@ from avsr_tpu_torch.models.layers import (
     norm_init,
     sinusoid_position_embedding,
 )
+from avsr_tpu_torch.ops.attention import ring_span
 
 
 def init_whisper_encoder(gen: torch.Generator, cfg: WhisperConfig,
@@ -66,9 +73,10 @@ def _conv1d(p: Params, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
 def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                           *, mel_lengths: torch.Tensor | None = None,
                           compute_dtype: torch.dtype = torch.float32,
-                          use_kernel: str = "auto", remat: bool = False
+                          use_kernel: str = "auto", remat: bool = False, sp=None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """mel [B, n_mels, T] -> (features [B, ceil(T/2), d], feat_lengths [B])."""
+    """mel [B, n_mels, T] -> (features [B, ceil(T/2), d], feat_lengths [B]);
+    ``sp`` the sequence-parallel group (see the module docstring)."""
     B = mel.shape[0]
     x = mel.to(compute_dtype)
     x = gelu(_conv1d(params["conv1"], x))
@@ -88,13 +96,16 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     pad_t = -Tf % 16
     if pad_t:
         x = F.pad(x, (0, 0, 0, pad_t))
-    block = functools.partial(gathered_block, n_heads=cfg.n_heads,
-                              lengths=feat_lengths, act=gelu, use_kernel=use_kernel)
+    sp = sp if ring_span(sp, x.shape[1]) else None
+    x = scatter_to_sp(x, sp, 1)
+    block = functools.partial(gathered_block, n_heads=cfg.n_heads, lengths=feat_lengths,
+                              act=gelu, use_kernel=use_kernel, sp=sp)
     for bp in params["blocks"]:
         if remat and torch.is_grad_enabled():
             x = checkpoint(block, bp, x, use_reentrant=False)
         else:
             x = block(bp, x)
+    x = gather_from_sp(x, sp, 1)
     if pad_t:
         x = x[:, :Tf]
     return layer_norm(params["ln_post"], x), feat_lengths

@@ -16,7 +16,11 @@ The counterpart of ``avsr_tpu/ops/attention.py``:
     reads in place of O.
   * ``FlashAttention`` — the autograd Function around the three kernels,
     the counterpart of the JAX ``_flash_core`` custom VJP.
-  * ``attention`` — the dispatch, with the JAX package's predicate.
+  * ``attention`` — the dispatch, with the JAX package's predicate; under
+    sequence parallelism (an ``sp`` group) it runs ring attention
+    (``ops/ring_attention.py``) on this rank's chunks, where
+    :func:`ring_span` (JAX's ring predicate, warning and counter) let the
+    block stack shard its sequence.
 
 Every kernel wrapper takes its plain version for a CPU tensor, and for a
 CUDA tensor launches its kernel (on the current stream) or raises. All
@@ -28,12 +32,19 @@ in every function here, and a zero dQ.
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
 from avsr_tpu_torch.core.logging import trace_range
 
 NEG_INF = -1e30
+
+# Ring dispatches under sequence parallelism (one per attention call that
+# rings, as the JAX package's ``ring_dispatch_count``), and the reasons
+# already logged for a stack that could not ring.
+ring_dispatch_count = 0
+_ring_fallback_warned: set[str] = set()
 
 # Launches of each CUDA kernel (incremented once per launch, nowhere else).
 launches = 0          # flash_fwd
@@ -424,20 +435,59 @@ class FlashAttention(torch.autograd.Function):
 # Dispatch
 # ---------------------------------------------------------------------------
 
+def ring_span(sp, Tq: int, Tk: int | None = None,
+              kv_valid: torch.Tensor | None = None) -> tuple[int, int] | None:
+    """This rank's chunk [c0, c1) of a block stack over ``Tq`` query and
+    ``Tk`` (default Tq) key positions under the sp group ``sp``, or None.
+    The JAX package's ring predicate: with an sp group above 1 the stack
+    rings when no ``kv_valid`` mask is set, Tq == Tk and T % sp == 0;
+    otherwise it runs unsharded, and the reason is logged once, in JAX's
+    words."""
+    if sp is None or sp.size == 1:
+        return None
+    Tk = Tq if Tk is None else Tk
+    n = sp.size
+    if kv_valid is None and Tq == Tk and Tq % n == 0:
+        c = Tq // n
+        return sp.rank * c, (sp.rank + 1) * c
+    reason = ("kv_valid mask set" if kv_valid is not None
+              else f"Tq={Tq} != Tk={Tk}" if Tq != Tk
+              else f"T={Tq} %% sp={n} != 0")
+    if reason not in _ring_fallback_warned:
+        _ring_fallback_warned.add(reason)
+        logging.getLogger("avsr.ops.attention").warning(
+            "mesh.sp=%d configured but ring attention fell back to the "
+            "non-ring path at this site (%s) — the sp axis buys nothing "
+            "here.", n, reason)
+    return None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, q_lens: torch.Tensor | None = None,
               kv_lens: torch.Tensor | None = None,
               kv_valid: torch.Tensor | None = None,
               sm_scale: float | None = None,
-              use_kernel: str = "auto") -> torch.Tensor:
+              use_kernel: str = "auto", sp=None) -> torch.Tensor:
     """The flash kernels where the JAX package would take its Pallas kernel
     (Tq and Tk >= 256, no ``kv_valid`` mask) and the kernels take the head
     width (64, 128 or 256; JAX takes any multiple of 64), through
     :class:`FlashAttention` so that gradients flow; else
     :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
-    tensors), "always", or "never" — the counterpart of ``use_pallas``."""
+    tensors), "always", or "never" — the counterpart of ``use_pallas``.
+
+    ``sp`` (an sp group above 1): q, k and v are this rank's chunks of a
+    sequence the stack sharded (:func:`ring_span`), ``q_lens`` and
+    ``kv_lens`` global; ring attention over the group (counted in
+    ``ring_dispatch_count``)."""
     if use_kernel not in ("auto", "always", "never"):
         raise ValueError(f"use_kernel must be auto|always|never, got {use_kernel!r}")
+    if sp is not None and sp.size > 1:
+        from avsr_tpu_torch.ops.ring_attention import ring_attention
+
+        global ring_dispatch_count
+        ring_dispatch_count += 1
+        return ring_attention(q, k, v, group=sp, causal=causal, kv_lens=kv_lens,
+                              q_lens=q_lens, sm_scale=sm_scale, use_kernel=use_kernel)
     want = use_kernel == "always" or (use_kernel == "auto" and q.is_cuda)
     if (want and kv_valid is None and q.shape[-1] in KERNEL_HEAD_DIMS
             and q.shape[2] >= MIN_KERNEL_SEQ and k.shape[2] >= MIN_KERNEL_SEQ):

@@ -21,7 +21,8 @@ early-stop progress, so :meth:`Trainer.maybe_resume` continues mid-epoch
 without repeating a sample.
 
 With ``mesh`` (one process per card, ``mesh/sharding.py``) every rank
-runs this loop over its rows of each global batch: the fsdp leaves are
+runs this loop over its rows of each global batch (an sp group's ranks
+over the same rows, each its chunk of the sequences): the fsdp leaves are
 sharded before the optimizer is built, the step's gradients and metrics,
 the validation sums and counts and the in-training WER's hypotheses
 (gathered in dataset order) are the global batch's, and every decision
@@ -209,6 +210,9 @@ class Trainer:
                            data_state=self._data_state(),
                            fit_state=self._fit_state())
         self.ckpt.wait()
+        # no rank returns before rank 0's checkpoint is on disk, so that a
+        # run this process starts next resumes the same step on every rank
+        self._agree(False)
         if self.main:
             save_loss_plot(self.history, Path(self.cfg.training.checkpoint_dir))
         return {"steps": self.state.step, "epochs": epoch,
@@ -430,8 +434,9 @@ class Trainer:
         with the current params and returns the corpus WER; each utterance
         counts once (the last batch is wrap-padded). With a mesh each rank
         decodes its rows, with the tree gathered whole (but for its tp
-        slices, which decode as Megatron blocks), and every rank scores
-        every rank's hypotheses in dataset order."""
+        slices, which decode as Megatron blocks) and its sequences sharded
+        over the sp group, and every rank scores every rank's hypotheses in
+        dataset order."""
         from avsr_tpu_torch.infer.generate import generate_tokens
         from avsr_tpu_torch.infer.wer import WERAccumulator
 
@@ -447,7 +452,8 @@ class Trainer:
                 max_new_tokens=d.max_new_tokens, eos_id=self.tok.eos_id,
                 compute_dtype=getattr(torch, self.cfg.runtime.compute_dtype),
                 use_kernel=self.cfg.runtime.use_pallas,
-                kv_cache_dtype=d.kv_cache_dtype)
+                kv_cache_dtype=d.kv_cache_dtype,
+                sp=self.mesh.sp if self.mesh is not None else None)
             tokens = out.tokens.cpu().numpy()
             lens = out.lengths.cpu().numpy()
             rows = [(utt, ref, self.tok.decode(tokens[i, : lens[i]]))

@@ -65,13 +65,13 @@ def augment(cfg: AVSRConfig, batch: Batch, seed: int,
 
 
 def _loss_fn(params, cfg: AVSRConfig, batch: Batch, dropout_seed: int | None,
-             shard: RowShard | None = None):
+             shard: RowShard | None = None, sp=None):
     if dropout_seed is not None:        # the training path only
         batch, dropout_seed = augment(cfg, batch, dropout_seed, shard)
     return forward(params, cfg.model, batch,
                    compute_dtype=getattr(torch, cfg.runtime.compute_dtype),
                    use_kernel=cfg.runtime.use_pallas, remat=cfg.mesh.remat,
-                   dropout_seed=dropout_seed, shard=shard)
+                   dropout_seed=dropout_seed, shard=shard, sp=sp)
 
 
 def micro_seeds(seed: int, n: int) -> list[int]:
@@ -104,17 +104,21 @@ _BUCKET = 1 << 26
 
 
 def reduce_grads(grads: list[torch.Tensor], leaves: list[torch.Tensor], mesh) -> None:
-    """Sums each gradient over the ranks that hold other rows and its leaf
-    whole or the same slice of it (the data group, or the replica group of
-    an fsdp-sharded leaf, whose gather's backward already summed the fsdp
-    group's rows), in place, a bucket of flattened gradients per
-    all-reduce. A tp rank's gradient is already its slice's (or, for a
+    """Sums each gradient over the ranks that hold other rows or other
+    chunks of the sequence, and its leaf whole or the same slice of it (the
+    ``sums`` group: the data and sp groups; or the replica group of an
+    fsdp-sharded leaf, whose gather's backward already summed the fsdp
+    group's rows, and which holds the sp axis too), in place, a bucket of
+    flattened gradients per all-reduce. Under sp every rank's gradient is
+    its share of the whole, whether the leaf is used inside the sharded
+    block stacks or only on replicated tensors (``collectives.py``), so
+    each counts once. A tp rank's gradient is already its slice's (or, for a
     replicated leaf, the whole group's: ``collectives.copy_to_tp``), so the
     tp group takes no part. The gradients come back tagged as their
     leaves, for :func:`global_norm`."""
     by_group: dict[int, tuple[Any, list[torch.Tensor]]] = {}
     for g, p in zip(grads, leaves):
-        group = mesh.replica if shard_of(p) is not None else mesh.data
+        group = mesh.replica if shard_of(p) is not None else mesh.sums
         by_group.setdefault(id(group), (group, []))[1].append(tag(g, shards_of(p)))
     for group, gs in by_group.values():
         if group.size == 1:
@@ -150,9 +154,14 @@ def make_train_step(cfg: AVSRConfig, mesh=None
     is its share of the global micro-batch's, and the gradients are summed
     over the ranks before the norm, the skip decision and the update,
     which are then the same on every rank; the metrics are the global
-    batch's."""
+    batch's. Under ``mesh.sp`` the ranks of an sp group hold the same rows
+    and each its chunk of the sequences (``models/avsr.py::forward``); the
+    gradients and the metrics are summed over the data and sp groups
+    together (``mesh.sums``)."""
+    sp = None
     if mesh is not None:
-        check_model(cfg.model, mesh.shape["tp"])
+        check_model(cfg.model, mesh.shape["tp"], sp=mesh.shape["sp"])
+        sp = mesh.sp
 
     extra_keys = (("moe_lb", "moe_z")
                   if cfg.model.connector_type == "moe" or cfg.model.llm.moe_experts > 0
@@ -171,7 +180,7 @@ def make_train_step(cfg: AVSRConfig, mesh=None
             with trace_range("avsr::micro_batch"):
                 mb = Batch(*[None if x is None else x[mb_i] for x in batch])
                 shard = row_shard(mesh, mb.labels.shape[0])
-                loss, metrics = _loss_fn(state.params, cfg, mb, mseed, shard)
+                loss, metrics = _loss_fn(state.params, cfg, mb, mseed, shard, sp)
                 clock.lap("forward_s")
                 g = torch.autograd.grad(loss, leaves, allow_unused=True)
                 for acc, gi in zip(grads, g):
@@ -184,7 +193,7 @@ def make_train_step(cfg: AVSRConfig, mesh=None
                 clock.lap("backward_s")
         if mesh is not None:
             reduce_grads(grads, leaves, mesh)
-            sums = mesh.data.all_reduce(torch.stack([
+            sums = mesh.sums.all_reduce(torch.stack([
                 torch.as_tensor(v, dtype=torch.float32, device=grads[0].device)
                 for v in (loss_sum, acc_sum, *extra.values())]))
             loss_sum, acc_sum, *rest = sums.unbind()
@@ -244,10 +253,11 @@ def make_eval_step(cfg: AVSRConfig, mesh=None) -> Callable[..., dict[str, float]
     @torch.no_grad()
     def eval_step(params, batch: Batch) -> dict[str, float]:
         loss, metrics = _loss_fn(params, cfg, batch, None,
-                                 row_shard(mesh, batch.labels.shape[0]))
+                                 row_shard(mesh, batch.labels.shape[0]),
+                                 mesh.sp if mesh is not None else None)
         acc = metrics["accuracy"]
         if mesh is not None:
-            loss, acc = mesh.data.all_reduce(torch.stack([loss.float(), acc.float()])).unbind()
+            loss, acc = mesh.sums.all_reduce(torch.stack([loss.float(), acc.float()])).unbind()
         if cfg.runtime.debug_nans:
             _raise_on_nan("eval step", loss=loss)
         return {"loss": float(loss), "accuracy": float(acc),

@@ -242,8 +242,10 @@
    launches are counted (the flash kernels on every train path, the
    qmatmul kernels under the preset) and go into the ``kernels`` line.
    Removes what it wrote.
-22. Tensor-parallel phase (``tp_phase``), at full width and depth on the
-   flagship, random weights from --seed: ``mesh.tp=2`` over 2 ranks
+22. Tensor-parallel phase (``tp_phase``), at full width and phase 21's
+   quarter of the depth on the flagship (its one-process references too,
+   so that phase 23 fits the time limit), random weights from --seed:
+   ``mesh.tp=2`` over 2 ranks
    sharing card 0 (gloo), and where there are 2 cards over NCCL, and where
    there are 4 ``mesh.dp=2 mesh.tp=2`` over NCCL (the first line says which
    ran), each rank started as phase 21's are and asked for every collective
@@ -264,6 +266,29 @@
    repacked row slices (their K printed) and the int8 head on its vocab
    slice; the launches go into the ``kernels`` line.
    Removes what it wrote.
+23. Sequence-parallel phase (``sp_phase``), at full width and depth on the
+   flagship, random weights from --seed: ``mesh.sp=2`` over 2 ranks
+   sharing card 0 (gloo), and where there are 2 cards over NCCL, and where
+   there are 4 ``mesh.dp=2 mesh.sp=2`` over NCCL, started as phase 21's
+   ranks are and asked for every collective of the backend table, the
+   ring's shift and the sp operators included. On each rank, the ring
+   attention (bf16, the flash kernels) at the 30 s bucket's Whisper shape
+   (1504 rows, 1500 valid: 752 a rank, 748 valid keys on rank 1) and LLM
+   shape (33 prompt + 1500 features + 48 labels packed to 1584, causal GQA)
+   against ``mha_reference`` of the whole sequence, forward and q/k/v
+   gradients (the flash gates), the blocks' launches exact, and the ring
+   forward's ms with the kernels and with the plain blocks. Then phase
+   22's train steps and direct decodes with ``sp=2`` in place of ``tp=2``
+   at the full depth, with one-process references of their own, and its
+   train and decode CLIs at its quarter depth against its one-card runs of
+   them (``--sp-only`` makes those itself); each rank's train-step launches
+   are exact (the frozen
+   Whisper's 24 blocks twice a rank, the LLM's 16 causal blocks i + 1
+   times on rank i, twice under remat, with a backward pair each), and the
+   decodes report their ring dispatches and the prefill's fallback (10 s
+   gives a 533-row prefix, which does not divide over 2: JAX's warning).
+   The ring's launches per rank go into the ``kernels`` line as
+   ``sp_ring``. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -272,8 +297,8 @@ Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
-JSON line instead; ``--tp-only`` does the same for phase 22, which then
-makes its own one-process references. Each phase boundary prints the
+JSON line instead; ``--tp-only`` and ``--sp-only`` do the same for phases
+22 and 23. Each phase boundary prints the
 seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
@@ -5888,16 +5913,24 @@ def mesh_worker(job_path: str) -> int:
             mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
             res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"], mesh)
             leaves[run["name"]] = res.pop("leaves")
-            res["mesh"] = mesh.shape
+            res.update(mesh=mesh.shape, sp_rank=mesh.sp.rank)
         elif run["kind"] == "decode":
             from avsr_tpu_torch.core.config import flagship
+            from avsr_tpu_torch.ops import attention as A
 
             cfg = flagship([*run["over"], *run["mesh"]])
             mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+            rings = A.ring_dispatch_count
             res = tp_decode_run(tuple(run["over"]), run["seed"], mesh)
             torch.save({k: res.pop(k) for k in ("tokens", "logits")},
                        job["decodes"].format(name=run["name"], rank=rank))
-            res["mesh"] = mesh.shape
+            res.update(mesh=mesh.shape, rings=A.ring_dispatch_count - rings,
+                       fallbacks=sorted(A._ring_fallback_warned))
+        elif run["kind"] == "ring":
+            from avsr_tpu_torch.core.config import flagship
+
+            mesh = sharding.build_mesh(flagship(run["mesh"]).mesh, world=world, rank=rank)
+            res = dict(rows=sp_ring_rows(mesh, run["seed"]))
         else:
             res = _timed_cli(importlib.import_module(f"avsr_tpu_torch.cli.{run['cli']}"),
                              run["argv"])
@@ -6218,6 +6251,8 @@ def tp_decode_run(over: tuple, seed: int, mesh=None) -> dict:
         batch = take_rows(batch, lo, hi)
     kw = dict(max_new_tokens=TP_DECODE_TOKENS, eos_id=-1, compute_dtype=dt,
               kv_cache_dtype=cfg.decode.kv_cache_dtype, use_kernel=cfg.runtime.use_pallas)
+    if mesh is not None:
+        kw["sp"] = mesh.sp
     generate_tokens(params, cfg.model, batch, **{**kw, "max_new_tokens": 2})
     st: dict = {}
     torch.cuda.reset_peak_memory_stats()
@@ -6313,9 +6348,9 @@ def tp_qmm_parity(seed: int) -> list[dict]:
 
 def tp_phase(seed: int) -> dict:
     """Phase 22: tensor parallelism (``mesh.tp=2``) across processes at
-    full width and depth on the flagship: the train step, the train CLI and
-    the decodes, every rank's launches counted (see the module
-    docstring)."""
+    full width and a quarter of the depth (``MESH_DEPTH``) on the flagship:
+    the train step, the train CLI and the decodes, every rank's launches
+    counted (see the module docstring)."""
     import shutil
 
     import torch
@@ -6325,7 +6360,7 @@ def tp_phase(seed: int) -> dict:
     t_all = time.perf_counter()
     work = ROOT / "outputs" / "chip_smoke" / time.strftime("tp_%Y%m%d_%H%M%S")
     work.mkdir(parents=True, exist_ok=True)
-    flag = list(FLAGSHIP_OVERRIDES)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]
     cli = ["--seed", str(seed), "--device", "cuda"]
     cards = torch.cuda.device_count()
     # name, ranks, sharing card 0, mesh, data-parallel ways (the global
@@ -6372,7 +6407,7 @@ def tp_phase(seed: int) -> dict:
             for _, B, d, n in TP_TRAIN:
                 refs["train"][d, ways] = one_card(
                     f"train_{d}_B{B * ways}_one_card",
-                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, (), n))
+                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, MESH_DEPTH, n))
             run1 = work / f"train_one_{ways}"
             rc = one_card(f"train_cli_B{TP_CLI_BATCH * ways}_one_card",
                           lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
@@ -6384,20 +6419,20 @@ def tp_phase(seed: int) -> dict:
         check(rc == 0, f"one-card decode CLI returned {rc}")
         refs["decode_f32_hyps"] = hyp_lines(work / "dec1")
         ones = {name: one_card(f"decode_{name}_one_card",
-                               lambda over=over: tp_decode_run(over, seed))
+                               lambda over=over: tp_decode_run((*over, *MESH_DEPTH), seed))
                 for name, over in TP_REFERENCES}
 
         # ---- the ranks ---------------------------------------------------------
         reports = {}
         for group, world, shared, mesh, ways in groups:
-            runs = [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d, mesh=list(mesh),
-                         steps=k) for n, B, d, k in TP_TRAIN]
+            runs = [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d,
+                         mesh=[*mesh, *MESH_DEPTH], steps=k) for n, B, d, k in TP_TRAIN]
             runs.append(dict(kind="cli", name="train_cli", cli="train",
                              argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
             runs.append(dict(kind="cli", name="decode_cli", cli="decode",
                              argv=dec_over(work / f"dec_{group}", *mesh)))
-            runs += [dict(kind="decode", name=f"decode_{n}", over=list(over), mesh=list(mesh),
-                          seed=seed) for n, over in TP_DECODES]
+            runs += [dict(kind="decode", name=f"decode_{n}", over=[*over, *MESH_DEPTH],
+                          mesh=list(mesh), seed=seed) for n, over in TP_DECODES]
             reports[group] = spawn_ranks(dict(tag=f"tp_{group}", runs=runs), work, world, shared)
 
         for group, reps in reports.items():
@@ -6536,11 +6571,341 @@ def tp_phase(seed: int) -> dict:
                                                                  and lc["qmatmul_int8"])),
                           f"tp {group} decode {n} rank {r} launches {lc}")
         res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+        res["cli_refs"] = {k: refs[k] for k in ("train_cli_losses", "decode_f32_hyps")}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not work.exists(), f"{work} not removed")
     res["seconds"] = time.perf_counter() - t_all
     print(f"tp phase: {res['seconds']:.1f} s; launches " + json.dumps(res["launches_by_path"]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: sequence parallelism across processes
+# ---------------------------------------------------------------------------
+
+# the ring at the flagship's 30 s bucket, global batch 1: name, heads, kv
+# heads, rows (Whisper's 1500 padded to 1504; the LLM's 33 prompt + 1500
+# features + 48 labels packed to 1584), valid rows, causal
+SP_RING_SHAPES = (("whisper", 16, 16, 1504, 1500, False), ("llm", 32, 8, 1584, 1581, True))
+
+
+def sp_ring_rows(mesh, seed: int) -> list[dict]:
+    """This rank's ring attention (bf16, through the flash kernels) at
+    ``SP_RING_SHAPES``: every rank makes the same whole q, k, v and dO from
+    ``seed``, runs the ring on its chunk (q_lens = kv_lens = the valid rows)
+    and holds its chunk of O and of dq, dk, dv against ``mha_reference`` of
+    the whole sequence in f32 (the flash gates: 2e-2 forward, 2e-2 x max|ref|
+    backward); the ring's launches against the blocks it must launch (all
+    of them, and under ``causal`` rank i's i + 1); the forward's ms with the
+    kernels and with the plain blocks, from CUDA events around 5 calls
+    (every rank times the same calls: the shifts are collectives)."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+    from avsr_tpu_torch.ops import ring_attention as R
+
+    sp = mesh.sp
+    n, r = sp.size, sp.rank
+    rows = []
+    for name, H, Hkv, T, valid, causal in SP_RING_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(seed + 23)
+
+        def rand(h):
+            return torch.randn((1, h, T, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+
+        q, k, v, do = rand(H), rand(Hkv), rand(Hkv), rand(H)
+        lens = torch.tensor([valid], device="cuda")
+        c = T // n
+
+        def mine(t):
+            return t[:, :, r * c:(r + 1) * c].contiguous()
+
+        xs = [mine(t).requires_grad_(True) for t in (q, k, v)]
+        before = dict(R.launches)
+        o = R.ring_attention(*xs, group=sp, causal=causal, kv_lens=lens, q_lens=lens)
+        o.backward(mine(do))
+        torch.cuda.synchronize()
+        launched = {key: R.launches[key] - before[key] for key in before}
+        blocks = r + 1 if causal else n
+        check(launched == dict(flash_fwd=blocks, flash_bwd_dq=blocks, flash_bwd_dkv=blocks),
+              f"ring {name} rank {r}: launched {launched}, {blocks} blocks expected")
+        ref_in = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref = A.mha_reference(*ref_in, causal=causal, q_lens=lens, kv_lens=lens)
+        ref.backward(do.float())
+        err = (o.float() - mine(ref.detach())).abs().max().item()
+        rel = {}
+        for key, x, t in zip(("dq", "dk", "dv"), xs, ref_in):
+            want = mine(t.grad)
+            rel[key] = ((x.grad.float() - want).abs().max() / want.abs().max()).item()
+        check(all(torch.isfinite(t).all() for t in (o, *[x.grad for x in xs])),
+              f"ring {name} rank {r}: non-finite output or gradient")
+        check(err <= 2e-2 and max(rel.values()) <= 2e-2,
+              f"ring {name} rank {r} against the whole sequence: O max|d| {err:.3e}, "
+              f"dq/dk/dv max|d| / max|ref| {rel}")
+        del ref, ref_in, xs, o
+        ms = {}
+        with torch.no_grad():
+            chunks = [mine(t) for t in (q, k, v)]
+            for tag, uk in (("ms", "auto"), ("plain_ms", "never")):
+                R.ring_attention(*chunks, group=sp, causal=causal, kv_lens=lens,
+                                 q_lens=lens, use_kernel=uk)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(5):
+                    R.ring_attention(*chunks, group=sp, causal=causal, kv_lens=lens,
+                                     q_lens=lens, use_kernel=uk)
+                end.record()
+                torch.cuda.synchronize()
+                ms[tag] = start.elapsed_time(end) / 5
+        rows.append(dict(shape=name, q=[1, H, c, 64], kv=[1, Hkv, c, 64], rows=T,
+                         valid=valid, valid_in_chunk=max(0, min(c, valid - r * c)),
+                         causal=causal, rank=r, blocks=blocks, launched=launched,
+                         max_abs_err=err, max_rel_err_bwd=rel, **ms))
+    return rows
+
+
+def sp_train_launches(cfg, rank: int, n: int) -> dict[str, int]:
+    """The flash launches of one train step (one micro-batch) of sp rank
+    ``rank`` of ``n``: the frozen Whisper's blocks each ring over every
+    chunk (forward only), and the LLM's blocks each ring over the rank's
+    causal blocks, again in remat's recomputation, with a backward pair a
+    block."""
+    m = cfg.model
+    llm = m.llm.n_layers * (rank + 1)
+    return dict(flash_fwd=m.whisper.n_layers * n + llm * (2 if cfg.mesh.remat else 1),
+                flash_bwd_dq=llm, flash_bwd_dkv=llm, qmatmul_int8=0, qmatmul_int4=0)
+
+
+def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
+    """Phase 23: sequence parallelism (``mesh.sp=2``) across processes at
+    full width and depth on the flagship, global batch 1 at the largest
+    buckets: the ring against the whole sequence, the train step with
+    exact launches per rank and the decodes; the train and decode CLIs at
+    phase 22's quarter depth, against phase 22's one-card runs of them
+    (``cli_refs``; made here without them). See the module docstring."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("sp_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]          # the CLIs' (phase 22's)
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    cards = torch.cuda.device_count()
+    # name, ranks, sharing card 0, mesh, data-parallel ways
+    groups = [("gloo", 2, True, ("mesh.sp=2",), 1)]
+    if cards >= 2:
+        groups.append(("nccl", 2, False, ("mesh.sp=2",), 1))
+    if cards >= 4:
+        groups.append(("nccl_dp2", 4, False, ("mesh.sp=2", "mesh.dp=2"), 2))
+    print("sp phase: " + "; ".join(f"{g}: {n} ranks, {' '.join(m)}"
+                                   f"{' sharing card 0' if shared else ''}"
+                                   for g, n, shared, m, _ in groups)
+          + ("" if cards >= 4 else f" (the host has {cards} card(s): "
+             + ("no NCCL run" if cards < 2 else "no dp=2 sp=2 run") + ")"))
+    res: dict = {"ring": {}, "train": {}, "train_cli": {}, "decode_cli": {}, "decode": {},
+                 "launches_by_path": {}}
+
+    def train_over(run_dir: Path, steps: int, ways: int, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=10",
+                "training.grad_accum_steps=1", "training.save_every_steps=0",
+                f"data.batch_size={TP_CLI_BATCH * ways}", "runtime.compute_dtype=float32",
+                f"training.max_steps={steps}", f"training.checkpoint_dir={run_dir}", *extra]
+
+    def dec_over(out: Path, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
+                f"decode.max_new_tokens={MESH_DECODE_TOKENS}", "decode.batch_size=8",
+                "runtime.compute_dtype=float32", f"decode.output_dir={out}", *extra]
+
+    def one_card(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches_by_path"][f"sp_{tag}"] = counts()
+        settle()
+        return out
+
+    try:
+        # ---- one process: the references ------------------------------------
+        refs: dict = {"train": {}, **(cli_refs or {"train_cli_losses": {}})}
+        for ways in sorted({g[4] for g in groups}):
+            for _, B, d, n in TP_TRAIN:
+                refs["train"][d, ways] = one_card(
+                    f"train_{d}_B{B * ways}_one_card",
+                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, (), n))
+            if cli_refs is None:
+                run1 = work / f"train_one_{ways}"
+                rc = one_card(f"train_cli_B{TP_CLI_BATCH * ways}_one_card",
+                              lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
+                check(rc == 0, f"one-card train CLI returned {rc}")
+                refs["train_cli_losses"][ways] = [float(r[3]) for r in loss_rows(run1)
+                                                  if r[2] == "train"]
+                shutil.rmtree(run1 / "ckpt", ignore_errors=True)
+        if cli_refs is None:
+            rc = one_card("decode_cli_one_card", lambda: decode.main(dec_over(work / "dec1")))
+            check(rc == 0, f"one-card decode CLI returned {rc}")
+            refs["decode_f32_hyps"] = hyp_lines(work / "dec1")
+        ones = {name: one_card(f"decode_{name}_one_card",
+                               lambda over=over: tp_decode_run(over, seed))
+                for name, over in TP_REFERENCES}
+
+        # ---- the ranks ---------------------------------------------------------
+        reports = {}
+        for group, world, shared, mesh, ways in groups:
+            runs = [dict(kind="ring", name="ring", mesh=list(mesh), seed=seed)]
+            runs += [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d, mesh=list(mesh),
+                          steps=k) for n, B, d, k in TP_TRAIN]
+            runs.append(dict(kind="cli", name="train_cli", cli="train",
+                             argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli", cli="decode",
+                             argv=dec_over(work / f"dec_{group}", *mesh)))
+            runs += [dict(kind="decode", name=f"decode_{n}", over=list(over), mesh=list(mesh),
+                          seed=seed) for n, over in TP_DECODES]
+            reports[group] = spawn_ranks(dict(tag=f"sp_{group}", runs=runs), work, world, shared)
+
+        for group, reps in reports.items():
+            world = len(reps)
+            ways = next(g[4] for g in groups if g[0] == group)
+            check(reps[0]["backend"] == ("gloo" if group == "gloo" else "nccl"),
+                  f"{group} ranks ran {reps[0]['backend']}")
+            takes = reps[0]["backend_takes"]
+            print(f"sp {group}: ranks on {[r['device'] for r in reps]}; the backend takes "
+                  f"on CUDA tensors {json.dumps(takes)}")
+            check(all(v == "yes" for v in takes.values()),
+                  f"{group} refuses a collective the port makes on CUDA tensors: {takes}")
+            res["ring"][group] = [r["runs"]["ring"]["rows"] for r in reps]
+            print(f"sp {group} ring: " + json.dumps(res["ring"][group]))
+            for r, rep_ in enumerate(reps):
+                res["launches_by_path"][f"sp_{group}_ring_rank{r}"] = rep_["runs"]["ring"][
+                    "launches"]
+
+            # ---- the train steps: one process's, exact launches per rank --------
+            leaves = torch.load(work / f"sp_{group}_leaves.pt")
+            for n, B, dtype, steps in TP_TRAIN:
+                name = f"train_{n}"
+                runs_r = [r["runs"][name] for r in reps]
+                want = refs["train"][dtype, ways]
+                got = runs_r[0]["metrics"]
+                dl = max(abs(g["loss"] - w["loss"]) for g, w in zip(got, want["metrics"]))
+                dg = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                         for g, w in zip(got, want["metrics"]))
+                db = max((leaves[name][k] - want["leaves"][k]).abs().max().item()
+                         for k in want["leaves"])
+                row = dict(mesh=runs_r[0]["mesh"], global_batch=B * ways,
+                           loss=[m["loss"] for m in got], max_loss_diff=dl,
+                           max_grad_norm_rel_diff=dg, max_lora_b_diff=db,
+                           step_ms=[r["step_ms"] for r in runs_r],
+                           peak_gb=[r["peak_gb"] for r in runs_r],
+                           one_card_step_ms=want["step_ms"], one_card_peak_gb=want["peak_gb"],
+                           launches=[r["launches"] for r in runs_r])
+                res["train"][f"{group}_{n}"] = row
+                print(f"sp {group} train {n}: " + json.dumps(row))
+                check(all(r["metrics"] == got for r in runs_r),
+                      f"sp {group} {name}: the ranks report different metrics")
+                cfg = mesh_cfg(dtype)
+                for r, rr in enumerate(runs_r):
+                    sp_rank = rr["sp_rank"]
+                    exact = {k: v * steps for k, v in sp_train_launches(cfg, sp_rank, 2).items()}
+                    check(rr["launches"] == exact,
+                          f"sp {group} {name} rank {r}: launches {rr['launches']}, "
+                          f"expected {exact}")
+                    res["launches_by_path"][f"sp_{group}_{name}_rank{r}"] = rr["launches"]
+                if dtype == "float32":      # phase 21's gates
+                    check(dl < 1e-5 and dg < 1e-5 and db < 1e-6,
+                          f"sp {group} {name} against one process: loss |d| {dl:.3e}, grad "
+                          f"norm rel {dg:.3e}, LoRA b |d| {db:.3e}")
+
+            # ---- the train CLI: 1 step on the ranks, a second at world 1 -----
+            run2 = work / f"train_{group}"
+            tl = [r["runs"]["train_cli"] for r in reps]
+            check(all(t["rc"] == 0 for t in tl), f"sp {group} train CLI ranks returned "
+                                                  f"{[t['rc'] for t in tl]}")
+            rows2 = loss_rows(run2)
+            check([r[2] for r in rows2].count("train") == 1,
+                  f"the sp {group} run's loss_log.csv rows {[r[:3] for r in rows2]}")
+            rc = one_card(f"train_cli_{group}_resumed",
+                          lambda: train.main(train_over(run2, 2, ways)))
+            check(rc == 0, f"sp {group}: the world-1 resume returned {rc}")
+            got = [float(r[3]) for r in loss_rows(run2) if r[2] == "train"]
+            shutil.rmtree(run2 / "ckpt", ignore_errors=True)
+            want = refs["train_cli_losses"][ways]
+            d = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            row = dict(ranks_then_resumed=got, one_card=want, max_rel_diff=d,
+                       seconds=[t["seconds"] for t in tl])
+            res["train_cli"][group] = row
+            print(f"sp {group} train CLI: " + json.dumps(row))
+            check(len(got) == len(want) == 2 and d < 1e-5,
+                  f"sp {group} train CLI losses {got}, one card {want}")
+            for r, t in enumerate(tl):
+                res["launches_by_path"][f"sp_{group}_train_cli_rank{r}"] = t["launches"]
+                check(t["launches"]["flash_fwd"] and t["launches"]["flash_bwd_dq"]
+                      and t["launches"]["flash_bwd_dkv"],
+                      f"sp {group} train CLI rank {r}: {t['launches']}")
+
+            # ---- the decode CLI in f32: one card's hypotheses -----------------
+            dl_ = [r["runs"]["decode_cli"] for r in reps]
+            two = hyp_lines(work / f"dec_{group}")
+            row = dict(equal_hyps=two == refs["decode_f32_hyps"], lines=len(two),
+                       seconds=[x["seconds"] for x in dl_], launches=[x["launches"] for x in dl_])
+            res["decode_cli"][group] = row
+            print(f"sp {group} decode CLI f32: " + json.dumps(row))
+            check(len(two) == 8 and two == refs["decode_f32_hyps"],
+                  f"sp {group} decode CLI: HYP lines differ from the one-card decode")
+            for r, x in enumerate(dl_):
+                res["launches_by_path"][f"sp_{group}_decode_cli_rank{r}"] = x["launches"]
+                check(x["launches"]["flash_fwd"], f"sp {group} decode CLI rank {r}: "
+                                                  f"{x['launches']}")
+
+            # ---- direct decodes: logits, tokens, ms per token ------------------
+            for n, _ in TP_DECODES:
+                runs_r = [r["runs"][f"decode_{n}"] for r in reps]
+                outs = [torch.load(work / f"sp_{group}_decode_{n}_rank{r}.pt")
+                        for r in range(world)]
+                one = ones[n]
+                part = [slice(*x["rows"]) for x in runs_r]
+                equal = [float((o["tokens"] == one["tokens"][p]).float().mean())
+                         for o, p in zip(outs, part)]
+                ref32 = ones["f32" if n == "bf16" else "preset_f32"]["logits"]
+                own = (one["logits"] - ref32).abs()
+                mine = [(o["logits"] - ref32[p]).abs() for o, p in zip(outs, part)]
+                row = dict(rows=[x["rows"] for x in runs_r], equal_token_share=equal,
+                           ms_per_token=[x["ms_per_token"] for x in runs_r],
+                           one_card_ms_per_token=one["ms_per_token"],
+                           peak_gb=[x["peak_gb"] for x in runs_r], one_card_peak_gb=one["peak_gb"],
+                           own_vs_f32_mean=own.mean().item(), own_vs_f32_max=own.max().item(),
+                           sp_vs_f32_mean=max(x.mean().item() for x in mine),
+                           sp_vs_f32_max=max(x.max().item() for x in mine),
+                           prefill_rings=[x["rings"] for x in runs_r],
+                           prefill_fallbacks=runs_r[0]["fallbacks"],
+                           launches=[x["launches"] for x in runs_r])
+                # phase 13's gate: no further from the mode's f32 logits than
+                # 2x one card is, in mean and in max
+                check(row["sp_vs_f32_mean"] <= 2.0 * row["own_vs_f32_mean"]
+                      and row["sp_vs_f32_max"] <= 2.0 * row["own_vs_f32_max"],
+                      f"sp {group} decode {n}: logits |d| to f32 (mean "
+                      f"{row['sp_vs_f32_mean']:.4e}, max {row['sp_vs_f32_max']:.4e}) "
+                      f"beyond 2x one card's ({row['own_vs_f32_mean']:.4e}, "
+                      f"{row['own_vs_f32_max']:.4e})")
+                res["decode"][f"{group}_{n}"] = row
+                print(f"sp {group} decode {n}: " + json.dumps(row))
+                for r, x in enumerate(runs_r):
+                    res["launches_by_path"][f"sp_{group}_decode_{n}_rank{r}"] = x["launches"]
+                    lc = x["launches"]
+                    check(lc["flash_fwd"] and (n != "preset" or (lc["qmatmul_int4"]
+                                                                 and lc["qmatmul_int8"])),
+                          f"sp {group} decode {n} rank {r} launches {lc}")
+        res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), f"{work} not removed")
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"sp phase: {res['seconds']:.1f} s; launches " + json.dumps(res["launches_by_path"]))
     return res
 
 
@@ -6552,6 +6917,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="build the kernels and run phase 21 alone")
     p.add_argument("--tp-only", action="store_true",
                    help="build the kernels and run phase 22 alone")
+    p.add_argument("--sp-only", action="store_true",
+                   help="build the kernels and run phase 23 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -6606,6 +6973,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.tp_only:
         print(json.dumps(tp_phase(args.seed)))
+        return 0
+    if args.sp_only:
+        print(json.dumps(sp_phase(args.seed)))
         return 0
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
@@ -6710,10 +7080,24 @@ def main(argv: list[str] | None = None) -> int:
     tk2 = {k: sum(n[k] for n in tp["launches_by_path"].values()) for k in counts()}
     check(all(tk2.values()), f"a kernel did not launch on the tp path: {tk2}")
 
+    lap()
+    # Phase 23 at full width and depth: sequence parallelism (mesh.sp=2)
+    # across processes, the ring against the whole sequence, the train step
+    # with exact launches per rank, the train CLI and the decodes.
+    sp = sp_phase(args.seed, tp["cli_refs"])
+    sk = {k: sum(n[k] for n in sp["launches_by_path"].values()) for k in counts()}
+    check(all(sk.values()), f"a kernel did not launch on the sp path: {sk}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp)
+                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp)
                 for part, n in phase["launches_by_path"].items() if n[name]}
+
+    def sp_ring(name: str) -> dict:
+        """The flash kernel ``name``'s launches per rank of phase 23's train
+        steps (the ring's blocks: exact, checked there), and its ring rows."""
+        return {part.removeprefix("sp_"): n[name] for part, n in sp["launches_by_path"].items()
+                if part.startswith("sp_gloo_train_") or part.startswith("sp_gloo_ring_")}
 
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
@@ -6774,7 +7158,10 @@ def main(argv: list[str] | None = None) -> int:
         connector_shape=dict(**connectors["kernels"]["fwd"], times_are="per launch",
                              launches_per_audio_connector_call=conn_launches("", "flash_fwd")),
         avhubert_shape=dict(video["kernel"], times_are="per launch",
-                            launches_per_encode=video["avhubert_300"]["launches_per_encode"]))]
+                            launches_per_encode=video["avhubert_300"]["launches_per_encode"]),
+        sp_ring=dict(launches_per_rank=sp_ring("flash_fwd"), rows=sp["ring"],
+                     times_are="ms per ring forward on a rank (every block, the shifts "
+                               "and the merge), CUDA events around 5 calls"))]
     wb = knobs["whisper_bwd"]
     hbwd = kernels[0]["hubert_shape"].pop("bwd")
     abwd = kernels[0]["avhubert_shape"].pop("bwd")
@@ -6802,6 +7189,7 @@ def main(argv: list[str] | None = None) -> int:
             **connectors["kernels"][key],
             launches_per_audio_connector_backward=conn_launches("_grad", name),
             times_are="per launch; library_ms is SDPA's backward of q, k and v together")
+        extra["sp_ring"] = dict(launches_per_rank=sp_ring(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",

@@ -896,3 +896,22 @@ def test_safetensors_reader_on_this_host(cuda, tmp_path):
     assert torch.equal(sd["model.embed_tokens.weight"],
                        tensors["model.embed_tokens.weight"].float())
     assert sd["c.i64"].dtype == torch.int64
+
+
+@pytest.mark.cuda
+def test_profile_train_then_decode_traces_every_launch(cuda, tmp_path):
+    """``cli/profile.py`` on the card, the train profile and then the decode
+    profile in one process (as ``chip_smoke.py``'s phase 20 runs them): the
+    CLI's own check holds (each trace's kernels by name equal the wrappers'
+    counters over the traced steps; it raises otherwise), and the flash
+    kernels are in both traces."""
+    from avsr_tpu_torch.cli import profile
+
+    flag = ["data.audio_buckets=1000,2000,3000", "model.max_seq_len=1536",
+            "model.whisper.n_layers=2", "model.clip.n_layers=1", "model.llm.n_layers=2",
+            "data.batch_size=2", "decode.max_new_tokens=8"]
+    for mode in ("train", "decode"):
+        out = tmp_path / mode
+        assert profile.main(["--device", "cuda", "--mode", mode, "--steps", "2",
+                             "--output_dir", str(out), *flag]) == 0
+        assert profile.kernel_counts(out / f"trace_{mode}.json")["flash_fwd"] > 0

@@ -205,10 +205,10 @@ def test_mesh_shape_matches_jax(n, axes):
 @pytest.mark.parametrize("over", ["mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
                                   "mesh.ep=2 model.connector_type=moe"])
 def test_model_axes_are_the_next_slice(over):
-    """sp, ep and pp change the model's own code: refused, naming the
-    next slice; the data axes and tp load (and tp=2 needs 2 processes,
-    JAX's mesh message at a world of 1)."""
-    if over == "mesh.tp=2":
+    """ep and pp change the model's own code: refused, naming the next
+    slice; the data axes, tp and sp load (and tp=2 or sp=2 needs 2
+    processes, JAX's mesh message at a world of 1)."""
+    if over in ("mesh.tp=2", "mesh.sp=2"):
         with pytest.raises(ValueError, match="devices"):
             sharding.mesh_shape(tcfg.load_config(None, [over]).mesh, 1)
     else:

@@ -159,6 +159,10 @@ class ThreadGroup:
         vals = self._exchange(t.detach().clone())
         return sum(vals[1:], vals[0]).chunk(self.size, dim=dim)[self.rank].contiguous()
 
+    def shift(self, ts, offset=1):
+        vals = self._exchange([t.detach().clone() for t in ts])
+        return vals[(self.rank - offset) % self.size]
+
 
 def thread_meshes(shape: dict) -> list[sharding.Mesh]:
     """A :class:`sharding.Mesh` per rank of ``shape``, over thread groups

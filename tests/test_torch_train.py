@@ -462,9 +462,9 @@ def test_train_cli_writes_loss_log(tmp_path):
 @pytest.mark.parametrize("override", [
     "mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2"])
 def test_unported_config_knobs_raise(override):
-    """sp and pp are refused at load; the data axes and tp load, and a
-    mesh that needs more processes than run raises JAX's message."""
-    if override.split("=")[0] in ("mesh.dp", "mesh.fsdp", "mesh.tp"):
+    """pp is refused at load; the data axes, tp and sp load, and a mesh
+    that needs more processes than run raises JAX's message."""
+    if override.split("=")[0] in ("mesh.dp", "mesh.fsdp", "mesh.tp", "mesh.sp"):
         cfg = tcfg.load_config(TINY_YAML, [override])
         with pytest.raises(ValueError, match="devices"):
             mesh_shape(cfg.mesh, 1)

@@ -17,12 +17,21 @@ A job is a list of runs, made in order in one process:
   * ``decode``: the serving layout of ``weights`` under the mesh of
     ``overrides`` (``prepare_params_for_decode``: quantized head, this
     rank's tp slices, each rank's fused q|k|v and gate|up), then
-    ``generate_tokens`` and ``beam_search`` on this rank's rows of the
+    ``generate_tokens`` and ``beam_search`` (with the mesh's sp group) on
+    this rank's rows of the
     batch in ``batch`` ([B, ...] numpy arrays), and for each draft depth
     of ``spec`` (0: the self-draft, else a layer-skip draft of that many
     blocks; int8, sliced like the target) ``speculative_generate``; every
     rank writes its tokens and prefill logits to ``out`` (``{rank}`` in the
     name);
+  * ``prefill``: under the mesh of ``overrides`` (sequence parallelism),
+    ``generate_tokens`` of ``weights`` on this rank's rows of ``batch``,
+    and the prefill's KV cache (the encoders, the packed prefix and
+    ``llama_apply`` with ``return_cache``, as ``generate_tokens`` runs
+    them); every rank writes its tokens, its cache, and the ring
+    dispatches and fallbacks it made, to ``out``;
+  * ``probe``: ``collectives.probe_backend`` on the CPU; rank 0 writes the
+    answers to ``out``;
   * ``cli``: ``avsr_tpu_torch.cli.<cli>.main(argv)``, whose return code
     must be 0.
 """
@@ -40,8 +49,10 @@ sys.path.insert(0, str(REPO))
 
 from avsr_tpu_torch.core import config as tcfg  # noqa: E402
 from avsr_tpu_torch.infer import generate, speculative  # noqa: E402
-from avsr_tpu_torch.mesh import multihost, sharding  # noqa: E402
+from avsr_tpu_torch.mesh import collectives, multihost, sharding  # noqa: E402
+from avsr_tpu_torch.models import avsr, llama  # noqa: E402
 from avsr_tpu_torch.models.avsr import Batch  # noqa: E402
+from avsr_tpu_torch.ops import attention  # noqa: E402
 from avsr_tpu_torch.train import state as tstate  # noqa: E402
 from avsr_tpu_torch.train import step as tstep  # noqa: E402
 
@@ -99,7 +110,7 @@ def run_decode(job: dict) -> None:
     batch = Batch(**{k: torch.from_numpy(np.ascontiguousarray(data[k][lo:hi]))
                      for k in data.files})
     kw = dict(eos_id=job["eos"], kv_cache_dtype=cfg.decode.kv_cache_dtype,
-              use_kernel=cfg.runtime.use_pallas)
+              use_kernel=cfg.runtime.use_pallas, sp=mesh.sp)
     stats: dict = {}
     greedy = generate.generate_tokens(params, cfg.model, batch, stats=stats,
                                       max_new_tokens=job["new_tokens"], **kw)
@@ -113,11 +124,46 @@ def run_decode(job: dict) -> None:
         spec[layers] = speculative.speculative_generate(
             params, draft, cfg.model, batch, gamma=3, max_new_tokens=job["new_tokens"],
             eos_id=job["eos"], use_kernel=cfg.runtime.use_pallas,
-            draft_model_cfg=d_cfg).tokens
+            draft_model_cfg=d_cfg, sp=mesh.sp).tokens
     torch.save({"greedy": greedy.tokens, "greedy_lens": greedy.lengths,
                 "beam": beam.tokens, "beam_lens": beam.lengths, "spec": spec,
-                "prefill_logits": stats["prefill_logits"], "shape": mesh.shape},
+                "prefill_logits": stats["prefill_logits"], "shape": mesh.shape,
+                "rows": (lo, hi)}, job["out"].format(rank=rank))
+
+
+def run_prefill(job: dict) -> None:
+    cfg = tcfg.load_config(TINY_YAML, job["overrides"])
+    multihost.init_distributed("cpu")
+    rank, world = multihost.process_shard()
+    mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+    params = generate.prepare_params_for_decode(torch.load(job["weights"], weights_only=True),
+                                                cfg.model, mesh=mesh)
+    data = np.load(job["batch"])
+    lo, hi = multihost.local_rows(data["labels"].shape[0], (mesh.data.rank, mesh.ways))
+    batch = Batch(**{k: torch.from_numpy(np.ascontiguousarray(data[k][lo:hi]))
+                     for k in data.files})
+    rings = attention.ring_dispatch_count
+    out = generate.generate_tokens(params, cfg.model, batch, max_new_tokens=job["new_tokens"],
+                                   eos_id=job["eos"], sp=mesh.sp)
+    rings = attention.ring_dispatch_count - rings
+    with torch.no_grad():
+        enc = avsr.encode(params, cfg.model, batch, moe_rowwise=True, sp=mesh.sp)
+        prefix, lens = avsr.build_prefix(params, cfg.model, batch, enc)
+        _, cache = llama.llama_apply(params["llm"], cfg.model.llm, inputs_embeds=prefix,
+                                     lengths=lens, return_cache=True,
+                                     lora=cfg.model.lora if cfg.model.lora.use_lora else None,
+                                     output="hidden", sp=mesh.sp)
+    torch.save({"tokens": out.tokens, "lengths": out.lengths, "rings": rings,
+                "fallbacks": sorted(attention._ring_fallback_warned), "k": cache.k,
+                "v": cache.v, "prefix_lens": lens, "rows": (lo, hi), "shape": mesh.shape},
                job["out"].format(rank=rank))
+
+
+def run_probe(job: dict) -> None:
+    multihost.init_distributed("cpu")
+    takes = collectives.probe_backend("cpu")
+    if multihost.process_shard()[0] == 0:
+        Path(job["out"]).write_text(json.dumps(takes))
 
 
 def run_cli(job: dict) -> None:
@@ -130,7 +176,8 @@ def run_cli(job: dict) -> None:
 def main() -> None:
     torch.set_num_threads(1)
     for run in json.loads(Path(sys.argv[1]).read_text()):
-        {"step": run_step, "decode": run_decode, "cli": run_cli}[run["kind"]](run)
+        {"step": run_step, "decode": run_decode, "prefill": run_prefill, "probe": run_probe,
+         "cli": run_cli}[run["kind"]](run)
 
 
 if __name__ == "__main__":
