@@ -14,7 +14,7 @@ Multi-process runs (torchrun's environment, ``mesh/multihost.py``):
 process group, this rank's device, the mesh of ``cfg.mesh`` over the
 world; None at a world of 1), ``build_data`` gives the train and valid
 splits' loaders their ``data_shard`` at a world above 1 (over the data axes:
-the tp ranks of a position load the same rows), ranks above 0 log
+the tp, sp and pp ranks of a position load the same rows), ranks above 0 log
 warnings only, and ``refuse_world`` stops the CLIs that run on one card.
 
 ``--config file.yaml`` plus positional ``section.key=value`` overrides (CLI
@@ -155,7 +155,7 @@ def maybe_mesh(cfg: AVSRConfig, device: str | torch.device
     device, backend = init_distributed(device)
     if backend is None:
         return device, None
-    check_model(cfg.model, cfg.mesh.tp, cfg.decode.lm_head_bits, cfg.mesh.sp)
+    check_model(cfg.model, cfg.mesh.tp, cfg.decode.lm_head_bits, cfg.mesh.sp, cfg.mesh.pp)
     rank, world = process_shard()
     return device, build_mesh(cfg.mesh, world=world, rank=rank)
 

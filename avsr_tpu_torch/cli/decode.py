@@ -33,8 +33,8 @@ the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
 the byte tokenizer.
 
 Across processes (``torchrun --nproc_per_node N -m avsr_tpu_torch.cli.decode
-...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp``/``mesh.sp`` over
-the world) every rank loads each batch and decodes its contiguous share of the
+...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp``/``mesh.sp``/``mesh.pp``
+over the world) every rank loads each batch and decodes its contiguous share of the
 rows (split over the data axes) on its own card; rank 0 gathers the
 hypotheses in dataset order and alone writes the results and WER files.
 JAX's ``infer_batch_sharder`` replicates a batch that does not divide the
@@ -52,7 +52,9 @@ group decode the same rows, each running the encoders' and the prefill's
 block stacks on its chunk of the sequence (ring attention) where JAX's
 ring engages, with the prefill's KV cache gathered whole on every rank;
 one rank of each data position's hypotheses is gathered (over the data
-group). Greedy, beam and speculative hypotheses
+group). Under ``mesh.pp`` the ranks of a pp group decode the same rows
+through the whole stack, as JAX's decoding does (it pipelines only the
+forward without a cache). Greedy, beam and speculative hypotheses
 are a row's own, so they equal the single-card decode's (in f32);
 sampling draws from each rank's generator.
 The continuous-batching engine (``decode.engine_slots``) runs on one card.

@@ -5,7 +5,7 @@ A copy of the sections of ``avsr_tpu.core.config`` that the port reads
 AV-HuBERT/LLM/LoRA subsections, ``training``, ``mesh``, ``runtime``,
 ``decode``), with the same field names
 and defaults, so that a YAML file written for the JAX package loads here
-unchanged. Mesh axes above 1 (multi-GPU layouts, not yet ported) raise
+unchanged. ``mesh.ep`` above 1 (expert parallelism, not yet ported) raises
 ``NotImplementedError`` at validation rather than being ignored.
 ``mesh.donate`` is accepted and means nothing
 here: it is an XLA buffer-donation hint, and eager PyTorch updates the
@@ -422,6 +422,7 @@ class AVSRConfig:
                 "set training.eval_wer_every_epochs > 0")
         _check_speculative(self)
         _check_serving(self)
+        _check_pp(self)
         return self
 
 
@@ -506,8 +507,8 @@ def _check_serving(cfg: AVSRConfig) -> None:
 
 def _check_moe(cfg: AVSRConfig) -> None:
     """The JAX package's MoE rules, with its messages. They run before the
-    one-card refusal of wide meshes, so that a config the JAX package
-    refuses over ``mesh.pp`` or ``mesh.ep`` is refused with its words."""
+    refusal of ``mesh.ep``, so that a config the JAX package refuses over
+    ``mesh.pp`` or ``mesh.ep`` is refused with its words."""
     m, mesh = cfg.model, cfg.mesh
     if m.connector_type == "moe":
         if m.moe_topk < 1 or m.moe_topk > m.moe_experts:
@@ -551,22 +552,34 @@ def _check_moe(cfg: AVSRConfig) -> None:
 
 def _check_ported(cfg: AVSRConfig) -> None:
     """Raises for the mesh axes the port does not run yet. The data axes
-    (``dp``, ``fsdp``, ``dcn_dp``), ``tp`` and ``sp`` run one process per
-    card (``mesh/sharding.py``); ``pp`` and ``ep`` change the model's own
-    code and come with the next slices (``pp`` first). A config that sets
-    both ``pp`` and ``sp`` gets the JAX package's message."""
-    mesh = cfg.mesh
-    if mesh.pp > 1 and mesh.sp > 1:
-        raise ValueError("mesh.pp and mesh.sp are mutually exclusive")
-    axes = {"ep": mesh.ep, "pp": mesh.pp}
-    wide = [f"mesh.{k}={v}" for k, v in axes.items() if v > 1]
-    if wide:
+    (``dp``, ``fsdp``, ``dcn_dp``), ``tp``, ``sp`` and ``pp`` run one
+    process per card (``mesh/sharding.py``); ``ep`` changes the model's own
+    code and comes with the next slice."""
+    if cfg.mesh.ep > 1:
         raise NotImplementedError(
-            f"{', '.join(wide)}: the port runs the data axes (mesh.dp, "
-            "mesh.fsdp, mesh.dcn_dp), tensor parallelism (mesh.tp) and sequence "
-            "parallelism (mesh.sp) across processes; pipeline and expert "
-            "parallelism are the next slices of the port (mesh.pp first, then "
-            "mesh.ep)")
+            f"mesh.ep={cfg.mesh.ep}: the port runs the data axes (mesh.dp, "
+            "mesh.fsdp, mesh.dcn_dp), tensor parallelism (mesh.tp), sequence "
+            "parallelism (mesh.sp) and pipeline parallelism (mesh.pp) across "
+            "processes; expert parallelism is the next slice of the port (mesh.ep)")
+
+
+def _check_pp(cfg: AVSRConfig) -> None:
+    """The JAX package's pipeline checks, message for message and in its
+    order (the last of its ``validate``)."""
+    mesh, m = cfg.mesh, cfg.model
+    if mesh.pp <= 1:
+        return
+    if mesh.sp > 1:
+        raise ValueError("mesh.pp and mesh.sp are mutually exclusive")
+    if m.llm.n_layers % mesh.pp != 0:
+        raise ValueError(
+            f"llm.n_layers ({m.llm.n_layers}) must divide "
+            f"evenly into mesh.pp={mesh.pp} stages")
+    if m.lora.use_lora and m.lora.dropout > 0.0:
+        raise ValueError(
+            "mesh.pp > 1 does not support lora.dropout > 0 (dropout "
+            "rng is not threaded across pipeline stages) — set "
+            "model.lora.dropout=0 or use a pp=1 mesh")
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,11 @@ across processes goes through a :class:`Group`, over the default process
 group's backend (NCCL on the card, gloo on the CPU or when ranks share a
 card), which takes each of them on the tensors' own device: gloo takes
 them on CUDA tensors too. :data:`BACKEND_TABLE` lists every collective
-the port makes, the three Megatron operators of tensor parallelism and
-the ring shift of sequence parallelism included, and :func:`probe_backend`
-asks the backend for each (``chip_smoke.py``'s phases 21-23 print the
-answers and fail if it refuses one), so nothing is swapped or staged
-behind the caller's back.
+the port makes, the three Megatron operators of tensor parallelism, the
+ring shift of sequence parallelism and the pipeline's hand-off and return
+included, and :func:`probe_backend` asks the backend for each
+(``chip_smoke.py``'s phases 21-24 print the answers and fail if it refuses
+one), so nothing is swapped or staged behind the caller's back.
 
 Tensor parallelism (``mesh.tp``) uses three autograd operators over the
 ``tp`` group, Megatron's f, g and gather:
@@ -31,10 +31,11 @@ sequence on each rank of the ``sp`` group inside a block stack
     zero tensor of the whole's shape, without communication;
   * :func:`gather_from_sp`: every rank's chunk, concatenated; the backward
     reduce-scatters the gradient over the group;
-  * :func:`shift_sp` (``Group.shift``): each rank's tensor to the next
+  * :func:`ring_shift` (``Group.shift``): each rank's tensor to the next
     rank, the previous rank's received; the backward is the reverse shift
     (``ppermute``'s transpose). Ring attention (``ops/ring_attention.py``)
-    rotates K and V, and in its backward their gradients, this way.
+    rotates K and V, and in its backward their gradients, with
+    ``Group.shift`` itself.
 
 Under these rules every gradient that leaves the sharded stack is a
 partial sum: a replicated tensor upstream of :func:`scatter_to_sp` gets
@@ -48,6 +49,12 @@ tensors, a shift is one ``batch_isend_irecv`` of send/receive pairs
 (every rank makes the same calls in the same order: in the forward,
 remat's recompute and the backward); gloo on CUDA tensors takes it as an
 all-gather (:data:`BACKEND_TABLE`, :func:`shift_route`).
+
+Pipeline parallelism (``mesh.pp``, ``ops/pipeline.py``) hands each
+microbatch's activations to the next stage with ``Group.shift`` and
+returns the last stage's output to every stage with an all-reduce; its
+own autograd Function runs the reverse schedule (the gradients shifted
+back, the return's gradient all-reduced), so it needs no operator here.
 
 :class:`EchoGroup` stands in for a group without talking to any other
 process: its gathers repeat the local tensor and its reductions return it,
@@ -212,7 +219,7 @@ class _GatherFromSP(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
 
 
-class _ShiftSP(torch.autograd.Function):
+class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, group, offset: int) -> torch.Tensor:
         ctx.group, ctx.offset = group, offset
@@ -278,13 +285,13 @@ def gather_from_sp(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     return group.all_gather(x, dim)
 
 
-def shift_sp(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
+def ring_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
     """The ``x`` of group rank ``rank - offset``, ``x`` sent to ``rank +
     offset``; the gradient travels the reverse way."""
     if group is None or group.size == 1:
         return x
     if _grad_path(x):
-        return _ShiftSP.apply(x, group, offset)
+        return _RingShift.apply(x, group, offset)
     return group.shift([x], offset)[0]
 
 
@@ -326,12 +333,14 @@ def make_groups(rank_lists: list[list[int]]) -> Group:
 
 # Every collective the port makes, as (the call on the default group, the
 # dtypes it moves): the data axes' reductions, gathers and reduce-scatters,
-# tensor parallelism's three operators, forward and backward, and sequence
+# tensor parallelism's three operators, forward and backward, sequence
 # parallelism's ring shift (send/receive pairs; an all-gather on gloo's
-# CUDA tensors, ``shift_route``) and its two operators.
+# CUDA tensors, ``shift_route``) and its two operators, and the pipeline's
+# hand-off (the same shift) and return (an all-reduce).
 BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
     "all_reduce_sum": ("all_reduce sum: gradients, metrics, reduce_from_tp forward, "
-                       "copy_to_tp backward", ("float32", "bfloat16")),
+                       "copy_to_tp backward, the pipeline's return and its gradient",
+                       ("float32", "bfloat16")),
     "all_reduce_max": ("all_reduce max: decisions every rank takes", ("float32",)),
     "all_reduce_min": ("all_reduce min: the batch-size probe", ("float32",)),
     "broadcast": ("broadcast: rank 0's checkpoint decision", ("float32",)),
@@ -340,7 +349,8 @@ BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
     "reduce_scatter": ("reduce_scatter: the fsdp gather's backward, gather_from_sp "
                        "backward", ("float32", "bfloat16")),
     "shift": ("send to the next rank, receive from the previous: the ring's K/V and "
-              "their gradients, shift_sp forward and backward", ("float32", "bfloat16")),
+              "their gradients, ring_shift forward and backward, the pipeline's "
+              "hand-offs and their gradients", ("float32", "bfloat16")),
 }
 
 
@@ -381,7 +391,7 @@ def probe_backend(device: str | torch.device) -> dict[str, str]:
 
     def ring_operators(dt: str) -> None:
         a = x(dt).requires_grad_(True)
-        y = gather_from_sp(shift_sp(scatter_to_sp(a, world, 0) * 2, world), world, 0)
+        y = gather_from_sp(ring_shift(scatter_to_sp(a, world, 0) * 2, world), world, 0)
         y.sum().backward()
 
     def megatron(dt: str) -> None:
@@ -389,9 +399,20 @@ def probe_backend(device: str | torch.device) -> dict[str, str]:
         y = gather_from_tp(reduce_from_tp(copy_to_tp(a, world) * 2, world), world)
         y.sum().backward()
 
+    def pipeline(dt: str) -> None:
+        from avsr_tpu_torch.ops.pipeline import pipeline_apply
+
+        w = [torch.full((1,), 2.0, device=device, dtype=getattr(torch, dt), requires_grad=True)
+             for _ in range(n)]
+        y = pipeline_apply(lambda ws, xb: xb * ws[0], w, x(dt).reshape(n, -1), group=world)
+        y.float().sum().backward()
+        if not torch.equal(y, x(dt).reshape(n, -1) * 2 ** n):
+            raise ValueError("the pipeline returned the wrong values")
+
     for dt in ("float32", "bfloat16"):
         calls[f"tp_operators_{dt}"] = lambda dt=dt: megatron(dt)
         calls[f"sp_operators_{dt}"] = lambda dt=dt: ring_operators(dt)
+        calls[f"pp_operators_{dt}"] = lambda dt=dt: pipeline(dt)
     for name, call in calls.items():
         try:
             call()

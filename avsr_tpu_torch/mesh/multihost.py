@@ -113,7 +113,7 @@ def refuse_world(what: str) -> None:
         raise SystemExit(
             f"{what} runs on one card: WORLD_SIZE={n}. Only the train and "
             "decode CLIs run across processes (mesh.dp, mesh.fsdp, mesh.dcn_dp, "
-            "mesh.tp)")
+            "mesh.tp, mesh.sp, mesh.pp)")
 
 
 def _destroy() -> None:

@@ -1,6 +1,6 @@
 """The mesh and the parameter sharding rules, the port of
-``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp``, ``tp`` and
-``sp``.
+``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp``, ``tp``,
+``sp`` and ``pp``.
 
 The JAX package runs one program over every device and lets pjit insert
 the collectives; the port runs one process per card, each holding its own
@@ -47,14 +47,24 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
     partial sum over the group (``collectives.py``), so the gradients and
     the metric sums span the data group and the sp group together (the
     ``sums`` group), and a sliced leaf's slices its ``replica`` group,
-    which holds the sp axis too.
+    which holds the sp axis too;
+  * **pp**: no leaf is sliced either (JAX's table has no ``pp`` rule:
+    every device holds the whole model). The ranks of a ``pp`` group hold
+    the same rows (``pp`` is not a data axis) and each runs its stage, the
+    ``n_layers / pp`` consecutive Llama blocks of its ``pp`` coordinate,
+    on microbatches handed from stage to stage (``ops/pipeline.py``);
+    everything else runs on every rank. Each rank's loss is ``1 / pp`` of
+    its rows' share, and a gradient that leaves the pipeline is this
+    rank's part (a layer's on the stage that owns it, the stack's input's
+    on stage 0), so the gradients and the metric sums span the pp group
+    too (``sums``), and a sliced leaf's ``replica`` group holds it.
 
 The optimizer state of a sharded trained leaf holds the slice
 (``train/state.py``); checkpoints hold the full tree (``gather_leaf``) and
 are sliced again on load (``local_part``), so a run resumes at any world.
-``ep`` and ``pp`` are the next slices (``core/config.py`` refuses them),
-and so is mixture of experts across processes, whose routing JAX computes
-over the global batch (:func:`check_model`).
+``ep`` is the next slice (``core/config.py`` refuses it), and so is
+mixture of experts across processes, whose routing JAX computes over the
+global batch (:func:`check_model`).
 """
 
 from __future__ import annotations
@@ -89,13 +99,15 @@ class Mesh:
     ``fsdp``: the ranks that differ only in their ``fsdp`` coordinate (they
     hold the slices of one leaf); ``replica``: the ranks with this rank's
     ``fsdp`` and ``tp`` coordinates (they hold the same slices, the sp
-    ranks too); ``tp``: the ranks that differ only in their ``tp``
+    and pp ranks too); ``tp``: the ranks that differ only in their ``tp``
     coordinate (one Megatron group, the same rows); ``sp``: the ranks that
     differ only in their ``sp`` coordinate (the chunks of one sequence, the
-    same rows); ``sums``: the data and sp groups together (the ranks whose
-    gradients of a whole leaf, loss and token counts add up). Without
-    ``sp`` and ``sums`` the mesh has no sp axis: a group of one, and the
-    data group."""
+    same rows); ``pp``: the ranks that differ only in their ``pp``
+    coordinate (the stages of one pipeline, the same rows); ``sums``: the
+    data, sp and pp groups together (the ranks whose gradients of a whole
+    leaf, loss and token counts add up). Without ``sp``, ``pp`` and
+    ``sums`` the mesh has neither axis: groups of one, and the data
+    group."""
 
     shape: dict[str, int]
     rank: int
@@ -106,10 +118,12 @@ class Mesh:
     tp: Any
     sp: Any = None
     sums: Any = None
+    pp: Any = None
 
     def __post_init__(self):
-        if self.sp is None:
-            object.__setattr__(self, "sp", EchoGroup(1, 0))
+        for axis in ("sp", "pp"):
+            if getattr(self, axis) is None:
+                object.__setattr__(self, axis, EchoGroup(1, 0))
         if self.sums is None:
             object.__setattr__(self, "sums", self.data)
 
@@ -146,8 +160,8 @@ def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
 
 # each group: the axes along which its ranks differ
 _GROUP_AXES = {"world": AXES, "data": DATA_AXES, "fsdp": ("fsdp",),
-               "replica": ("dcn", "dp", "ep", "sp"), "tp": ("tp",), "sp": ("sp",),
-               "sums": (*DATA_AXES, "sp")}
+               "replica": ("dcn", "dp", "ep", "sp", "pp"), "tp": ("tp",), "sp": ("sp",),
+               "sums": (*DATA_AXES, "sp", "pp"), "pp": ("pp",)}
 
 
 def mesh_groups(shape: dict[str, int]) -> dict[str, list[list[int]]]:
@@ -185,15 +199,21 @@ def build_mesh(cfg: MeshConfig, *, world: int, rank: int) -> Mesh:
     return mesh
 
 
-def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0, sp: int = 1) -> None:
+def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0, sp: int = 1,
+                pp: int = 1) -> None:
     """Raises for a model the mesh cannot run yet: mixture of experts
     routes with a capacity and balance losses over the global batch in
     JAX, which the port's per-rank routing would change (under ``sp`` a
-    rank would route its chunk of the sequence alone). Under ``tp`` a
+    rank would route its chunk of the sequence alone; under ``pp`` JAX
+    refuses MoE blocks in the LLM with its message). Under ``tp`` a
     Llama's kv heads must divide (a rank runs whole kv heads), and so must
     every tp dimension of the model's leaves (:func:`shard_params`' check
     over the full-size tree as fake tensors, one block of each stack, the
     head quantized with ``lm_head_bits`` as ``quantize_llm`` pads it)."""
+    if cfg.llm.moe_experts > 0 and pp > 1:
+        raise ValueError(
+            "llm.moe_experts with mesh.pp > 1 is unsupported (the "
+            "GPipe stage scan does not thread MoE aux losses)")
     if (cfg.connector_type == "moe" or cfg.llm.moe_experts > 0) and sp > 1:
         raise NotImplementedError(
             f"mixture of experts under mesh.sp={sp}: JAX routes with a capacity over "
@@ -468,8 +488,8 @@ def local_part(full: torch.Tensor, like: torch.Tensor, what: str = "") -> torch.
 
 class RowShard(NamedTuple):
     """This rank's rows of a global batch: they start at global row
-    ``start`` of ``total``; ``group`` sums every rank's share (the data
-    and sp groups)."""
+    ``start`` of ``total``; ``group`` sums every rank's share (the data,
+    sp and pp groups)."""
 
     start: int
     total: int
@@ -478,9 +498,9 @@ class RowShard(NamedTuple):
 
 def row_shard(mesh: Mesh | None, local_rows: int) -> RowShard | None:
     """The :class:`RowShard` of a rank holding ``local_rows`` rows (every
-    rank holds as many), or None without a mesh; its sums span the data and
-    sp groups (the ``sums`` group: under sp each rank counts its chunk's
-    label tokens)."""
+    rank holds as many), or None without a mesh; its sums span the data, sp
+    and pp groups (the ``sums`` group: under sp each rank counts its chunk's
+    label tokens, under pp each stage counts its rows' tokens)."""
     if mesh is None:
         return None
     return RowShard(mesh.data.rank * local_rows, mesh.ways * local_rows, mesh.sums)

@@ -276,7 +276,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
             compute_dtype: torch.dtype = torch.float32,
             use_kernel: str = "auto", remat: bool = False,
             dropout_seed: int | None = None, return_logits: bool = False,
-            shard: RowShard | None = None, sp=None
+            shard: RowShard | None = None, sp=None, pp=None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training/eval forward: (mean CE loss over label tokens, metrics).
 
@@ -318,7 +318,17 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     [B, min(Tl, chunk), V] block of logits rather than the whole sequence's.
     ``loss``, ``accuracy`` and the label-token count are then this rank's
     shares, summed over ``shard.group`` (the data and sp groups) or, without
-    a shard, over ``sp``; their sum is one card's."""
+    a shard, over ``sp``; their sum is one card's.
+
+    ``pp`` (the mesh's pp group, pipeline parallelism): the encoders, the
+    connectors and the packing run on every rank, the LLM's blocks in
+    stages (``llama.llama_apply``; only stage 0's packed input enters the
+    pipeline, so the gradients of everything before it are stage 0's), and
+    every rank scores the same rows from the returned hidden states. Each
+    stage counts its rows' label tokens, so the count summed over
+    ``shard.group`` (which holds the pp group) or ``pp`` is the global one
+    times the stages: ``loss`` and ``accuracy`` are each rank's
+    ``1 / pp`` share, and ``label_tokens`` reports the global count."""
     llm = params["llm"]
     params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"},
                                               keep_tp=True),
@@ -350,7 +360,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
         compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
         dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe,
         dropout_row0=shard.start if shard is not None else 0, sp=sp,
-        gather_hidden=False)
+        gather_hidden=False, pp=pp, global_rows=shard.total if shard is not None else None)
 
     Tl = labels.shape[1]
     i = torch.arange(Tl, device=dev)[None, :]
@@ -376,7 +386,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     logp = torch.log_softmax(logits, dim=-1)
     pred_lp = torch.gather(logp, -1, labels[..., None])[..., 0]
     n_tokens = mask.sum()
-    group = shard.group if shard is not None else (sp if span is not None else None)
+    stages = pp.size if pp is not None else 1
+    group = (shard.group if shard is not None
+             else sp if span is not None else pp if stages > 1 else None)
     if group is not None:
         n_tokens = group.all_reduce(n_tokens.detach().clone())
     n_tokens = n_tokens.clamp(min=1.0)
@@ -384,7 +396,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     correct = (logits.argmax(dim=-1) == labels).float()
     metrics = {"loss": loss,
                "accuracy": (correct * mask).sum() / n_tokens,
-               "label_tokens": n_tokens,
+               "label_tokens": n_tokens / stages,
                "feat_len_mean": enc.lengths.float().mean()}
     if return_logits:
         metrics["label_logits"] = logits

@@ -33,7 +33,9 @@ under tp each block, the decode steps and the KV cache run the rank's
 heads and slices (Megatron), the embedding looks up its vocab range and
 the head gives its vocab columns, gathered; under sp (``mesh.sp``) the
 ranks of the group run the blocks on their chunks of the sequence with
-ring attention (``llama_apply``'s ``sp``). On a quantized base (QLoRA) the base
+ring attention (``llama_apply``'s ``sp``); under pp (``mesh.pp``) each rank
+of the group runs its stage's blocks on microbatches handed from stage to
+stage (``llama_apply``'s ``pp``, ``ops/pipeline.py``). On a quantized base (QLoRA) the base
 product carries the gradient of x through ``qdot``'s autograd Function
 (``QDot``) and the integer leaves stay frozen; LoRA trains on top.
 
@@ -56,12 +58,11 @@ inference prefill routes row by row (``moe_rowwise``) and every token step
 (decode, verify, beam) without drops (``dropless``), so a request's tokens
 never depend on what shares its batch. The routers and experts stay float
 under quantization.
-
-Still to be ported: the pipeline path.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -77,6 +78,7 @@ from avsr_tpu_torch.mesh.sharding import Shard, gather_tree, tag, tp_group, tp_o
 from avsr_tpu_torch.models.layers import Params, normal_init, rms_norm, split_leaf
 from avsr_tpu_torch.ops import moe
 from avsr_tpu_torch.ops.attention import attention, ring_span
+from avsr_tpu_torch.ops.pipeline import pipeline_apply
 from avsr_tpu_torch.ops.quant import is_quantized, qdot
 
 # Vocab rows per chunk when bf16 logits are accumulated in f32 (bounds the
@@ -551,7 +553,8 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 dropout_seed: int | None = None, return_cache: bool = False,
                 cache_len: int | None = None, output: str = "logits",
                 return_aux: bool = False, moe_rowwise: bool = False,
-                dropout_row0: int = 0, sp=None, gather_hidden: bool = True):
+                dropout_row0: int = 0, sp=None, gather_hidden: bool = True,
+                pp=None, global_rows: int | None = None):
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
     final normed hidden [B,T,d] with ``output="hidden"``, cache or None),
     and with ``return_aux`` a third item, {"moe_lb", "moe_z"}: the MoE
@@ -575,7 +578,16 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     K/V gathered along the sequence, so every rank holds one card's. The
     final hidden states are gathered too, unless ``gather_hidden`` is off
     (with ``output="hidden"``: this rank's chunk of them, as the training
-    forward reads them). Elsewhere the stack runs whole on every rank."""
+    forward reads them). Elsewhere the stack runs whole on every rank.
+
+    ``pp`` (pipeline parallelism, the mesh's pp group of S stages): without
+    a cache, as in JAX, each rank runs the ``n_layers / S`` blocks of its
+    stage (remat per block as above) inside ``pipeline_apply``, on up to S
+    microbatches of its rows (``global_rows``: the global batch's, for
+    JAX's check), and every rank gets the last stage's hidden states. LoRA
+    dropout is not threaded across the stages: a pipelined forward runs
+    without it and warns once, as JAX does. A forward that writes the cache
+    (every prefill) runs the whole stack on every rank."""
     B, T, d = inputs_embeds.shape
     if T > cfg.max_seq_len:
         raise ValueError(
@@ -599,7 +611,25 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
-    for i, layer in enumerate(params["layers"]):
+    pipelined = pp is not None and pp.size > 1 and not return_cache
+    if pipelined:
+        if ldrop > 0.0:
+            _warn_pp_dropout()
+
+        def stage_fn(stage: list, xx: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+            for lp in stage:
+                args = (lp, xx, cos, sin, cfg, lens, ls, use_kernel)
+                if remat and torch.is_grad_enabled():
+                    xx, _ = checkpoint(_block_remat, *args, use_reentrant=False)
+                else:
+                    xx = _block(*args)[0]
+            return xx
+
+        lens = (lengths if lengths is not None
+                else torch.full((B,), T, dtype=torch.int32, device=x.device))
+        x = pipeline_apply(stage_fn, params["layers"], x, lens, group=pp,
+                           global_rows=global_rows)
+    for i, layer in enumerate([] if pipelined else params["layers"]):
         args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
                 dropout_seed, i, moe_rowwise, dropout_row0, ring,
                 (c0, T) if ring is not None else None)
@@ -622,6 +652,21 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
         n = max(n_moe, 1)
         return out, cache, {"moe_lb": lb_sum / n, "moe_z": z_sum / n}
     return out, cache
+
+
+_pp_dropout_warned = False
+
+
+def _warn_pp_dropout() -> None:
+    """The JAX package's warning, once: LoRA dropout is not threaded across
+    pipeline stages."""
+    global _pp_dropout_warned
+    if not _pp_dropout_warned:
+        _pp_dropout_warned = True
+        logging.getLogger("avsr.models.llama").warning(
+            "mesh.pp > 1: LoRA dropout is inactive under pipeline "
+            "parallelism (rng is not threaded across stages). Set "
+            "model.lora.dropout=0 to silence this warning.")
 
 
 def _head_rows(params: Params, cfg: LLMConfig) -> tuple[torch.Tensor, Any]:

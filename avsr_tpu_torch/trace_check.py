@@ -2,17 +2,20 @@
 
     python3 avsr_tpu_torch/trace_check.py [--root DIR] [--rounds N]
 
-Runs the profile CLI of the checkout at ``--root`` (default: this one) in
-one process, ``--rounds`` times over: a train profile (2 steps) and then a
-decode profile (1 call of 32 tokens), on the flagship at the largest
-buckets, as ``chip_smoke.py``'s phase 20 runs them. A profile whose
-trace's kernels by name differ from the wrappers' counters raises in the
-CLI; this script catches that, counts it, and keeps that trace under
+Runs the profile CLI of the checkout at ``--root`` (default: this one;
+its ``cli/profile.py`` must have ``trace_events``) in one process,
+``--rounds`` times over: a train profile (2 steps) and then a decode
+profile (1 call of 32 tokens), on the flagship at the largest buckets, as
+``chip_smoke.py``'s phase 20 runs them. A profile whose trace's kernels
+by name differ from the wrappers' counters raises in the CLI; this script
+catches that, counts it, and keeps that trace under
 ``outputs/trace_check/``. For every trace it also lists the kernel launch
 calls (``cudaLaunchKernel`` and ``cuLaunchKernel``, the ctypes launches
-included) whose ``correlation`` no kernel event carries: their index among
-the launches and their offset from the trace's first host event. It
-prints one JSON line per profile and a summary line. Needs a CUDA device.
+included) among the events that the CLI reads (``trace_events``, less the
+guard call that opens each window) whose ``correlation`` no kernel event
+carries: their index among the launches and their offset from the first
+host event. It prints one JSON line per profile and a summary line. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,11 +32,10 @@ FLAGSHIP = ("data.audio_buckets=1000,2000,3000", "model.max_seq_len=1536",
             "training.grad_accum_steps=4")
 
 
-def unlinked_launches(trace: Path) -> list[dict]:
-    """The launches of ``trace`` whose correlation no kernel event carries:
-    their API names, indices among the launches and offsets (ms from the
-    trace's first host event)."""
-    events = json.loads(trace.read_text())["traceEvents"]
+def unlinked_launches(events: list[dict]) -> list[dict]:
+    """The launches among a trace's ``events`` whose correlation no kernel
+    event carries: their API names, indices among the launches and offsets
+    (ms from the first host event)."""
     with_kernel = {e["args"]["correlation"] for e in events
                    if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
     host = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime",
@@ -79,7 +81,7 @@ def main(argv: list[str] | None = None) -> int:
                 if err is not None:
                     (outputs / "trace_check").mkdir(exist_ok=True)
                     shutil.copy(trace, outputs / "trace_check" / f"{mode}{r}.json")
-                unlinked = unlinked_launches(trace)
+                unlinked = unlinked_launches(profile.trace_events(trace))
                 total += 1
                 failed += err is not None
                 print(json.dumps(dict(round=r, mode=mode, seconds=time.perf_counter() - t0,

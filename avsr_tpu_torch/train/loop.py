@@ -22,7 +22,8 @@ without repeating a sample.
 
 With ``mesh`` (one process per card, ``mesh/sharding.py``) every rank
 runs this loop over its rows of each global batch (an sp group's ranks
-over the same rows, each its chunk of the sequences): the fsdp leaves are
+over the same rows, each its chunk of the sequences; a pp group's ranks
+over the same rows, each its stage of the LLM): the fsdp leaves are
 sharded before the optimizer is built, the step's gradients and metrics,
 the validation sums and counts and the in-training WER's hypotheses
 (gathered in dataset order) are the global batch's, and every decision
@@ -435,8 +436,9 @@ class Trainer:
         counts once (the last batch is wrap-padded). With a mesh each rank
         decodes its rows, with the tree gathered whole (but for its tp
         slices, which decode as Megatron blocks) and its sequences sharded
-        over the sp group, and every rank scores every rank's hypotheses in
-        dataset order."""
+        over the sp group (under pp every rank decodes its rows through the
+        whole stack, as JAX does), and every rank scores every rank's
+        hypotheses in dataset order."""
         from avsr_tpu_torch.infer.generate import generate_tokens
         from avsr_tpu_torch.infer.wer import WERAccumulator
 

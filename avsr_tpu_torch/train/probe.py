@@ -18,13 +18,17 @@ data-parallel ways up, and each rank probes its own share: its rows and,
 under fsdp or tp, its slices of the sharded leaves, over groups that gather and
 reduce locally (``Mesh.echo``). So a rank that runs out of memory never
 leaves the others waiting in a collective; at the end every rank takes
-the smallest size any rank found.
+the smallest size any rank found. Under ``mesh.pp`` every size it tries
+is a multiple of the stages too (JAX's pipeline check: the global batch
+divides into ``pp`` microbatches), where JAX's probe starts at the data
+ways and raises that check's message when ``pp`` does not divide them.
 """
 
 from __future__ import annotations
 
 import gc
 import logging
+import math
 
 import torch
 
@@ -98,11 +102,12 @@ def find_optimal_batch_size(cfg: AVSRConfig, params, *, start: int = 1,
                             max_batch: int = 512,
                             device: str | torch.device = "cuda", mesh=None) -> int:
     """Doubling probe; the largest (global) batch whose worst-case train
-    step runs, 0 if even ``start`` (at least the mesh's data-parallel
-    ways) runs out of memory."""
+    step runs, 0 if even ``start`` (rounded up to a multiple of the mesh's
+    data-parallel ways and pipeline stages) runs out of memory."""
     ways = mesh.ways if mesh is not None else 1
     echo = mesh.echo() if mesh is not None else None
-    b, best = max(start, ways), 0
+    grain = math.lcm(ways, mesh.shape["pp"]) if mesh is not None else 1
+    b, best = -(-max(start, ways) // grain) * grain, 0
     while b <= max_batch:
         ok = _fits(cfg, params, b // ways, device, echo)
         gc.collect()            # the failed step's frames form cycles

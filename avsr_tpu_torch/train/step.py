@@ -65,13 +65,13 @@ def augment(cfg: AVSRConfig, batch: Batch, seed: int,
 
 
 def _loss_fn(params, cfg: AVSRConfig, batch: Batch, dropout_seed: int | None,
-             shard: RowShard | None = None, sp=None):
+             shard: RowShard | None = None, sp=None, pp=None):
     if dropout_seed is not None:        # the training path only
         batch, dropout_seed = augment(cfg, batch, dropout_seed, shard)
     return forward(params, cfg.model, batch,
                    compute_dtype=getattr(torch, cfg.runtime.compute_dtype),
                    use_kernel=cfg.runtime.use_pallas, remat=cfg.mesh.remat,
-                   dropout_seed=dropout_seed, shard=shard, sp=sp)
+                   dropout_seed=dropout_seed, shard=shard, sp=sp, pp=pp)
 
 
 def micro_seeds(seed: int, n: int) -> list[int]:
@@ -104,18 +104,29 @@ _BUCKET = 1 << 26
 
 
 def reduce_grads(grads: list[torch.Tensor], leaves: list[torch.Tensor], mesh) -> None:
-    """Sums each gradient over the ranks that hold other rows or other
-    chunks of the sequence, and its leaf whole or the same slice of it (the
-    ``sums`` group: the data and sp groups; or the replica group of an
-    fsdp-sharded leaf, whose gather's backward already summed the fsdp
-    group's rows, and which holds the sp axis too), in place, a bucket of
-    flattened gradients per all-reduce. Under sp every rank's gradient is
-    its share of the whole, whether the leaf is used inside the sharded
-    block stacks or only on replicated tensors (``collectives.py``), so
-    each counts once. A tp rank's gradient is already its slice's (or, for a
-    replicated leaf, the whole group's: ``collectives.copy_to_tp``), so the
-    tp group takes no part. The gradients come back tagged as their
-    leaves, for :func:`global_norm`."""
+    """Sums each gradient over the ranks that hold other rows, other
+    chunks of the sequence or other pipeline stages, and its leaf whole or
+    the same slice of it (the ``sums`` group: the data, sp and pp groups;
+    or the replica group of an fsdp-sharded leaf, whose gather's backward
+    already summed the fsdp group's rows, and which holds the sp and pp
+    axes too), in place, a bucket of flattened gradients per all-reduce.
+    Under sp every rank's gradient is its share of the whole, whether the
+    leaf is used inside the sharded block stacks or only on replicated
+    tensors (``collectives.py``), so each counts once. A tp rank's gradient
+    is already its slice's (or, for a replicated leaf, the whole group's:
+    ``collectives.copy_to_tp``), so the tp group takes no part.
+
+    Under pp every gradient is a share too, and each leaf is summed over
+    the pp group once: a Llama block's leaves have their whole gradient on
+    the stage that runs the block and none elsewhere; whatever feeds the
+    stack (the connectors, the encoders, the prompt and label embeddings)
+    has its whole gradient on stage 0 alone (``ops/pipeline.py``); and
+    what runs after the pipeline's return on every stage (``ln_f``, the
+    head, a tied embedding's head use) has ``1 / pp`` of it on each,
+    because each stage's loss is ``1 / pp`` of its rows' share
+    (``models/avsr.py::forward``) and the return's backward sums the
+    stages' gradients of the hidden states (``psum``'s transpose). The
+    gradients come back tagged as their leaves, for :func:`global_norm`."""
     by_group: dict[int, tuple[Any, list[torch.Tensor]]] = {}
     for g, p in zip(grads, leaves):
         group = mesh.replica if shard_of(p) is not None else mesh.sums
@@ -157,11 +168,13 @@ def make_train_step(cfg: AVSRConfig, mesh=None
     batch's. Under ``mesh.sp`` the ranks of an sp group hold the same rows
     and each its chunk of the sequences (``models/avsr.py::forward``); the
     gradients and the metrics are summed over the data and sp groups
-    together (``mesh.sums``)."""
-    sp = None
+    together (``mesh.sums``). Under ``mesh.pp`` the ranks of a pp group
+    hold the same rows, each runs its stage of the LLM (GPipe), and the
+    sums span the pp group too (:func:`reduce_grads`)."""
+    sp = pp = None
     if mesh is not None:
-        check_model(cfg.model, mesh.shape["tp"], sp=mesh.shape["sp"])
-        sp = mesh.sp
+        check_model(cfg.model, mesh.shape["tp"], sp=mesh.shape["sp"], pp=mesh.shape["pp"])
+        sp, pp = mesh.sp, mesh.pp
 
     extra_keys = (("moe_lb", "moe_z")
                   if cfg.model.connector_type == "moe" or cfg.model.llm.moe_experts > 0
@@ -180,7 +193,7 @@ def make_train_step(cfg: AVSRConfig, mesh=None
             with trace_range("avsr::micro_batch"):
                 mb = Batch(*[None if x is None else x[mb_i] for x in batch])
                 shard = row_shard(mesh, mb.labels.shape[0])
-                loss, metrics = _loss_fn(state.params, cfg, mb, mseed, shard, sp)
+                loss, metrics = _loss_fn(state.params, cfg, mb, mseed, shard, sp, pp)
                 clock.lap("forward_s")
                 g = torch.autograd.grad(loss, leaves, allow_unused=True)
                 for acc, gi in zip(grads, g):
@@ -254,7 +267,7 @@ def make_eval_step(cfg: AVSRConfig, mesh=None) -> Callable[..., dict[str, float]
     def eval_step(params, batch: Batch) -> dict[str, float]:
         loss, metrics = _loss_fn(params, cfg, batch, None,
                                  row_shard(mesh, batch.labels.shape[0]),
-                                 mesh.sp if mesh is not None else None)
+                                 *((mesh.sp, mesh.pp) if mesh is not None else ()))
         acc = metrics["accuracy"]
         if mesh is not None:
             loss, acc = mesh.sums.all_reduce(torch.stack([loss.float(), acc.float()])).unbind()

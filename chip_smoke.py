@@ -223,11 +223,13 @@
 21. Mesh phase (``mesh_phase``), at the flagship's widths and a quarter
    of its depth (6 Whisper, 3 CLIP and 4 LLM blocks), random weights from
    --seed: ranks started as ``python3 chip_smoke.py
-   --mesh-worker JOB`` with torchrun's environment, 2 sharing card 0 over
+   --mesh-worker DIR`` with torchrun's environment, 2 sharing card 0 over
    gloo (and, where there are two cards, 2 on two cards over NCCL, which
-   run the same steps and CLIs), each waited for with a timeout; a failing
-   rank fails the phase. Each rank first asks the backend for every
-   collective the port makes on CUDA tensors. Train steps at the largest buckets (3000 mel frames, 100 video
+   run the same steps and CLIs); the ranks of a layout stay up for the
+   jobs of phases 21-24 (a pool, which saves each later phase the start
+   of its processes), each job waited for with a timeout; a failing rank
+   fails the phase. Each rank first asks the
+   backend for every collective the port makes on CUDA tensors. Train steps at the largest buckets (3000 mel frames, 100 video
    frames, 10-48 label tokens, LoRA dropout on, accum 1) under ``dp=2``
    and ``fsdp=2``: in f32 (TF32 off, global B = 4) one step whose loss,
    grad norm and two LoRA ``b`` leaves equal the one-process run's (the
@@ -244,7 +246,7 @@
    Removes what it wrote.
 22. Tensor-parallel phase (``tp_phase``), at full width and phase 21's
    quarter of the depth on the flagship (its one-process references too,
-   so that phase 23 fits the time limit), random weights from --seed:
+   which phases 23 and 24 reuse), random weights from --seed:
    ``mesh.tp=2`` over 2 ranks
    sharing card 0 (gloo), and where there are 2 cards over NCCL, and where
    there are 4 ``mesh.dp=2 mesh.tp=2`` over NCCL (the first line says which
@@ -278,17 +280,36 @@
    against ``mha_reference`` of the whole sequence, forward and q/k/v
    gradients (the flash gates), the blocks' launches exact, and the ring
    forward's ms with the kernels and with the plain blocks. Then phase
-   22's train steps and direct decodes with ``sp=2`` in place of ``tp=2``
-   at the full depth, with one-process references of their own, and its
-   train and decode CLIs at its quarter depth against its one-card runs of
-   them (``--sp-only`` makes those itself); each rank's train-step launches
-   are exact (the frozen
-   Whisper's 24 blocks twice a rank, the LLM's 16 causal blocks i + 1
-   times on rank i, twice under remat, with a backward pair each), and the
-   decodes report their ring dispatches and the prefill's fallback (10 s
-   gives a 533-row prefix, which does not divide over 2: JAX's warning).
-   The ring's launches per rank go into the ``kernels`` line as
-   ``sp_ring``. Removes what it wrote.
+   22's train steps, direct decodes and train and decode CLIs with
+   ``sp=2`` in place of ``tp=2``, at its quarter depth, against its
+   one-process runs of them (``--sp-only`` makes those itself); each
+   rank's train-step launches are exact (the frozen Whisper's 6 blocks
+   twice a rank, the LLM's 4 causal blocks i + 1 times on rank i, twice
+   under remat, with a backward pair each), and the decodes report their
+   ring dispatches and the prefill's fallback (10 s gives a 533-row
+   prefix, which does not divide over 2: JAX's warning). The ring's
+   launches per rank go into the ``kernels`` line as ``sp_ring``. Removes
+   what it wrote.
+24. Pipeline-parallel phase (``pp_phase``), at full width on the
+   flagship, LoRA dropout off (JAX refuses it under pp): ``mesh.pp=2``
+   over 2 ranks sharing card 0 (gloo), and where there are 2 cards over
+   NCCL, and where there are 4 ``mesh.dp=2 mesh.pp=2`` over NCCL, started
+   as phase 21's ranks are and asked for every collective of the backend
+   table, the pipeline's included. Train steps at full depth (8 LLM blocks
+   a stage) and the largest buckets, global batch 2 (2 microbatches of a
+   row): f32 (TF32 off) one step whose loss, grad norm and two LoRA ``b``
+   leaves (layer 0's and the last layer's: one a stage) equal a
+   one-process run's (phase 21's gates), then bf16 two steps, ms and peak
+   per rank beside one process's; each rank's launches exact (the frozen
+   Whisper's 24 blocks, the stage's 8 causal blocks once per microbatch,
+   twice under remat, with a backward pair each: ``pp_stage`` in the
+   ``kernels`` line). At phase 22's quarter depth, the train CLI (f32,
+   global batch 2, 1 step on the ranks, rank 0 writes) and a resume at
+   world 1 to a second step give one card's two losses; the decode CLI in
+   f32 writes phase 22's one-card HYP lines (``--pp-only`` makes them),
+   and under the serving preset every rank launches the qmatmul kernels
+   (decoding runs the whole stack on every rank, as JAX's does). Removes
+   what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -297,8 +318,8 @@ Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
-JSON line instead; ``--tp-only`` and ``--sp-only`` do the same for phases
-22 and 23. Each phase boundary prints the
+JSON line instead; ``--tp-only``, ``--sp-only`` and ``--pp-only`` do the
+same for phases 22, 23 and 24. Each phase boundary prints the
 seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
@@ -5885,11 +5906,14 @@ def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None) -> d
     return res
 
 
-def mesh_worker(job_path: str) -> int:
-    """One rank of phase 21 (``python3 chip_smoke.py --mesh-worker JOB``,
-    with torchrun's environment): the job's runs in order, each with the
-    launch counts set to 0 just before it; writes what each run returned
-    and launched, and rank 0 the watched leaves."""
+def mesh_worker(pool_dir: str) -> int:
+    """One rank of phases 21-24 (``python3 chip_smoke.py --mesh-worker
+    DIR``, with torchrun's environment), kept for every job of its pool
+    (``spawn_ranks``): it joins the process group and asks the backend for
+    every collective once, then runs each job that appears in ``DIR``
+    (``job{n}.json``, in order; ``stop`` ends it): the job's runs in order,
+    each with the launch counts set to 0 just before it; writes what each
+    run returned and launched, and rank 0 the watched leaves."""
     import importlib
 
     import torch
@@ -5898,49 +5922,61 @@ def mesh_worker(job_path: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    job = json.loads(Path(job_path).read_text())
+    pool = Path(pool_dir)
     device, backend = multihost.init_distributed("cuda")
     rank, world = multihost.process_shard()
-    out: dict = dict(rank=rank, world=world, device=str(device),
-                     card=torch.cuda.get_device_name(device), backend=backend,
-                     runs={}, backend_takes=_probe_backend(device))
-    leaves = {}
-    for run in job["runs"]:
-        reset_counts()
-        t0 = time.perf_counter()
-        if run["kind"] == "train":
-            cfg = mesh_cfg(run["dtype"], tuple(run["mesh"]))
-            mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
-            res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"], mesh)
-            leaves[run["name"]] = res.pop("leaves")
-            res.update(mesh=mesh.shape, sp_rank=mesh.sp.rank)
-        elif run["kind"] == "decode":
-            from avsr_tpu_torch.core.config import flagship
-            from avsr_tpu_torch.ops import attention as A
+    takes = _probe_backend(device)
+    for n in itertools.count():
+        path = pool / f"job{n}.json"
+        while not path.exists():
+            if (pool / "stop").exists():
+                return 0
+            time.sleep(0.1)
+        job = json.loads(path.read_text())
+        out: dict = dict(rank=rank, world=world, device=str(device),
+                         card=torch.cuda.get_device_name(device), backend=backend,
+                         runs={}, backend_takes=takes)
+        leaves = {}
+        for run in job["runs"]:
+            reset_counts()
+            t0 = time.perf_counter()
+            if run["kind"] == "train":
+                cfg = mesh_cfg(run["dtype"], tuple(run["mesh"]))
+                mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+                res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"],
+                                     mesh)
+                leaves[run["name"]] = res.pop("leaves")
+                res.update(mesh=mesh.shape, sp_rank=mesh.sp.rank, pp_rank=mesh.pp.rank)
+            elif run["kind"] == "decode":
+                from avsr_tpu_torch.core.config import flagship
+                from avsr_tpu_torch.ops import attention as A
 
-            cfg = flagship([*run["over"], *run["mesh"]])
-            mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
-            rings = A.ring_dispatch_count
-            res = tp_decode_run(tuple(run["over"]), run["seed"], mesh)
-            torch.save({k: res.pop(k) for k in ("tokens", "logits")},
-                       job["decodes"].format(name=run["name"], rank=rank))
-            res.update(mesh=mesh.shape, rings=A.ring_dispatch_count - rings,
-                       fallbacks=sorted(A._ring_fallback_warned))
-        elif run["kind"] == "ring":
-            from avsr_tpu_torch.core.config import flagship
+                cfg = flagship([*run["over"], *run["mesh"]])
+                mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
+                rings = A.ring_dispatch_count
+                A._ring_fallback_warned.clear()
+                res = tp_decode_run(tuple(run["over"]), run["seed"], mesh)
+                torch.save({k: res.pop(k) for k in ("tokens", "logits")},
+                           job["decodes"].format(name=run["name"], rank=rank))
+                res.update(mesh=mesh.shape, rings=A.ring_dispatch_count - rings,
+                           fallbacks=sorted(A._ring_fallback_warned))
+            elif run["kind"] == "ring":
+                from avsr_tpu_torch.core.config import flagship
 
-            mesh = sharding.build_mesh(flagship(run["mesh"]).mesh, world=world, rank=rank)
-            res = dict(rows=sp_ring_rows(mesh, run["seed"]))
-        else:
-            res = _timed_cli(importlib.import_module(f"avsr_tpu_torch.cli.{run['cli']}"),
-                             run["argv"])
-        torch.cuda.synchronize()
-        res.update(seconds=time.perf_counter() - t0, launches=counts())
-        out["runs"][run["name"]] = res
-    Path(job["out"].format(rank=rank)).write_text(json.dumps(out))
-    if rank == 0:
-        torch.save(leaves, job["leaves"])
-    return 0
+                mesh = sharding.build_mesh(flagship(run["mesh"]).mesh, world=world, rank=rank)
+                res = dict(rows=sp_ring_rows(mesh, run["seed"]))
+            else:
+                res = _timed_cli(importlib.import_module(f"avsr_tpu_torch.cli.{run['cli']}"),
+                                 run["argv"])
+            torch.cuda.synchronize()
+            res.update(seconds=time.perf_counter() - t0, launches=counts())
+            out["runs"][run["name"]] = res
+            settle()
+        if rank == 0:
+            torch.save(leaves, job["leaves"])
+        target = Path(job["out"].format(rank=rank))
+        target.with_suffix(".tmp").write_text(json.dumps(out))
+        target.with_suffix(".tmp").rename(target)
 
 
 def _probe_backend(device) -> dict[str, str]:
@@ -5978,20 +6014,23 @@ def _timed_cli(mod, argv: list[str]) -> dict:
     return res
 
 
-def spawn_ranks(job: dict, work: Path, world: int, shared_card: bool) -> list[dict]:
-    """Runs ``job`` in ``world`` rank processes (``--mesh-worker``) with
+# the rank processes of phases 21-24, one pool per (world, sharing card 0),
+# started at a pool's first job and kept until ``close_pools``
+_POOLS: dict[tuple[int, bool], dict] = {}
+
+
+def _pool(world: int, shared_card: bool) -> dict:
+    """The pool of ``world`` rank processes (``--mesh-worker``) with
     torchrun's environment on a free localhost port: all on card 0 over
-    gloo (``shared_card``), or one card each over NCCL. Waits for each
-    with a timeout; a rank that fails (or the timeout) stops the others
-    and fails the phase. Returns each rank's report."""
+    gloo (``shared_card``), or one card each over NCCL; started here once."""
     import socket
 
-    tag = job["tag"]
-    job = dict(job, out=str(work / f"{tag}_rank{{rank}}.json"),
-               leaves=str(work / f"{tag}_leaves.pt"),
-               decodes=str(work / f"{tag}_{{name}}_rank{{rank}}.pt"))
-    path = work / f"{tag}_job.json"
-    path.write_text(json.dumps(job))
+    key = (world, shared_card)
+    if key in _POOLS:
+        return _POOLS[key]
+    d = ROOT / "outputs" / "chip_smoke" / time.strftime(
+        f"pool{world}{'s' if shared_card else 'n'}_%Y%m%d_%H%M%S")
+    d.mkdir(parents=True, exist_ok=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -5999,33 +6038,66 @@ def spawn_ranks(job: dict, work: Path, world: int, shared_card: bool) -> list[di
                MASTER_PORT=str(port))
     if shared_card:
         env.update(LOCAL_WORLD_SIZE=str(world), CUDA_VISIBLE_DEVICES="0")
-    logs = [work / f"{tag}_rank{r}.log" for r in range(world)]
+    logs = [d / f"rank{r}.log" for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
-                               str(path)], cwd=ROOT, stdout=open(logs[r], "w"),
+                               str(d)], cwd=ROOT, stdout=open(logs[r], "w"),
                               stderr=subprocess.STDOUT,
                               env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
              for r in range(world)]
-    t0 = time.perf_counter()
-    try:
-        while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-            late = time.perf_counter() - t0 > MESH_RANK_TIMEOUT_S
-            if failed or late:
-                tails = "\n".join(f"--- rank {r}:\n{logs[r].read_text()[-3000:]}"
-                                  for r in (failed or range(world)))
-                check(False, f"{tag}: rank(s) {failed or 'all'} "
-                             f"{'failed' if failed else 'timed out'}\n{tails}")
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
+    _POOLS[key] = dict(dir=d, procs=procs, logs=logs, jobs=0)
+    return _POOLS[key]
+
+
+def close_pools() -> None:
+    """Stops every pool's ranks (after their current job) and removes its
+    directory; a rank that does not stop within 60 s is killed."""
+    import shutil
+
+    for pool in _POOLS.values():
+        (pool["dir"] / "stop").write_text("")
+        for p in pool["procs"]:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
                 p.kill()
-            p.wait()
-    for r, p in enumerate(procs):
-        check(p.returncode == 0, f"{tag}: rank {r} returned {p.returncode}\n"
-                                 f"{logs[r].read_text()[-3000:]}")
+                p.wait()
+        shutil.rmtree(pool["dir"], ignore_errors=True)
+    _POOLS.clear()
+
+
+def spawn_ranks(job: dict, work: Path, world: int, shared_card: bool) -> list[dict]:
+    """Runs ``job`` on the pool of ``world`` rank processes (started at the
+    first job; all on card 0 over gloo with ``shared_card``, else one card
+    each over NCCL). Waits for each rank's report with a timeout; a rank
+    that fails (or the timeout) stops the pool and fails the phase. Returns
+    each rank's report."""
+    tag = job["tag"]
+    job = dict(job, out=str(work / f"{tag}_rank{{rank}}.json"),
+               leaves=str(work / f"{tag}_leaves.pt"),
+               decodes=str(work / f"{tag}_{{name}}_rank{{rank}}.pt"))
+    pool = _pool(world, shared_card)
+    path = pool["dir"] / f"job{pool['jobs']}.json"
+    path.with_suffix(".tmp").write_text(json.dumps(job))
+    path.with_suffix(".tmp").rename(path)
+    pool["jobs"] += 1
+    procs, logs = pool["procs"], pool["logs"]
+    outs = [Path(job["out"].format(rank=r)) for r in range(world)]
+    t0 = time.perf_counter()
+    while not all(o.exists() for o in outs):
+        failed = [r for r, p in enumerate(procs) if p.poll() is not None]
+        late = time.perf_counter() - t0 > MESH_RANK_TIMEOUT_S
+        if failed or late:
+            tails = "\n".join(f"--- rank {r}:\n{logs[r].read_text()[-3000:]}"
+                              for r in (failed or range(world)))
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            check(False, f"{tag}: rank(s) {failed or 'all'} "
+                         f"{'failed' if failed else 'timed out'}\n{tails}")
+        time.sleep(0.2)
     print(f"mesh {tag}: {world} ranks in {time.perf_counter() - t0:.1f} s")
-    return [json.loads((work / f"{tag}_rank{r}.json").read_text()) for r in range(world)]
+    return [json.loads(o.read_text()) for o in outs]
 
 
 def hyp_lines(out_dir: Path) -> list[str]:
@@ -6571,7 +6643,9 @@ def tp_phase(seed: int) -> dict:
                                                                  and lc["qmatmul_int8"])),
                           f"tp {group} decode {n} rank {r} launches {lc}")
         res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
-        res["cli_refs"] = {k: refs[k] for k in ("train_cli_losses", "decode_f32_hyps")}
+        # phase 22's one-process runs at the quarter depth, which phase 23's
+        # steps, decodes and CLIs and phase 24's decode CLI reuse (not JSON)
+        res["refs"] = dict(refs, decodes=ones)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(not work.exists(), f"{work} not removed")
@@ -6678,13 +6752,14 @@ def sp_train_launches(cfg, rank: int, n: int) -> dict[str, int]:
                 flash_bwd_dq=llm, flash_bwd_dkv=llm, qmatmul_int8=0, qmatmul_int4=0)
 
 
-def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
+def sp_phase(seed: int, refs: dict | None = None) -> dict:
     """Phase 23: sequence parallelism (``mesh.sp=2``) across processes at
-    full width and depth on the flagship, global batch 1 at the largest
-    buckets: the ring against the whole sequence, the train step with
-    exact launches per rank and the decodes; the train and decode CLIs at
-    phase 22's quarter depth, against phase 22's one-card runs of them
-    (``cli_refs``; made here without them). See the module docstring."""
+    full width on the flagship, global batch 1 at the largest buckets: the
+    ring against the whole sequence at the full depth's 30 s shapes; the
+    train step with exact launches per rank, the decodes and the train and
+    decode CLIs at phase 22's quarter depth, against phase 22's one-card
+    runs of them (``refs``; made here without them). See the module
+    docstring."""
     import shutil
 
     import torch
@@ -6694,7 +6769,7 @@ def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
     t_all = time.perf_counter()
     work = ROOT / "outputs" / "chip_smoke" / time.strftime("sp_%Y%m%d_%H%M%S")
     work.mkdir(parents=True, exist_ok=True)
-    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]          # the CLIs' (phase 22's)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]          # phase 22's
     cli = ["--seed", str(seed), "--device", "cuda"]
     cards = torch.cuda.device_count()
     # name, ranks, sharing card 0, mesh, data-parallel ways
@@ -6732,14 +6807,15 @@ def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
         return out
 
     try:
-        # ---- one process: the references ------------------------------------
-        refs: dict = {"train": {}, **(cli_refs or {"train_cli_losses": {}})}
-        for ways in sorted({g[4] for g in groups}):
-            for _, B, d, n in TP_TRAIN:
-                refs["train"][d, ways] = one_card(
-                    f"train_{d}_B{B * ways}_one_card",
-                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, (), n))
-            if cli_refs is None:
+        # ---- one process: the references (phase 22's, or made here) --------
+        if refs is None:
+            refs = {"train": {}, "train_cli_losses": {}}
+            for ways in sorted({g[4] for g in groups}):
+                for _, B, d, n in TP_TRAIN:
+                    refs["train"][d, ways] = one_card(
+                        f"train_{d}_B{B * ways}_one_card",
+                        lambda B=B, d=d, n=n, ways=ways: mesh_train_run(B * ways, d, MESH_DEPTH,
+                                                                        n))
                 run1 = work / f"train_one_{ways}"
                 rc = one_card(f"train_cli_B{TP_CLI_BATCH * ways}_one_card",
                               lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
@@ -6747,26 +6823,27 @@ def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
                 refs["train_cli_losses"][ways] = [float(r[3]) for r in loss_rows(run1)
                                                   if r[2] == "train"]
                 shutil.rmtree(run1 / "ckpt", ignore_errors=True)
-        if cli_refs is None:
             rc = one_card("decode_cli_one_card", lambda: decode.main(dec_over(work / "dec1")))
             check(rc == 0, f"one-card decode CLI returned {rc}")
             refs["decode_f32_hyps"] = hyp_lines(work / "dec1")
-        ones = {name: one_card(f"decode_{name}_one_card",
-                               lambda over=over: tp_decode_run(over, seed))
-                for name, over in TP_REFERENCES}
+            refs["decodes"] = {name: one_card(f"decode_{name}_one_card",
+                                              lambda over=over: tp_decode_run(
+                                                  (*over, *MESH_DEPTH), seed))
+                               for name, over in TP_REFERENCES}
+        ones = refs["decodes"]
 
         # ---- the ranks ---------------------------------------------------------
         reports = {}
         for group, world, shared, mesh, ways in groups:
             runs = [dict(kind="ring", name="ring", mesh=list(mesh), seed=seed)]
-            runs += [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d, mesh=list(mesh),
-                          steps=k) for n, B, d, k in TP_TRAIN]
+            runs += [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d,
+                          mesh=[*mesh, *MESH_DEPTH], steps=k) for n, B, d, k in TP_TRAIN]
             runs.append(dict(kind="cli", name="train_cli", cli="train",
                              argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
             runs.append(dict(kind="cli", name="decode_cli", cli="decode",
                              argv=dec_over(work / f"dec_{group}", *mesh)))
-            runs += [dict(kind="decode", name=f"decode_{n}", over=list(over), mesh=list(mesh),
-                          seed=seed) for n, over in TP_DECODES]
+            runs += [dict(kind="decode", name=f"decode_{n}", over=[*over, *MESH_DEPTH],
+                          mesh=list(mesh), seed=seed) for n, over in TP_DECODES]
             reports[group] = spawn_ranks(dict(tag=f"sp_{group}", runs=runs), work, world, shared)
 
         for group, reps in reports.items():
@@ -6808,7 +6885,7 @@ def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
                 print(f"sp {group} train {n}: " + json.dumps(row))
                 check(all(r["metrics"] == got for r in runs_r),
                       f"sp {group} {name}: the ranks report different metrics")
-                cfg = mesh_cfg(dtype)
+                cfg = mesh_cfg(dtype, MESH_DEPTH)
                 for r, rr in enumerate(runs_r):
                     sp_rank = rr["sp_rank"]
                     exact = {k: v * steps for k, v in sp_train_launches(cfg, sp_rank, 2).items()}
@@ -6909,6 +6986,238 @@ def sp_phase(seed: int, cli_refs: dict | None = None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: pipeline parallelism across processes
+# ---------------------------------------------------------------------------
+
+# the pp meshes' overrides: JAX refuses LoRA dropout under pp
+PP_OVER = ("mesh.pp=2", "model.lora.dropout=0")
+# name, global batch per data position (2 microbatches of 1 row a stage),
+# dtype, steps
+PP_TRAIN = (("f32", 2, "float32", 1), ("bf16", 2, "bfloat16", 2))
+PP_CLI_BATCH = 2
+
+
+def pp_stage_shape(cfg, rows: int, ways: int) -> str:
+    """The q of a stage's causal LLM blocks in one train step (``rows`` rows
+    on each of ``ways`` data positions): a microbatch's rows, the LLM's
+    heads, the packed rows of the flagship's 30 s bucket (``SP_RING_SHAPES``)
+    and the head width, over the LLM's kv heads."""
+    from avsr_tpu_torch.ops.pipeline import split_count
+
+    llm = cfg.model.llm
+    T = next(t for name, _, _, t, _, _ in SP_RING_SHAPES if name == "llm")
+    mb = rows // split_count(rows, rows * ways, cfg.mesh.pp)
+    return (f"{[mb, llm.n_heads, T, llm.d_model // llm.n_heads]} causal GQA over "
+            f"{llm.n_kv_heads} kv heads, a microbatch")
+
+
+def pp_train_launches(cfg, rows: int, ways: int) -> dict[str, int]:
+    """The flash launches of one train step (one micro-batch, ``rows`` rows
+    on each of ``ways`` data positions) on any stage of ``cfg.mesh.pp``: the
+    frozen Whisper's blocks once (every stage runs the encoders), the
+    stage's ``n_layers / pp`` causal LLM blocks once per microbatch it
+    holds, again in remat's recomputation, with a backward pair each."""
+    from avsr_tpu_torch.ops.pipeline import split_count
+
+    m, S = cfg.model, cfg.mesh.pp
+    llm = m.llm.n_layers // S * split_count(rows, rows * ways, S)
+    return dict(flash_fwd=m.whisper.n_layers + llm * (2 if cfg.mesh.remat else 1),
+                flash_bwd_dq=llm, flash_bwd_dkv=llm, qmatmul_int8=0, qmatmul_int4=0)
+
+
+def pp_phase(seed: int, refs: dict | None = None) -> dict:
+    """Phase 24: pipeline parallelism (``mesh.pp=2``) across processes on
+    the flagship: the train steps at full width and depth (8 LLM blocks a
+    stage) with exact launches per rank against one process; the train and
+    decode CLIs at phase 22's quarter depth, the decode CLI's f32
+    hypotheses against phase 22's one-card decode (``refs``; made here
+    without them). See the module docstring."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("pp_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH]          # the CLIs' (phase 22's)
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    cards = torch.cuda.device_count()
+    # name, ranks, sharing card 0, mesh, data-parallel ways
+    groups = [("gloo", 2, True, PP_OVER, 1)]
+    if cards >= 2:
+        groups.append(("nccl", 2, False, PP_OVER, 1))
+    if cards >= 4:
+        groups.append(("nccl_dp2", 4, False, (*PP_OVER, "mesh.dp=2"), 2))
+    print("pp phase: " + "; ".join(f"{g}: {n} ranks, {' '.join(m)}"
+                                   f"{' sharing card 0' if shared else ''}"
+                                   for g, n, shared, m, _ in groups)
+          + ("" if cards >= 4 else f" (the host has {cards} card(s): "
+             + ("no NCCL run" if cards < 2 else "no dp=2 pp=2 run") + ")"))
+    res: dict = {"train": {}, "train_cli": {}, "decode_cli": {}, "launches_by_path": {}}
+
+    def train_over(run_dir: Path, steps: int, ways: int, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=10",
+                "training.grad_accum_steps=1", "training.save_every_steps=0",
+                f"data.batch_size={PP_CLI_BATCH * ways}", "runtime.compute_dtype=float32",
+                "model.lora.dropout=0", f"training.max_steps={steps}",
+                f"training.checkpoint_dir={run_dir}", *extra]
+
+    def dec_over(out: Path, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
+                f"decode.max_new_tokens={MESH_DECODE_TOKENS}", "decode.batch_size=8",
+                "runtime.compute_dtype=float32", f"decode.output_dir={out}", *extra]
+
+    def one_card(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches_by_path"][f"pp_{tag}"] = counts()
+        settle()
+        return out
+
+    try:
+        # ---- one process: the references ------------------------------------
+        ref_train, ref_cli = {}, {}
+        for ways in sorted({g[4] for g in groups}):
+            for _, B, d, n in PP_TRAIN:
+                ref_train[d, ways] = one_card(
+                    f"train_{d}_B{B * ways}_one_card",
+                    lambda B=B, d=d, n=n, ways=ways: mesh_train_run(
+                        B * ways, d, ("model.lora.dropout=0",), n))
+            run1 = work / f"train_one_{ways}"
+            rc = one_card(f"train_cli_B{PP_CLI_BATCH * ways}_one_card",
+                          lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
+            check(rc == 0, f"one-card train CLI returned {rc}")
+            ref_cli[ways] = [float(r[3]) for r in loss_rows(run1) if r[2] == "train"]
+            shutil.rmtree(run1 / "ckpt", ignore_errors=True)
+        if refs is None:
+            rc = one_card("decode_cli_one_card", lambda: decode.main(dec_over(work / "dec1")))
+            check(rc == 0, f"one-card decode CLI returned {rc}")
+            refs = {"decode_f32_hyps": hyp_lines(work / "dec1")}
+
+        # ---- the ranks ---------------------------------------------------------
+        reports = {}
+        for group, world, shared, mesh, ways in groups:
+            runs = [dict(kind="train", name=f"train_{n}", B=B * ways, dtype=d, mesh=list(mesh),
+                         steps=k) for n, B, d, k in PP_TRAIN]
+            runs.append(dict(kind="cli", name="train_cli", cli="train",
+                             argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli", cli="decode",
+                             argv=dec_over(work / f"dec_{group}", *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli_preset", cli="decode",
+                             argv=dec_over(work / f"dec_preset_{group}", *mesh,
+                                           *PRESET_OVERRIDES)))
+            reports[group] = spawn_ranks(dict(tag=f"pp_{group}", runs=runs), work, world, shared)
+
+        for group, reps in reports.items():
+            world = len(reps)
+            ways = next(g[4] for g in groups if g[0] == group)
+            check(reps[0]["backend"] == ("gloo" if group == "gloo" else "nccl"),
+                  f"{group} ranks ran {reps[0]['backend']}")
+            takes = reps[0]["backend_takes"]
+            print(f"pp {group}: ranks on {[r['device'] for r in reps]}; the backend takes "
+                  f"on CUDA tensors {json.dumps(takes)}")
+            check(all(v == "yes" for v in takes.values()),
+                  f"{group} refuses a collective the port makes on CUDA tensors: {takes}")
+
+            # ---- the train steps: one process's, exact launches per rank --------
+            leaves = torch.load(work / f"pp_{group}_leaves.pt")
+            for n, B, dtype, steps in PP_TRAIN:
+                name = f"train_{n}"
+                runs_r = [r["runs"][name] for r in reps]
+                want = ref_train[dtype, ways]
+                got = runs_r[0]["metrics"]
+                dl = max(abs(g["loss"] - w["loss"]) for g, w in zip(got, want["metrics"]))
+                dg = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                         for g, w in zip(got, want["metrics"]))
+                db = {k: (leaves[name][k] - want["leaves"][k]).abs().max().item()
+                      for k in want["leaves"]}
+                row = dict(mesh=runs_r[0]["mesh"], global_batch=B * ways,
+                           stages=[r["pp_rank"] for r in runs_r],
+                           loss=[m["loss"] for m in got], max_loss_diff=dl,
+                           max_grad_norm_rel_diff=dg, lora_b_diff=db,
+                           step_ms=[r["step_ms"] for r in runs_r],
+                           peak_gb=[r["peak_gb"] for r in runs_r],
+                           one_card_step_ms=want["step_ms"], one_card_peak_gb=want["peak_gb"],
+                           launches=[r["launches"] for r in runs_r])
+                res["train"][f"{group}_{n}"] = row
+                print(f"pp {group} train {n}: " + json.dumps(row))
+                check(all(r["metrics"] == got for r in runs_r),
+                      f"pp {group} {name}: the ranks report different metrics")
+                cfg = mesh_cfg(dtype, mesh)
+                exact = {k: v * steps for k, v in pp_train_launches(cfg, B, ways).items()}
+                if group == "gloo":
+                    res["stage_shape"] = pp_stage_shape(cfg, B, ways)
+                for r, rr in enumerate(runs_r):
+                    check(rr["launches"] == exact,
+                          f"pp {group} {name} rank {r}: launches {rr['launches']}, "
+                          f"expected {exact}")
+                    res["launches_by_path"][f"pp_{group}_{name}_rank{r}"] = rr["launches"]
+                if dtype == "float32":      # phase 21's gates
+                    check(dl < 1e-5 and dg < 1e-5 and max(db.values()) < 1e-6,
+                          f"pp {group} {name} against one process: loss |d| {dl:.3e}, grad "
+                          f"norm rel {dg:.3e}, LoRA b |d| {db}")
+
+            # ---- the train CLI: 1 step on the ranks, a second at world 1 -----
+            run2 = work / f"train_{group}"
+            tl = [r["runs"]["train_cli"] for r in reps]
+            check(all(t["rc"] == 0 for t in tl), f"pp {group} train CLI ranks returned "
+                                                  f"{[t['rc'] for t in tl]}")
+            rows2 = loss_rows(run2)
+            check([r[2] for r in rows2].count("train") == 1,
+                  f"the pp {group} run's loss_log.csv rows {[r[:3] for r in rows2]}")
+            rc = one_card(f"train_cli_{group}_resumed",
+                          lambda: train.main(train_over(run2, 2, ways)))
+            check(rc == 0, f"pp {group}: the world-1 resume returned {rc}")
+            got = [float(r[3]) for r in loss_rows(run2) if r[2] == "train"]
+            shutil.rmtree(run2 / "ckpt", ignore_errors=True)
+            want = ref_cli[ways]
+            d = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            row = dict(ranks_then_resumed=got, one_card=want, max_rel_diff=d,
+                       seconds=[t["seconds"] for t in tl])
+            res["train_cli"][group] = row
+            print(f"pp {group} train CLI: " + json.dumps(row))
+            check(len(got) == len(want) == 2 and d < 1e-5,
+                  f"pp {group} train CLI losses {got}, one card {want}")
+            for r, t in enumerate(tl):
+                res["launches_by_path"][f"pp_{group}_train_cli_rank{r}"] = t["launches"]
+                check(t["launches"]["flash_fwd"] and t["launches"]["flash_bwd_dq"]
+                      and t["launches"]["flash_bwd_dkv"],
+                      f"pp {group} train CLI rank {r}: {t['launches']}")
+
+            # ---- the decode CLI: f32 hypotheses, the preset's kernels --------
+            for tag in ("decode_cli", "decode_cli_preset"):
+                dl_ = [r["runs"][tag] for r in reps]
+                check(all(x["rc"] == 0 for x in dl_), f"pp {group} {tag} ranks returned "
+                                                      f"{[x['rc'] for x in dl_]}")
+                row = dict(seconds=[x["seconds"] for x in dl_],
+                           launches=[x["launches"] for x in dl_])
+                for r, x in enumerate(dl_):
+                    res["launches_by_path"][f"pp_{group}_{tag}_rank{r}"] = x["launches"]
+                    lc = x["launches"]
+                    check(lc["flash_fwd"] and (tag == "decode_cli" or (
+                        lc["qmatmul_int4"] and lc["qmatmul_int8"])),
+                        f"pp {group} {tag} rank {r}: {lc}")
+                if tag == "decode_cli":
+                    two = hyp_lines(work / f"dec_{group}")
+                    row.update(equal_hyps=two == refs["decode_f32_hyps"], lines=len(two))
+                    check(len(two) == 8 and two == refs["decode_f32_hyps"],
+                          f"pp {group} decode CLI: HYP lines differ from the one-card decode")
+                res["decode_cli"][f"{group}_{tag}"] = row
+                print(f"pp {group} {tag}: " + json.dumps(row))
+        res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), f"{work} not removed")
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"pp phase: {res['seconds']:.1f} s; launches " + json.dumps(res["launches_by_path"]))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -6919,6 +7228,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="build the kernels and run phase 22 alone")
     p.add_argument("--sp-only", action="store_true",
                    help="build the kernels and run phase 23 alone")
+    p.add_argument("--pp-only", action="store_true",
+                   help="build the kernels and run phase 24 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -6968,15 +7279,31 @@ def main(argv: list[str] | None = None) -> int:
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     spills.append(f"{name} {fn}")
     check(not spills, f"kernels that spill registers: {spills}")
-    if args.mesh_only:
-        print(json.dumps(mesh_phase(args.seed)))
-        return 0
-    if args.tp_only:
-        print(json.dumps(tp_phase(args.seed)))
-        return 0
-    if args.sp_only:
-        print(json.dumps(sp_phase(args.seed)))
-        return 0
+    try:
+        if args.mesh_only:
+            print(json.dumps(mesh_phase(args.seed)))
+            return 0
+        if args.tp_only:
+            res = tp_phase(args.seed)
+            res.pop("refs")
+            print(json.dumps(res))
+            return 0
+        if args.sp_only:
+            print(json.dumps(sp_phase(args.seed)))
+            return 0
+        if args.pp_only:
+            print(json.dumps(pp_phase(args.seed)))
+            return 0
+        return run_all(args.seed, lap)
+    finally:
+        close_pools()
+
+
+def run_all(seed: int, lap) -> int:
+    """Every phase in order; the last lines of a passing run."""
+    import torch
+
+    args = argparse.Namespace(seed=seed)
 
     # main-path lengths: 10 s of audio -> 500 Whisper frames; the LLM prefix
     # is 33 prompt tokens (BOS + 32 bytes) + 500 fused features
@@ -7084,13 +7411,23 @@ def main(argv: list[str] | None = None) -> int:
     # Phase 23 at full width and depth: sequence parallelism (mesh.sp=2)
     # across processes, the ring against the whole sequence, the train step
     # with exact launches per rank, the train CLI and the decodes.
-    sp = sp_phase(args.seed, tp["cli_refs"])
+    tp_refs = tp.pop("refs")
+    sp = sp_phase(args.seed, tp_refs)
     sk = {k: sum(n[k] for n in sp["launches_by_path"].values()) for k in counts()}
     check(all(sk.values()), f"a kernel did not launch on the sp path: {sk}")
 
+    lap()
+    # Phase 24: pipeline parallelism (mesh.pp=2) across processes, the train
+    # steps at full depth with exact launches per stage, the train CLI and
+    # the decode CLI (f32 hypotheses against phase 22's; the preset).
+    pp = pp_phase(args.seed, tp_refs)
+    pk = {k: sum(n[k] for n in pp["launches_by_path"].values()) for k in counts()}
+    check(all(pk.values()), f"a kernel did not launch on the pp path: {pk}")
+    close_pools()
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp)
+                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp, pp)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def sp_ring(name: str) -> dict:
@@ -7098,6 +7435,12 @@ def main(argv: list[str] | None = None) -> int:
         steps (the ring's blocks: exact, checked there), and its ring rows."""
         return {part.removeprefix("sp_"): n[name] for part, n in sp["launches_by_path"].items()
                 if part.startswith("sp_gloo_train_") or part.startswith("sp_gloo_ring_")}
+
+    def pp_stage(name: str) -> dict:
+        """The flash kernel ``name``'s launches per rank (stage) of phase
+        24's train steps (exact, checked there)."""
+        return {part.removeprefix("pp_"): n[name] for part, n in pp["launches_by_path"].items()
+                if part.startswith("pp_gloo_train_")}
 
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
@@ -7161,7 +7504,9 @@ def main(argv: list[str] | None = None) -> int:
                             launches_per_encode=video["avhubert_300"]["launches_per_encode"]),
         sp_ring=dict(launches_per_rank=sp_ring("flash_fwd"), rows=sp["ring"],
                      times_are="ms per ring forward on a rank (every block, the shifts "
-                               "and the merge), CUDA events around 5 calls"))]
+                               "and the merge), CUDA events around 5 calls"),
+        pp_stage=dict(launches_per_rank=pp_stage("flash_fwd"),
+                      shape=pp["stage_shape"]))]
     wb = knobs["whisper_bwd"]
     hbwd = kernels[0]["hubert_shape"].pop("bwd")
     abwd = kernels[0]["avhubert_shape"].pop("bwd")
@@ -7190,6 +7535,7 @@ def main(argv: list[str] | None = None) -> int:
             launches_per_audio_connector_backward=conn_launches("_grad", name),
             times_are="per launch; library_ms is SDPA's backward of q, k and v together")
         extra["sp_ring"] = dict(launches_per_rank=sp_ring(name))
+        extra["pp_stage"] = dict(launches_per_rank=pp_stage(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",

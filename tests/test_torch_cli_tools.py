@@ -208,6 +208,49 @@ def test_profile_train_writes_report(tmp_path, records):
     assert launched == [dict.fromkeys(tprofile.PORT_KERNELS, 0)]
 
 
+def test_trace_steps_readers_leave_out_the_guard_call(tmp_path):
+    """``trace_steps`` opens its window with one more call under the guard
+    range, which the written trace keeps and ``trace_events`` leaves out:
+    the readers see the traced steps' ops only."""
+    x = torch.ones(8, 8)
+    trace = tmp_path / "trace.json"
+    _, launched = tprofile.trace_steps(lambda: torch.mm(x, x), 3,
+                                       [torch.profiler.ProfilerActivity.CPU], trace)
+    assert launched == dict.fromkeys(tprofile.PORT_KERNELS, 0)
+    raw = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    seen = tprofile.trace_events(trace)
+    assert [sum(e["name"] == "aten::mm" for e in ev) for ev in (raw, seen)] == [4, 3]
+    assert any(e["name"] == tprofile.GUARD for e in raw)
+    assert not any(e["name"] == tprofile.GUARD for e in seen)
+
+
+def test_trace_events_cut_the_card_by_correlation(tmp_path):
+    """The card's events go with the host call that launched them, by
+    correlation id, whatever their converted times: a kernel of a guard
+    launch that ends after the guard range is left out, and a kernel of a
+    traced launch that starts before the range ends is kept."""
+    def x(name, cat, ts, dur, corr=None):
+        return dict(ph="X", name=name, cat=cat, ts=ts, dur=dur,
+                    args={} if corr is None else dict(correlation=corr))
+
+    events = [x(tprofile.GUARD, "user_annotation", 0, 10),
+              x(tprofile.GUARD, "gpu_user_annotation", 1, 30),
+              x("cudaLaunchKernel", "cuda_runtime", 5, 1, 1),
+              x("flash_fwd_bf16_kernel", "kernel", 20, 2, 1),
+              x("aten::mm", "cpu_op", 12, 4),
+              x("cudaLaunchKernel", "cuda_runtime", 14, 1, 2),
+              x("flash_fwd_bf16_kernel", "kernel", 9, 2, 2),
+              dict(ph="f", name="ac2g", cat="ac2g", id=2, ts=9)]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps(dict(traceEvents=events)))
+    seen = tprofile.trace_events(trace)
+    assert [(e["name"], e["ts"]) for e in seen] == [
+        ("aten::mm", 12), ("cudaLaunchKernel", 14), ("flash_fwd_bf16_kernel", 9)]
+    assert tprofile.kernel_counts(trace)["flash_fwd"] == 1
+    trace.write_text(json.dumps(dict(traceEvents=events[2:])))      # no guard: read whole
+    assert len(tprofile.trace_events(trace)) == 5
+
+
 def test_profile_decode_mode_keys_equal_jax(tmp_path):
     """``test_profile_decode_mode``, and the report's keys (and each table
     row's) equal the JAX CLI's on the same config."""

@@ -915,3 +915,37 @@ def test_profile_train_then_decode_traces_every_launch(cuda, tmp_path):
         assert profile.main(["--device", "cuda", "--mode", mode, "--steps", "2",
                              "--output_dir", str(out), *flag]) == 0
         assert profile.kernel_counts(out / f"trace_{mode}.json")["flash_fwd"] > 0
+
+
+@pytest.mark.cuda
+def test_profile_windows_keep_every_kernel_of_their_steps(cuda, tmp_path):
+    """A profiler window on the card loses the kernel records of its first
+    launches now and then (the trace check: up to 664 of a decode
+    profile's), and a kernel's converted start can precede its launch's;
+    the profile CLI opens each window with a guard call and its readers cut
+    it by correlation id (``cli/profile.py::trace_steps``,
+    ``trace_events``), so in each of 12 windows every launch of the traced
+    step (a 0.1 s spin and 4000 small kernels) has its kernel and nothing
+    of the guard call is left."""
+    from avsr_tpu_torch.cli import profile
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    x = torch.zeros(256, device=cuda)
+
+    def step():
+        torch.cuda._sleep(200_000_000)
+        for _ in range(4000):
+            x.add_(1.0)
+        torch.cuda.synchronize(cuda)
+
+    for i in range(12):
+        trace = tmp_path / f"trace{i}.json"
+        profile.trace_steps(step, 1, acts, trace)
+        events = profile.trace_events(trace)
+        kernels = {e.get("args", {}).get("correlation") for e in events
+                   if e.get("cat") == "kernel"}
+        launches = [e.get("args", {}).get("correlation") for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "LaunchKernel" in e["name"]]
+        assert len(kernels) == len(launches) == 4001 and set(launches) == kernels, i
+        assert not any(e.get("name") == profile.GUARD for e in events)

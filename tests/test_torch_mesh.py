@@ -205,15 +205,20 @@ def test_mesh_shape_matches_jax(n, axes):
 @pytest.mark.parametrize("over", ["mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
                                   "mesh.ep=2 model.connector_type=moe"])
 def test_model_axes_are_the_next_slice(over):
-    """ep and pp change the model's own code: refused, naming the next
-    slice; the data axes, tp and sp load (and tp=2 or sp=2 needs 2
-    processes, JAX's mesh message at a world of 1)."""
-    if over in ("mesh.tp=2", "mesh.sp=2"):
-        with pytest.raises(ValueError, match="devices"):
-            sharding.mesh_shape(tcfg.load_config(None, [over]).mesh, 1)
-    else:
-        with pytest.raises(NotImplementedError, match="next slice"):
+    """ep changes the model's own code: refused, naming itself as the next
+    slice; the data axes, tp, sp and pp load (and tp=2, sp=2 or pp=2 needs
+    2 processes, JAX's mesh message at a world of 1); pp with the default
+    LoRA dropout raises JAX's message."""
+    if over == "mesh.pp=2":
+        with pytest.raises(ValueError, match="lora.dropout > 0"):
+            tcfg.load_config(None, [over])
+        over = "mesh.pp=2 model.lora.dropout=0"
+    if over.startswith("mesh.ep"):
+        with pytest.raises(NotImplementedError, match=r"next slice of the port \(mesh.ep\)"):
             tcfg.load_config(None, over.split())
+    else:
+        with pytest.raises(ValueError, match="devices"):
+            sharding.mesh_shape(tcfg.load_config(None, over.split()).mesh, 1)
     cfg = tcfg.load_config(None, ["mesh.dp=2", "mesh.fsdp=2", "mesh.dcn_dp=2"])
     assert (cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.dcn_dp) == (2, 2, 2)
 

@@ -103,9 +103,9 @@ def global_batch(B: int = 4, accum: int = 2) -> dict[str, np.ndarray]:
         label_lens=np.array([[24, 17, 20, 9], [5, 24, 11, 16]][:accum], np.int32)[:, :B])
 
 
-def launch(world: int, runs: list[dict], tmp: Path) -> None:
+def launch(world: int, runs: list[dict], tmp: Path, timeout: float = TIMEOUT_S) -> None:
     """Runs ``runs`` in ``world`` worker processes; fails as soon as one
-    rank fails (and stops the others), or after TIMEOUT_S."""
+    rank fails (and stops the others), or after ``timeout`` seconds."""
     job = tmp / f"job{world}.json"
     job.write_text(json.dumps(runs))
     with socket.socket() as s:
@@ -126,7 +126,7 @@ def launch(world: int, runs: list[dict], tmp: Path) -> None:
     try:
         while any(p.poll() is None for p in procs):
             failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-            assert not failed and time.monotonic() - t0 < TIMEOUT_S, (
+            assert not failed and time.monotonic() - t0 < timeout, (
                 f"rank(s) {failed or 'all (timeout)'} of {world}:\n"
                 + "\n".join(logs[r].read_text()[-3000:] for r in (failed or [0])))
             time.sleep(0.2)

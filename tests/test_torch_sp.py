@@ -20,9 +20,9 @@ predecessor's tensors):
     equal JAX's ``ring_dispatch_count`` over the same forward; at sp = 3 a
     stack whose rows do not divide logs JAX's warning once and equals the
     unsharded stack;
-  * the config accepts ``mesh.sp``, keeps JAX's pp/sp message and refuses
-    ``pp`` and ``ep`` (the next slices); MoE under sp is refused; the sp
-    and sums groups are JAX's device-grid coordinates.
+  * the config accepts ``mesh.sp`` and ``mesh.pp``, keeps JAX's pp/sp
+    message and refuses ``ep`` (the next slice); MoE under sp is refused;
+    the sp and sums groups are JAX's device-grid coordinates.
 
 Whole slices, f32, as gloo subprocesses (``torch_multirank_worker.py``):
 
@@ -216,7 +216,7 @@ def test_ring_attention_matches_jax(sp, causal, group):
 
 def test_sp_operators_and_shift():
     """scatter_to_sp keeps the rank's chunk and gather_from_sp joins them;
-    shift_sp hands rank r the chunk of rank r - 1 and its gradient goes
+    ring_shift hands rank r the chunk of rank r - 1 and its gradient goes
     back; each rank's gradient of the replicated input is its share, and
     the shares sum to the whole loss's gradient."""
     n = 4
@@ -231,7 +231,7 @@ def test_sp_operators_and_shift():
         xr = x.clone().requires_grad_(True)
         c = collectives.scatter_to_sp(xr, sp, 1)
         assert torch.equal(c, chunk(x, n, r, 1))
-        s = collectives.shift_sp(c, sp)
+        s = collectives.ring_shift(c, sp)
         assert torch.equal(s, chunk(x, n, (r - 1) % n, 1))
         z = collectives.gather_from_sp(c * b[r], sp, 1)
         ((s * a[r]).sum() + (z * w).sum()).backward()
@@ -363,9 +363,10 @@ def test_sp3_falls_back_with_jax_warning(tiny, caplog):
 
 
 def test_config_refusals_and_groups():
-    """mesh.sp loads; pp and ep are the next slices (pp first); pp with sp
-    keeps JAX's message; MoE under sp is refused; the sp and sums groups
-    of dp=2 sp=2 tp=2 are JAX's device-grid coordinates."""
+    """mesh.sp loads, and so does mesh.pp (with JAX's dropout message at
+    the default LoRA dropout); ep is the next slice; pp with sp keeps JAX's
+    message; MoE under sp is refused; the sp and sums groups of dp=2 sp=2
+    tp=2 are JAX's device-grid coordinates."""
     assert tcfg.load_config(None, ["mesh.sp=2"]).mesh.sp == 2
     with pytest.raises(ValueError) as theirs:
         jload_config(None, {"mesh.pp": 2, "mesh.sp": 2})
@@ -373,8 +374,13 @@ def test_config_refusals_and_groups():
         tcfg.load_config(None, ["mesh.pp=2", "mesh.sp=2"])
     assert str(mine.value) == str(theirs.value) == "mesh.pp and mesh.sp are mutually exclusive"
     for over in ("mesh.pp=2", "mesh.ep=2 model.connector_type=moe"):
-        with pytest.raises(NotImplementedError, match="mesh.pp first"):
-            tcfg.load_config(None, over.split())
+        if over == "mesh.pp=2":
+            with pytest.raises(ValueError, match="lora.dropout > 0"):
+                tcfg.load_config(None, over.split())
+            assert tcfg.load_config(None, [over, "model.lora.dropout=0"]).mesh.pp == 2
+        else:
+            with pytest.raises(NotImplementedError, match=r"next slice of the port \(mesh.ep\)"):
+                tcfg.load_config(None, over.split())
     moe = tcfg.load_config(None, ["model.connector_type=moe"]).model
     with pytest.raises(NotImplementedError, match="mesh.sp=2"):
         sharding.check_model(moe, sp=2)

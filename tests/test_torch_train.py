@@ -462,15 +462,18 @@ def test_train_cli_writes_loss_log(tmp_path):
 @pytest.mark.parametrize("override", [
     "mesh.dp=2", "mesh.fsdp=2", "mesh.tp=2", "mesh.sp=2", "mesh.pp=2"])
 def test_unported_config_knobs_raise(override):
-    """pp is refused at load; the data axes, tp and sp load, and a mesh
-    that needs more processes than run raises JAX's message."""
-    if override.split("=")[0] in ("mesh.dp", "mesh.fsdp", "mesh.tp", "mesh.sp"):
-        cfg = tcfg.load_config(TINY_YAML, [override])
-        with pytest.raises(ValueError, match="devices"):
-            mesh_shape(cfg.mesh, 1)
-        return
-    with pytest.raises(NotImplementedError):
-        tcfg.load_config(TINY_YAML, [override])
+    """The data axes, tp, sp and pp load (pp once the layers divide into
+    its stages and LoRA dropout is off: JAX's messages before that), and a
+    mesh that needs more processes than run raises JAX's message."""
+    over = [override]
+    if override == "mesh.pp=2":
+        for extra, match in (([], "stages"), (["model.llm.n_layers=2"], "lora.dropout > 0")):
+            with pytest.raises(ValueError, match=match):
+                tcfg.load_config(TINY_YAML, over + extra)
+        over += ["model.llm.n_layers=2", "model.lora.dropout=0"]
+    cfg = tcfg.load_config(TINY_YAML, over)
+    with pytest.raises(ValueError, match="devices"):
+        mesh_shape(cfg.mesh, 1)
 
 
 def test_chip_smoke_overrides_give_the_flagship():

@@ -13,7 +13,8 @@ A job is a list of runs, made in order in one process:
     in ``batch`` ([accum, B, ...] numpy arrays); rank 0 writes the metrics
     of each step, the first step's gradients and the trained leaves and
     the sharded frozen leaves after the steps, all gathered whole, to
-    ``out`` (``torch.save``);
+    ``out`` (``torch.save``); with ``eval``, also the eval step's metrics
+    on the first micro-batch before the steps;
   * ``decode``: the serving layout of ``weights`` under the mesh of
     ``overrides`` (``prepare_params_for_decode``: quantized head, this
     rank's tp slices, each rank's fused q|k|v and gate|up), then
@@ -84,6 +85,10 @@ def run_step(job: dict) -> None:
     lo, hi = multihost.local_rows(B, (mesh.data.rank, mesh.ways))
     batch = Batch(**{k: torch.from_numpy(np.ascontiguousarray(data[k][:, lo:hi]))
                      for k in data.files})
+    evals = None
+    if job.get("eval"):
+        first = Batch(*[None if x is None else x[0] for x in batch])
+        evals = tstep.make_eval_step(cfg, mesh)(state.params, first)
     metrics = [step(state, batch, seed) for seed in job["seeds"]]
     train, _ = tstate.partition_trainable(state.params, cfg.model)
     with torch.no_grad():
@@ -94,7 +99,7 @@ def run_step(job: dict) -> None:
                   if sharding.shards_of(v) and k not in leaves}
     if rank == 0:
         torch.save({"metrics": metrics, "leaves": leaves, "frozen": frozen,
-                    "grads": grads, "shape": mesh.shape}, job["out"])
+                    "grads": grads, "shape": mesh.shape, "eval": evals}, job["out"])
 
 
 def run_decode(job: dict) -> None:
