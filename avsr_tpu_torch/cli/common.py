@@ -155,7 +155,7 @@ def maybe_mesh(cfg: AVSRConfig, device: str | torch.device
     device, backend = init_distributed(device)
     if backend is None:
         return device, None
-    check_model(cfg.model, cfg.mesh.tp, cfg.decode.lm_head_bits, cfg.mesh.sp, cfg.mesh.pp)
+    check_model(cfg.model, cfg.mesh.tp, cfg.decode.lm_head_bits, cfg.mesh.pp)
     rank, world = process_shard()
     return device, build_mesh(cfg.mesh, world=world, rank=rank)
 

@@ -33,14 +33,16 @@ the last batch are scored once. The tokenizer is ``model.llm_path``'s, or
 the byte tokenizer.
 
 Across processes (``torchrun --nproc_per_node N -m avsr_tpu_torch.cli.decode
-...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.tp``/``mesh.sp``/``mesh.pp``
-over the world) every rank loads each batch and decodes its contiguous share of the
-rows (split over the data axes) on its own card; rank 0 gathers the
+...``, ``mesh.dp``/``mesh.fsdp``/``mesh.dcn_dp``/``mesh.ep``/``mesh.tp``/``mesh.sp``/
+``mesh.pp`` over the world) every rank loads each batch and decodes its contiguous share
+of the rows (split over the data axes, ``ep`` included) on its own card; rank 0 gathers the
 hypotheses in dataset order and alone writes the results and WER files.
 JAX's ``infer_batch_sharder`` replicates a batch that does not divide the
 data-parallel ways (with a warning); here the batch is padded to a
 multiple of the ways by repeating its last row and the padded rows'
-outputs are dropped. Every rank holds what fsdp would shard whole, which
+outputs are dropped. Every rank holds what fsdp and ep would shard whole
+(a MoE model's experts too: inference routes each row on its own, so the
+tokens are one card's and only the memory differs), which
 is what gathering an fsdp-sharded tree once at load gives (a gather per
 layer inside the token loop would cost two collectives per layer per
 token). Under ``mesh.tp`` the ranks of a tp group decode the same rows and

@@ -18,7 +18,9 @@ and ranks device time
     python -m avsr_tpu_torch.cli.profile --mode train data.batch_size=8
     python -m avsr_tpu_torch.cli.profile --mode decode decode.max_new_tokens=32
 
-The report keeps the JAX CLI's keys. ``device_busy_ms`` sums the kernel,
+The report keeps the JAX CLI's keys, and adds ``kernels_in_trace``: the
+port's kernels among the trace's events (the CLI reads the trace once, and
+on the card checks them against the wrappers' counters). ``device_busy_ms`` sums the kernel,
 memcpy and memset events (``async_dma_ms`` is the memcpy part of it);
 ``trace_span_ms`` runs from the first device event's start to the last
 one's end; ``loop_ms`` is the device time of what was launched inside the
@@ -93,9 +95,10 @@ def main(argv: list[str] | None = None) -> int:
     log.info("kernel launches over the traced steps (the wrappers' counters): %s",
              launched)
 
-    report = analyze_trace(out, top=args.top)
+    events = trace_events(trace)            # the trace's one read
+    report = analyze_trace(out, top=args.top, events=events)
+    report["kernels_in_trace"] = traced = kernel_counts(events)
     if device.type == "cuda":
-        traced = kernel_counts(trace)
         if not report["planes"][0].startswith("GPU"):
             raise RuntimeError(f"{trace} holds no device event: CUPTI recorded "
                                "nothing on the card")
@@ -263,10 +266,10 @@ def trace_events(path: str | Path) -> list[dict]:
             and (device(e) or float(e["ts"]) >= end)]
 
 
-def kernel_counts(path: str | Path) -> dict[str, int]:
-    """Kernel events of a trace file per port kernel (``PORT_KERNELS``)."""
-    n = collections.Counter(category(e["name"]) for e in trace_events(path)
-                            if e.get("cat") == "kernel")
+def kernel_counts(events: list[dict]) -> dict[str, int]:
+    """Kernel events per port kernel (``PORT_KERNELS``) among ``events``,
+    what :func:`trace_events` read from a trace."""
+    n = collections.Counter(category(e["name"]) for e in events if e.get("cat") == "kernel")
     return {k: n[k] for k in PORT_KERNELS}
 
 
@@ -331,12 +334,15 @@ def _scope(names: list[str]) -> str:
     return f"{node}/{names[0]}" if node and node != names[0] else names[0]
 
 
-def analyze_trace(trace_dir: str | Path, top: int = 15) -> dict:
-    """Aggregate the newest trace under ``trace_dir``: device time by
-    kernel, by category and by launching scope, the loop/prefix split and
-    the device's duty cycle (see the module docstring)."""
+def analyze_trace(trace_dir: str | Path, top: int = 15,
+                  events: list[dict] | None = None) -> dict:
+    """Aggregate the newest trace under ``trace_dir`` (or its ``events``,
+    already read by :func:`trace_events`): device time by kernel, by
+    category and by launching scope, the loop/prefix split and the device's
+    duty cycle (see the module docstring)."""
     path = find_trace(trace_dir)
-    events = trace_events(path)
+    if events is None:
+        events = trace_events(path)
     host = _Host(events)
     loops = sorted((host.ts[i], host.ts[i] + host.dur[i])
                    for i in range(len(host.name)) if host.name[i] in LOOP_RANGES)

@@ -20,22 +20,25 @@ under ``data.path`` (``{train,valid}.{tsv,wrd}``, e.g. written by
 validation. The tokenizer is ``model.llm_path``'s, or the byte tokenizer.
 
 Across processes, one per card (torchrun's environment; ``mesh.dp``,
-``mesh.fsdp``, ``mesh.dcn_dp``, ``mesh.tp``, ``mesh.sp`` and ``mesh.pp``
-over the world, ``mesh.dp=-1`` inferred from it):
+``mesh.fsdp``, ``mesh.dcn_dp``, ``mesh.ep``, ``mesh.tp``, ``mesh.sp`` and
+``mesh.pp`` over the world, ``mesh.dp=-1`` inferred from it):
 
     torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.fsdp=2
     torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.tp=2
     torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.sp=2
     torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.pp=2 model.lora.dropout=0
+    torchrun --nproc_per_node 2 -m avsr_tpu_torch.cli.train ... mesh.ep=2 model.connector_type=moe
 
 each rank loads its rows of every global batch (``data.batch_size`` stays
 the global batch; the rows split over the data axes, the tp ranks of a
 data position load the same rows and run Megatron blocks on their slices,
 and its sp ranks load the same rows and run the block stacks on their
 chunks of the sequences with ring attention; its pp ranks load the same
-rows and each runs its stage of the LLM's blocks, GPipe), the probe runs
-under the mesh, and rank 0 alone writes the logs and checkpoints (the full
-tree), which resume at any world.
+rows and each runs its stage of the LLM's blocks, GPipe; ep is a data
+axis whose ranks also split the stacked experts of a MoE model, and every
+MoE block routes over the global batch, as JAX's), the probe runs under
+the mesh, and rank 0 alone writes the logs and checkpoints (the full
+tree, the experts gathered), which resume at any world.
 """
 
 from __future__ import annotations

@@ -5,9 +5,7 @@ A copy of the sections of ``avsr_tpu.core.config`` that the port reads
 AV-HuBERT/LLM/LoRA subsections, ``training``, ``mesh``, ``runtime``,
 ``decode``), with the same field names
 and defaults, so that a YAML file written for the JAX package loads here
-unchanged. ``mesh.ep`` above 1 (expert parallelism, not yet ported) raises
-``NotImplementedError`` at validation rather than being ignored.
-``mesh.donate`` is accepted and means nothing
+unchanged. ``mesh.donate`` is accepted and means nothing
 here: it is an XLA buffer-donation hint, and eager PyTorch updates the
 train state in place anyway.
 
@@ -364,7 +362,6 @@ class AVSRConfig:
         if t.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
         _check_moe(self)
-        _check_ported(self)
         if m.modality not in MODALITIES:
             raise ValueError(
                 f"modality must be one of {MODALITIES}, got {m.modality!r}")
@@ -506,9 +503,9 @@ def _check_serving(cfg: AVSRConfig) -> None:
 
 
 def _check_moe(cfg: AVSRConfig) -> None:
-    """The JAX package's MoE rules, with its messages. They run before the
-    refusal of ``mesh.ep``, so that a config the JAX package refuses over
-    ``mesh.pp`` or ``mesh.ep`` is refused with its words."""
+    """The JAX package's MoE rules, with its messages: the expert counts
+    and top-k, LLM MoE blocks under ``mesh.pp``, and ``mesh.ep`` with no
+    MoE or with experts that do not divide over it."""
     m, mesh = cfg.model, cfg.mesh
     if m.connector_type == "moe":
         if m.moe_topk < 1 or m.moe_topk > m.moe_experts:
@@ -548,19 +545,6 @@ def _check_moe(cfg: AVSRConfig) -> None:
             raise ValueError(
                 f"llm.moe_experts={llm.moe_experts} must divide evenly "
                 f"over mesh.ep={mesh.ep}")
-
-
-def _check_ported(cfg: AVSRConfig) -> None:
-    """Raises for the mesh axes the port does not run yet. The data axes
-    (``dp``, ``fsdp``, ``dcn_dp``), ``tp``, ``sp`` and ``pp`` run one
-    process per card (``mesh/sharding.py``); ``ep`` changes the model's own
-    code and comes with the next slice."""
-    if cfg.mesh.ep > 1:
-        raise NotImplementedError(
-            f"mesh.ep={cfg.mesh.ep}: the port runs the data axes (mesh.dp, "
-            "mesh.fsdp, mesh.dcn_dp), tensor parallelism (mesh.tp), sequence "
-            "parallelism (mesh.sp) and pipeline parallelism (mesh.pp) across "
-            "processes; expert parallelism is the next slice of the port (mesh.ep)")
 
 
 def _check_pp(cfg: AVSRConfig) -> None:

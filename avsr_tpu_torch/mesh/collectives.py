@@ -50,6 +50,20 @@ tensors, a shift is one ``batch_isend_irecv`` of send/receive pairs
 remat's recompute and the backward); gloo on CUDA tensors takes it as an
 all-gather (:data:`BACKEND_TABLE`, :func:`shift_route`).
 
+Mixture of experts across processes (``ops/moe.py``) routes each rank's
+tokens as a piece of the global batch: one all-gather of integer choice
+counts gives the slot offsets, and :func:`sum_over` sums the balance and
+z losses' sums over the routing group with a gradient summed over it too
+(``psum``'s transpose), so that every rank gets its tokens' whole share.
+Expert parallelism (``mesh.ep``) splits the stacked experts over the ep
+group with two operators, the dense exchange:
+
+  * :func:`scatter_to_experts`: each rank's partial [E, C, d] slot tensor
+    summed over the group, every rank keeping its E / ep experts' slots
+    (a reduce-scatter); the backward all-gathers;
+  * :func:`gather_from_experts`: the owners' [E / ep, C, d'] outputs
+    gathered to [E, C, d'] on every rank; the backward reduce-scatters.
+
 Pipeline parallelism (``mesh.pp``, ``ops/pipeline.py``) hands each
 microbatch's activations to the next stage with ``Group.shift`` and
 returns the last stage's output to every stage with an all-reduce; its
@@ -230,6 +244,28 @@ class _RingShift(torch.autograd.Function):
         return ctx.group.shift([grad.contiguous()], -ctx.offset)[0], None, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return group.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+class _ScatterToExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return group.reduce_scatter(x.contiguous(), 0)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return ctx.group.all_gather(grad.contiguous(), 0), None
+
+
 def _grad_path(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -295,6 +331,33 @@ def ring_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
     return group.shift([x], offset)[0]
 
 
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: ``x``); its gradient is summed
+    over the group too, so a value that every rank computes from the sum
+    passes each rank the gradient of its own part."""
+    if group is None or group.size == 1:
+        return x
+    if _grad_path(x):
+        return _SumOver.apply(x, group)
+    return group.all_reduce(x.contiguous().clone())
+
+
+def scatter_to_experts(x: torch.Tensor, group) -> torch.Tensor:
+    """[E, C, d] -> this rank's [E / size, C, d], summed over the ep
+    ``group`` (None: ``x``); the gradient is gathered back."""
+    if group is None or group.size == 1:
+        return x
+    if _grad_path(x):
+        return _ScatterToExperts.apply(x, group)
+    return group.reduce_scatter(x.contiguous(), 0)
+
+
+def gather_from_experts(y: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's [E / size, C, d'] -> [E, C, d'] over the ep ``group``;
+    the gradient is reduce-scattered back (the ranks' combines summed)."""
+    return gather_from_sp(y, group, 0)
+
+
 # How gloo moves a shift of CUDA tensors: its send and receive read the
 # tensor's memory from the host ("writev ... Bad address" with torch 2.11
 # on an H100's host), so there a shift is an all-gather, which gloo takes
@@ -336,17 +399,23 @@ def make_groups(rank_lists: list[list[int]]) -> Group:
 # tensor parallelism's three operators, forward and backward, sequence
 # parallelism's ring shift (send/receive pairs; an all-gather on gloo's
 # CUDA tensors, ``shift_route``) and its two operators, and the pipeline's
-# hand-off (the same shift) and return (an all-reduce).
+# hand-off (the same shift) and return (an all-reduce), and mixture of
+# experts' routing sums (float64) and slot counts (int64) and the ep
+# exchange (a reduce-scatter and an all-gather of [E, C, d]).
 BACKEND_TABLE: dict[str, tuple[str, tuple[str, ...]]] = {
     "all_reduce_sum": ("all_reduce sum: gradients, metrics, reduce_from_tp forward, "
-                       "copy_to_tp backward, the pipeline's return and its gradient",
-                       ("float32", "bfloat16")),
+                       "copy_to_tp backward, the pipeline's return and its gradient, "
+                       "sum_over forward and backward (MoE's loss sums, float64)",
+                       ("float32", "bfloat16", "float64")),
     "all_reduce_max": ("all_reduce max: decisions every rank takes", ("float32",)),
     "all_reduce_min": ("all_reduce min: the batch-size probe", ("float32",)),
     "broadcast": ("broadcast: rank 0's checkpoint decision", ("float32",)),
-    "all_gather": ("all_gather: fsdp and tp gathers, gather_from_tp forward",
-                   ("float32", "bfloat16", "int8", "uint8")),
+    "all_gather": ("all_gather: fsdp, tp and ep gathers, gather_from_tp forward, "
+                   "gather_from_experts forward, scatter_to_experts backward, MoE's "
+                   "slot counts (int64)",
+                   ("float32", "bfloat16", "int8", "uint8", "int64")),
     "reduce_scatter": ("reduce_scatter: the fsdp gather's backward, gather_from_sp "
+                       "backward, scatter_to_experts forward, gather_from_experts "
                        "backward", ("float32", "bfloat16")),
     "shift": ("send to the next rank, receive from the previous: the ring's K/V and "
               "their gradients, ring_shift forward and backward, the pipeline's "
@@ -409,7 +478,15 @@ def probe_backend(device: str | torch.device) -> dict[str, str]:
         if not torch.equal(y, x(dt).reshape(n, -1) * 2 ** n):
             raise ValueError("the pipeline returned the wrong values")
 
+    def experts(dt: str) -> None:
+        a = x(dt).reshape(n, 4, 1).requires_grad_(True)
+        y = gather_from_experts(scatter_to_experts(a, world) * 2, world)
+        (y.float().sum() + sum_over(a.float().sum().reshape(1), world).sum()).backward()
+        if not torch.equal(y, a.detach() * 2 * n):
+            raise ValueError("the expert exchange returned the wrong values")
+
     for dt in ("float32", "bfloat16"):
+        calls[f"ep_operators_{dt}"] = lambda dt=dt: experts(dt)
         calls[f"tp_operators_{dt}"] = lambda dt=dt: megatron(dt)
         calls[f"sp_operators_{dt}"] = lambda dt=dt: ring_operators(dt)
         calls[f"pp_operators_{dt}"] = lambda dt=dt: pipeline(dt)

@@ -32,7 +32,7 @@ import torch.distributed as dist
 log = logging.getLogger("avsr_tpu_torch.mesh")
 
 # The mesh axes a batch dimension shards over (ep counts as a data axis
-# for every dense op, as in the JAX package).
+# for every dense op, as in the JAX package; it also splits the experts).
 DATA_AXES = ("dcn", "dp", "fsdp", "ep")
 
 # a collective that waits longer than this raises (gloo) or aborts the
@@ -113,7 +113,7 @@ def refuse_world(what: str) -> None:
         raise SystemExit(
             f"{what} runs on one card: WORLD_SIZE={n}. Only the train and "
             "decode CLIs run across processes (mesh.dp, mesh.fsdp, mesh.dcn_dp, "
-            "mesh.tp, mesh.sp, mesh.pp)")
+            "mesh.ep, mesh.tp, mesh.sp, mesh.pp)")
 
 
 def _destroy() -> None:

@@ -1,6 +1,6 @@
 """The mesh and the parameter sharding rules, the port of
-``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp``, ``tp``,
-``sp`` and ``pp``.
+``avsr_tpu/mesh/sharding.py`` for ``dp``, ``fsdp``, ``dcn_dp``, ``ep``,
+``tp``, ``sp`` and ``pp``.
 
 The JAX package runs one program over every device and lets pjit insert
 the collectives; the port runs one process per card, each holding its own
@@ -11,8 +11,8 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
     with ``dp=-1`` inferred from the world size and JAX's message when the
     product does not match it. Every group is the set of ranks that differ
     only in some axes' coordinates (:func:`mesh_groups`). A rank's position
-    in the flattened data axes (``dcn``, ``dp``, ``fsdp``; ``ep`` counts
-    too, and is 1 here) is its rank in the ``data`` group: its rows of a
+    in the flattened data axes (``dcn``, ``dp``, ``fsdp``, ``ep``) is its
+    rank in the ``data`` group: its rows of a
     global batch are the contiguous ``multihost.local_rows``; the ``tp``
     ranks of a data position hold the same rows;
   * **dp / dcn_dp**: every rank holds every parameter; the gradients of a
@@ -59,12 +59,21 @@ rows of every batch, and makes the collectives itself (``collectives.py``):
     on stage 0), so the gradients and the metric sums span the pp group
     too (``sums``), and a sliced leaf's ``replica`` group holds it.
 
+  * **ep**: a data axis for every dense op (its ranks hold different
+    rows), and the axis of the stacked experts' E dimension: a leaf whose
+    spec names ``ep`` (``experts/*``) keeps this rank's E / ep experts, and
+    the forward never gathers them (``gather_tree(keep_ep=True)``): the
+    MoE blocks send each token's slot to its expert's owner and back
+    (``ops/moe.py``, ``collectives.scatter_to_experts``). Such a leaf's
+    gradient covers the ep group's tokens on the owner, so its slices are
+    summed over the ranks that hold the same experts: its ``replica`` group
+    without ``ep`` (``ep_replica``, or ``ep_sums`` when fsdp does not slice
+    it). Mixture of experts routes over the global batch on every axis
+    (``ops/moe.py::Routing``).
+
 The optimizer state of a sharded trained leaf holds the slice
 (``train/state.py``); checkpoints hold the full tree (``gather_leaf``) and
 are sliced again on load (``local_part``), so a run resumes at any world.
-``ep`` is the next slice (``core/config.py`` refuses it), and so is
-mixture of experts across processes, whose routing JAX computes over the
-global batch (:func:`check_model`).
 """
 
 from __future__ import annotations
@@ -105,9 +114,13 @@ class Mesh:
     same rows); ``pp``: the ranks that differ only in their ``pp``
     coordinate (the stages of one pipeline, the same rows); ``sums``: the
     data, sp and pp groups together (the ranks whose gradients of a whole
-    leaf, loss and token counts add up). Without ``sp``, ``pp`` and
-    ``sums`` the mesh has neither axis: groups of one, and the data
-    group."""
+    leaf, loss and token counts add up); ``ep``: the ranks that differ only
+    in their ``ep`` coordinate (they hold the slices of the stacked
+    experts); ``ep_sums`` and ``ep_replica``: ``sums`` and ``replica``
+    without the ep axis (the ranks whose gradients of one expert slice add
+    up). Without ``sp``, ``pp``, ``ep`` and ``sums`` the mesh has none of
+    these axes: groups of one, and the data group (the ep sums, sums or
+    replica)."""
 
     shape: dict[str, int]
     rank: int
@@ -119,13 +132,20 @@ class Mesh:
     sp: Any = None
     sums: Any = None
     pp: Any = None
+    ep: Any = None
+    ep_sums: Any = None
+    ep_replica: Any = None
 
     def __post_init__(self):
-        for axis in ("sp", "pp"):
+        for axis in ("sp", "pp", "ep"):
             if getattr(self, axis) is None:
                 object.__setattr__(self, axis, EchoGroup(1, 0))
         if self.sums is None:
             object.__setattr__(self, "sums", self.data)
+        if self.ep_sums is None:
+            object.__setattr__(self, "ep_sums", self.sums)
+        if self.ep_replica is None:
+            object.__setattr__(self, "ep_replica", self.replica)
 
     @property
     def ways(self) -> int:
@@ -161,7 +181,9 @@ def mesh_shape(cfg: MeshConfig, n: int) -> dict[str, int]:
 # each group: the axes along which its ranks differ
 _GROUP_AXES = {"world": AXES, "data": DATA_AXES, "fsdp": ("fsdp",),
                "replica": ("dcn", "dp", "ep", "sp", "pp"), "tp": ("tp",), "sp": ("sp",),
-               "sums": (*DATA_AXES, "sp", "pp"), "pp": ("pp",)}
+               "sums": (*DATA_AXES, "sp", "pp"), "pp": ("pp",), "ep": ("ep",),
+               "ep_sums": ("dcn", "dp", "fsdp", "sp", "pp"),
+               "ep_replica": ("dcn", "dp", "sp", "pp")}
 
 
 def mesh_groups(shape: dict[str, int]) -> dict[str, list[list[int]]]:
@@ -199,31 +221,19 @@ def build_mesh(cfg: MeshConfig, *, world: int, rank: int) -> Mesh:
     return mesh
 
 
-def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0, sp: int = 1,
+def check_model(cfg: ModelConfig, tp: int = 1, lm_head_bits: int = 0,
                 pp: int = 1) -> None:
-    """Raises for a model the mesh cannot run yet: mixture of experts
-    routes with a capacity and balance losses over the global batch in
-    JAX, which the port's per-rank routing would change (under ``sp`` a
-    rank would route its chunk of the sequence alone; under ``pp`` JAX
-    refuses MoE blocks in the LLM with its message). Under ``tp`` a
-    Llama's kv heads must divide (a rank runs whole kv heads), and so must
-    every tp dimension of the model's leaves (:func:`shard_params`' check
-    over the full-size tree as fake tensors, one block of each stack, the
-    head quantized with ``lm_head_bits`` as ``quantize_llm`` pads it)."""
+    """Raises for a model the mesh cannot run: under ``pp`` the JAX
+    package refuses MoE blocks in the LLM, with its message (the ``moe``
+    connector runs on every stage). Under ``tp`` a Llama's kv heads must
+    divide (a rank runs whole kv heads), and so must every tp dimension of
+    the model's leaves (:func:`shard_params`' check over the full-size tree
+    as fake tensors, one block of each stack, the head quantized with
+    ``lm_head_bits`` as ``quantize_llm`` pads it)."""
     if cfg.llm.moe_experts > 0 and pp > 1:
         raise ValueError(
             "llm.moe_experts with mesh.pp > 1 is unsupported (the "
             "GPipe stage scan does not thread MoE aux losses)")
-    if (cfg.connector_type == "moe" or cfg.llm.moe_experts > 0) and sp > 1:
-        raise NotImplementedError(
-            f"mixture of experts under mesh.sp={sp}: JAX routes with a capacity over "
-            "the global token set, and a rank would route its own chunk of the "
-            "sequence; run MoE without mesh.sp")
-    if cfg.connector_type == "moe" or cfg.llm.moe_experts > 0:
-        raise NotImplementedError(
-            "mixture of experts across processes routes over the global "
-            "batch; it comes with mesh.ep in the next slice of the port. "
-            "Run MoE on one card (WORLD_SIZE=1)")
     if tp <= 1:
         return
     if cfg.llm.n_kv_heads % tp:
@@ -327,6 +337,11 @@ def tp_of(t: Any) -> Shard | None:
     return next((s for s in shards_of(t) if s.axis == "tp"), None)
 
 
+def ep_of(t: Any) -> Shard | None:
+    """The ep slicing of a leaf (its E experts), or None."""
+    return next((s for s in shards_of(t) if s.axis == "ep"), None)
+
+
 def tag(t: torch.Tensor, shards: Shard | tuple[Shard, ...] | None) -> torch.Tensor:
     if isinstance(shards, Shard):
         shards = (shards,)
@@ -335,18 +350,18 @@ def tag(t: torch.Tensor, shards: Shard | tuple[Shard, ...] | None) -> torch.Tens
     return t
 
 
-def tp_group(tree: Any) -> Any:
-    """The tp group of the first tp-sliced leaf of ``tree`` (a Megatron
-    block's leaves), or None."""
+def tp_group(tree: Any, axis: str = "tp") -> Any:
+    """The group of the first leaf of ``tree`` sliced on ``axis`` (tp: a
+    Megatron block's leaves; ep: the stacked experts), or None."""
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
         for v in tree:
-            g = tp_group(v)
+            g = tp_group(v, axis)
             if g is not None:
                 return g
         return None
-    s = tp_of(tree)
+    s = next((s for s in shards_of(tree) if s.axis == axis), None)
     return s.group if s is not None else None
 
 
@@ -385,14 +400,16 @@ def _check_divides(path: tuple[str, ...], spec: tuple, d: int, shape: tuple,
             f"by {ways}, but it is equal to {n} (full shape: {shape})")
 
 
-def shard_params(params: Any, mesh: Mesh, axes: tuple[str, ...] = ("fsdp", "tp")) -> Any:
-    """A tree whose leaves with an fsdp or tp spec (of ``axes``) hold this
-    rank's slice (a copy, tagged with its slicings, :class:`Shard`); the other
-    leaves are the same tensors. A dimension that does not divide raises,
-    as ``jax.device_put`` does. Without such an axis above 1 the tree comes
-    back as it is. The decode CLI passes ``axes=("tp",)``: it holds what
-    fsdp would shard whole."""
-    groups = {a: getattr(mesh, a) for a in ("tp", "fsdp") if a in axes and mesh.shape[a] > 1}
+def shard_params(params: Any, mesh: Mesh,
+                 axes: tuple[str, ...] = ("fsdp", "tp", "ep")) -> Any:
+    """A tree whose leaves with an fsdp, tp or ep spec (of ``axes``) hold
+    this rank's slice (a copy, tagged with its slicings, :class:`Shard`);
+    the other leaves are the same tensors. A dimension that does not divide
+    raises, as ``jax.device_put`` does. Without such an axis above 1 the
+    tree comes back as it is. The decode CLI passes ``axes=("tp",)``: it
+    holds what fsdp and ep would shard whole."""
+    groups = {a: getattr(mesh, a) for a in ("tp", "ep", "fsdp")
+              if a in axes and mesh.shape[a] > 1}
     if not groups:
         return params
 
@@ -431,31 +448,38 @@ class _Gather(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
 
 
-def gather_leaf(t: Any, keep_tp: bool = False) -> Any:
+def _gather_dim(t: torch.Tensor, s: Shard) -> torch.Tensor:
+    if t.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(t, s.dim, s.group)
+    return s.group.all_gather(t, s.dim)
+
+
+def gather_leaf(t: Any, keep_tp: bool = False, keep_ep: bool = False) -> Any:
     """The full tensor of a sharded leaf (through autograd Functions when
-    it needs a gradient), or the leaf itself. ``keep_tp`` gathers the fsdp
-    slicing only and keeps (and tags) the tp slice: a Megatron block's
-    view of its leaves."""
-    fs, tp = shard_of(t), tp_of(t)
+    it needs a gradient), or the leaf itself. ``keep_tp`` keeps (and tags)
+    the tp slice: a Megatron block's view of its leaves; ``keep_ep`` keeps
+    (and tags) the ep slice: the experts a MoE block runs on this rank."""
+    fs, tp, ep = shard_of(t), tp_of(t), ep_of(t)
     out = t
     if fs is not None:
-        if t.requires_grad and torch.is_grad_enabled():
-            out = _Gather.apply(t, fs.dim, fs.group)
+        out = _gather_dim(out, fs)
+    if ep is not None and not keep_ep:
+        out = _gather_dim(out, ep)
+    kept = tuple(s for s, keep in ((tp, keep_tp), (ep, keep_ep)) if s is not None and keep)
+    if tp is not None and not keep_tp:
+        if tp.packed:       # integer leaves: never trained
+            out = _join(tp.group.all_gather(out, 0), tp)
         else:
-            out = fs.group.all_gather(t, fs.dim)
-    if tp is None:
-        return out
-    if keep_tp:
-        return tag(out, tp) if out is not t else t
-    if tp.packed:       # integer leaves: never trained
-        return _join(tp.group.all_gather(out, 0), tp)
-    return gather_from_tp(out, tp.group, tp.dim)
+            out = gather_from_tp(out, tp.group, tp.dim)
+    if out is t:
+        return t
+    return tag(out, kept)
 
 
-def gather_tree(tree: Any, keep_tp: bool = False) -> Any:
-    """``tree`` with every sharded leaf gathered (``keep_tp``: its fsdp
-    slicing only); new containers, the same tensors elsewhere."""
-    return _walk(lambda _, t: gather_leaf(t, keep_tp), tree)
+def gather_tree(tree: Any, keep_tp: bool = False, keep_ep: bool = False) -> Any:
+    """``tree`` with every sharded leaf gathered (``keep_tp``, ``keep_ep``:
+    but for those slicings); new containers, the same tensors elsewhere."""
+    return _walk(lambda _, t: gather_leaf(t, keep_tp, keep_ep), tree)
 
 
 def is_sharded(tree: Any) -> bool:
@@ -489,11 +513,13 @@ def local_part(full: torch.Tensor, like: torch.Tensor, what: str = "") -> torch.
 class RowShard(NamedTuple):
     """This rank's rows of a global batch: they start at global row
     ``start`` of ``total``; ``group`` sums every rank's share (the data,
-    sp and pp groups)."""
+    sp and pp groups); ``data`` holds the ranks with other rows (the data
+    group: whose tokens a MoE block routes with this rank's)."""
 
     start: int
     total: int
     group: Any
+    data: Any = None
 
 
 def row_shard(mesh: Mesh | None, local_rows: int) -> RowShard | None:
@@ -503,7 +529,8 @@ def row_shard(mesh: Mesh | None, local_rows: int) -> RowShard | None:
     label tokens, under pp each stage counts its rows' tokens)."""
     if mesh is None:
         return None
-    return RowShard(mesh.data.rank * local_rows, mesh.ways * local_rows, mesh.sums)
+    return RowShard(mesh.data.rank * local_rows, mesh.ways * local_rows, mesh.sums,
+                    mesh.data)
 
 
 def pad_rows(batch: NamedTuple, ways: int) -> tuple[NamedTuple, int]:

@@ -32,6 +32,7 @@ from avsr_tpu_torch.models.whisper_encoder import (
     init_whisper_encoder,
     whisper_encoder_apply,
 )
+from avsr_tpu_torch.ops import moe
 from avsr_tpu_torch.ops.attention import ring_span
 
 # Params-tree keys of the (freezable) encoder subtrees, by config name.
@@ -175,7 +176,7 @@ def encode_video(params: Params, cfg: ModelConfig, batch: Batch, *,
 def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
            compute_dtype: torch.dtype = torch.float32,
            use_kernel: str = "auto", remat: bool = False,
-           moe_rowwise: bool = False, sp=None) -> EncodeOut:
+           moe_rowwise: bool = False, sp=None, moe_group=None) -> EncodeOut:
     """Run the modality encoders + connectors and fuse them. Frozen
     encoders run under ``torch.no_grad()`` (the JAX ``stop_gradient``):
     no backward graph is built for them. ``model.unfreeze_layer_norms``
@@ -189,12 +190,15 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
     (fsdp, ``mesh/sharding.py``) are gathered where they are used. ``sp``
     (the mesh's sp group) shards the sequence of the Whisper, HuBERT/
     Wav2Vec2 and AV-HuBERT block stacks (ring attention), as JAX threads
-    its mesh into them; their outputs come back whole."""
+    its mesh into them; their outputs come back whole. ``moe_group`` (the
+    data group of a training rank) routes the MoE connector's training
+    routing over every rank's rows, and its experts keep their ep
+    slices."""
     conn = get_connector(cfg.connector_type)
     # under fsdp and tp the other encoders and the connectors gather their
     # whole subtree here; Whisper and CLIP gather (fsdp) or run Megatron
     # (tp) block by block
-    params = {k: v if k in ("whisper", "clip", "llm") else gather_tree(v)
+    params = {k: v if k in ("whisper", "clip", "llm") else gather_tree(v, keep_ep=True)
               for k, v in params.items()}
     frozen = cfg.freeze_encoders and not cfg.unfreeze_layer_norms
     tune_avhubert = cfg.video_encoder == "avhubert" and bool(cfg.finetune_avhubert_layers)
@@ -223,7 +227,8 @@ def encode(params: Params, cfg: ModelConfig, batch: Batch, *,
                  else torch.full((vfeats.shape[0],), vfeats.shape[1],
                                  dtype=torch.int32, device=vfeats.device))
 
-    ckw = dict(use_kernel=use_kernel, model_cfg=cfg, moe_rowwise=moe_rowwise)
+    ckw = dict(use_kernel=use_kernel, model_cfg=cfg, moe_rowwise=moe_rowwise,
+               moe_routing=moe.Routing(moe_group) if moe_group is not None else None)
     if conn.dual:
         out, lens, aux = _conn_out(conn.apply(params["connector"], feats, vfeats,
                                               alens, vlens, **ckw))
@@ -328,13 +333,26 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     stage counts its rows' label tokens, so the count summed over
     ``shard.group`` (which holds the pp group) or ``pp`` is the global one
     times the stages: ``loss`` and ``accuracy`` are each rank's
-    ``1 / pp`` share, and ``label_tokens`` reports the global count."""
+    ``1 / pp`` share, and ``label_tokens`` reports the global count.
+
+    Mixture of experts across processes: the connector routes over the
+    data group's rows and the LLM over the data group's (and under sp the
+    ring's chunks'), so ``moe_lb`` and ``moe_z`` are the global batch's, the
+    same on every rank that shares them. Each rank adds ``1 / n`` of them
+    to its loss and reports ``1 / n`` in its metrics, n the ranks whose
+    losses sum (``shard.group``): their losses sum to one card's, and since
+    the routing sums' gradients are summed over the routing group
+    (``collectives.sum_over``) every rank's router and token gradients are
+    its own tokens' share of one card's, counted once when
+    ``train/step.py::reduce_grads`` sums them (the connector's, which every
+    sp and pp rank of a data position computes, included)."""
     llm = params["llm"]
     params = {**params, "llm": {**gather_tree({k: v for k, v in llm.items() if k != "layers"},
                                               keep_tp=True),
                                 "layers": llm["layers"]}}
     enc = encode(params, cfg, batch, compute_dtype=compute_dtype,
-                 use_kernel=use_kernel, remat=remat, sp=sp)
+                 use_kernel=use_kernel, remat=remat, sp=sp,
+                 moe_group=shard.data if shard is not None else None)
     B = enc.features.shape[0]
     dev = enc.features.device
     prompt = batch.prompt_tokens.to(dev)
@@ -354,13 +372,16 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
     Ttot = packed.shape[1]
     llm_moe = cfg.llm.moe_experts > 0
     span = ring_span(sp, Ttot)
+    # the LLM's tokens route over every rank's rows, and the ring's chunks
+    llm_group = None if shard is None else shard.group if span is not None else shard.data
     hidden, _, *llm_aux = llama_mod.llama_apply(
         params["llm"], cfg.llm, inputs_embeds=packed, lengths=total,
         lora=cfg.lora if cfg.lora.use_lora else None,
         compute_dtype=compute_dtype, use_kernel=use_kernel, remat=remat,
         dropout_seed=dropout_seed, output="hidden", return_aux=llm_moe,
         dropout_row0=shard.start if shard is not None else 0, sp=sp,
-        gather_hidden=False, pp=pp, global_rows=shard.total if shard is not None else None)
+        gather_hidden=False, pp=pp, global_rows=shard.total if shard is not None else None,
+        moe_group=llm_group)
 
     Tl = labels.shape[1]
     i = torch.arange(Tl, device=dev)[None, :]
@@ -409,6 +430,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Batch, *,
         moe_lb = llm_aux[0]["moe_lb"] + (0.0 if moe_lb is None else moe_lb)
         moe_z = llm_aux[0]["moe_z"] + (0.0 if moe_z is None else moe_z)
     if moe_lb is not None:
+        share = 1.0 / group.size if group is not None else 1.0
+        moe_lb, moe_z = moe_lb * share, moe_z * share
         loss = loss + (cfg.moe_aux_weight * moe_lb + cfg.moe_z_weight * moe_z).to(loss.dtype)
         metrics.update(moe_lb=moe_lb, moe_z=moe_z, loss=loss)
     return loss, metrics

@@ -57,6 +57,7 @@ from avsr_tpu_torch.models.layers import (
     normal_init,
     sinusoid_position_embedding,
 )
+from avsr_tpu_torch.mesh.sharding import tp_group
 from avsr_tpu_torch.ops import moe
 
 
@@ -394,14 +395,17 @@ def moe_init(gen, d_in, d_out, cfg: ModelConfig, dtype=torch.float32) -> Params:
 
 
 def _moe_block(blk: Params, x: torch.Tensor, valid: torch.Tensor, topk: int,
-               cap_factor: float, rowwise: bool = False
+               cap_factor: float, rowwise: bool = False,
+               routing: moe.Routing | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One MoE-FFN over x [B, T, d] (the block's residual is the caller's):
     (y, lb loss, z loss), the gelu two-matrix experts in x's dtype.
     ``rowwise`` (inference) routes each row within its own capacity slots
     (``ops/moe.py::ffn``), so a request's features are the same in any
     batch: the encode-side half of the engine == generate_tokens
-    contract."""
+    contract. Training routes over the rows of every rank of ``routing``
+    (the data group: every sp, tp and pp rank holds whole rows), and
+    experts sliced over ep are this rank's E / ep."""
     cdt = x.dtype
     w1, b1, w2, b2 = (blk["experts"][n].to(cdt) for n in ("w1", "b1", "w2", "b2"))
 
@@ -409,11 +413,13 @@ def _moe_block(blk: Params, x: torch.Tensor, valid: torch.Tensor, topk: int,
         h = gelu(torch.matmul(xs, w1) + b1[:, None, :])
         return torch.matmul(h, w2) + b2[:, None, :]
 
-    return moe.ffn(x, blk["router"]["w"], valid, topk, cap_factor, experts, rowwise=rowwise)
+    return moe.ffn(x, blk["router"]["w"], valid, topk, cap_factor, experts, rowwise=rowwise,
+                   routing=routing, ep=tp_group(blk["experts"], "ep"))
 
 
 def moe_apply(p: Params, x: torch.Tensor, lengths=None, *,
-              model_cfg: ModelConfig | None = None, moe_rowwise: bool = False, **_):
+              model_cfg: ModelConfig | None = None, moe_rowwise: bool = False,
+              moe_routing: moe.Routing | None = None, **_):
     if model_cfg is None:
         raise ValueError("moe connector needs model_cfg threaded into apply")
     lens = _ident_lens(x, lengths)
@@ -424,7 +430,8 @@ def moe_apply(p: Params, x: torch.Tensor, lengths=None, *,
     z = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in p["blocks"]:
         y, blb, bz = _moe_block(blk, layer_norm(blk["ln"], h), valid, model_cfg.moe_topk,
-                                model_cfg.moe_capacity_factor, rowwise=moe_rowwise)
+                                model_cfg.moe_capacity_factor, rowwise=moe_rowwise,
+                                routing=moe_routing)
         h = h + y
         lb = lb + blb
         z = z + bz

@@ -57,7 +57,13 @@ bounded capacity and returns the router losses (``return_aux``); every
 inference prefill routes row by row (``moe_rowwise``) and every token step
 (decode, verify, beam) without drops (``dropless``), so a request's tokens
 never depend on what shares its batch. The routers and experts stay float
-under quantization.
+under quantization. Across processes the training routing is the global
+batch's (``llama_apply``'s ``moe_group``, ``ops/moe.py::Routing``, under sp
+over the ring's chunks too), a ring's prefill routes each row over its
+chunks, the experts run Megatron style under tp (gate and up on column
+slices of the FFN width, down on row slices, the router replicated), and
+under ep each rank runs its E / ep experts on the slots the exchange
+brings it.
 """
 
 from __future__ import annotations
@@ -374,42 +380,52 @@ def _proj_mlp(layer: Params, h: torch.Tensor, ls: float,
 
 def _moe_mlp(layer: Params, h: torch.Tensor, cfg: LLMConfig,
              valid: torch.Tensor | None = None, dropless: bool = False,
-             rowwise: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             rowwise: bool = False, routing: moe.Routing | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sparse SwiGLU MoE FFN over h [B, T, d]: (y, lb loss, z loss).
     ``valid`` [B, T] masks right-padding (None: every token is live).
-    Training routes with the flattened bounded capacity; every inference
-    prefill passes ``rowwise`` and every token step (decode, verify, beam)
-    ``dropless`` (``ops/moe.py::ffn``), so that a request's tokens do not
-    depend on what shares its batch. ``dropless`` is a topk * N^2 * E
-    dispatch, so not for prefills."""
+    Training routes with the flattened bounded capacity (over the ranks of
+    ``routing``); every inference prefill passes ``rowwise`` and every
+    token step (decode, verify, beam) ``dropless`` (``ops/moe.py::ffn``),
+    so that a request's tokens do not depend on what shares its batch.
+    ``dropless`` is a topk * N^2 * E dispatch, so not for prefills. Experts
+    sliced over tp run Megatron style (the slots copied in, the partial
+    outputs all-reduced); experts sliced over ep are this rank's E / ep."""
     cdt = h.dtype
-    wg, wu, wd = (layer["experts"][n].to(cdt) for n in ("w_gate", "w_up", "w_down"))
+    ex = layer["experts"]
+    tp, ep = tp_group(ex), tp_group(ex, "ep")
+    wg, wu, wd = (ex[n].to(cdt) for n in ("w_gate", "w_up", "w_down"))
 
-    def experts(xs: torch.Tensor) -> torch.Tensor:               # [E, C', d]
-        return torch.matmul(F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu), wd)
+    def experts(xs: torch.Tensor) -> torch.Tensor:               # [E', C', d]
+        xs = copy_to_tp(xs, tp)
+        y = torch.matmul(F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu), wd)
+        return reduce_from_tp(y, tp)
 
     if valid is None:
         valid = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
     return moe.ffn(h, layer["router"]["w"], valid, cfg.moe_topk, cfg.moe_capacity_factor,
-                   experts, rowwise=rowwise, dropless=dropless)
+                   experts, rowwise=rowwise, dropless=dropless, routing=routing, ep=ep)
 
 
 def _ffn(layer: Params, x: torch.Tensor, cfg: LLMConfig, ls: float,
          use_kernel: str = "auto", lengths: torch.Tensor | None = None,
-         dropless: bool = False, rowwise: bool = False, tp=None
+         dropless: bool = False, rowwise: bool = False, tp=None,
+         routing: moe.Routing | None = None, pos0: int = 0
          ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Post-attention FFN residual: (x + ffn(ln(x)), aux). A dense block
     runs down(silu(gate) * up) and gives aux None (under tp, gate and up
     column-parallel, down row-parallel, one all-reduce); a MoE block (one
-    with ``experts``) runs :func:`_moe_mlp`, its valid tokens the first
-    ``lengths`` [B] of each row, and gives aux (lb, z)."""
+    with ``experts``) runs :func:`_moe_mlp` over ``routing``, its valid
+    tokens the first ``lengths`` [B] of each row (x holding positions
+    ``pos0`` on: a ring's chunk), and gives aux (lb, z)."""
     h = rms_norm(layer["ln_mlp"], x, eps=cfg.rms_eps)
     if "experts" in layer:
         valid = None
         if lengths is not None:
-            valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+            valid = (torch.arange(pos0, pos0 + x.shape[1], device=x.device)[None, :]
                      < lengths.to(x.device)[:, None])
-        y, lb, z = _moe_mlp(layer, h, cfg, valid, dropless=dropless, rowwise=rowwise)
+        y, lb, z = _moe_mlp(layer, h, cfg, valid, dropless=dropless, rowwise=rowwise,
+                            routing=routing)
         return x + y, (lb, z)
     h = copy_to_tp(h, tp)
     y = proj(layer["down"], _proj_mlp(layer, h, ls, use_kernel, tp),
@@ -500,7 +516,7 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
            lengths: torch.Tensor | None, ls: float, use_kernel: str,
            ldrop: float = 0.0, dropout_seed: int | None = None,
            index: int = 0, moe_rowwise: bool = False, row0: int = 0, sp=None,
-           seq: tuple[int, int] | None = None):
+           seq: tuple[int, int] | None = None, routing: moe.Routing | None = None):
     """One block over [B, T, d]: (x, (k, v), MoE aux or None). Its rows are
     rows ``row0`` on of the global batch (for the dropout masks); under
     sequence parallelism (the sp group ``sp``) x is this rank's chunk, its
@@ -510,10 +526,11 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
     rank's ``n_heads / tp`` q heads and ``n_kv_heads / tp`` kv heads (the
     GQA grouping kept), q, k, v, gate and up column-parallel, o and down
     row-parallel, one all-reduce after the attention and one after the
-    MLP; (k, v) are the rank's heads."""
+    MLP; (k, v) are the rank's heads. A MoE FFN routes over ``routing``
+    and keeps its ep slices of the experts."""
     B, T, d = x.shape
     hd = d // cfg.n_heads
-    layer = gather_tree(layer, keep_tp=True)
+    layer = gather_tree(layer, keep_tp=True, keep_ep=True)
     tp = tp_group(layer)
     nh, nkv = local_heads(cfg, tp)
     # created inside the block so that a remat recomputation redraws the
@@ -534,7 +551,7 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, cfg: LLMConfig,
                                 generator=gen, use_kernel=use_kernel, tp=tp, row=True,
                                 seq=seq), tp)
     x, aux = _ffn(layer, x, cfg, ls, use_kernel, lengths=lengths, rowwise=moe_rowwise,
-                  tp=tp)
+                  tp=tp, routing=routing, pos0=seq[0] if seq is not None else 0)
     return x, (k, v), aux
 
 
@@ -554,7 +571,7 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
                 cache_len: int | None = None, output: str = "logits",
                 return_aux: bool = False, moe_rowwise: bool = False,
                 dropout_row0: int = 0, sp=None, gather_hidden: bool = True,
-                pp=None, global_rows: int | None = None):
+                pp=None, global_rows: int | None = None, moe_group=None):
     """Full causal forward over [B, T, d] embeddings -> (logits [B,T,V] or
     final normed hidden [B,T,d] with ``output="hidden"``, cache or None),
     and with ``return_aux`` a third item, {"moe_lb", "moe_z"}: the MoE
@@ -568,7 +585,11 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     counterpart of ``dropout_rng``, with masks drawn per row; the rows are
     rows ``dropout_row0`` on of a global batch (a rank's share of it). ``moe_rowwise`` (every inference
     prefill sets it) routes MoE blocks row by row (see :func:`_moe_mlp`);
-    training keeps the flattened bounded capacity.
+    training keeps the flattened bounded capacity, over the tokens of every
+    rank of ``moe_group`` (a rank's rows of the global batch: the data
+    group, or the data and sp groups when the ring engages; its ranks in
+    data-major, chunk-minor order), with the global capacity, slots and
+    router losses (``ops/moe.py::Routing``).
 
     ``sp`` (sequence parallelism, the mesh's sp group): where JAX's ring
     engages (``ring_span``: T a multiple of the group's size) each rank runs
@@ -598,9 +619,10 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     span = ring_span(sp, T)
     ring = sp if span else None
     c0, c1 = span or (0, T)
-    if ring is not None and cfg.moe_experts > 0:
-        raise NotImplementedError("MoE blocks under mesh.sp route over the global token "
-                                  "set; run them without mesh.sp")
+    routing = None
+    group = ring if moe_rowwise else (moe_group if moe_group is not None else ring)
+    if cfg.moe_experts > 0 and group is not None:
+        routing = moe.Routing(group, ring.size if ring is not None else 1)
     x = scatter_to_sp(inputs_embeds.to(compute_dtype), ring, 1)
     cos, sin = rope_cos_sin(torch.arange(c0, c1, device=x.device), d // cfg.n_heads,
                             cfg.rope_theta)
@@ -632,7 +654,7 @@ def llama_apply(params: Params, cfg: LLMConfig, *, inputs_embeds: torch.Tensor,
     for i, layer in enumerate([] if pipelined else params["layers"]):
         args = (layer, x, cos, sin, cfg, lengths, ls, use_kernel, ldrop,
                 dropout_seed, i, moe_rowwise, dropout_row0, ring,
-                (c0, T) if ring is not None else None)
+                (c0, T) if ring is not None else None, routing)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_block_remat, *args, use_reentrant=False)
         else:

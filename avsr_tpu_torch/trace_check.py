@@ -14,8 +14,9 @@ calls (``cudaLaunchKernel`` and ``cuLaunchKernel``, the ctypes launches
 included) among the events that the CLI reads (``trace_events``, less the
 guard call that opens each window) whose ``correlation`` no kernel event
 carries: their index among the launches and their offset from the first
-host event. It prints one JSON line per profile and a summary line. Needs
-a CUDA device.
+host event, from one read of the trace (``trace_events``) that also gives
+the kernels it counts. It prints one JSON line per profile and a summary
+line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -81,11 +82,12 @@ def main(argv: list[str] | None = None) -> int:
                 if err is not None:
                     (outputs / "trace_check").mkdir(exist_ok=True)
                     shutil.copy(trace, outputs / "trace_check" / f"{mode}{r}.json")
-                unlinked = unlinked_launches(profile.trace_events(trace))
+                events = profile.trace_events(trace)
+                unlinked = unlinked_launches(events)
                 total += 1
                 failed += err is not None
                 print(json.dumps(dict(round=r, mode=mode, seconds=time.perf_counter() - t0,
-                                      check_failed=err, kernels=profile.kernel_counts(trace),
+                                      check_failed=err, kernels=profile.kernel_counts(events),
                                       unlinked=unlinked[:20], n_unlinked=len(unlinked))),
                       flush=True)
     print(json.dumps(dict(root=args.root, profiles=total, failed=failed,

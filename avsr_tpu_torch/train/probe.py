@@ -14,9 +14,10 @@ probe a parameter tree of its own (the train CLI makes a second init and
 drops it afterwards, as the JAX CLI does).
 
 Under a mesh (JAX ``probe.py:77``) the size is the global batch, from the
-data-parallel ways up, and each rank probes its own share: its rows and,
-under fsdp or tp, its slices of the sharded leaves, over groups that gather and
-reduce locally (``Mesh.echo``). So a rank that runs out of memory never
+data-parallel ways up (``ep`` is one of them), and each rank probes its own
+share: its rows and, under fsdp, tp or ep, its slices of the sharded
+leaves, over groups that gather, exchange and reduce locally
+(``Mesh.echo``). So a rank that runs out of memory never
 leaves the others waiting in a collective; at the end every rank takes
 the smallest size any rank found. Under ``mesh.pp`` every size it tries
 is a multiple of the stages too (JAX's pipeline check: the global batch

@@ -25,8 +25,8 @@ import torch
 
 from avsr_tpu_torch.core.config import AVSRConfig
 from avsr_tpu_torch.core.logging import trace_range
-from avsr_tpu_torch.mesh.sharding import (RowShard, check_model, row_shard, shard_of,
-                                          shards_of, tag)
+from avsr_tpu_torch.mesh.sharding import (RowShard, check_model, ep_of, row_shard,
+                                          shard_of, shards_of, tag)
 from avsr_tpu_torch.models.avsr import Batch, forward
 from avsr_tpu_torch.ops.specaugment import specaugment
 from avsr_tpu_torch.ops.videoaug import video_augment
@@ -126,10 +126,18 @@ def reduce_grads(grads: list[torch.Tensor], leaves: list[torch.Tensor], mesh) ->
     because each stage's loss is ``1 / pp`` of its rows' share
     (``models/avsr.py::forward``) and the return's backward sums the
     stages' gradients of the hidden states (``psum``'s transpose). The
-    gradients come back tagged as their leaves, for :func:`global_norm`."""
+    gradients come back tagged as their leaves, for :func:`global_norm`.
+
+    An ep-sliced leaf (stacked experts, ``mesh.ep``) holds other experts
+    than the other ranks of its ep group, and its owner's gradient already
+    covers the ep group's tokens (the exchange's backward), so it is summed
+    over the same groups without the ep axis (``ep_sums``, or
+    ``ep_replica`` when fsdp slices it too)."""
     by_group: dict[int, tuple[Any, list[torch.Tensor]]] = {}
     for g, p in zip(grads, leaves):
-        group = mesh.replica if shard_of(p) is not None else mesh.sums
+        fs, ep = shard_of(p) is not None, ep_of(p) is not None
+        group = ((mesh.ep_replica if ep else mesh.replica) if fs
+                 else mesh.ep_sums if ep else mesh.sums)
         by_group.setdefault(id(group), (group, []))[1].append(tag(g, shards_of(p)))
     for group, gs in by_group.values():
         if group.size == 1:
@@ -173,7 +181,7 @@ def make_train_step(cfg: AVSRConfig, mesh=None
     sums span the pp group too (:func:`reduce_grads`)."""
     sp = pp = None
     if mesh is not None:
-        check_model(cfg.model, mesh.shape["tp"], sp=mesh.shape["sp"], pp=mesh.shape["pp"])
+        check_model(cfg.model, mesh.shape["tp"], pp=mesh.shape["pp"])
         sp, pp = mesh.sp, mesh.pp
 
     extra_keys = (("moe_lb", "moe_z")

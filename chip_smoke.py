@@ -216,10 +216,13 @@
    analyze_memory CLI (every component's bytes on the card at least its
    logical bytes, the allocator's delta beside them, the four modes'
    totals); the profile CLI over 2 train steps at the largest buckets (B =
-   8) and over one decode call of 32 tokens in bf16 and with the serving
-   preset: each trace's kernels by name equal the wrappers' counters over
-   the traced steps, its device time, duty cycle and top categories,
-   scopes and kernels printed. Removes what it wrote.
+   8) and over one decode call of 32 tokens in bf16: each trace's kernels
+   by name (the CLI's ``kernels_in_trace``, from its one read of the
+   trace) equal the wrappers' counters over the traced steps, its device
+   time, duty cycle and top categories, scopes and kernels printed. The
+   serving preset's decode is not profiled here: the preset CLI phase and
+   phases 22-25 check its int4 and int8 launches exactly. Removes what it
+   wrote.
 21. Mesh phase (``mesh_phase``), at the flagship's widths and a quarter
    of its depth (6 Whisper, 3 CLIP and 4 LLM blocks), random weights from
    --seed: ranks started as ``python3 chip_smoke.py
@@ -310,6 +313,26 @@
    and under the serving preset every rank launches the qmatmul kernels
    (decoding runs the whole stack on every rank, as JAX's does). Removes
    what it wrote.
+25. Expert-parallel phase (``ep_phase``), at full width on
+   ``flagship_moe()`` with both capacity factors at 0.25 (the bounded
+   training routing drops assignments), phase 18's bucket (10 s audio, 25
+   frames), random weights from --seed: ``mesh.ep=2`` over 2 ranks sharing
+   card 0 (gloo, phase 24's rank pool), and where there are 2 cards over
+   NCCL, and where there are 4 ``mesh.dp=2 mesh.ep=2`` over NCCL. Each rank
+   holds E / 2 of every expert leaf. Train steps at full depth: f32 (TF32
+   off) one step at a global batch of one row per data rank whose loss,
+   grad norm, ``moe_lb``, ``moe_z``, an expert leaf of the connector and
+   two LoRA ``b`` leaves equal a one-process run's, with assignments
+   dropped on every rank, then bf16 two steps at 4 rows per data rank, ms
+   and peak per rank beside one process's; under ``mesh.sp=2`` one f32
+   step at phase 21's quarter depth and the largest buckets (the LLM's
+   tokens routed over the ring's chunks) with the same gates. Each rank's
+   launches exact (``ep_ranks`` in the ``kernels`` line). At the quarter
+   depth and audio-only (one moe connector: the train CLI's checkpoints
+   hold its experts' Adam moments), the train CLI (f32, 1 step on the
+   ranks, a resume at world 1) gives one card's two losses, the f32
+   decode CLI one card's HYP lines, and under the serving preset every
+   rank launches the qmatmul kernels. Removes what it wrote.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -318,8 +341,8 @@ Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
-JSON line instead; ``--tp-only``, ``--sp-only`` and ``--pp-only`` do the
-same for phases 22, 23 and 24. Each phase boundary prints the
+JSON line instead; ``--tp-only``, ``--sp-only``, ``--pp-only`` and
+``--ep-only`` do the same for phases 22, 23, 24 and 25. Each phase boundary prints the
 seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
@@ -5729,17 +5752,14 @@ def tooling_phase(seed: int) -> dict:
         print("tooling analyze_memory: " + json.dumps(res["analyze_memory"]))
         settle()
 
-        # ---- profile: train (the largest buckets, B = 8), decode, preset -----
-        steps_after_first = 31                  # 32 tokens, no EOS
+        # ---- profile: train (the largest buckets, B = 8) and decode ---------
+        # (the preset's decode is not profiled: its int4 and int8 launches
+        # are checked exactly by the preset CLI phase and phases 22-24)
         for tag, mode, steps, over, per_step in (
                 ("profile_train", "train", 2, [],
                  want(flash=nW + 2 * nL, dq=nL, dkv=nL)),     # remat: the LLM twice
                 ("profile_decode", "decode", 1, ["decode.max_new_tokens=32"],
-                 want(flash=nW + nL)),
-                ("profile_decode_preset", "decode", 1,
-                 ["decode.max_new_tokens=32", *PRESET_OVERRIDES],
-                 want(flash=nW + nL, int8=1 + steps_after_first,
-                      int4=4 * nL * steps_after_first))):
+                 want(flash=nW + nL))):
             out = work / tag
             n_logged = len(rec.args("kernel launches"))
             rc = run(tag, profile.main, cli + ["--mode", mode, "--steps", str(steps),
@@ -5749,7 +5769,7 @@ def tooling_phase(seed: int) -> dict:
             check(len(traced_counts) == 1, f"{tag}: the counters' log line")
             counters = traced_counts[0]
             report = json.loads((out / "profile_report.json").read_text())
-            in_trace = profile.kernel_counts(report["trace"])
+            in_trace = report["kernels_in_trace"]       # the CLI's one read of the trace
             check(counters == in_trace == times(per_step, steps),
                   f"{tag}: kernels in the trace {in_trace}, the wrappers' counters "
                   f"{counters}, expected {times(per_step, steps)}")
@@ -5807,10 +5827,14 @@ MESH_DECODE_TOKENS = 16
 MESH_CLI_BATCH = 2
 
 
-def mesh_leaves(cfg) -> tuple[str, str]:
-    """The LoRA b leaves held to the one-process run after the steps: the
-    first block's q and the last block's o."""
-    return ("llm/layers/0/q/lora/b", f"llm/layers/{cfg.model.llm.n_layers - 1}/o/lora/b")
+def mesh_leaves(cfg) -> tuple[str, ...]:
+    """The leaves phases 21-25 hold to one process: two LoRA ``b`` (layer
+    0's q and the last layer's o), and with the ``moe`` connector its first
+    block's expert w1 (sliced over ep) and router."""
+    lora = ("llm/layers/0/q/lora/b", f"llm/layers/{cfg.model.llm.n_layers - 1}/o/lora/b")
+    if cfg.model.connector_type != "moe":
+        return lora
+    return (*lora, "audio_connector/blocks/0/experts/w1", "audio_connector/blocks/0/router/w")
 
 
 def mesh_cfg(dtype: str, mesh: tuple[str, ...] = ()):
@@ -5836,10 +5860,11 @@ def mesh_params(cfg, seed: int):
     return cast_frozen(params, cfg.model, getattr(torch, cfg.runtime.compute_dtype))
 
 
-def mesh_batch(cfg, B: int, seed: int):
-    """A global train batch [1, B, ...] at the largest buckets (3000 mel
-    frames, 100 video frames), ragged lengths and 10-48 label tokens, made
-    on the card from ``seed``: the same in every process."""
+def mesh_batch(cfg, B: int, seed: int, bucket: tuple[int, int] = (3000, 100)):
+    """A global train batch [1, B, ...] at the ``bucket`` of (mel frames,
+    video frames), by default the largest (3000, 100), ragged lengths (from
+    2/3 of the bucket up) and 10-48 label tokens, made on the card from
+    ``seed``: the same in every process."""
     import torch
 
     from avsr_tpu_torch.data.tokenizer import ByteTokenizer
@@ -5854,25 +5879,30 @@ def mesh_batch(cfg, B: int, seed: int):
         return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
 
     prompt = ByteTokenizer().encode(m.prompt, add_bos=True)
+    T, F = bucket
     return microbatch(Batch(
-        mel=torch.randn((B, m.whisper.n_mels, 3000), generator=g, device="cuda"),
-        mel_lens=ints(2000, 3001, (B,)),
-        frames=torch.randn((B, 100, 3, m.image_size, m.image_size), generator=g,
+        mel=torch.randn((B, m.whisper.n_mels, T), generator=g, device="cuda"),
+        mel_lens=ints(2 * T // 3, T + 1, (B,)),
+        frames=torch.randn((B, F, 3, m.image_size, m.image_size), generator=g,
                            device="cuda").to(dt),
-        frame_lens=ints(60, 101, (B,)),
+        frame_lens=ints(3 * F // 5, F + 1, (B,)),
         prompt_tokens=torch.tensor(prompt, dtype=torch.int32, device="cuda")[None].expand(B, -1),
         labels=ints(0, min(1000, m.llm.vocab_size), (B, 48)), label_lens=ints(10, 49, (B,))), 1)
 
 
-def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None) -> dict:
-    """One run of ``MESH_TRAIN``: ``n`` steps on this rank's rows (all rows
-    without a mesh), each timed; the metrics, the step ms, the peak memory
-    and the watched LoRA leaves (gathered whole)."""
+def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None,
+                   bucket: tuple[int, int] = (3000, 100)) -> dict:
+    """One run of ``MESH_TRAIN`` (or phases 22-25's): ``n`` steps on this
+    rank's rows (all rows without a mesh) at ``bucket`` (``mesh_batch``),
+    each timed; the metrics, the step ms, the peak memory, the watched
+    leaves (gathered whole), the shapes this rank holds of the expert
+    leaves and the MoE assignments its routings dropped."""
     import torch
 
     from avsr_tpu_torch.mesh import sharding
     from avsr_tpu_torch.mesh.multihost import local_rows
     from avsr_tpu_torch.models.avsr import Batch
+    from avsr_tpu_torch.ops import moe
     from avsr_tpu_torch.train.state import create_train_state, path_leaves
     from avsr_tpu_torch.train.step import make_train_step
 
@@ -5883,24 +5913,37 @@ def mesh_train_run(B: int, dtype: str, mesh_over: tuple, n: int, mesh=None) -> d
     state = create_train_state(params, cfg, total_steps=1000)
     del params
     step = make_train_step(cfg, mesh)
-    batch = mesh_batch(cfg, B, MESH_SEED)
+    batch = mesh_batch(cfg, B, MESH_SEED, bucket)
     if mesh is not None:
         lo, hi = local_rows(B, (mesh.data.rank, mesh.ways))
         batch = Batch(*[None if x is None else x[:, lo:hi] for x in batch])
     settle()
     torch.cuda.reset_peak_memory_stats()
     metrics, ms = [], []
-    for i in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics.append(step(state, batch, MESH_SEED + i))
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    route, dropped = moe.route, []
+
+    def counted(logits, valid, topk, C, **kw):     # assignments past capacity (device sums)
+        out = route(logits, valid, topk, C, **kw)
+        dropped.append(valid.sum() * topk - out[0].sum())
+        return out
+
+    moe.route = counted
+    try:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch, MESH_SEED + i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        moe.route = route
     leaves = path_leaves(state.params)
     with torch.no_grad():
         watched = {k: sharding.gather_leaf(leaves[k]).float().cpu() for k in mesh_leaves(cfg)}
     res = dict(metrics=metrics, step_ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               rows=batch.labels.shape[1], leaves=watched)
+               rows=batch.labels.shape[1], leaves=watched,
+               experts={k: list(v.shape) for k, v in leaves.items() if "/experts/" in k},
+               moe_dropped=int(sum(dropped).item()) if dropped else 0)
     del state, batch
     settle()
     return res
@@ -5944,7 +5987,7 @@ def mesh_worker(pool_dir: str) -> int:
                 cfg = mesh_cfg(run["dtype"], tuple(run["mesh"]))
                 mesh = sharding.build_mesh(cfg.mesh, world=world, rank=rank)
                 res = mesh_train_run(run["B"], run["dtype"], tuple(run["mesh"]), run["steps"],
-                                     mesh)
+                                     mesh, tuple(run.get("bucket", (3000, 100))))
                 leaves[run["name"]] = res.pop("leaves")
                 res.update(mesh=mesh.shape, sp_rank=mesh.sp.rank, pp_rank=mesh.pp.rank)
             elif run["kind"] == "decode":
@@ -7218,6 +7261,242 @@ def pp_phase(seed: int, refs: dict | None = None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: mixture of experts across processes and expert parallelism
+# ---------------------------------------------------------------------------
+
+# flagship_moe() with both capacity factors at 0.25, so that the bounded
+# training routing drops assignments (phase 18's gates)
+EP_OVER = (*MOE_OVERRIDES, *MOE_SQUEEZE)
+EP_BUCKET = (1000, 25)          # phase 18's: 10 s of audio, 25 frames
+# the train runs at full depth: name, rows per data rank, dtype, steps
+EP_TRAIN = (("f32", 1, "float32", 1), ("bf16", 4, "bfloat16", 2))
+# the sp run: phase 21's quarter depth at the 20 s bucket (the ring's
+# chunks, 500 Whisper and 544 LLM rows, take the flash kernels), batch 1
+EP_SP = ("mesh.sp=2", *MESH_DEPTH)
+EP_SP_BUCKET = (2000, 50)
+EP_CLI_BATCH = 1                # the train CLI's rows per data rank
+# the CLIs run audio-only with 2 LLM blocks, one of them sparse (one moe
+# connector and one MoE block): each train CLI run writes an f32
+# checkpoint of the connector's experts and their Adam moments, 11.8 GB
+# with both connectors and the quarter depth (~17 s a write, three writes),
+# which the script's time limit cannot hold
+EP_CLI = ("model.modality=audio", "model.llm.n_layers=2")
+
+
+def ep_phase(seed: int) -> dict:
+    """Phase 25: mixture of experts across processes with ``mesh.ep=2`` on
+    ``flagship_moe()`` (both capacity factors at 0.25): the train steps at
+    full width and depth against one process, with exact launches per rank,
+    the experts split over ep and assignments dropped; an sp=2 step at the
+    quarter depth; the train and decode CLIs at the quarter depth. See the
+    module docstring."""
+    import shutil
+
+    import torch
+
+    from avsr_tpu_torch.cli import decode, train
+
+    t_all = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke" / time.strftime("ep_%Y%m%d_%H%M%S")
+    work.mkdir(parents=True, exist_ok=True)
+    flag = [*FLAGSHIP_OVERRIDES, *MESH_DEPTH, *EP_OVER, *EP_CLI]
+    cli = ["--seed", str(seed), "--device", "cuda"]
+    cards = torch.cuda.device_count()
+    E = flagship_moe().model.moe_experts
+    # name, ranks, sharing card 0, mesh, data-parallel ways
+    groups = [("gloo", 2, True, ("mesh.ep=2",), 2)]
+    if cards >= 2:
+        groups.append(("nccl", 2, False, ("mesh.ep=2",), 2))
+    if cards >= 4:
+        groups.append(("nccl_dp2", 4, False, ("mesh.ep=2", "mesh.dp=2"), 4))
+    print("ep phase: " + "; ".join(f"{g}: {n} ranks, {' '.join(m)}"
+                                   f"{' sharing card 0' if shared else ''}"
+                                   for g, n, shared, m, _ in groups)
+          + ("" if cards >= 4 else f" (the host has {cards} card(s): "
+             + ("no NCCL run" if cards < 2 else "no dp=2 ep=2 run") + ")"))
+    res: dict = {"train": {}, "train_cli": {}, "decode_cli": {}, "launches_by_path": {}}
+
+    def train_over(run_dir: Path, steps: int, ways: int, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=10",
+                "training.grad_accum_steps=1", "training.save_every_steps=0",
+                f"data.batch_size={EP_CLI_BATCH * ways}", "runtime.compute_dtype=float32",
+                f"training.max_steps={steps}", f"training.checkpoint_dir={run_dir}", *extra]
+
+    def dec_over(out: Path, *extra: str) -> list[str]:
+        return [*cli, *flag, "data.synthetic=true", "data.synthetic_size=40",
+                f"decode.max_new_tokens={MESH_DECODE_TOKENS}", "decode.batch_size=8",
+                "runtime.compute_dtype=float32", f"decode.output_dir={out}", *extra]
+
+    def one_card(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches_by_path"][f"ep_{tag}"] = counts()
+        settle()
+        return out
+
+    def rel(a, b) -> float:
+        """||a - b|| / ||b||."""
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+    def gate(tag: str, got: dict, want: dict, leaves: dict) -> dict:
+        """The f32 gates against one process: loss |d| < 1e-5, grad norm,
+        moe_lb and moe_z 1e-5 relative, the watched leaves (two LoRA ``b``,
+        the connector's expert w1 and router) 1e-6 relative in norm."""
+        dm = {k: max(abs(g[k] - w[k]) / (1.0 if k == "loss" else abs(w[k]))
+                     for g, w in zip(got["metrics"], want["metrics"]))
+              for k in ("loss", "grad_norm", "moe_lb", "moe_z")}
+        dl = {k: rel(leaves[k], want["leaves"][k]) for k in want["leaves"]}
+        check(all(v < 1e-5 for v in dm.values()) and all(v <= 1e-6 for v in dl.values()),
+              f"ep {tag} against one process: {dm}, leaves {dl}")
+        return dict(metric_diffs=dm, leaf_rel_diffs=dl)
+
+    try:
+        # ---- one process: the references --------------------------------------
+        ref_train, ref_cli = {}, {}
+        for ways in sorted({g[4] for g in groups}):
+            for name, rows, d, n in EP_TRAIN:
+                ref_train[name, ways] = one_card(
+                    f"train_{name}_B{rows * ways}_one_card",
+                    lambda rows=rows, d=d, n=n, ways=ways: mesh_train_run(
+                        rows * ways, d, EP_OVER, n, bucket=EP_BUCKET))
+            run1 = work / f"train_one_{ways}"
+            rc = one_card(f"train_cli_B{EP_CLI_BATCH * ways}_one_card",
+                          lambda run1=run1, ways=ways: train.main(train_over(run1, 2, ways)))
+            check(rc == 0, f"one-card train CLI returned {rc}")
+            ref_cli[ways] = [float(r[3]) for r in loss_rows(run1) if r[2] == "train"]
+            shutil.rmtree(run1 / "ckpt", ignore_errors=True)
+        ref_sp = one_card("train_sp_f32_B1_one_card",
+                          lambda: mesh_train_run(1, "float32", (*EP_OVER, *MESH_DEPTH), 1,
+                                                 bucket=EP_SP_BUCKET))
+        rc = one_card("decode_cli_one_card", lambda: decode.main(dec_over(work / "dec1")))
+        check(rc == 0, f"one-card decode CLI returned {rc}")
+        ref_hyps = hyp_lines(work / "dec1")
+
+        # ---- the ranks -----------------------------------------------------------
+        reports = {}
+        for group, world, shared, mesh, ways in groups:
+            runs = [dict(kind="train", name=f"train_{n}", B=rows * ways, dtype=d,
+                         mesh=[*EP_OVER, *mesh], steps=k, bucket=list(EP_BUCKET))
+                    for n, rows, d, k in EP_TRAIN]
+            if world == 2:
+                runs.append(dict(kind="train", name="train_sp_f32", B=1, dtype="float32",
+                                 mesh=[*EP_OVER, *EP_SP], steps=1, bucket=list(EP_SP_BUCKET)))
+            runs.append(dict(kind="cli", name="train_cli", cli="train",
+                             argv=train_over(work / f"train_{group}", 1, ways, *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli", cli="decode",
+                             argv=dec_over(work / f"dec_{group}", *mesh)))
+            runs.append(dict(kind="cli", name="decode_cli_preset", cli="decode",
+                             argv=dec_over(work / f"dec_preset_{group}", *mesh,
+                                           *PRESET_OVERRIDES)))
+            reports[group] = spawn_ranks(dict(tag=f"ep_{group}", runs=runs), work, world, shared)
+
+        for group, reps in reports.items():
+            ways = next(g[4] for g in groups if g[0] == group)
+            check(reps[0]["backend"] == ("gloo" if group == "gloo" else "nccl"),
+                  f"{group} ranks ran {reps[0]['backend']}")
+            takes = reps[0]["backend_takes"]
+            print(f"ep {group}: ranks on {[r['device'] for r in reps]}; the backend takes "
+                  f"on CUDA tensors {json.dumps(takes)}")
+            check(all(v == "yes" for v in takes.values()),
+                  f"{group} refuses a collective the port makes on CUDA tensors: {takes}")
+            leaves = torch.load(work / f"ep_{group}_leaves.pt")
+            trains = [(f"train_{n}", n, rows, d, k, ref_train[n, ways], EP_OVER)
+                      for n, rows, d, k in EP_TRAIN]
+            if len(reps) == 2:
+                trains.append(("train_sp_f32", "sp_f32", 1, "float32", 1, ref_sp,
+                               (*EP_OVER, *MESH_DEPTH)))
+            for name, n, rows, dtype, steps, want, over in trains:
+                runs_r = [r["runs"][name] for r in reps]
+                got = runs_r[0]
+                mesh_ways = int(np.prod([got["mesh"][a] for a in ("dcn", "dp", "fsdp", "ep")]))
+                row = dict(mesh=got["mesh"], global_batch=got["rows"] * mesh_ways,
+                           loss=[m["loss"] for m in got["metrics"]],
+                           moe_lb=[m["moe_lb"] for m in got["metrics"]],
+                           moe_z=[m["moe_z"] for m in got["metrics"]],
+                           step_ms=[r["step_ms"] for r in runs_r],
+                           peak_gb=[r["peak_gb"] for r in runs_r],
+                           one_card_step_ms=want["step_ms"], one_card_peak_gb=want["peak_gb"],
+                           dropped=[r["moe_dropped"] for r in runs_r],
+                           one_card_dropped=want["moe_dropped"],
+                           experts_per_rank=runs_r[0]["experts"],
+                           launches=[r["launches"] for r in runs_r])
+                check(all(r["metrics"] == got["metrics"] for r in runs_r),
+                      f"ep {group} {name}: the ranks report different metrics")
+                ep = got["mesh"]["ep"]
+                for r, rr in enumerate(runs_r):
+                    check(rr["experts"] and all(sh[0] == E // ep for sh in rr["experts"].values()),
+                          f"ep {group} {name} rank {r} holds experts {rr['experts']}")
+                    check(rr["moe_dropped"] > 0,
+                          f"ep {group} {name} rank {r}: no assignment dropped")
+                    cfg = mesh_cfg(dtype, over)
+                    per_step = (sp_train_launches(cfg, rr["sp_rank"], 2) if n == "sp_f32"
+                                else pp_train_launches(cfg, rows, ways))
+                    exact = {k: v * steps for k, v in per_step.items()}
+                    check(rr["launches"] == exact,
+                          f"ep {group} {name} rank {r}: launches {rr['launches']}, "
+                          f"expected {exact}")
+                    res["launches_by_path"][f"ep_{group}_{name}_rank{r}"] = rr["launches"]
+                if dtype == "float32":
+                    row.update(gate(f"{group} {name}", got, want, leaves[name]))
+                res["train"][f"{group}_{n}"] = row
+                print(f"ep {group} {n}: " + json.dumps(row))
+
+            # ---- the train CLI: 1 step on the ranks, a second at world 1 -----
+            run2 = work / f"train_{group}"
+            tl = [r["runs"]["train_cli"] for r in reps]
+            check(all(t["rc"] == 0 for t in tl), f"ep {group} train CLI ranks returned "
+                                                  f"{[t['rc'] for t in tl]}")
+            rc = one_card(f"train_cli_{group}_resumed",
+                          lambda: train.main(train_over(run2, 2, ways)))
+            check(rc == 0, f"ep {group}: the world-1 resume returned {rc}")
+            got = [float(r[3]) for r in loss_rows(run2) if r[2] == "train"]
+            shutil.rmtree(run2 / "ckpt", ignore_errors=True)
+            want = ref_cli[ways]
+            d = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            row = dict(ranks_then_resumed=got, one_card=want, max_rel_diff=d,
+                       seconds=[t["seconds"] for t in tl])
+            res["train_cli"][group] = row
+            print(f"ep {group} train CLI: " + json.dumps(row))
+            check(len(got) == len(want) == 2 and d < 1e-5,
+                  f"ep {group} train CLI losses {got}, one card {want}")
+            for r, t in enumerate(tl):
+                res["launches_by_path"][f"ep_{group}_train_cli_rank{r}"] = t["launches"]
+                check(t["launches"]["flash_fwd"] and t["launches"]["flash_bwd_dq"]
+                      and t["launches"]["flash_bwd_dkv"],
+                      f"ep {group} train CLI rank {r}: {t['launches']}")
+
+            # ---- the decode CLI: f32 hypotheses, the preset's kernels --------
+            for tag in ("decode_cli", "decode_cli_preset"):
+                dl_ = [r["runs"][tag] for r in reps]
+                check(all(x["rc"] == 0 for x in dl_), f"ep {group} {tag} ranks returned "
+                                                      f"{[x['rc'] for x in dl_]}")
+                row = dict(seconds=[x["seconds"] for x in dl_],
+                           launches=[x["launches"] for x in dl_])
+                for r, x in enumerate(dl_):
+                    res["launches_by_path"][f"ep_{group}_{tag}_rank{r}"] = x["launches"]
+                    lc = x["launches"]
+                    check(lc["flash_fwd"] and (tag == "decode_cli" or (
+                        lc["qmatmul_int4"] and lc["qmatmul_int8"])),
+                        f"ep {group} {tag} rank {r}: {lc}")
+                if tag == "decode_cli":
+                    two = hyp_lines(work / f"dec_{group}")
+                    row.update(equal_hyps=two == ref_hyps, lines=len(two))
+                    check(len(two) == 8 and two == ref_hyps,
+                          f"ep {group} decode CLI: HYP lines differ from the one-card decode")
+                res["decode_cli"][f"{group}_{tag}"] = row
+                print(f"ep {group} {tag}: " + json.dumps(row))
+        res["backend_takes"] = {g: reps[0]["backend_takes"] for g, reps in reports.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not work.exists(), f"{work} not removed")
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"ep phase: {res['seconds']:.1f} s; launches " + json.dumps(res["launches_by_path"]))
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -7230,6 +7509,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="build the kernels and run phase 23 alone")
     p.add_argument("--pp-only", action="store_true",
                    help="build the kernels and run phase 24 alone")
+    p.add_argument("--ep-only", action="store_true",
+                   help="build the kernels and run phase 25 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -7293,6 +7574,10 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         if args.pp_only:
             print(json.dumps(pp_phase(args.seed)))
+            if not args.ep_only:
+                return 0
+        if args.ep_only:
+            print(json.dumps(ep_phase(args.seed)))
             return 0
         return run_all(args.seed, lap)
     finally:
@@ -7389,7 +7674,8 @@ def run_all(seed: int, lap) -> int:
     # decode call (bf16 and the preset) whose kernels equal the counters.
     tooling = tooling_phase(args.seed)
     tk = {k: sum(n[k] for n in tooling["launches_by_path"].values()) for k in counts()}
-    check(all(tk.values()), f"a kernel did not launch on the tooling path: {tk}")
+    check(all(tk[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"a flash kernel did not launch on the tooling path: {tk}")
 
     lap()
     # Phase 21 at full width: the train step, the train CLI and the decode
@@ -7423,11 +7709,20 @@ def run_all(seed: int, lap) -> int:
     pp = pp_phase(args.seed, tp_refs)
     pk = {k: sum(n[k] for n in pp["launches_by_path"].values()) for k in counts()}
     check(all(pk.values()), f"a kernel did not launch on the pp path: {pk}")
+
+    lap()
+    # Phase 25: mixture of experts across processes and expert parallelism
+    # (mesh.ep=2) on flagship_moe(), on phase 24's rank pool: the train steps
+    # at full depth with exact launches per rank, an sp=2 step, the CLIs.
+    ep = ep_phase(args.seed)
+    ek = {k: sum(n[k] for n in ep["launches_by_path"].values()) for k in counts()}
+    check(all(ek.values()), f"a kernel did not launch on the ep path: {ek}")
     close_pools()
 
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
-                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp, pp)
+                for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp, pp,
+                              ep)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def sp_ring(name: str) -> dict:
@@ -7441,6 +7736,13 @@ def run_all(seed: int, lap) -> int:
         24's train steps (exact, checked there)."""
         return {part.removeprefix("pp_"): n[name] for part, n in pp["launches_by_path"].items()
                 if part.startswith("pp_gloo_train_")}
+
+    def ep_ranks(name: str) -> dict:
+        """The kernel ``name``'s launches per rank of phase 25's train steps
+        (exact, checked there) and of its preset decode CLI."""
+        return {part.removeprefix("ep_"): n[name] for part, n in ep["launches_by_path"].items()
+                if part.startswith("ep_gloo_") and "_rank" in part
+                and ("_train_" in part or "decode_cli_preset" in part)}
 
     def serve_paths(name: str) -> dict[str, int]:
         return {f"serving_{part}": n[name]
@@ -7506,7 +7808,8 @@ def run_all(seed: int, lap) -> int:
                      times_are="ms per ring forward on a rank (every block, the shifts "
                                "and the merge), CUDA events around 5 calls"),
         pp_stage=dict(launches_per_rank=pp_stage("flash_fwd"),
-                      shape=pp["stage_shape"]))]
+                      shape=pp["stage_shape"]),
+        ep_ranks=dict(launches_per_rank=ep_ranks("flash_fwd")))]
     wb = knobs["whisper_bwd"]
     hbwd = kernels[0]["hubert_shape"].pop("bwd")
     abwd = kernels[0]["avhubert_shape"].pop("bwd")
@@ -7536,6 +7839,7 @@ def run_all(seed: int, lap) -> int:
             times_are="per launch; library_ms is SDPA's backward of q, k and v together")
         extra["sp_ring"] = dict(launches_per_rank=sp_ring(name))
         extra["pp_stage"] = dict(launches_per_rank=pp_stage(name))
+        extra["ep_ranks"] = dict(launches_per_rank=ep_ranks(name))
         kernels.append(dict(
             name=name, route="cuda", source="avsr_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"avsr_tpu/ops/attention.py:{line}",
@@ -7572,7 +7876,7 @@ def run_all(seed: int, lap) -> int:
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in qrows + trows),
             max_rel_err=max(r["max_rel_err"] for r in qrows + trows),
-            tp_shapes=trows,
+            tp_shapes=trows, ep_ranks=dict(launches_per_rank=ep_ranks(name)),
             edge_max_rel_err=qmm["edge_max_rel_err"],
             ms=qtotal("ms"), plain_ms=qtotal("plain_ms"), bound_ms=qtotal("bound_ms"),
             bound_by="operations" if qtotal("ops_ms") >= qtotal("bytes_ms") else "bytes",

@@ -202,8 +202,8 @@ def test_profile_train_writes_report(tmp_path, records):
     # the raw trace is kept next to the report; on the CPU no kernel ran
     assert (tmp_path / "trace_train.json").exists()
     assert report["trace"] == str(tmp_path / "trace_train.json")
-    assert tprofile.kernel_counts(tmp_path / "trace_train.json") == dict.fromkeys(
-        tprofile.PORT_KERNELS, 0)
+    assert tprofile.kernel_counts(tprofile.trace_events(tmp_path / "trace_train.json")) == (
+        report["kernels_in_trace"]) == dict.fromkeys(tprofile.PORT_KERNELS, 0)
     launched = records.args("kernel launches")
     assert launched == [dict.fromkeys(tprofile.PORT_KERNELS, 0)]
 
@@ -246,7 +246,7 @@ def test_trace_events_cut_the_card_by_correlation(tmp_path):
     seen = tprofile.trace_events(trace)
     assert [(e["name"], e["ts"]) for e in seen] == [
         ("aten::mm", 12), ("cudaLaunchKernel", 14), ("flash_fwd_bf16_kernel", 9)]
-    assert tprofile.kernel_counts(trace)["flash_fwd"] == 1
+    assert tprofile.kernel_counts(seen)["flash_fwd"] == 1
     trace.write_text(json.dumps(dict(traceEvents=events[2:])))      # no guard: read whole
     assert len(tprofile.trace_events(trace)) == 5
 
@@ -262,7 +262,7 @@ def test_profile_decode_mode_keys_equal_jax(tmp_path):
     assert report["mode"] == "decode"
     assert report["device_busy_ms"] > 0
     assert report["loop_ms"] > 0 and report["prefix_ms"] > 0     # 3 token steps
-    assert set(report) == set(want)
+    assert set(report) == set(want) | {"kernels_in_trace"}     # the port's addition
     for key in ("by_category", "by_scope", "top_ops"):   # JAX's CPU trace has no scopes
         assert report[key] and all(set(r) == {"name", "ms", "pct"} for r in report[key] + want[key])
 

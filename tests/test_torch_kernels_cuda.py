@@ -14,6 +14,8 @@ weight-only matmuls max|d| <= 1e-4 max|ref| (the kernel and its plain
 version differ only in the order of their f32 sums).
 """
 
+import json
+
 import pytest
 import torch
 
@@ -914,7 +916,8 @@ def test_profile_train_then_decode_traces_every_launch(cuda, tmp_path):
         out = tmp_path / mode
         assert profile.main(["--device", "cuda", "--mode", mode, "--steps", "2",
                              "--output_dir", str(out), *flag]) == 0
-        assert profile.kernel_counts(out / f"trace_{mode}.json")["flash_fwd"] > 0
+        report = json.loads((out / "profile_report.json").read_text())
+        assert report["kernels_in_trace"]["flash_fwd"] > 0
 
 
 @pytest.mark.cuda

@@ -205,27 +205,34 @@ def test_mesh_shape_matches_jax(n, axes):
 @pytest.mark.parametrize("over", ["mesh.tp=2", "mesh.sp=2", "mesh.pp=2",
                                   "mesh.ep=2 model.connector_type=moe"])
 def test_model_axes_are_the_next_slice(over):
-    """ep changes the model's own code: refused, naming itself as the next
-    slice; the data axes, tp, sp and pp load (and tp=2, sp=2 or pp=2 needs
-    2 processes, JAX's mesh message at a world of 1); pp with the default
-    LoRA dropout raises JAX's message."""
+    """Every model axis loads since the ep slice: tp, sp, pp and ep with
+    MoE (each needs 2 processes: JAX's mesh message at a world of 1); pp
+    with the default LoRA dropout and ep with a dense model raise JAX's
+    messages; the data axes load."""
     if over == "mesh.pp=2":
         with pytest.raises(ValueError, match="lora.dropout > 0"):
             tcfg.load_config(None, [over])
         over = "mesh.pp=2 model.lora.dropout=0"
     if over.startswith("mesh.ep"):
-        with pytest.raises(NotImplementedError, match=r"next slice of the port \(mesh.ep\)"):
-            tcfg.load_config(None, over.split())
-    else:
-        with pytest.raises(ValueError, match="devices"):
-            sharding.mesh_shape(tcfg.load_config(None, over.split()).mesh, 1)
+        with pytest.raises(ValueError, match="requires MoE somewhere"):
+            tcfg.load_config(None, ["mesh.ep=2"])
+        assert tcfg.load_config(None, over.split()).mesh.ep == 2
+    with pytest.raises(ValueError, match="devices"):
+        sharding.mesh_shape(tcfg.load_config(None, over.split()).mesh, 1)
     cfg = tcfg.load_config(None, ["mesh.dp=2", "mesh.fsdp=2", "mesh.dcn_dp=2"])
     assert (cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.dcn_dp) == (2, 2, 2)
 
 
 def test_moe_refused_across_processes():
-    with pytest.raises(NotImplementedError, match="mesh.ep"):
-        sharding.check_model(tcfg.load_config(None, ["model.connector_type=moe"]).model)
+    """Mixture of experts is no longer refused across processes (nor under
+    tp): ``check_model`` accepts both MoE forms of the flagship at every
+    axis JAX allows, and refuses only LLM MoE blocks under pp, with JAX's
+    message (the ``moe`` connector runs under pp)."""
+    moe = tcfg.flagship(MOE).model
+    sharding.check_model(moe, tp=2)
+    sharding.check_model(tcfg.load_config(None, ["model.connector_type=moe"]).model, pp=2)
+    with pytest.raises(ValueError, match="GPipe stage scan does not thread MoE aux"):
+        sharding.check_model(moe, pp=2)
     sharding.check_model(tcfg.flagship().model)
 
 

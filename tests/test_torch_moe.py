@@ -1,7 +1,7 @@
 """The port's MoE routing (``ops/moe.py``) and ``moe`` connector vs the JAX
 package (f32, CPU), the counterparts of ``tests/test_moe.py``'s
-single-device cases (the ``ep`` mesh cases are not ported: mesh.ep > 1 is
-refused, as the next slice's axis).
+single-device cases (the ``ep`` mesh cases run across processes in
+``tests/test_torch_ep.py``).
 
 Parameters come from the JAX init (every leaf moved off its init by numpy
 noise, so that biases and norm scales matter) through
@@ -325,14 +325,17 @@ MOE_CASES = {
     "ok_llm": {"model.llm.moe_experts": 4, "model.llm.moe_every": 2},
     "ok_both": {"model.connector_type": "moe", "model.llm.moe_experts": 1,
                 "model.llm.moe_topk": 1, "model.moe_capacity_factor": 1e-6},
+    "ok_ep_conn": {"model.connector_type": "moe", "model.moe_experts": 4, "mesh.ep": 2},
+    "ok_ep_llm": {"model.llm.moe_experts": 4, "mesh.ep": 2},
 }
 
 
 @pytest.mark.parametrize("case", sorted(MOE_CASES))
 def test_moe_config_validation_matches_jax(case):
     """Each MoE config is accepted by both packages, or refused by both
-    with JAX's ValueError and message (a mesh.ep or mesh.pp that the JAX
-    package accepts is the port's refusal of the next slice's axes)."""
+    with JAX's ValueError and message: mesh.ep with a dense model or with
+    experts that do not divide over it, LLM MoE blocks under mesh.pp; a
+    mesh.ep that the JAX package accepts loads in the port too."""
     over = {"model.llm.n_layers": 2, **MOE_CASES[case]}
     errs = []
     for mod in (jcfg, tcfg):
@@ -351,9 +354,7 @@ def test_moe_config_validation_matches_jax(case):
             errs.append((type(e), str(e)))
     if case.startswith("ok") or errs[0] is None:
         assert errs[0] is None, errs[0]
-        # accepted by JAX: the port accepts it too, unless the mesh is wide
-        if errs[1] is not None:
-            assert errs[1][0] is NotImplementedError and "next slice" in errs[1][1]
+        assert errs[1] is None, errs[1]
     else:
         assert errs[0][0] is ValueError
         assert errs[1] == errs[0]

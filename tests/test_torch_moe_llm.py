@@ -2,7 +2,7 @@
 decode path of the port vs the JAX package (f32, CPU), the counterparts of
 ``tests/test_moe_llm.py``'s single-device cases and of
 ``tests/test_engine.py::test_engine_moe_token_exact`` (the ``ep`` mesh
-case is not ported: mesh.ep > 1 is refused, as the next slice's axis).
+case runs across processes in ``tests/test_torch_ep.py``).
 
 Weights come from the JAX init through ``convert.from_numpy_tree``. The
 decode paths run tiny_cpu.yaml with modality both, a 2-layer LLM and an

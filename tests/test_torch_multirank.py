@@ -288,14 +288,14 @@ def one_process_run(tmp_path_factory) -> Path:
     return run
 
 
-def assert_same_run(got: Path, want: Path, step: int = 3) -> None:
-    """The loss logs row for row (1e-5 relative) and the trained leaves of
-    the last checkpoint (atol 1e-6)."""
+def assert_same_run(got: Path, want: Path, step: int = 3, n_rows: int = 11) -> None:
+    """The loss logs row for row (1e-5 relative; ``n_rows`` of them) and the
+    trained leaves of the last checkpoint (atol 1e-6)."""
     def rows(d):
         return [r.split(",") for r in (d / "loss_log.csv").read_text().splitlines()[1:]]
 
     g, w = rows(got), rows(want)
-    assert [r[:3] for r in g] == [r[:3] for r in w] and len(w) == 11
+    assert [r[:3] for r in g] == [r[:3] for r in w] and len(w) == n_rows
     for a, b in zip(g, w):
         for i in (3, 4, 5, 6):     # loss, accuracy, wer, grad_norm
             if b[i]:

@@ -373,15 +373,16 @@ def test_pipelined_llama_equals_one_process_and_warns(caplog):
     ids=["pp_sp", "layers", "dropout", "moe"])
 def test_config_raises_jax_pp_messages(over):
     """The four pp refusals of JAX's validate, with its text; pp loads with
-    dropout off; ep is still refused as the next slice."""
+    dropout off, and so does the ``moe`` connector under pp with ep."""
     with pytest.raises(ValueError) as theirs:
         jload_config(None, over)
     with pytest.raises(ValueError) as mine:
         tcfg.load_config(None, _over(over))
     assert str(mine.value) == str(theirs.value)
     assert tcfg.load_config(None, ["mesh.pp=2", "model.lora.dropout=0"]).mesh.pp == 2
-    with pytest.raises(NotImplementedError, match=r"next slice of the port \(mesh.ep\)"):
-        tcfg.load_config(None, ["mesh.ep=2", "model.connector_type=moe"])
+    cfg = tcfg.load_config(None, ["mesh.ep=2", "mesh.pp=2", "model.lora.dropout=0",
+                                  "model.connector_type=moe"])
+    assert (cfg.mesh.ep, cfg.mesh.pp) == (2, 2)
 
 
 @pytest.mark.parametrize("axes", [dict(dp=2, pp=4), dict(fsdp=2, tp=2, pp=2)],

@@ -363,10 +363,11 @@ def test_sp3_falls_back_with_jax_warning(tiny, caplog):
 
 
 def test_config_refusals_and_groups():
-    """mesh.sp loads, and so does mesh.pp (with JAX's dropout message at
-    the default LoRA dropout); ep is the next slice; pp with sp keeps JAX's
-    message; MoE under sp is refused; the sp and sums groups of dp=2 sp=2
-    tp=2 are JAX's device-grid coordinates."""
+    """mesh.sp loads, and so do mesh.pp (with JAX's dropout message at
+    the default LoRA dropout) and mesh.ep with MoE; pp with sp keeps JAX's
+    message; MoE under sp is accepted (it routes over the ring's chunks,
+    ``tests/test_torch_ep.py``); the sp and sums groups of dp=2 sp=2 tp=2
+    are JAX's device-grid coordinates."""
     assert tcfg.load_config(None, ["mesh.sp=2"]).mesh.sp == 2
     with pytest.raises(ValueError) as theirs:
         jload_config(None, {"mesh.pp": 2, "mesh.sp": 2})
@@ -379,11 +380,10 @@ def test_config_refusals_and_groups():
                 tcfg.load_config(None, over.split())
             assert tcfg.load_config(None, [over, "model.lora.dropout=0"]).mesh.pp == 2
         else:
-            with pytest.raises(NotImplementedError, match=r"next slice of the port \(mesh.ep\)"):
-                tcfg.load_config(None, over.split())
-    moe = tcfg.load_config(None, ["model.connector_type=moe"]).model
-    with pytest.raises(NotImplementedError, match="mesh.sp=2"):
-        sharding.check_model(moe, sp=2)
+            assert tcfg.load_config(None, over.split()).mesh.ep == 2
+    moe = tcfg.load_config(None, ["mesh.sp=2", "model.connector_type=moe",
+                                  "model.llm.moe_experts=4"])
+    assert moe.mesh.sp == 2 and moe.model.llm.moe_experts == 4
     jm = jsharding.build_mesh(jcfg.MeshConfig(dp=2, sp=2, tp=2), devices=jax.devices()[:8])
     ids = {d.id: i for i, d in enumerate(jax.devices()[:8])}
     grid = np.vectorize(lambda d: ids[d.id])(jm.devices)

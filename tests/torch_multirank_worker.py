@@ -13,8 +13,9 @@ A job is a list of runs, made in order in one process:
     in ``batch`` ([accum, B, ...] numpy arrays); rank 0 writes the metrics
     of each step, the first step's gradients and the trained leaves and
     the sharded frozen leaves after the steps, all gathered whole, to
-    ``out`` (``torch.save``); with ``eval``, also the eval step's metrics
-    on the first micro-batch before the steps;
+    ``out`` (``torch.save``), with every rank's shapes of its expert leaves
+    and the MoE assignments its routings dropped; with ``eval``, also the
+    eval step's metrics on the first micro-batch before the steps;
   * ``decode``: the serving layout of ``weights`` under the mesh of
     ``overrides`` (``prepare_params_for_decode``: quantized head, this
     rank's tp slices, each rank's fused q|k|v and gate|up), then
@@ -53,7 +54,7 @@ from avsr_tpu_torch.infer import generate, speculative  # noqa: E402
 from avsr_tpu_torch.mesh import collectives, multihost, sharding  # noqa: E402
 from avsr_tpu_torch.models import avsr, llama  # noqa: E402
 from avsr_tpu_torch.models.avsr import Batch  # noqa: E402
-from avsr_tpu_torch.ops import attention  # noqa: E402
+from avsr_tpu_torch.ops import attention, moe  # noqa: E402
 from avsr_tpu_torch.train import state as tstate  # noqa: E402
 from avsr_tpu_torch.train import step as tstep  # noqa: E402
 
@@ -80,6 +81,15 @@ def run_step(job: dict) -> None:
         return update(gs, norm)
 
     state.optimizer.update = record
+    dropped = [0]
+    route = moe.route
+
+    def counted(logits, valid, topk, C, **kw):     # the assignments past capacity
+        out = route(logits, valid, topk, C, **kw)
+        dropped[0] += int(valid.sum()) * topk - int(out[0].sum())
+        return out
+
+    moe.route = counted
     data = np.load(job["batch"])
     B = data["labels"].shape[1]
     lo, hi = multihost.local_rows(B, (mesh.data.rank, mesh.ways))
@@ -90,6 +100,10 @@ def run_step(job: dict) -> None:
         first = Batch(*[None if x is None else x[0] for x in batch])
         evals = tstep.make_eval_step(cfg, mesh)(state.params, first)
     metrics = [step(state, batch, seed) for seed in job["seeds"]]
+    moe.route = route
+    local = {k: tuple(v.shape) for k, v in tstate.path_leaves(state.params).items()
+             if "/experts/" in k}
+    ranks = mesh.world.all_gather_object({"experts": local, "dropped": dropped[0]})
     train, _ = tstate.partition_trainable(state.params, cfg.model)
     with torch.no_grad():
         leaves = {k: sharding.gather_leaf(v).clone()
@@ -99,7 +113,8 @@ def run_step(job: dict) -> None:
                   if sharding.shards_of(v) and k not in leaves}
     if rank == 0:
         torch.save({"metrics": metrics, "leaves": leaves, "frozen": frozen,
-                    "grads": grads, "shape": mesh.shape, "eval": evals}, job["out"])
+                    "grads": grads, "shape": mesh.shape, "eval": evals, "ranks": ranks},
+                   job["out"])
 
 
 def run_decode(job: dict) -> None:
