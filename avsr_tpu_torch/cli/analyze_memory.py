@@ -38,6 +38,12 @@ def shape_tree(cfg) -> dict:
         return init_avsr_model(cfg.model, device="cpu")
 
 
+def component_bytes(params, dtype_bytes: float) -> dict[str, float]:
+    """Each top-level component's bytes at ``dtype_bytes`` a parameter."""
+    return {name: sum(x.numel() for x in tree_leaves(sub)) * dtype_bytes
+            for name, sub in params.items()}
+
+
 def main(argv: list[str] | None = None) -> int:
     p = base_parser("Analyze component memory usage")
     p.add_argument("--output_dir", default="outputs/memory")
@@ -48,18 +54,12 @@ def main(argv: list[str] | None = None) -> int:
     params = shape_tree(cfg)
     report: dict = {"modality": cfg.model.modality,
                     "connector": cfg.model.connector_type, "modes": {}}
-    for mode, nbytes in (("fp32", 4), ("bf16", 2), ("int8_llm", None),
-                         ("int4_llm", None)):
-        comps = {}
-        for name, sub in params.items():
-            n = sum(x.numel() for x in tree_leaves(sub))
-            if mode == "int8_llm":
-                b = n * (1 if name == "llm" else 2)
-            elif mode == "int4_llm":
-                b = n * (0.5 if name == "llm" else 2)
-            else:
-                b = n * nbytes
-            comps[name] = round(b / 2**30, 4)
+    counts = component_bytes(params, 1)
+    # (mode, bytes an LLM parameter, bytes any other parameter)
+    for mode, llm, other in (("fp32", 4, 4), ("bf16", 2, 2), ("int8_llm", 1, 2),
+                             ("int4_llm", 0.5, 2)):
+        comps = {name: round(n * (llm if name == "llm" else other) / 2**30, 4)
+                 for name, n in counts.items()}
         comps["total_gib"] = round(sum(comps.values()), 4)
         report["modes"][mode] = comps
 

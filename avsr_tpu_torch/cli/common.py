@@ -208,7 +208,8 @@ def init_params(cfg: AVSRConfig, *, seed: int,
 def _restore(checkpoint: str, params_like: Params) -> Params:
     """The params of a trainer checkpoint directory (one holding
     ``best.json`` or ``meta_*.json``: its newest step) or of a params
-    export, checked against and cast to ``params_like``."""
+    export, checked against and cast to ``params_like``. A JAX run's Orbax
+    directory raises a ``ValueError`` that names ``tools/orbax_to_port.py``."""
     ck = Path(checkpoint)
     if (ck / "best.json").exists() or any(ck.glob("meta_*.json")):
         step = CheckpointManager(ck).latest_step()

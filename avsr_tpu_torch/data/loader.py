@@ -137,6 +137,15 @@ def _pcm16_to_f32(audio: torch.Tensor) -> torch.Tensor:
     return audio.float() / 32768.0
 
 
+def audio_frontend_for(model_cfg: ModelConfig | None) -> str:
+    """The front end the configured audio encoder reads: ``wave`` (the
+    padded f32 waveform, for HuBERT/Wav2Vec2, which own their conv front
+    end) or ``mel`` (Whisper, or no config)."""
+    if model_cfg is not None and model_cfg.audio_encoder in ("hubert", "wav2vec2"):
+        return "wave"
+    return "mel"
+
+
 def image_stats_for(model_cfg: ModelConfig | None) -> str:
     """The normalization statistics the configured video encoder expects."""
     encoder = model_cfg.video_encoder if model_cfg is not None else "clip"
@@ -150,9 +159,8 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
               image_stats: str | None = None) -> Batch:
     """Host batch -> device Batch: the audio front end and frame
     normalization on the device. The audio front end is the one
-    ``model_cfg.audio_encoder`` consumes: the padded f32 waveform and its
-    lengths for HuBERT/Wav2Vec2, which own their conv front end; else
-    (Whisper, or no config) the log-mel. Frames are normalized with
+    ``model_cfg.audio_encoder`` consumes (:func:`audio_frontend_for`): the
+    padded f32 waveform and its lengths, or the log-mel. Frames are normalized with
     ``image_stats``, by default the statistics of
     ``model_cfg.video_encoder`` (CLIP's without a config)."""
     stats = image_stats or image_stats_for(model_cfg)
@@ -165,7 +173,7 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
         if audio.dtype == torch.int16:      # compact_transfer PCM
             audio = _pcm16_to_f32(audio)
         audio_lens = dev(hb.audio_lens)
-        if model_cfg is not None and model_cfg.audio_encoder != "whisper":
+        if audio_frontend_for(model_cfg) == "wave":
             wave, wave_lens = audio, audio_lens
         else:
             mel = log_mel_spectrogram(audio, audio_lens)
@@ -181,22 +189,23 @@ def featurize(hb: HostBatch, device: str | torch.device = "cuda",
                  label_lens=dev(hb.label_lens), wave=wave, wave_lens=wave_lens)
 
 
-# Batches the worker thread prepares ahead of the consumer.
-PREFETCH = 2
-
-
 class DataLoader:
     """Bucketed, prefetching loader yielding (HostBatch, device Batch)."""
 
     def __init__(self, dataset, cfg: DataConfig, tokenizer, *,
                  model_cfg: ModelConfig, batch_size: int | None = None,
                  shuffle: bool = True, seed: int = 0,
+                 prefetch: int = 2, drop_last: bool = False,
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype = torch.float32,
                  data_shard: tuple[int, int] | None = None) -> None:
-        """``data_shard=(rank, world)``: a loader of one process of a
-        multi-process run (see the module docstring), with the JAX
-        package's checks."""
+        """``prefetch``: the batches the worker thread prepares ahead of the
+        consumer (the queue's depth; 0 leaves it unbounded, as the JAX
+        loader's ``queue.Queue`` does). ``drop_last``: leave out an epoch's
+        short last batch instead of wrapping it to the epoch's head (in
+        ``__len__`` and in the walk). ``data_shard=(rank, world)``: a loader
+        of one process of a multi-process run (see the module docstring),
+        with the JAX package's checks."""
         self.ds = dataset
         self.cfg = cfg
         self.batch_size = batch_size or cfg.batch_size
@@ -216,6 +225,8 @@ class DataLoader:
                     "metadata (manifest num_frames/num_samples columns)")
         self.shuffle = shuffle
         self.seed = seed
+        self.prefetch = prefetch
+        self.drop_last = drop_last
         self.device = device
         self.compute_dtype = compute_dtype
         self.model_cfg = model_cfg
@@ -239,7 +250,8 @@ class DataLoader:
         self._skip = max(batches, 0)
 
     def __len__(self) -> int:
-        return -(-len(self.ds) // self.batch_size)
+        full, short = divmod(len(self.ds), self.batch_size)
+        return full + (short > 0 and not self.drop_last)
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
@@ -267,6 +279,8 @@ class DataLoader:
         for start in range(skip * bs, len(order), bs):
             chunk = order[start:start + bs]
             n_real = len(chunk)
+            if n_real < bs and self.drop_last:
+                break
             if n_real < bs:
                 # wrap to the epoch head for a static batch size; the
                 # repeated rows get label length 0, so the loss weighs them
@@ -350,11 +364,11 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[tuple[HostBatch, Batch]]:
         """One worker thread collates and featurizes (host -> device copy
-        and the on-device log-mel) up to ``PREFETCH`` batches ahead."""
+        and the on-device log-mel) up to ``prefetch`` batches ahead."""
         self._epoch += 1
         skip, self._skip = self._skip, 0
         self._yielded = skip
-        q: queue.Queue[Any] = queue.Queue(maxsize=PREFETCH)
+        q: queue.Queue[Any] = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def worker() -> None:

@@ -52,6 +52,13 @@ def load_labels(wrd_path: str | Path) -> list[str]:
     return [ln.strip() for ln in Path(wrd_path).read_text().splitlines()]
 
 
+def utt_aliases(utt_id: str) -> list[str]:
+    """The id variants that join references to hypotheses: the full id and
+    every path suffix ('a/b/c' -> 'a/b/c', 'b/c', 'c')."""
+    parts = utt_id.split("/")
+    return ["/".join(parts[i:]) for i in range(len(parts))]
+
+
 def write_manifest(tsv_path: str | Path, root: str | Path,
                    entries: list[ManifestEntry]) -> None:
     lines = [str(root)]

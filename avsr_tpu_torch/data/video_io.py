@@ -15,13 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-
-def sample_indices(num_frames: int, target: int) -> np.ndarray:
-    """Uniformly sample ``target`` indices (ref truncates at 300 frames;
-    uniform sampling preserves the full clip instead)."""
-    if num_frames <= target:
-        return np.arange(num_frames)
-    return np.linspace(0, num_frames - 1, target).round().astype(np.int64)
+from avsr_tpu_torch.ops.image import sample_frame_indices
 
 
 def load_frames(path: str | Path, max_frames: int) -> np.ndarray:
@@ -31,7 +25,7 @@ def load_frames(path: str | Path, max_frames: int) -> np.ndarray:
         arr = np.load(path)
         if arr.ndim != 4 or arr.shape[-1] != 3:
             raise ValueError(f"{path}: expected [T,H,W,3], got {arr.shape}")
-        idx = sample_indices(arr.shape[0], max_frames)
+        idx = sample_frame_indices(arr.shape[0], max_frames)
         return np.ascontiguousarray(arr[idx]).astype(np.uint8)
     return _load_frames_cv2(path, max_frames)
 
@@ -45,7 +39,7 @@ def _load_frames_cv2(path: Path, max_frames: int) -> np.ndarray:
     try:
         total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
         if total > 0:
-            wanted = set(sample_indices(total, max_frames).tolist())
+            wanted = set(sample_frame_indices(total, max_frames).tolist())
             frames = []
             i = 0
             while True:
@@ -62,7 +56,7 @@ def _load_frames_cv2(path: Path, max_frames: int) -> np.ndarray:
                 if not ok:
                     break
                 frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
-            idx = sample_indices(len(frames), max_frames)
+            idx = sample_frame_indices(len(frames), max_frames)
             frames = [frames[j] for j in idx]
     finally:
         cap.release()

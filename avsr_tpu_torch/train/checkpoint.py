@@ -1,7 +1,10 @@
 """Checkpoints of the port's Trainer: the counterpart of
 ``avsr_tpu/train/checkpoint.py``, with its API and semantics, in a format
-of the port's own (the JAX package writes Orbax directories, which this
-module does not read).
+of the port's own. The JAX package writes Orbax directories, which need JAX
+to read: ``tools/orbax_to_port.py`` converts them (on a host with JAX and
+Orbax) into this layout, through ``train/import_state.py``. Given one, the
+manager and :func:`load_params` raise a ``ValueError`` that names the tool
+(:func:`refuse_orbax`), before they read or write anything.
 
 A checkpoint directory holds:
 
@@ -68,6 +71,37 @@ TRAIN_FILE = "train.pt"
 _TMP = ".tmp-"
 
 
+ORBAX_TOOL = "tools/orbax_to_port.py"
+
+
+def orbax_layout(path: str | Path) -> bool:
+    """True for a directory that the JAX package's Orbax wrote: an export
+    or a step directory (``_CHECKPOINT_METADATA`` or ``manifest.ocdbt`` in
+    it or in a subdirectory), or a ``CheckpointManager`` directory holding
+    such a step."""
+    path = Path(path)
+
+    def marked(d: Path) -> bool:
+        return ((d / "_CHECKPOINT_METADATA").exists() or (d / "manifest.ocdbt").exists()
+                or any(d.glob("*/manifest.ocdbt")))
+
+    if not path.is_dir():
+        return False
+    return marked(path) or any(marked(d) for d in path.iterdir()
+                               if d.name.isdigit() and d.is_dir())
+
+
+def refuse_orbax(path: str | Path) -> None:
+    """Raise ``ValueError`` naming the converter when ``path`` is an Orbax
+    directory of the JAX package."""
+    if orbax_layout(path):
+        raise ValueError(
+            f"{path} is an Orbax checkpoint of the JAX package, which the port "
+            f"does not read: convert it with `python -m tools.orbax_to_port "
+            f"{path} DST` ({ORBAX_TOOL}, on a host with JAX and Orbax) and "
+            f"give the port DST")
+
+
 def _save_file(obj: Any, path: Path) -> None:
     with open(path, "wb") as fh:
         torch.save(obj, fh)
@@ -105,6 +139,7 @@ class CheckpointManager:
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.dir = Path(directory).absolute()
+        refuse_orbax(self.dir)
         self.mesh = mesh
         self.main = mesh is None or mesh.rank == 0
         if self.main:
@@ -241,6 +276,7 @@ class CheckpointManager:
         """Loads ``step`` (the newest by default) into ``state_like``, in
         place, after checking every key path, shape and dtype; returns it."""
         self.wait()
+        refuse_orbax(self.dir)
         step = step if step is not None else self.latest_step()
         if step is None or not (self.dir / str(step)).is_dir():
             raise FileNotFoundError(f"no checkpoint of step {step} in {self.dir}")
@@ -279,7 +315,9 @@ def load_params(path: str | Path, params_like: Any = None) -> Any:
     """The params of an export or of a checkpoint's step directory. With
     ``params_like``, the key paths and shapes must match it; floating
     leaves take its dtypes (integer ones must already have them) and every
-    leaf its device."""
+    leaf its device. An Orbax directory of the JAX package raises
+    :func:`refuse_orbax`'s ``ValueError``."""
+    refuse_orbax(path)
     params = _load_file(Path(path) / PARAMS_FILE)
     if params_like is None:
         return params

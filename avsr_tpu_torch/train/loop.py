@@ -126,7 +126,10 @@ class Trainer:
     def maybe_resume(self) -> bool:
         """Restores ``training.resume_from``, or this run's own checkpoint
         directory when it holds a step: the train state in place, the
-        best-metric and early-stop progress, and the loader's position."""
+        best-metric and early-stop progress, and the loader's position. A
+        JAX run's Orbax directory raises a ``ValueError`` that names
+        ``tools/orbax_to_port.py`` (``train/checkpoint.py::refuse_orbax``;
+        the Trainer's own ``ckpt/`` is checked when it is built)."""
         src = self.cfg.training.resume_from or (
             str(self.ckpt.dir) if self.ckpt.latest_step() is not None else "")
         if not src:

@@ -51,21 +51,31 @@
    decode-step logit gates. Then the decode CLI with the preset overrides.
 11. Checkpoint phase, through the CLIs at full width (LoRA dropout off):
    run A trains 2 steps with a checkpoint each, validation and in-training
-   WER; run B resumes it for a third step; run C takes 3 steps
+   WER; run B resumes it for a third step (no WER eval); run C takes 3 steps
    uninterrupted, and B's third step must equal C's (its batches, loss and
    trainable leaves). The decode CLI reads the checkpoint in bf16 (the
    connector and LoRA leaves it loaded equal B's) and with the serving
    preset (quantized after loading), each followed by one generate_tokens
    call with exact launch counts; the average CLI's export of the last two
    steps is their f32 mean and decodes; a run sent SIGTERM after step 1
-   saves a preempt checkpoint at step 2 and the next run resumes from it.
-   Prints the checkpoint's size and its save, restore and WER-eval times,
-   and removes every directory it wrote.
+   saves a preempt checkpoint at step 2 and the next run resumes from it
+   (both at ``MESH_DEPTH``). A JAX run continued and served: run A's step
+   2 in the numpy layout that ``tools/orbax_to_port.py`` hands over
+   (``jax_numpy_state``; the card's host has no JAX to restore an Orbax
+   step) is imported by ``train/import_state.py`` into a fresh directory
+   with run A's JSON (bit-equal to the step), the train CLI resumes it for
+   step 3 (its batches, loss and trainable leaves equal run C's, with
+   exact launches) and the decode CLI's hypotheses from it equal those
+   from run A's directory. Prints the checkpoint's size and its save,
+   restore and WER-eval times, the import's seconds and GB, and removes
+   every directory it wrote. Then ``preprocess_frames`` on the card
+   against the CPU (25 frames of 160 x 120 to 224, f32 and bf16).
 12. Train-knobs phase (``train_knobs_phase``), at full width: QLoRA with
    ``--mode 4bit`` (f32 gradient parity of the kernel path, three steps
    with their split, peak memory below phase 6's, the dequantize calls of
    a step and their device time; the train CLI's runs A, B (resumed) and
-   C as in phase 11, B's third step equal to C's bit for bit), the decode
+   C as in phase 11, B's third step equal to C's bit for bit; B and C
+   leave out the in-training WER eval that A checks), the decode
    CLI from that checkpoint with the serving preset (loaded leaves equal
    the checkpoint's, exact launch counts), one step each of ``--mode
    8bit`` and ``--mode max``, ``model.unfreeze_layer_norms`` (f32 gradient
@@ -143,7 +153,8 @@
    equals it from the in-memory conversion, the engine (deferred WAVs, the
    compact link) equals ``generate_tokens``, and exact streaming equals
    the offline decode. A reference-trainer ``.pt`` at the flagship's width
-   (peft-wrapped bf16 LLM, r = 16 LoRA, simple connectors) through
+   and ``MESH_DEPTH`` (peft-wrapped bf16 LLM, r = 16 LoRA, simple
+   connectors) through
    ``cli/convert_ref_ckpt.py``: the adapters are Aᵀ, Bᵀ and the connectors
    Wᵀ exactly, and one batch decodes. Exact launch counts on every path;
    the flash forward at HuBERT's shape ([8, 12, 512, 64], 499 valid rows)
@@ -1586,14 +1597,85 @@ def loss_rows(run_dir: Path) -> list[list[str]]:
     return [r.split(",") for r in (run_dir / "loss_log.csv").read_text().splitlines()[1:]]
 
 
+def jax_numpy_state(step_dir: Path, cfg) -> dict:
+    """A port checkpoint step (AdamW) in the numpy layout that
+    ``tools/orbax_to_port.py`` builds from a JAX run's Orbax step: the
+    parameter tree as numpy, optax's chain for ``training.optimizer=adamw``
+    with every named tuple as ``{"_type": ...}`` and every tuple as a list,
+    the moments over the trainable partition with None at frozen leaves.
+    The inverse of ``train/import_state.py``, for a card's host, where no
+    JAX run can be restored."""
+    import ml_dtypes
+    import torch
+
+    from avsr_tpu_torch.train.checkpoint import load_params
+    from avsr_tpu_torch.train.state import partition_trainable, tree_map_with_path
+
+    check(cfg.training.optimizer == "adamw", "jax_numpy_state writes AdamW's chain")
+    params = load_params(step_dir)
+    train = torch.load(step_dir / "train.pt", map_location="cpu", weights_only=True)
+    leaves, count = train["opt_state"]["leaves"], np.int32(train["opt_state"]["count"])
+    part, _ = partition_trainable(params, cfg.model)
+
+    def moment(key: str):
+        return tree_map_with_path(
+            lambda p, t: None if t is None else leaves["/".join(p)][key].numpy(), part)
+
+    return {"step": np.int32(train["step"]),
+            "params": tree_map_with_path(
+                lambda p, t: t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+                if t.dtype == torch.bfloat16 else t.numpy(), params),
+            "opt_state": [{"_type": "EmptyState"}, [
+                {"_type": "ScaleByAdamState", "count": count, "mu": moment("exp_avg"),
+                 "nu": moment("exp_avg_sq")},
+                {"_type": "MaskedState", "inner_state": {"_type": "EmptyState"}},
+                {"_type": "ScaleByScheduleState", "count": count}]]}
+
+
+def frames_phase(seed: int) -> dict:
+    """``ops/image.py::preprocess_frames`` on the card against the same call
+    on the CPU: 25 frames of 160 x 120 to 224, in f32 (max |d| <= 1e-5) and
+    bf16 (within one bf16 rounding of the CPU's f32, |d| <= 2^-8 |x| + 1e-5),
+    and its time per call (CUDA events over 20 calls)."""
+    import torch
+
+    from avsr_tpu_torch.ops.image import preprocess_frames
+
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randint(0, 256, (25, 120, 160, 3), dtype=torch.uint8, generator=gen)
+    ref = preprocess_frames(frames, 224)
+    res = {"shape": [25, 120, 160, 3], "image_size": 224}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        dev = frames.cuda()
+        got = preprocess_frames(dev, 224, dtype=dtype)
+        torch.cuda.synchronize()
+        d = (got.float().cpu() - ref).abs()
+        check(got.shape == (25, 3, 224, 224) and got.dtype == dtype
+              and bool(torch.isfinite(got).all()), f"preprocess_frames {name}: {got.shape}")
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -8 * ref.abs() + 1e-5
+        check(bool((d <= tol).all()), f"preprocess_frames {name} on the card: max|d| "
+              f"{d.max().item():.3e} against the CPU")
+        ms = time_ms(lambda: preprocess_frames(dev, 224, dtype=dtype), iters=20)
+        res[name] = {"max_abs_err": d.max().item(), "ms": ms}
+    print(f"preprocess_frames ({gpu_line()}): 25 x 120 x 160 -> 224, f32 max|d| "
+          f"{res['f32']['max_abs_err']:.3e} ({res['f32']['ms']:.3f} ms), bf16 max|d| "
+          f"{res['bf16']['max_abs_err']:.3e} ({res['bf16']['ms']:.3f} ms) against the CPU")
+    return res
+
+
 def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
     """train -> checkpoint -> resume -> in-training WER -> decode from the
     checkpoint (bf16 and the serving preset) -> WER, and averaging and
     preemption, through the port's CLIs at the flagship's full width with
     LoRA dropout off (a resumed run restarts its dropout seeds, as the JAX
     Trainer does, so only a run without dropout can equal an uninterrupted
-    one). Every directory it writes (about 3.5 GB per checkpoint step) is
-    removed at the end."""
+    one). Then a JAX run's checkpoint continued and served: run A's step 2
+    in the numpy layout of ``tools/orbax_to_port.py`` (``jax_numpy_state``)
+    is imported by ``train/import_state.py`` into a fresh directory, the
+    train CLI resumes it for step 3 (equal to run C's, with exact launches)
+    and the decode CLI's hypotheses from it equal those from run A's
+    directory. The preemption pair runs at ``MESH_DEPTH``. Every directory
+    it writes (about 3.5 GB per checkpoint step) is removed at the end."""
     import gc
     import shutil
 
@@ -1604,11 +1686,13 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
     from avsr_tpu_torch.data.loader import DataLoader, featurize
     from avsr_tpu_torch.infer.generate import generate_tokens
     from avsr_tpu_torch.train.checkpoint import load_params
+    from avsr_tpu_torch.train.import_state import copy_meta, import_state, write_step
     from avsr_tpu_torch.train.loop import Trainer
     from avsr_tpu_torch.train.state import path_leaves, trainable_mask
 
     base = ROOT / "outputs" / "chip_smoke" / time.strftime("ckpt_%Y%m%d_%H%M%S")
     ab, c, pre, avg = base / "ab", base / "c", base / "pre", base / "avg"
+    imp, run_a_json = base / "imp", base / "run_a_json"
     flag = ["--seed", str(seed), "--device", "cuda", *FLAGSHIP_OVERRIDES,
             "data.synthetic=true", "model.lora.dropout=0"]
     wer_run = ["training.keep_checkpoints=2", "training.eval_wer_every_epochs=1",
@@ -1632,12 +1716,27 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         loaded[:] = [params, orig_prepare(params, *a, **kw)]
         return loaded[1]
 
-    def train_run(run_dir: Path, *extra: str) -> int:
+    def train_run(run_dir: Path, *extra: str, counted: bool = False) -> int:
+        """The train CLI; ``counted`` records each step's launches."""
         seen.clear()
-        rc = train.main([*flag, *wer_run, f"training.checkpoint_dir={run_dir}", *extra])
+        train.Trainer = CountedSteps if counted else Trainer
+        try:
+            rc = train.main([*flag, *wer_run, f"training.checkpoint_dir={run_dir}", *extra])
+        finally:
+            train.Trainer = Trainer
         gc.collect()
         torch.cuda.empty_cache()
         return rc
+
+    step_launches: dict[str, dict] = {}
+
+    class CountedSteps(Trainer):
+        """Each optimizer step's kernel launches, by run directory and step."""
+        def _step(self, micro_batches, epoch):
+            before = counts()
+            m = super()._step(micro_batches, epoch)
+            step_launches[f"{self.ckpt.dir.parent.name}_{self.state.step}"] = since(before)
+            return m
 
     def decode_run(out: Path, ckpt: Path, *extra: str) -> None:
         rc = decode.main([*flag, *dec_run, f"decode.output_dir={out}", *extra,
@@ -1677,19 +1776,24 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         res["run_a"] = dict(val_wer=wer_a, data_state=meta["data_state"],
                             fit_state=meta["fit_state"],
                             step_s=[float(r[7]) for r in rows if r[2] == "train"])
+        copy_meta(ck, run_a_json)            # the JSON a JAX run A would leave
 
-        # Run B: the same directory, one step more, resumed
+        # Run B: the same directory, one step more, resumed (the in-training
+        # WER that run A checks is not evaluated again)
         resumed = len(rec.args("resumed from step"))
-        check(train_run(ab, "training.max_steps=3", "training.save_every_steps=1") == 0,
+        check(train_run(ab, "training.max_steps=3", "training.save_every_steps=1",
+                        "training.eval_wer_every_epochs=0", "training.best_metric=loss") == 0,
               "run B failed")
         got = rec.args("resumed from step")[resumed:]
         accum = cfg.training.grad_accum_steps
         check(got == [(2, 1, 2 * accum)], f"run B resume log {got}")
         seen_b = list(seen)
         # Run C: a fresh directory, three steps uninterrupted, no save before
-        # the end (its step times against run A's show what a save costs)
-        check(train_run(c, "training.max_steps=3", "training.save_every_steps=0") == 0,
-              "run C failed")
+        # the end (its step times against run A's show what a save costs); its
+        # in-training WER is not read, so it is not evaluated
+        check(train_run(c, "training.max_steps=3", "training.save_every_steps=0",
+                        "training.eval_wer_every_epochs=0", "training.best_metric=loss",
+                        counted=True) == 0, "run C failed")
         third = seen[2 * accum:3 * accum]
         check(len(seen_b) == accum and seen_b == third,
               f"run B saw batches {seen_b}, run C's third step {third}")
@@ -1715,7 +1819,59 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         res["run_c"] = dict(step_s=[float(r[7]) for r in rows_c if r[2] == "train"])
         print(f"checkpoint phase: runs A (2 steps), B (resumed, 1 step), C (3 steps); "
               f"B vs C {json.dumps(res['b_vs_c'])}")
-        del pb, pc
+
+        # A JAX run's checkpoint, continued: run A's step 2 as the numpy
+        # layout that tools/orbax_to_port.py hands over, imported into a
+        # fresh directory with run A's JSON, resumed by the train CLI
+        t0 = time.perf_counter()
+        state = jax_numpy_state(ck / "2", cfg)
+        t1 = time.perf_counter()
+        sd = import_state(state, cfg)
+        step_dir = write_step(imp / "ckpt", sd)
+        copied = copy_meta(run_a_json, imp / "ckpt")
+        t2 = time.perf_counter()
+        gb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e9
+        src = path_leaves(load_params(ck / "2"))
+        got_i = path_leaves(sd["params"])
+        check(got_i.keys() == src.keys()
+              and all(torch.equal(got_i[k], v) for k, v in src.items()),
+              "the imported params differ from run A's step 2")
+        src_opt = torch.load(ck / "2" / "train.pt", map_location="cpu", weights_only=True)
+        check(sd["step"] == src_opt["step"] == 2
+              and sd["opt_state"]["count"] == src_opt["opt_state"]["count"]
+              and all(torch.equal(v, src_opt["opt_state"]["leaves"][n][key])
+                      for n, st in sd["opt_state"]["leaves"].items()
+                      for key, v in st.items()),
+              "the imported AdamW state differs from run A's step 2")
+        del state, sd, src, got_i, src_opt
+        resumed = len(rec.args("resumed from step"))
+        check(train_run(imp, "training.max_steps=3", "training.save_every_steps=0",
+                        "training.eval_wer_every_epochs=0", "training.best_metric=loss",
+                        counted=True) == 0, "the imported run's resume failed")
+        got = rec.args("resumed from step")[resumed:]
+        check(got == [(2, 1, 2 * accum)], f"imported run's resume log {got}")
+        check(seen == third, f"the imported run saw batches {seen}, run C's third step {third}")
+        pi = path_leaves(load_params(imp / "ckpt" / "3"))
+        loss_i = [r[3] for r in loss_rows(imp) if r[2] == "train"]
+        differ = [k for k, m in mask.items() if m and not torch.equal(pi[k], pc[k])]
+        check(not differ and loss_i == loss_c,
+              f"imported run's step 3 vs run C's: losses {loss_i} / {loss_c}, "
+              f"{len(differ)} trainable leaves differ ({differ[:3]})")
+        L, W = mc.llm.n_layers, mc.whisper.n_layers
+        want = dict(flash_fwd=accum * (W + 2 * L), flash_bwd_dq=accum * L,
+                    flash_bwd_dkv=accum * L, qmatmul_int8=0, qmatmul_int4=0)
+        n_imp, n_c = step_launches["imp_3"], step_launches["c_3"]
+        check(n_imp == n_c == want, f"step-3 launches: imported run {n_imp}, run C "
+              f"{n_c}, expected {want}")
+        res["jax_import"] = dict(
+            numpy_layout_s=t1 - t0, import_s=t2 - t1, gb=gb, s_per_gb=(t2 - t1) / gb,
+            leaves=len(pi), json_copied=copied, step3_loss=loss_i[0],
+            step3_equals_run_c=True, step3_launches=n_imp)
+        print(f"checkpoint import ({gpu_line()}): run A's step 2 ({len(pi)} leaves, "
+              f"{gb:.3f} GB) imported in {t2 - t1:.2f} s ({(t2 - t1) / gb:.2f} s/GB; "
+              f"numpy layout {t1 - t0:.2f} s); resumed step 3 equals run C's (loss "
+              f"{loss_i[0]}), launches {n_imp}")
+        del pb, pc, pi
         shutil.rmtree(c)
 
         # Decode from the checkpoint, bf16: the leaves the CLI loaded, then
@@ -1741,6 +1897,19 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         check(bool(torch.isfinite(st["prefill_logits"]).all()), "logits not finite")
         res["decode_bf16"] = _serving(st, out, hb, n, bf16)
         del params, out
+        loaded.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The imported run serves: the decode CLI's hypotheses from its
+        # directory equal those from run A's (both at step 3)
+        decode_run(base / "dec_import", imp / "ckpt")
+        loaded.clear()
+        hyps = hyp_lines(base / "dec_import")
+        check(len(hyps) == 8 and hyps == hyp_lines(base / "dec_bf16"),
+              "the decode CLI's hypotheses from the imported run differ from run A's")
+        res["jax_import"]["decode_hyps_equal"] = len(hyps)
+        shutil.rmtree(imp)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1795,7 +1964,8 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         handler = signal.getsignal(signal.SIGTERM)
         train.Trainer = PreemptedAfterStep1
         try:
-            check(train.main([*flag, "training.max_steps=3", "training.save_every_steps=0",
+            check(train.main([*flag, *MESH_DEPTH, "training.max_steps=3",
+                              "training.save_every_steps=0",
                               f"training.checkpoint_dir={pre}"]) == 0, "preempted run failed")
         finally:
             train.Trainer = Trainer
@@ -1807,7 +1977,8 @@ def checkpoint_phase(seed: int, bf16: dict, preset: dict) -> dict:
         check(signal.getsignal(signal.SIGTERM) is handler,
               "the Trainer left its SIGTERM handler installed")
         resumed = len(rec.args("resumed from step"))
-        check(train.main([*flag, "training.max_steps=3", "training.save_every_steps=0",
+        check(train.main([*flag, *MESH_DEPTH, "training.max_steps=3",
+                          "training.save_every_steps=0",
                           f"training.checkpoint_dir={pre}"]) == 0, "resumed run failed")
         check([a[0] for a in rec.args("resumed from step")[resumed:]] == [2],
               "the run after the preemption did not resume from step 2")
@@ -2139,11 +2310,14 @@ def train_knobs_phase(seed: int, train: dict) -> dict:
               and splits.count("val_wer") == 1, f"4bit run A loss_log rows {splits}")
         wer_a = float(next(r[5] for r in rows if r[2] == "val_wer"))
         check(np.isfinite(wer_a), f"4bit run A val WER {wer_a}")
+        # runs B and C leave out the in-training WER eval that run A checks
         resumed = len(rec.args("resumed from step"))
-        train_run(ab, "training.max_steps=3", "training.save_every_steps=1")
+        train_run(ab, "training.max_steps=3", "training.save_every_steps=1",
+                  "training.eval_wer_every_epochs=0")
         got = rec.args("resumed from step")[resumed:]
         check(got == [(2, 1, 2 * accum)], f"4bit run B resume log {got}")
-        train_run(c, "training.max_steps=3", "training.save_every_steps=0")
+        train_run(c, "training.max_steps=3", "training.save_every_steps=0",
+                  "training.eval_wer_every_epochs=0")
         pb, pc = (path_leaves(load_params(d / "ckpt" / "3")) for d in (ab, c))
         mask = path_leaves(trainable_mask(load_params(ab / "ckpt" / "3"), mc))
         differ = [k for k, m in mask.items() if m and not torch.equal(pb[k], pc[k])]
@@ -4317,11 +4491,13 @@ def convert_phase(seed: int) -> dict:
         settle()
         shutil.rmtree(base / "export_hubert_base", ignore_errors=True)
 
-        # 5. a reference-trainer checkpoint at the flagship's width: the peft-
-        # wrapped LLM in bf16 with r = 16 LoRA, simple connectors in f32
+        # 5. a reference-trainer checkpoint at the flagship's width and
+        # MESH_DEPTH: the peft-wrapped LLM in bf16 with r = 16 LoRA, simple
+        # connectors in f32
+        rc = flagship(list(MESH_DEPTH))
         gen = torch.Generator(device="cuda").manual_seed(seed + 1602)
-        llm = jitter(init_llama(gen, fl.model.llm, torch.bfloat16), gen)
-        r = fl.model.lora.r
+        llm = jitter(init_llama(gen, rc.model.llm, torch.bfloat16), gen)
+        r = rc.model.lora.r
         sd = {}
         for k, v in hf_llama_state(llm).items():
             k = "llm.base_model.model." + k
@@ -4342,11 +4518,11 @@ def convert_phase(seed: int) -> dict:
                 lora[(i, ours)] = (sd[f"{pre}.lora_A.default.weight"],
                                    sd[f"{pre}.lora_B.default.weight"])
         conn = {}
-        for side, d_in in (("audio_connector", fl.model.audio_dim),
-                           ("video_connector", fl.model.video_dim)):
-            conn[side] = (0.02 * torch.randn((fl.model.llm.d_model, d_in), generator=gen,
+        for side, d_in in (("audio_connector", rc.model.audio_dim),
+                           ("video_connector", rc.model.video_dim)):
+            conn[side] = (0.02 * torch.randn((rc.model.llm.d_model, d_in), generator=gen,
                                              device="cuda"),
-                          0.02 * torch.randn((fl.model.llm.d_model,), generator=gen,
+                          0.02 * torch.randn((rc.model.llm.d_model,), generator=gen,
                                              device="cuda"))
             sd[f"{side}.linear.weight"], sd[f"{side}.linear.bias"] = conn[side]
         pt = base / "model_best.pt"
@@ -4363,7 +4539,8 @@ def convert_phase(seed: int) -> dict:
         t0 = time.perf_counter()
         check(convert_ref_ckpt.main(["--device", "cuda",
                                      "--checkpoint", str(pt), "--out", str(ref_out),
-                                     *FLAGSHIP_OVERRIDES]) == 0, "convert_ref_ckpt failed")
+                                     *FLAGSHIP_OVERRIDES, *MESH_DEPTH]) == 0,
+              "convert_ref_ckpt failed")
         conv_s = time.perf_counter() - t0
         exp = path_leaves(load_params(ref_out))
         n = same("ref/llm", exp, path_leaves({"llm": llm}))
@@ -4381,15 +4558,16 @@ def convert_phase(seed: int) -> dict:
                                base_leaves_equal=n, lora_pairs_equal=len(lora))
         del exp, llm, lora, conn
         settle()
-        params = common.load_decode_params(fl, str(ref_out), seed=seed, device="cuda")
-        hb8 = serving_host_batch(fl, seed + 1603)
+        params = common.load_decode_params(rc, str(ref_out), seed=seed, device="cuda")
+        hb8 = serving_host_batch(rc, seed + 1603)
         st: dict = {}
         out = counted("ref_generate_bf16", lambda: generate_tokens(
-            params, fl.model, featurize(hb8, "cuda", torch.bfloat16), max_new_tokens=32,
+            params, rc.model, featurize(hb8, "cuda", torch.bfloat16), max_new_tokens=32,
             eos_id=-1, compute_dtype=torch.bfloat16, stats=st))
         check(out.tokens.shape == (8, 32) and bool(torch.isfinite(st["prefill_logits"]).all()),
               "the reference export's decode")
-        check(by_path["ref_generate_bf16"] == want(flash=nW + nL),
+        check(by_path["ref_generate_bf16"]
+              == want(flash=rc.model.whisper.n_layers + rc.model.llm.n_layers),
               f"reference export decode launches {by_path['ref_generate_bf16']}")
         print("convert reference checkpoint: " + json.dumps(res["ref_ckpt"]))
         del params, out, st
@@ -7620,6 +7798,7 @@ def run_all(seed: int, lap) -> int:
     cli_phase(args.seed, PRESET_OVERRIDES, tag="preset_cli")
     lap()
     ckpt = checkpoint_phase(args.seed, res, serve["serve_preset"])
+    ckpt["preprocess_frames"] = frames_phase(args.seed)
     cl = ckpt["launches"]
     check(all(cl.values()), f"a kernel did not launch on the checkpoint path: {cl}")
     lap()

@@ -34,6 +34,7 @@ from avsr_tpu_torch.data.dataset import resize_crop_frames
 from avsr_tpu_torch.data.loader import collate, featurize
 from avsr_tpu_torch.data.dataset import Sample
 from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+from avsr_tpu_torch.ops.image import sample_frame_indices
 from avsr_tpu_torch.infer.generate import generate_tokens
 from avsr_tpu_torch.infer.streaming import StreamingTranscriber as TStream
 
@@ -252,7 +253,7 @@ def test_video_io_equals_jax(tmp_path):
     arr = rng.integers(0, 256, (11, 20, 24, 3)).astype(np.uint8)
     np.save(tmp_path / "v.npy", arr)
     for T in (4, 11, 16):
-        np.testing.assert_array_equal(tvideo.sample_indices(11, T), jvideo.sample_indices(11, T))
+        np.testing.assert_array_equal(sample_frame_indices(11, T), jvideo.sample_indices(11, T))
         np.testing.assert_array_equal(tvideo.load_frames(tmp_path / "v.npy", T),
                                       jvideo.load_frames(tmp_path / "v.npy", T))
     np.save(tmp_path / "bad.npy", arr[..., :2])
