@@ -36,7 +36,10 @@
 // by operations (chip_smoke.py::attn_bounds). At the connectors' shape
 // (q = k = v [8,8,500,256] bf16, non-causal, 2.0e6 pairs a head): dQ
 // 2.5e10 flops -> 24.8 us, 98.6 MB -> 29.4 us (bytes); dK/dV 3.3e10 flops
-// -> 33.1 us, 98.6 MB -> 29.4 us (operations).
+// -> 33.1 us, 98.6 MB -> 29.4 us (operations). At Llama-2-7B's train shape
+// (q = k = v [8,32,672,128] causal MHA, 581 rows): dQ 70.4 us, dK/dV 72.1 us
+// (bytes); at its connectors' (q = k = v [8,8,500,512]): dQ 58.8 us (bytes),
+// dK/dV 66.3 us (operations).
 //
 // float32 dQ and dK/dV are the first design (flash_bwd_dq_f32_kernel,
 // flash_bwd_dkv_kernel): 4 warps over 64-row tiles, a warp owning 16 rows
@@ -52,7 +55,11 @@
 // (255 registers a thread; delta from O in device memory, dQ staged in Q's
 // space, 32-key stages), and dK and dV run in separate CTAs of 64 keys
 // (flash_bwd_dkv_bf16_wide_kernel), each with one consumer warpgroup that
-// recomputes S^T.
+// recomputes S^T. D = 512 in bf16 splits the same CTAs by columns: a dQ
+// CTA owns half of its 64 rows' dQ (two CTAs per q tile, each computing S
+// and dP over the whole width; 16-key stages), and a key tile has four
+// dK/dV CTAs (dK and dV, each by column half; 16-row q stages), so every
+// accumulator stays at 128 f32 a thread.
 //
 // bf16 dQ (flash_bwd_dq_bf16_kernel): one CTA per (b, q head, 128-row q
 // tile), the dK/dV design turned around:
@@ -622,25 +629,33 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 // for P^T): the two CTAs of a key tile each recompute S^T. K and V stay
 // resident (32 KB each); the Q and dO tiles of 32 q rows stream through a
 // ring of three stages; the result leaves through K's space.
+// At D = 512 a CTA owns one half of the columns of its keys' dK or dV
+// (PO = 4 of the 8 panels: still 128 registers a thread), so a key tile has
+// four CTAs, each recomputing S^T (and, for dK, dP^T) over the whole width;
+// K and V take 64 KB each and a ring stage holds 16 q rows.
 constexpr int BK_W = 64;         // keys of a CTA
-constexpr int BQ_W = 32;         // q rows of a ring stage
 constexpr int THREADS_W = 256;   // a consumer and a producer warpgroup
 
+template <int D_>
 struct DkvWideLayout {
-  static constexpr int D = 256;
-  static constexpr int P = D / hopper::PANEL_COLS;      // 4 panels
+  static constexpr int D = D_;
+  static constexpr int BQ = D == 512 ? 16 : 32;          // q rows of a ring stage
+  static constexpr int P = D / hopper::PANEL_COLS;      // 4 or 8 panels
+  static constexpr int HALVES = D == 512 ? 2 : 1;        // CTAs splitting the columns
+  static constexpr int PO = P / HALVES;                  // output panels of a CTA
   static constexpr int kKPanel = BK_W * hopper::ROW_BYTES;
-  static constexpr int kQPanel = BQ_W * hopper::ROW_BYTES;
+  static constexpr int kQPanel = BQ * hopper::ROW_BYTES;
   static constexpr int kK = 0;
   static constexpr int kV = kK + P * kKPanel;
   static constexpr int kQ = kV + P * kKPanel;
   static constexpr int kDO = kQ + STAGES * P * kQPanel;
   static constexpr int kLse = kDO + STAGES * P * kQPanel;
-  static constexpr int kDelta = kLse + STAGES * BQ_W * 4;
-  static constexpr int kBar = kDelta + STAGES * BQ_W * 4;
+  static constexpr int kDelta = kLse + STAGES * BQ * 4;
+  static constexpr int kBar = kDelta + STAGES * BQ * 4;
   static constexpr int kBytes = kBar + (1 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
 };
 
+template <int D_>
 __global__ void __launch_bounds__(THREADS_W, 1)
 flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_do,
@@ -654,9 +669,11 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const int* __restrict__ kv_lens, int H, int Hkv,
                                int Tq, int Tk, int causal, float scale) {
   using namespace hopper;
-  using L = DkvWideLayout;
+  using L = DkvWideLayout<D_>;
   constexpr int P = L::P;
+  constexpr int PO = L::PO;
   constexpr int D = L::D;
+  constexpr int BQ_W = L::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_atom(smem_raw);
   float* s_lse = reinterpret_cast<float*>(smem + L::kLse);
@@ -667,8 +684,11 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
-  const bool is_dk = (blockIdx.z & 1) == 0;   // the key tile's dK, else its dV
-  const int k0 = (blockIdx.z >> 1) * BK_W;    // first key tile (the heaviest) first
+  // per key tile: dK and dV (D = 512: of each column half) in turn
+  const int kind = blockIdx.z % (2 * L::HALVES);
+  const bool is_dk = (kind & 1) == 0;         // the key tile's dK, else its dV
+  const int p0 = (kind >> 1) * PO;            // the CTA's first output panel
+  const int k0 = (blockIdx.z / (2 * L::HALVES)) * BK_W;   // first key tile (the heaviest) first
   const int group = H / Hkv;
   const int q_len = max(0, min(q_lens[b], Tq));
   const int kv_len = max(0, min(kv_lens[b], Tk));
@@ -710,8 +730,10 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         // one row of lse (times log2 e; +inf past q_len) and delta per lane
         const int qi = q0 + lane;
         const size_t row = size_t(bh) * Tq + qi;
-        s_lse[s * BQ_W + lane] = qi < q_len ? lse[row] * LOG2E : INFINITY;
-        s_delta[s * BQ_W + lane] = qi < q_len ? delta[row] : 0.0f;
+        if (lane < BQ_W) {
+          s_lse[s * BQ_W + lane] = qi < q_len ? lse[row] * LOG2E : INFINITY;
+          s_delta[s * BQ_W + lane] = qi < q_len ? delta[row] : 0.0f;
+        }
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], 2 * P * L::kQPanel);
           for (int p = 0; p < P; ++p) {
@@ -737,9 +759,9 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint8_t* sk = smem + L::kK;
     const uint8_t* sv = smem + L::kV;
 
-    float acc[P][32];
+    float acc[PO][32];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < PO; ++p) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
     }
@@ -809,21 +831,21 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       acc_to_a<BQ_W>(st, a);
       fence_regs(a);
 #pragma unroll
-      for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+      for (int p = 0; p < PO; ++p) fence_regs(acc[p]);
       const uint8_t* sb = is_dk ? sq : sdo;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ_W / 16; ++kk) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
+        for (int p = 0; p < PO; ++p) {
           wgmma_rs<64>(acc[p], a[kk],
-                       desc_sw128(sb + p * L::kQPanel + kk * 16 * ROW_BYTES), 1);
+                       desc_sw128(sb + (p0 + p) * L::kQPanel + kk * 16 * ROW_BYTES), 1);
         }
       }
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+      for (int p = 0; p < PO; ++p) fence_regs(acc[p]);
       fence_regs(a);
       mbar_arrive(&empty[s]);
     }
@@ -832,7 +854,7 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     named_sync(1, 128);
     uint8_t* so = smem + L::kK;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < PO; ++p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         *reinterpret_cast<uint32_t*>(so + p * L::kKPanel + swizzled_offset(r, 8 * i + cq)) =
@@ -844,9 +866,9 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_proxy_async();
     named_sync(1, 128);
     if (tid == 0 && k0 < Tk) {
-      for (int p = 0; p < P; ++p) {
-        tma_store_3d(is_dk ? &tm_dk : &tm_dv, so + p * L::kKPanel, p * PANEL_COLS, k0,
-                     b * Hkv + hk);
+      for (int p = 0; p < PO; ++p) {
+        tma_store_3d(is_dk ? &tm_dk : &tm_dv, so + p * L::kKPanel, (p0 + p) * PANEL_COLS,
+                     k0, b * Hkv + hk);
       }
       tma_store_drain();
     }
@@ -865,16 +887,22 @@ flash_bwd_dkv_bf16_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 // of three warpgroups, so a CTA has one consumer warpgroup of 64 rows and
 // the producer warpgroup (255 registers); delta reads O from device
 // memory, dQ leaves through the Q tile's space once Q is read for good, and
-// a ring stage holds 32 keys.
+// a ring stage holds 32 keys. D = 512: as D = 256, but a CTA owns half of
+// dQ's columns (PO = 4 of the 8 panels, 128 registers a thread), so a q
+// tile has two CTAs, each computing S and dP over the whole width; a ring
+// stage holds 16 keys (Q and dO take 64 KB each).
 template <int D>
 struct DqLayout {
-  static constexpr int CONSUMERS = D == 256 ? 1 : 2;     // warpgroups of 64 rows
+  static constexpr bool WIDE = D >= 256;
+  static constexpr int CONSUMERS = WIDE ? 1 : 2;         // warpgroups of 64 rows
   static constexpr int THREADS = (CONSUMERS + 1) * 128;
   static constexpr int BQ = CONSUMERS * 64;              // q rows of a CTA
   static constexpr int P = D / hopper::PANEL_COLS;      // 64-column panels
-  static constexpr int BK = D == 256 ? 32 : 64;          // keys of a ring stage
+  static constexpr int HALVES = D == 512 ? 2 : 1;        // CTAs splitting dQ's columns
+  static constexpr int PO = P / HALVES;                  // dQ panels of a CTA
+  static constexpr int BK = D == 512 ? 16 : D == 256 ? 32 : 64;   // keys of a ring stage
   static constexpr int STAGES = 3;
-  static constexpr bool O_RESIDENT = D != 256;
+  static constexpr bool O_RESIDENT = !WIDE;
   static constexpr int kQPanel = BQ * hopper::ROW_BYTES;
   static constexpr int kKVPanel = BK * hopper::ROW_BYTES;
   static constexpr int kQ = 0;
@@ -884,7 +912,7 @@ struct DqLayout {
   static constexpr int kV = kK + STAGES * P * kKVPanel;
   static constexpr int kBar = kV + STAGES * P * kKVPanel;
   static constexpr int kBytes = kBar + (1 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
-  // where dQ is staged: the O tile, or (D = 256) the Q tile
+  // where dQ is staged: the O tile, or (D >= 256) the Q tile
   static constexpr int kStage = O_RESIDENT ? kO : kQ;
 };
 
@@ -905,6 +933,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   using namespace hopper;
   using L = DqLayout<D>;
   constexpr int P = L::P;
+  constexpr int PO = L::PO;
   constexpr int BK = L::BK;
   constexpr int BQ = L::BQ;
   constexpr int CONSUMERS = L::CONSUMERS;
@@ -918,7 +947,9 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.x;              // query heads of one kv head adjacent
   const int b = blockIdx.y;
   const int n_qt = (Tq + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - int(blockIdx.z)) * BQ;   // last (heaviest) first
+  const int half = int(blockIdx.z) % L::HALVES;        // D = 512: the column half
+  const int p0 = half * PO;                            // the CTA's first dQ panel
+  const int q0 = (n_qt - 1 - int(blockIdx.z) / L::HALVES) * BQ;   // last (heaviest) first
   const int hk = h / (H / Hkv);
   const int q_len = max(0, min(q_lens[b], Tq));
   const int kv_len = max(0, min(kv_lens[b], Tk));
@@ -1031,14 +1062,14 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       db += __shfl_xor_sync(0xffffffffu, db, 1);
       db += __shfl_xor_sync(0xffffffffu, db, 2);
     }
-    if ((lane & 3) == 0) {
+    if ((lane & 3) == 0 && half == 0) {
       if (qa < Tq) delta_out[row0 + qa] = qa < q_len ? da : 0.0f;
       if (qb < Tq) delta_out[row0 + qb] = qb < q_len ? db : 0.0f;
     }
 
-    float dq[P][32];
+    float dq[PO][32];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < PO; ++p) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) dq[p][i] = 0.0f;
     }
@@ -1096,30 +1127,30 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         acc_to_a<BK>(dp, dsa);
         fence_regs(dsa);
 #pragma unroll
-        for (int p = 0; p < P; ++p) fence_regs(dq[p]);
+        for (int p = 0; p < PO; ++p) fence_regs(dq[p]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-          for (int p = 0; p < P; ++p) {
+          for (int p = 0; p < PO; ++p) {
             wgmma_rs<64>(dq[p], dsa[kk],
-                         desc_sw128(sk + p * L::kKVPanel + kk * 16 * ROW_BYTES), 1);
+                         desc_sw128(sk + (p0 + p) * L::kKVPanel + kk * 16 * ROW_BYTES), 1);
           }
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int p = 0; p < P; ++p) fence_regs(dq[p]);
+        for (int p = 0; p < PO; ++p) fence_regs(dq[p]);
         fence_regs(dsa);
       }
       mbar_arrive(&empty[s]);
     }
 
-    // ---- epilogue: scale * dQ into the O (D = 256: Q) tile's space, out
+    // ---- epilogue: scale * dQ into the O (D >= 256: Q) tile's space, out
     // by TMA ----
     named_sync(1 + wg, 128);   // every thread of the warpgroup has read O
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
+    for (int p = 0; p < PO; ++p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         *reinterpret_cast<uint32_t*>(so + p * L::kQPanel + swizzled_offset(r, 8 * i + cq)) =
@@ -1131,8 +1162,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_proxy_async();
     named_sync(1 + wg, 128);
     if (tid == 0 && wq0 < Tq) {
-      for (int p = 0; p < P; ++p) {
-        tma_store_3d(&tm_dq, so + p * L::kQPanel, p * PANEL_COLS, wq0, b * H + h);
+      for (int p = 0; p < PO; ++p) {
+        tma_store_3d(&tm_dq, so + p * L::kQPanel, (p0 + p) * PANEL_COLS, wq0, b * H + h);
       }
       tma_store_drain();
     }
@@ -1188,8 +1219,8 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int n_qt = (Tq + L::BQ - 1) / L::BQ;
-  if (n_qt > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(H, B, n_qt);
+  if (n_qt * L::HALVES > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(H, B, n_qt * L::HALVES);
   kernel<<<grid, L::THREADS, bytes, stream>>>(
       tq, tdo, to, tk, tv, tdq, static_cast<const __nv_bfloat16*>(o),
       static_cast<const float*>(lse),
@@ -1251,30 +1282,32 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_dkv_bf16_wide(const void* q, const void* k, const void* v,
                                  const void* lse, const void* delta,
                                  const void* dout, const void* q_lens,
                                  const void* kv_lens, void* dk, void* dv, int B,
                                  int H, int Hkv, int Tq, int Tk, int causal,
                                  float scale, cudaStream_t stream) {
-  using L = DkvWideLayout;
+  using L = DkvWideLayout<D>;
   CUtensorMap tq, tdo, tk, tv, tdk, tdv;
-  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, L::D, BQ_W) ||
-      !hopper::make_tmap_bf16(&tdo, dout, B * H, Tq, L::D, BQ_W) ||
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, L::D, L::BQ) ||
+      !hopper::make_tmap_bf16(&tdo, dout, B * H, Tq, L::D, L::BQ) ||
       !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, L::D, BK_W) ||
       !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, L::D, BK_W) ||
       !hopper::make_tmap_bf16(&tdk, dk, B * Hkv, Tk, L::D, BK_W) ||
       !hopper::make_tmap_bf16(&tdv, dv, B * Hkv, Tk, L::D, BK_W)) {
     return cudaErrorNotSupported;
   }
-  auto kernel = flash_bwd_dkv_bf16_wide_kernel;
+  auto kernel = flash_bwd_dkv_bf16_wide_kernel<D>;
   const int bytes = L::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int n_kt = (Tk + BK_W - 1) / BK_W;
-  if (2 * n_kt > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B, 2 * n_kt);          // a dK and a dV CTA per key tile
+  constexpr int kinds = 2 * L::HALVES;        // dK and dV CTAs per key tile
+  if (kinds * n_kt > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B, kinds * n_kt);
   kernel<<<grid, THREADS_W, bytes, stream>>>(
       tq, tdo, tk, tv, tdk, tdv, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(q_lens),
@@ -1292,7 +1325,9 @@ bool bad_shape(int B, int H, int Hkv, int Tq, int Tk) {
 // Both return 0 on success, else the cudaError_t of the failed call (each
 // launch is checked with cudaGetLastError right after it is enqueued;
 // cudaErrorNotSupported if a tensor map could not be encoded).
-// is_f32: 0 for bfloat16 operands, 1 for float32. D must be 64, 128 or 256.
+// is_f32: 0 for bfloat16 operands, 1 for float32. D must be 64, 128, 256 or
+// 512 (ops/attention.py runs the widths between them on zero-padded
+// operands).
 // q, dout, o, dq: [B, H, Tq, D]; k, v, dk, dv: [B, Hkv, Tk, D]; lse, delta:
 // [B, H, Tq] float32; q_lens, kv_lens: [B] int32. All contiguous.
 extern "C" int avsr_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1311,10 +1346,12 @@ extern "C" int avsr_flash_bwd_dq(const void* q, const void* k, const void* v,
     if (D == 64) AVSR_DQ(launch_dq_f32, 64);
     if (D == 128) AVSR_DQ(launch_dq_f32, 128);
     if (D == 256) AVSR_DQ(launch_dq_f32, 256);
+    if (D == 512) AVSR_DQ(launch_dq_f32, 512);
   } else {
     if (D == 64) AVSR_DQ(launch_dq_bf16, 64);
     if (D == 128) AVSR_DQ(launch_dq_bf16, 128);
     if (D == 256) AVSR_DQ(launch_dq_bf16, 256);
+    if (D == 512) AVSR_DQ(launch_dq_bf16, 512);
   }
 #undef AVSR_DQ
   return int(cudaErrorInvalidValue);
@@ -1336,13 +1373,12 @@ extern "C" int avsr_flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (D == 64) AVSR_DKV(launch_dkv_f32, 64);
     if (D == 128) AVSR_DKV(launch_dkv_f32, 128);
     if (D == 256) AVSR_DKV(launch_dkv_f32, 256);
+    if (D == 512) AVSR_DKV(launch_dkv_f32, 512);
   } else {
     if (D == 64) AVSR_DKV(launch_dkv_bf16, 64);
     if (D == 128) AVSR_DKV(launch_dkv_bf16, 128);
-    if (D == 256) {
-      return int(launch_dkv_bf16_wide(q, k, v, lse, delta, dout, q_lens, kv_lens,
-                                      dk, dv, B, H, Hkv, Tq, Tk, causal, scale, s));
-    }
+    if (D == 256) AVSR_DKV(launch_dkv_bf16_wide, 256);
+    if (D == 512) AVSR_DKV(launch_dkv_bf16_wide, 512);
   }
 #undef AVSR_DKV
   return int(cudaErrorInvalidValue);

@@ -13,15 +13,16 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 
 // Tile geometry of head width D. A tile holds BLOCK rows of a query or
-// key/value head: 64, or 32 at D = 256, where a 64-row f32 tile takes 66 KB
-// and dQ's and dK/dV's four tiles would not fit in shared memory. A warp
-// owns ROWS_PER_WARP rows of the CTA's tile; the LANES lanes that share a
-// row hold COLS of its BLOCK score columns and DCOLS of its D output
-// columns each (64-row tiles: lane pair (2r, 2r+1) owns row r, each lane
-// one half; 32-row tiles: lanes 4r..4r+3 own row r, each lane a quarter).
+// key/value head: 64, 32 at D = 256, where a 64-row f32 tile takes 66 KB
+// and dQ's and dK/dV's four tiles would not fit in shared memory, and 16 at
+// D = 512. A warp owns ROWS_PER_WARP rows of the CTA's tile; the LANES
+// lanes that share a row hold COLS of its BLOCK score columns and DCOLS of
+// its D output columns each (64-row tiles: lane pair (2r, 2r+1) owns row r,
+// each lane one half; 32-row tiles: lanes 4r..4r+3 own row r, each lane a
+// quarter; 16-row tiles: 8 lanes a row, each an eighth).
 template <typename T, int D>
 struct Geometry {
-  static constexpr int BLOCK = D == 256 ? 32 : 64;
+  static constexpr int BLOCK = D == 512 ? 16 : D == 256 ? 32 : 64;
   static constexpr int ROWS_PER_WARP = BLOCK / WARPS;
   static constexpr int LANES = 32 / ROWS_PER_WARP;
   static constexpr int COLS = BLOCK / LANES;

@@ -24,6 +24,10 @@
 //            adaptive connectors: 8 heads over the 2048-wide LLM, on the
 //            500 rows Whisper returns): 16.4 GFLOP -> 16.6 us; 65.7 MB ->
 //            19.6 us.
+//   Llama-2-7B (MHA, heads of 128): prefill [8,32,533,128] causal 41.9 us
+//            by bytes (140 MB); train [8,32,672,128], 581 rows, 47.5 us;
+//            its connectors [8,8,500,512] non-causal: 32.8 GFLOP -> 33.1 us;
+//            131 MB -> 39.2 us.
 // All are bound by bytes, closely followed by operations, so the kernel has
 // to stream each operand once and keep the tensor cores busy.
 //
@@ -70,6 +74,15 @@
 // scores of a K/V tile (32) and P as bf16 (16), within the 168 registers a
 // thread that ptxas gives a kernel of three warpgroups; no D spills.
 //
+// D = 512 (SPLIT): O of 64 rows would be 256 f32 a thread, past the cap.
+// A tile is 64 query rows; both consumer warpgroups compute the same S over
+// the whole width (S takes a third of the FLOPs more) and the same softmax,
+// and each owns 4 of O's 8 panels (128 f32 a thread), so P V runs on its
+// own 256 columns of V. K/V tiles hold 32 keys: Q is 64 KB and a stage
+// 64 KB, two stages, 192 KB in all. Each warpgroup stages its O in its own
+// panels of the Q tile, after a barrier of both (the other still reads
+// them for its S until then); warpgroup 0 writes lse.
+//
 // float32 inputs take the first design's scalar path (flash_fwd_f32_kernel):
 // 64-row tiles (32 at D = 256, whose 64-row f32 tiles would take 203 KB),
 // 4 warps, the lanes of a row (2, or 4 at D = 256) each owning a part of its
@@ -87,8 +100,7 @@ namespace {
 // bfloat16: wgmma on a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128;          // query rows of a CTA
-constexpr int CONSUMERS = 2;     // consumer warpgroups, 64 query rows each
+constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS_BF16 = (CONSUMERS + 1) * 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -96,18 +108,26 @@ constexpr float LN2 = 0.6931471805599453f;
 // Dynamic shared-memory layout (byte offsets from a 1024-byte boundary).
 template <int D>
 struct Layout {
+  // D = 512: a 64-row O accumulator of the whole width would be 256 f32
+  // registers a thread. The two consumer warpgroups share a tile of 64 query
+  // rows instead, each computing the same S = Q K^T over the whole width
+  // and owning 256 of O's columns (PO = 4 of the 8 panels).
+  static constexpr bool SPLIT = D == 512;
+  static constexpr int BM = SPLIT ? 64 : 128;             // query rows of a tile
   // keys of a K/V tile: 128 for D = 64; 64 for D = 128 and 256, whose O
   // accumulators are two and four times as large, so that scores, P and O
-  // stay in registers
-  static constexpr int BN = D == 64 ? 128 : 64;
-  // K/V ring depth: two stages at D = 256, where a stage is 64 KB
-  static constexpr int STAGES = D == 256 ? 2 : 3;
-  // D = 256 has no room for an O staging tile: a warpgroup stages its O in
-  // its own 64 rows of the Q tile, which the next tile's Q load then waits
-  // for (Q is released after the epilogue's store, not after the last
-  // block)
-  static constexpr bool O_IN_Q = D == 256;
+  // stay in registers; 32 for D = 512, where a stage of 64 keys would be
+  // 128 KB
+  static constexpr int BN = D == 64 ? 128 : SPLIT ? 32 : 64;
+  // K/V ring depth: two stages at D = 256 and 512, where a stage is 64 KB
+  static constexpr int STAGES = D >= 256 ? 2 : 3;
+  // D >= 256 has no room for an O staging tile: a warpgroup stages its O in
+  // its own 64 rows (D = 512: its own panels) of the Q tile, which the next
+  // tile's Q load then waits for (Q is released after the epilogue's store,
+  // not after the last block)
+  static constexpr bool O_IN_Q = D >= 256;
   static constexpr int P = D / hopper::PANEL_COLS;      // 64-column panels
+  static constexpr int PO = SPLIT ? P / 2 : P;           // O panels of a warpgroup
   static constexpr int kQPanel = BM * hopper::ROW_BYTES;
   static constexpr int kKVPanel = BN * hopper::ROW_BYTES;
   static constexpr int kOPanel = 64 * hopper::ROW_BYTES;  // one warpgroup's rows
@@ -121,10 +141,11 @@ struct Layout {
   static constexpr int kBytes = kBar + (2 + 2 * STAGES) * 8 + hopper::ATOM_BYTES;
   // warpgroup wg's first O panel: at kOBase + wg * kOWarpgroup
   static constexpr int kOBase = O_IN_Q ? kQ : kO;
-  static constexpr int kOWarpgroup = O_IN_Q ? 64 * hopper::ROW_BYTES : P * kOPanel;
+  static constexpr int kOWarpgroup =
+      SPLIT ? PO * kQPanel : O_IN_Q ? 64 * hopper::ROW_BYTES : P * kOPanel;
 };
 
-// One tile of work: 128 query rows of one (b, h), and the K/V tiles it
+// One tile of work: BM query rows of one (b, h), and the K/V tiles it
 // reads.
 struct Tile {
   int b, h, q0, q_len, kv_len, n_blocks;
@@ -134,7 +155,7 @@ struct Tile {
 // position, last first (the heaviest causal tiles start first), then the
 // batch row, then the head, so that the query heads of one kv head are
 // neighbours and read the same K/V from L2.
-template <int BN>
+template <int BM, int BN>
 __device__ __forceinline__ Tile tile_at(int t, int B, int H, int Tq, int Tk,
                                         int causal,
                                         const int* __restrict__ q_lens,
@@ -156,7 +177,7 @@ __device__ __forceinline__ Tile tile_at(int t, int B, int H, int Tq, int Tk,
 
 // Issues S = Q K^T of one K/V tile for a warpgroup's 64 query rows (one
 // wgmma per k16 step; the caller fences, commits and waits).
-template <int D, int BN>
+template <int D, int BM, int BN>
 __device__ __forceinline__ void issue_s(float (&sc)[BN / 2], const uint8_t* sq,
                                         const uint8_t* sk) {
   constexpr int kQPanel = BM * hopper::ROW_BYTES;
@@ -244,6 +265,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   using namespace hopper;
   using L = Layout<D>;
   constexpr int P = L::P;
+  constexpr int PO = L::PO;
+  constexpr int BM = L::BM;
   constexpr int BN = L::BN;
   constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -276,7 +299,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == CONSUMERS * 128) {
       int kv_it = 0, q_it = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const Tile w = tile_at<BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
+        const Tile w = tile_at<BM, BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
         // every consumer is done with Q: after the last block, or, when O
         // is staged in Q, after every tile's epilogue (a tile without
         // blocks writes its zeros there too)
@@ -304,25 +327,28 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    // ---- consumers: 64 query rows each ----
+    // ---- consumers: 64 query rows each (D = 512: the tile's 64 rows, and
+    // O's panels p0 .. p0 + PO - 1) ----
     setmaxnreg_inc<232>();
     const int tid = threadIdx.x & 127;
     const int lane = tid & 31;
     const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
     const int cq = (lane & 3) * 2;                // first column of each pair
-    const uint8_t* sq = smem + L::kQ + wg * 64 * ROW_BYTES;
+    const int row_off = L::SPLIT ? 0 : wg * 64;   // the warpgroup's first row
+    const int p0 = L::SPLIT ? wg * PO : 0;        // its first O panel
+    const uint8_t* sq = smem + L::kQ + row_off * ROW_BYTES;
     uint8_t* so = smem + L::kOBase + wg * L::kOWarpgroup;
     int kv_it = 0, q_it = 0;
 
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const Tile w = tile_at<BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
-      const int wq0 = w.q0 + wg * 64;
+      const Tile w = tile_at<BM, BN>(t, B, H, Tq, Tk, causal, q_lens, kv_lens);
+      const int wq0 = w.q0 + row_off;
       const int qa = wq0 + r;
       const int qb = qa + 8;
 
-      float o[P][32];
+      float o[PO][32];
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < PO; ++p) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
       }
@@ -335,7 +361,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(&kv_full[s], (kv_it / STAGES) & 1);
         float sc[BN / 2];
         wgmma_fence();
-        issue_s<D, BN>(sc, sq, smem + L::kK + s * P * L::kKVPanel);
+        issue_s<D, BM, BN>(sc, sq, smem + L::kK + s * P * L::kKVPanel);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -352,7 +378,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         m0 = sm.m0; m1 = sm.m1; l0 = sm.l0; l1 = sm.l1;
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
+        for (int p = 0; p < PO; ++p) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             o[p][4 * i] *= sm.al0;
@@ -368,21 +394,22 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         acc_to_a<BN>(sc, pa);
         fence_regs(pa);
 #pragma unroll
-        for (int p = 0; p < P; ++p) fence_regs(o[p]);
+        for (int p = 0; p < PO; ++p) fence_regs(o[p]);
         wgmma_fence();
         const uint8_t* sv = smem + L::kV + s * P * L::kKVPanel;
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-          for (int p = 0; p < P; ++p) {
+          for (int p = 0; p < PO; ++p) {
             wgmma_rs<64>(o[p], pa[kk],
-                         desc_sw128(sv + p * L::kKVPanel + kk * 16 * ROW_BYTES), 1);
+                         desc_sw128(sv + (p0 + p) * L::kKVPanel + kk * 16 * ROW_BYTES),
+                         1);
           }
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int p = 0; p < P; ++p) fence_regs(o[p]);
+        for (int p = 0; p < PO; ++p) fence_regs(o[p]);
         fence_regs(pa);
         mbar_arrive(&kv_empty[s]);
       }
@@ -397,13 +424,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float inv0 = ok0 ? 1.0f / l0 : 0.0f;
       const float inv1 = ok1 ? 1.0f / l1 : 0.0f;
       const size_t row0 = size_t(w.b * H + w.h) * Tq;
-      if ((lane & 3) == 0) {
+      // under SPLIT both warpgroups hold the same rows' statistics
+      if ((lane & 3) == 0 && (!L::SPLIT || wg == 0)) {
         if (qa < Tq) lse[row0 + qa] = ok0 ? m0 * LN2 + logf(l0) : INFINITY;
         if (qb < Tq) lse[row0 + qb] = ok1 ? m1 * LN2 + logf(l1) : INFINITY;
       }
-      named_sync(1 + wg, 128);   // the previous tile's store has read `so`
+      if constexpr (L::SPLIT) {
+        // O goes into Q panels the other warpgroup reads for its S: both
+        // are done with Q
+        named_sync(3, CONSUMERS * 128);
+      } else {
+        named_sync(1 + wg, 128);   // the previous tile's store has read `so`
+      }
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < PO; ++p) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           *reinterpret_cast<uint32_t*>(so + p * L::kOStride +
@@ -417,8 +451,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_proxy_async();
       named_sync(1 + wg, 128);
       if (tid == 0 && wq0 < Tq) {
-        for (int p = 0; p < P; ++p) {
-          tma_store_3d(&tm_o, so + p * L::kOStride, p * PANEL_COLS, wq0,
+        for (int p = 0; p < PO; ++p) {
+          tma_store_3d(&tm_o, so + p * L::kOStride, (p0 + p) * PANEL_COLS, wq0,
                        w.b * H + w.h);
         }
         tma_store_drain();
@@ -436,6 +470,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* q_lens, const void* kv_lens, void* o,
                         void* lse, int B, int H, int Hkv, int Tq, int Tk,
                         int causal, float scale, cudaStream_t stream) {
+  constexpr int BM = Layout<D>::BM;
   CUtensorMap tq, tk, tv, to;
   if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, BM) ||
       !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, Layout<D>::BN) ||
@@ -615,7 +650,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // is checked with cudaGetLastError right after it is enqueued;
 // cudaErrorNotSupported if a tensor map could not be encoded).
 // is_f32: 0 for bfloat16 operands (the wgmma kernel), 1 for float32 (the
-// scalar kernel). D must be 64, 128 or 256.
+// scalar kernel). D must be 64, 128, 256 or 512 (ops/attention.py runs the
+// widths between them on zero-padded operands).
 extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_lens, const void* kv_lens, void* o,
                               void* lse, int B, int H, int Hkv, int Tq, int Tk,
@@ -633,10 +669,12 @@ extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
     if (D == 64) AVSR_FWD(launch_f32, 64);
     if (D == 128) AVSR_FWD(launch_f32, 128);
     if (D == 256) AVSR_FWD(launch_f32, 256);
+    if (D == 512) AVSR_FWD(launch_f32, 512);
   } else {
     if (D == 64) AVSR_FWD(launch_bf16, 64);
     if (D == 128) AVSR_FWD(launch_bf16, 128);
     if (D == 256) AVSR_FWD(launch_bf16, 256);
+    if (D == 512) AVSR_FWD(launch_bf16, 512);
   }
 #undef AVSR_FWD
   return int(cudaErrorInvalidValue);

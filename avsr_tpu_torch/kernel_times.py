@@ -13,15 +13,27 @@ times by the same method):
   ``attention`` and ``adaptive`` connectors: 8 heads of 256 over the 500
   rows Whisper returns for 10 s, non-causal; bf16, B = 8), where the
   package's kernels take D = 256;
+- Llama-2-7B's shapes: its prefill and train step (MHA, 32 heads of 128),
+  its connectors' (8 heads of 512), and Llama-3.2-3B's connectors' (8 heads
+  of 384: the D = 512 kernels on zero-padded operands);
+- the per-rank shapes of tensor parallelism at tp = 2 (half the heads:
+  Whisper 8 of 16, the LLM 16 over 4 kv heads) and the ring blocks of
+  sequence parallelism at sp = 2 (a rank's chunk of the 30 s bucket, B = 1:
+  Whisper's 752 rows, the LLM's 792, its diagonal block causal);
 - the weight-only matmuls at M = 8: int4 and int8 at the flagship's four
   decode projections (qkv, o, gateup, down; int8 is model.use_8bit) and the
-  int8 lm head, with the weights
+  int8 lm head, the 7B's (int4 projections, the int8 head over its vocab
+  padded to 32768) and a tp = 2 rank's slices, with the weights
   cycled through 128 MB so that they come from memory and not from the
   50 MB L2, as ``chip_smoke.py::qmm_kernel_phase`` times them.
 Inputs come from ``--seed``. Each time is ``chip_smoke.py::graph_ms`` of
 this checkout: the device time per launch of a CUDA graph of 20 launches
-(or one per weight copy, if more) replayed three times. Prints the card's
-name and power limit, then one JSON line. Needs a CUDA device.
+(or one per weight copy, if more) replayed three times. Beside each kernel
+time: its bound (``chip_smoke.py::attn_bounds``, ``qmm_bound``), its plain
+version's time (flash: eager, CUDA events; qmatmul: a replayed graph) and
+the library call's (SDPA, the backward's of q, k and v together; cuBLAS on
+the dequantized bf16 weight). Prints the card's name and power limit, then
+one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,12 +50,22 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 
-# name: B, H, Hkv, T, valid rows, causal, D
+# name: B, H, Hkv, T, valid rows, causal, D, whether dQ and dK/dV are timed
 SHAPES = {
-    "whisper": (8, 16, 16, 512, 500, False, 64),
-    "llm_prefill": (8, 32, 8, 533, 533, True, 64),
-    "llm_train": (8, 32, 8, 672, 581, True, 64),
-    "connector": (8, 8, 8, 500, 500, False, 256),
+    "whisper": (8, 16, 16, 512, 500, False, 64, False),
+    "llm_prefill": (8, 32, 8, 533, 533, True, 64, False),
+    "llm_train": (8, 32, 8, 672, 581, True, 64, True),
+    "connector": (8, 8, 8, 500, 500, False, 256, True),
+    "llm2_prefill": (8, 32, 32, 533, 533, True, 128, False),
+    "llm2_train": (8, 32, 32, 672, 581, True, 128, True),
+    "connector512": (8, 8, 8, 500, 500, False, 512, True),
+    "connector384": (8, 8, 8, 500, 500, False, 384, True),
+    "tp2_whisper": (8, 8, 8, 512, 500, False, 64, False),
+    "tp2_llm_prefill": (8, 16, 4, 533, 533, True, 64, False),
+    "tp2_llm_train": (8, 16, 4, 672, 581, True, 64, True),
+    "sp2_whisper_block": (1, 16, 16, 752, 752, False, 64, True),
+    "sp2_llm_block": (1, 32, 8, 792, 792, False, 64, True),
+    "sp2_llm_diag_block": (1, 32, 8, 792, 792, True, 64, True),
 }
 # name: bits, K, N (M = 8)
 QMM_SHAPES = {
@@ -56,6 +78,16 @@ QMM_SHAPES = {
     "int8_gateup": (8, 2048, 16384),
     "int8_down": (8, 8192, 2048),
     "int8_lm_head": (8, 2048, 129024),
+    "llama2_int4_qkv": (4, 4096, 12288),
+    "llama2_int4_o": (4, 4096, 4096),
+    "llama2_int4_gateup": (4, 4096, 22016),
+    "llama2_int4_down": (4, 11008, 4096),
+    "llama2_int8_lm_head": (8, 4096, 32768),
+    "tp2_int4_qkv": (4, 2048, 1536),
+    "tp2_int4_o": (4, 1024, 2048),
+    "tp2_int4_gateup": (4, 2048, 8192),
+    "tp2_int4_down": (4, 4096, 2048),
+    "tp2_int8_lm_head": (8, 2048, 64512),
 }
 L2_CYCLE_BYTES = 128e6
 
@@ -87,8 +119,8 @@ def main(argv: list[str] | None = None) -> int:
 
     print(smoke.gpu_line())
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    ms = {}
-    for name, (B, H, Hkv, T, n, causal, D) in SHAPES.items():
+    ms, plain, library, bound = {}, {}, {}, {}
+    for name, (B, H, Hkv, T, n, causal, D, bwd) in SHAPES.items():
         if D not in getattr(A, "KERNEL_HEAD_DIMS", (64, 128)):
             continue            # a checkout whose kernels do not take this width
         q, do = (torch.randn((B, H, T, D), generator=gen, device="cuda",
@@ -96,12 +128,18 @@ def main(argv: list[str] | None = None) -> int:
         k, v = (torch.randn((B, Hkv, T, D), generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
         lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        bounds = smoke.attn_bounds(q, k, lens, lens, causal)
         ms[f"fwd_{name}"] = smoke.graph_ms(
             [lambda: A.flash_attention(q, k, v, lens, lens, causal)])
-        if name not in ("llm_train", "connector"):
+        plain[f"fwd_{name}"] = smoke.time_ms(
+            lambda: A.flash_attention_reference(q, k, v, lens, lens, causal), 3)
+        library[f"fwd_{name}"] = smoke.sdpa_ms(q, k, v, lens, causal)["ms"]
+        bound[f"fwd_{name}"] = max(bounds["fwd"])
+        if not bwd:
             continue
-        for tag, c in ((("", True), ("_noncausal", False)) if causal
-                       else (("", False),)):
+        library[f"bwd_{name}"] = smoke.sdpa_ms(q, k, v, lens, causal, do)["ms"]
+        for tag, c in ((("", True), ("_noncausal", False)) if name == "llm_train"
+                       else (("", causal),)):
             o, lse = A.flash_attention(q, k, v, lens, lens, c)
             dq_args = (q, k, v, o, lse, do, lens, lens, c)
             if reads_delta:
@@ -111,7 +149,15 @@ def main(argv: list[str] | None = None) -> int:
                 dkv_args = dq_args
             if c == causal:
                 ms[f"dq_{name}"] = smoke.graph_ms([lambda: A.flash_bwd_dq(*dq_args)])
+                plain[f"dq_{name}"] = smoke.time_ms(
+                    lambda: A.flash_bwd_dq_reference(*dq_args), 3)
+                plain[f"dkv_{name}"] = smoke.time_ms(
+                    lambda: A.flash_bwd_dkv_reference(*dkv_args), 3)
+                bound[f"dq_{name}"] = max(bounds["dq"])
+                bound[f"dkv_{name}"] = max(bounds["dkv"])
             ms[f"dkv_{name}{tag}"] = smoke.graph_ms([lambda: A.flash_bwd_dkv(*dkv_args)])
+        del q, k, v, do, o, lse, dq_args, dkv_args
+        torch.cuda.empty_cache()
     for name, (bits, K, N) in QMM_SHAPES.items():
         qp = quant.quantize_tensor(
             0.02 * torch.randn((K, N), generator=gen, device="cuda"), bits)
@@ -120,10 +166,17 @@ def main(argv: list[str] | None = None) -> int:
         copies = int(np.ceil(L2_CYCLE_BYTES / qp[wkey].numel()))
         nodes = [qp] + [{wkey: qp[wkey].clone(), "scale": qp["scale"].clone()}
                         for _ in range(copies - 1)]
-        ms[f"qmatmul_{name}"] = smoke.graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
-        del nodes, qp
+        key = f"qmatmul_{name}"
+        ms[key] = smoke.graph_ms([lambda n=n: Q.qmatmul(x, n) for n in nodes])
+        plain[key] = smoke.graph_ms([lambda n=n: Q.qmatmul_reference(x, n) for n in nodes])
+        w16 = quant.dequantize(qp, torch.bfloat16)
+        w16s = [w16] + [w16.clone() for _ in range(int(np.ceil(copies / 2)) - 1)]
+        library[key] = smoke.graph_ms([lambda w=w: torch.matmul(x, w) for w in w16s])
+        bound[key] = max(smoke.qmm_bound(8, K, N, bits))
+        del nodes, qp, w16, w16s
         torch.cuda.empty_cache()
-    print(json.dumps({"root": str(root), "kernels": A.__file__, "ms": ms}))
+    print(json.dumps({"root": str(root), "kernels": A.__file__, "ms": ms, "plain_ms": plain,
+                      "library_ms": library, "bound_ms": bound}))
     return 0
 
 

@@ -55,11 +55,18 @@ dkv_launches = 0      # flash_bwd dK/dV
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
 # the port keeps them as the reference's rule until measured on the card.
 MIN_KERNEL_SEQ = 256
-# The head widths the CUDA kernels take: 64 (Whisper, HuBERT, CLIP, the
-# LLM), 128, and 256 (the connectors' 8 heads over the 2048-wide LLM). The
-# JAX rule sends every multiple of 64 to its kernel; the port sends 192 and
-# 512 (no shipped config reaches them) to mha_reference.
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# The head widths the kernels take: every multiple of 64 through 512, the
+# JAX rule (which sends every multiple of 64 to its kernel) up to 512: 64
+# (Whisper, HuBERT, CLIP, Llama-3.2), 128 (Llama-2-7B), 256, 384 and 512
+# (the connectors' 8 heads over a 2048-, 3072- and 4096-wide LLM). The CUDA
+# sources compile COMPILED_HEAD_DIMS; the widths between them run the next
+# wider kernel on operands zero-padded to its width (exact: zero columns add
+# nothing to Q K^T or dO V^T), with the scale of the true width, and the pad
+# columns sliced off the outputs. Wider heads (Llama-2-13B's connectors at
+# 640, 70B's at 1024) take mha_reference: at D > 512 the Q, K and V tiles of
+# 64 rows no longer fit in a CTA's shared memory together.
+KERNEL_HEAD_DIMS = tuple(range(64, 513, 64))
+COMPILED_HEAD_DIMS = (64, 128, 256, 512)
 
 
 def _lens(lens: torch.Tensor | None, n: int, batch: int,
@@ -71,6 +78,25 @@ def _lens(lens: torch.Tensor | None, n: int, batch: int,
 
 def _scale(sm_scale: float | None, D: int) -> float:
     return sm_scale if sm_scale is not None else D ** -0.5
+
+
+def kernel_width(D: int) -> int:
+    """The compiled kernel width that runs head width D (D itself, or the
+    next wider one, on zero-padded operands)."""
+    return min(w for w in COMPILED_HEAD_DIMS if w >= D)
+
+
+def _pad_heads(Dp: int, *ts: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors zero-padded along the head width to Dp (as they are
+    when they already have it)."""
+    return [t if t.shape[-1] == Dp else torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
+            for t in ts]
+
+
+def _cut_heads(D: int, *ts: torch.Tensor) -> list[torch.Tensor]:
+    """The kernel's outputs with the pad columns past head width D sliced
+    off (contiguous, as the wrappers return them)."""
+    return [t if t.shape[-1] == D else t[..., :D].contiguous() for t in ts]
 
 
 # ---------------------------------------------------------------------------
@@ -314,8 +340,9 @@ def flash_attention(
     """Flash-attention forward: (O [B,H,Tq,D], lse [B,H,Tq] f32).
 
     q: [B,H,Tq,D], k/v: [B,Hkv,Tk,D], contiguous, bfloat16 or float32,
-    D in {64, 128, 256}; causal needs Tq == Tk. Ragged tails (q_lens, kv_lens)
-    are masked inside the kernel; nothing is padded. A CPU tensor takes
+    D in KERNEL_HEAD_DIMS (a width that is not compiled runs the next wider
+    kernel on zero-padded operands); causal needs Tq == Tk. Ragged tails
+    (q_lens, kv_lens) are masked inside the kernel; no row is padded. A CPU tensor takes
     :func:`flash_attention_reference`; a CUDA tensor launches the kernel
     (on the current stream) or raises. The kernel's output has no
     gradient, so a CUDA input that requires one raises while grad mode is
@@ -331,13 +358,16 @@ def flash_attention(
     B, H, Hkv, Tq, Tk, D = _check_qkv("flash_attention", q, k, v, causal)
     _check_ptrs("flash_attention", q.device, q=q, k=k, v=v)
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
-    out = torch.empty_like(q)
+    Dp = kernel_width(D)
+    qp, kp, vp = _pad_heads(Dp, q, k, v)
+    out = torch.empty_like(qp)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "avsr_flash_fwd", [q, k, v, ql, kl, out, lse],
-            (B, H, Hkv, Tq, Tk, D), q.dtype, causal, _scale(sm_scale, D),
+    _launch("flash_fwd", "avsr_flash_fwd", [qp, kp, vp, ql, kl, out, lse],
+            (B, H, Hkv, Tq, Tk, Dp), q.dtype, causal, _scale(sm_scale, D),
             q.device)
     global launches
     launches += 1
+    (out,) = _cut_heads(D, out)
     return out, lse
 
 
@@ -370,15 +400,18 @@ def flash_bwd_dq(q, k, v, o, lse, do, q_lens=None, kv_lens=None,
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError("flash_bwd_dq: o must match q's shape and dtype")
     _check_ptrs("flash_bwd_dq", q.device, o=o)
-    B, H, _, Tq, Tk, D = dims
+    B, H, Hkv, Tq, Tk, D = dims
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
-    dq = torch.empty_like(q)
+    Dp = kernel_width(D)
+    qp, kp, vp, op, dop = _pad_heads(Dp, q, k, v, o, do)
+    dq = torch.empty_like(qp)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_bwd", "avsr_flash_bwd_dq",
-            [q, k, v, o, lse, do, ql, kl, dq, delta], dims, q.dtype, causal,
-            _scale(sm_scale, D), q.device)
+            [qp, kp, vp, op, lse, dop, ql, kl, dq, delta],
+            (B, H, Hkv, Tq, Tk, Dp), q.dtype, causal, _scale(sm_scale, D), q.device)
     global dq_launches
     dq_launches += 1
+    (dq,) = _cut_heads(D, dq)
     return dq, delta
 
 
@@ -393,15 +426,18 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, q_lens=None, kv_lens=None,
                                        kv_lens, causal, sm_scale)
     dims = _check_bwd("flash_bwd_dkv", q, k, v, do, causal, lse=lse,
                       delta=delta)
-    B, _, _, Tq, Tk, D = dims
+    B, H, Hkv, Tq, Tk, D = dims
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    Dp = kernel_width(D)
+    qp, kp, vp, dop = _pad_heads(Dp, q, k, v, do)
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
     _launch("flash_bwd", "avsr_flash_bwd_dkv",
-            [q, k, v, lse, delta, do, ql, kl, dk, dv], dims, q.dtype, causal,
-            _scale(sm_scale, D), q.device)
+            [qp, kp, vp, lse, delta, dop, ql, kl, dk, dv],
+            (B, H, Hkv, Tq, Tk, Dp), q.dtype, causal, _scale(sm_scale, D), q.device)
     global dkv_launches
     dkv_launches += 1
+    dk, dv = _cut_heads(D, dk, dv)
     return dk, dv
 
 
@@ -470,9 +506,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               use_kernel: str = "auto", sp=None) -> torch.Tensor:
     """The flash kernels where the JAX package would take its Pallas kernel
     (Tq and Tk >= 256, no ``kv_valid`` mask) and the kernels take the head
-    width (64, 128 or 256; JAX takes any multiple of 64), through
-    :class:`FlashAttention` so that gradients flow; else
-    :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
+    width (every multiple of 64 through 512, ``KERNEL_HEAD_DIMS``; JAX takes
+    any multiple of 64), through :class:`FlashAttention` so that gradients
+    flow; else :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
     tensors), "always", or "never" — the counterpart of ``use_pallas``.
 
     ``sp`` (an sp group above 1): q, k and v are this rank's chunks of a

@@ -137,14 +137,16 @@
    host prep per batch with 1 and 4 fetch threads, the consumer's wait per
    batch against the step, and the native batch decode against per-file
    Python. Removes what it wrote.
-16. Convert phase (``convert_phase``), at full width: random weights from
+16. Convert phase (``convert_phase``), at full width and ``MESH_DEPTH``
+   (6 Whisper, 3 CLIP and 4 LLM blocks; HuBERT's 12 whole): random weights
+   from
    --seed written as HF directories without ``transformers`` (HuBERT-base
    as ``HubertModel`` keys in f32 with the legacy ``weight_g``/``weight_v``
    positional conv; Llama-3.2-1B as ``LlamaForCausalLM`` keys in bf16,
    tied, in two safetensors shards and an index; Whisper-medium's encoder
    as ``model.encoder.*`` keys in a ``pytorch_model.bin``; CLIP-B/32 as
    ``vision_model.*`` keys), converted by ``cli/convert_hf.py`` for both
-   shipped configs (``flagship()`` and ``hubert_base()``): every converted
+   shipped configs (``flagship()`` and ``hubert_base()`` at that depth): every converted
    leaf equals the written one bit for bit, the positional conv within f32
    rounding (1e-5 of max|w|). ``hubert_base`` on phase 15's corpus from its
    export: 3 LoRA steps of the train CLI, 1 with ``unfreeze_layer_norms``,
@@ -344,6 +346,27 @@
    ranks, a resume at world 1) gives one card's two losses, the f32
    decode CLI one card's HYP lines, and under the serving preset every
    rank launches the qmatmul kernels. Removes what it wrote.
+26. Llama-2 phase (``llama2_phase``): first the flash forward, dQ and
+   dK/dV at every head width the kernels take (64-512 by 64; 192-448 on
+   the next wider kernel over zero-padded operands) against their plain
+   versions in bf16 (2e-2 x max|ref|) and f32 (1e-4): causal GQA over
+   ragged rows and non-causal MHA with Tq != Tk and a row without keys;
+   then at the shapes of this phase's paths (``WIDTH_SHAPES``: the 7B's
+   prefill and train step, its connectors' heads of 512, and 384 by the
+   pad route) the same checks and their times beside bound, plain version
+   and SDPA. Then ``flagship_llama2()``, the flagship with the reference's
+   other LLM, Llama-2-7B (MHA, heads of 128, untied head, vocab 32000,
+   theta 1e4), and the ``attention`` connector (8 heads of 512), at full
+   width and depth, random bf16 weights from --seed made on the card: a
+   static call (B = 8, 10 s audio, 25 frames, 32 tokens: encode, prefill,
+   ms per token, peak; 24 + 1 + 32 flash launches); a train step of 8
+   (accum 1) after a warm-up step, repeated bit for bit from an identical
+   state (89 forward, 33 dQ and 33 dK/dV launches); the serving preset's
+   call (int4 projections, the int8 head over the vocab padded to 32768,
+   exact launches). In f32 at ``LLAMA2_QUARTER`` (6 Whisper, 3 CLIP and 8
+   LLM blocks): prefill logits with the kernels within 2e-2 of their std of
+   the plain path's, and 16 greedy tokens equal. The 7B's decode products
+   at M = 8 against their plain versions, timed beside bound and cuBLAS.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -353,7 +376,8 @@ numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
 JSON line instead; ``--tp-only``, ``--sp-only``, ``--pp-only`` and
-``--ep-only`` do the same for phases 22, 23, 24 and 25. Each phase boundary prints the
+``--ep-only`` and ``--llama2-only`` do the same for phases 22, 23, 24, 25 and 26. Each
+phase boundary prints the
 seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
 host without a CUDA device or a directory without the package.
@@ -559,6 +583,8 @@ def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
                   dict(is_causal=causal, enable_gqa=True),
                   lambda: sdpa_kernel(SDPBackend.FLASH_ATTENTION)),
     }
+    if q.shape[-1] > 256:
+        del calls["flash"]        # PyTorch's flash backend takes head widths <= 256
     res = {}
     for name, (args, kw, backend) in calls.items():
         with backend():
@@ -579,7 +605,7 @@ def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
                                  reps=10)
     best = min(res, key=res.get)
     return dict(ms=res[best], call=best, masked_ms=res["masked"],
-                flash_ms=res["flash"])
+                flash_ms=res.get("flash"))
 
 
 def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
@@ -4187,7 +4213,9 @@ def convert_phase(seed: int) -> dict:
     hf, run = base / "hf", base / "run"
     res: dict = {}
     by_path: dict[str, dict[str, int]] = {}
-    fl, hcfg = flagship(), hubert_base()
+    # full width at MESH_DEPTH: the writes, reads and checkpoints of a
+    # quarter of the blocks (HuBERT's 12 whole), every leaf kind still
+    fl, hcfg = flagship(list(MESH_DEPTH)), hubert_base(list(MESH_DEPTH))
     nH, nL, nW = hcfg.model.ssl.n_layers, hcfg.model.llm.n_layers, fl.model.whisper.n_layers
 
     def counted(tag: str, fn):
@@ -4239,7 +4267,7 @@ def convert_phase(seed: int) -> dict:
         hub_json = base / "hubert_base.json"
         save_config(hcfg, hub_json)
         convs = {
-            "base": [*FLAGSHIP_OVERRIDES,
+            "base": [*FLAGSHIP_OVERRIDES, *MESH_DEPTH,
                      f"model.whisper_path={hf / 'whisper'}", f"model.clip_path={hf / 'clip'}",
                      f"model.llm_path={hf / 'llm'}"],
             "hubert_base": ["--config", str(hub_json),
@@ -4401,7 +4429,8 @@ def convert_phase(seed: int) -> dict:
 
         # 4. f32: the export against the in-memory conversion, the engine and
         # exact streaming against generate_tokens
-        over32 = ["runtime.compute_dtype=float32", "data.compact_transfer=true", *data]
+        over32 = ["runtime.compute_dtype=float32", "data.compact_transfer=true", *data,
+                  *MESH_DEPTH]
         cfg32 = hubert_base(over32)
         mem_cfg = hubert_base([*over32, f"model.audio_encoder_path={hf / 'hubert'}",
                                f"model.llm_path={hf / 'llm'}"])
@@ -7675,6 +7704,329 @@ def ep_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the flash kernels at every head width, and Llama-2-7B with the
+# attention connector at full width
+# ---------------------------------------------------------------------------
+
+# The reference's other LLM, Llama-2-7B (MHA with heads of 128, an untied
+# head, vocab 32000, plain RoPE at theta 1e4), with the ``attention``
+# connector, whose 8 heads over the 4096-wide LLM are 512 wide: the flagship
+# through the JAX CLI's dotted overrides.
+LLAMA2_OVERRIDES = ("model.llm.vocab_size=32000", "model.llm.d_model=4096",
+                    "model.llm.n_layers=32", "model.llm.n_heads=32", "model.llm.n_kv_heads=32",
+                    "model.llm.ffn_dim=11008", "model.llm.rope_theta=10000.0",
+                    "model.llm.rms_eps=1e-5", "model.llm.tie_embeddings=false",
+                    "model.llm.max_seq_len=4096", "model.connector_type=attention")
+# phase 21's quarter depth, with a quarter of the 7B's 32 blocks
+LLAMA2_QUARTER = ("model.whisper.n_layers=6", "model.clip.n_layers=3", "model.llm.n_layers=8")
+# the flash shapes of phase 26's paths (name: B, H, Hkv, T, valid rows,
+# causal, D): the 7B's prefill and train step (MHA, heads of 128), its
+# connectors' attention (8 heads of 512 over the 500 Whisper rows), and the
+# pad route at 384 (Llama-3.2-3B's connectors: the D = 512 kernels on
+# zero-padded operands)
+WIDTH_SHAPES = {"llm2_prefill": (8, 32, 32, 533, 533, True, 128),
+                "llm2_train": (8, 32, 32, 672, 581, True, 128),
+                "connector512": (8, 8, 8, 500, 500, False, 512),
+                "connector384": (8, 8, 8, 500, 500, False, 384)}
+# the 7B's decode products at M = 8 (name, bits, K, N): q|k|v, o, gate|up,
+# down in int4 (the preset) and the int8 head over the vocab padded to a
+# multiple of 2048 (ops/quant.py::quantize_llm)
+LLAMA2_QMM = (("qkv", 4, 4096, 12288), ("o", 4, 4096, 4096), ("gateup", 4, 4096, 22016),
+              ("down", 4, 11008, 4096), ("lm_head", 8, 4096, 32768))
+
+
+def flagship_llama2(extra=()):
+    """The flagship with Llama-2-7B and the ``attention`` connector."""
+    from avsr_tpu_torch.core.config import flagship
+
+    return flagship([*LLAMA2_OVERRIDES, *extra])
+
+
+def _flash_case(A, q, k, v, do, ql, kl, causal: bool, tol: float, tag: str) -> dict:
+    """The forward, dQ and dK/dV wrappers against their plain versions on
+    one set of operands: max|d| / max|ref| of O and the three gradients,
+    lse (+inf rows equal, atol ``tol`` / 10 in bf16), delta; returns the
+    relative errors."""
+    import torch
+
+    o, lse = A.flash_attention(q, k, v, ql, kl, causal)
+    o_r, lse_r = A.flash_attention_reference(q, k, v, ql, kl, causal)
+    dq, delta = A.flash_bwd_dq(q, k, v, o, lse, do, ql, kl, causal)
+    dk, dv = A.flash_bwd_dkv(q, k, v, lse, delta, do, ql, kl, causal)
+    refs = A.flash_attention_bwd_reference(q, k, v, o, lse, do, ql, kl, causal)
+    delta_r = A.flash_bwd_dq_reference(q, k, v, o, lse, do, ql, kl, causal)[1]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o_r, *refs)):
+        check(got.shape == ref.shape and bool(torch.isfinite(got.float()).all()),
+              f"{tag}: {name} {tuple(got.shape)} not finite or not {tuple(ref.shape)}")
+        errs[name] = rel_err(got, ref)
+        check(errs[name] <= tol, f"{tag}: {name} max|d| {errs[name]:.3e} x max|ref| > {tol}")
+    fin = torch.isfinite(lse_r)
+    check(torch.equal(fin, torch.isfinite(lse)), f"{tag}: lse +inf rows differ")
+    le = (lse[fin] - lse_r[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    check(le <= max(tol / 10, 1e-4), f"{tag}: lse off by {le:.3e}")
+    de = (delta - delta_r).abs().max().item()
+    check(de <= 1e-4 * max(1.0, delta_r.abs().max().item()), f"{tag}: delta off by {de:.3e}")
+    errs["lse_abs"] = le
+    return errs
+
+
+def width_kernel_rows(seed: int) -> dict:
+    """The flash forward, dQ and dK/dV at every head width the kernels take
+    (``KERNEL_HEAD_DIMS``: 64-512), each held to its plain version in bf16
+    (2e-2 x max|ref|) and f32 (1e-4): causal GQA 2:1 over ragged rows, and
+    non-causal MHA with Tq != Tk and a row without keys. Then at each of
+    ``WIDTH_SHAPES`` (bf16, main-path lengths): the same checks, and the
+    kernels timed from replayed CUDA graphs beside their bound, their plain
+    versions (eager) and SDPA; at 384 also the pad's own copies."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2600)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def lens(*n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    widths: dict = {}
+    for D in A.KERNEL_HEAD_DIMS:
+        worst = {}
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            for case, (H, Hkv, Tq, Tk, causal, ql, kl) in {
+                    "causal_gqa": (4, 2, 300, 300, True, (300, 217), (300, 217)),
+                    "cross_mha_empty": (4, 4, 300, 290, False, (300, 131), (290, 0))}.items():
+                q, do = randn(2, H, Tq, D, dtype=dt), randn(2, H, Tq, D, dtype=dt)
+                k, v = randn(2, Hkv, Tk, D, dtype=dt), randn(2, Hkv, Tk, D, dtype=dt)
+                tag = f"D={D} {case} {str(dt)[6:]}"
+                e = _flash_case(A, q, k, v, do, lens(*ql), lens(*kl), causal, tol, tag)
+                key = str(dt)[6:]
+                worst[key] = max(worst.get(key, 0.0), *(e[n] for n in ("o", "dq", "dk", "dv")))
+        widths[D] = dict(kernel_width=A.kernel_width(D), max_rel_err=worst)
+    print("kernel widths: forward, dQ and dK/dV held to their plain versions at "
+          + "; ".join(f"D={D} (kernel {w['kernel_width']}) bf16 {w['max_rel_err']['bfloat16']:.2e}"
+                      f" f32 {w['max_rel_err']['float32']:.2e}" for D, w in widths.items()))
+
+    rows = {}
+    for name, (B, H, Hkv, T, n, causal, D) in WIDTH_SHAPES.items():
+        q, do = randn(B, H, T, D), randn(B, H, T, D)
+        k, v = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
+        ln = lens(*[n] * B)
+        ragged = lens(*[n, n // 2, 1, n, 0, T, n - 7, 17][:B])
+        err = _flash_case(A, q, k, v, do, ln, ln, causal, 2e-2, f"{name} main")
+        err_r = _flash_case(A, q, k, v, do, ragged, ragged, causal, 2e-2, f"{name} ragged")
+        o, lse = A.flash_attention(q, k, v, ln, ln, causal)
+        args_dq = (q, k, v, o, lse, do, ln, ln, causal)
+        _, delta = A.flash_bwd_dq(*args_dq)
+        args_dkv = (q, k, v, lse, delta, do, ln, ln, causal)
+        times = {"fwd": graph_ms([lambda: A.flash_attention(q, k, v, ln, ln, causal)]),
+                 "dq": graph_ms([lambda: A.flash_bwd_dq(*args_dq)]),
+                 "dkv": graph_ms([lambda: A.flash_bwd_dkv(*args_dkv)])}
+        plain = {"fwd": time_ms(lambda: A.flash_attention_reference(q, k, v, ln, ln, causal), 3),
+                 "dq": time_ms(lambda: A.flash_bwd_dq_reference(*args_dq), 3),
+                 "dkv": time_ms(lambda: A.flash_bwd_dkv_reference(*args_dkv), 3)}
+        lib = {"fwd": sdpa_ms(q, k, v, ln, causal), "bwd": sdpa_ms(q, k, v, ln, causal, do)}
+        bounds = attn_bounds(q, k, ln, ln, causal)
+        row = dict(q=list(q.shape), kv=list(k.shape), causal=causal, lens=n,
+                   kernel_width=A.kernel_width(D), max_rel_err=err,
+                   ragged_max_rel_err=err_r, library_bwd_pair=lib["bwd"])
+        for kname in ("fwd", "dq", "dkv"):
+            ops_ms, bytes_ms = bounds[kname]
+            lb = lib["fwd" if kname == "fwd" else "bwd"]
+            row[kname] = dict(ms=times[kname], plain_ms=plain[kname], library_ms=lb["ms"],
+                              bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                              bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        if A.kernel_width(D) != D:
+            row["pad_ms"] = graph_ms([lambda: A._pad_heads(A.kernel_width(D), q, k, v, do)])
+        rows[name] = row
+        print(f"kernel {name} {row['q']} over {row['kv']} ({'causal' if causal else 'non-causal'}, "
+              f"{n} rows, {gpu_line()}): "
+              + "; ".join(f"{kn} {times[kn]:.4f} ms (plain {plain[kn]:.4f}, SDPA "
+                          f"{row[kn]['library_ms']:.4f}, bound {row[kn]['bound_ms']:.4f} by "
+                          f"{row[kn]['bound_by']})" for kn in ("fwd", "dq", "dkv"))
+              + (f"; the pad's copies of q, k, v, dO {row['pad_ms']:.4f} ms"
+                 if "pad_ms" in row else "")
+              + f"; max|d|/max|ref| {err}")
+        del q, k, v, do, o, lse, delta, args_dq, args_dkv
+    return dict(widths=widths, shapes=rows)
+
+
+def llama2_phase(seed: int) -> dict:
+    """Phase 26: the flash kernels at every head width, then
+    ``flagship_llama2()`` at full width and depth (see the module
+    docstring), launches exact and derived from the widths."""
+    import torch
+
+    from avsr_tpu_torch.cli.common import load_decode_params
+    from avsr_tpu_torch.convert import param_count
+    from avsr_tpu_torch.data.loader import featurize
+    from avsr_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsr_tpu_torch.infer.generate import generate_tokens
+    from avsr_tpu_torch.models.avsr import init_avsr_model
+    from avsr_tpu_torch.ops.quant import quant_bytes
+    from avsr_tpu_torch.train.state import cast_frozen, create_train_state, path_leaves
+    from avsr_tpu_torch.train.step import make_train_step
+
+    t_all = time.perf_counter()
+    res: dict = {"kernels": width_kernel_rows(seed)}
+    by_path: dict[str, dict[str, int]] = {}
+
+    def counted(tag: str, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[tag] = counts()
+        return out
+
+    def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
+        return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
+                    qmatmul_int4=int4)
+
+    cfg = flagship_llama2()
+    mc = cfg.model
+    nW, nL = mc.whisper.n_layers, mc.llm.n_layers
+    tok = ByteTokenizer()
+    hb = serving_host_batch(cfg, seed)
+    B = len(hb.utt_ids)
+    d = connector_launches("attention", 500, hb.prompt.shape[1], cfg.data.max_label_length,
+                           nW, nL)
+
+    # ---- a static bf16 call (B = 8, 10 s, 25 frames, 32 tokens) ----------
+    t0 = time.perf_counter()
+    params = init_avsr_model(mc, seed=seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    print(f"llama2: random init of {n_params / 1e9:.3f} B params (bf16; LLM "
+          f"{param_count(params['llm']) / 1e9:.3f} B) in {time.perf_counter() - t0:.2f} s")
+    check(tuple(params["llm"]["lm_head"]["w"].shape) == (4096, 32000),
+          "llama2: the untied head is not [4096, 32000]")
+    batch = featurize(hb, "cuda", torch.bfloat16)
+    kw = dict(max_new_tokens=32, eos_id=-1, compute_dtype=torch.bfloat16)
+    generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 2})       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    st: dict = {}
+    out = counted("llama2_generate", lambda: generate_tokens(params, mc, batch, stats=st, **kw))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    w = want(*d["generate"].values())
+    check(by_path["llama2_generate"] == w,
+          f"llama2 generate launches {by_path['llama2_generate']}, expected {w}")
+    check(out.tokens.shape == (B, 32) and bool((out.lengths == 32).all())
+          and bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
+          f"llama2 tokens {tuple(out.tokens.shape)}")
+    check(st["prefill_logits"].shape[-1] == 32000
+          and bool(torch.isfinite(st["prefill_logits"]).all()), "llama2 prefill logits")
+    res["static_bf16"] = dict(
+        encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+        ms_per_token=st["decode_s"] * 1e3 / st["decode_steps"], peak_mem_gb=peak,
+        params_b=n_params / 1e9, launches=w)
+    print("llama2 static bf16: " + json.dumps(res["static_bf16"]))
+
+    # ---- a bf16 train step of 8, and the same step again from the same state
+    tcfg = flagship_llama2(["training.grad_accum_steps=1"])
+    micro = featurize(train_host_batch(tcfg, tok, np.random.default_rng(seed + 2601)),
+                      "cuda", torch.bfloat16)
+    stacked = _stack([micro])
+    # two trees of the same values: the trainable leaves (connectors, LoRA)
+    # in f32 each, the frozen bf16 leaves shared
+    ta, tb = cast_frozen(params, mc, torch.bfloat16), cast_frozen(params, mc, torch.bfloat16)
+    state_a, tr = _run_steps(tcfg, ta, stacked, 2, "llama2 train", seed,
+                             expect=want(*d["train_step"].values()))
+    by_path["llama2_train_2_steps"] = {k: sum(s_["launches"][k] for s_ in tr["steps"])
+                                       for k in counts()}
+    state_b = create_train_state(tb, tcfg, total_steps=1000)
+    step = make_train_step(tcfg)
+    m_b = [step(state_b, stacked, seed + i) for i in range(2)]
+    for i, s_ in enumerate(tr["steps"]):
+        check(all(s_[k] == m_b[i][k] for k in ("loss", "grad_norm")),
+              f"llama2 train step {i + 1} repeated: {m_b[i]} != {s_}")
+    la, lb = path_leaves(state_a.state_dict()), path_leaves(state_b.state_dict())
+    diff = [k for k, v in la.items() if isinstance(v, torch.Tensor) and not torch.equal(v, lb[k])]
+    check(not diff, f"llama2 train steps from one state differ in {diff[:5]}")
+    res["train_bf16"] = dict(
+        step_ms=tr["steps"][-1]["ms"], first_step_ms=tr["steps"][0]["ms"],
+        peak_mem_gb=tr["peak_mem_gb"], loss=tr["steps"][-1]["loss"],
+        split_ms={k: v for k, v in tr["steps"][-1].items() if k.endswith("_ms")},
+        repeated_step_bit_equal=True, launches_per_step=tr["steps"][-1]["launches"])
+    print("llama2 train bf16: " + json.dumps(res["train_bf16"]))
+    del ta, tb, state_a, state_b, step, m_b, la, lb, params, out, st, stacked, micro
+    settle()
+
+    # ---- the serving preset's call -----------------------------------------
+    pcfg = flagship_llama2(PRESET_OVERRIDES)
+    t0 = time.perf_counter()
+    pp = load_decode_params(pcfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    llm_gb = quant_bytes(pp["llm"]) / 1e9
+    print(f"llama2 preset: f32 init, int4 quantization, bf16 cast and decode layout in "
+          f"{time.perf_counter() - t0:.2f} s; LLM tree {llm_gb:.3f} GB")
+    pkw = dict(kw, kv_cache_dtype=pcfg.decode.kv_cache_dtype)
+    generate_tokens(pp, pcfg.model, batch, **{**pkw, "max_new_tokens": 2})   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    out = counted("llama2_preset", lambda: generate_tokens(pp, pcfg.model, batch, stats=st,
+                                                            **pkw))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = st["decode_steps"]
+    w = want(flash=d["generate"]["fwd"], int8=steps + 1, int4=4 * nL * steps)
+    check(by_path["llama2_preset"] == w,
+          f"llama2 preset launches {by_path['llama2_preset']}, expected {w}")
+    check(out.tokens.shape == (B, 32) and bool(torch.isfinite(st["prefill_logits"]).all())
+          and bool(((out.tokens >= 0) & (out.tokens < 32000)).all()), "llama2 preset tokens")
+    res["preset"] = dict(
+        encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
+        ms_per_token=st["decode_s"] * 1e3 / steps, peak_mem_gb=peak, llm_tree_gb=llm_gb,
+        launches=w)
+    print("llama2 preset: " + json.dumps(res["preset"]))
+    del pp, out, st
+    settle()
+
+    # ---- f32 at full width and a quarter of the depth: kernels vs plain ----
+    qcfg = flagship_llama2(LLAMA2_QUARTER)
+    qmc = qcfg.model
+    p32 = init_avsr_model(qmc, seed=seed, device="cuda", dtype=torch.float32)
+    b32 = featurize(hb, "cuda", torch.float32)
+    kw32 = dict(max_new_tokens=16, eos_id=-1, compute_dtype=torch.float32)
+    s_k: dict = {}
+    s_n: dict = {}
+    out_k = counted("llama2_quarter_f32", lambda: generate_tokens(p32, qmc, b32, stats=s_k,
+                                                                   **kw32))
+    qd = connector_launches("attention", 500, hb.prompt.shape[1], 0, qmc.whisper.n_layers,
+                            qmc.llm.n_layers)
+    check(by_path["llama2_quarter_f32"] == want(qd["generate"]["fwd"]),
+          f"llama2 f32 quarter launches {by_path['llama2_quarter_f32']}")
+    out_n = generate_tokens(p32, qmc, b32, stats=s_n, use_kernel="never", **kw32)
+    lk, ln_ = s_k["prefill_logits"], s_n["prefill_logits"]
+    std = ln_.std().item()
+    dmax = (lk - ln_).abs().max().item()
+    check(dmax <= 2e-2 * std, f"llama2 f32 prefill logits: kernel vs plain max|d| {dmax:.4e} "
+                              f"> 2e-2 * std {std:.4e}")
+    check(torch.equal(out_k.tokens, out_n.tokens),
+          "llama2 f32: tokens with the kernels differ from the plain path's")
+    res["quarter_f32"] = dict(std=std, kernel_vs_plain_max=dmax,
+                              kernel_vs_plain_mean=(lk - ln_).abs().mean().item(),
+                              tokens_equal=True, tokens=list(out_k.tokens.shape),
+                              launches=by_path["llama2_quarter_f32"])
+    print("llama2 f32 quarter depth: " + json.dumps(res["quarter_f32"]))
+    del p32, b32, out_k, out_n, s_k, s_n
+    settle()
+
+    # ---- the 7B's decode products at M = 8 ---------------------------------
+    qgen = torch.Generator(device="cuda").manual_seed(seed + 2602)
+    res["qmm_rows"] = [
+        qmm_row(f"llama2_{name}", bits, 8, K, N,
+                {"llama2_preset": nL * steps if bits == 4 else steps + 1}, qgen)
+        for name, bits, K, N in LLAMA2_QMM]
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t_all
+    print(f"llama2 phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -7689,6 +8041,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="build the kernels and run phase 24 alone")
     p.add_argument("--ep-only", action="store_true",
                    help="build the kernels and run phase 25 alone")
+    p.add_argument("--llama2-only", action="store_true",
+                   help="build the kernels and run phase 26 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -7756,6 +8110,9 @@ def main(argv: list[str] | None = None) -> int:
                 return 0
         if args.ep_only:
             print(json.dumps(ep_phase(args.seed)))
+            return 0
+        if args.llama2_only:
+            print(json.dumps(llama2_phase(args.seed)))
             return 0
         return run_all(args.seed, lap)
     finally:
@@ -7898,10 +8255,18 @@ def run_all(seed: int, lap) -> int:
     check(all(ek.values()), f"a kernel did not launch on the ep path: {ek}")
     close_pools()
 
+    lap()
+    # Phase 26: the flash kernels at every head width 64-512, and the
+    # flagship with Llama-2-7B and the attention connector (heads of 128 in
+    # the LLM, of 512 in the connectors) at full width and depth.
+    llama2 = llama2_phase(args.seed)
+    lk = {k: sum(n[k] for n in llama2["launches_by_path"].values()) for k in counts()}
+    check(all(lk.values()), f"a kernel did not launch on the Llama-2 path: {lk}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
                 for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp, pp,
-                              ep)
+                              ep, llama2)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def sp_ring(name: str) -> dict:
@@ -8068,6 +8433,27 @@ def run_all(seed: int, lap) -> int:
                       "the preset's beam search, the bf16 speculative calls; device "
                       "time per launch from a replayed CUDA graph x launches)",
             shapes=qrows))
+    # phase 26: every head width held to the plain versions, the 7B's and
+    # its connectors' shapes timed (per launch), the 7B's decode products
+    lw = llama2["kernels"]
+    lpath = llama2["launches_by_path"]
+    for kern in kernels:
+        key = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}.get(kern["name"])
+        if key is None:
+            bits = 8 if kern["name"] == "qmatmul_int8" else 4
+            kern["llama2_shapes"] = [r for r in llama2["qmm_rows"] if r["bits"] == bits]
+            continue
+        kern["llama2"] = dict(
+            max_rel_err_by_width={D: w["max_rel_err"] for D, w in lw["widths"].items()},
+            kernel_width_by_width={D: w["kernel_width"] for D, w in lw["widths"].items()},
+            shapes={n: dict(r[key], q=r["q"], kv=r["kv"], causal=r["causal"], lens=r["lens"],
+                            kernel_width=r["kernel_width"], max_rel_err=r["max_rel_err"],
+                            **{k: r[k] for k in ("pad_ms",) if k in r})
+                    for n, r in lw["shapes"].items() if key == "fwd" or n != "llm2_prefill"},
+            launches_per_call=lpath["llama2_generate"][kern["name"]],
+            launches_per_train_step=lpath["llama2_train_2_steps"][kern["name"]] // 2,
+            times_are="per launch, from a replayed CUDA graph; library_ms is SDPA "
+                      "(the backward's: q, k and v together)")
     lap()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,13 +145,14 @@ def test_dispatch_predicate(monkeypatch):
     assert calls == [q.shape]
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 576])
 def test_dispatch_sends_wide_heads_to_mha_reference(monkeypatch, D):
-    """Head widths the kernels do not take (192; JAX sends every multiple
-    of 64 to its kernel) go to mha_reference by the dispatch rule, even
-    under "always". 256, the connectors' head width over the 2048-wide
-    LLM, takes the kernel route (its plain version on the CPU) and agrees
-    with mha_reference (f32 sums in another order: 1e-5)."""
+    """Head widths the kernels do not take (past 512: 576; JAX sends every
+    multiple of 64 to its kernel) go to mha_reference by the dispatch rule,
+    even under "always". 192 (run on the D = 256 kernel, zero-padded) and
+    256, the connectors' head width over the 2048-wide LLM, take the kernel
+    route (its plain version on the CPU) and agree with mha_reference (f32
+    sums in another order: 1e-5)."""
     calls = []
     orig = tattn.flash_attention
 
@@ -166,8 +167,8 @@ def test_dispatch_sends_wide_heads_to_mha_reference(monkeypatch, D):
                           use_kernel="always")
     ref = tattn.mha_reference(q, k, v, causal=True, q_lens=lens, kv_lens=lens)
     if D in tattn.KERNEL_HEAD_DIMS:
-        assert D == 256 and calls == [q.shape]
+        assert D <= 512 and calls == [q.shape]
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
     else:
-        assert calls == []
+        assert D > 512 and calls == []
         assert torch.equal(out, ref)

@@ -43,9 +43,11 @@ def _check(q, k, v, q_lens, kv_lens, causal, tol):
 @pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 64, 2e-2),
                                          (torch.bfloat16, 128, 2e-2),
                                          (torch.bfloat16, 256, 2e-2),
+                                         (torch.bfloat16, 512, 2e-2),
                                          (torch.float32, 64, 1e-4),
                                          (torch.float32, 128, 1e-4),
-                                         (torch.float32, 256, 1e-4)])
+                                         (torch.float32, 256, 1e-4),
+                                         (torch.float32, 512, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_matches_plain_version(cuda, dtype, D, tol, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -53,6 +55,34 @@ def test_flash_fwd_matches_plain_version(cuda, dtype, D, tol, causal):
                for h in (8, 2, 2))
     lens = torch.tensor([300, 171, 0], device=cuda)
     _check(q, k, v, lens, lens, causal, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", A.KERNEL_HEAD_DIMS)
+def test_attention_launches_the_kernels_at_every_width(cuda, D):
+    """attention() on CUDA tensors at each head width the kernels take
+    (those between the compiled 64, 128, 256 and 512 on zero-padded
+    operands): one forward, one dQ and one dK/dV launch under grad, and O
+    and the gradients of q, k, v within bf16 rounding of mha_reference's
+    (max|d| <= 2e-2 max|ref|)."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = (torch.randn((2, h, 260, D), generator=g, device=cuda,
+                               dtype=torch.bfloat16) for h in (4, 2, 2, 4))
+    lens = torch.tensor([260, 133], device=cuda)
+    outs = []
+    for use_kernel in ("auto", "never"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (A.launches, A.dq_launches, A.dkv_launches)
+        o = A.attention(*leaves, causal=True, q_lens=lens, kv_lens=lens,
+                        use_kernel=use_kernel)
+        o.backward(do)
+        torch.cuda.synchronize()
+        got = (A.launches - before[0], A.dq_launches - before[1],
+               A.dkv_launches - before[2])
+        assert got == ((1, 1, 1) if use_kernel == "auto" else (0, 0, 0)), got
+        outs.append([o.detach(), *(t.grad for t in leaves)])
+    for name, a, ref in zip(("o", "dq", "dk", "dv"), *outs):
+        assert a.shape == ref.shape and _rel_err(a, ref) <= 2e-2, (name, _rel_err(a, ref))
 
 
 @pytest.mark.cuda
@@ -105,9 +135,11 @@ def _check_bwd(q, k, v, do, q_lens, kv_lens, causal, tol):
 @pytest.mark.parametrize("dtype,D,tol", [(torch.bfloat16, 64, 2e-2),
                                          (torch.bfloat16, 128, 2e-2),
                                          (torch.bfloat16, 256, 2e-2),
+                                         (torch.bfloat16, 512, 2e-2),
                                          (torch.float32, 64, 1e-4),
                                          (torch.float32, 128, 1e-4),
-                                         (torch.float32, 256, 1e-4)])
+                                         (torch.float32, 256, 1e-4),
+                                         (torch.float32, 512, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_matches_plain_version(cuda, dtype, D, tol, causal):
     """dQ and dK/dV kernels against flash_attention_bwd_reference: GQA 8:2,
