@@ -39,7 +39,14 @@
 // -> 33.1 us, 98.6 MB -> 29.4 us (operations). At Llama-2-7B's train shape
 // (q = k = v [8,32,672,128] causal MHA, 581 rows): dQ 70.4 us, dK/dV 72.1 us
 // (bytes); at its connectors' (q = k = v [8,8,500,512]): dQ 58.8 us (bytes),
-// dK/dV 66.3 us (operations).
+// dK/dV 66.3 us (operations). Llama-2-13B's connectors [8,8,500,640]: dQ
+// 73.4 us (bytes), dK/dV 82.8 us (operations); Llama-2-70B's
+// [8,8,500,1024]: dQ 117.5 us (bytes), dK/dV 132.5 us (operations).
+//
+// D > 512 (any multiple of 64) takes the panel kernels at the end of the
+// file (flash_bwd_dq_bf16_panels_kernel, flash_bwd_dkv_bf16_panels_kernel,
+// and the f32 flash_bwd_dq_f32_panels_kernel, flash_bwd_dkv_f32_panels_kernel),
+// which take the width at run time.
 //
 // float32 dQ and dK/dV are the first design (flash_bwd_dq_f32_kernel,
 // flash_bwd_dkv_kernel): 4 warps over 64-row tiles, a warp owning 16 rows
@@ -1171,6 +1178,668 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, D > 512: the head width as a loop count
+// ---------------------------------------------------------------------------
+
+// Above 512 the resident 64-row tiles of the D = 512 kernels (Q and dO, or
+// K and V) no longer fit beside a ring in 227 KB, and half of an output's
+// columns is more than 128 f32 a thread. So, as in the forward's panel
+// kernel, the width is a loop count: a CTA owns 64 rows of its output (dQ:
+// q rows; dK or dV: keys) and one group of up to 256 of its columns
+// (PANELS_GP panels, the grid's fastest dimension), and per streamed block
+// of PANELS_BK rows (dQ: keys; dK/dV: q rows):
+//   * sums S (and dP) over the D / 64 panels: a ring of PANELS_STAGES
+//     stages, each holding the panel of the CTA's own rows (Q and dO, or K
+//     and V) and of the block's rows (K and V, or Q and dO) by TMA; wgmma
+//     with both operands in shared memory, a stage released once the next
+//     panel's products are issued and its own are done;
+//   * forms P and dS in registers (lse and delta as the D <= 512 kernels
+//     use them), masked only on blocks that cross kv_len or the diagonal;
+//   * adds dS K_g (dQ), dS^T Q_g (dK) or P^T dO_g (dV) with the bf16 A
+//     operand in registers and the group's panels, streamed through the
+//     same ring, as the MN-major B operand.
+// dQ computes delta = rowsum(dO * O) over the whole width from device
+// memory (group 0 writes it); a key tile has a dK and a dV CTA per group,
+// each recomputing S^T (and, for dK, dP^T). Every group recomputes S and dP
+// over the width (at 640: three groups, at 1024: four); one S shared
+// through a thread-block cluster is the later redesign. 255 registers a
+// thread: an output group 128, S and dP 16 each, dS 8.
+constexpr int PANELS_GP = 4;         // 64-column panels of a column group
+constexpr int PANELS_BK = 32;        // rows of a streamed block
+constexpr int PANELS_STAGES = 4;     // ring depth
+constexpr int THREADS_PANELS = 256;  // a consumer and a producer warpgroup
+
+struct PanelsLayout {
+  static constexpr int kA = 64 * hopper::ROW_BYTES;          // a panel of the CTA's rows
+  static constexpr int kB = PANELS_BK * hopper::ROW_BYTES;   // a panel of a block's rows
+  // a stage: [A0 | A1 | B0 | B1]
+  static constexpr int kA1 = kA;
+  static constexpr int kB0 = 2 * kA;
+  static constexpr int kB1 = 2 * kA + kB;
+  static constexpr int kStage = 2 * (kA + kB);
+  static constexpr int kOut = PANELS_STAGES * kStage;        // the output's staging panels
+  static constexpr int kBar = kOut + PANELS_GP * kA;
+  static constexpr int kBytes = kBar + 2 * PANELS_STAGES * 8 + hopper::ATOM_BYTES;
+};
+
+// The grid of a panel kernel: (column group, head) in x, the group
+// fastest; the batch row in y.
+struct PanelsGrid {
+  int P, G, g, head, pg0, np;
+  __device__ __forceinline__ PanelsGrid(int D, int x) {
+    P = D / hopper::PANEL_COLS;
+    G = (P + PANELS_GP - 1) / PANELS_GP;
+    g = x % G;
+    head = x / G;
+    pg0 = g * PANELS_GP;
+    np = min(PANELS_GP, P - pg0);
+  }
+};
+
+// Sums S (and, when `two`, a second product) over the width: P stages of
+// the ring, from stage counter `it` on; a stage is released once the next
+// panel's products are issued and its own have completed.
+template <int N>
+__device__ __forceinline__ void panels_sum(float (&s0)[N / 2], float (&s1)[N / 2],
+                                           bool two, int P, uint8_t* ring,
+                                           uint64_t* full, uint64_t* empty, int& it) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  int prev = 0;
+  for (int p = 0; p < P; ++p, ++it) {
+    const int s = it % PANELS_STAGES;
+    const uint8_t* st = ring + s * L::kStage;
+    mbar_wait(&full[s], (it / PANELS_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_ss<N>(s0, desc_sw128(st + k * 32), desc_sw128(st + L::kB0 + k * 32),
+                  (p | k) != 0);
+    }
+    if (two) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wgmma_ss<N>(s1, desc_sw128(st + L::kA1 + k * 32),
+                    desc_sw128(st + L::kB1 + k * 32), (p | k) != 0);
+      }
+    }
+    wgmma_commit();
+    if (p > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(s0);
+  if (two) fence_regs(s1);
+  mbar_arrive(&empty[prev]);
+}
+
+// acc[p] += A B_p for the group's np panels, each the B0 panel of the next
+// ring stage (MN-major, PANELS_BK rows), A the bf16 register operand.
+__device__ __forceinline__ void panels_accumulate(float (&acc)[PANELS_GP][32],
+                                                  uint32_t (&a)[PANELS_BK / 16][4],
+                                                  int np, uint8_t* ring,
+                                                  uint64_t* full, uint64_t* empty,
+                                                  int& it) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  fence_regs(a);
+#pragma unroll
+  for (int p = 0; p < PANELS_GP; ++p) {
+    if (p < np) {
+      const int s = it % PANELS_STAGES;
+      mbar_wait(&full[s], (it / PANELS_STAGES) & 1);
+      const uint8_t* sb = ring + s * L::kStage + L::kB0;
+      fence_regs(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PANELS_BK / 16; ++kk) {
+        wgmma_rs<64>(acc[p], a[kk], desc_sw128(sb + kk * 16 * ROW_BYTES), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[p]);
+      mbar_arrive(&empty[s]);
+      ++it;
+    }
+  }
+  fence_regs(a);
+}
+
+// The output group (64 rows, np panels, times `scale`) through the staging
+// panels and TMA stores at (pg0 + p) * 64, row0 of matrix `mat`.
+__device__ __forceinline__ void panels_store(const float (&acc)[PANELS_GP][32],
+                                             float scale, int np, int pg0,
+                                             const CUtensorMap* map, int row0,
+                                             int mat, uint8_t* so) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = (tid >> 5) * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int p = 0; p < PANELS_GP; ++p) {
+    if (p < np) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        *reinterpret_cast<uint32_t*>(so + p * L::kA + swizzled_offset(r, 8 * i + cq)) =
+            pack_bf16(acc[p][4 * i] * scale, acc[p][4 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(so + p * L::kA + swizzled_offset(r + 8, 8 * i + cq)) =
+            pack_bf16(acc[p][4 * i + 2] * scale, acc[p][4 * i + 3] * scale);
+      }
+    }
+  }
+  fence_proxy_async();
+  named_sync(1, 128);
+  if (tid == 0) {
+    for (int p = 0; p < np; ++p) {
+      tma_store_3d(map, so + p * L::kA, (pg0 + p) * PANEL_COLS, row0, mat);
+    }
+    tma_store_drain();
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_PANELS, 1)
+flash_bwd_dq_bf16_panels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_dq,
+                                const __nv_bfloat16* __restrict__ o_mem,
+                                const __nv_bfloat16* __restrict__ do_mem,
+                                const float* __restrict__ lse,
+                                float* __restrict__ delta_out,
+                                const int* __restrict__ q_lens,
+                                const int* __restrict__ kv_lens, int H, int Hkv,
+                                int Tq, int Tk, int D, int causal, float scale) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  constexpr int BK = PANELS_BK;
+  constexpr int STAGES = PANELS_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + STAGES;
+
+  const PanelsGrid w(D, blockIdx.x);
+  const int h = w.head;
+  const int b = blockIdx.y;
+  const int n_qt = (Tq + 63) / 64;
+  const int q0 = (n_qt - 1 - int(blockIdx.z)) * 64;   // last (heaviest) first
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, min(q0 + 64, q_len));
+  const int n_blocks = q0 < q_len ? (kv_end + BK - 1) / BK : 0;
+  const int bh = b * H + h;
+  const int bhk = b * Hkv + h / (H / Hkv);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: per key block P stages of (Q_p, dO_p, K_p, V_p), then
+    // the group's np K panels ----
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int j = 0; j < n_blocks; ++j) {
+        for (int p = 0; p < w.P + w.np; ++p, ++it) {
+          const int s = it % STAGES;
+          uint8_t* st = smem + s * L::kStage;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          if (p < w.P) {
+            mbar_arrive_expect_tx(&full[s], L::kStage);
+            tma_load_3d(st, &tm_q, &full[s], p * PANEL_COLS, q0, bh);
+            tma_load_3d(st + L::kA1, &tm_do, &full[s], p * PANEL_COLS, q0, bh);
+            tma_load_3d(st + L::kB0, &tm_k, &full[s], p * PANEL_COLS, j * BK, bhk);
+            tma_load_3d(st + L::kB1, &tm_v, &full[s], p * PANEL_COLS, j * BK, bhk);
+          } else {
+            mbar_arrive_expect_tx(&full[s], L::kB);
+            tma_load_3d(st + L::kB0, &tm_k, &full[s], (w.pg0 + p - w.P) * PANEL_COLS,
+                        j * BK, bhk);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer: the tile's 64 q rows, dQ's columns of the group ----
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+    const int cq = (lane & 3) * 2;                // first key of each pair
+    const int qa = q0 + r;
+    const int qb = qa + 8;
+    const size_t row0 = size_t(bh) * Tq;
+    const float scale_log2 = scale * LOG2E;
+    // lse in units of log2; +inf past q_len, so that P = 0 there
+    const float la = qa < q_len ? lse[row0 + qa] * LOG2E : INFINITY;
+    const float lb = qb < q_len ? lse[row0 + qb] * LOG2E : INFINITY;
+
+    // delta = rowsum(dO * O) in f32 over the whole width, from device
+    // memory: a quad of lanes shares rows r and r + 8, each lane every
+    // fourth 8-column chunk. 0 past q_len and without keys.
+    float da = 0.0f, db = 0.0f;
+    if (n_blocks > 0) {
+      for (int ch = lane & 3; ch < D / 8; ch += 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = qa + 8 * e;
+          if (qi >= q_len) continue;
+          const size_t off = (row0 + qi) * D + ch * 8;
+          const uint4 dv4 = *reinterpret_cast<const uint4*>(do_mem + off);
+          const uint4 ov4 = *reinterpret_cast<const uint4*>(o_mem + off);
+          const uint32_t dw[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+          const uint32_t ow[4] = {ov4.x, ov4.y, ov4.z, ov4.w};
+          float acc = e == 0 ? da : db;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 d2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw[i]));
+            const float2 o2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[i]));
+            acc = fmaf(d2.x, o2.x, acc);
+            acc = fmaf(d2.y, o2.y, acc);
+          }
+          if (e == 0) da = acc; else db = acc;
+        }
+      }
+      da += __shfl_xor_sync(0xffffffffu, da, 1);
+      da += __shfl_xor_sync(0xffffffffu, da, 2);
+      db += __shfl_xor_sync(0xffffffffu, db, 1);
+      db += __shfl_xor_sync(0xffffffffu, db, 2);
+    }
+    if ((lane & 3) == 0 && w.g == 0) {
+      if (qa < Tq) delta_out[row0 + qa] = qa < q_len ? da : 0.0f;
+      if (qb < Tq) delta_out[row0 + qb] = qb < q_len ? db : 0.0f;
+    }
+
+    float dq[PANELS_GP][32];
+#pragma unroll
+    for (int p = 0; p < PANELS_GP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[p][i] = 0.0f;
+    }
+
+    int it = 0;
+    for (int j = 0; j < n_blocks; ++j) {
+      // S = sum_p Q_p K_p^T and dP = sum_p dO_p V_p^T
+      float sc[BK / 2], dp[BK / 2];
+      panels_sum<BK>(sc, dp, true, w.P, smem, full, empty, it);
+
+      // P = 2^(S scale log2 e - lse log2 e), dS = P (dP - delta), masked
+      // only on blocks that cross kv_len or the diagonal
+      const int kv0 = j * BK;
+      const bool need_mask = kv0 + BK > kv_len || (causal && kv0 + BK - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool upper = e < 2;
+          float p = ex2(fmaf(sc[4 * i + e], scale_log2, -(upper ? la : lb)));
+          if (need_mask) {
+            const int kj = kv0 + 8 * i + cq + (e & 1);
+            const int qi = upper ? qa : qb;
+            if (!(kj < kv_len && (!causal || kj <= qi))) p = 0.0f;
+          }
+          dp[4 * i + e] = p * (dp[4 * i + e] - (upper ? da : db));
+        }
+      }
+
+      // dQ_g += dS K_g
+      uint32_t dsa[BK / 16][4];
+      acc_to_a<BK>(dp, dsa);
+      panels_accumulate(dq, dsa, w.np, smem, full, empty, it);
+    }
+
+    // ---- epilogue: scale * dQ_g ----
+    panels_store(dq, scale, w.np, w.pg0, &tm_dq, q0, bh, smem + L::kOut);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_PANELS, 1)
+flash_bwd_dkv_bf16_panels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_dk,
+                                 const __grid_constant__ CUtensorMap tm_dv,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 const int* __restrict__ q_lens,
+                                 const int* __restrict__ kv_lens, int H, int Hkv,
+                                 int Tq, int Tk, int D, int causal, float scale) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  constexpr int BQ = PANELS_BK;
+  constexpr int STAGES = PANELS_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + STAGES;
+
+  // x: (kv head, column group, dK or dV), dK/dV fastest, then the group
+  const bool is_dk = (blockIdx.x & 1) == 0;
+  const PanelsGrid w(D, blockIdx.x >> 1);
+  const int hk = w.head;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * 64;        // first key tile (the heaviest) first
+  const int group = H / Hkv;
+  const int bhk = b * Hkv + hk;
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+  // q blocks that can see these keys: none wholly above them (causal), none
+  // wholly at or past q_len, none at all when the keys are past kv_len.
+  const int qb_begin = causal ? k0 / BQ : 0;
+  const int qb_end = k0 < kv_len ? (q_len + BQ - 1) / BQ : 0;
+  const int n_qb = max(0, qb_end - qb_begin);
+  const int n_iter = group * n_qb;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: per q block P stages of (K_p, V_p, Q_p, dO_p) (dV: K_p
+    // and Q_p), then the group's np Q (dV: dO) panels ----
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int itq = 0; itq < n_iter; ++itq) {
+        const int bh = b * H + hk * group + itq / n_qb;
+        const int q0 = (qb_begin + itq % n_qb) * BQ;
+        for (int p = 0; p < w.P + w.np; ++p, ++it) {
+          const int s = it % STAGES;
+          uint8_t* st = smem + s * L::kStage;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          if (p < w.P) {
+            mbar_arrive_expect_tx(&full[s], is_dk ? L::kStage : L::kA + L::kB);
+            tma_load_3d(st, &tm_k, &full[s], p * PANEL_COLS, k0, bhk);
+            tma_load_3d(st + L::kB0, &tm_q, &full[s], p * PANEL_COLS, q0, bh);
+            if (is_dk) {
+              tma_load_3d(st + L::kA1, &tm_v, &full[s], p * PANEL_COLS, k0, bhk);
+              tma_load_3d(st + L::kB1, &tm_do, &full[s], p * PANEL_COLS, q0, bh);
+            }
+          } else {
+            mbar_arrive_expect_tx(&full[s], L::kB);
+            tma_load_3d(st + L::kB0, is_dk ? &tm_q : &tm_do, &full[s],
+                        (w.pg0 + p - w.P) * PANEL_COLS, q0, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer: the tile's 64 keys, dK's or dV's columns of the group ----
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // key rows r and r + 8
+    const int cq = (lane & 3) * 2;                // first q column of each pair
+    const int ka = k0 + r;
+    const int kb = ka + 8;
+    const float scale_log2 = scale * LOG2E;
+
+    float acc[PANELS_GP][32];
+#pragma unroll
+    for (int p = 0; p < PANELS_GP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+    }
+
+    int it = 0;
+    for (int itq = 0; itq < n_iter; ++itq) {
+      const size_t rowq = size_t(b * H + hk * group + itq / n_qb) * Tq;
+      const int q0 = (qb_begin + itq % n_qb) * BQ;
+      // S^T = sum_p K_p Q_p^T, and for dK dP^T = sum_p V_p dO_p^T
+      float st[BQ / 2], dpt[BQ / 2];
+      panels_sum<BQ>(st, dpt, is_dk, w.P, smem, full, empty, it);
+
+      // P^T = 2^(S^T scale log2 e - lse log2 e) with lse per column, masked
+      // only on blocks that cross kv_len or the diagonal; for dK,
+      // dS^T = P^T (dP^T - delta) scale
+      const bool need_mask = k0 + 64 > kv_len || (causal && q0 < k0 + 63);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * i + cq + (e & 1);
+          const float lv = qi < q_len ? lse[rowq + qi] * LOG2E : INFINITY;
+          float p = ex2(fmaf(st[4 * i + e], scale_log2, -lv));
+          if (need_mask) {
+            const int kj = e < 2 ? ka : kb;
+            if (!(kj < kv_len && (!causal || kj <= qi))) p = 0.0f;
+          }
+          if (is_dk) {
+            const float dl = qi < q_len ? delta[rowq + qi] : 0.0f;
+            st[4 * i + e] = p * (dpt[4 * i + e] - dl) * scale;
+          } else {
+            st[4 * i + e] = p;
+          }
+        }
+      }
+
+      // dK_g += dS^T Q_g, or dV_g += P^T dO_g
+      uint32_t a[BQ / 16][4];
+      acc_to_a<BQ>(st, a);
+      panels_accumulate(acc, a, w.np, smem, full, empty, it);
+    }
+
+    // ---- epilogue ----
+    panels_store(acc, 1.0f, w.np, w.pg0, is_dk ? &tm_dk : &tm_dv, k0, bhk,
+                 smem + L::kOut);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32, D > 512: the scalar path over column chunks
+// ---------------------------------------------------------------------------
+
+// 16-row tiles (flash_common.cuh's `panels` geometry): a CTA owns 16 rows of
+// its output and a group of up to 256 of its columns, sums S and dP over
+// the width chunk by chunk (64 columns of each operand in shared memory at
+// a time) and adds the product with the group's columns of its B operand,
+// loaded as one tile.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_f32_panels_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ o,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dout,
+                               const int* __restrict__ q_lens,
+                               const int* __restrict__ kv_lens, float* __restrict__ dq,
+                               float* __restrict__ delta_out, int H, int Hkv, int Tq,
+                               int Tk, int D, int causal, float scale) {
+  using namespace flash::panels;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sDO = reinterpret_cast<float*>(smem + kChunk);
+  float* sK = reinterpret_cast<float*>(smem + 2 * kChunk);
+  float* sV = reinterpret_cast<float*>(smem + 3 * kChunk);
+  float* sKg = reinterpret_cast<float*>(smem + 4 * kChunk);
+  float* sDS = reinterpret_cast<float*>(smem + 4 * kChunk + kGroup);
+
+  const int G = (D + NG - 1) / NG;
+  const int g = int(blockIdx.x) % G;
+  const int h = int(blockIdx.x) / G;
+  const int b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.z * BLOCK;
+  const int c_g = g * NG;
+  const int ng = min(NG, D - c_g);
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = lane / LANES;
+  const int part = lane % LANES;
+  const int qi = q0 + warp * RPW + r;
+  float* dsw = sDS + warp * RPW * LDP;
+  const size_t q_head = (size_t(b) * H + h) * Tq;
+  const float* qh = q + q_head * D;
+  const float* doh = dout + q_head * D;
+  const float* kh = k + (size_t(b) * Hkv + hk) * Tk * D;
+  const float* vh = v + (size_t(b) * Hkv + hk) * Tk * D;
+
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, min(q0 + BLOCK, q_len));
+  const int n_blocks = q0 < q_len ? (kv_end + BLOCK - 1) / BLOCK : 0;
+
+  // delta = rowsum(dO * O) over the width; the lanes of a row share it.
+  // Rows past q_len, and rows of a batch row without keys, get 0.
+  const bool row_ok = qi < q_len;
+  float delta = 0.0f;
+  if (row_ok && n_blocks > 0) {
+    const float* orow = o + (q_head + qi) * D;
+    const float* drow = doh + size_t(qi) * D;
+    for (int d = part; d < D; d += LANES) delta = fmaf(drow[d], orow[d], delta);
+  }
+  delta = flash::row_sum<LANES>(delta);
+  if (part == 0 && qi < Tq && g == 0) delta_out[q_head + qi] = delta;
+  const float lse_i = row_ok ? lse[q_head + qi] : INFINITY;
+
+  Acc acc;
+  acc.zero();
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int kv0 = blk * BLOCK;
+    float s[COLS], dp[COLS];
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) s[i] = dp[i] = 0.0f;
+    for (int c0 = 0; c0 < D; c0 += CW) {
+      __syncthreads();  // every warp is done with the previous chunk (and K_g)
+      load_cols<CW, LDC>(sQ, qh, D, q0, q_len, c0, CW);
+      load_cols<CW, LDC>(sDO, doh, D, q0, q_len, c0, CW);
+      load_cols<CW, LDC>(sK, kh, D, kv0, kv_len, c0, CW);
+      load_cols<CW, LDC>(sV, vh, D, kv0, kv_len, c0, CW);
+      __syncthreads();
+      abt_chunk(sQ + warp * RPW * LDC, sK, r, part, s);
+      abt_chunk(sDO + warp * RPW * LDC, sV, r, part, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) {
+      const int kj = kv0 + part * COLS + i;
+      const bool ok = row_ok && kj < kv_len && (!causal || kj <= qi);
+      const float p = ok ? __expf(s[i] * scale - lse_i) : 0.0f;
+      dsw[r * LDP + part * COLS + i] = p * (dp[i] - delta);
+    }
+    __syncthreads();  // dS complete; every warp is done with the chunks
+    load_cols<NG, LDG>(sKg, kh, D, kv0, kv_len, c_g, ng);
+    __syncthreads();
+    acc.mma(dsw, sKg, r, part);
+  }
+
+  acc.store(dq + (q_head + qi) * D + c_g, scale, ng, part, qi < Tq);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_f32_panels_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const float* __restrict__ dout,
+                                const int* __restrict__ q_lens,
+                                const int* __restrict__ kv_lens, float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                                int D, int causal, float scale) {
+  using namespace flash::panels;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = reinterpret_cast<float*>(smem + kChunk);
+  float* sQ = reinterpret_cast<float*>(smem + 2 * kChunk);
+  float* sDO = reinterpret_cast<float*>(smem + 3 * kChunk);
+  float* sQg = reinterpret_cast<float*>(smem + 4 * kChunk);
+  float* sDOg = reinterpret_cast<float*>(smem + 4 * kChunk + kGroup);
+  float* sP = reinterpret_cast<float*>(smem + 4 * kChunk + 2 * kGroup);
+  float* sDS = reinterpret_cast<float*>(smem + 4 * kChunk + 2 * kGroup + kWarpP);
+  float* sLse = reinterpret_cast<float*>(smem + 4 * kChunk + 2 * kGroup + 2 * kWarpP);
+  float* sDelta = sLse + BLOCK;
+
+  const int G = (D + NG - 1) / NG;
+  const int g = int(blockIdx.x) % G;
+  const int hk = int(blockIdx.x) / G;
+  const int b = blockIdx.y;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.z * BLOCK;
+  const int c_g = g * NG;
+  const int ng = min(NG, D - c_g);
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = lane / LANES;
+  const int part = lane % LANES;
+  const int kj = k0 + warp * RPW + r;     // key position of the lane's row
+  float* pw = sP + warp * RPW * LDP;
+  float* dsw = sDS + warp * RPW * LDP;
+  const size_t kv_head = (size_t(b) * Hkv + hk) * Tk;
+  const float* kh = k + kv_head * D;
+  const float* vh = v + kv_head * D;
+
+  // q blocks that can see these keys: none wholly above them (causal), none
+  // wholly at or past q_len, none at all when the keys are past kv_len.
+  const int qb_begin = causal ? k0 / BLOCK : 0;
+  const int qb_end = k0 < kv_len ? (q_len + BLOCK - 1) / BLOCK : 0;
+
+  Acc dk_acc, dv_acc;
+  dk_acc.zero();
+  dv_acc.zero();
+  for (int gh = 0; gh < group; ++gh) {
+    const size_t q_head = (size_t(b) * H + hk * group + gh) * Tq;
+    const float* qh = q + q_head * D;
+    const float* doh = dout + q_head * D;
+    for (int qb = qb_begin; qb < qb_end; ++qb) {
+      const int q0 = qb * BLOCK;
+      __syncthreads();  // every warp is done with the previous block
+      if (threadIdx.x < BLOCK) {
+        const int qi = q0 + threadIdx.x;
+        sLse[threadIdx.x] = qi < q_len ? lse[q_head + qi] : INFINITY;
+        sDelta[threadIdx.x] = qi < q_len ? delta[q_head + qi] : 0.0f;
+      }
+      float s[COLS], dp[COLS];
+#pragma unroll
+      for (int i = 0; i < COLS; ++i) s[i] = dp[i] = 0.0f;
+      for (int c0 = 0; c0 < D; c0 += CW) {
+        __syncthreads();
+        load_cols<CW, LDC>(sK, kh, D, k0, kv_len, c0, CW);
+        load_cols<CW, LDC>(sV, vh, D, k0, kv_len, c0, CW);
+        load_cols<CW, LDC>(sQ, qh, D, q0, q_len, c0, CW);
+        load_cols<CW, LDC>(sDO, doh, D, q0, q_len, c0, CW);
+        __syncthreads();
+        // transposed scores: rows are this warp's keys, columns the q rows
+        abt_chunk(sK + warp * RPW * LDC, sQ, r, part, s);
+        abt_chunk(sV + warp * RPW * LDC, sDO, r, part, dp);
+      }
+#pragma unroll
+      for (int i = 0; i < COLS; ++i) {
+        const int c = part * COLS + i;
+        const int qi = q0 + c;
+        const bool ok = kj < kv_len && qi < q_len && (!causal || kj <= qi);
+        const float p = ok ? __expf(s[i] * scale - sLse[c]) : 0.0f;
+        pw[r * LDP + c] = p;
+        dsw[r * LDP + c] = p * (dp[i] - sDelta[c]) * scale;
+      }
+      __syncthreads();  // P and dS complete; every warp is done with the chunks
+      load_cols<NG, LDG>(sQg, qh, D, q0, q_len, c_g, ng);
+      load_cols<NG, LDG>(sDOg, doh, D, q0, q_len, c_g, ng);
+      __syncthreads();
+      dv_acc.mma(pw, sDOg, r, part);
+      dk_acc.mma(dsw, sQg, r, part);
+    }
+  }
+
+  dk_acc.store(dk + (kv_head + kj) * D + c_g, 1.0f, ng, part, kj < Tk);
+  dv_acc.store(dv + (kv_head + kj) * D + c_g, 1.0f, ng, part, kj < Tk);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -1315,6 +1984,118 @@ cudaError_t launch_dkv_bf16_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_bf16_panels(const void* q, const void* k, const void* v,
+                                  const void* o, const void* lse, const void* dout,
+                                  const void* q_lens, const void* kv_lens, void* dq,
+                                  void* delta, int B, int H, int Hkv, int Tq, int Tk,
+                                  int D, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, 64) ||
+      !hopper::make_tmap_bf16(&tdo, dout, B * H, Tq, D, 64) ||
+      !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, PANELS_BK) ||
+      !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, D, PANELS_BK) ||
+      !hopper::make_tmap_bf16(&tdq, dq, B * H, Tq, D, 64)) {
+    return cudaErrorNotSupported;
+  }
+  auto kernel = flash_bwd_dq_bf16_panels_kernel;
+  const int bytes = PanelsLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D / hopper::PANEL_COLS + PANELS_GP - 1) / PANELS_GP;
+  const int n_qt = (Tq + 63) / 64;
+  if (n_qt > 65535 || G * H >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(G * H), B, n_qt);
+  kernel<<<grid, THREADS_PANELS, bytes, stream>>>(
+      tq, tdo, tk, tv, tdq, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), H, Hkv, Tq, Tk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_bf16_panels(const void* q, const void* k, const void* v,
+                                   const void* lse, const void* delta,
+                                   const void* dout, const void* q_lens,
+                                   const void* kv_lens, void* dk, void* dv, int B,
+                                   int H, int Hkv, int Tq, int Tk, int D, int causal,
+                                   float scale, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv, tdk, tdv;
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, PANELS_BK) ||
+      !hopper::make_tmap_bf16(&tdo, dout, B * H, Tq, D, PANELS_BK) ||
+      !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, 64) ||
+      !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, D, 64) ||
+      !hopper::make_tmap_bf16(&tdk, dk, B * Hkv, Tk, D, 64) ||
+      !hopper::make_tmap_bf16(&tdv, dv, B * Hkv, Tk, D, 64)) {
+    return cudaErrorNotSupported;
+  }
+  auto kernel = flash_bwd_dkv_bf16_panels_kernel;
+  const int bytes = PanelsLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D / hopper::PANEL_COLS + PANELS_GP - 1) / PANELS_GP;
+  const int n_kt = (Tk + 63) / 64;
+  if (n_kt > 65535 || 2 * G * Hkv >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(2 * G * Hkv), B, n_kt);
+  kernel<<<grid, THREADS_PANELS, bytes, stream>>>(
+      tq, tdo, tk, tv, tdk, tdv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), H, Hkv, Tq, Tk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_f32_panels(const void* q, const void* k, const void* v,
+                                 const void* o, const void* lse, const void* dout,
+                                 const void* q_lens, const void* kv_lens, void* dq,
+                                 void* delta, int B, int H, int Hkv, int Tq, int Tk,
+                                 int D, int causal, float scale, cudaStream_t stream) {
+  using namespace flash::panels;
+  auto kernel = flash_bwd_dq_f32_panels_kernel;
+  const int bytes = 4 * kChunk + kGroup + kWarpP;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D + NG - 1) / NG;
+  const int n_qt = (Tq + BLOCK - 1) / BLOCK;
+  if (n_qt > 65535 || G * H >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(G * H), B, n_qt);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
+      static_cast<const int*>(q_lens), static_cast<const int*>(kv_lens),
+      static_cast<float*>(dq), static_cast<float*>(delta), H, Hkv, Tq, Tk, D,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_f32_panels(const void* q, const void* k, const void* v,
+                                  const void* lse, const void* delta,
+                                  const void* dout, const void* q_lens,
+                                  const void* kv_lens, void* dk, void* dv, int B,
+                                  int H, int Hkv, int Tq, int Tk, int D, int causal,
+                                  float scale, cudaStream_t stream) {
+  using namespace flash::panels;
+  auto kernel = flash_bwd_dkv_f32_panels_kernel;
+  const int bytes = 4 * kChunk + 2 * kGroup + 2 * kWarpP + 2 * BLOCK * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D + NG - 1) / NG;
+  const int n_kt = (Tk + BLOCK - 1) / BLOCK;
+  if (n_kt > 65535 || G * Hkv >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(G * Hkv), B, n_kt);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(dout),
+      static_cast<const int*>(q_lens), static_cast<const int*>(kv_lens),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Tq, Tk, D, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int B, int H, int Hkv, int Tq, int Tk) {
   return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 ||
          B > 65535 || H > 65535;
@@ -1327,7 +2108,8 @@ bool bad_shape(int B, int H, int Hkv, int Tq, int Tk) {
 // cudaErrorNotSupported if a tensor map could not be encoded).
 // is_f32: 0 for bfloat16 operands, 1 for float32. D must be 64, 128, 256 or
 // 512 (ops/attention.py runs the widths between them on zero-padded
-// operands).
+// operands) or any multiple of 64 above 512 (the panel kernels, which take
+// the width at run time).
 // q, dout, o, dq: [B, H, Tq, D]; k, v, dk, dv: [B, Hkv, Tk, D]; lse, delta:
 // [B, H, Tq] float32; q_lens, kv_lens: [B] int32. All contiguous.
 extern "C" int avsr_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1339,6 +2121,11 @@ extern "C" int avsr_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   if (bad_shape(B, H, Hkv, Tq, Tk)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 512 && D % 64 == 0) {
+    return int((is_f32 ? launch_dq_f32_panels : launch_dq_bf16_panels)(
+        q, k, v, o, lse, dout, q_lens, kv_lens, dq, delta, B, H, Hkv, Tq, Tk, D,
+        causal, scale, s));
+  }
 #define AVSR_DQ(FN, DD)                                                \
   return int(FN<DD>(q, k, v, o, lse, dout, q_lens, kv_lens, dq, delta, B, \
                     H, Hkv, Tq, Tk, causal, scale, s))
@@ -1366,6 +2153,11 @@ extern "C" int avsr_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* stream) {
   if (bad_shape(B, H, Hkv, Tq, Tk)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 512 && D % 64 == 0) {
+    return int((is_f32 ? launch_dkv_f32_panels : launch_dkv_bf16_panels)(
+        q, k, v, lse, delta, dout, q_lens, kv_lens, dk, dv, B, H, Hkv, Tq, Tk, D,
+        causal, scale, s));
+  }
 #define AVSR_DKV(FN, DD)                                                \
   return int(FN<DD>(q, k, v, lse, delta, dout, q_lens, kv_lens, dk, dv, \
                     B, H, Hkv, Tq, Tk, causal, scale, s))

@@ -1,7 +1,8 @@
 // Pieces shared by the float32 flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): the tile geometry, the zero-filling tile load, the warp's
 // score product A B^T on the CUDA cores, and the reductions over the lanes
-// that share a row.
+// that share a row; for heads wider than 512, the same pieces over column
+// chunks and column groups (namespace panels).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,6 +74,99 @@ __device__ __forceinline__ void warp_abt(const T* A, const T* B, int r, int part
     }
   }
 }
+
+// Heads wider than 512 (the wide kernels): the head width D is a loop
+// count, not a tile size. A CTA owns 16 rows (4 warps of 4 rows, 8 lanes a
+// row, each lane 2 of a 16-column score row) and one group of at most NG
+// output columns; the scores over the whole width are summed chunk by chunk,
+// each chunk CW columns of both operands in shared memory, and the group's
+// columns of the product's B operand come in as one tile.
+namespace panels {
+
+constexpr int BLOCK = 16;                 // rows of a tile
+constexpr int RPW = BLOCK / WARPS;        // rows of a warp
+constexpr int LANES = 32 / RPW;           // lanes of a row
+constexpr int COLS = BLOCK / LANES;       // score columns of a lane
+constexpr int CW = 64;                    // columns of a streamed chunk
+constexpr int NG = 256;                   // output columns of a CTA
+constexpr int DC = NG / LANES;            // output columns of a lane
+constexpr int LDC = CW + 4;               // chunk tile pitch (floats)
+constexpr int LDG = NG + 4;               // group tile pitch
+constexpr int LDP = BLOCK + 4;            // P / dS pitch
+constexpr int kChunk = BLOCK * LDC * 4;   // bytes of a chunk tile
+constexpr int kGroup = BLOCK * LDG * 4;   // bytes of a group tile
+constexpr int kWarpP = WARPS * RPW * LDP * 4;
+
+// Rows [row0, row0 + BLOCK) and columns [c0, c0 + W) of one head ([T, D],
+// contiguous) into a tile of pitch LD; rows at or past `nrows` and columns
+// at or past c0 + `ncols` are zero-filled.
+template <int W, int LD>
+__device__ __forceinline__ void load_cols(float* dst, const float* __restrict__ src,
+                                          int D, int row0, int nrows, int c0,
+                                          int ncols) {
+  constexpr int VPR = W / 4;
+  for (int i = threadIdx.x; i < BLOCK * VPR; i += THREADS) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * 4;
+    const int t = row0 + r;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (t < nrows && c < ncols) {
+      val = *reinterpret_cast<const float4*>(src + size_t(t) * D + c0 + c);
+    }
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
+  }
+}
+
+// out[i] += sum over one chunk's CW columns of A[r, d] B[part * COLS + i, d]:
+// the lane's part of row r of A B^T, A the warp's rows and B a BLOCK-row
+// chunk tile (both pitch LDC).
+__device__ __forceinline__ void abt_chunk(const float* A, const float* B, int r,
+                                          int part, float (&out)[COLS]) {
+#pragma unroll 8
+  for (int d = 0; d < CW; ++d) {
+    const float ad = A[r * LDC + d];
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) {
+      out[i] = fmaf(ad, B[(part * COLS + i) * LDC + d], out[i]);
+    }
+  }
+}
+
+// A warp's [RPW, NG] f32 accumulator of products A B, A a P or dS tile
+// (pitch LDP) and B a group tile (pitch LDG): lane (r, part) holds columns
+// [part * DC, (part + 1) * DC) of row r.
+struct Acc {
+  float v[DC];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < DC; ++j) v[j] = 0.0f;
+  }
+  // (unrolled by 2: by 4, ptxas holds the dQ kernel at 128 registers and
+  // spills)
+  __device__ __forceinline__ void mma(const float* A, const float* B, int r, int part) {
+#pragma unroll 2
+    for (int c = 0; c < BLOCK; ++c) {
+      const float a = A[r * LDP + c];
+      const float* br = B + c * LDG + part * DC;
+#pragma unroll
+      for (int j = 0; j < DC; ++j) v[j] = fmaf(a, br[j], v[j]);
+    }
+  }
+  // Writes scale * (the lane's part of its row) to `row` (the row's first
+  // column of the group) for the group's first `ncols` columns, when
+  // `write`.
+  __device__ __forceinline__ void store(float* row, float scale, int ncols, int part,
+                                        bool write) {
+    if (!write) return;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      if (part * DC + j < ncols) row[part * DC + j] = v[j] * scale;
+    }
+  }
+};
+
+}  // namespace panels
 
 // The max and the sum of v over the LANES neighbouring lanes of a row.
 template <int LANES>

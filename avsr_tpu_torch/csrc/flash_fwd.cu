@@ -28,6 +28,9 @@
 //            by bytes (140 MB); train [8,32,672,128], 581 rows, 47.5 us;
 //            its connectors [8,8,500,512] non-causal: 32.8 GFLOP -> 33.1 us;
 //            131 MB -> 39.2 us.
+//   Llama-2-13B's connectors [8,8,500,640]: 41.0 GFLOP -> 41.4 us; 164 MB
+//            -> 48.9 us. Llama-2-70B's [8,8,500,1024]: 65.5 GFLOP -> 66.3
+//            us; 262 MB -> 78.3 us (the panel kernel below).
 // All are bound by bytes, closely followed by operations, so the kernel has
 // to stream each operand once and keep the tensor cores busy.
 //
@@ -82,6 +85,10 @@
 // 64 KB, two stages, 192 KB in all. Each warpgroup stages its O in its own
 // panels of the Q tile, after a barrier of both (the other still reads
 // them for its S until then); warpgroup 0 writes lse.
+//
+// D > 512 (any multiple of 64) takes the panel kernels below
+// (flash_fwd_bf16_panels_kernel, flash_fwd_f32_panels_kernel), which take
+// the width at run time.
 //
 // float32 inputs take the first design's scalar path (flash_fwd_f32_kernel):
 // 64-row tiles (32 at D = 256, whose 64-row f32 tiles would take 203 KB),
@@ -500,6 +507,267 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, D > 512: the head width as a loop count
+// ---------------------------------------------------------------------------
+
+// Above 512 a 64-row Q, K and V tile of the whole width no longer fit in the
+// 227 KB a block may use together (80 KB each at D = 640, 128 KB at 1024),
+// and a 64-row O of half the width is 160-256 f32 a thread. So the width is
+// a loop count: a CTA owns 64 query rows of one (b, h) and one group of up
+// to 256 of O's columns (PANELS_GP panels; the grid's fastest dimension, so
+// the groups of one tile run side by side and read its Q, K and V from L2).
+// Per 64-key block:
+//   * S = sum over the D / 64 panels p of Q_p K_p^T: a ring of PANELS_STAGES
+//     stages, each a Q panel and a K panel by TMA, wgmma m64n64k16 with both
+//     operands in shared memory; a stage is released once the next panel's
+//     products are issued and its own are done (wgmma.wait_group 1);
+//   * the mask and the online softmax as in flash_fwd_bf16_kernel;
+//   * O_g += P V_g: the group's V panels through the same ring, P rounded to
+//     bf16 as the register A operand.
+// Every group recomputes S over the whole width: at 640 (three groups) the
+// kernel does 2x the FLOPs of S + PV, at 1024 (four) 2.5x. One S shared by
+// the groups of a thread-block cluster is the later redesign. Group 0
+// writes lse; O leaves through a swizzled staging tile and TMA stores that
+// clip rows past Tq. A CTA is a consumer warpgroup and a producer
+// warpgroup, one thread of which issues the loads (255 registers a thread:
+// O 128, S 32, P 16).
+constexpr int PANELS_GP = 4;         // 64-column panels of a column group
+constexpr int PANELS_BN = 64;        // keys of a K/V block
+constexpr int PANELS_STAGES = 4;     // ring depth
+constexpr int THREADS_PANELS = 256;  // a consumer and a producer warpgroup
+
+struct PanelsLayout {
+  static constexpr int kA = 64 * hopper::ROW_BYTES;        // a Q panel
+  static constexpr int kB = PANELS_BN * hopper::ROW_BYTES;   // a K or V panel
+  static constexpr int kStage = kA + kB;
+  static constexpr int kO = PANELS_STAGES * kStage;          // O's staging panels
+  static constexpr int kBar = kO + PANELS_GP * kA;
+  static constexpr int kBytes = kBar + 2 * PANELS_STAGES * 8 + hopper::ATOM_BYTES;
+};
+
+__global__ void __launch_bounds__(THREADS_PANELS, 1)
+flash_fwd_bf16_panels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           const int* __restrict__ q_lens,
+                           const int* __restrict__ kv_lens,
+                           float* __restrict__ lse, int H, int Hkv, int Tq,
+                           int Tk, int D, int causal, float scale_log2) {
+  using namespace hopper;
+  using L = PanelsLayout;
+  constexpr int BN = PANELS_BN;
+  constexpr int STAGES = PANELS_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + STAGES;
+
+  const int P = D / PANEL_COLS;                 // panels of the width
+  const int G = (P + PANELS_GP - 1) / PANELS_GP;    // column groups
+  const int g = int(blockIdx.x) % G;
+  const int h = int(blockIdx.x) / G;
+  const int b = blockIdx.y;
+  const int n_qt = (Tq + 63) / 64;
+  const int q0 = (n_qt - 1 - int(blockIdx.z)) * 64;   // last (heaviest) first
+  const int pg0 = g * PANELS_GP;                  // the group's first panel
+  const int np = min(PANELS_GP, P - pg0);         // and its panels
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+  // keys the tile needs: below kv_len and, when causal, not past its last
+  // valid row; a tile wholly at or past q_len loads nothing
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, min(q0 + 64, q_len));
+  const int n_blocks = q0 < q_len ? (kv_end + BN - 1) / BN : 0;
+  const int bh = b * H + h;
+  const int bhk = b * Hkv + h / (H / Hkv);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: one thread; per block P (Q, K) panel pairs, then the
+    // group's np V panels ----
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int j = 0; j < n_blocks; ++j) {
+        for (int p = 0; p < P + np; ++p, ++it) {
+          const int s = it % STAGES;
+          uint8_t* st = smem + s * L::kStage;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          if (p < P) {
+            mbar_arrive_expect_tx(&full[s], L::kStage);
+            tma_load_3d(st, &tm_q, &full[s], p * PANEL_COLS, q0, bh);
+            tma_load_3d(st + L::kA, &tm_k, &full[s], p * PANEL_COLS, j * BN, bhk);
+          } else {
+            mbar_arrive_expect_tx(&full[s], L::kB);
+            tma_load_3d(st + L::kA, &tm_v, &full[s], (pg0 + p - P) * PANEL_COLS,
+                        j * BN, bhk);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer: the tile's 64 rows, O's columns of the group ----
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+    const int cq = (lane & 3) * 2;                // first column of each pair
+    const int qa = q0 + r;
+    const int qb = qa + 8;
+
+    float o[PANELS_GP][32];
+#pragma unroll
+    for (int p = 0; p < PANELS_GP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+    }
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+    int it = 0;
+    for (int j = 0; j < n_blocks; ++j) {
+      // S = sum_p Q_p K_p^T; stage `prev` is released once the products of
+      // the next panel are issued and its own have completed
+      float sc[BN / 2];
+      int prev = 0;
+      for (int p = 0; p < P; ++p, ++it) {
+        const int s = it % STAGES;
+        const uint8_t* st = smem + s * L::kStage;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          wgmma_ss<BN>(sc, desc_sw128(st + k * 32), desc_sw128(st + L::kA + k * 32),
+                       (p | k) != 0);
+        }
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&empty[prev]);
+
+      // Only the last blocks, which cross kv_len or the diagonal, mask.
+      Softmax sm{m0, m1, l0, l1, 1.0f, 1.0f};
+      if ((j + 1) * BN > kv_len || (causal && (j + 1) * BN - 1 > q0)) {
+        online_softmax<BN, true>(sc, sm, j * BN, kv_len, qa, qb, causal, scale_log2);
+      } else {
+        online_softmax<BN, false>(sc, sm, j * BN, kv_len, qa, qb, causal, scale_log2);
+      }
+      m0 = sm.m0; m1 = sm.m1; l0 = sm.l0; l1 = sm.l1;
+#pragma unroll
+      for (int p = 0; p < PANELS_GP; ++p) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[p][4 * i] *= sm.al0;
+          o[p][4 * i + 1] *= sm.al0;
+          o[p][4 * i + 2] *= sm.al1;
+          o[p][4 * i + 3] *= sm.al1;
+        }
+      }
+
+      // O_g += P V_g, one V panel of the group per stage
+      uint32_t pa[BN / 16][4];
+      acc_to_a<BN>(sc, pa);
+      fence_regs(pa);
+#pragma unroll
+      for (int p = 0; p < PANELS_GP; ++p) {
+        if (p < np) {
+          const int s = it % STAGES;
+          mbar_wait(&full[s], (it / STAGES) & 1);
+          const uint8_t* sv = smem + s * L::kStage + L::kA;
+          fence_regs(o[p]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            wgmma_rs<64>(o[p], pa[kk], desc_sw128(sv + kk * 16 * ROW_BYTES), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o[p]);
+          mbar_arrive(&empty[s]);
+          ++it;
+        }
+      }
+      fence_regs(pa);
+    }
+
+    // ---- epilogue ----
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const bool ok0 = qa < q_len && l0 > 0.0f;
+    const bool ok1 = qb < q_len && l1 > 0.0f;
+    const float inv0 = ok0 ? 1.0f / l0 : 0.0f;
+    const float inv1 = ok1 ? 1.0f / l1 : 0.0f;
+    if ((lane & 3) == 0 && g == 0) {
+      const size_t row0 = size_t(bh) * Tq;
+      if (qa < Tq) lse[row0 + qa] = ok0 ? m0 * LN2 + logf(l0) : INFINITY;
+      if (qb < Tq) lse[row0 + qb] = ok1 ? m1 * LN2 + logf(l1) : INFINITY;
+    }
+    uint8_t* so = smem + L::kO;
+#pragma unroll
+    for (int p = 0; p < PANELS_GP; ++p) {
+      if (p < np) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          *reinterpret_cast<uint32_t*>(so + p * L::kA + swizzled_offset(r, 8 * i + cq)) =
+              pack_bf16(o[p][4 * i] * inv0, o[p][4 * i + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(so + p * L::kA + swizzled_offset(r + 8, 8 * i + cq)) =
+              pack_bf16(o[p][4 * i + 2] * inv1, o[p][4 * i + 3] * inv1);
+        }
+      }
+    }
+    fence_proxy_async();
+    named_sync(1, 128);
+    if (tid == 0) {
+      for (int p = 0; p < np; ++p) {
+        tma_store_3d(&tm_o, so + p * L::kA, (pg0 + p) * PANEL_COLS, q0, bh);
+      }
+      tma_store_drain();
+    }
+  }
+}
+
+cudaError_t launch_bf16_panels(const void* q, const void* k, const void* v,
+                             const void* q_lens, const void* kv_lens, void* o,
+                             void* lse, int B, int H, int Hkv, int Tq, int Tk,
+                             int D, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  if (!hopper::make_tmap_bf16(&tq, q, B * H, Tq, D, 64) ||
+      !hopper::make_tmap_bf16(&tk, k, B * Hkv, Tk, D, PANELS_BN) ||
+      !hopper::make_tmap_bf16(&tv, v, B * Hkv, Tk, D, PANELS_BN) ||
+      !hopper::make_tmap_bf16(&to, o, B * H, Tq, D, 64)) {
+    return cudaErrorNotSupported;
+  }
+  auto kernel = flash_fwd_bf16_panels_kernel;
+  const int bytes = PanelsLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D / hopper::PANEL_COLS + PANELS_GP - 1) / PANELS_GP;
+  const int n_qt = (Tq + 63) / 64;
+  if (n_qt > 65535 || G * H >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(G * H), B, n_qt);
+  kernel<<<grid, THREADS_PANELS, bytes, stream>>>(
+      tq, tk, tv, to, static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), static_cast<float*>(lse), H, Hkv, Tq,
+      Tk, D, causal, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: the scalar path
 // ---------------------------------------------------------------------------
 
@@ -644,6 +912,132 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// float32, D > 512: 16-row tiles (flash_common.cuh's `panels` geometry). A
+// CTA owns 16 query rows of one (b, h) and one group of up to 256 of O's
+// columns; per 16-key block it sums S over the width chunk by chunk (64
+// columns of Q and K in shared memory at a time), runs the online softmax,
+// and adds P V_g from a tile of the group's V columns.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_panels_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ q_lens,
+                          const int* __restrict__ kv_lens, float* __restrict__ o,
+                          float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
+                          int D, int causal, float scale) {
+  using namespace flash::panels;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = reinterpret_cast<float*>(smem + kChunk);
+  float* sV = reinterpret_cast<float*>(smem + 2 * kChunk);
+  float* sP = reinterpret_cast<float*>(smem + 2 * kChunk + kGroup);
+
+  const int G = (D + NG - 1) / NG;
+  const int g = int(blockIdx.x) % G;
+  const int h = int(blockIdx.x) / G;
+  const int b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.z * BLOCK;
+  const int c_g = g * NG;                 // the group's first column
+  const int ng = min(NG, D - c_g);        // and its columns
+  const int q_len = max(0, min(q_lens[b], Tq));
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = lane / LANES;
+  const int part = lane % LANES;
+  const int qi = q0 + warp * RPW + r;
+  float* pw = sP + warp * RPW * LDP;
+  const float* qh = q + (size_t(b) * H + h) * Tq * D;
+  const float* kh = k + (size_t(b) * Hkv + hk) * Tk * D;
+  const float* vh = v + (size_t(b) * Hkv + hk) * Tk * D;
+
+  int kv_end = kv_len;
+  if (causal) kv_end = min(kv_end, min(q0 + BLOCK, q_len));
+  const int n_blocks = q0 < q_len ? (kv_end + BLOCK - 1) / BLOCK : 0;
+
+  Acc acc;
+  acc.zero();
+  float m_i = -INFINITY;
+  float l_i = 0.0f;
+
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int kv0 = blk * BLOCK;
+    float s[COLS];
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) s[i] = 0.0f;
+    for (int c0 = 0; c0 < D; c0 += CW) {
+      __syncthreads();  // every warp is done with the previous chunk (and V)
+      load_cols<CW, LDC>(sQ, qh, D, q0, q_len, c0, CW);
+      load_cols<CW, LDC>(sK, kh, D, kv0, kv_len, c0, CW);
+      __syncthreads();
+      abt_chunk(sQ + warp * RPW * LDC, sK, r, part, s);
+    }
+
+    // Online softmax; the lanes of a row share its max and sum.
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) {
+      const int kj = kv0 + part * COLS + i;
+      const bool ok = kj < kv_len && (!causal || kj <= qi);
+      s[i] = ok ? s[i] * scale : -INFINITY;
+      mx = fmaxf(mx, s[i]);
+    }
+    mx = flash::row_max<LANES>(mx);
+    const float m_new = fmaxf(m_i, mx);
+    const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+    const float alpha = __expf(m_i - m_use);
+    float rs = 0.0f;
+#pragma unroll
+    for (int i = 0; i < COLS; ++i) {
+      const float p = __expf(s[i] - m_use);
+      rs += p;
+      pw[r * LDP + part * COLS + i] = p;
+    }
+    rs = flash::row_sum<LANES>(rs);
+    l_i = l_i * alpha + rs;
+    m_i = m_new;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc.v[j] *= alpha;
+
+    __syncthreads();  // P complete; every warp is done with the chunks
+    load_cols<NG, LDG>(sV, vh, D, kv0, kv_len, c_g, ng);
+    __syncthreads();
+    acc.mma(pw, sV, r, part);
+  }
+
+  if (qi < Tq) {
+    const bool valid = qi < q_len && l_i > 0.0f;
+    const float inv = valid ? 1.0f / l_i : 0.0f;
+    acc.store(o + ((size_t(b) * H + h) * Tq + qi) * D + c_g, inv, ng, part, true);
+    if (part == 0 && g == 0) {
+      lse[(size_t(b) * H + h) * Tq + qi] = valid ? m_i + logf(l_i) : INFINITY;
+    }
+  }
+}
+
+cudaError_t launch_f32_panels(const void* q, const void* k, const void* v,
+                            const void* q_lens, const void* kv_lens, void* o,
+                            void* lse, int B, int H, int Hkv, int Tq, int Tk,
+                            int D, int causal, float scale, cudaStream_t stream) {
+  using namespace flash::panels;
+  auto kernel = flash_fwd_f32_panels_kernel;
+  const int bytes = 2 * kChunk + kGroup + kWarpP;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long G = (D + NG - 1) / NG;
+  const int n_qt = (Tq + BLOCK - 1) / BLOCK;
+  if (n_qt > 65535 || G * H >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(unsigned(G * H), B, n_qt);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(q_lens),
+      static_cast<const int*>(kv_lens), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Hkv, Tq, Tk, D, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns 0 on success, else the cudaError_t of the failed call (the launch
@@ -651,7 +1045,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // cudaErrorNotSupported if a tensor map could not be encoded).
 // is_f32: 0 for bfloat16 operands (the wgmma kernel), 1 for float32 (the
 // scalar kernel). D must be 64, 128, 256 or 512 (ops/attention.py runs the
-// widths between them on zero-padded operands).
+// widths between them on zero-padded operands) or any multiple of 64 above
+// 512 (the panel kernels, which take the width at run time).
 extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_lens, const void* kv_lens, void* o,
                               void* lse, int B, int H, int Hkv, int Tq, int Tk,
@@ -665,6 +1060,10 @@ extern "C" int avsr_flash_fwd(const void* q, const void* k, const void* v,
 #define AVSR_FWD(FN, DD)                                                    \
   return int(FN<DD>(q, k, v, q_lens, kv_lens, o, lse, B, H, Hkv, Tq, Tk, \
                     causal, scale, s))
+  if (D > 512 && D % 64 == 0) {
+    return int((is_f32 ? launch_f32_panels : launch_bf16_panels)(
+        q, k, v, q_lens, kv_lens, o, lse, B, H, Hkv, Tq, Tk, D, causal, scale, s));
+  }
   if (is_f32) {
     if (D == 64) AVSR_FWD(launch_f32, 64);
     if (D == 128) AVSR_FWD(launch_f32, 128);

@@ -16,10 +16,15 @@ times by the same method):
 - Llama-2-7B's shapes: its prefill and train step (MHA, 32 heads of 128),
   its connectors' (8 heads of 512), and Llama-3.2-3B's connectors' (8 heads
   of 384: the D = 512 kernels on zero-padded operands);
+- Llama-2-13B's prefill and train step (40 heads of 128) and the panel
+  kernels (D > 512) at its connectors' 8 heads of 640, at 896 and at
+  Llama-2-70B's connectors' 8 heads of 1024;
 - the per-rank shapes of tensor parallelism at tp = 2 (half the heads:
-  Whisper 8 of 16, the LLM 16 over 4 kv heads) and the ring blocks of
+  Whisper 8 of 16, the LLM 16 over 4 kv heads), the ring blocks of
   sequence parallelism at sp = 2 (a rank's chunk of the 30 s bucket, B = 1:
-  Whisper's 752 rows, the LLM's 792, its diagonal block causal);
+  Whisper's 752 rows, the LLM's 792, its diagonal block causal) and a
+  pipeline stage's block at pp = 2 (one microbatch row of the 30 s bucket:
+  [1, 32, 1584, 64] over 8 kv heads, causal, 1581 valid rows);
 - the weight-only matmuls at M = 8: int4 and int8 at the flagship's four
   decode projections (qkv, o, gateup, down; int8 is model.use_8bit) and the
   int8 lm head, the 7B's (int4 projections, the int8 head over its vocab
@@ -31,9 +36,9 @@ this checkout: the device time per launch of a CUDA graph of 20 launches
 (or one per weight copy, if more) replayed three times. Beside each kernel
 time: its bound (``chip_smoke.py::attn_bounds``, ``qmm_bound``), its plain
 version's time (flash: eager, CUDA events; qmatmul: a replayed graph) and
-the library call's (SDPA, the backward's of q, k and v together; cuBLAS on
-the dequantized bf16 weight). Prints the card's name and power limit, then
-one JSON line. Needs a CUDA device.
+the library call's (SDPA, the backward's of q, k and v together, with the
+backend SDPA took; cuBLAS on the dequantized bf16 weight). Prints the
+card's name and power limit, then one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +71,12 @@ SHAPES = {
     "sp2_whisper_block": (1, 16, 16, 752, 752, False, 64, True),
     "sp2_llm_block": (1, 32, 8, 792, 792, False, 64, True),
     "sp2_llm_diag_block": (1, 32, 8, 792, 792, True, 64, True),
+    "pp2_stage_block": (1, 32, 8, 1584, 1581, True, 64, True),
+    "llm13_prefill": (8, 40, 40, 533, 533, True, 128, False),
+    "llm13_train": (8, 40, 40, 672, 581, True, 128, True),
+    "connector640": (8, 8, 8, 500, 500, False, 640, True),
+    "connector896": (8, 8, 8, 500, 500, False, 896, True),
+    "connector1024": (8, 8, 8, 500, 500, False, 1024, True),
 }
 # name: bits, K, N (M = 8)
 QMM_SHAPES = {
@@ -116,12 +127,16 @@ def main(argv: list[str] | None = None) -> int:
             raise RuntimeError(f"imported {mod.__file__}, not the package under {root}")
     # dK/dV reads delta (from dQ) where an earlier version read O
     reads_delta = "delta" in inspect.signature(A.flash_bwd_dkv).parameters
+    # the widths the checkout's kernels take (before the panel kernels, a
+    # tuple of them)
+    takes = getattr(A, "kernel_takes", None) or (
+        lambda D: D in getattr(A, "KERNEL_HEAD_DIMS", (64, 128)))
 
     print(smoke.gpu_line())
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    ms, plain, library, bound = {}, {}, {}, {}
+    ms, plain, library, bound, backend = {}, {}, {}, {}, {}
     for name, (B, H, Hkv, T, n, causal, D, bwd) in SHAPES.items():
-        if D not in getattr(A, "KERNEL_HEAD_DIMS", (64, 128)):
+        if not takes(D):
             continue            # a checkout whose kernels do not take this width
         q, do = (torch.randn((B, H, T, D), generator=gen, device="cuda",
                              dtype=torch.bfloat16) for _ in range(2))
@@ -133,11 +148,15 @@ def main(argv: list[str] | None = None) -> int:
             [lambda: A.flash_attention(q, k, v, lens, lens, causal)])
         plain[f"fwd_{name}"] = smoke.time_ms(
             lambda: A.flash_attention_reference(q, k, v, lens, lens, causal), 3)
-        library[f"fwd_{name}"] = smoke.sdpa_ms(q, k, v, lens, causal)["ms"]
+        lib = smoke.sdpa_ms(q, k, v, lens, causal)
+        library[f"fwd_{name}"] = lib["ms"]
+        backend[f"fwd_{name}"] = lib.get("backend", lib["call"])
         bound[f"fwd_{name}"] = max(bounds["fwd"])
         if not bwd:
             continue
-        library[f"bwd_{name}"] = smoke.sdpa_ms(q, k, v, lens, causal, do)["ms"]
+        lib = smoke.sdpa_ms(q, k, v, lens, causal, do)
+        library[f"bwd_{name}"] = lib["ms"]
+        backend[f"bwd_{name}"] = lib.get("backend", lib["call"])
         for tag, c in ((("", True), ("_noncausal", False)) if name == "llm_train"
                        else (("", causal),)):
             o, lse = A.flash_attention(q, k, v, lens, lens, c)
@@ -176,7 +195,7 @@ def main(argv: list[str] | None = None) -> int:
         del nodes, qp, w16, w16s
         torch.cuda.empty_cache()
     print(json.dumps({"root": str(root), "kernels": A.__file__, "ms": ms, "plain_ms": plain,
-                      "library_ms": library, "bound_ms": bound}))
+                      "library_ms": library, "library_backend": backend, "bound_ms": bound}))
     return 0
 
 

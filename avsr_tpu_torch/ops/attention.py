@@ -55,18 +55,25 @@ dkv_launches = 0      # flash_bwd dK/dV
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
 # the port keeps them as the reference's rule until measured on the card.
 MIN_KERNEL_SEQ = 256
-# The head widths the kernels take: every multiple of 64 through 512, the
-# JAX rule (which sends every multiple of 64 to its kernel) up to 512: 64
-# (Whisper, HuBERT, CLIP, Llama-3.2), 128 (Llama-2-7B), 256, 384 and 512
-# (the connectors' 8 heads over a 2048-, 3072- and 4096-wide LLM). The CUDA
-# sources compile COMPILED_HEAD_DIMS; the widths between them run the next
-# wider kernel on operands zero-padded to its width (exact: zero columns add
-# nothing to Q K^T or dO V^T), with the scale of the true width, and the pad
-# columns sliced off the outputs. Wider heads (Llama-2-13B's connectors at
-# 640, 70B's at 1024) take mha_reference: at D > 512 the Q, K and V tiles of
-# 64 rows no longer fit in a CTA's shared memory together.
-KERNEL_HEAD_DIMS = tuple(range(64, 513, 64))
+# The head widths the kernels take: every multiple of 64, the JAX rule
+# (attention.py:566-571, ``D % 64 == 0``): 64 (Whisper, HuBERT, CLIP,
+# Llama-3.2), 128 (Llama-2-7B and 13B), and 256, 384, 512, 640 and 1024 (the
+# connectors' 8 heads over a 2048-, 3072-, 4096-, 5120- and 8192-wide LLM).
+# Up to 512 the CUDA sources compile COMPILED_HEAD_DIMS, and the widths
+# between them run the next wider kernel on operands zero-padded to its
+# width (exact: zero columns add nothing to Q K^T or dO V^T), with the scale
+# of the true width, and the pad columns sliced off the outputs. Above 512
+# the panel kernels take the width itself at run time: they stream Q, K, V
+# (and dO) through shared memory in 64-column panels and split every output
+# into groups of 256 columns, each group a CTA that recomputes the scores
+# over the whole width.
 COMPILED_HEAD_DIMS = (64, 128, 256, 512)
+
+
+def kernel_takes(D: int) -> bool:
+    """Whether the kernels take head width D (JAX's rule: a multiple of
+    64)."""
+    return D > 0 and D % 64 == 0
 
 
 def _lens(lens: torch.Tensor | None, n: int, batch: int,
@@ -81,8 +88,11 @@ def _scale(sm_scale: float | None, D: int) -> float:
 
 
 def kernel_width(D: int) -> int:
-    """The compiled kernel width that runs head width D (D itself, or the
-    next wider one, on zero-padded operands)."""
+    """The kernel width that runs head width D: D itself when it is compiled
+    or above 512 (the panel kernels), else the next wider compiled width, on
+    zero-padded operands."""
+    if D > COMPILED_HEAD_DIMS[-1]:
+        return D
     return min(w for w in COMPILED_HEAD_DIMS if w >= D)
 
 
@@ -294,10 +304,10 @@ def _check_qkv(name: str, q, k, v, causal: bool) -> tuple[int, ...]:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes bfloat16 or float32 operands "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in KERNEL_HEAD_DIMS or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
+    if not kernel_takes(D) or k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
         raise ValueError(f"{name} shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}: need "
-                         f"D in {KERNEL_HEAD_DIMS} and k, v of one shape")
+                         f"D a multiple of 64 and k, v of one shape")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
     if causal and Tq != Tk:
@@ -340,9 +350,10 @@ def flash_attention(
     """Flash-attention forward: (O [B,H,Tq,D], lse [B,H,Tq] f32).
 
     q: [B,H,Tq,D], k/v: [B,Hkv,Tk,D], contiguous, bfloat16 or float32,
-    D in KERNEL_HEAD_DIMS (a width that is not compiled runs the next wider
-    kernel on zero-padded operands); causal needs Tq == Tk. Ragged tails
-    (q_lens, kv_lens) are masked inside the kernel; no row is padded. A CPU tensor takes
+    D a multiple of 64 (through 512 a width that is not compiled runs the
+    next wider kernel on zero-padded operands); causal needs Tq == Tk.
+    Ragged tails (q_lens, kv_lens) are masked inside the kernel; no row is
+    padded. A CPU tensor takes
     :func:`flash_attention_reference`; a CUDA tensor launches the kernel
     (on the current stream) or raises. The kernel's output has no
     gradient, so a CUDA input that requires one raises while grad mode is
@@ -505,11 +516,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float | None = None,
               use_kernel: str = "auto", sp=None) -> torch.Tensor:
     """The flash kernels where the JAX package would take its Pallas kernel
-    (Tq and Tk >= 256, no ``kv_valid`` mask) and the kernels take the head
-    width (every multiple of 64 through 512, ``KERNEL_HEAD_DIMS``; JAX takes
-    any multiple of 64), through :class:`FlashAttention` so that gradients
-    flow; else :func:`mha_reference`. ``use_kernel``: "auto" (the kernel for CUDA
-    tensors), "always", or "never" — the counterpart of ``use_pallas``.
+    (Tq and Tk >= 256, no ``kv_valid`` mask, a head width that is a multiple
+    of 64: :func:`kernel_takes`), through :class:`FlashAttention` so that
+    gradients flow; else :func:`mha_reference`. ``use_kernel``: "auto" (the
+    kernel for CUDA tensors), "always", or "never" — the counterpart of
+    ``use_pallas``.
 
     ``sp`` (an sp group above 1): q, k and v are this rank's chunks of a
     sequence the stack sharded (:func:`ring_span`), ``q_lens`` and
@@ -525,7 +536,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ring_attention(q, k, v, group=sp, causal=causal, kv_lens=kv_lens,
                               q_lens=q_lens, sm_scale=sm_scale, use_kernel=use_kernel)
     want = use_kernel == "always" or (use_kernel == "auto" and q.is_cuda)
-    if (want and kv_valid is None and q.shape[-1] in KERNEL_HEAD_DIMS
+    if (want and kv_valid is None and kernel_takes(q.shape[-1])
             and q.shape[2] >= MIN_KERNEL_SEQ and k.shape[2] >= MIN_KERNEL_SEQ):
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), q_lens, kv_lens, causal,

@@ -26,7 +26,7 @@ port writes the backward (:class:`RingAttention`):
     more shift.
 
 On CUDA every block whose head width the kernels take
-(``attention.KERNEL_HEAD_DIMS``) launches them, whatever the chunk's
+(``attention.kernel_takes``: a multiple of 64) launches them, whatever the chunk's
 length (the 256-row threshold is a rule of the non-ring path); another
 width takes the plain block, as JAX's ring is plain JAX, and so does every
 CPU tensor (:func:`ring_block_reference` forward, the kernels' plain
@@ -43,7 +43,6 @@ from __future__ import annotations
 import torch
 
 from avsr_tpu_torch.ops.attention import (
-    KERNEL_HEAD_DIMS,
     NEG_INF,
     _scale,
     flash_attention,
@@ -51,6 +50,7 @@ from avsr_tpu_torch.ops.attention import (
     flash_bwd_dkv_reference,
     flash_bwd_dq,
     flash_bwd_dq_reference,
+    kernel_takes,
 )
 
 # The kernel launches of the ring's blocks (each also counted by its
@@ -203,6 +203,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group,
     [B,H,Tl,D] in q's dtype, differentiable. The blocks launch the flash
     kernels on CUDA at the head widths they take, unless ``use_kernel`` is
     "never"."""
-    kernel = (use_kernel != "never" and q.is_cuda and q.shape[-1] in KERNEL_HEAD_DIMS)
+    kernel = (use_kernel != "never" and q.is_cuda and kernel_takes(q.shape[-1]))
     return RingAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), q_lens,
                                kv_lens, group, causal, sm_scale, kernel)

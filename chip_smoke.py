@@ -347,26 +347,43 @@
    decode CLI one card's HYP lines, and under the serving preset every
    rank launches the qmatmul kernels. Removes what it wrote.
 26. Llama-2 phase (``llama2_phase``): first the flash forward, dQ and
-   dK/dV at every head width the kernels take (64-512 by 64; 192-448 on
-   the next wider kernel over zero-padded operands) against their plain
-   versions in bf16 (2e-2 x max|ref|) and f32 (1e-4): causal GQA over
-   ragged rows and non-causal MHA with Tq != Tk and a row without keys;
-   then at the shapes of this phase's paths (``WIDTH_SHAPES``: the 7B's
-   prefill and train step, its connectors' heads of 512, and 384 by the
-   pad route) the same checks and their times beside bound, plain version
-   and SDPA. Then ``flagship_llama2()``, the flagship with the reference's
-   other LLM, Llama-2-7B (MHA, heads of 128, untied head, vocab 32000,
-   theta 1e4), and the ``attention`` connector (8 heads of 512), at full
-   width and depth, random bf16 weights from --seed made on the card: a
-   static call (B = 8, 10 s audio, 25 frames, 32 tokens: encode, prefill,
-   ms per token, peak; 24 + 1 + 32 flash launches); a train step of 8
-   (accum 1) after a warm-up step, repeated bit for bit from an identical
-   state (89 forward, 33 dQ and 33 dK/dV launches); the serving preset's
-   call (int4 projections, the int8 head over the vocab padded to 32768,
-   exact launches). In f32 at ``LLAMA2_QUARTER`` (6 Whisper, 3 CLIP and 8
-   LLM blocks): prefill logits with the kernels within 2e-2 of their std of
-   the plain path's, and 16 greedy tokens equal. The 7B's decode products
-   at M = 8 against their plain versions, timed beside bound and cuBLAS.
+   dK/dV at the head widths of ``WIDTHS_CHECKED`` (64-512 by 64, 192-448 on
+   the next wider kernel over zero-padded operands; 576, 640, 768, 896,
+   1024 and 2048 on the panel kernels) against their plain versions in
+   bf16 (2e-2 x max|ref|) and f32 (1e-4): causal GQA over ragged rows and
+   non-causal MHA with Tq != Tk and a row without keys; then at the shapes
+   of phases 26 and 27 (``WIDTH_SHAPES``: the 7B's and the 13B's prefill
+   and train step, the connectors' heads of 512, 640 and 1024, 896, 384 by
+   the pad route, and 2048 at B = 2; above 512 in f32 too) the same checks
+   and their times beside bound, plain version and SDPA (with the backend
+   SDPA took). Then ``flagship_llama2()``, the flagship with the
+   reference's other LLM, Llama-2-7B (MHA, heads of 128, untied head, vocab
+   32000, theta 1e4), and the ``attention`` connector (8 heads of 512), at
+   full width and ``LLAMA2_QUARTER``'s depth (6 Whisper, 3 CLIP and 8 LLM
+   blocks: phase 27 runs the same kernels at full depth), random bf16
+   weights from --seed made on the card: a static call (B = 8, 10 s audio,
+   25 frames, 32 tokens: encode, prefill, ms per token, peak; 6 + 1 + 8
+   flash launches); a train step of 8 (accum 1) after a warm-up step,
+   repeated bit for bit from an identical state (23 forward, 9 dQ and 9
+   dK/dV launches); the serving preset's call (int4 projections, the int8
+   head over the vocab padded to 32768, exact launches). In f32 at the same
+   depth: prefill logits with the kernels within 2e-2 of their std of the
+   plain path's, and 16 greedy tokens equal. The 7B's decode products at
+   M = 8 against their plain versions, timed beside bound and cuBLAS.
+27. Llama-2-13B phase (``llama2_13b_phase``): ``flagship_llama2_13b()``,
+   the flagship with Llama-2-13B (``meta-llama/Llama-2-13b-hf``'s
+   config: 5120 wide, 40 blocks of 40 MHA heads of 128, ffn 13824, vocab
+   32000, untied head) and the ``attention`` connector (8 heads of 640: the
+   panel kernels), at full width and depth, random bf16 weights from
+   --seed made on the card, as phase 26's runs: a static call (24 + 1 + 40
+   flash launches), a train step of 8 repeated bit for bit (105 forward,
+   41 dQ and 41 dK/dV launches), the serving preset's call (its f32 init
+   after the bf16 tree is freed; 4960 int4 and 32 int8 launches), and in
+   f32 at ``LLAMA2_13B_REDUCED`` (6 Whisper, 3 CLIP and 10 LLM blocks) the
+   kernel path against the plain path; the 13B's decode products at M =
+   8. Then the ``attention`` connector at Llama-2-70B's width alone (1024
+   to 8192: 8 heads of 1024) over 8 x 500 ragged rows, a forward and
+   backward in bf16 and f32 through the kernels against the plain path.
 
 The build's ptxas report is printed per kernel, and any kernel that spills
 fails the run.
@@ -376,7 +393,8 @@ numbers, and as its last line {"ok": true, "device": {...}}. With
 ``--mesh-only`` it builds the kernels and runs phase 21 alone (on a host
 with two cards or more, the NCCL ranks too) and prints its results as one
 JSON line instead; ``--tp-only``, ``--sp-only``, ``--pp-only`` and
-``--ep-only`` and ``--llama2-only`` do the same for phases 22, 23, 24, 25 and 26. Each
+``--ep-only``, ``--llama2-only`` and ``--llama2-13b-only`` do the same for phases 22,
+23, 24, 25, 26 and 27. Each
 phase boundary prints the
 seconds so far. Any failed
 check raises, so the script exits non-zero and prints no result; so does a
@@ -604,8 +622,22 @@ def sdpa_ms(q, k, v, lens, causal: bool, do=None) -> dict:
                                                               retain_graph=True)],
                                  reps=10)
     best = min(res, key=res.get)
+    backend = ("FLASH_ATTENTION" if best == "flash"       # run under that backend alone
+               else sdpa_backend(*calls["masked"][0], **calls["masked"][1]))
     return dict(ms=res[best], call=best, masked_ms=res["masked"],
-                flash_ms=res.get("flash"))
+                flash_ms=res.get("flash"), backend=backend)
+
+
+def sdpa_backend(*args, **kw) -> str:
+    """The backend SDPA picks for these arguments (PyTorch's own choice,
+    ``torch._fused_sdp_choice``), by name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not known ({type(e).__name__})"
 
 
 def kernel_phase(seed: int, main_lens: dict[str, int]) -> list[dict]:
@@ -7718,22 +7750,56 @@ LLAMA2_OVERRIDES = ("model.llm.vocab_size=32000", "model.llm.d_model=4096",
                     "model.llm.ffn_dim=11008", "model.llm.rope_theta=10000.0",
                     "model.llm.rms_eps=1e-5", "model.llm.tie_embeddings=false",
                     "model.llm.max_seq_len=4096", "model.connector_type=attention")
-# phase 21's quarter depth, with a quarter of the 7B's 32 blocks
+# phase 21's quarter depth, with a quarter of the 7B's 32 blocks (every run
+# of phase 26 since phase 27 runs the same MHA D = 128 kernels at full depth)
 LLAMA2_QUARTER = ("model.whisper.n_layers=6", "model.clip.n_layers=3", "model.llm.n_layers=8")
-# the flash shapes of phase 26's paths (name: B, H, Hkv, T, valid rows,
+# Llama-2-13B (meta-llama/Llama-2-13b-hf's config.json: 5120 wide, 40 blocks
+# of 40 MHA heads of 128, ffn 13824, vocab 32000, an untied head, theta 1e4)
+# with the ``attention`` connector, whose 8 heads over the 5120-wide LLM are
+# 640 wide (the panel kernels): phase 27.
+LLAMA2_13B_OVERRIDES = ("model.llm.vocab_size=32000", "model.llm.d_model=5120",
+                        "model.llm.n_layers=40", "model.llm.n_heads=40",
+                        "model.llm.n_kv_heads=40", "model.llm.ffn_dim=13824",
+                        "model.llm.rope_theta=10000.0", "model.llm.rms_eps=1e-5",
+                        "model.llm.tie_embeddings=false", "model.llm.max_seq_len=4096",
+                        "model.connector_type=attention")
+# phase 27's f32 check: 6 Whisper, 3 CLIP and 10 of the 13B's 40 blocks
+LLAMA2_13B_REDUCED = ("model.whisper.n_layers=6", "model.clip.n_layers=3",
+                      "model.llm.n_layers=10")
+# Llama-2-70B's width: its connectors' 8 heads are 1024 wide. One card
+# cannot hold the 70B in bf16, so phase 27 runs its connector alone.
+LLAMA2_70B_WIDTH = 8192
+# the head widths held to the plain versions at small shapes: every
+# multiple of 64 through 512 (192-448 by the pad route), and above 512
+# the panel kernels at 576, 640 (the 13B's connectors), 768, 896, 1024
+# (the 70B's) and 2048
+WIDTHS_CHECKED = (*range(64, 513, 64), 576, 640, 768, 896, 1024, 2048)
+# the flash shapes of phases 26 and 27 (name: B, H, Hkv, T, valid rows,
 # causal, D): the 7B's prefill and train step (MHA, heads of 128), its
-# connectors' attention (8 heads of 512 over the 500 Whisper rows), and the
-# pad route at 384 (Llama-3.2-3B's connectors: the D = 512 kernels on
-# zero-padded operands)
+# connectors' attention (8 heads of 512 over the 500 Whisper rows), the pad
+# route at 384 (Llama-3.2-3B's connectors: the D = 512 kernels on
+# zero-padded operands), the 13B's prefill and train step (40 heads of 128)
+# and the panel kernels at the 13B's and the 70B's connectors (640, 1024),
+# at 896 (a last column group of two panels) and at 2048 (B = 2); the
+# panel shapes are held in f32 too
 WIDTH_SHAPES = {"llm2_prefill": (8, 32, 32, 533, 533, True, 128),
                 "llm2_train": (8, 32, 32, 672, 581, True, 128),
                 "connector512": (8, 8, 8, 500, 500, False, 512),
-                "connector384": (8, 8, 8, 500, 500, False, 384)}
-# the 7B's decode products at M = 8 (name, bits, K, N): q|k|v, o, gate|up,
-# down in int4 (the preset) and the int8 head over the vocab padded to a
-# multiple of 2048 (ops/quant.py::quantize_llm)
+                "connector384": (8, 8, 8, 500, 500, False, 384),
+                "llm13_prefill": (8, 40, 40, 533, 533, True, 128),
+                "llm13_train": (8, 40, 40, 672, 581, True, 128),
+                "connector640": (8, 8, 8, 500, 500, False, 640),
+                "connector896": (8, 8, 8, 500, 500, False, 896),
+                "connector1024": (8, 8, 8, 500, 500, False, 1024),
+                "panels2048": (2, 8, 8, 500, 500, False, 2048)}
+# the 7B's and the 13B's decode products at M = 8 (name, bits, K, N): q|k|v,
+# o, gate|up, down in int4 (the preset) and the int8 head over the vocab
+# padded to a multiple of 2048 (ops/quant.py::quantize_llm)
 LLAMA2_QMM = (("qkv", 4, 4096, 12288), ("o", 4, 4096, 4096), ("gateup", 4, 4096, 22016),
               ("down", 4, 11008, 4096), ("lm_head", 8, 4096, 32768))
+LLAMA2_13B_QMM = (("qkv", 4, 5120, 15360), ("o", 4, 5120, 5120),
+                  ("gateup", 4, 5120, 27648), ("down", 4, 13824, 5120),
+                  ("lm_head", 8, 5120, 32768))
 
 
 def flagship_llama2(extra=()):
@@ -7741,6 +7807,13 @@ def flagship_llama2(extra=()):
     from avsr_tpu_torch.core.config import flagship
 
     return flagship([*LLAMA2_OVERRIDES, *extra])
+
+
+def flagship_llama2_13b(extra=()):
+    """The flagship with Llama-2-13B and the ``attention`` connector."""
+    from avsr_tpu_torch.core.config import flagship
+
+    return flagship([*LLAMA2_13B_OVERRIDES, *extra])
 
 
 def _flash_case(A, q, k, v, do, ql, kl, causal: bool, tol: float, tag: str) -> dict:
@@ -7774,13 +7847,15 @@ def _flash_case(A, q, k, v, do, ql, kl, causal: bool, tol: float, tag: str) -> d
 
 
 def width_kernel_rows(seed: int) -> dict:
-    """The flash forward, dQ and dK/dV at every head width the kernels take
-    (``KERNEL_HEAD_DIMS``: 64-512), each held to its plain version in bf16
-    (2e-2 x max|ref|) and f32 (1e-4): causal GQA 2:1 over ragged rows, and
+    """The flash forward, dQ and dK/dV at every head width of
+    ``WIDTHS_CHECKED`` (every multiple of 64 through 512, and the panel
+    kernels above it), each held to its plain version in bf16 (2e-2 x
+    max|ref|) and f32 (1e-4): causal GQA 2:1 over ragged rows, and
     non-causal MHA with Tq != Tk and a row without keys. Then at each of
-    ``WIDTH_SHAPES`` (bf16, main-path lengths): the same checks, and the
-    kernels timed from replayed CUDA graphs beside their bound, their plain
-    versions (eager) and SDPA; at 384 also the pad's own copies."""
+    ``WIDTH_SHAPES`` (bf16, main-path lengths; above 512 in f32 too): the
+    same checks, and the kernels timed from replayed CUDA graphs beside
+    their bound, their plain versions (eager) and SDPA (with the backend it
+    took); at 384 also the pad's own copies."""
     import torch
 
     from avsr_tpu_torch.ops import attention as A
@@ -7794,7 +7869,8 @@ def width_kernel_rows(seed: int) -> dict:
         return torch.tensor(n, dtype=torch.int32, device="cuda")
 
     widths: dict = {}
-    for D in A.KERNEL_HEAD_DIMS:
+    for D in WIDTHS_CHECKED:
+        check(A.kernel_takes(D), f"the kernels do not take head width {D}")
         worst = {}
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             for case, (H, Hkv, Tq, Tk, causal, ql, kl) in {
@@ -7838,27 +7914,43 @@ def width_kernel_rows(seed: int) -> dict:
             ops_ms, bytes_ms = bounds[kname]
             lb = lib["fwd" if kname == "fwd" else "bwd"]
             row[kname] = dict(ms=times[kname], plain_ms=plain[kname], library_ms=lb["ms"],
+                              library_backend=lb["backend"],
                               bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         if A.kernel_width(D) != D:
             row["pad_ms"] = graph_ms([lambda: A._pad_heads(A.kernel_width(D), q, k, v, do)])
+        del o, lse, delta, args_dq, args_dkv
+        if D > A.COMPILED_HEAD_DIMS[-1]:
+            # the f32 panel kernels at the same shape and lengths
+            q, k, v, do = (t.float() for t in (q, k, v, do))
+            row["f32_max_rel_err"] = _flash_case(A, q, k, v, do, ln, ln, causal, 1e-4,
+                                                 f"{name} f32")
         rows[name] = row
         print(f"kernel {name} {row['q']} over {row['kv']} ({'causal' if causal else 'non-causal'}, "
               f"{n} rows, {gpu_line()}): "
               + "; ".join(f"{kn} {times[kn]:.4f} ms (plain {plain[kn]:.4f}, SDPA "
-                          f"{row[kn]['library_ms']:.4f}, bound {row[kn]['bound_ms']:.4f} by "
-                          f"{row[kn]['bound_by']})" for kn in ("fwd", "dq", "dkv"))
+                          f"{row[kn]['library_ms']:.4f} by {row[kn]['library_backend']}, "
+                          f"bound {row[kn]['bound_ms']:.4f} by {row[kn]['bound_by']})"
+                          for kn in ("fwd", "dq", "dkv"))
               + (f"; the pad's copies of q, k, v, dO {row['pad_ms']:.4f} ms"
                  if "pad_ms" in row else "")
-              + f"; max|d|/max|ref| {err}")
-        del q, k, v, do, o, lse, delta, args_dq, args_dkv
+              + f"; max|d|/max|ref| {err}"
+              + (f"; f32 {row['f32_max_rel_err']}" if "f32_max_rel_err" in row else ""))
+        del q, k, v, do
     return dict(widths=widths, shapes=rows)
 
 
-def llama2_phase(seed: int) -> dict:
-    """Phase 26: the flash kernels at every head width, then
-    ``flagship_llama2()`` at full width and depth (see the module
-    docstring), launches exact and derived from the widths."""
+def llama2_runs(seed: int, tag: str, make_config, depth: tuple, f32_depth: tuple,
+                qmm: tuple, seed_offset: int) -> tuple[dict, dict]:
+    """``make_config(extra overrides)``'s flagship (a Llama-2 LLM and the
+    ``attention`` connector), random bf16 weights from ``seed`` made on the
+    card, with ``depth`` overrides on top: a static bf16 call (B = 8, 10 s,
+    25 frames, 32 tokens), a train step of 8 (accum 1) after a warm-up step
+    and the same two steps again from the same state (bit-equal), the
+    serving preset's call; in f32 at ``f32_depth`` the kernel path's prefill logits
+    and 16 greedy tokens against the plain path's; and the decode products
+    ``qmm`` at M = 8. Launches exact, derived from the widths. Returns
+    (results, launches by path, each path named ``tag``_...)."""
     import torch
 
     from avsr_tpu_torch.cli.common import load_decode_params
@@ -7871,25 +7963,24 @@ def llama2_phase(seed: int) -> dict:
     from avsr_tpu_torch.train.state import cast_frozen, create_train_state, path_leaves
     from avsr_tpu_torch.train.step import make_train_step
 
-    t_all = time.perf_counter()
-    res: dict = {"kernels": width_kernel_rows(seed)}
+    res: dict = {}
     by_path: dict[str, dict[str, int]] = {}
 
-    def counted(tag: str, fn):
+    def counted(path: str, fn):
         torch.cuda.synchronize()
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        by_path[tag] = counts()
+        by_path[f"{tag}_{path}"] = counts()
         return out
 
     def want(flash=0, dq=0, dkv=0, int8=0, int4=0) -> dict[str, int]:
         return dict(flash_fwd=flash, flash_bwd_dq=dq, flash_bwd_dkv=dkv, qmatmul_int8=int8,
                     qmatmul_int4=int4)
 
-    cfg = flagship_llama2()
+    cfg = make_config(depth)
     mc = cfg.model
-    nW, nL = mc.whisper.n_layers, mc.llm.n_layers
+    nW, nL, width = mc.whisper.n_layers, mc.llm.n_layers, mc.llm.d_model
     tok = ByteTokenizer()
     hb = serving_host_batch(cfg, seed)
     B = len(hb.utt_ids)
@@ -7901,129 +7992,230 @@ def llama2_phase(seed: int) -> dict:
     params = init_avsr_model(mc, seed=seed, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = param_count(params)
-    print(f"llama2: random init of {n_params / 1e9:.3f} B params (bf16; LLM "
-          f"{param_count(params['llm']) / 1e9:.3f} B) in {time.perf_counter() - t0:.2f} s")
-    check(tuple(params["llm"]["lm_head"]["w"].shape) == (4096, 32000),
-          "llama2: the untied head is not [4096, 32000]")
+    res["init_s"] = time.perf_counter() - t0
+    print(f"{tag}: random init of {n_params / 1e9:.3f} B params (bf16; LLM "
+          f"{param_count(params['llm']) / 1e9:.3f} B, {nL} blocks) in {res['init_s']:.2f} s")
+    check(tuple(params["llm"]["lm_head"]["w"].shape) == (width, 32000),
+          f"{tag}: the untied head is not [{width}, 32000]")
     batch = featurize(hb, "cuda", torch.bfloat16)
     kw = dict(max_new_tokens=32, eos_id=-1, compute_dtype=torch.bfloat16)
     generate_tokens(params, mc, batch, **{**kw, "max_new_tokens": 2})       # warm-up
     torch.cuda.reset_peak_memory_stats()
     st: dict = {}
-    out = counted("llama2_generate", lambda: generate_tokens(params, mc, batch, stats=st, **kw))
+    out = counted("generate", lambda: generate_tokens(params, mc, batch, stats=st, **kw))
     peak = torch.cuda.max_memory_allocated() / 1e9
     w = want(*d["generate"].values())
-    check(by_path["llama2_generate"] == w,
-          f"llama2 generate launches {by_path['llama2_generate']}, expected {w}")
+    check(by_path[f"{tag}_generate"] == w,
+          f"{tag} generate launches {by_path[f'{tag}_generate']}, expected {w}")
     check(out.tokens.shape == (B, 32) and bool((out.lengths == 32).all())
           and bool(((out.tokens >= 0) & (out.tokens < mc.llm.vocab_size)).all()),
-          f"llama2 tokens {tuple(out.tokens.shape)}")
+          f"{tag} tokens {tuple(out.tokens.shape)}")
     check(st["prefill_logits"].shape[-1] == 32000
-          and bool(torch.isfinite(st["prefill_logits"]).all()), "llama2 prefill logits")
+          and bool(torch.isfinite(st["prefill_logits"]).all()), f"{tag} prefill logits")
     res["static_bf16"] = dict(
         encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
         ms_per_token=st["decode_s"] * 1e3 / st["decode_steps"], peak_mem_gb=peak,
-        params_b=n_params / 1e9, launches=w)
-    print("llama2 static bf16: " + json.dumps(res["static_bf16"]))
+        params_b=n_params / 1e9, llm_blocks=nL, launches=w)
+    print(f"{tag} static bf16: " + json.dumps(res["static_bf16"]))
 
     # ---- a bf16 train step of 8, and the same step again from the same state
-    tcfg = flagship_llama2(["training.grad_accum_steps=1"])
-    micro = featurize(train_host_batch(tcfg, tok, np.random.default_rng(seed + 2601)),
+    tcfg = make_config((*depth, "training.grad_accum_steps=1"))
+    micro = featurize(train_host_batch(tcfg, tok, np.random.default_rng(seed + seed_offset)),
                       "cuda", torch.bfloat16)
     stacked = _stack([micro])
     # two trees of the same values: the trainable leaves (connectors, LoRA)
     # in f32 each, the frozen bf16 leaves shared
     ta, tb = cast_frozen(params, mc, torch.bfloat16), cast_frozen(params, mc, torch.bfloat16)
-    state_a, tr = _run_steps(tcfg, ta, stacked, 2, "llama2 train", seed,
+    state_a, tr = _run_steps(tcfg, ta, stacked, 2, f"{tag} train", seed,
                              expect=want(*d["train_step"].values()))
-    by_path["llama2_train_2_steps"] = {k: sum(s_["launches"][k] for s_ in tr["steps"])
+    by_path[f"{tag}_train_2_steps"] = {k: sum(s_["launches"][k] for s_ in tr["steps"])
                                        for k in counts()}
     state_b = create_train_state(tb, tcfg, total_steps=1000)
     step = make_train_step(tcfg)
     m_b = [step(state_b, stacked, seed + i) for i in range(2)]
     for i, s_ in enumerate(tr["steps"]):
         check(all(s_[k] == m_b[i][k] for k in ("loss", "grad_norm")),
-              f"llama2 train step {i + 1} repeated: {m_b[i]} != {s_}")
+              f"{tag} train step {i + 1} repeated: {m_b[i]} != {s_}")
     la, lb = path_leaves(state_a.state_dict()), path_leaves(state_b.state_dict())
     diff = [k for k, v in la.items() if isinstance(v, torch.Tensor) and not torch.equal(v, lb[k])]
-    check(not diff, f"llama2 train steps from one state differ in {diff[:5]}")
+    check(not diff, f"{tag} train steps from one state differ in {diff[:5]}")
     res["train_bf16"] = dict(
         step_ms=tr["steps"][-1]["ms"], first_step_ms=tr["steps"][0]["ms"],
         peak_mem_gb=tr["peak_mem_gb"], loss=tr["steps"][-1]["loss"],
         split_ms={k: v for k, v in tr["steps"][-1].items() if k.endswith("_ms")},
         repeated_step_bit_equal=True, launches_per_step=tr["steps"][-1]["launches"])
-    print("llama2 train bf16: " + json.dumps(res["train_bf16"]))
+    print(f"{tag} train bf16: " + json.dumps(res["train_bf16"]))
+    # the bf16 tree goes before the preset's f32 init
     del ta, tb, state_a, state_b, step, m_b, la, lb, params, out, st, stacked, micro
     settle()
 
     # ---- the serving preset's call -----------------------------------------
-    pcfg = flagship_llama2(PRESET_OVERRIDES)
+    pcfg = make_config((*depth, *PRESET_OVERRIDES))
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     pp = load_decode_params(pcfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
     llm_gb = quant_bytes(pp["llm"]) / 1e9
-    print(f"llama2 preset: f32 init, int4 quantization, bf16 cast and decode layout in "
-          f"{time.perf_counter() - t0:.2f} s; LLM tree {llm_gb:.3f} GB")
+    print(f"{tag} preset: f32 init, int4 quantization, bf16 cast and decode layout in "
+          f"{time.perf_counter() - t0:.2f} s (peak {load_peak:.2f} GB); LLM tree "
+          f"{llm_gb:.3f} GB")
     pkw = dict(kw, kv_cache_dtype=pcfg.decode.kv_cache_dtype)
     generate_tokens(pp, pcfg.model, batch, **{**pkw, "max_new_tokens": 2})   # warm-up
     torch.cuda.reset_peak_memory_stats()
     st = {}
-    out = counted("llama2_preset", lambda: generate_tokens(pp, pcfg.model, batch, stats=st,
-                                                            **pkw))
+    out = counted("preset", lambda: generate_tokens(pp, pcfg.model, batch, stats=st, **pkw))
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = st["decode_steps"]
     w = want(flash=d["generate"]["fwd"], int8=steps + 1, int4=4 * nL * steps)
-    check(by_path["llama2_preset"] == w,
-          f"llama2 preset launches {by_path['llama2_preset']}, expected {w}")
+    check(by_path[f"{tag}_preset"] == w,
+          f"{tag} preset launches {by_path[f'{tag}_preset']}, expected {w}")
     check(out.tokens.shape == (B, 32) and bool(torch.isfinite(st["prefill_logits"]).all())
-          and bool(((out.tokens >= 0) & (out.tokens < 32000)).all()), "llama2 preset tokens")
+          and bool(((out.tokens >= 0) & (out.tokens < 32000)).all()), f"{tag} preset tokens")
     res["preset"] = dict(
         encode_ms=st["encode_s"] * 1e3, prefill_ms=st["prefill_s"] * 1e3,
-        ms_per_token=st["decode_s"] * 1e3 / steps, peak_mem_gb=peak, llm_tree_gb=llm_gb,
-        launches=w)
-    print("llama2 preset: " + json.dumps(res["preset"]))
+        ms_per_token=st["decode_s"] * 1e3 / steps, peak_mem_gb=peak, load_peak_mem_gb=load_peak,
+        llm_tree_gb=llm_gb, launches=w)
+    print(f"{tag} preset: " + json.dumps(res["preset"]))
     del pp, out, st
     settle()
 
-    # ---- f32 at full width and a quarter of the depth: kernels vs plain ----
-    qcfg = flagship_llama2(LLAMA2_QUARTER)
+    # ---- f32 at full width and reduced depth: kernels vs plain -------------
+    qcfg = make_config(f32_depth)
     qmc = qcfg.model
     p32 = init_avsr_model(qmc, seed=seed, device="cuda", dtype=torch.float32)
     b32 = featurize(hb, "cuda", torch.float32)
     kw32 = dict(max_new_tokens=16, eos_id=-1, compute_dtype=torch.float32)
     s_k: dict = {}
     s_n: dict = {}
-    out_k = counted("llama2_quarter_f32", lambda: generate_tokens(p32, qmc, b32, stats=s_k,
-                                                                   **kw32))
+    out_k = counted("f32", lambda: generate_tokens(p32, qmc, b32, stats=s_k, **kw32))
     qd = connector_launches("attention", 500, hb.prompt.shape[1], 0, qmc.whisper.n_layers,
                             qmc.llm.n_layers)
-    check(by_path["llama2_quarter_f32"] == want(qd["generate"]["fwd"]),
-          f"llama2 f32 quarter launches {by_path['llama2_quarter_f32']}")
+    check(by_path[f"{tag}_f32"] == want(qd["generate"]["fwd"]),
+          f"{tag} f32 launches {by_path[f'{tag}_f32']}")
     out_n = generate_tokens(p32, qmc, b32, stats=s_n, use_kernel="never", **kw32)
     lk, ln_ = s_k["prefill_logits"], s_n["prefill_logits"]
     std = ln_.std().item()
     dmax = (lk - ln_).abs().max().item()
-    check(dmax <= 2e-2 * std, f"llama2 f32 prefill logits: kernel vs plain max|d| {dmax:.4e} "
+    check(dmax <= 2e-2 * std, f"{tag} f32 prefill logits: kernel vs plain max|d| {dmax:.4e} "
                               f"> 2e-2 * std {std:.4e}")
     check(torch.equal(out_k.tokens, out_n.tokens),
-          "llama2 f32: tokens with the kernels differ from the plain path's")
-    res["quarter_f32"] = dict(std=std, kernel_vs_plain_max=dmax,
-                              kernel_vs_plain_mean=(lk - ln_).abs().mean().item(),
-                              tokens_equal=True, tokens=list(out_k.tokens.shape),
-                              launches=by_path["llama2_quarter_f32"])
-    print("llama2 f32 quarter depth: " + json.dumps(res["quarter_f32"]))
+          f"{tag} f32: tokens with the kernels differ from the plain path's")
+    res["f32"] = dict(std=std, kernel_vs_plain_max=dmax,
+                      kernel_vs_plain_mean=(lk - ln_).abs().mean().item(),
+                      tokens_equal=True, tokens=list(out_k.tokens.shape),
+                      llm_blocks=qmc.llm.n_layers, launches=by_path[f"{tag}_f32"])
+    print(f"{tag} f32 at {qmc.llm.n_layers} LLM blocks: " + json.dumps(res["f32"]))
     del p32, b32, out_k, out_n, s_k, s_n
     settle()
 
-    # ---- the 7B's decode products at M = 8 ---------------------------------
-    qgen = torch.Generator(device="cuda").manual_seed(seed + 2602)
+    # ---- the decode products at M = 8 --------------------------------------
+    qgen = torch.Generator(device="cuda").manual_seed(seed + seed_offset + 1)
     res["qmm_rows"] = [
-        qmm_row(f"llama2_{name}", bits, 8, K, N,
-                {"llama2_preset": nL * steps if bits == 4 else steps + 1}, qgen)
-        for name, bits, K, N in LLAMA2_QMM]
-    res["launches_by_path"] = by_path
-    res["seconds"] = time.perf_counter() - t_all
+        qmm_row(f"{tag}_{name}", bits, 8, K, N,
+                {f"{tag}_preset": nL * steps if bits == 4 else steps + 1}, qgen)
+        for name, bits, K, N in qmm]
+    return res, by_path
+
+
+def llama2_phase(seed: int) -> dict:
+    """Phase 26: the flash kernels at every head width, then
+    ``flagship_llama2()`` at full width and ``LLAMA2_QUARTER``'s depth (see
+    the module docstring), launches exact and derived from the widths."""
+    t_all = time.perf_counter()
+    res: dict = {"kernels": width_kernel_rows(seed)}
+    runs, by_path = llama2_runs(seed, "llama2", flagship_llama2, LLAMA2_QUARTER,
+                                LLAMA2_QUARTER, LLAMA2_QMM, 2601)
+    res.update(runs, launches_by_path=by_path, seconds=time.perf_counter() - t_all)
     print(f"llama2 phase: {res['seconds']:.1f} s")
+    return res
+
+
+def connector70b_rows(seed: int) -> dict:
+    """The ``attention`` connector at Llama-2-70B's width alone (Whisper's
+    1024 features to 8192: 8 heads of 1024) over 8 x 500 ragged rows, in
+    bf16 and f32: its output and the gradients of x and of every leaf
+    through the kernels (one forward, dQ and dK/dV launch each) against the
+    plain path (``use_kernel="never"``): max|d| / max|ref| of the output
+    and of x's gradient, ||d|| / ||ref|| of each leaf's, within the
+    kernels' gates (bf16 2e-2, f32 1e-4). The attention's key bias has an
+    exact gradient of 0 (the softmax cancels it), so its max|d| is held to
+    the gate times the value bias's max|g| instead."""
+    import torch
+
+    from avsr_tpu_torch.core.config import flagship
+    from avsr_tpu_torch.models.connectors import get_connector
+
+    conn = get_connector("attention")
+    mc = flagship(["model.connector_type=attention"]).model
+    out: dict = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        name = str(dt)[6:]
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2701)
+        params = conn.init(gen, 1024, LLAMA2_70B_WIDTH, mc, dtype=dt)
+        x = torch.randn((8, 500, 1024), generator=gen, device="cuda", dtype=dt)
+        lens = torch.tensor([500, 411, 500, 257, 500, 499, 380, 500], device="cuda")
+        w = torch.randn((8, 500, LLAMA2_70B_WIDTH), generator=gen, device="cuda", dtype=dt)
+        named = _named_leaves(params)
+        leaves = [x, *named.values()]
+        got = {}
+        for use_kernel in ("auto", "never"):
+            for t in leaves:
+                t.requires_grad_(True)
+            torch.cuda.synchronize()
+            reset_counts()
+            y, _ = conn.apply(params, x, lens, use_kernel=use_kernel)
+            grads = torch.autograd.grad((y.float() * w.float()).sum(), leaves)
+            torch.cuda.synchronize()
+            got[use_kernel] = (y.detach(), [g.detach().float() for g in grads], counts())
+        (y_k, g_k, n_k), (y_n, g_n, n_n) = got["auto"], got["never"]
+        check(n_k["flash_fwd"] == n_k["flash_bwd_dq"] == n_k["flash_bwd_dkv"] == 1
+              and not any(n_n.values()), f"70B connector {name} launches {n_k}, {n_n}")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in (y_k, *g_k)),
+              f"70B connector {name}: not finite")
+        grads_k = dict(zip(named, g_k[1:]))
+        grads_n = dict(zip(named, g_n[1:]))
+        leaf_err = {}
+        for path, g in grads_k.items():
+            ref = grads_n[path]
+            if path[-2:] == ("k", "b"):
+                vb = grads_n[path[:-2] + ("v", "b")].abs().max()
+                leaf_err[path] = float((g - ref).abs().max() / vb)
+            else:
+                leaf_err[path] = float((g - ref).norm() / ref.norm())
+        errs = dict(out=rel_err(y_k, y_n), dx=rel_err(g_k[0], g_n[0]),
+                    leaves=max(leaf_err.values()),
+                    worst_leaf="/".join(max(leaf_err, key=leaf_err.get)))
+        check(max(errs["out"], errs["dx"], errs["leaves"]) <= tol,
+              f"70B connector {name}: {errs} > {tol}")
+        out[name] = dict(max_rel_err=errs, launches=n_k)
+        del params, x, w, named, leaves, got, y_k, g_k, y_n, g_n, grads_k, grads_n
+        settle()
+    print("70B connector ([8, 500, 1024] -> 8192, 8 heads of 1024), kernels vs plain: "
+          + json.dumps(out))
+    return out
+
+
+def _named_leaves(tree, prefix: tuple = ()) -> dict:
+    """{key path: tensor} of a nested dict of parameters, in order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    return {p: t for k, v in tree.items() for p, t in _named_leaves(v, (*prefix, k)).items()}
+
+
+def llama2_13b_phase(seed: int) -> dict:
+    """Phase 27: ``flagship_llama2_13b()`` at full width and depth, the
+    panel kernels in its connectors (8 heads of 640), its f32 check at
+    ``LLAMA2_13B_REDUCED``, and the 70B's connector alone (8 heads of
+    1024); launches exact and derived from the widths."""
+    t_all = time.perf_counter()
+    res, by_path = llama2_runs(seed, "llama2_13b", flagship_llama2_13b, (),
+                               LLAMA2_13B_REDUCED, LLAMA2_13B_QMM, 2700)
+    res["connector70b"] = connector70b_rows(seed)
+    res.update(launches_by_path=by_path, seconds=time.perf_counter() - t_all)
+    print(f"llama2 13b phase: {res['seconds']:.1f} s")
     return res
 
 
@@ -8043,6 +8235,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="build the kernels and run phase 25 alone")
     p.add_argument("--llama2-only", action="store_true",
                    help="build the kernels and run phase 26 alone")
+    p.add_argument("--llama2-13b-only", action="store_true",
+                   help="build the kernels and run phase 27 alone")
     args = p.parse_args(argv)
 
     import torch
@@ -8113,6 +8307,10 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         if args.llama2_only:
             print(json.dumps(llama2_phase(args.seed)))
+            if not args.llama2_13b_only:
+                return 0
+        if args.llama2_13b_only:
+            print(json.dumps(llama2_13b_phase(args.seed)))
             return 0
         return run_all(args.seed, lap)
     finally:
@@ -8263,10 +8461,18 @@ def run_all(seed: int, lap) -> int:
     lk = {k: sum(n[k] for n in llama2["launches_by_path"].values()) for k in counts()}
     check(all(lk.values()), f"a kernel did not launch on the Llama-2 path: {lk}")
 
+    lap()
+    # Phase 27: the flagship with Llama-2-13B and the attention connector
+    # (heads of 128 in the LLM, of 640 in the connectors: the panel kernels)
+    # at full width and depth, and the 70B's connector (heads of 1024) alone.
+    llama13 = llama2_13b_phase(args.seed)
+    lk13 = {k: sum(n[k] for n in llama13["launches_by_path"].values()) for k in counts()}
+    check(all(lk13.values()), f"a kernel did not launch on the Llama-2-13B path: {lk13}")
+
     def corpus_paths(name: str) -> dict[str, int]:
         return {part: n[name]
                 for phase in (corpus, conv, connectors, moe, video, tooling, mesh, tp, sp, pp,
-                              ep, llama2)
+                              ep, llama2, llama13)
                 for part, n in phase["launches_by_path"].items() if n[name]}
 
     def sp_ring(name: str) -> dict:
@@ -8433,27 +8639,35 @@ def run_all(seed: int, lap) -> int:
                       "the preset's beam search, the bf16 speculative calls; device "
                       "time per launch from a replayed CUDA graph x launches)",
             shapes=qrows))
-    # phase 26: every head width held to the plain versions, the 7B's and
-    # its connectors' shapes timed (per launch), the 7B's decode products
+    # phases 26 and 27: every head width held to the plain versions, the
+    # 7B's, the 13B's and the connectors' shapes timed (per launch), the
+    # decode products of both
     lw = llama2["kernels"]
-    lpath = llama2["launches_by_path"]
     for kern in kernels:
         key = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}.get(kern["name"])
         if key is None:
             bits = 8 if kern["name"] == "qmatmul_int8" else 4
             kern["llama2_shapes"] = [r for r in llama2["qmm_rows"] if r["bits"] == bits]
+            kern["llama2_13b_shapes"] = [r for r in llama13["qmm_rows"] if r["bits"] == bits]
             continue
+        l7, l13 = llama2["launches_by_path"], llama13["launches_by_path"]
         kern["llama2"] = dict(
+            launches_per_call=l7["llama2_generate"][kern["name"]],
+            launches_per_train_step=l7["llama2_train_2_steps"][kern["name"]] // 2,
             max_rel_err_by_width={D: w["max_rel_err"] for D, w in lw["widths"].items()},
             kernel_width_by_width={D: w["kernel_width"] for D, w in lw["widths"].items()},
             shapes={n: dict(r[key], q=r["q"], kv=r["kv"], causal=r["causal"], lens=r["lens"],
                             kernel_width=r["kernel_width"], max_rel_err=r["max_rel_err"],
-                            **{k: r[k] for k in ("pad_ms",) if k in r})
-                    for n, r in lw["shapes"].items() if key == "fwd" or n != "llm2_prefill"},
-            launches_per_call=lpath["llama2_generate"][kern["name"]],
-            launches_per_train_step=lpath["llama2_train_2_steps"][kern["name"]] // 2,
+                            **{k: r[k] for k in ("pad_ms", "f32_max_rel_err") if k in r})
+                    for n, r in lw["shapes"].items() if key == "fwd" or "prefill" not in n},
             times_are="per launch, from a replayed CUDA graph; library_ms is SDPA "
-                      "(the backward's: q, k and v together)")
+                      "(the backward's: q, k and v together), library_backend the "
+                      "backend SDPA took")
+        kern["llama2_13b"] = dict(
+            launches_per_call=l13["llama2_13b_generate"][kern["name"]],
+            launches_per_train_step=l13["llama2_13b_train_2_steps"][kern["name"]] // 2,
+            launches_per_f32_call=l13["llama2_13b_f32"][kern["name"]],
+            connector70b=llama13["connector70b"])
     lap()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,14 +145,15 @@ def test_dispatch_predicate(monkeypatch):
     assert calls == [q.shape]
 
 
-@pytest.mark.parametrize("D", [192, 256, 576])
+@pytest.mark.parametrize("D", [192, 200, 256, 576])
 def test_dispatch_sends_wide_heads_to_mha_reference(monkeypatch, D):
-    """Head widths the kernels do not take (past 512: 576; JAX sends every
-    multiple of 64 to its kernel) go to mha_reference by the dispatch rule,
-    even under "always". 192 (run on the D = 256 kernel, zero-padded) and
-    256, the connectors' head width over the 2048-wide LLM, take the kernel
-    route (its plain version on the CPU) and agree with mha_reference (f32
-    sums in another order: 1e-5)."""
+    """A head width the kernels do not take (not a multiple of 64: 200; JAX
+    sends exactly the multiples of 64 to its kernel) goes to mha_reference
+    by the dispatch rule, even under "always". 192 (run on the D = 256
+    kernel, zero-padded), 256 (the connectors' head width over the
+    2048-wide LLM) and 576 (the panel kernels, which take every multiple of
+    64 above 512) take the kernel route (its plain version on the CPU) and
+    agree with mha_reference (f32 sums in another order: 1e-5)."""
     calls = []
     orig = tattn.flash_attention
 
@@ -166,9 +167,9 @@ def test_dispatch_sends_wide_heads_to_mha_reference(monkeypatch, D):
     out = tattn.attention(q, k, v, causal=True, q_lens=lens, kv_lens=lens,
                           use_kernel="always")
     ref = tattn.mha_reference(q, k, v, causal=True, q_lens=lens, kv_lens=lens)
-    if D in tattn.KERNEL_HEAD_DIMS:
-        assert D <= 512 and calls == [q.shape]
+    if tattn.kernel_takes(D):
+        assert D % 64 == 0 and calls == [q.shape]
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
     else:
-        assert D > 512 and calls == []
+        assert D % 64 and calls == []
         assert torch.equal(out, ref)

@@ -1,30 +1,34 @@
 """The port's attention at the head widths between and above its compiled
 kernels vs the JAX package (f32, CPU).
 
-The port's kernels take every multiple of 64 through 512
-(``KERNEL_HEAD_DIMS``); the CUDA sources compile 64, 128, 256 and 512, and
-the widths between run the next wider kernel on zero-padded operands. Here:
+The port's kernels take every multiple of 64 (``kernel_takes``), JAX's
+rule. Through 512 the CUDA sources compile 64, 128, 256 and 512, and the
+widths between run the next wider kernel on zero-padded operands; above 512
+the panel kernels take the width itself. Here:
 
   * the JAX ``flash_attention(..., interpret=True)`` forward and its custom
     VJP (the Pallas dQ and dK/dV kernels in interpret mode) against the
     port's ``attention`` on the kernel route (``use_kernel="always"``:
     ``FlashAttention`` with the plain versions on CPU tensors) and on the
     plain route (``use_kernel="never"``: ``mha_reference``), at D = 192,
-    320, 384, 448 and 512, causal GQA and non-causal MHA, ragged lengths;
+    320, 384, 448 and 512, and above 512 at 576, 640 (Llama-2-13B's
+    connectors) and 1024 (70B's), causal GQA and non-causal MHA, ragged
+    lengths;
   * the pad route's arithmetic: the plain versions at the padded width,
     with the true width's scale and the pad columns sliced off, equal the
     plain versions at the true width;
-  * the dispatch: the port's predicate is JAX's (``D % 64 == 0``) for every
-    D <= 512, and wider heads take ``mha_reference``.
+  * the dispatch: the port's predicate is JAX's (``D % 64 == 0``) at every
+    width, and every such width takes the kernel route.
 
 Tolerance: 1e-5 atol + 1e-5 rtol on O and every gradient (dQ on valid rows:
 the JAX dq kernel leaves rows past q_len unconstrained), the pad route's
 included (its products sum over zero columns too: f32 sums in another
 order); the pad columns of its outputs are exactly zero.
 The CUDA kernels are held against the same plain versions on the card
-(``test_torch_kernels_cuda.py``, ``chip_smoke.py`` phase 26).
+(``test_torch_kernels_cuda.py``, ``chip_smoke.py`` phases 26 and 27).
 """
 
+import functools
 import importlib
 
 import jax
@@ -39,7 +43,7 @@ from avsr_tpu_torch.ops import attention as tattn
 jattn = importlib.import_module("avsr_tpu.ops.attention")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-WIDE = (192, 320, 384, 448, 512)
+WIDE = (192, 320, 384, 448, 512, 576, 640, 1024)
 
 torch.set_num_threads(1)
 
@@ -60,8 +64,10 @@ def _inputs(case, D, seed=0, B=2):
     return causal, arrs, np.array(ql, np.int32), np.array(kl, np.int32)
 
 
+@functools.lru_cache(maxsize=2)
 def _jax(case, D):
-    """O and (dq, dk, dv) of the JAX Pallas kernels in interpret mode."""
+    """O and (dq, dk, dv) of the JAX Pallas kernels in interpret mode (once
+    per case and width: both routes of the port compare with them)."""
     causal, a, ql, kl = _inputs(case, D)
 
     def f(q, k, v):
@@ -141,18 +147,29 @@ def test_pad_route_is_exact(D, causal):
 def test_dispatch_predicate_is_jax_rule_up_to_512():
     """For every head width through 512 the port sends to its kernels what
     the JAX package sends to its Pallas kernel (D % 64 == 0, at Tq and Tk
-    >= 256 and no kv_valid)."""
+    >= 256 and no kv_valid), each to a compiled width at least as wide."""
     for D in range(1, 513):
-        assert (D in tattn.KERNEL_HEAD_DIMS) == (D % 64 == 0), D
-    assert all(tattn.kernel_width(D) >= D for D in tattn.KERNEL_HEAD_DIMS)
+        assert tattn.kernel_takes(D) == (D % 64 == 0), D
+        if D % 64 == 0:
+            assert tattn.kernel_width(D) in tattn.COMPILED_HEAD_DIMS
+            assert tattn.kernel_width(D) >= D
 
 
-@pytest.mark.parametrize("D", [64, 128, 192, 256, 320, 384, 448, 512, 576, 640, 1024])
+def test_dispatch_predicate_is_jax_rule_beyond_512():
+    """Above 512 too the port's predicate is JAX's, and the panel kernels
+    take each width as it is (no padding)."""
+    for D in range(513, 8193):
+        assert tattn.kernel_takes(D) == (D % 64 == 0), D
+        if D % 64 == 0:
+            assert tattn.kernel_width(D) == D
+
+
+@pytest.mark.parametrize("D", [64, 128, 192, 256, 320, 384, 448, 512, 576, 640, 1024,
+                               2048])
 def test_dispatch_routes_each_width_as_jax_does(D, monkeypatch):
     """Both packages' ``attention`` with the kernel forced on: JAX's Pallas
     call and the port's ``FlashAttention`` are spied (and return q), so
-    only the route is compared; above 512 the port takes mha_reference
-    where JAX would still take its kernel."""
+    only the route is compared: each takes its kernel at every width."""
     j_calls, t_calls = [], []
     monkeypatch.setattr(jattn, "flash_attention", lambda q, *a, **kw: j_calls.append(D) or q)
     monkeypatch.setattr(jattn, "mha_reference", lambda q, *a, **kw: q)
@@ -163,4 +180,4 @@ def test_dispatch_routes_each_width_as_jax_does(D, monkeypatch):
     tq = torch.from_numpy(q)
     tattn.attention(tq, tq, tq, use_kernel="always")
     assert j_calls == [D]
-    assert t_calls == ([D] if D <= 512 else [])
+    assert t_calls == [D]

@@ -47,7 +47,11 @@ def _check(q, k, v, q_lens, kv_lens, causal, tol):
                                          (torch.float32, 64, 1e-4),
                                          (torch.float32, 128, 1e-4),
                                          (torch.float32, 256, 1e-4),
-                                         (torch.float32, 512, 1e-4)])
+                                         (torch.float32, 512, 1e-4),
+                                         (torch.bfloat16, 640, 2e-2),
+                                         (torch.bfloat16, 1024, 2e-2),
+                                         (torch.float32, 640, 1e-4),
+                                         (torch.float32, 1024, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_matches_plain_version(cuda, dtype, D, tol, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -58,13 +62,13 @@ def test_flash_fwd_matches_plain_version(cuda, dtype, D, tol, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", A.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("D", [*range(64, 513, 64), 576, 640, 768, 896, 1024])
 def test_attention_launches_the_kernels_at_every_width(cuda, D):
-    """attention() on CUDA tensors at each head width the kernels take
-    (those between the compiled 64, 128, 256 and 512 on zero-padded
-    operands): one forward, one dQ and one dK/dV launch under grad, and O
-    and the gradients of q, k, v within bf16 rounding of mha_reference's
-    (max|d| <= 2e-2 max|ref|)."""
+    """attention() on CUDA tensors at head widths the kernels take (those
+    between the compiled 64, 128, 256 and 512 on zero-padded operands, and
+    the panel kernels above 512): one forward, one dQ and one dK/dV launch
+    under grad, and O and the gradients of q, k, v within bf16 rounding of
+    mha_reference's (max|d| <= 2e-2 max|ref|)."""
     g = torch.Generator(device=cuda).manual_seed(D)
     q, k, v, do = (torch.randn((2, h, 260, D), generator=g, device=cuda,
                                dtype=torch.bfloat16) for h in (4, 2, 2, 4))
@@ -139,7 +143,11 @@ def _check_bwd(q, k, v, do, q_lens, kv_lens, causal, tol):
                                          (torch.float32, 64, 1e-4),
                                          (torch.float32, 128, 1e-4),
                                          (torch.float32, 256, 1e-4),
-                                         (torch.float32, 512, 1e-4)])
+                                         (torch.float32, 512, 1e-4),
+                                         (torch.bfloat16, 640, 2e-2),
+                                         (torch.bfloat16, 1024, 2e-2),
+                                         (torch.float32, 640, 1e-4),
+                                         (torch.float32, 1024, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_matches_plain_version(cuda, dtype, D, tol, causal):
     """dQ and dK/dV kernels against flash_attention_bwd_reference: GQA 8:2,

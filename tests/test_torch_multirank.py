@@ -103,9 +103,27 @@ def global_batch(B: int = 4, accum: int = 2) -> dict[str, np.ndarray]:
         label_lens=np.array([[24, 17, 20, 9], [5, 24, 11, 16]][:accum], np.int32)[:, :B])
 
 
-def launch(world: int, runs: list[dict], tmp: Path, timeout: float = TIMEOUT_S) -> None:
+class PortTaken(AssertionError):
+    """Rank 0 could not listen on the job's port: another process took it."""
+
+
+def launch(world: int, runs: list[dict], tmp: Path, timeout: float = TIMEOUT_S,
+           attempts: int = 3) -> None:
     """Runs ``runs`` in ``world`` worker processes; fails as soon as one
-    rank fails (and stops the others), or after ``timeout`` seconds."""
+    rank fails (and stops the others), or after ``timeout`` seconds. The
+    port is found free here and released before rank 0 listens on it, so
+    another process (a parallel test's job) can take it in between: a job
+    whose rank 0 finds its address in use starts again on a new port, at
+    most ``attempts`` times in all."""
+    for attempt in range(attempts):
+        try:
+            return _launch_once(world, runs, tmp, timeout)
+        except PortTaken:
+            if attempt == attempts - 1:
+                raise
+
+
+def _launch_once(world: int, runs: list[dict], tmp: Path, timeout: float) -> None:
     job = tmp / f"job{world}.json"
     job.write_text(json.dumps(runs))
     with socket.socket() as s:
@@ -123,13 +141,22 @@ def launch(world: int, runs: list[dict], tmp: Path, timeout: float = TIMEOUT_S) 
                               stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
              for r in range(world)]
     t0 = time.monotonic()
+
+    def port_taken() -> bool:
+        text = logs[0].read_text(errors="replace")
+        return "EADDRINUSE" in text or "address already in use" in text.lower()
+
     try:
         while any(p.poll() is None for p in procs):
             failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if 0 in failed and port_taken():
+                raise PortTaken(f"port {port} taken before rank 0 of {world} listened")
             assert not failed and time.monotonic() - t0 < timeout, (
                 f"rank(s) {failed or 'all (timeout)'} of {world}:\n"
                 + "\n".join(logs[r].read_text()[-3000:] for r in (failed or [0])))
             time.sleep(0.2)
+        if procs[0].returncode and port_taken():
+            raise PortTaken(f"port {port} taken before rank 0 of {world} listened")
         for r, p in enumerate(procs):
             assert p.returncode == 0, f"rank {r} of {world}:\n{logs[r].read_text()[-4000:]}"
     finally:
