@@ -18,7 +18,10 @@ times by the same method):
   of 384: the D = 512 kernels on zero-padded operands);
 - Llama-2-13B's prefill and train step (40 heads of 128) and the panel
   kernels (D > 512) at its connectors' 8 heads of 640, at 896 and at
-  Llama-2-70B's connectors' 8 heads of 1024;
+  Llama-2-70B's connectors' 8 heads of 1024, and the forward at 2048 (B =
+  2), each with the bf16 forward's cluster size (``cluster``);
+- the forward at the other widths between the compiled ones (192, 320,
+  448; 384 above) at the connectors' shape;
 - the per-rank shapes of tensor parallelism at tp = 2 (half the heads:
   Whisper 8 of 16, the LLM 16 over 4 kv heads), the ring blocks of
   sequence parallelism at sp = 2 (a rank's chunk of the 30 s bucket, B = 1:
@@ -77,6 +80,10 @@ SHAPES = {
     "connector640": (8, 8, 8, 500, 500, False, 640, True),
     "connector896": (8, 8, 8, 500, 500, False, 896, True),
     "connector1024": (8, 8, 8, 500, 500, False, 1024, True),
+    "panels2048": (2, 8, 8, 500, 500, False, 2048, False),
+    "connector192": (8, 8, 8, 500, 500, False, 192, False),
+    "connector320": (8, 8, 8, 500, 500, False, 320, False),
+    "connector448": (8, 8, 8, 500, 500, False, 448, False),
 }
 # name: bits, K, N (M = 8)
 QMM_SHAPES = {
@@ -134,7 +141,9 @@ def main(argv: list[str] | None = None) -> int:
 
     print(smoke.gpu_line())
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    ms, plain, library, bound, backend = {}, {}, {}, {}, {}
+    ms, plain, library, bound, backend, cluster = {}, {}, {}, {}, {}, {}
+    # the cluster size of the checkout's bf16 forward (0 before it had one)
+    kernel_cluster = getattr(A, "kernel_cluster", lambda D, dt: 0)
     for name, (B, H, Hkv, T, n, causal, D, bwd) in SHAPES.items():
         if not takes(D):
             continue            # a checkout whose kernels do not take this width
@@ -152,6 +161,7 @@ def main(argv: list[str] | None = None) -> int:
         library[f"fwd_{name}"] = lib["ms"]
         backend[f"fwd_{name}"] = lib.get("backend", lib["call"])
         bound[f"fwd_{name}"] = max(bounds["fwd"])
+        cluster[f"fwd_{name}"] = kernel_cluster(D, torch.bfloat16)
         if not bwd:
             continue
         lib = smoke.sdpa_ms(q, k, v, lens, causal, do)
@@ -195,7 +205,8 @@ def main(argv: list[str] | None = None) -> int:
         del nodes, qp, w16, w16s
         torch.cuda.empty_cache()
     print(json.dumps({"root": str(root), "kernels": A.__file__, "ms": ms, "plain_ms": plain,
-                      "library_ms": library, "library_backend": backend, "bound_ms": bound}))
+                      "library_ms": library, "library_backend": backend, "bound_ms": bound,
+                      "cluster": cluster}))
     return 0
 
 

@@ -50,6 +50,9 @@ _ring_fallback_warned: set[str] = set()
 launches = 0          # flash_fwd
 dq_launches = 0       # flash_bwd dQ
 dkv_launches = 0      # flash_bwd dK/dV
+# Tensors zero-padded to a compiled head width by the wrappers (one per
+# padded operand; the pad route of the f32 forward and of the backward).
+pad_copies = 0
 
 # Kernel dispatch thresholds of the JAX package (attention.py:565-571). They
 # were set on a TPU, where the Pallas kernel loses to XLA below ~256 tokens;
@@ -60,13 +63,20 @@ MIN_KERNEL_SEQ = 256
 # Llama-3.2), 128 (Llama-2-7B and 13B), and 256, 384, 512, 640 and 1024 (the
 # connectors' 8 heads over a 2048-, 3072-, 4096-, 5120- and 8192-wide LLM).
 # Up to 512 the CUDA sources compile COMPILED_HEAD_DIMS, and the widths
-# between them run the next wider kernel on operands zero-padded to its
-# width (exact: zero columns add nothing to Q K^T or dO V^T), with the scale
-# of the true width, and the pad columns sliced off the outputs. Above 512
-# the panel kernels take the width itself at run time: they stream Q, K, V
-# (and dO) through shared memory in 64-column panels and split every output
-# into groups of 256 columns, each group a CTA that recomputes the scores
-# over the whole width.
+# between them run the next wider kernel with the scale of the true width
+# on zero columns past it (exact: zero columns add nothing to Q K^T or
+# dO V^T). The bf16 forward reads its operands at their own width: its TMA
+# tensor maps zero-fill the panels past it and do not store O's columns
+# past it, so it makes no copy (``operand_width``). The f32 kernels read by
+# pointer, not by TMA, and the backward kernels still take padded operands,
+# so those wrappers zero-pad to the compiled width (``_pad_heads``) and
+# slice the pad columns off their outputs. Above 512 the panel kernels take
+# the width itself at run time: they stream Q, K, V (and dO) through shared
+# memory in 64-column panels and split every output into groups of 256
+# columns, one CTA a group. The bf16 forward runs the groups of one tile as
+# a thread-block cluster that computes one S between them, up to 8 groups
+# (D <= 2048); above, and in the backward and f32 kernels, each group
+# recomputes the scores over the whole width.
 COMPILED_HEAD_DIMS = (64, 128, 256, 512)
 
 
@@ -96,11 +106,38 @@ def kernel_width(D: int) -> int:
     return min(w for w in COMPILED_HEAD_DIMS if w >= D)
 
 
+def operand_width(D: int, dtype: torch.dtype) -> int:
+    """The head width of the operands the forward kernel is given at head
+    width D: D itself for bfloat16 (its tensor maps read and write at the
+    true width), ``kernel_width(D)`` for float32 (the scalar kernels read
+    by pointer, so a width between the compiled ones is zero-padded)."""
+    return D if dtype == torch.bfloat16 else kernel_width(D)
+
+
+def kernel_cluster(D: int, dtype: torch.dtype) -> int:
+    """The thread-block cluster size of the forward kernel at head width D:
+    above 512 in bfloat16 the ceil(D / 256) column groups of a tile, while
+    they number at most 8 (the largest portable cluster: D <= 2048); else 0
+    (no cluster). Asks the built library (its C entry
+    ``avsr_flash_fwd_cluster``)."""
+    from avsr_tpu_torch.ops import _build
+
+    fn = _build.load("flash_fwd").avsr_flash_fwd_cluster
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(D, _DTYPES[dtype])
+
+
 def _pad_heads(Dp: int, *ts: torch.Tensor) -> list[torch.Tensor]:
     """The tensors zero-padded along the head width to Dp (as they are
-    when they already have it)."""
-    return [t if t.shape[-1] == Dp else torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
-            for t in ts]
+    when they already have it); each padded one counts in ``pad_copies``."""
+    global pad_copies
+    out = []
+    for t in ts:
+        if t.shape[-1] != Dp:
+            t = torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
+            pad_copies += 1
+        out.append(t)
+    return out
 
 
 def _cut_heads(D: int, *ts: torch.Tensor) -> list[torch.Tensor]:
@@ -350,8 +387,12 @@ def flash_attention(
     """Flash-attention forward: (O [B,H,Tq,D], lse [B,H,Tq] f32).
 
     q: [B,H,Tq,D], k/v: [B,Hkv,Tk,D], contiguous, bfloat16 or float32,
-    D a multiple of 64 (through 512 a width that is not compiled runs the
-    next wider kernel on zero-padded operands); causal needs Tq == Tk.
+    D a multiple of 64; causal needs Tq == Tk. Through 512 a width that is
+    not compiled runs the next wider kernel: in bfloat16 on the operands as
+    they are (its TMA tensor maps zero-fill past D and store O at D, so no
+    copy is made), in float32 on operands zero-padded to the compiled
+    width, whose pad columns are sliced off O (the scalar kernels read by
+    pointer).
     Ragged tails (q_lens, kv_lens) are masked inside the kernel; no row is
     padded. A CPU tensor takes
     :func:`flash_attention_reference`; a CUDA tensor launches the kernel
@@ -369,16 +410,17 @@ def flash_attention(
     B, H, Hkv, Tq, Tk, D = _check_qkv("flash_attention", q, k, v, causal)
     _check_ptrs("flash_attention", q.device, q=q, k=k, v=v)
     ql, kl = _cuda_lens(q_lens, kv_lens, B, Tq, Tk, q.device)
-    Dp = kernel_width(D)
-    qp, kp, vp = _pad_heads(Dp, q, k, v)
+    Dw = operand_width(D, q.dtype)
+    qp, kp, vp = _pad_heads(Dw, q, k, v)
     out = torch.empty_like(qp)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "avsr_flash_fwd", [qp, kp, vp, ql, kl, out, lse],
-            (B, H, Hkv, Tq, Tk, Dp), q.dtype, causal, _scale(sm_scale, D),
+            (B, H, Hkv, Tq, Tk, Dw), q.dtype, causal, _scale(sm_scale, D),
             q.device)
     global launches
     launches += 1
-    (out,) = _cut_heads(D, out)
+    if Dw != D:
+        (out,) = _cut_heads(D, out)
     return out, lse
 
 

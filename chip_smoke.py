@@ -348,15 +348,21 @@
    rank launches the qmatmul kernels. Removes what it wrote.
 26. Llama-2 phase (``llama2_phase``): first the flash forward, dQ and
    dK/dV at the head widths of ``WIDTHS_CHECKED`` (64-512 by 64, 192-448 on
-   the next wider kernel over zero-padded operands; 576, 640, 768, 896,
-   1024 and 2048 on the panel kernels) against their plain versions in
-   bf16 (2e-2 x max|ref|) and f32 (1e-4): causal GQA over ragged rows and
+   the next wider kernel: the bf16 forward at the operands' own width, the
+   rest over zero-padded operands; 576, 640, 768, 896, 1024 and 2048 on
+   the panel kernels, the bf16 forward on a cluster of ceil(D / 256) CTAs;
+   2112 past the largest cluster) against their plain versions in bf16
+   (2e-2 x max|ref|) and f32 (1e-4): causal GQA over ragged rows and
    non-causal MHA with Tq != Tk and a row without keys; then at the shapes
    of phases 26 and 27 (``WIDTH_SHAPES``: the 7B's and the 13B's prefill
    and train step, the connectors' heads of 512, 640 and 1024, 896, 384 by
    the pad route, and 2048 at B = 2; above 512 in f32 too) the same checks
    and their times beside bound, plain version and SDPA (with the backend
-   SDPA took). Then ``flagship_llama2()``, the flagship with the
+   SDPA took), the cluster size, and at 384 the pad copies the forward no
+   longer makes apart from the backward's; then the bf16 forward at each
+   of ``PAD_ROUTE_WIDTHS`` on [8, 8, 500, D]: no copy, O and lse bit for
+   bit the padded kernel's, timed. A refused cluster launch raises, and
+   fails the phase. Then ``flagship_llama2()``, the flagship with the
    reference's other LLM, Llama-2-7B (MHA, heads of 128, untied head, vocab
    32000, theta 1e4), and the ``attention`` connector (8 heads of 512), at
    full width and ``LLAMA2_QUARTER``'s depth (6 Whisper, 3 CLIP and 8 LLM
@@ -7772,8 +7778,14 @@ LLAMA2_70B_WIDTH = 8192
 # the head widths held to the plain versions at small shapes: every
 # multiple of 64 through 512 (192-448 by the pad route), and above 512
 # the panel kernels at 576, 640 (the 13B's connectors), 768, 896, 1024
-# (the 70B's) and 2048
-WIDTHS_CHECKED = (*range(64, 513, 64), 576, 640, 768, 896, 1024, 2048)
+# (the 70B's) and 2048 (the bf16 forward on a cluster of 3-8 CTAs), and
+# 2112 (9 column groups, past the largest cluster: the bf16 forward on the
+# per-group panel kernel)
+WIDTHS_CHECKED = (*range(64, 513, 64), 576, 640, 768, 896, 1024, 2048, 2112)
+# the pad route's forward (the next wider kernel at the operands' own
+# width) at the connectors' shape [8, 8, 500, D]: Llama-3.2-3B's heads of
+# 384 and the other widths between the compiled ones
+PAD_ROUTE_WIDTHS = (192, 320, 384, 448)
 # the flash shapes of phases 26 and 27 (name: B, H, Hkv, T, valid rows,
 # causal, D): the 7B's prefill and train step (MHA, heads of 128), its
 # connectors' attention (8 heads of 512 over the 500 Whisper rows), the pad
@@ -7855,7 +7867,9 @@ def width_kernel_rows(seed: int) -> dict:
     ``WIDTH_SHAPES`` (bf16, main-path lengths; above 512 in f32 too): the
     same checks, and the kernels timed from replayed CUDA graphs beside
     their bound, their plain versions (eager) and SDPA (with the backend it
-    took); at 384 also the pad's own copies."""
+    took), with the bf16 forward's cluster size; at 384 also the pad copies
+    the forward no longer makes and those the backward still makes. Then
+    ``pad_route_rows``."""
     import torch
 
     from avsr_tpu_torch.ops import attention as A
@@ -7918,7 +7932,14 @@ def width_kernel_rows(seed: int) -> dict:
                               bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         if A.kernel_width(D) != D:
-            row["pad_ms"] = graph_ms([lambda: A._pad_heads(A.kernel_width(D), q, k, v, do)])
+            # the copies the bf16 forward no longer makes (q, k, v) and
+            # those the backward still makes (dQ: q, k, v, O, dO; dK/dV:
+            # q, k, v, dO)
+            Dp = A.kernel_width(D)
+            row["fwd_pad_ms"] = graph_ms([lambda: A._pad_heads(Dp, q, k, v)])
+            row["bwd_pad_ms"] = graph_ms([lambda: A._pad_heads(Dp, q, k, v, o, do),
+                                          lambda: A._pad_heads(Dp, q, k, v, do)])
+        row["cluster"] = A.kernel_cluster(D, torch.bfloat16)
         del o, lse, delta, args_dq, args_dkv
         if D > A.COMPILED_HEAD_DIMS[-1]:
             # the f32 panel kernels at the same shape and lengths
@@ -7932,12 +7953,63 @@ def width_kernel_rows(seed: int) -> dict:
                           f"{row[kn]['library_ms']:.4f} by {row[kn]['library_backend']}, "
                           f"bound {row[kn]['bound_ms']:.4f} by {row[kn]['bound_by']})"
                           for kn in ("fwd", "dq", "dkv"))
-              + (f"; the pad's copies of q, k, v, dO {row['pad_ms']:.4f} ms"
-                 if "pad_ms" in row else "")
+              + (f"; cluster of {row['cluster']}" if row["cluster"] else "")
+              + (f"; the pad copies the forward no longer makes {row['fwd_pad_ms']:.4f} ms,"
+                 f" the backward's {row['bwd_pad_ms']:.4f} ms"
+                 if "fwd_pad_ms" in row else "")
               + f"; max|d|/max|ref| {err}"
               + (f"; f32 {row['f32_max_rel_err']}" if "f32_max_rel_err" in row else ""))
         del q, k, v, do
-    return dict(widths=widths, shapes=rows)
+    return dict(widths=widths, shapes=rows, pad_route=pad_route_rows(gen))
+
+
+def pad_route_rows(gen) -> dict:
+    """The bf16 forward at each of ``PAD_ROUTE_WIDTHS`` on [8, 8, 500, D]
+    (the next wider compiled kernel at the operands' own width): no copy
+    (``pad_copies`` unchanged), O and lse bit for bit those of the compiled
+    kernel run on operands zero-padded by hand, and its time from a
+    replayed CUDA graph beside bound, plain version and SDPA, with the time
+    of the copies it no longer makes."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as A
+
+    rows = {}
+    for D in PAD_ROUTE_WIDTHS:
+        q, k, v = (torch.randn((8, 8, 500, D), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        ln = torch.full((8,), 500, dtype=torch.int32, device="cuda")
+        Dp = A.kernel_width(D)
+        before = A.pad_copies
+        o, lse = A.flash_attention(q, k, v, ln, ln, False)
+        copies = A.pad_copies - before
+        o_p, lse_p = A.flash_attention(*A._pad_heads(Dp, q, k, v), ln, ln, False, D ** -0.5)
+        torch.cuda.synchronize()
+        check(copies == 0, f"pad route D={D}: the bf16 forward made {copies} pad copies")
+        check(torch.equal(o, o_p[..., :D]) and torch.equal(lse, lse_p),
+              f"pad route D={D}: O or lse differ from the padded kernel's")
+        o_r = A.flash_attention_reference(q, k, v, ln, ln, False)[0]
+        err = rel_err(o, o_r)
+        check(err <= 2e-2, f"pad route D={D}: O max|d| {err:.3e} x max|ref|")
+        ops_ms, bytes_ms = attn_bounds(q, k, ln, ln, False)["fwd"]
+        lib = sdpa_ms(q, k, v, ln, False)
+        rows[D] = dict(shape=list(q.shape), kernel_width=Dp, bit_equal_to_padded=True,
+                       pad_copies=copies, max_rel_err=err,
+                       ms=graph_ms([lambda: A.flash_attention(q, k, v, ln, ln, False)]),
+                       plain_ms=time_ms(lambda: A.flash_attention_reference(q, k, v, ln, ln,
+                                                                            False), 3),
+                       library_ms=lib["ms"], library_backend=lib["backend"],
+                       bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       avoided_pad_ms=graph_ms([lambda: A._pad_heads(Dp, q, k, v)]))
+        del q, k, v, o, lse, o_p, lse_p, o_r
+    print(f"pad route forward, [8, 8, 500, D], no copy, bit-equal to the padded kernel "
+          f"({gpu_line()}): "
+          + "; ".join(f"D={D} (kernel {r['kernel_width']}) {r['ms']:.4f} ms (SDPA "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, plain "
+                      f"{r['plain_ms']:.4f}; the copies it no longer makes "
+                      f"{r['avoided_pad_ms']:.4f} ms)" for D, r in rows.items()))
+    return rows
 
 
 def llama2_runs(seed: int, tag: str, make_config, depth: tuple, f32_depth: tuple,
@@ -8658,8 +8730,10 @@ def run_all(seed: int, lap) -> int:
             kernel_width_by_width={D: w["kernel_width"] for D, w in lw["widths"].items()},
             shapes={n: dict(r[key], q=r["q"], kv=r["kv"], causal=r["causal"], lens=r["lens"],
                             kernel_width=r["kernel_width"], max_rel_err=r["max_rel_err"],
-                            **{k: r[k] for k in ("pad_ms", "f32_max_rel_err") if k in r})
+                            **{k: r[k] for k in ("fwd_pad_ms", "bwd_pad_ms", "cluster",
+                                                 "f32_max_rel_err") if k in r})
                     for n, r in lw["shapes"].items() if key == "fwd" or "prefill" not in n},
+            **({"pad_route": lw["pad_route"]} if key == "fwd" else {}),
             times_are="per launch, from a replayed CUDA graph; library_ms is SDPA "
                       "(the backward's: q, k and v together), library_backend the "
                       "backend SDPA took")

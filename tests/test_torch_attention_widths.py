@@ -18,7 +18,8 @@ the panel kernels take the width itself. Here:
     with the true width's scale and the pad columns sliced off, equal the
     plain versions at the true width;
   * the dispatch: the port's predicate is JAX's (``D % 64 == 0``) at every
-    width, and every such width takes the kernel route.
+    width, and every such width takes the kernel route; the forward's
+    operand width (bf16: the true width; f32: the compiled one).
 
 Tolerance: 1e-5 atol + 1e-5 rtol on O and every gradient (dQ on valid rows:
 the JAX dq kernel leaves rows past q_len unconstrained), the pad route's
@@ -181,3 +182,27 @@ def test_dispatch_routes_each_width_as_jax_does(D, monkeypatch):
     tattn.attention(tq, tq, tq, use_kernel="always")
     assert j_calls == [D]
     assert t_calls == [D]
+
+
+@pytest.mark.parametrize("D", range(64, 513, 64))
+def test_forward_operand_width(D):
+    """The forward wrapper's operand width at every multiple of 64 through
+    512: bfloat16 passes the operands at their own width (the kernel's TMA
+    tensor maps zero-fill the panels past it and store O at it, so nothing
+    is padded or sliced), float32 at the compiled width ``kernel_width(D)``
+    (the scalar kernels read by pointer, so the widths between compiled ones
+    are zero-padded, as the backward's are)."""
+    assert tattn.operand_width(D, torch.bfloat16) == D
+    assert tattn.operand_width(D, torch.float32) == tattn.kernel_width(D)
+    assert tattn.kernel_width(D) in tattn.COMPILED_HEAD_DIMS
+
+
+def test_pad_heads_counts_the_tensors_it_pads():
+    """``_pad_heads`` counts each tensor it pads (``pad_copies``) and returns
+    a tensor that already has the width as it is, uncounted."""
+    t = torch.zeros((1, 1, 4, 384))
+    before = tattn.pad_copies
+    (same,) = tattn._pad_heads(384, t)
+    assert same is t and tattn.pad_copies == before
+    (padded,) = tattn._pad_heads(512, t)
+    assert padded.shape[-1] == 512 and tattn.pad_copies == before + 1

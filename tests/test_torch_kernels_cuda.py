@@ -162,6 +162,88 @@ def test_flash_bwd_matches_plain_version(cuda, dtype, D, tol, causal):
     assert (delta[1, :, 171:] == 0).all() and (delta[2] == 0).all()
 
 
+# the clustered bf16 forward (D > 512): causal GQA over ragged rows, and
+# non-causal MHA with Tq != Tk, ragged rows and a row without keys
+CLUSTER_CASES = {
+    "causal_gqa": (4, 2, 300, 300, True, [300, 217], [300, 217]),
+    "cross_mha_empty": (4, 4, 300, 290, False, [300, 131], [290, 0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+@pytest.mark.parametrize("D", [576, 640, 1024, 2048])
+def test_clustered_panel_forward(cuda, D, case):
+    """The bf16 forward above 512 runs its ceil(D / 256) column groups as one
+    thread-block cluster (3, 3, 4 and 8 CTAs here) that computes S once:
+    O within 2e-2 x max|ref| of flash_attention_reference, lse within 1e-3
+    (+inf on the same rows), rows past q_len and the row without keys
+    zero; a second run gives O and lse bit for bit."""
+    H, Hkv, Tq, Tk, causal, ql, kl = CLUSTER_CASES[case]
+    assert A.kernel_cluster(D, torch.bfloat16) == -(-D // 256)
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn((2, H, Tq, D), generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, Hkv, Tk, D), generator=g, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    ql, kl = torch.tensor(ql, device=cuda), torch.tensor(kl, device=cuda)
+    o, lse = A.flash_attention(q, k, v, ql, kl, causal)
+    o2, lse2 = A.flash_attention(q, k, v, ql, kl, causal)
+    o_r, lse_r = A.flash_attention_reference(q, k, v, ql, kl, causal)
+    torch.cuda.synchronize()
+    assert _rel_err(o, o_r) <= 2e-2, _rel_err(o, o_r)
+    torch.testing.assert_close(lse, lse_r, atol=1e-3, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for b in range(2):
+        assert (o[b, :, int(ql[b]):] == 0).all()
+        if int(kl[b]) == 0:
+            assert (o[b] == 0).all() and torch.isinf(lse[b]).all()
+
+
+@pytest.mark.cuda
+def test_widths_past_the_largest_cluster_keep_the_panel_kernel(cuda):
+    """The bf16 forward's cluster at every width: ceil(D / 256) CTAs above
+    512 up to 8 (the largest portable cluster), none elsewhere or in f32;
+    at 2112 (9 column groups) it runs the per-group panel kernel, whose groups
+    each compute S: still within 2e-2 x max|ref| of the plain version."""
+    for D in range(64, 4097, 64):
+        groups = -(-D // 256)
+        want = groups if 512 < D and groups <= 8 else 0
+        assert A.kernel_cluster(D, torch.bfloat16) == want, D
+        assert A.kernel_cluster(D, torch.float32) == 0, D
+    D = 2112
+    assert A.kernel_cluster(D, torch.bfloat16) == 0
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, h, 260, D), generator=g, device=cuda, dtype=torch.bfloat16)
+               for h in (4, 2, 2))
+    lens = torch.tensor([260, 133], device=cuda)
+    _check(q, k, v, lens, lens, True, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [192, 320, 384, 448])
+def test_pad_route_forward_is_the_padded_kernel_bit_for_bit(cuda, D):
+    """The bf16 forward at a width between the compiled ones reads its
+    operands at their own width (no copy: ``pad_copies`` unchanged) and
+    gives O and lse equal bit for bit to the compiled-width kernel run on
+    operands zero-padded by hand (with the true width's scale), whose pad
+    columns of O are zero."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn((2, 4, 300, D), generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 2, 300, D), generator=g, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    lens = torch.tensor([300, 171], device=cuda)
+    for causal in (True, False):
+        before = A.pad_copies
+        o, lse = A.flash_attention(q, k, v, lens, lens, causal)
+        assert A.pad_copies == before and o.shape == q.shape
+        Dp = A.kernel_width(D)
+        pad = [torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v)]
+        o_p, lse_p = A.flash_attention(*pad, lens, lens, causal, D ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_p[..., :D]) and torch.equal(lse, lse_p)
+        assert not o_p[..., D:].any()
+
+
 # name: B, H, Hkv, Tq, Tk, q_lens, kv_lens, causal (the main path's shapes
 # at a small batch, and the edges the tiles must handle)
 SHAPES = {
